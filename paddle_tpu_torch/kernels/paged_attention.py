@@ -1,0 +1,154 @@
+"""Paged decode attention: the plain PyTorch versions and the CUDA kernel.
+
+Counterpart of ``paddle_tpu/pallas_kernels/paged_attention.py``.  The
+decode step attends one query token per lane against that lane's KV
+history, which lives in fixed-size blocks of a shared pool named by the
+lane's block table.
+
+* ``masked_attention`` is the plain core over contiguous K/V.  The
+  unpaged reference loop calls it directly, and the paged reference
+  gathers the table's blocks and calls it, which keeps paged and unpaged
+  decode bitwise-comparable on the CPU.
+* ``paged_attention_reference`` is the plain paged version.
+* ``paged_attention`` dispatches on where the tensors live: CPU tensors
+  take the plain version; any other tensor goes to the hand-written CUDA
+  kernel (``csrc/paged_attention.cu``), which is built at first use, or
+  the call raises.  There is no fallback from the kernel to the plain
+  version.  ``paged_attention.launches`` counts kernel launches.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["masked_attention", "paged_attention_reference",
+           "paged_attention"]
+
+# finite, as in the reference: a fully-masked (idle, context_lens == 0)
+# lane softmaxes to a uniform average instead of NaN
+_MASK = -1e30
+
+
+def masked_attention(q, k, v, context_lens):
+    """Single-token attention over a contiguous history: q [B, H, D],
+    k/v [B, S, H, D], context_lens [B] -> [B, H, D].  Positions at or
+    past the context length are masked."""
+    d = q.shape[-1]
+    # the scale is applied after the dot product, as in the reference
+    s = torch.einsum("bhd,bshd->bhs", q, k) * (1.0 / math.sqrt(d))
+    pos = torch.arange(k.shape[1], dtype=torch.int32,
+                       device=q.device)[None, None, :]
+    s = torch.where(pos < context_lens.to(torch.int32)[:, None, None], s,
+                    _MASK)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, v)
+
+
+def paged_attention_reference(q, k_cache, v_cache, block_tables,
+                              context_lens):
+    """Gather the table's blocks into contiguous K/V, then
+    ``masked_attention``.  q [B, H, D]; k_cache/v_cache
+    [num_blocks, block_size, H, D]; block_tables [B, MAXB] (entries < 0
+    are unused slots: they clamp to block 0 and are masked by
+    context_lens)."""
+    bb, maxb = block_tables.shape
+    bs, h, d = k_cache.shape[1:]
+    idx = block_tables.to(torch.long).clamp(min=0)
+    k = k_cache[idx].reshape(bb, maxb * bs, h, d)
+    v = v_cache[idx].reshape(bb, maxb * bs, h, d)
+    return masked_attention(q, k, v, context_lens)
+
+
+_MAX_D = 256
+_MAX_TABLE = 8192
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _kernel():
+    lib = _build.load("paged_attention")
+    fn = lib.paged_attention_f32
+    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_float, _VP]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_cache, v_cache, block_tables, context_lens):
+    named = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
+             "block_tables": block_tables, "context_lens": context_lens}
+    for name, t in named.items():
+        if t.device.type != "cuda":
+            raise ValueError("paged_attention kernel: %s is on %s, not a "
+                             "CUDA device" % (name, t.device))
+        if t.device != q.device:
+            raise ValueError("paged_attention kernel: %s is on %s, q on %s"
+                             % (name, t.device, q.device))
+        if not t.is_contiguous():
+            raise ValueError("paged_attention kernel: %s is not contiguous"
+                             % name)
+    for name in ("q", "k_cache", "v_cache"):
+        if named[name].dtype != torch.float32:
+            raise ValueError("paged_attention kernel: %s is %s, wants "
+                             "float32" % (name, named[name].dtype))
+    for name in ("block_tables", "context_lens"):
+        if named[name].dtype != torch.int32:
+            raise ValueError("paged_attention kernel: %s is %s, wants int32"
+                             % (name, named[name].dtype))
+    if q.dim() != 3 or k_cache.dim() != 4 or block_tables.dim() != 2 \
+            or context_lens.dim() != 1:
+        raise ValueError("paged_attention kernel: want q [B,H,D], caches "
+                         "[NB,bs,H,D], tables [B,MAXB], lens [B]")
+    bb, h, d = q.shape
+    if tuple(k_cache.shape[2:]) != (h, d) \
+            or v_cache.shape != k_cache.shape \
+            or block_tables.shape[0] != bb or context_lens.shape[0] != bb:
+        raise ValueError(
+            "paged_attention kernel: shapes disagree: q %s, k %s, v %s, "
+            "tables %s, lens %s" % (tuple(q.shape), tuple(k_cache.shape),
+                                   tuple(v_cache.shape),
+                                   tuple(block_tables.shape),
+                                   tuple(context_lens.shape)))
+    if not 0 < d <= _MAX_D:
+        raise ValueError("paged_attention kernel: head_dim %d not in "
+                         "[1, %d]" % (d, _MAX_D))
+    if min(bb, h, k_cache.shape[0], k_cache.shape[1]) <= 0 \
+            or not 0 < block_tables.shape[1] <= _MAX_TABLE or bb > 65535:
+        raise ValueError("paged_attention kernel: empty or oversized "
+                         "geometry q %s, k %s, tables %s"
+                         % (tuple(q.shape), tuple(k_cache.shape),
+                            tuple(block_tables.shape)))
+
+
+def _paged_cuda(q, k_cache, v_cache, block_tables, context_lens):
+    fn = _kernel()
+    _check(q, k_cache, v_cache, block_tables, context_lens)
+    bb, h, d = q.shape
+    nb, bs = k_cache.shape[:2]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             block_tables.data_ptr(), context_lens.data_ptr(),
+             out.data_ptr(), bb, h, d, nb, bs, block_tables.shape[1],
+             1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError("paged_attention kernel launch failed: "
+                           "cudaError_t %d" % err)
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens):
+    """Paged decode attention -> [B, H, D].  CPU tensors take
+    ``paged_attention_reference``; CUDA tensors launch the kernel, whose
+    idle lanes (context_lens <= 0) come back as zeros where the plain
+    version gives a uniform average — both are discarded by the engine."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_cache, v_cache, block_tables,
+                                         context_lens)
+    return _paged_cuda(q, k_cache, v_cache, block_tables, context_lens)
+
+
+paged_attention.launches = 0

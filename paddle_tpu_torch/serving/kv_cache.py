@@ -1,0 +1,329 @@
+"""Paged KV cache for autoregressive decode serving.
+
+Counterpart of ``paddle_tpu/serving/kv_cache.py`` for f32 residency.  The
+engine owns a pool of fixed-size KV blocks (``[layers, num_blocks,
+block_size, heads, head_dim]`` tensors on the device) and hands each
+admitted sequence a *block table*: the physical blocks holding its
+history, grown one block per ``block_size`` tokens.  Sequences of any
+length present the decode step with the same shapes (token ids, tables
+padded to ``max_seq // block_size`` slots, context lengths), and a
+finished sequence returns its blocks the same step it finishes.
+
+``BlockAllocator`` is the refcounted host-side free list (LIFO reuse,
+all-or-nothing ``alloc``); a sealed block whose refcount reaches zero
+parks in an LRU *evictable* pool, still revivable until ``alloc``
+reclaims it.  ``PrefixCache`` is the content-addressed index over sealed
+full prompt blocks (hash chain ``h_i = sha(h_{i-1}, block_token_ids)``).
+``PagedKVCache`` owns the K and V pools.  The JAX reference donates the
+pools through its jitted step and gets new arrays back; here the decode
+step writes into them in place with ``index_put_``.
+"""
+
+import hashlib
+import threading
+from collections import OrderedDict
+
+import torch
+
+from ..device import resolve_device
+
+__all__ = ["KVCacheConfig", "BlockAllocator", "PagedKVCache", "PrefixCache",
+           "plan_num_blocks", "block_bytes", "DEFAULT_BLOCKS"]
+
+# pool size when neither a request nor a budget pins one
+DEFAULT_BLOCKS = 64
+
+
+class KVCacheConfig:
+    """Static cache geometry (f32); hidden = heads * head_dim per layer."""
+
+    __slots__ = ("layers", "heads", "head_dim", "block_size", "num_blocks")
+
+    def __init__(self, layers, heads, head_dim, block_size, num_blocks):
+        if block_size <= 0 or num_blocks <= 1:
+            raise ValueError("need block_size > 0 and num_blocks > 1 "
+                             "(block 0 is the idle-lane scratch)")
+        self.layers = int(layers)
+        self.heads = int(heads)
+        self.head_dim = int(head_dim)
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+
+
+def block_bytes(config):
+    """Device bytes ONE block costs across all layers (K + V, f32)."""
+    return 2 * config.layers * config.block_size * config.heads \
+        * config.head_dim * 4
+
+
+def plan_num_blocks(config, model_resident_bytes=0, requested=None,
+                    budget=0):
+    """Budget-gated pool sizing -> (num_blocks, capped).
+
+    ``requested`` (None or <= 0 = auto) asks for a pool size; ``budget``
+    (device bytes, 0 = no gate) caps it at what fits beside the model's
+    resident bytes.  A budget too small for a 2-block pool raises."""
+    requested = int(requested or 0)
+    budget = int(budget or 0)
+    per = block_bytes(config)
+    if budget > 0:
+        fit = int((budget - int(model_resident_bytes)) // per)
+        if fit < 2:
+            raise ValueError(
+                "a budget of %d bytes leaves room for %d KV block(s) of %d "
+                "bytes beside %d model-resident bytes; the decode cache "
+                "needs >= 2" % (budget, max(fit, 0), per,
+                                model_resident_bytes))
+        if requested > 0:
+            return min(requested, fit), fit < requested
+        return fit, False
+    return (requested if requested > 0 else DEFAULT_BLOCKS), False
+
+
+class BlockAllocator:
+    """Refcounted host-side free list over physical block ids.
+
+    ``reserve`` low ids never circulate (block 0 is the idle-lane write
+    scratch).  ``alloc`` is all-or-nothing.  ``incref`` shares a block
+    (prefix-cache hits), ``free`` drops one reference, and a ``seal``-ed
+    block released at zero refs parks in the LRU evictable pool instead
+    of the free list; ``alloc`` reclaims evictable blocks LRU-first once
+    the free list runs dry, calling ``on_evict(block, tag)`` afterwards
+    with the allocator lock released.  ``reclaimable`` (free + evictable)
+    is what admission budgets against."""
+
+    def __init__(self, num_blocks, reserve=0):
+        if num_blocks <= reserve:
+            raise ValueError("num_blocks %d <= reserve %d"
+                             % (num_blocks, reserve))
+        self.num_blocks = int(num_blocks)
+        self.reserve = int(reserve)
+        # LIFO: the most recently freed block is the next handed out
+        self._free = list(range(num_blocks - 1, reserve - 1, -1))
+        self._ref = {}                   # id -> refcount >= 1 (in use)
+        self._sealed = {}                # id -> content tag (in use)
+        self._evictable = OrderedDict()  # id -> tag; zero-ref, LRU order
+        self.on_evict = None
+        self._lock = threading.Lock()
+        self.high_water = 0
+
+    @property
+    def capacity(self):
+        return self.num_blocks - self.reserve
+
+    @property
+    def num_free(self):
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def num_evictable(self):
+        with self._lock:
+            return len(self._evictable)
+
+    @property
+    def reclaimable(self):
+        with self._lock:
+            return len(self._free) + len(self._evictable)
+
+    @property
+    def in_use(self):
+        with self._lock:
+            return len(self._ref)
+
+    def refcount(self, block):
+        with self._lock:
+            return self._ref.get(block, 0)
+
+    def alloc(self, n):
+        """n blocks or None (nothing is taken).  Free list first, then
+        evictable blocks LRU-first."""
+        if n <= 0:
+            return []
+        evicted = []
+        with self._lock:
+            if n > len(self._free) + len(self._evictable):
+                return None
+            got = []
+            while len(got) < n and self._free:
+                got.append(self._free.pop())
+            while len(got) < n:
+                b, tag = self._evictable.popitem(last=False)
+                evicted.append((b, tag))
+                got.append(b)
+            for b in got:
+                self._ref[b] = 1
+            self._note_high_water_locked()
+            cb = self.on_evict
+        # outside the allocator lock: the index callback takes its own lock
+        if cb is not None:
+            for b, tag in evicted:
+                cb(b, tag)
+        return got
+
+    def incref(self, block):
+        """Take another share of ``block``: True if it was in use or
+        parked evictable (revived at refcount 1), False if reclaimed."""
+        with self._lock:
+            if block in self._ref:
+                self._ref[block] += 1
+                return True
+            tag = self._evictable.pop(block, None)
+            if tag is None:
+                return False
+            self._ref[block] = 1
+            self._sealed[block] = tag
+            self._note_high_water_locked()
+            return True
+
+    def seal(self, block, tag):
+        """Mark an in-use block's content complete under ``tag``: at zero
+        refs it parks evictable instead of returning to the free list."""
+        with self._lock:
+            if block not in self._ref:
+                raise ValueError("seal of unallocated block %r" % (block,))
+            self._sealed[block] = tag
+
+    def free(self, blocks):
+        """Drop one reference per block.  A double free or a foreign id
+        raises."""
+        blocks = list(blocks)
+        with self._lock:
+            for b in blocks:
+                if b not in self._ref:
+                    raise ValueError("free of unallocated block %r" % (b,))
+            for b in blocks:
+                self._ref[b] -= 1
+                if self._ref[b] > 0:
+                    continue
+                del self._ref[b]
+                tag = self._sealed.pop(b, None)
+                if tag is not None:
+                    self._evictable[b] = tag
+                else:
+                    self._free.append(b)
+
+    def _note_high_water_locked(self):
+        # evictable blocks still occupy pool slots
+        self.high_water = max(self.high_water,
+                              len(self._ref) + len(self._evictable))
+
+    def stats(self):
+        with self._lock:
+            return {"capacity": self.capacity, "free": len(self._free),
+                    "in_use": len(self._ref),
+                    "evictable": len(self._evictable),
+                    "reclaimable": len(self._free) + len(self._evictable),
+                    "high_water": self.high_water}
+
+
+class PrefixCache:
+    """Content-addressed index of sealed full-prompt KV blocks.
+
+    ``match`` revives the longest indexed prefix of a prompt, taking one
+    reference per block for the caller, capped at ``len(prompt) - 1``
+    tokens: prefill always computes at least one tail token and every
+    write lands in a private tail block, so shared blocks are read-only.
+    ``publish`` is first-publisher-wins.  Lock order: this index's lock,
+    then the allocator's, never the reverse."""
+
+    def __init__(self, allocator, block_size, namespace=""):
+        self.allocator = allocator
+        self.block_size = int(block_size)
+        self._seed = hashlib.sha256(
+            ("kvprefix:%s" % namespace).encode()).digest()
+        self._index = {}                 # hex digest -> physical block id
+        self._lock = threading.Lock()
+        allocator.on_evict = self._on_evict
+
+    def chain(self, token_ids):
+        """Hash chain over the full blocks of ``token_ids`` -> hex
+        digests, one per full block."""
+        bs = self.block_size
+        out = []
+        h = self._seed
+        for j in range(len(token_ids) // bs):
+            d = hashlib.sha256(h)
+            d.update(b"".join(int(t).to_bytes(8, "little", signed=True)
+                              for t in token_ids[j * bs:(j + 1) * bs]))
+            h = d.digest()
+            out.append(h.hex())
+        return out
+
+    def match(self, prompt_ids):
+        """Longest cached prefix -> ``(blocks, cached_tokens, hashes)``;
+        ``blocks`` arrive with one reference taken per block."""
+        hashes = self.chain(prompt_ids)
+        max_blocks = max(0, (len(prompt_ids) - 1) // self.block_size)
+        blocks = []
+        with self._lock:
+            for j in range(min(len(hashes), max_blocks)):
+                b = self._index.get(hashes[j])
+                if b is None:
+                    break
+                if not self.allocator.incref(b):
+                    # reclaimed before the callback ran: forget and stop
+                    self._index.pop(hashes[j], None)
+                    break
+                blocks.append(b)
+        return blocks, len(blocks) * self.block_size, hashes
+
+    def publish(self, block, digest):
+        """Index a freshly filled full-prompt ``block`` under ``digest``;
+        a duplicate digest leaves the block private and returns False."""
+        with self._lock:
+            if digest in self._index:
+                return False
+            self.allocator.seal(block, digest)
+            self._index[digest] = block
+            return True
+
+    def _on_evict(self, block, tag):
+        with self._lock:
+            if self._index.get(tag) == block:
+                del self._index[tag]
+
+    def __len__(self):
+        with self._lock:
+            return len(self._index)
+
+
+class PagedKVCache:
+    """The K and V pools, ``[layers, num_blocks, block_size, heads,
+    head_dim]`` f32 on ``device``.  Block 0 is reserved: idle lanes of a
+    partly full bucket point their table at it, so their (masked,
+    discarded) writes never touch a sequence's history.  The decode step
+    updates ``k`` and ``v`` in place."""
+
+    def __init__(self, config, device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.allocator = BlockAllocator(config.num_blocks, reserve=1)
+        shape = (config.layers, config.num_blocks, config.block_size,
+                 config.heads, config.head_dim)
+        self.k = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        self.v = torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    @property
+    def nbytes(self):
+        return block_bytes(self.config) * self.config.num_blocks
+
+    def blocks_for_tokens(self, n_tokens):
+        """How many blocks a sequence of n_tokens needs."""
+        bs = self.config.block_size
+        return max(1, -(-int(n_tokens) // bs))
+
+    def ensure_table(self, table, blocks, upto_tokens):
+        """Grow a sequence's block table to cover positions
+        ``[0, upto_tokens)`` with one all-or-nothing allocation: True when
+        covered, False (nothing taken) when the pool cannot."""
+        need = self.blocks_for_tokens(upto_tokens)
+        have = len(blocks)
+        if need <= have:
+            return True
+        got = self.allocator.alloc(need - have)
+        if got is None:
+            return False
+        table[have:have + len(got)] = got
+        blocks.extend(got)
+        return True

@@ -19,10 +19,12 @@ setup(
                  "v1.6 fluid capability surface: Program/Executor static "
                  "graphs compiled whole-block to XLA, dygraph, fleet "
                  "distribution, PS runtime, inference engine"),
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch", "paddle_tpu_torch.*"]),
     py_modules=["bench"],
     package_data={
         "paddle_tpu": ["native/csrc/*.cc", "native/csrc_capi/*.cc"],
+        "paddle_tpu_torch": ["kernels/csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
