@@ -1,12 +1,20 @@
-"""PyTorch / CUDA port of paddle_tpu's decode-serving path for NVIDIA
-Hopper (H100).
+"""PyTorch / CUDA port of paddle_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-``torch`` and numpy only.  Its first slice is greedy autoregressive
-decode serving: ``serving.DecodeEngine`` over a paged KV cache whose
-attention step runs through a hand-written CUDA kernel
-(``kernels/csrc/paged_attention.cu``).  Entry points run on the card
-unless the caller passes ``device="cpu"``."""
+``torch`` and numpy only.  Entry points run on the card unless the caller
+passes ``device="cpu"`` (or ``CPUPlace()``).  Slices ported so far:
+
+1. greedy decode serving: ``serving.DecodeEngine`` over a paged KV cache,
+   its attention step a hand-written CUDA kernel
+   (``kernels/csrc/paged_attention.cu``);
+2. the Program front end and BERT encoder serving: ``framework``
+   (Program/Block/Operator/Variable, the reference's JSON IR),
+   ``layers``, ``core`` (op registry, eager Executor, Scope), ``io``
+   (``save/load_inference_model`` in the reference's format),
+   ``inference`` (AnalysisPredictor) and ``serving.ServingEngine``, with
+   CUDA kernels for flash attention, fused residual-add LayerNorm and
+   LayerNorm (``kernels/csrc/flash_attention.cu``, ``fused_ln.cu``,
+   ``layer_norm.cu``)."""
 
 from .device import resolve_device, set_f32_numerics
 

@@ -1,0 +1,183 @@
+"""Executor: runs Programs op by op in eager PyTorch on one device.
+
+Counterpart of ``paddle_tpu/core/executor.py`` (``global_scope:52``,
+``scope_guard:59``, ``Executor.run:427``).  ``run`` builds a
+``BlockPlan`` per (program, version, feed shapes and dtypes, fetch list)
+and caches it; parameters come from the Scope, the ops launch their
+kernels on the executor's device, and persistables the block writes (the
+startup program's initialisers) are stored back.  No ``torch.compile``:
+each op's lowering runs as written.
+"""
+
+import contextlib
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, set_f32_numerics
+from ..framework import Variable, default_main_program, dtype_to_torch
+from .lowering import BlockPlan, new_generator, op_seed, run_op
+from .scope import Scope
+
+__all__ = ["Executor", "global_scope", "scope_guard", "place_device"]
+
+_global_scope = Scope()
+# per-thread override: threads that never call scope_guard see the main
+# thread's current scope
+_scope_tls = threading.local()
+_RNG_LOCK = threading.Lock()
+
+
+def _is_main_thread():
+    return threading.current_thread() is threading.main_thread()
+
+
+def global_scope():
+    if not _is_main_thread() and getattr(_scope_tls, "scope", None) \
+            is not None:
+        return _scope_tls.scope
+    return _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    global _global_scope
+    if _is_main_thread():
+        old, _global_scope = _global_scope, scope
+        try:
+            yield
+        finally:
+            _global_scope = old
+    else:
+        old = getattr(_scope_tls, "scope", None)
+        _scope_tls.scope = scope
+        try:
+            yield
+        finally:
+            _scope_tls.scope = old
+
+
+def place_device(place=None):
+    """torch device of a place: None -> the card, ``CPUPlace()`` -> cpu,
+    ``CUDAPlace(i)`` -> cuda:i; a device or its name passes through."""
+    if place is not None and hasattr(place, "torch_device"):
+        place = place.torch_device()
+    return resolve_device(place)
+
+
+def _fetch_name(f):
+    if isinstance(f, Variable):
+        return f.name
+    if isinstance(f, str):
+        return f
+    raise TypeError("bad fetch target %r" % (f,))
+
+
+class Executor:
+    """Runs programs on one device (``place=None``: the CUDA card)."""
+
+    def __init__(self, place=None):
+        self.place = place
+        self.device = place_device(place)
+        if self.device.type == "cuda":
+            set_f32_numerics()
+        self._cache = {}
+
+    def _plan(self, program, feeds, fetch_names):
+        key = (program._uid, program.version,
+               tuple(sorted((n, tuple(t.shape), str(t.dtype))
+                            for n, t in feeds.items())),
+               tuple(fetch_names))
+        plan = self._cache.get(key)
+        cached = plan is not None
+        if not cached:
+            plan = BlockPlan(program.global_block(), list(feeds),
+                             fetch_names)
+            self._cache[key] = plan
+        return plan, cached
+
+    def _to_device(self, name, value, block):
+        """A feed or scope value as a tensor on this device, in the dtype
+        its variable declares."""
+        v = block._find_var_recursive(name)
+        dtype = dtype_to_torch(v.dtype) if v is not None and v.dtype \
+            else None
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.ascontiguousarray(value))
+        return value.to(device=self.device, dtype=dtype)
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        """Run ``program``'s global block once; returns the fetches as
+        numpy arrays (or device tensors with ``return_numpy=False``)."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = [_fetch_name(f) for f in fetch_list or []]
+        block = program.global_block()
+        env = {n: self._to_device(n, v, block)
+               for n, v in (feed or {}).items()}
+        plan, _cached = self._plan(program, env, fetch_names)
+        feeds = set(env)
+        for n in plan.external:
+            var = scope.find_var(n)
+            if var is None or not var.get_tensor()._is_initialized():
+                raise RuntimeError(
+                    "variable %r is not initialized in scope: run the "
+                    "startup program first" % n)
+            val = var.get_tensor().get()
+            if not isinstance(val, torch.Tensor) \
+                    or val.device != self.device:
+                val = self._to_device(n, val, block)
+                var.set(val)  # the scope keeps the device copy
+            env[n] = val
+        seed = program.random_seed or 0
+        with _RNG_LOCK:
+            step = scope._rng_counter
+            scope._rng_counter = step + 1
+        with torch.no_grad():
+            for i, (op, opdef, attrs) in enumerate(plan.steps):
+                gen = new_generator(self.device, op_seed(seed, step, i)) \
+                    if opdef.n_rng else None
+                run_op(op, opdef, attrs, env, self.device, gen)
+                for n in plan.release[i]:
+                    env.pop(n, None)
+        for n in plan.persist_written:
+            if n in env and n not in feeds:
+                scope.var(n).set(env[n])
+        missing = [n for n in fetch_names if n not in env]
+        if missing:
+            raise KeyError("fetch targets %s were never produced" % missing)
+        fetches = [env[n] for n in fetch_names]
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return fetches
+
+    def warmup(self, program=None, feed_specs=None, fetch_list=None,
+               scope=None):
+        """Run ``program`` once on zero feeds of the given
+        ``{name: (shape, dtype or None)}`` so its kernels are built and
+        the libraries' first-call costs are paid before traffic.  Returns
+        ``{"source": "compiled"|"memory", "compile_ms", "key": None}`` as
+        the reference does: "memory" when a plan for this signature
+        already existed."""
+        program = program if program is not None else default_main_program()
+        block = program.global_block()
+        feed = {}
+        for name, (shape, dt) in (feed_specs or {}).items():
+            v = block._find_var_recursive(name)
+            dtype = dtype_to_torch(dt or (v.dtype if v is not None
+                                          else "float32"))
+            feed[name] = torch.zeros(tuple(shape), dtype=dtype,
+                                     device=self.device)
+        fetch_names = [_fetch_name(f) for f in fetch_list or []]
+        _plan, cached = self._plan(program, feed, fetch_names)
+        t0 = time.perf_counter()
+        self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                 return_numpy=False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"source": "memory" if cached else "compiled",
+                "compile_ms": (time.perf_counter() - t0) * 1e3, "key": None}
+

@@ -1,0 +1,134 @@
+"""Block plans: which names a block reads from the scope, which it writes
+back, and how one op runs.
+
+Counterpart of ``paddle_tpu/core/lowering.py`` (``LowerCtx``,
+``analyze_block:88``, ``BlockPlan:126``, ``run_op:336``).  The reference
+traces a whole block into one XLA computation; the port interprets the
+block op by op in eager PyTorch, each op's lowering launching its kernels
+directly.
+"""
+
+import numpy as np
+import torch
+
+from .registry import get_op_def, lower_attrs
+
+__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "run_op"]
+
+
+class LowerCtx:
+    """Per-op context handed to lowerings: the device the op runs on, the
+    op itself, and for ops that draw random numbers a ``torch.Generator``
+    on that device (``None`` during shape inference)."""
+
+    def __init__(self, device, op=None, generator=None):
+        self.device = device
+        self.op = op
+        self.generator = generator
+
+    @property
+    def abstract(self):
+        """True during shape inference (meta tensors, no data)."""
+        return self.device.type == "meta"
+
+
+def _runtime_ops(block):
+    return [op for op in block.ops if op.type not in ("feed", "fetch")]
+
+
+def analyze_block(block, feed_names):
+    """Liveness: names the block must read from the scope (not fed, not
+    produced by an earlier op), and persistable names it writes."""
+    feed = set(feed_names)
+    written = set()
+    external = []
+    for op in _runtime_ops(block):
+        for name in op.input_arg_names:
+            if name and name not in feed and name not in written \
+                    and name not in external:
+                external.append(name)
+        written.update(n for n in op.output_arg_names if n)
+    persist_written = []
+    for op in _runtime_ops(block):
+        for name in op.output_arg_names:
+            v = block._find_var_recursive(name) if name else None
+            if v is not None and v.persistable and name not in feed \
+                    and name not in persist_written:
+                persist_written.append(name)
+    return external, written, persist_written
+
+
+class BlockPlan:
+    """Execution plan of one block for one feed/fetch signature: the ops
+    with their definitions and attrs resolved once, so a run only gathers,
+    calls and scatters."""
+
+    def __init__(self, block, feed_names, fetch_names):
+        self.block = block
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.external, _written, self.persist_written = analyze_block(
+            block, feed_names)
+        ops = _runtime_ops(block)
+        self.steps = [(op, get_op_def(op.type), lower_attrs(op.attrs))
+                      for op in ops]
+        # release[i]: intermediates dead after step i (last read there, or
+        # never read), dropped so the device allocator can reuse them
+        keep = set(self.fetch_names) | set(self.persist_written) \
+            | set(self.external) | set(self.feed_names)
+        last = {}
+        for i, op in enumerate(ops):
+            for n in op.output_arg_names:
+                last.setdefault(n, i)
+            for n in op.input_arg_names:
+                last[n] = i
+        self.release = [[] for _ in ops]
+        for n, i in last.items():
+            if n and n not in keep:
+                self.release[i].append(n)
+
+
+def _gather(opdef, op, slot, env):
+    names = op.input(slot)
+    vals = []
+    for n in names:
+        if n in env:
+            vals.append(env[n])
+        elif slot in opdef.optional_inputs:
+            vals.append(None)
+        else:
+            raise KeyError("op %s input %s=%r is not initialized (not fed, "
+                           "not in scope, not produced by a prior op)"
+                           % (op.type, slot, n))
+    if slot in opdef.duplicable_inputs:
+        return vals
+    return vals[0] if vals else None
+
+
+def op_seed(program_seed, step, index):
+    """Seed of op ``index``'s generator at executor step ``step``: a
+    deterministic function of the three, independent across ops."""
+    return int(np.random.SeedSequence(
+        [program_seed & 0xFFFFFFFF, step & 0xFFFFFFFF, index]
+    ).generate_state(1, np.uint64)[0] >> 1)
+
+
+def run_op(op, opdef, attrs, env, device, generator=None):
+    """Run one op: gather its inputs from ``env``, call the lowering,
+    scatter its outputs back."""
+    args = [_gather(opdef, op, s, env) for s in opdef.input_slots]
+    out = opdef.lower(LowerCtx(device, op, generator), *args, **attrs)
+    if len(opdef.output_slots) == 1 and not isinstance(out, tuple):
+        out = (out,)
+    for slot, val in zip(opdef.output_slots, out):
+        names = op.output(slot)
+        items = val if slot in opdef.duplicable_outputs else [val]
+        for n, v in zip(names, items or ()):
+            if n and v is not None:
+                env[n] = v
+
+
+def new_generator(device, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g

@@ -1,0 +1,84 @@
+"""Scope: name -> value map whose values are torch tensors on the
+executor's device.  Counterpart of ``paddle_tpu/core/scope.py``."""
+
+import numpy as np
+import torch
+
+__all__ = ["Scope", "Tensor", "scope_from_numpy"]
+
+
+class Tensor:
+    """Value holder of one scope variable (a torch tensor or None)."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, value=None):
+        self._value = value
+
+    def set(self, value, place=None):
+        self._value = value
+
+    def get(self):
+        return self._value
+
+    def numpy(self):
+        if self._value is None:
+            raise RuntimeError("tensor is uninitialized")
+        v = self._value
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                v = v.float()
+            return v.detach().cpu().numpy()
+        return np.asarray(v)
+
+    def _is_initialized(self):
+        return self._value is not None
+
+
+class _ScopeVar:
+    __slots__ = ("name", "tensor")
+
+    def __init__(self, name):
+        self.name = name
+        self.tensor = Tensor()
+
+    def get_tensor(self):
+        return self.tensor
+
+    def set(self, value):
+        self.tensor.set(value)
+
+
+class Scope:
+    def __init__(self, parent=None):
+        self._vars = {}
+        self.parent = parent
+        # executor bookkeeping: steps run against this scope, which keys
+        # the generators of random ops
+        self._rng_counter = 0
+
+    def var(self, name):
+        """Find or create a variable in THIS scope."""
+        v = self._vars.get(name)
+        if v is None:
+            v = _ScopeVar(name)
+            self._vars[name] = v
+        return v
+
+    def find_var(self, name):
+        s = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s.parent
+        return None
+
+
+def scope_from_numpy(scope, arrays, device):
+    """Set ``{name: ndarray}`` into ``scope`` as tensors on ``device`` (a
+    torch device or name; the tests hand parameters over this way)."""
+    dev = torch.device(device)
+    for name, arr in arrays.items():
+        scope.var(name).set(torch.from_numpy(
+            np.ascontiguousarray(arr)).to(dev))
+    return scope

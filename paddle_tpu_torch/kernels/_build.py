@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/kernels/lib<name>_<hash>.so`` at the root of the checkout, at
-first use.  The hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one is loaded as it is.  Sources include no
+first use.  The hash covers the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source rebuilds and an unchanged one is loaded
+as it is.  Sources include no
 PyTorch header, which keeps a build to seconds (a source that includes
 PyTorch's headers takes minutes).  A failed build raises; nothing falls
 back to the plain PyTorch versions."""
@@ -17,16 +18,17 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+__all__ = ["SOURCES", "build_all", "function", "load", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("paged_attention",)
+SOURCES = ("paged_attention", "flash_attention", "fused_ln", "layer_norm")
 
 _lock = threading.Lock()
 _libs = {}
+_fns = {}
 # name -> {"seconds": float, "cached": bool, "ptxas": str}, for reports
 BUILD_INFO = {}
 
@@ -46,6 +48,8 @@ def nvcc_path():
 def _target(name):
     src = CSRC / (name + ".cu")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return src, BUILD_DIR / ("lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
@@ -105,3 +109,16 @@ def load(name):
     if lib is None:
         lib = build_all((name,))[name]
     return lib
+
+
+def function(name, symbol, argtypes):
+    """``symbol`` of ``csrc/<name>.cu`` as a ctypes function that returns
+    the launch's cudaError_t, built and typed once: the kernel wrappers
+    call it on every launch."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name, symbol] = fn
+    return fn

@@ -1,0 +1,31 @@
+"""Argument checks shared by the kernel wrappers: a kernel takes only what
+it was written for and the wrapper raises on anything else."""
+
+import torch
+
+__all__ = ["check_cuda_f32", "raise_on_error"]
+
+
+def check_cuda_f32(kernel, device, contiguous=True, **tensors):
+    """Each tensor is float32, on ``device`` (a CUDA device) and, with
+    ``contiguous``, dense; raises ValueError naming the first that is
+    not."""
+    if device.type != "cuda":
+        raise ValueError("%s kernel: tensors are on %s, not a CUDA device"
+                         % (kernel, device))
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError("%s kernel: %s is on %s, want %s"
+                             % (kernel, name, t.device, device))
+        if t.dtype != torch.float32:
+            raise ValueError("%s kernel: %s is %s, wants float32"
+                             % (kernel, name, t.dtype))
+        if contiguous and not t.is_contiguous():
+            raise ValueError("%s kernel: %s is not contiguous"
+                             % (kernel, name))
+
+
+def raise_on_error(kernel, err):
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: cudaError_t %d"
+                           % (kernel, err))

@@ -68,12 +68,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _kernel():
-    lib = _build.load("paged_attention")
-    fn = lib.paged_attention_f32
-    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _VP]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(
+        "paged_attention", "paged_attention_f32",
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _VP])
 
 
 def _check(q, k_cache, v_cache, block_tables, context_lens):

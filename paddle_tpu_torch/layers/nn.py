@@ -1,0 +1,208 @@
+"""Op-building layers the BERT encoder calls.  Counterpart of
+``paddle_tpu/layers/nn.py`` (``fc:133``, ``embedding:174``,
+``matmul:199``, ``elementwise_add:459``, ``scale:509``,
+``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``transpose:1217``,
+``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``).  Each
+appends ops to the current block and names its variables and parameters
+exactly as the reference does."""
+
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+
+__all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
+           "layer_norm", "fused_dropout_add_ln", "transpose", "reshape",
+           "unsqueeze", "flash_attention"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully connected: mul per input + sum + bias + act."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = param_attr if isinstance(param_attr, (list, tuple)) \
+        else [param_attr] * len(inputs)
+    mul_results = []
+    for inp, pattr in zip(inputs, param_attrs):
+        in_features = 1
+        for d in inp.shape[num_flatten_dims:]:
+            in_features *= int(d)
+        w = helper.create_parameter(attr=pattr, shape=[in_features, size],
+                                    dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [tmp]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError("fc over several inputs needs the sum "
+                                  "op, which is not ported yet")
+    pre_act = helper.append_bias_op(mul_results[0],
+                                    dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32", name=None):
+    helper = LayerHelper("embedding", name=name)
+    w = helper.create_parameter(attr=param_attr, shape=list(size),
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "padding_idx": pad})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", act=act, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def _norm_size(x, begin_norm_axis):
+    n = 1
+    for d in x.shape[begin_norm_axis:]:
+        n *= int(d)
+    return n
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", act=act, name=name)
+    dtype = input.dtype
+    norm_size = _norm_size(input, begin_norm_axis)
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=param_attr, shape=[norm_size], dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=bias_attr, shape=[norm_size], dtype=dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype)
+    mean_out = helper.create_variable_for_type_inference(dtype,
+                                                         stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype,
+                                                        stop_gradient=True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean_out],
+                              "Variance": [var_out]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def fused_dropout_add_ln(x, y, dropout_prob=0.0, is_test=False,
+                         begin_norm_axis=1, epsilon=1e-5, param_attr=None,
+                         bias_attr=None, name=None, seed=None):
+    """LayerNorm(x + dropout(y)) as one op, the transformer-encoder
+    epilogue (upscale_in_train dropout)."""
+    helper = LayerHelper("fused_dropout_add_ln", name=name)
+    dtype = x.dtype
+    norm_size = _norm_size(x, begin_norm_axis)
+    scale_p = helper.create_parameter(attr=param_attr, shape=[norm_size],
+                                      dtype=dtype,
+                                      default_initializer=Constant(1.0))
+    bias_p = helper.create_parameter(attr=bias_attr, shape=[norm_size],
+                                     dtype=dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    r_out, mean_out, var_out = (
+        helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+        for _ in range(3))
+    seed_out = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    helper.append_op(
+        type="fused_dropout_add_ln",
+        inputs={"X": [x], "Y": [y], "Scale": [scale_p], "Bias": [bias_p]},
+        outputs={"Out": [out], "R": [r_out], "Mean": [mean_out],
+                 "Variance": [var_out], "Seed": [seed_out]},
+        attrs={"dropout_prob": float(dropout_prob), "is_test": is_test,
+               "epsilon": epsilon, "begin_norm_axis": begin_norm_axis,
+               "fix_seed": seed is not None, "seed": seed or 0})
+    return out
+
+
+def _shape_op(op_type, helper_name, x, attrs, name=None, act=None):
+    """An op with Out + XShape (the grad ops' shape placeholder)."""
+    helper = LayerHelper(helper_name, act=act, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs=attrs)
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    return _shape_op("transpose2", "transpose", x, {"axis": list(perm)},
+                     name)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    return _shape_op("reshape2", "reshape2", x, {"shape": list(shape)}, name,
+                     act)
+
+
+def unsqueeze(input, axes, name=None):
+    return _shape_op("unsqueeze2", "unsqueeze", input, {"axes": list(axes)},
+                     name)
+
+
+def flash_attention(q, k, v, bias_qk=None, causal=False, scale=0.0,
+                    layout="BHSD", dropout_prob=0.0, is_test=False,
+                    name=None):
+    """Fused multi-head attention over [B, H, S, D] operands (the op runs
+    the "BHSD" layout only); bias_qk is an additive mask [B, 1|H, Sq, Sk];
+    scale 0 means 1/sqrt(head_dim)."""
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    mask = helper.create_variable_for_type_inference(dtype="uint8")
+    mask.stop_gradient = True
+    seed_out = helper.create_variable_for_type_inference(dtype="int32")
+    seed_out.stop_gradient = True
+    lse = helper.create_variable_for_type_inference(dtype="float32")
+    lse.stop_gradient = True
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias_qk is not None:
+        inputs["BiasQK"] = [bias_qk]
+    helper.append_op(type="flash_attention", inputs=inputs,
+                     outputs={"Out": [out], "Mask": [mask],
+                              "Seed": [seed_out], "Lse": [lse]},
+                     attrs={"causal": causal, "scale": float(scale),
+                            "layout": layout,
+                            "dropout_prob": float(dropout_prob),
+                            "is_test": is_test})
+    return out

@@ -1,0 +1,115 @@
+"""BERT-style transformer encoder built from the port's layer API.
+
+Counterpart of ``paddle_tpu/models/bert.py``: the same configurations,
+layer calls and parameter names, so the two packages build identical
+programs and share saved weights.  Kept: the inference (``is_test``)
+emission, with one ``flash_attention`` op per layer, two
+``fused_dropout_add_ln`` epilogues per layer and a ``layer_norm`` on the
+embeddings.  The dropout training emission raises until the training
+slice (``build_pretrain`` waits for it too); the reference's TPU A/B
+switches (``BERT_FUSED_ATTN``, ``BERT_COMPOSED_LN``) are not carried.
+"""
+
+from .. import layers
+from ..param_attr import ParamAttr
+
+__all__ = ["BertConfig", "BERT_BASE", "BERT_TINY", "multi_head_attention",
+           "encoder_layer", "embeddings", "bert_encoder"]
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden=768, layers=12, heads=12,
+                 ffn=3072, max_pos=512, type_vocab=2, dropout=0.1):
+        self.vocab_size = vocab_size
+        self.hidden = hidden
+        self.layers = layers
+        self.heads = heads
+        self.ffn = ffn
+        self.max_pos = max_pos
+        self.type_vocab = type_vocab
+        self.dropout = dropout
+
+
+BERT_BASE = BertConfig()
+BERT_TINY = BertConfig(vocab_size=1024, hidden=64, layers=2, heads=4,
+                       ffn=128, max_pos=64)
+
+
+def _training_emission():
+    raise NotImplementedError(
+        "BERT with dropout (is_test=False and cfg.dropout > 0) is the "
+        "training emission, ported with the training slice")
+
+
+def multi_head_attention(x, cfg, prefix, is_test=False, attn_mask=None):
+    """Self-attention: q/k/v projections, one flash_attention op, the
+    output projection."""
+    if cfg.dropout and not is_test:
+        _training_emission()
+    h, heads = cfg.hidden, cfg.heads
+    d = h // heads
+    q = layers.fc(x, h, num_flatten_dims=2,
+                  param_attr=ParamAttr(name=prefix + "_q_w"))
+    k = layers.fc(x, h, num_flatten_dims=2,
+                  param_attr=ParamAttr(name=prefix + "_k_w"))
+    v = layers.fc(x, h, num_flatten_dims=2,
+                  param_attr=ParamAttr(name=prefix + "_v_w"))
+
+    def split_heads(t):
+        t = layers.reshape(t, [0, 0, heads, d])
+        return layers.transpose(t, [0, 2, 1, 3])
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    ctxv = layers.flash_attention(q, k, v, bias_qk=attn_mask,
+                                  scale=d ** -0.5)
+    ctxv = layers.transpose(ctxv, [0, 2, 1, 3])
+    ctxv = layers.reshape(ctxv, [0, 0, h])
+    return layers.fc(ctxv, h, num_flatten_dims=2,
+                     param_attr=ParamAttr(name=prefix + "_out_w"))
+
+
+def _epilogue(x, y, cfg, is_test):
+    return layers.fused_dropout_add_ln(x, y, dropout_prob=cfg.dropout,
+                                       is_test=is_test, begin_norm_axis=2)
+
+
+def encoder_layer(x, cfg, prefix, is_test=False, attn_mask=None):
+    attn = multi_head_attention(x, cfg, prefix + "_attn", is_test, attn_mask)
+    x = _epilogue(x, attn, cfg, is_test)
+    ffn = layers.fc(x, cfg.ffn, num_flatten_dims=2, act="gelu",
+                    param_attr=ParamAttr(name=prefix + "_ffn1_w"))
+    ffn = layers.fc(ffn, cfg.hidden, num_flatten_dims=2,
+                    param_attr=ParamAttr(name=prefix + "_ffn2_w"))
+    return _epilogue(x, ffn, cfg, is_test)
+
+
+def embeddings(src_ids, pos_ids, sent_ids, cfg, is_test=False):
+    w = layers.embedding(src_ids, (cfg.vocab_size, cfg.hidden),
+                         param_attr=ParamAttr(name="word_emb"))
+    p = layers.embedding(pos_ids, (cfg.max_pos, cfg.hidden),
+                         param_attr=ParamAttr(name="pos_emb"))
+    s = layers.embedding(sent_ids, (cfg.type_vocab, cfg.hidden),
+                         param_attr=ParamAttr(name="sent_emb"))
+    emb = layers.elementwise_add(layers.elementwise_add(w, p), s)
+    emb = layers.layer_norm(emb, begin_norm_axis=2)
+    if cfg.dropout and not is_test:
+        _training_emission()
+    return emb
+
+
+def bert_encoder(cfg, seq_len, is_test=False):
+    """Declare the four inputs and build the encoder stack; returns
+    (inputs, sequence_output)."""
+    src_ids = layers.data("src_ids", shape=[seq_len, 1], dtype="int64")
+    pos_ids = layers.data("pos_ids", shape=[seq_len, 1], dtype="int64")
+    sent_ids = layers.data("sent_ids", shape=[seq_len, 1], dtype="int64")
+    input_mask = layers.data("input_mask", shape=[seq_len, 1])
+    x = embeddings(src_ids, pos_ids, sent_ids, cfg, is_test)
+    # attention bias: 1e4 * m m^T - 1e4 is 0 where both tokens are real
+    # and -1e4 where either is padding
+    mask2d = layers.matmul(input_mask, input_mask, transpose_y=True)
+    attn_mask = layers.scale(mask2d, scale=1e4, bias=-1e4)
+    attn_mask = layers.unsqueeze(attn_mask, [1])  # [B, 1, S, S]
+    for i in range(cfg.layers):
+        x = encoder_layer(x, cfg, "layer_%d" % i, is_test, attn_mask)
+    return (src_ids, pos_ids, sent_ids, input_mask), x

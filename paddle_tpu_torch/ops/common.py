@@ -1,0 +1,48 @@
+"""Shared helpers of the op lowerings."""
+
+from ..framework import convert_np_dtype_to_dtype_, dtype_to_torch
+
+# fluid VarType dtype enum (framework.proto:107-125) <-> dtype name, as in
+# paddle_tpu/ops/common.py, so programs using integer dtype codes load
+_DTYPE_ENUM = {0: "bool", 1: "int16", 2: "int32", 3: "int64", 4: "float16",
+               5: "float32", 6: "float64", 19: "int64", 20: "uint8",
+               21: "int8", 22: "bfloat16"}
+_DTYPE_TO_ENUM = {"bool": 0, "int16": 1, "int32": 2, "int64": 3,
+                  "float16": 4, "float32": 5, "float64": 6, "uint8": 20,
+                  "int8": 21, "bfloat16": 22}
+
+
+def attr_dtype(v, default="float32"):
+    """A dtype attr (int enum, name) as a torch dtype."""
+    if v is None:
+        return dtype_to_torch(default)
+    if isinstance(v, int):
+        return dtype_to_torch(_DTYPE_ENUM[v])
+    return dtype_to_torch(convert_np_dtype_to_dtype_(v))
+
+
+def dtype_enum(name):
+    return _DTYPE_TO_ENUM[name]
+
+
+def bcast_y(x, y, axis=-1):
+    """Fluid elementwise broadcast (elementwise_op.h): y's dims align with
+    a contiguous run of x's dims starting at ``axis`` (-1: rightmost);
+    trailing unit dims of y are squeezed first."""
+    if x.shape == y.shape or y.dim() == 0:
+        return y
+    yshape = list(y.shape)
+    while len(yshape) > 1 and yshape[-1] == 1:
+        yshape.pop()
+    ax = x.dim() - len(yshape) if axis == -1 else axis
+    return y.reshape([1] * ax + yshape + [1] * (x.dim() - ax - len(yshape)))
+
+
+def training_only(ctx, what):
+    """Raise for a training path this slice does not run.  Shape
+    inference (meta tensors) passes: the output shapes do not depend on
+    it."""
+    if not ctx.abstract:
+        raise NotImplementedError(
+            "%s is a training path, ported with the training slice "
+            "(backward, optimizer, dropout)" % what)

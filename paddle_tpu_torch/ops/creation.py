@@ -1,0 +1,50 @@
+"""Tensor creation: fill_constant and uniform_random, the ops the startup
+program's initialisers emit.  Counterpart of ``paddle_tpu/ops/creation.py``
+(``fill_constant:18``, ``uniform_random:76``)."""
+
+import torch
+
+from ..core.lowering import new_generator
+from ..core.registry import register_op
+from .common import attr_dtype
+
+
+@register_op("fill_constant",
+             inputs=("ShapeTensor", "ShapeTensorList", "ValueTensor"),
+             outputs=("Out",),
+             attrs={"shape": [], "value": 0.0, "dtype": 5,
+                    "force_cpu": False, "str_value": ""},
+             optional_inputs=("ShapeTensor", "ShapeTensorList",
+                              "ValueTensor"),
+             duplicable_inputs=("ShapeTensorList",))
+def fill_constant(ctx, shape_tensor, shape_tensor_list, value_tensor,
+                  shape=(), value=0.0, dtype=5, force_cpu=False,
+                  str_value=""):
+    if str_value not in ("", None):
+        value = float(str_value)
+    if value_tensor is not None:
+        value = value_tensor.reshape(()).item()
+    return torch.full(tuple(int(s) for s in shape), value,
+                      dtype=attr_dtype(dtype), device=ctx.device)
+
+
+@register_op("uniform_random", inputs=("ShapeTensor", "ShapeTensorList"),
+             outputs=("Out",),
+             attrs={"shape": [], "min": -1.0, "max": 1.0, "seed": 0,
+                    "dtype": 5, "diag_num": 0, "diag_step": 0,
+                    "diag_val": 1.0},
+             optional_inputs=("ShapeTensor", "ShapeTensorList"),
+             duplicable_inputs=("ShapeTensorList",), n_rng=1)
+def uniform_random(ctx, shape_tensor, shape_tensor_list, shape=(), min=-1.0,
+                   max=1.0, seed=0, dtype=5, diag_num=0, diag_step=0,
+                   diag_val=1.0):
+    """U[min, max) drawn on the op's device from a torch.Generator: the
+    op's own seed when set, else the executor's per-op generator (program
+    seed, step, op index).  The values differ from the reference's JAX
+    draw; the distribution is the same."""
+    out = torch.empty(tuple(int(s) for s in shape), dtype=attr_dtype(dtype),
+                      device=ctx.device)
+    if ctx.abstract:
+        return out
+    gen = new_generator(ctx.device, seed) if seed else ctx.generator
+    return out.uniform_(min, max, generator=gen)

@@ -1,0 +1,105 @@
+"""Shape ops and the embedding lookup: reshape2, transpose2, unsqueeze2,
+lookup_table.
+
+Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
+``transpose2:101``, ``unsqueeze2:214``, ``lookup_table:322``).  The
+``XShape`` outputs are placeholders for the grad ops, as in the reference:
+the lowerings leave them unset.  Reshape and transpose return views where
+PyTorch can; a consumer that needs contiguous memory makes it so.
+"""
+
+import torch.nn.functional as F
+
+from ..core.registry import register_op
+
+
+def _resolve_shape(x, shape):
+    """Fluid reshape: 0 copies the input dim, one -1 is inferred."""
+    shape = [int(s) for s in shape]
+    for i, s in enumerate(shape):
+        if s == 0:
+            shape[i] = x.shape[i]
+    return shape
+
+
+def _reshape_infer(op, block):
+    """Static shapes of reshape2 (the reference's ``_reshape_infer``): 0
+    copies the input dim (-1 for a batch dim), a -1 is resolved only when
+    the input shape is fully known; XShape is [0] + the input shape."""
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    xshape = list(x.shape or [])
+    res = [(xshape[i] if i < len(xshape) else -1) if s == 0 else s
+           for i, s in enumerate(op.attr("shape") or [])]
+    if -1 in res and -1 not in xshape:
+        known = 1
+        for s in res:
+            if s != -1:
+                known *= s
+        total = 1
+        for d in xshape:
+            total *= d
+        res[res.index(-1)] = total // known
+    out.shape = tuple(res)
+    if out.dtype is None:
+        out.dtype = x.dtype
+    xs_names = op.output("XShape")
+    if xs_names:
+        xs = block.var(xs_names[0])
+        xs.shape = tuple([0] + xshape)
+        if xs.dtype is None:
+            xs.dtype = x.dtype
+
+
+@register_op("reshape2", inputs=("X", "Shape", "ShapeTensor"),
+             outputs=("Out", "XShape"), attrs={"shape": []},
+             optional_inputs=("Shape", "ShapeTensor"),
+             duplicable_inputs=("ShapeTensor",), infer_shape=_reshape_infer)
+def reshape2(ctx, x, shape_t, shape_tensor, shape=()):
+    return x.reshape(_resolve_shape(x, shape)), None
+
+
+def _transpose_infer(op, block):
+    x = block.var(op.input("X")[0])
+    out = block.var(op.output("Out")[0])
+    if x.shape is not None:
+        out.shape = tuple(x.shape[a] for a in op.attr("axis"))
+    if out.dtype is None:
+        out.dtype = x.dtype
+    xs_names = op.output("XShape")
+    if xs_names:
+        xs = block.var(xs_names[0])
+        xs.shape = tuple([0] + list(x.shape or []))
+        xs.dtype = x.dtype
+
+
+@register_op("transpose2", inputs=("X",), outputs=("Out", "XShape"),
+             attrs={"axis": []}, infer_shape=_transpose_infer)
+def transpose2(ctx, x, axis=()):
+    return x.permute(*axis), None
+
+
+@register_op("unsqueeze2", inputs=("X", "AxesTensor"),
+             outputs=("Out", "XShape"), attrs={"axes": []},
+             optional_inputs=("AxesTensor",))
+def unsqueeze2(ctx, x, axes_t, axes=()):
+    # as jnp.expand_dims: the axes index the OUTPUT, applied in order
+    out_ndim = x.dim() + len(axes)
+    for a in sorted(a if a >= 0 else a + out_ndim for a in axes):
+        x = x.unsqueeze(a)
+    return x, None
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
+             attrs={"is_sparse": False, "is_distributed": False,
+                    "padding_idx": -1, "remote_prefetch": False,
+                    "entry_config": "", "entry": "none", "table_names": [],
+                    "epmap": [], "height_sections": [], "trainer_id": 0})
+def lookup_table(ctx, w, ids, padding_idx=-1, **_):
+    # fluid v1 lookup_table takes ids of shape [..., 1]
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    out = F.embedding(ids.long(), w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
+    return out

@@ -1,7 +1,10 @@
-"""Autoregressive decode serving: paged KV cache + token-level batching.
+"""Serving engines of the port: ``DecodeEngine`` (autoregressive decode,
+paged KV cache + token-level batching) and ``ServingEngine`` (batched
+inference over AnalysisPredictor, at the end of this module).
 
-Counterpart of the non-speculative f32 path of ``DecodeEngine`` in
-``paddle_tpu/serving/engine.py``.  Every iteration of the decode loop:
+``DecodeEngine`` is the counterpart of the non-speculative f32 path of
+``DecodeEngine`` in ``paddle_tpu/serving/engine.py``.  Every iteration of
+the decode loop:
 
 1. times out queued sequences whose deadline passed, then admits waiting
    sequences into free lanes while the pool can hold their prompts (in
@@ -26,8 +29,8 @@ cover sheds with ``retry_after_ms``.  Prefix caching (on by default)
 seeds a new sequence's table with shared, refcounted blocks of an
 earlier identical prompt prefix and jumps its feed pointer past them.
 
-Left out of this slice, compared with the reference: speculative decode,
-int8 KV, disaggregated handoff, session migration and history
+Left out of the decode engine, compared with the reference: speculative
+decode, int8 KV, disaggregated handoff, session migration and history
 publication, tier weights and tier eviction, telemetry and tracing, and
 fault injection.
 """
@@ -37,6 +40,7 @@ import logging
 import threading
 import time
 import uuid
+import zlib
 
 import numpy as np
 import torch
@@ -45,7 +49,8 @@ from ..device import resolve_device, set_f32_numerics
 from . import decode_model as _dm
 from . import kv_cache as _kvc
 
-__all__ = ["DecodeEngine", "InferReply", "parse_buckets"]
+__all__ = ["DecodeEngine", "ServingEngine", "InferReply", "parse_buckets",
+           "parse_tier_weights", "tier_weight"]
 
 _log = logging.getLogger(__name__)
 
@@ -635,3 +640,472 @@ class DecodeEngine:
                 self._free_blocks(s)   # same-step free: next admission
                 self._finish(s, InferReply("ok"))
         return True
+
+
+# ===========================================================================
+# Batch inference serving over AnalysisPredictor
+# ===========================================================================
+#
+# Counterpart of the reference's ``ServingEngine``
+# (paddle_tpu/serving/engine.py:244-762):
+#
+# - admission with deadline-aware backpressure: ``submit`` sheds (status
+#   "shed" + retry_after_ms) when the queue is full or when the projected
+#   wait (queue depth x the model's EWMA batch time) exceeds the request's
+#   deadline scaled by its tier weight; a queued request whose deadline
+#   passes before dispatch completes "timeout";
+# - SLO tiers: the weight orders batch assembly and decides queue-full
+#   eviction (a higher-weight arrival evicts the lowest-weight queued
+#   request);
+# - shape-bucketed batching: the dispatcher coalesces same-model requests
+#   for up to ``batch_window_ms`` and pads the batch to the smallest
+#   bucket that fits, so every run has one of a fixed set of shapes;
+# - ``prewarm`` runs one forward per (model, bucket), which builds the
+#   kernels and pays the libraries' first-call costs before traffic;
+# - ``drain`` for graceful retirement and versioned routing
+#   (``set_route``) for canary rollouts.
+#
+# Telemetry, tracing spans and fault injection are left out, as in the
+# decode engine; ``batch_log`` keeps the last batches' bucket, rows and
+# execute time instead.
+
+_DEFAULT_TIER_WEIGHTS = "paid:1.0,free:0.45,batch:0.15"
+
+
+def parse_tier_weights(spec=_DEFAULT_TIER_WEIGHTS):
+    """\"paid:1.0,free:0.45\" -> {tier: weight}; weights in (0, 1]."""
+    if isinstance(spec, dict):
+        out = {str(k): float(v) for k, v in spec.items()}
+    else:
+        out = {}
+        for part in str(spec).replace(" ", "").split(","):
+            if not part:
+                continue
+            name, _, w = part.partition(":")
+            if not name or not w:
+                raise ValueError("tier weights want tier:weight, got %r"
+                                 % part)
+            out[name] = float(w)
+    if not out or any(w <= 0.0 or w > 1.0 for w in out.values()):
+        raise ValueError("tier weights must be in (0, 1]: %r" % spec)
+    return out
+
+
+def tier_weight(weights, tier):
+    """(tier label, weight) of one request: no tier is the full budget,
+    an unknown tier the lowest configured weight."""
+    if not tier:
+        return "default", 1.0
+    w = weights.get(tier)
+    return (tier, w) if w is not None else (tier, min(weights.values()))
+
+
+def _route_hash(req_id):
+    """Deterministic [0, 1) split point per request, so a replayed request
+    lands on the same version."""
+    return (zlib.crc32(req_id.encode("utf-8")) & 0xFFFFFFFF) / 2.0 ** 32
+
+
+class _InferPending(_Pending):
+    __slots__ = ("tenant", "feeds", "rows", "t_dispatch", "tier", "weight")
+
+    def __init__(self, model, tenant, feeds, deadline_ms, req_id, callback,
+                 tier="default", weight=1.0):
+        super().__init__(model, deadline_ms, req_id, callback)
+        self.tenant = tenant
+        self.feeds = feeds
+        self.rows = 0
+        self.t_dispatch = None
+        self.tier = tier
+        self.weight = float(weight)
+
+
+class _ModelEntry:
+    __slots__ = ("name", "predictor", "feed_specs", "svc_ms")
+
+    def __init__(self, name, predictor):
+        self.name = name
+        self.predictor = predictor
+        block = predictor.program().global_block()
+        self.feed_specs = {}
+        for fname in predictor.get_input_names():
+            shape = tuple(block.var(fname).shape)
+            if shape and shape[0] in (-1, 0):
+                shape = shape[1:]
+            self.feed_specs[fname] = (shape, block.var(fname).dtype)
+        self.svc_ms = 0.0  # EWMA of one batch's wall time
+
+
+class ServingEngine:
+    """Batched inference over ``save_inference_model`` directories, on
+    ``device`` (default ``cuda``; the CPU only when asked).  The defaults
+    are the reference's flag defaults: buckets "1,4,16,64", a queue of
+    256, a 2000 ms deadline, a 2 ms batch window."""
+
+    def __init__(self, buckets="1,4,16,64", max_queue=256,
+                 deadline_ms=2000.0, batch_window_ms=2.0,
+                 tier_weights=_DEFAULT_TIER_WEIGHTS, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            set_f32_numerics()
+        self.buckets = parse_buckets(buckets)
+        self.max_queue = int(max_queue)
+        self.default_deadline_ms = float(deadline_ms)
+        self.batch_window_ms = float(batch_window_ms)
+        self.tier_weights = parse_tier_weights(tier_weights)
+        self._models = {}
+        self._queue = []
+        self._routes = {}
+        self._cond = threading.Condition()
+        self._running = False
+        self._draining = False
+        self._thread = None
+        self.in_batch = False
+        # {"model", "bucket", "rows", "requests", "execute_ms"} per batch
+        self.batch_log = collections.deque(maxlen=4096)
+
+    # -- registry ------------------------------------------------------------
+
+    def add_model(self, name, predictor_or_dir):
+        """Register ``name``: an AnalysisPredictor, or a
+        save_inference_model directory (of either package), loaded into a
+        predictor on this engine's device."""
+        from ..inference import AnalysisConfig, AnalysisPredictor
+
+        if isinstance(predictor_or_dir, str):
+            cfg = AnalysisConfig(predictor_or_dir)
+            if self.device.type == "cuda":
+                cfg.enable_use_gpu(device_id=self.device.index or 0)
+            else:
+                cfg.disable_gpu()
+            predictor_or_dir = AnalysisPredictor(cfg)
+        self._models[name] = _ModelEntry(name, predictor_or_dir)
+        return self._models[name].predictor
+
+    def models(self):
+        return list(self._models)
+
+    def spec(self, model):
+        """JSON-able feed/fetch signature of ``model``."""
+        from ..framework import dtype_to_np
+
+        e = self._models[model]
+        return {"model": model, "buckets": list(self.buckets),
+                "feeds": {n: {"shape": list(shape),
+                              "dtype": dtype_to_np(dt).str}
+                          for n, (shape, dt) in e.feed_specs.items()},
+                "outputs": e.predictor.get_output_names()}
+
+    # -- versioned routing ---------------------------------------------------
+
+    def set_route(self, base, active=None, canary=None, fraction=0.0,
+                  state="stable"):
+        """Requests addressed to ``base`` go to ``active``, except a
+        ``fraction`` of them to ``canary``; a version named directly
+        bypasses routing."""
+        active = active or base
+        if active not in self._models:
+            raise ValueError("unknown active version %r" % active)
+        if canary is not None and canary not in self._models:
+            raise ValueError("unknown canary version %r" % canary)
+        with self._cond:
+            self._routes[base] = {
+                "active": active, "canary": canary,
+                "fraction": float(fraction) if canary is not None else 0.0,
+                "state": state}
+
+    def clear_route(self, base):
+        with self._cond:
+            self._routes.pop(base, None)
+
+    def routes(self):
+        with self._cond:
+            return {b: dict(r) for b, r in self._routes.items()}
+
+    def resolve(self, model, req_id):
+        r = self._routes.get(model)
+        if not r:
+            return model
+        if r["canary"] is not None and r["fraction"] > 0.0 \
+                and _route_hash(req_id) < r["fraction"]:
+            return r["canary"]
+        return r["active"]
+
+    # -- prewarm -------------------------------------------------------------
+
+    def prewarm(self):
+        """One forward per (model, bucket) on zero feeds; returns the
+        manifest {model: {bucket: {"source", "compile_ms"}}} ("compiled"
+        the first time a bucket's plan is built, "memory" after)."""
+        manifest = {}
+        for name, e in self._models.items():
+            pred = e.predictor
+            per = {}
+            for b in self.buckets:
+                specs = {n: ((b,) + tuple(shape), dt)
+                         for n, (shape, dt) in e.feed_specs.items()}
+                got = pred.warmup(specs)
+                per[b] = {"source": got["source"],
+                          "compile_ms": round(got["compile_ms"], 3)}
+            manifest[name] = per
+        return manifest
+
+    # -- admission -----------------------------------------------------------
+
+    def _projected_wait_ms(self, entry, depth):
+        """Batches ahead x EWMA batch time."""
+        if entry.svc_ms <= 0.0:
+            return 0.0
+        return (depth // max(self.buckets) + 1) * entry.svc_ms
+
+    @staticmethod
+    def _shed(req, error, retry_after_ms):
+        req.complete(InferReply("shed", error=error,
+                                retry_after_ms=retry_after_ms,
+                                phases={"tier": req.tier,
+                                        "model": req.model}))
+        return req
+
+    def submit(self, model, feeds, tenant="default", deadline_ms=None,
+               callback=None, req_id=None, tier=None):
+        """Enqueue one request; returns a handle whose ``wait()`` gives the
+        InferReply.  Shed and malformed requests complete at once."""
+        deadline_ms = float(deadline_ms or self.default_deadline_ms)
+        req_id = req_id or uuid.uuid4().hex
+        tier, weight = tier_weight(self.tier_weights, tier)
+        model = self.resolve(model, req_id)
+        req = _InferPending(model, tenant, feeds, deadline_ms, req_id,
+                            callback, tier=tier, weight=weight)
+        entry = self._models.get(model)
+        if entry is None or not self._running:
+            req.complete(InferReply(
+                "error", error="unknown model %r" % model if entry is None
+                else "engine not running"))
+            return req
+        try:
+            req.feeds, req.rows = self._normalize(entry, feeds)
+        except ValueError as e:
+            req.complete(InferReply("error", error=str(e)))
+            return req
+        with self._cond:
+            if self._draining:
+                return self._shed(req, "replica draining",
+                                  max(entry.svc_ms, 1.0))
+            depth = len(self._queue)
+            if depth >= self.max_queue:
+                wait_ms = self._projected_wait_ms(entry, depth)
+                victim = min(self._queue,
+                             key=lambda r: (r.weight, -r.t_submit)) \
+                    if self._queue else None
+                if victim is not None and victim.weight < req.weight:
+                    # a full queue sheds its lowest-weight member when the
+                    # arrival outranks it
+                    self._queue.remove(victim)
+                    self._shed(victim, "evicted by %s-tier arrival"
+                               % req.tier, max(wait_ms, entry.svc_ms, 1.0))
+                else:
+                    return self._shed(req, "queue full (%d)" % depth,
+                                      max(wait_ms, entry.svc_ms, 1.0))
+            wait_ms = self._projected_wait_ms(entry, len(self._queue))
+            budget_ms = deadline_ms * req.weight
+            if wait_ms > budget_ms:
+                return self._shed(
+                    req, "projected wait %.0fms exceeds %s-tier budget "
+                    "%.0fms" % (wait_ms, req.tier, budget_ms),
+                    wait_ms - budget_ms + entry.svc_ms)
+            self._queue.append(req)
+            self._cond.notify_all()
+        return req
+
+    def infer(self, model, feeds, tenant="default", deadline_ms=None,
+              tier=None):
+        """Synchronous submit + wait."""
+        req = self.submit(model, feeds, tenant=tenant,
+                          deadline_ms=deadline_ms, tier=tier)
+        deadline_ms = float(deadline_ms or self.default_deadline_ms)
+        reply = req.wait(timeout=deadline_ms / 1e3 + 30.0)
+        return reply if reply is not None else InferReply(
+            "timeout", error="no reply within deadline")
+
+    def _normalize(self, entry, feeds):
+        """Validate and coerce a request's feeds -> (feeds, rows)."""
+        from ..framework import dtype_to_np
+
+        rows = None
+        out = {}
+        for name, (shape, dt) in entry.feed_specs.items():
+            if name not in feeds:
+                raise ValueError("missing feed %r" % name)
+            arr = np.ascontiguousarray(feeds[name], dtype=dtype_to_np(dt))
+            if tuple(arr.shape[1:]) != tuple(shape):
+                raise ValueError("feed %r: expected trailing shape %s, got "
+                                 "%s" % (name, tuple(shape),
+                                         tuple(arr.shape[1:])))
+            if rows is None:
+                rows = arr.shape[0]
+            elif arr.shape[0] != rows:
+                raise ValueError("inconsistent batch rows across feeds")
+            out[name] = arr
+        if not rows:
+            raise ValueError("empty request")
+        if rows > max(self.buckets):
+            raise ValueError("request rows %d exceed largest bucket %d"
+                             % (rows, max(self.buckets)))
+        return out, rows
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self):
+        if self._running:
+            return self
+        self._running = True
+        self._thread = threading.Thread(target=self._dispatch_loop,
+                                        name="serving-dispatch", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, drain_s=5.0):
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(drain_s)
+            self._thread = None
+        with self._cond:
+            left, self._queue = self._queue, []
+        for req in left:
+            req.complete(InferReply("error", error="engine stopped"))
+
+    @property
+    def draining(self):
+        return self._draining
+
+    def drain(self, timeout_s=30.0):
+        """Shed new arrivals and wait until every admitted request has
+        been dispatched and the running batch finished; True when the
+        engine emptied in time."""
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            with self._cond:
+                if not self._queue and not self.in_batch:
+                    return True
+            time.sleep(0.01)
+        return False
+
+    # -- dispatcher ----------------------------------------------------------
+
+    def _bucket_for(self, rows):
+        for b in self.buckets:
+            if rows <= b:
+                return b
+        return max(self.buckets)
+
+    def _collect(self):
+        """Under the lock: wait for work, then coalesce one model's
+        requests within the batch window up to the largest bucket, the
+        highest tier weight first (FIFO within a tier)."""
+        while self._running and not self._queue:
+            self._cond.wait(0.2)
+        if not self._queue:
+            return None, []
+        model = self._queue[0].model
+        window_end = time.perf_counter() + self.batch_window_ms / 1e3
+        max_rows = max(self.buckets)
+        while self._running:
+            if sum(r.rows for r in self._queue if r.model == model) \
+                    >= max_rows:
+                break
+            left = window_end - time.perf_counter()
+            if left <= 0:
+                break
+            self._cond.wait(min(left, 0.002))
+        cands = sorted((r for r in self._queue if r.model == model),
+                       key=lambda r: (-r.weight, r.t_submit))
+        batch, rows = [], 0
+        for r in cands:
+            if rows + r.rows <= max_rows:
+                batch.append(r)
+                rows += r.rows
+        taken = set(map(id, batch))
+        self._queue[:] = [r for r in self._queue if id(r) not in taken]
+        # set under the lock, so drain() never sees an empty queue while
+        # a collected batch has yet to run
+        self.in_batch = bool(batch)
+        return model, batch
+
+    def _dispatch_loop(self):
+        while True:
+            with self._cond:
+                if not self._running:
+                    return
+                model, batch = self._collect()
+            if not batch:
+                continue
+            try:
+                now = time.perf_counter()
+                live = []
+                for r in batch:
+                    if now > r.deadline:
+                        r.complete(InferReply(
+                            "timeout", error="deadline expired in queue",
+                            phases={"queue_wait_ms":
+                                    round((now - r.t_submit) * 1e3, 3),
+                                    "rows": r.rows}))
+                    else:
+                        r.t_dispatch = now
+                        live.append(r)
+                if live:
+                    self._run_batch(self._models[model], live)
+            finally:
+                with self._cond:
+                    self.in_batch = False
+
+    @staticmethod
+    def _phases(r, execute_ms, bucket):
+        t_d = r.t_dispatch if r.t_dispatch is not None else r.t_submit
+        return {"queue_wait_ms": round((t_d - r.t_submit) * 1e3, 3),
+                "execute_ms": round(execute_ms, 3), "bucket": bucket,
+                "rows": r.rows, "tier": r.tier, "model": r.model}
+
+    def _run_batch(self, entry, batch):
+        rows = sum(r.rows for r in batch)
+        bucket = self._bucket_for(rows)
+        pred = entry.predictor
+        feed = {}
+        for name in entry.feed_specs:
+            parts = [r.feeds[name] for r in batch]
+            if rows < bucket:
+                parts.append(np.zeros((bucket - rows,) + parts[0].shape[1:],
+                                      dtype=parts[0].dtype))
+            feed[name] = np.concatenate(parts, axis=0) \
+                if len(parts) > 1 else parts[0]
+        t0 = time.perf_counter()
+        try:
+            outs = pred.run_feed(feed)
+        except Exception as e:  # the engine keeps serving; the batch fails
+            _log.exception("batch of %d rows failed", rows)
+            ms = (time.perf_counter() - t0) * 1e3
+            for r in batch:
+                r.complete(InferReply("error", error="%s: %s"
+                                      % (type(e).__name__, e),
+                                      phases=self._phases(r, ms, bucket)))
+            return
+        ms = (time.perf_counter() - t0) * 1e3
+        entry.svc_ms = ms if entry.svc_ms <= 0 else \
+            0.7 * entry.svc_ms + 0.3 * ms
+        self.batch_log.append({"model": entry.name, "bucket": bucket,
+                               "rows": rows, "requests": len(batch),
+                               "execute_ms": ms})
+        off = 0
+        for r in batch:
+            # per-request rows of every output that carries the batch dim;
+            # batch-free outputs go to every request whole
+            sliced = {n: o[off:off + r.rows].copy()
+                      if o.ndim and o.shape[0] == bucket else o
+                      for n, o in outs.items()}
+            off += r.rows
+            r.complete(InferReply("ok", outputs=sliced,
+                                  phases=self._phases(r, ms, bucket)))

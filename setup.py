@@ -24,7 +24,7 @@ setup(
     py_modules=["bench"],
     package_data={
         "paddle_tpu": ["native/csrc/*.cc", "native/csrc_capi/*.cc"],
-        "paddle_tpu_torch": ["kernels/csrc/*.cu"],
+        "paddle_tpu_torch": ["kernels/csrc/*.cu", "kernels/csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],

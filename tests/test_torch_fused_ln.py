@@ -1,0 +1,157 @@
+"""Fused dropout-add-LayerNorm and LayerNorm in the PyTorch port
+(paddle_tpu_torch/kernels/fused_ln.py, layer_norm.py) held against the
+JAX reference on the CPU.
+
+* The port's ``fused_ln_fwd`` (its plain version on CPU tensors) gives
+  the reference ``fused_ln.fused_ln_fwd``'s z, r, mean and var at
+  dropout probability 0 (the jnp fallback on the CPU), atol 1e-5 (f32).
+* The port's ``layer_norm_2d``, and the port's ``layer_norm`` op run by
+  its own Executor, give what the reference's ``layer_norm`` op gives
+  through a JAX CPU Executor (its jnp branch), atol 1e-5.
+* Dropout (the training path) raises on every device, in the function
+  and in the ops.
+* The CUDA branches build or raise and never fall back."""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as fluid
+from paddle_tpu.pallas_kernels import fused_ln as jfl
+import paddle_tpu_torch.framework as tfw
+from paddle_tpu_torch import layers as tlayers
+from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import fused_ln as tfl
+from paddle_tpu_torch.kernels import layer_norm as tln
+
+ATOL = 1e-5
+
+
+def _rand(rng, *shape, scale=1.0, shift=0.0):
+    return (rng.randn(*shape) * scale + shift).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,axis", [((64, 768), 1), ((8, 16, 64), 2),
+                                        ((8, 16, 64), 1)])
+def test_fused_ln_matches_reference_at_p0(shape, axis):
+    rng = np.random.RandomState(0)
+    x = _rand(rng, *shape, scale=2.0, shift=0.5)
+    y = _rand(rng, *shape)
+    h = int(np.prod(shape[axis:]))
+    g, b = _rand(rng, h, shift=1.0), _rand(rng, h)
+    want = jfl.fused_ln_fwd(x, y, g, b, 0.0, np.zeros(2, np.uint32), 1e-5,
+                            axis)
+    got = tfl.fused_ln_fwd(*(torch.from_numpy(a) for a in (x, y, g, b)),
+                           0.0, None, 1e-5, axis)
+    for name, gv, wv in zip(("z", "r", "mean", "var"), got, want):
+        assert gv.dtype == torch.float32, name
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=ATOL,
+                                   rtol=0, err_msg=name)
+
+
+def test_fused_ln_dropout_raises():
+    x = torch.zeros(2, 8)
+    with pytest.raises(NotImplementedError, match="training"):
+        tfl.fused_ln_fwd(x, x, torch.ones(8), torch.zeros(8), 0.1)
+
+
+def _jax_layer_norm(x, g, b, eps):
+    """The reference's layer_norm op on a JAX CPU Executor."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        xv = fluid.layers.data("x", shape=[x.shape[1]])
+        yv = fluid.layers.layer_norm(xv, begin_norm_axis=1, epsilon=eps)
+    op = main.global_block().ops[-1]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        scope.var(op.input("Scale")[0]).set(g)
+        scope.var(op.input("Bias")[0]).set(b)
+        return exe.run(main, feed={"x": x},
+                       fetch_list=[yv, op.output("Mean")[0],
+                                   op.output("Variance")[0]])
+
+
+@pytest.mark.parametrize("rows,cols", [(12, 64), (37, 200), (5, 768)])
+def test_layer_norm_2d_matches_reference_op(rows, cols):
+    rng = np.random.RandomState(1)
+    x = _rand(rng, rows, cols, scale=3.0, shift=-1.0)
+    g, b = _rand(rng, cols, shift=1.0), _rand(rng, cols)
+    want = _jax_layer_norm(x, g, b, 1e-5)
+    got = tln.layer_norm_2d(*(torch.from_numpy(a) for a in (x, g, b)),
+                            1e-5)
+    for gv, wv in zip(got, want):
+        np.testing.assert_allclose(gv.numpy(), wv, atol=ATOL, rtol=0)
+
+
+def test_port_layer_norm_op_matches_reference_op():
+    """The port's layer_norm op (ops/nn.py), through its own Executor on
+    the CPU, with the same parameters handed over as numpy."""
+    rng = np.random.RandomState(2)
+    x = _rand(rng, 6, 48, scale=2.0)
+    g, b = _rand(rng, 48, shift=1.0), _rand(rng, 48)
+    want = _jax_layer_norm(x, g, b, 1e-5)
+    main, startup = tfw.Program(), tfw.Program()
+    with tfw.program_guard(main, startup):
+        xv = tlayers.data("x", shape=[48])
+        yv = tlayers.layer_norm(xv, begin_norm_axis=1)
+    op = main.global_block().ops[-1]
+    scope = scope_from_numpy(Scope(), {op.input("Scale")[0]: g,
+                                       op.input("Bias")[0]: b}, "cpu")
+    got = Executor(tfw.CPUPlace()).run(
+        main, feed={"x": x}, scope=scope,
+        fetch_list=[yv, op.output("Mean")[0], op.output("Variance")[0]])
+    for gv, wv in zip(got, want):
+        np.testing.assert_allclose(gv, wv, atol=ATOL, rtol=0)
+
+
+def test_fused_op_in_training_mode_raises():
+    main, startup = tfw.Program(), tfw.Program()
+    with tfw.program_guard(main, startup):
+        x = tlayers.data("x", shape=[4, 8])
+        y = tlayers.data("y", shape=[4, 8])
+        out = tlayers.fused_dropout_add_ln(x, y, dropout_prob=0.1,
+                                           begin_norm_axis=2)
+    # shape inference still ran (meta tensors): the op's shapes are known
+    assert main.global_block().var(out.name).shape == (-1, 4, 8)
+    exe = Executor("cpu")
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.zeros((2, 4, 8), "f"), "y": np.zeros((2, 4, 8), "f")}
+    with pytest.raises(NotImplementedError, match="training slice"):
+        exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+
+
+@pytest.mark.parametrize("mod,cuda_fn,args", [
+    (tfl, "_fused_ln_cuda", lambda t: (t(4, 8), t(4, 8), t(8), t(8),
+                                       1e-5)),
+    (tln, "_layer_norm_cuda", lambda t: (t(4, 8), t(8), t(8), 1e-5)),
+])
+def test_cuda_branch_builds_or_raises(monkeypatch, mod, cuda_fn, args):
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
+
+    def broken(name):
+        raise RuntimeError("nvcc failed (1) building %s" % name)
+
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        getattr(mod, cuda_fn)(*args(meta))
+
+    class _Lib:
+        fused_ln_fwd_f32 = layer_norm_fwd_f32 = staticmethod(lambda *a: 0)
+
+    monkeypatch.setattr(_build, "load", lambda name: _Lib())
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        getattr(mod, cuda_fn)(*args(meta))
+
+
+def test_kernel_sources_name_what_they_replace_and_their_bound():
+    for name, replaces in (("fused_ln", "fused_ln.py `_fwd_kernel`"),
+                           ("layer_norm", "layer_norm.py `_ln_fwd_kernel`")):
+        src = (_build.CSRC / (name + ".cu")).read_text()
+        assert replaces in src and "Bound:" in src
+        assert name in _build.SOURCES
