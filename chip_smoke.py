@@ -9,9 +9,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. the build: every CUDA source of the port compiled with nvcc for
    sm_90a (all started together), with seconds and ptxas usage;
 3. the kernels: each kernel against its plain PyTorch version on the card
-   at its main-path shape and others, then timed (CUDA events, L2 flushed
-   before every launch, as the serving loops find it) beside its plain
-   version, a one-call PyTorch yardstick and its bound;
+   at its main-path shape and others (the fused Adam bitwise, with and
+   without its bf16 copy), then timed (CUDA events, L2 flushed before
+   every launch, as the serving and training loops find it) beside its
+   plain version, a one-call PyTorch yardstick and its bound;
 4. decode serving: a GPT-2-small-width decoder (seeded random weights) in
    the port's DecodeEngine answers a dozen requests; every reply must be
    ok, every decode step must have gone through the paged-attention
@@ -24,7 +25,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    launched the flash-attention, fused-LayerNorm and LayerNorm kernels
    12, 24 and 1 times each, and sampled replies must equal the same
    directory run by the plain predictor on the CPU;
-6. a JSON line of the kernels, then the result line.
+6. BERT-base pretraining (seeded random weights, dropout 0, seq 128,
+   batch 32) built with the port's ``build_pretrain`` and trained 5 steps
+   on one batch through ``Executor.run``: every step must launch the
+   flash-attention forward, its dQ and dK/dV kernels, the fused-LN
+   forward and backward, the fused Adam and the LayerNorm kernels
+   24/12/12/24/24/1/2 times, the last loss must be below the first, and
+   3 steps at batch 2 from the same initial state must give the losses
+   and Adam moments of the port's plain path on the CPU;
+7. the script's own wall time, a JSON line of the kernels, then the
+   result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -59,6 +69,27 @@ LOGIT_TIE_TOL = 1e-3
 # card's kernels vs the plain path on the CPU after 12 layers, both f32
 # with TF32 off: they differ by summation order only
 ENCODER_ATOL = 1e-3
+# flash backward vs its plain version: each gradient sums up to S
+# products of ~1 in another order (S = 2048 in the causal case)
+FLASH_BWD_ATOL = 1e-4
+# fused-LN backward: dx to KERNEL_ATOL; dgamma / dbeta are sums over all
+# N rows (4096), held relative to their largest value
+LN_BWD_SUM_RTOL = 2e-6
+# BERT-base pretraining, 3 Adam steps at batch 2 from one initial state,
+# card vs the plain path on the CPU, both f32 with TF32 off, so the two
+# differ by summation order only.  Losses (~10.4 = ln 30522) are held
+# absolutely; each Adam moment tensor is held relative to its largest
+# element (moments follow the gradients smoothly, unlike the parameters,
+# where Adam turns a rounding difference on a near-zero gradient into a
+# sign flip of its ~lr step), with a floor (``moment_gap``).
+# tools/torch_train_faults.py reads both gaps sound and with faults
+# planted on the card (an H100; PERF.md): sound 9.5e-07 (loss) and
+# 1.5e-04 (moments); the faults' smallest 1.5e-04 (loss, dK zeroed) and
+# 1.0 (moments), so each limit sits about 10x above the sound reading
+# and 10x below the nearest fault's.
+TRAIN_LOSS_ATOL = 1e-5
+TRAIN_MOMENT_RTOL = 1e-2
+MOMENT_FLOOR = 1e-4
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -329,6 +360,208 @@ def ln_kernel_phase(fl, ln, dev, flush):
     return rows
 
 
+def flash_bwd_kernel_phase(fa, dev, flush):
+    """Rows 3 and 4: the dQ and the dK/dV kernels against their plain
+    versions, from the forward kernel's out and lse."""
+    rng = np.random.RandomState(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+
+    def head_split(bb, h, s, d):
+        x = t(_rand(rng, bb, s, h * d))
+        return x.view(bb, s, h, d).permute(0, 2, 1, 3)
+
+    m = (rng.rand(32, 1, 1, 128) > 0.25).astype(np.float32)
+    m[:, :, :, 0] = 1.0
+    pad = np.broadcast_to((1.0 - m) * -1e4, (32, 1, 128, 128))
+    odd_bias = np.zeros((2, 1, 77, 77), np.float32)
+    odd_bias[:, :, 5, :] = -1e30              # one fully masked row
+    cases = [
+        ("main path B=32 H=12 S=128 D=64 strided head split, padding bias",
+         (32, 12, 128, 64), pad, False, True),
+        ("long causal B=1 H=12 S=2048 D=64", (1, 12, 2048, 64), None, True,
+         False),
+        ("odd B=2 H=3 S=77 D=40 head-shared bias, a fully masked row",
+         (2, 3, 77, 40), odd_bias, False, False),
+    ]
+    worst_q = worst_kv = 0.0
+    tensors = {}
+    for what, (bb, h, s, d), bias, causal, strided in cases:
+        if strided:   # q, k, v and dO as the main path hands them over
+            q, k, v, do = (head_split(bb, h, s, d) for _ in range(4))
+        else:
+            q, k, v, do = (t(_rand(rng, bb, h, s, d)) for _ in range(4))
+        bias = t(bias) if bias is not None else None
+        out, lse = fa.flash_attention(q, k, v, bias, causal)
+        delta = fa.attention_delta(out, do)
+        args = (q, k, v, bias, do, lse, delta, causal)
+        tensors[what] = args
+        worst_q = max(worst_q, check(
+            "flash_attention_bwd_dq", what, [fa.flash_attention_bwd_dq(*args)],
+            [fa.flash_attention_bwd_dq_reference(*args)], FLASH_BWD_ATOL))
+        worst_kv = max(worst_kv, check(
+            "flash_attention_bwd_dkv", what,
+            fa.flash_attention_bwd_dkv(*args),
+            fa.flash_attention_bwd_dkv_reference(*args), FLASH_BWD_ATOL))
+    what = cases[0][0]
+    q, k, v, bias, do, lse, delta, _c = tensors[what]
+    bb, h, s, d = q.shape
+    # yardstick: the whole SDPA backward (dQ, dK and dV) with the same
+    # mask, its forward graph built once and not timed
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=bias)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    n = bb * h * s * d
+    # read once: q, k, v, dO; the bias; lse and delta
+    common = 4 * (4 * n + bb * s * s + 2 * bb * h * s)
+    rows = []
+    row = timed_row(
+        "flash_attention_bwd_dq",
+        lambda: fa.flash_attention_bwd_dq(q, k, v, bias, do, lse, delta),
+        lambda: fa.flash_attention_bwd_dq_reference(q, k, v, bias, do, lse,
+                                                    delta),
+        sdpa_bwd, common + 4 * n, 6 * bb * h * s * s * d, flush, worst_q,
+        "%s (library: the whole SDPA backward)" % what)
+    row.update(source="paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+               replaces="paddle_tpu/pallas_kernels/flash_attention.py:112")
+    rows.append(row)
+    row = timed_row(
+        "flash_attention_bwd_dkv",
+        lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta),
+        lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse,
+                                                     delta),
+        sdpa_bwd, common + 8 * n, 8 * bb * h * s * s * d, flush, worst_kv,
+        "%s (library: the whole SDPA backward)" % what)
+    row.update(source="paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+               replaces="paddle_tpu/pallas_kernels/flash_attention.py:157")
+    rows.append(row)
+    return rows
+
+
+def ln_bwd_kernel_phase(fl, dev, flush):
+    """Row 8: the fused-LN backward from the forward kernel's r, mean and
+    var."""
+    rng = np.random.RandomState(4)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    worst = 0.0
+    tensors = {}
+    for (n, hd), what in (((4096, 768), "BERT rows [4096, 768]"),
+                          ((37, 200), "odd [37, 200]")):
+        x, y, dz = (t(_rand(rng, n, hd)) for _ in range(3))
+        g, b = t(_rand(rng, hd) + 1.0), t(_rand(rng, hd))
+        _z, r, mean, var = fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5)
+        tensors[n, hd] = (x, y, g, b, r, mean, var, dz)
+        dx, dy, dg, db = fl.fused_ln_bwd(r, g, mean, var, dz)
+        wdx, wdg, wdb = fl.fused_ln_bwd_reference(r, g, mean, var, dz)
+        if dy.data_ptr() != dx.data_ptr():
+            fail("fused_ln_bwd: dy is not dx at dropout 0")
+        worst = max(worst, check("fused_ln_bwd", what + " dx", [dx], [wdx]))
+        sums = check("fused_ln_bwd", what + " dgamma, dbeta", [dg, db],
+                     [wdg, wdb], LN_BWD_SUM_RTOL * float(max(
+                         wdg.abs().max(), wdb.abs().max())))
+        worst = max(worst, sums)
+    x, y, g, b, r, mean, var, dz = tensors[4096, 768]
+    n, hd = x.shape
+    leaves = [a.detach().requires_grad_() for a in (x, y, g, b)]
+    z = torch.nn.functional.layer_norm(leaves[0] + leaves[1], (hd,),
+                                       leaves[2], leaves[3], 1e-5)
+
+    def ln_autograd():
+        return torch.autograd.grad(z, leaves, dz, retain_graph=True)
+
+    row = timed_row(
+        "fused_ln_bwd", lambda: fl.fused_ln_bwd(r, g, mean, var, dz),
+        lambda: fl.fused_ln_bwd_reference(r, g, mean, var, dz), ln_autograd,
+        4 * (3 * n * hd + 2 * n + 3 * hd), 11 * n * hd, flush, worst,
+        "BERT rows [4096, 768] (autograd of F.layer_norm(x + y))")
+    row.update(source="paddle_tpu_torch/kernels/csrc/fused_ln_bwd.cu",
+               replaces="paddle_tpu/pallas_kernels/fused_ln.py:130")
+    return row
+
+
+def bert_param_shapes(cfg):
+    """Parameter shapes of build_pretrain(cfg): embeddings and their
+    LayerNorm, 12 encoder layers, the masked-LM head."""
+    h, f, v = cfg.hidden, cfg.ffn, cfg.vocab_size
+    shapes = [(v, h), (cfg.max_pos, h), (cfg.type_vocab, h), (h,), (h,)]
+    for _ in range(cfg.layers):
+        shapes += [(h, h), (h,)] * 4 + [(h, f), (f,), (f, h), (h,)] \
+            + [(h,)] * 4
+    return shapes + [(h, h), (h,), (h,), (h,), (h, v), (v,)]
+
+
+def adam_kernel_phase(fad, dev, flush, cfg):
+    """Row 9: the fused Adam over BERT-base's parameter group and an odd
+    5-member group, bitwise equal to its plain version, with and without
+    the bf16 copy; members' beta pows diverged."""
+    rng = np.random.RandomState(5)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+
+    def group(shapes):
+        f = np.float32
+        return ([t(rng.randn(*s).astype(f)) for s in shapes],
+                [t((rng.randn(*s) * 1e-3).astype(f)) for s in shapes],
+                [t((rng.randn(*s) * 1e-3).astype(f)) for s in shapes],
+                [t((rng.rand(*s) * 1e-6).astype(f)) for s in shapes],
+                t(np.array([1e-4], f)),
+                [t(np.array([0.9 ** (1 + i % 3)], f))
+                 for i in range(len(shapes))],
+                [t(np.array([0.999 ** (1 + i % 5)], f))
+                 for i in range(len(shapes))])
+
+    def clones(grp):
+        p, g, m1, m2, lr, b1, b2 = grp
+        c = lambda ts: [x.clone() for x in ts]  # noqa: E731
+        return c(p), g, c(m1), c(m2), lr, c(b1), c(b2)
+
+    bert = bert_param_shapes(cfg)
+    groups = {"BERT-base group, %d members, %d elements" % (
+        len(bert), sum(int(np.prod(s)) for s in bert)): bert,
+        "odd 5-member group": [(37, 5), (1000,), (3, 3, 3), (129,),
+                               (2048, 17)]}
+    kept = None
+    for what, shapes in groups.items():
+        grp = group(shapes)
+        want = fad.fused_adam_reference(*grp, bf16_out=True)
+        for carry in (False, True):
+            bf = [torch.empty(p.shape, dtype=torch.bfloat16, device=dev)
+                  for p in grp[0]] if carry else None
+            got = fad.fused_adam_step(*clones(grp), bf16_out=bf)
+            torch.cuda.synchronize()
+            names = ("param", "moment1", "moment2", "beta1_pow", "beta2_pow")
+            names += ("bf16 copy",) if carry else ()
+            for name, gs, ws in zip(names, got, want):
+                if not all(torch.equal(a, b) for a, b in zip(gs, ws)):
+                    fail("fused_adam %s not bitwise equal to the plain "
+                         "version at %s" % (name, what))
+            print("kernel fused_adam %s%s: bitwise equal to the plain "
+                  "version" % (what, ", with the bf16 copy" if carry
+                               else ""), flush=True)
+        del want
+        if kept is None:
+            kept = grp
+    grp = kept
+    run = clones(grp)             # the timed kernel steps update these
+    lib_params = [p.clone().requires_grad_() for p in grp[0]]
+    for p, g in zip(lib_params, grp[1]):
+        p.grad = g
+    lib = torch.optim.Adam(lib_params, lr=1e-4, fused=True)
+    nel = sum(p.numel() for p in grp[0])
+    row = timed_row(
+        "fused_adam", lambda: fad.fused_adam_step(*run),
+        lambda: fad.fused_adam_reference(*grp), lib.step, 28 * nel,
+        12 * nel, flush, 0.0,
+        "BERT-base group of %d members (torch.optim.Adam(fused=True), "
+        "another eps placement: same bytes, not the same function)"
+        % len(grp[0]))
+    row.update(source="paddle_tpu_torch/kernels/csrc/fused_adam.cu",
+               replaces="paddle_tpu/pallas_kernels/fused_opt.py:96")
+    return row
+
+
 # -- phase 4: decode serving -------------------------------------------------
 
 def gpt2_small():
@@ -584,7 +817,172 @@ def encoder_phase(kmods, cfg=None, clients=3):
     return launches
 
 
+# -- phase 6: BERT-base pretraining -----------------------------------------
+
+TRAIN_BATCH = 32
+TRAIN_STEPS = 5
+CHECK_BATCH = 2
+CHECK_STEPS = 3
+# per training step, on the main path: 12 layers x (forward + the grad's
+# recompute) flash forwards, 12 dQ and 12 dK/dV, 2 x 12 epilogues forward
+# and backward, one fused Adam, LayerNorm on the embeddings and the head
+STEP_LAUNCHES = {"flash_attention": 24, "flash_attention_bwd_dq": 12,
+                 "flash_attention_bwd_dkv": 12, "fused_ln": 24,
+                 "fused_ln_bwd": 24, "fused_adam": 1, "layer_norm": 2}
+
+
+def check_steps(main_p, loss, init, feed, place):
+    """CHECK_STEPS steps of ``main_p`` on ``feed`` from the persistables
+    ``init`` on ``place`` (None: the card) -> (losses, {name: Adam moment
+    after the steps})."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    ex = Executor(place)
+    sc = scope_from_numpy(Scope(), init, ex.device, program=main_p)
+    t0 = time.perf_counter()
+    losses = [float(ex.run(main_p, feed=feed, fetch_list=[loss],
+                           scope=sc)[0].reshape(-1)[0])
+              for _ in range(CHECK_STEPS)]
+    sec = time.perf_counter() - t0
+    moments = {n: sc.find_var(n).get_tensor().numpy() for n in init
+               if "_moment1_" in n or "_moment2_" in n}
+    print("train: %d steps at batch %d on the %s: losses %s (%.1f s)"
+          % (CHECK_STEPS, len(feed["src_ids"]),
+             "card" if place is None else "CPU", json.dumps(losses), sec),
+          flush=True)
+    return losses, moments
+
+
+def card_vs_cpu(main_p, loss, init, feed):
+    """The same steps on the card and on the CPU's plain path -> (max loss
+    difference, the Adam moments' gap and the tensor where it is, as
+    ``moment_gap`` reads them)."""
+    from paddle_tpu_torch import framework
+
+    card, m_card = check_steps(main_p, loss, init, feed, None)
+    cpu, m_cpu = check_steps(main_p, loss, init, feed, framework.CPUPlace())
+    loss_gap = max(abs(a - b) for a, b in zip(card, cpu))
+    return (loss_gap,) + moment_gap(m_card, m_cpu)
+
+
+def moment_gap(got, want):
+    """(largest of max|got - want| / scale over the moment tensors, the
+    tensor where it is).  A tensor's scale is its largest |want|, but at
+    least MOMENT_FLOOR of the largest first moment (MOMENT_FLOOR squared
+    of the largest second moment): a gradient that is zero but for rounding, as
+    the key projection's bias has (softmax ignores a shift shared by a
+    row's scores), leaves moments of rounding noise alone, which only
+    the floor holds."""
+    top = {k: max(float(np.abs(w).max()) for n, w in want.items() if k in n)
+           for k in ("_moment1_", "_moment2_")}
+    floor = {"_moment1_": MOMENT_FLOOR * top["_moment1_"],
+             "_moment2_": MOMENT_FLOOR ** 2 * top["_moment2_"]}
+    gap, worst = 0.0, None
+    for n, w in want.items():
+        kind = "_moment1_" if "_moment1_" in n else "_moment2_"
+        scale = max(float(np.abs(w).max()), floor[kind])
+        rel = float(np.abs(got[n] - w).max()) / scale
+        if worst is None or rel > gap:
+            gap, worst = rel, n
+    return gap, worst
+
+
+def launch_counts(kmods):
+    fa, fl, ln, fad = kmods
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "fused_ln": fl.fused_ln_fwd.launches,
+            "fused_ln_bwd": fl.fused_ln_bwd.launches,
+            "fused_adam": fad.fused_adam_step.launches,
+            "layer_norm": ln.layer_norm_2d.launches}
+
+
+def zero_counts(kmods):
+    fa, fl, ln, fad = kmods
+    for f in (fa.flash_attention, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv, fl.fused_ln_fwd, fl.fused_ln_bwd,
+              fad.fused_adam_step, ln.layer_norm_2d):
+        f.launches = 0
+
+
+def train_phase(kmods, cfg):
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_guard,
+                                       scope_to_numpy)
+    from paddle_tpu_torch.models.bert import (MASK_FRAC, build_pretrain,
+                                              pretrain_feed)
+
+    t0 = time.perf_counter()
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 11
+    with framework.program_guard(main_p, startup):
+        _inputs, loss = build_pretrain(cfg, SEQ, lr=1e-4)
+    params = [v for v in main_p.list_vars()
+              if isinstance(v, framework.Parameter)]
+    n_params = sum(int(np.prod(v.shape)) for v in params)
+    want_n = sum(int(np.prod(s)) for s in bert_param_shapes(cfg))
+    if n_params != want_n:
+        fail("build_pretrain made %d parameters, want %d" % (n_params,
+                                                            want_n))
+    print("train: BERT (vocab %d, hidden %d, %d layers, %d heads, ffn %d, "
+          "max_pos %d, type_vocab %d, dropout %g), seq %d, batch %d, %d "
+          "masked positions; %d parameters in %d tensors (%.1f MB f32), %d "
+          "ops in the main program; built in %.1f s"
+          % (cfg.vocab_size, cfg.hidden, cfg.layers, cfg.heads, cfg.ffn,
+             cfg.max_pos, cfg.type_vocab, cfg.dropout, SEQ, TRAIN_BATCH,
+             int(TRAIN_BATCH * SEQ * MASK_FRAC), n_params, len(params),
+             n_params * 4 / 1e6, len(main_p.global_block().ops),
+             time.perf_counter() - t0), flush=True)
+    exe = Executor()                  # the card
+    scope = Scope()
+    with scope_guard(scope):
+        exe.run(startup)
+        init = scope_to_numpy(scope, main_p)
+        feed = pretrain_feed(np.random.RandomState(3), cfg, TRAIN_BATCH,
+                             SEQ)
+        torch.cuda.synchronize()
+        # the counts start at 0 just before the main path runs
+        zero_counts(kmods)
+        losses, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out, = exe.run(main_p, feed=feed, fetch_list=[loss])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(-1)[0]))
+        launches = launch_counts(kmods)
+    del scope
+    n_fused = sum(op.type == "fused_adam" for op in main_p.global_block().ops)
+    print("train: %d steps, losses %s; step_ms %s, p50 %.3f (the first "
+          "fuses the optimizer ops and plans); %d fused_adam op(s) over %d "
+          "params; launches %s" % (
+              TRAIN_STEPS, json.dumps(losses),
+              json.dumps([round(x, 3) for x in step_ms]),
+              float(np.percentile(step_ms, 50)), n_fused, len(params),
+              json.dumps(launches)), flush=True)
+    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    if launches != want:
+        fail("training launches %s over %d steps, want %s"
+             % (launches, TRAIN_STEPS, want))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("training losses %s: not finite, or the last is not below the "
+             "first" % losses)
+
+    # the same initial state and feeds on the card and on the CPU's plain
+    # path, at a batch the CPU runs in seconds
+    feed2 = pretrain_feed(np.random.RandomState(4), cfg, CHECK_BATCH, SEQ)
+    loss_gap, moment_gap, worst = card_vs_cpu(main_p, loss, init, feed2)
+    print("train: card vs CPU plain path, max loss difference %.3g (limit "
+          "%.3g); Adam moments' gap %.3g (limit %.3g, worst %s)"
+          % (loss_gap, TRAIN_LOSS_ATOL, moment_gap, TRAIN_MOMENT_RTOL,
+             worst), flush=True)
+    if not (loss_gap <= TRAIN_LOSS_ATOL and moment_gap <= TRAIN_MOMENT_RTOL):
+        fail("training on the card disagrees with the CPU plain path")
+    return launches
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs the port on the card")
     if not os.path.isdir(os.path.join(HERE, "paddle_tpu_torch")):
@@ -594,9 +992,11 @@ def main():
     from paddle_tpu_torch import set_f32_numerics
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adam as fad
     from paddle_tpu_torch.kernels import fused_ln as fl
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.models.bert import BertConfig
 
     dev = torch.device("cuda")
     set_f32_numerics()
@@ -617,15 +1017,26 @@ def main():
         for line in usage:
             print("  ptxas " + line)
 
+    # BERT-base widths (Devlin et al. 2018) at dropout 0, the slice's cut
+    bert_cfg = BertConfig(dropout=0.0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     rows = [paged_kernel_phase(pa, dev, flush),
             flash_kernel_phase(fa, dev, flush)]
+    rows += flash_bwd_kernel_phase(fa, dev, flush)
     rows += ln_kernel_phase(fl, ln, dev, flush)
+    rows.append(ln_bwd_kernel_phase(fl, dev, flush))
+    rows.append(adam_kernel_phase(fad, dev, flush, bert_cfg))
     del flush
+    torch.cuda.empty_cache()
+    # each path is driven with the counts at 0 and read just after; a
+    # kernel's row carries the newest path that runs it
     launches = {"paged_attention": decode_phase(pa)}
     launches.update(encoder_phase((fa, fl, ln)))
+    launches.update(train_phase((fa, fl, ln, fad), bert_cfg))
     for row in rows:
         row["launches"] = launches[row["name"]]
+    print("smoke: %.1f s from start to the result, the build included"
+          % (time.perf_counter() - t_start), flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in KEYS}
                                   for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,14 @@ passes ``device="cpu"`` (or ``CPUPlace()``).  Slices ported so far:
    ``inference`` (AnalysisPredictor) and ``serving.ServingEngine``, with
    CUDA kernels for flash attention, fused residual-add LayerNorm and
    LayerNorm (``kernels/csrc/flash_attention.cu``, ``fused_ln.cu``,
-   ``layer_norm.cu``)."""
+   ``layer_norm.cu``);
+3. training on that front end: ``backward`` (``append_backward``),
+   ``optimizer`` (Adam), ``ir`` (the optimizer fusion the executor
+   applies), the grad ops, and ``models.bert.build_pretrain`` (BERT at
+   dropout 0), with CUDA kernels for the attention backward, the fused
+   LayerNorm backward and the fused Adam step
+   (``kernels/csrc/flash_attention_bwd.cu``, ``fused_ln_bwd.cu``,
+   ``fused_adam.cu``)."""
 
 from .device import resolve_device, set_f32_numerics
 

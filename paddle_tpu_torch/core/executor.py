@@ -1,12 +1,15 @@
 """Executor: runs Programs op by op in eager PyTorch on one device.
 
 Counterpart of ``paddle_tpu/core/executor.py`` (``global_scope:52``,
-``scope_guard:59``, ``Executor.run:427``).  ``run`` builds a
+``scope_guard:59``, ``Executor.run:427``,
+``_maybe_fuse_optimizers:1033``).  ``run`` first fuses a training
+program's optimizer ops (once per program version), then builds a
 ``BlockPlan`` per (program, version, feed shapes and dtypes, fetch list)
 and caches it; parameters come from the Scope, the ops launch their
 kernels on the executor's device, and persistables the block writes (the
-startup program's initialisers) are stored back.  No ``torch.compile``:
-each op's lowering runs as written.
+startup program's initialisers; a training step's parameters, moments
+and beta pows) are stored back.  No ``torch.compile``: each op's
+lowering runs as written.
 """
 
 import contextlib
@@ -76,7 +79,10 @@ def _fetch_name(f):
 
 
 class Executor:
-    """Runs programs on one device (``place=None``: the CUDA card)."""
+    """Runs programs on one device (``place=None``: the CUDA card).  A
+    training program's adam ops are coalesced into one fused_adam before
+    its first plan, as the reference does by default
+    (FLAGS_fuse_optimizer_ops)."""
 
     def __init__(self, place=None):
         self.place = place
@@ -84,6 +90,25 @@ class Executor:
         if self.device.type == "cuda":
             set_f32_numerics()
         self._cache = {}
+        self._fuse_attempted = set()
+
+    def _maybe_fuse_optimizers(self, program, feed_names, fetch_names):
+        """Horizontal optimizer fusion before planning, tried once per
+        (program, version): one fused update instead of one launch per
+        parameter.  The pass bumps the version when it fuses, so the plan
+        that follows is of the fused program."""
+        key = (program._uid, program.version)
+        if key in self._fuse_attempted:
+            return
+        self._fuse_attempted.add(key)
+        block = program.global_block()
+        if sum(op.type == "adam" for op in block.ops) < 4:
+            return
+        from .. import ir
+
+        ir.apply_pass("fuse_optimizer_ops_pass", program, None,
+                      protected=set(feed_names) | set(fetch_names))
+        self._fuse_attempted.add((program._uid, program.version))
 
     def _plan(self, program, feeds, fetch_names):
         key = (program._uid, program.version,
@@ -118,6 +143,7 @@ class Executor:
         block = program.global_block()
         env = {n: self._to_device(n, v, block)
                for n, v in (feed or {}).items()}
+        self._maybe_fuse_optimizers(program, list(env), fetch_names)
         plan, _cached = self._plan(program, env, fetch_names)
         feeds = set(env)
         for n in plan.external:
@@ -172,6 +198,7 @@ class Executor:
             feed[name] = torch.zeros(tuple(shape), dtype=dtype,
                                      device=self.device)
         fetch_names = [_fetch_name(f) for f in fetch_list or []]
+        self._maybe_fuse_optimizers(program, list(feed), fetch_names)
         _plan, cached = self._plan(program, feed, fetch_names)
         t0 = time.perf_counter()
         self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,

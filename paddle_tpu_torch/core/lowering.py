@@ -44,8 +44,10 @@ def analyze_block(block, feed_names):
     external = []
     for op in _runtime_ops(block):
         for name in op.input_arg_names:
+            # a gradient no op produced is an implicit zero for the grad
+            # op that reads it, never a scope read
             if name and name not in feed and name not in written \
-                    and name not in external:
+                    and name not in external and not _is_grad_name(name):
                 external.append(name)
         written.update(n for n in op.output_arg_names if n)
     persist_written = []
@@ -88,13 +90,19 @@ class BlockPlan:
                 self.release[i].append(n)
 
 
+def _is_grad_name(name):
+    return name.endswith("@GRAD") or "@GRAD@" in name
+
+
 def _gather(opdef, op, slot, env):
     names = op.input(slot)
+    optional = slot in opdef.optional_inputs or slot.startswith(
+        ("GRAD@", "Out@"))
     vals = []
     for n in names:
         if n in env:
             vals.append(env[n])
-        elif slot in opdef.optional_inputs:
+        elif not n or optional or _is_grad_name(n):
             vals.append(None)
         else:
             raise KeyError("op %s input %s=%r is not initialized (not fed, "

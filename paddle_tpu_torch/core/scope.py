@@ -4,7 +4,7 @@ executor's device.  Counterpart of ``paddle_tpu/core/scope.py``."""
 import numpy as np
 import torch
 
-__all__ = ["Scope", "Tensor", "scope_from_numpy"]
+__all__ = ["Scope", "Tensor", "scope_from_numpy", "scope_to_numpy"]
 
 
 class Tensor:
@@ -74,11 +74,40 @@ class Scope:
         return None
 
 
-def scope_from_numpy(scope, arrays, device):
+def _persistable_vars(program):
+    return [v for v in program.list_vars() if v.persistable and not v.is_data]
+
+
+def scope_from_numpy(scope, arrays, device, program=None):
     """Set ``{name: ndarray}`` into ``scope`` as tensors on ``device`` (a
-    torch device or name; the tests hand parameters over this way)."""
+    torch device or name).  With ``program``, the arrays are its
+    persistables (parameters and optimizer state: moments, beta pows,
+    learning rate), each must be given and each is set in the dtype its
+    variable declares; this is how a JAX scope's training state is
+    carried into the port."""
+    from ..framework import dtype_to_torch
+
     dev = torch.device(device)
+    dtypes = {}
+    if program is not None:
+        dtypes = {v.name: dtype_to_torch(v.dtype)
+                  for v in _persistable_vars(program)}
+        missing = sorted(set(dtypes) - set(arrays))
+        if missing:
+            raise KeyError("no array for persistables %s" % missing[:8])
+        arrays = {n: arrays[n] for n in dtypes}
     for name, arr in arrays.items():
-        scope.var(name).set(torch.from_numpy(
-            np.ascontiguousarray(arr)).to(dev))
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        scope.var(name).set(t.to(device=dev, dtype=dtypes.get(name,
+                                                              t.dtype)))
     return scope
+
+
+def scope_to_numpy(scope, program):
+    """{name: ndarray} of ``program``'s persistables found in ``scope``."""
+    out = {}
+    for v in _persistable_vars(program):
+        sv = scope.find_var(v.name)
+        if sv is not None and sv.get_tensor()._is_initialized():
+            out[v.name] = sv.get_tensor().numpy()
+    return out

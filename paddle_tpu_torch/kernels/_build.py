@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("paged_attention", "flash_attention", "fused_ln", "layer_norm")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "fused_ln", "fused_ln_bwd", "layer_norm", "fused_adam")
 
 _lock = threading.Lock()
 _libs = {}

@@ -13,7 +13,7 @@
 // row held in registers, so x and y are read once and the three passes
 // (sum, centred square, normalise) never go back to device memory; eight
 // rows per 256-thread block.  The TPU kernel's in-kernel dropout
-// (pltpu PRNG bits) comes with the training slice, as a Philox stream.
+// (pltpu PRNG bits) comes with BERT at dropout 0.1, as a Philox stream.
 //
 // Entry point: plain C, returns the launch's cudaError_t.
 

@@ -1,19 +1,28 @@
-"""Flash attention forward: the plain PyTorch version and the CUDA kernel.
+"""Flash attention forward and backward: the plain PyTorch versions and
+the CUDA kernels.
 
 Counterpart of ``paddle_tpu/pallas_kernels/flash_attention.py``
-(``_fwd_pallas:267`` / ``_fwd_kernel:49``): softmax(q k^T * scale + bias)
-v over [B, H, S, D] operands with an optional additive bias
-[B, 1 or H, Sq, Sk] and causal masking, returning the output and the
-row log-sum-exp.
+(``_fwd_pallas:267`` / ``_fwd_kernel:49``; ``_bwd_pallas:332`` /
+``_bwd_dq_kernel:112`` and ``_bwd_dkv_kernel:157``; the custom VJP
+``_flash_b:469``): softmax(q k^T * scale + bias) v over [B, H, S, D]
+operands with an optional additive bias [B, 1 or H, Sq, Sk] and causal
+masking, returning the output and the row log-sum-exp; the backward
+recomputes the probabilities from that lse.
 
-* ``flash_attention_reference`` is the plain version: the reference's
-  ``_ref_attention`` plus the lse.
-* ``flash_attention`` dispatches on where q lives: CPU (and meta, for
-  shape inference) tensors take the plain version; a CUDA tensor launches
-  the hand-written kernel (``csrc/flash_attention.cu``) at every shape,
-  or the call raises.  The TPU package takes its kernel only at Sk >= 1024
-  with 128-multiple blocks, a cutoff measured on the TPU; the port has no
-  such gate.  ``flash_attention.launches`` counts kernel launches.
+* ``flash_attention_reference`` / ``flash_attention_bwd_reference`` are
+  the plain versions: the reference's ``_ref_attention`` plus the lse,
+  and the recompute backward of its Pallas kernels.
+* ``flash_attention`` and ``flash_attention_bwd`` dispatch on where q
+  lives: CPU (and meta, for shape inference) tensors take the plain
+  version; a CUDA tensor launches the hand-written kernels
+  (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) at every
+  shape, or the call raises.  The TPU package takes its kernel only at
+  Sk >= 1024 with 128-multiple blocks, a cutoff measured on the TPU; the
+  port has no such gate.  ``flash_attention.launches``,
+  ``flash_attention_bwd_dq.launches`` and
+  ``flash_attention_bwd_dkv.launches`` count kernel launches.
+* ``FlashAttention`` (``flash_attention_train``) is the differentiable
+  form, a ``torch.autograd.Function`` whose backward is the kernels'.
 """
 
 import ctypes
@@ -23,10 +32,18 @@ import torch
 from . import _build
 from ._checks import check_cuda_f32, raise_on_error
 
-__all__ = ["flash_attention_reference", "flash_attention"]
+__all__ = ["flash_attention_reference", "flash_attention",
+           "attention_delta", "flash_attention_bwd_reference",
+           "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv_reference", "flash_attention_bwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "FlashAttention", "flash_attention_train"]
 
 # finite, as in the reference: a fully masked row averages V, never NaN
 _MASK = -1e30
+# a row whose lse is below this had every score at _MASK: there f32 holds
+# lse = -1e30 (not -1e30 + log(Sk)), so exp(s - lse) is 1, not 1 / Sk
+_MASKED_ROW = -1e29
 _MAX_D = 128
 
 
@@ -49,6 +66,68 @@ def flash_attention_reference(q, k, v, bias=None, causal=False,
     return out.to(q.dtype), lse
 
 
+def _scores(q, k, bias, causal, sm_scale):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        sq, sk = s.shape[-2:]
+        above = torch.arange(sk, device=s.device)[None, :] \
+            > torch.arange(sq, device=s.device)[:, None]
+        s = s.masked_fill(above, _MASK)
+    return s
+
+
+def attention_delta(out, do):
+    """rowsum(dO * O) [B, H, Sq, 1] f32, the backward's delta."""
+    return (do.float() * out.float()).sum(dim=-1, keepdim=True)
+
+
+def _probs(q, k, bias, lse, causal, sm_scale):
+    """p = exp(s - lse), recomputed; a fully masked row's p is the
+    forward's 1 / Sk."""
+    s = _scores(q, k, bias, causal, sm_scale)
+    p = torch.exp(s - lse)
+    return torch.where(lse < _MASKED_ROW, p / s.shape[-1], p)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, bias, do, lse, delta,
+                                     causal=False, sm_scale=None):
+    """Plain dQ: ds = p (dO v^T - delta) scale, dQ = ds k."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    p = _probs(q, k, bias, lse, causal, sm_scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta) * sm_scale
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse, delta,
+                                      causal=False, sm_scale=None):
+    """Plain (dK, dV): dK = ds^T q, dV = p^T dO."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    p = _probs(q, k, bias, lse, causal, sm_scale)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - delta) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                  causal=False, sm_scale=None):
+    """(dq, dk, dv) by the recompute scheme of the reference's backward
+    kernels, from the forward's out and lse."""
+    delta = attention_delta(out, do)
+    dq = flash_attention_bwd_dq_reference(q, k, v, bias, do, lse, delta,
+                                          causal, sm_scale)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse,
+                                               delta, causal, sm_scale)
+    return dq, dk, dv
+
+
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -58,13 +137,18 @@ def _kernel():
         [_VP] * 6 + [_I] * 7 + [ctypes.c_float] + [_LL] * 9 + [_VP])
 
 
-def _check(q, k, v, bias):
+def _bwd_kernel(symbol):
+    return _build.function("flash_attention_bwd", symbol,
+                           [_VP] * (9 if symbol.endswith("dkv_f32") else 8)
+                           + [_I] * 7 + [ctypes.c_float, _VP, _VP])
+
+
+def _check(q, k, v, bias, kernel="flash_attention"):
     # q, k, v may be strided views (a transposed head split) as long as
     # the head dim is dense; the bias must be dense
-    check_cuda_f32("flash_attention", q.device, contiguous=False, q=q, k=k,
-                   v=v)
+    check_cuda_f32(kernel, q.device, contiguous=False, q=q, k=k, v=v)
     if bias is not None:
-        check_cuda_f32("flash_attention", q.device, bias=bias)
+        check_cuda_f32(kernel, q.device, bias=bias)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention kernel: want q, k, v [B, H, S, D]")
     bb, h, sq, d = q.shape
@@ -122,3 +206,127 @@ def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None):
 
 
 flash_attention.launches = 0
+
+
+def _check_bwd(kernel, q, k, v, bias, do, lse, delta):
+    _check(q, k, v, bias, kernel)
+    check_cuda_f32(kernel, q.device, contiguous=False, do=do)
+    check_cuda_f32(kernel, q.device, lse=lse, delta=delta)
+    bb, h, sq, d = q.shape
+    if tuple(do.shape) != (bb, h, sq, d) or do.stride(3) != 1:
+        raise ValueError("%s kernel: dO %s (head-dim stride %d), want a "
+                         "dense-head-dim %s" % (kernel, tuple(do.shape),
+                                                do.stride(3),
+                                                tuple(q.shape)))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.numel() != bb * h * sq:
+            raise ValueError("%s kernel: %s %s, want [%d, %d, %d, 1]"
+                             % (kernel, name, tuple(t.shape), bb, h, sq))
+
+
+def _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale):
+    bb, h, sq, d = q.shape
+    strides = (ctypes.c_longlong * 12)(
+        *[s for t in (q, k, v, do) for s in t.stride()[:3]])
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()],
+            [bb, h, sq, k.shape[2], d,
+             0 if bias is None else bias.shape[1], int(bool(causal)),
+             float(sm_scale), strides,
+             torch.cuda.current_stream(q.device).cuda_stream])
+
+
+def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal=False,
+                           sm_scale=None):
+    """dQ [B, H, Sq, D] by the CUDA kernel (``csrc/flash_attention_bwd.cu``
+    ``flash_bwd_dq_kernel``); CUDA tensors only: the plain version is
+    ``flash_attention_bwd_dq_reference``."""
+    fn = _bwd_kernel("flash_attention_bwd_dq_f32")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_bwd("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ptrs, rest = _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale)
+    err = fn(*ptrs, dq.data_ptr(), *rest)
+    raise_on_error("flash_attention_bwd_dq", err)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False,
+                            sm_scale=None):
+    """(dK, dV) [B, H, Sk, D] by the CUDA kernel
+    (``flash_bwd_dkv_kernel``); CUDA tensors only: the plain version is
+    ``flash_attention_bwd_dkv_reference``."""
+    fn = _bwd_kernel("flash_attention_bwd_dkv_f32")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_bwd("flash_attention_bwd_dkv", q, k, v, bias, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    ptrs, rest = _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale)
+    err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
+    raise_on_error("flash_attention_bwd_dkv", err)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, bias, out, lse, do, causal=False,
+                        sm_scale=None):
+    """Attention backward -> (dq, dk, dv), dense [B, H, S, D], from the
+    forward's out and lse.  CPU and meta tensors take
+    ``flash_attention_bwd_reference``; CUDA tensors launch the dQ and the
+    dK/dV kernels."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type in ("cpu", "meta"):
+        return flash_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                             causal, sm_scale)
+    delta = attention_delta(out, do)
+    lse = lse.contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal,
+                                sm_scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
+                                     sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention (the reference's custom-VJP ``_flash_b``):
+    forward by ``flash_attention``, backward by ``flash_attention_bwd``
+    from the saved out and lse.  The bias is a mask and gets no
+    gradient.  Written in the forward / setup_context form, so
+    ``torch.func`` transforms can use it too."""
+
+    @staticmethod
+    def forward(q, k, v, bias, causal, sm_scale):
+        return flash_attention(q, k, v, bias, causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, bias, causal, sm_scale = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, bias=None, causal=False, sm_scale=None):
+    """Attention output [B, H, Sq, D], differentiable in q, k and v."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return FlashAttention.apply(q, k, v, bias, causal, sm_scale)[0]

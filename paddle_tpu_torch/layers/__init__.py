@@ -1,10 +1,14 @@
-"""Layer API of the port (the subset the BERT encoder calls)."""
+"""Layer API of the port (the subset BERT pretraining and the MNIST MLP
+call)."""
 
-from .nn import (elementwise_add, embedding, fc, flash_attention,  # noqa
-                 fused_dropout_add_ln, layer_norm, matmul, reshape, scale,
-                 transpose, unsqueeze)
-from .tensor import data  # noqa: F401
+from .nn import (accuracy, elementwise_add, embedding, fc,  # noqa: F401
+                 flash_attention, fused_dropout_add_ln, gather, layer_norm,
+                 matmul, mean, reshape, scale, softmax,
+                 softmax_with_cross_entropy, transpose, unsqueeze)
+from .tensor import create_global_var, data, fill_constant  # noqa: F401
 
-__all__ = ["data", "elementwise_add", "embedding", "fc", "flash_attention",
-           "fused_dropout_add_ln", "layer_norm", "matmul", "reshape", "scale",
+__all__ = ["accuracy", "create_global_var", "data", "elementwise_add",
+           "embedding", "fc", "fill_constant", "flash_attention",
+           "fused_dropout_add_ln", "gather", "layer_norm", "matmul", "mean",
+           "reshape", "scale", "softmax", "softmax_with_cross_entropy",
            "transpose", "unsqueeze"]

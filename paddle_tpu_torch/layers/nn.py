@@ -2,16 +2,19 @@
 ``paddle_tpu/layers/nn.py`` (``fc:133``, ``embedding:174``,
 ``matmul:199``, ``elementwise_add:459``, ``scale:509``,
 ``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``transpose:1217``,
-``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``).  Each
-appends ops to the current block and names its variables and parameters
-exactly as the reference does."""
+``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``,
+``softmax_with_cross_entropy:239``, ``accuracy:368``, ``mean:502``,
+``softmax:587``, ``gather:1385``).  Each appends ops to the current
+block and names its variables and parameters exactly as the reference
+does."""
 
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
            "layer_norm", "fused_dropout_add_ln", "transpose", "reshape",
-           "unsqueeze", "flash_attention"]
+           "unsqueeze", "flash_attention", "gather",
+           "softmax_with_cross_entropy", "mean", "softmax", "accuracy"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -206,3 +209,64 @@ def flash_attention(q, k, v, bias_qk=None, causal=False, scale=0.0,
                             "dropout_prob": float(dropout_prob),
                             "is_test": is_test})
     return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index,
+                            "numeric_stable_mode": numeric_stable_mode,
+                            "axis": axis})
+    if return_softmax:
+        return loss, softmax
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    topk_indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [topk_out], "Indices": [topk_indices]},
+                     attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference(dtype="float32")
+    if correct is None:
+        correct = helper.create_variable_for_type_inference(dtype="int32")
+    if total is None:
+        total = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out

@@ -1,9 +1,14 @@
-"""Input declaration: ``data``.  Counterpart of
-``paddle_tpu/layers/tensor.py`` (``data:43``)."""
+"""Input declaration and constants: ``data``, ``create_global_var``,
+``fill_constant``.  Counterpart of ``paddle_tpu/layers/tensor.py``
+(``data:43``, ``create_global_var:83``, ``fill_constant:154``)."""
 
+from ..framework import convert_np_dtype_to_dtype_
+from ..initializer import Constant
 from ..layer_helper import LayerHelper
+from ..ops.common import dtype_enum
+from ..utils import unique_name
 
-__all__ = ["data"]
+__all__ = ["data", "create_global_var", "fill_constant"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -17,3 +22,26 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
     return helper.block.program.global_block().create_var(
         name=name, shape=shape, dtype=dtype, lod_level=lod_level,
         is_data=True, need_check_feed=True, stop_gradient=stop_gradient)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block variable the startup program fills with ``value``."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.main_program.global_block().create_var(
+        name=name or unique_name.generate(helper.name + ".tmp"),
+        dtype=dtype, shape=list(shape), persistable=persistable)
+    Constant(value)(var)
+    return var
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype_enum(dtype),
+                            "value": float(value), "force_cpu": force_cpu})
+    out.stop_gradient = True
+    return out

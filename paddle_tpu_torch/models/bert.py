@@ -2,19 +2,25 @@
 
 Counterpart of ``paddle_tpu/models/bert.py``: the same configurations,
 layer calls and parameter names, so the two packages build identical
-programs and share saved weights.  Kept: the inference (``is_test``)
-emission, with one ``flash_attention`` op per layer, two
-``fused_dropout_add_ln`` epilogues per layer and a ``layer_norm`` on the
-embeddings.  The dropout training emission raises until the training
-slice (``build_pretrain`` waits for it too); the reference's TPU A/B
-switches (``BERT_FUSED_ATTN``, ``BERT_COMPOSED_LN``) are not carried.
+programs and share saved weights.  Kept: the emission without dropout
+(inference, or training at ``dropout=0``), with one ``flash_attention``
+op per layer, two ``fused_dropout_add_ln`` epilogues per layer and a
+``layer_norm`` on the embeddings, and ``build_pretrain``'s masked-LM
+head with Adam.  The dropout training emission raises until the port has
+a dropout stream; the reference's TPU A/B switches (``BERT_FUSED_ATTN``,
+``BERT_COMPOSED_LN``) are not carried.  ``pretrain_feed`` makes the
+pretraining feed of the reference's ``bench.py`` (``_bert_feed``).
 """
 
+import numpy as np
+
 from .. import layers
+from ..optimizer import Adam
 from ..param_attr import ParamAttr
 
 __all__ = ["BertConfig", "BERT_BASE", "BERT_TINY", "multi_head_attention",
-           "encoder_layer", "embeddings", "bert_encoder"]
+           "encoder_layer", "embeddings", "bert_encoder", "build_pretrain",
+           "MASK_FRAC", "pretrain_feed"]
 
 
 class BertConfig:
@@ -38,7 +44,8 @@ BERT_TINY = BertConfig(vocab_size=1024, hidden=64, layers=2, heads=4,
 def _training_emission():
     raise NotImplementedError(
         "BERT with dropout (is_test=False and cfg.dropout > 0) is the "
-        "training emission, ported with the training slice")
+        "dropout training emission, not in this training slice: build "
+        "with BertConfig(dropout=0.0)")
 
 
 def multi_head_attention(x, cfg, prefix, is_test=False, attn_mask=None):
@@ -113,3 +120,45 @@ def bert_encoder(cfg, seq_len, is_test=False):
     for i in range(cfg.layers):
         x = encoder_layer(x, cfg, "layer_%d" % i, is_test, attn_mask)
     return (src_ids, pos_ids, sent_ids, input_mask), x
+
+
+def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False):
+    """Masked-LM pretraining: the encoder, a gather of the mask positions
+    (flat indices into [batch * seq_len]), fc + gelu, layer_norm, fc to
+    the vocabulary, softmax_with_cross_entropy and mean; with
+    ``is_test=False`` Adam(lr).minimize(loss).  Returns (inputs + (mask_pos,
+    mask_label), loss)."""
+    inputs, seq_out = bert_encoder(cfg, seq_len, is_test)
+    mask_pos = layers.data("mask_pos", shape=[1], dtype="int64")
+    mask_label = layers.data("mask_label", shape=[1], dtype="int64")
+    flat = layers.reshape(seq_out, [-1, cfg.hidden])
+    picked = layers.gather(flat, mask_pos)
+    trans = layers.fc(picked, cfg.hidden, act="gelu")
+    trans = layers.layer_norm(trans, begin_norm_axis=1)
+    logits = layers.fc(trans, cfg.vocab_size)
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, mask_label))
+    if not is_test:
+        Adam(learning_rate=lr).minimize(loss)
+    return inputs + (mask_pos, mask_label), loss
+
+
+# share of a batch's tokens that the masked-LM head predicts
+MASK_FRAC = 0.15
+
+
+def pretrain_feed(rng, cfg, batch, seq_len):
+    """A ``build_pretrain`` feed from the numpy RandomState ``rng``:
+    random ids, every token real, int(batch * seq_len * MASK_FRAC) mask
+    positions (flat indices) drawn with replacement, random labels."""
+    n_mask = max(int(batch * seq_len * MASK_FRAC), 1)
+    return {
+        "src_ids": rng.randint(0, cfg.vocab_size,
+                               (batch, seq_len, 1)).astype("int64"),
+        "pos_ids": np.tile(np.arange(seq_len).reshape(1, seq_len, 1),
+                           (batch, 1, 1)).astype("int64"),
+        "sent_ids": np.zeros((batch, seq_len, 1), "int64"),
+        "input_mask": np.ones((batch, seq_len, 1), "float32"),
+        "mask_pos": rng.randint(0, batch * seq_len, (n_mask,)).astype("int64"),
+        "mask_label": rng.randint(0, cfg.vocab_size,
+                                  (n_mask, 1)).astype("int64"),
+    }

@@ -39,10 +39,10 @@ def bcast_y(x, y, axis=-1):
 
 
 def training_only(ctx, what):
-    """Raise for a training path this slice does not run.  Shape
-    inference (meta tensors) passes: the output shapes do not depend on
-    it."""
+    """Raise for the dropout training path, which needs a random stream
+    the port does not have yet.  Shape inference (meta tensors) passes:
+    the output shapes do not depend on it."""
     if not ctx.abstract:
         raise NotImplementedError(
-            "%s is a training path, ported with the training slice "
-            "(backward, optimizer, dropout)" % what)
+            "%s is a dropout training path, not in this training slice: it "
+            "comes with BERT at dropout 0.1 (a Philox stream)" % what)

@@ -1,8 +1,11 @@
-"""Shape ops and the embedding lookup: reshape2, transpose2, unsqueeze2,
-lookup_table.
+"""Shape ops, gather and the embedding lookup: reshape2, transpose2,
+unsqueeze2, gather, lookup_table.
 
 Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
-``transpose2:101``, ``unsqueeze2:214``, ``lookup_table:322``).  The
+``transpose2:101``, ``unsqueeze2:214``, ``gather:284``,
+``lookup_table:322``).  Their gradients are the synthesized vjp replays:
+gather's and lookup_table's accumulate repeated indices (in a varying
+order where the card adds them with atomics).  The
 ``XShape`` outputs are placeholders for the grad ops, as in the reference:
 the lowerings leave them unset.  Reshape and transpose return views where
 PyTorch can; a consumer that needs contiguous memory makes it so.
@@ -90,11 +93,19 @@ def unsqueeze2(ctx, x, axes_t, axes=()):
     return x, None
 
 
+@register_op("gather", inputs=("X", "Index"), outputs=("Out",),
+             attrs={"overwrite": True}, no_grad_inputs=("Index",))
+def gather(ctx, x, index, overwrite=True):
+    idx = index.reshape(-1) if index.dim() > 1 else index
+    return x.index_select(0, idx.long())
+
+
 @register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
              attrs={"is_sparse": False, "is_distributed": False,
                     "padding_idx": -1, "remote_prefetch": False,
                     "entry_config": "", "entry": "none", "table_names": [],
-                    "epmap": [], "height_sections": [], "trainer_id": 0})
+                    "epmap": [], "height_sections": [], "trainer_id": 0},
+             no_grad_inputs=("Ids",))
 def lookup_table(ctx, w, ids, padding_idx=-1, **_):
     # fluid v1 lookup_table takes ids of shape [..., 1]
     if ids.dim() >= 2 and ids.shape[-1] == 1:

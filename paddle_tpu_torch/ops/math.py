@@ -1,14 +1,19 @@
-"""Dense math ops: mul, matmul, elementwise_add, scale.
+"""Dense math ops: mul, matmul, elementwise_add, scale, sum, mean, and
+the explicit grads of mul and elementwise_add.
 
 Counterpart of ``paddle_tpu/ops/math.py`` (``mul:48``, ``matmul:66``,
-``elementwise_add:140``, ``scale:151``).  The products are plain
-``torch.matmul`` calls (cuBLAS on the card, in full f32: TF32 is off), as
-the reference leaves them to XLA.
+``elementwise_add:140``, ``scale:151``, ``sum:163``, ``mean:172``).  The
+products are plain ``torch.matmul`` calls (cuBLAS on the card, in full
+f32: TF32 is off), as the reference leaves them to XLA.  The reference
+differentiates mul and elementwise_add by replaying them under
+``jax.vjp``, where XLA drops the replayed product; an eager replay would
+pay it, so the port's ``mul_grad`` and ``elementwise_add_grad`` are
+written out.
 """
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_grad_lowering, register_op, wants_grad
 from .common import bcast_y
 
 
@@ -61,3 +66,54 @@ def scale(ctx, x, scale_tensor, scale=1.0, bias=0.0, bias_after_scale=True):
     if bias_after_scale:
         return x * s + bias
     return (x + bias) * s
+
+
+@register_op("sum", inputs=("X",), outputs=("Out",),
+             duplicable_inputs=("X",))
+def sum_op(ctx, xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@register_op("mean", inputs=("X",), outputs=("Out",))
+def mean(ctx, x):
+    return x.mean().reshape(1)
+
+
+@register_grad_lowering("mul")
+def mul_grad(ctx, x, y, out, dout, x_num_col_dims=1, y_num_col_dims=1,
+             **_):
+    """dX = dOut . Y^T and dY = X^T . dOut over the flattened 2-D views,
+    reshaped back; only the gradients the op writes are computed."""
+    x2 = _flatten2d(x, x_num_col_dims)
+    y2 = _flatten2d(y, y_num_col_dims)
+    d2 = dout.reshape(x2.shape[0], y2.shape[1])
+    dx = torch.matmul(d2, y2.t()).reshape(x.shape) \
+        if wants_grad(ctx, "X") else None
+    dy = torch.matmul(x2.t(), d2).reshape(y.shape) \
+        if wants_grad(ctx, "Y") else None
+    return dx, dy
+
+
+def _unbroadcast(g, shape):
+    """Sum ``g`` over the dims a broadcast added to a tensor of
+    ``shape``, back to ``shape``."""
+    if tuple(g.shape) == tuple(shape):
+        return g
+    lead = g.dim() - len(shape)
+    dims = list(range(lead)) + [lead + i for i, n in enumerate(shape)
+                                if n == 1 and g.shape[lead + i] != 1]
+    return g.sum(dim=dims, keepdim=True).reshape(shape) if dims \
+        else g.reshape(shape)
+
+
+@register_grad_lowering("elementwise_add")
+def elementwise_add_grad(ctx, x, y, out, dout, axis=-1):
+    dx = _unbroadcast(dout, x.shape) if wants_grad(ctx, "X") else None
+    dy = None
+    if wants_grad(ctx, "Y"):
+        yb = bcast_y(x, y, axis)  # y as the forward broadcast it
+        dy = _unbroadcast(dout, yb.shape).reshape(y.shape)
+    return dx, dy

@@ -1,0 +1,69 @@
+"""Optimizer update ops: adam and fused_adam.
+
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``adam:50``,
+``fused_adam:367``).  Scalars enter the arithmetic as f32 tensors, as the
+reference's ``jnp.asarray(beta1, dt)`` does, so each update is the same
+sequence of f32 operations.  ``adam`` returns new tensors;
+``fused_adam`` (what ``ir.FuseOptimizerOpsPass`` makes of a group of
+adam ops) reaches the fused-Adam kernel, which updates the parameters,
+moments and beta pows in place on the card.  The ``sgd`` and ``momentum``
+updates come with their optimizers.
+"""
+
+import torch
+
+from ..core.registry import register_op
+from ..kernels.fused_adam import fused_adam_step
+
+
+@register_op("adam",
+             inputs=("Param", "Grad", "Moment1", "Moment2", "LearningRate",
+                     "Beta1Pow", "Beta2Pow", "Beta1Tensor", "Beta2Tensor"),
+             outputs=("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+                      "Beta2PowOut"),
+             attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                    "lazy_mode": False,
+                    "min_row_size_to_use_multithread": 1000},
+             optional_inputs=("Beta1Tensor", "Beta2Tensor"),
+             grad_maker=None)
+def adam(ctx, param, grad, m1, m2, lr, b1pow, b2pow, b1t, b2t, beta1=0.9,
+         beta2=0.999, epsilon=1e-8, **_):
+    dt, dev = param.dtype, param.device
+
+    def scalar(t, value):
+        return t.reshape(()).to(dt) if t is not None \
+            else torch.tensor(value, dtype=dt, device=dev)
+
+    b1, b2 = scalar(b1t, beta1), scalar(b2t, beta2)
+    g = grad.to(dt)
+    m1n = b1 * m1 + (1.0 - b1) * g
+    m2n = b2 * m2 + (1.0 - b2) * g * g
+    b1p = b1pow.reshape(()).to(dt)
+    b2p = b2pow.reshape(()).to(dt)
+    lr_t = lr.reshape(()).to(dt) * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    p = param - lr_t * m1n / (torch.sqrt(m2n) + epsilon)
+    return (p, m1n, m2n, (b1pow * b1).to(b1pow.dtype),
+            (b2pow * b2).to(b2pow.dtype))
+
+
+@register_op("fused_adam",
+             inputs=("Param", "Grad", "Moment1", "Moment2", "LearningRate",
+                     "Beta1Pow", "Beta2Pow"),
+             outputs=("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+                      "Beta2PowOut"),
+             duplicable_inputs=("Param", "Grad", "Moment1", "Moment2",
+                                "Beta1Pow", "Beta2Pow"),
+             duplicable_outputs=("ParamOut", "Moment1Out", "Moment2Out",
+                                 "Beta1PowOut", "Beta2PowOut"),
+             attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+             grad_maker=None)
+def fused_adam(ctx, params, grads, m1s, m2s, lr, b1pows, b2pows, beta1=0.9,
+               beta2=0.999, epsilon=1e-8):
+    """One Adam step over the group, each member with its own bias
+    correction (beta pows may diverge).  On the card the outputs are the
+    inputs, updated in place: ParamOut names equal Param names."""
+    if ctx.abstract:  # shape inference: the outputs are the inputs
+        return (params, m1s, m2s, b1pows, b2pows)
+    p, m1, m2, b1o, b2o, _bf16 = fused_adam_step(
+        params, grads, m1s, m2s, lr, b1pows, b2pows, beta1, beta2, epsilon)
+    return p, m1, m2, b1o, b2o
