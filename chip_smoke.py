@@ -10,9 +10,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sm_90a (all started together), with seconds and ptxas usage;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at its main-path shape and others (the fused Adam bitwise, with and
-   without its bf16 copy), then timed (CUDA events, L2 flushed before
-   every launch, as the serving and training loops find it) beside its
-   plain version, a one-call PyTorch yardstick and its bound;
+   without its bf16 copy; the dropout kernel's mask bytes bitwise, its
+   keep fraction within 5 sigma; the dropout paths at p = 0.1, where one
+   flipped keep bit would move an output by about prob / q), then timed
+   (CUDA events, L2 flushed before every launch, as the serving and
+   training loops find it) beside its plain version, a one-call PyTorch
+   yardstick and its bound;
 4. decode serving: a GPT-2-small-width decoder (seeded random weights) in
    the port's DecodeEngine answers a dozen requests; every reply must be
    ok, every decode step must have gone through the paged-attention
@@ -25,14 +28,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    launched the flash-attention, fused-LayerNorm and LayerNorm kernels
    12, 24 and 1 times each, and sampled replies must equal the same
    directory run by the plain predictor on the CPU;
-6. BERT-base pretraining (seeded random weights, dropout 0, seq 128,
-   batch 32) built with the port's ``build_pretrain`` and trained 5 steps
-   on one batch through ``Executor.run``: every step must launch the
-   flash-attention forward, its dQ and dK/dV kernels, the fused-LN
-   forward and backward, the fused Adam and the LayerNorm kernels
-   24/12/12/24/24/1/2 times, the last loss must be below the first, and
-   3 steps at batch 2 from the same initial state must give the losses
-   and Adam moments of the port's plain path on the CPU;
+6. BERT-base pretraining (seeded random weights, seq 128, batch 32)
+   built with the port's ``build_pretrain`` and trained 5 steps on one
+   batch through ``Executor.run``, in three emissions, one after the
+   other: dropout 0 (flash attention and its backward), BERT's dropout
+   0.1 in the default emission (the dropout op on the embeddings and the
+   attention probabilities, the fused LayerNorms at p = 0.1), and
+   dropout 0.1 with ``BERT_FUSED_ATTN=1`` and
+   ``FLAGS_fused_small_attention`` (the small-sequence attention
+   kernels).  Every step must launch each kernel as often as the
+   emission's program dictates (``STEP_LAUNCHES``), the last loss must be
+   below the first, and 3 steps at batch 2 from the same initial state
+   must give the losses and Adam moments of the port's plain path on the
+   CPU (the two devices draw the same masks: the key words come from the
+   executor's per-op seed, on the host);
 7. the script's own wall time, a JSON line of the kernels, then the
    result line.
 
@@ -40,6 +49,7 @@ Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -75,6 +85,9 @@ FLASH_BWD_ATOL = 1e-4
 # fused-LN backward: dx to KERNEL_ATOL; dgamma / dbeta are sums over all
 # N rows (4096), held relative to their largest value
 LN_BWD_SUM_RTOL = 2e-6
+# the dropout kernel's keep fraction: within this many binomial standard
+# deviations of the realized keep probability
+KEEP_SIGMAS = 5.0
 # BERT-base pretraining, 3 Adam steps at batch 2 from one initial state,
 # card vs the plain path on the CPU, both f32 with TF32 off, so the two
 # differ by summation order only.  Losses (~10.4 = ln 30522) are held
@@ -319,35 +332,67 @@ def flash_kernel_phase(fa, dev, flush):
     return row
 
 
-def ln_kernel_phase(fl, ln, dev, flush):
+# key words of the kernel phases' dropout stream
+WORDS = (0x5EED, 0xC0DE)
+
+
+def ln_kernel_phase(fl, ln, philox, dev, flush):
+    """Rows 7 and 14: fused_ln at p = 0 and p = 0.1, LayerNorm.  The
+    kernels line takes fused_ln at p = 0.1 over the training step's
+    [4096, 768] rows; its p = 0 times print beside it."""
     rng = np.random.RandomState(2)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     ln_f = torch.nn.functional.layer_norm
+    drop_f = torch.nn.functional.dropout
     worst_f = worst_l = 0.0
-    shapes = {(1024, 768): "BERT rows [1024, 768]", (37, 200): "odd [37, 200]"}
+    shapes = {(1024, 768): "BERT rows [1024, 768]",
+              (4096, 768): "training rows [4096, 768]",
+              (37, 200): "odd [37, 200]"}
     tensors = {}
+    seed_t = torch.empty(2, dtype=torch.int32, device=dev)
     for (n, hd), what in shapes.items():
         x, y, g, b = (t(_rand(rng, *s)) for s in ((n, hd), (n, hd), (hd,),
                                                   (hd,)))
         tensors[n, hd] = (x, y, g, b)
         worst_f = max(worst_f, check(
-            "fused_ln", what, fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5),
+            "fused_ln", what + " p=0",
+            fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5),
             fl.fused_ln_reference(x, y, g, b, 1e-5)))
+        worst_f = max(worst_f, check(
+            "fused_ln", what + " p=0.1",
+            fl.fused_ln_fwd(x, y, g, b, 0.1, WORDS, 1e-5, seed_out=seed_t),
+            fl.fused_ln_reference(x, y, g, b, 1e-5, 0.1, WORDS)))
+        if philox.seed_words(seed_t) != WORDS:
+            fail("fused_ln stored seed words %s, want %s"
+                 % (philox.seed_words(seed_t), WORDS))
         worst_l = max(worst_l, check(
             "layer_norm", what, ln.layer_norm_2d(x, g, b, 1e-5),
             ln.layer_norm_2d_reference(x, g, b, 1e-5)))
-    x, y, g, b = tensors[1024, 768]
-    n, hd = x.shape
     rows = []
+    for n_rows in (1024, 4096):         # p = 0: printed beside the row
+        x, y, g, b = tensors[n_rows, 768]
+        n, hd = x.shape
+        timed_row(
+            "fused_ln", lambda: fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5),
+            lambda: fl.fused_ln_reference(x, y, g, b, 1e-5),
+            lambda: ln_f(x + y, (hd,), g, b, 1e-5),
+            4 * (4 * n * hd + 2 * hd + 2 * n), 9 * n * hd, flush, worst_f,
+            "p=0 rows [%d, 768] (F.layer_norm(x + y))" % n)
+    x, y, g, b = tensors[4096, 768]
+    n, hd = x.shape
     row = timed_row(
-        "fused_ln", lambda: fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5),
-        lambda: fl.fused_ln_reference(x, y, g, b, 1e-5),
-        lambda: ln_f(x + y, (hd,), g, b, 1e-5),
-        4 * (4 * n * hd + 2 * hd + 2 * n), 9 * n * hd, flush, worst_f,
-        "BERT rows [1024, 768] (F.layer_norm(x + y))")
+        "fused_ln",
+        lambda: fl.fused_ln_fwd(x, y, g, b, 0.1, WORDS, 1e-5,
+                                seed_out=seed_t),
+        lambda: fl.fused_ln_reference(x, y, g, b, 1e-5, 0.1, WORDS),
+        lambda: ln_f(x + drop_f(y, 0.1), (hd,), g, b, 1e-5),
+        4 * (4 * n * hd + 2 * hd + 2 * n) + 8, 10 * n * hd, flush, worst_f,
+        "p=0.1 training rows [4096, 768] (F.layer_norm(x + F.dropout(y)))")
     row.update(source="paddle_tpu_torch/kernels/csrc/fused_ln.cu",
                replaces="paddle_tpu/pallas_kernels/fused_ln.py:106")
     rows.append(row)
+    x, y, g, b = tensors[1024, 768]
+    n, hd = x.shape
     row = timed_row(
         "layer_norm", lambda: ln.layer_norm_2d(x, g, b, 1e-5),
         lambda: ln.layer_norm_2d_reference(x, g, b, 1e-5),
@@ -356,6 +401,152 @@ def ln_kernel_phase(fl, ln, dev, flush):
         "BERT rows [1024, 768] (F.layer_norm)")
     row.update(source="paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                replaces="paddle_tpu/pallas_kernels/layer_norm.py:29")
+    rows.append(row)
+    return rows
+
+
+def dropout_kernel_phase(dk, philox, dev, flush):
+    """The dropout op's kernel: mask bytes and outputs bitwise equal to the
+    plain stream's at p = 0.1, both implementations, the keep fraction
+    within KEEP_SIGMAS of the realized probability; timed at the
+    attention probabilities' shape (12 of its 13 launches a step in the
+    default emission)."""
+    from paddle_tpu_torch.ops.common import (byte_threshold,
+                                             realized_keep_prob,
+                                             realized_prob)
+
+    rng = np.random.RandomState(6)
+    thr, q = byte_threshold(0.9), realized_keep_prob(0.9)
+    cases = {"embeddings [32, 128, 768]": (32, 128, 768),
+             "attention probs [32, 12, 128, 128]": (32, 12, 128, 128),
+             "odd 1001 elements at an unaligned offset": (1001,)}
+    tensors = {}
+    for what, shape in cases.items():
+        n = int(np.prod(shape))
+        x = torch.from_numpy(_rand(rng, n + 1)).to(dev)[1:].reshape(shape) \
+            if n == 1001 else torch.from_numpy(_rand(rng, *shape)).to(dev)
+        tensors[what] = x
+        for upscale in (True, False):
+            out, mask = dk.dropout(x, WORDS, thr, q, upscale)
+            wout, wmask = dk.dropout_reference(x, WORDS, thr, q, upscale)
+            torch.cuda.synchronize()
+            if not torch.equal(mask, wmask):
+                fail("dropout mask bytes differ from the plain stream at %s"
+                     % what)
+            if not torch.equal(out, wout):
+                fail("dropout output differs from the plain version at %s "
+                     "(%s)" % (what, "upscale" if upscale else "downgrade"))
+        frac, qr = float(mask.float().mean()), realized_prob(0.9)
+        sigma = (qr * (1 - qr) / n) ** 0.5
+        print("kernel dropout %s: mask and out bitwise equal to the plain "
+              "version; keep fraction %.6f, realized q %.6f (%.2f sigma)"
+              % (what, frac, qr, abs(frac - qr) / sigma), flush=True)
+        if abs(frac - qr) > KEEP_SIGMAS * sigma:
+            fail("dropout keep fraction %.6f is %.1f sigma from %.6f"
+                 % (frac, abs(frac - qr) / sigma, qr))
+    x = tensors["attention probs [32, 12, 128, 128]"]
+    n = x.numel()
+    row = timed_row(
+        "dropout", lambda: dk.dropout(x, WORDS, thr, q, True),
+        lambda: dk.dropout_reference(x, WORDS, thr, q, True),
+        lambda: torch.nn.functional.dropout(x, 0.1), 9 * n, n, flush, 0.0,
+        "attention probs [32, 12, 128, 128] at p = 0.1 (F.dropout)")
+    row.update(source="paddle_tpu_torch/kernels/csrc/dropout.cu",
+               replaces="paddle_tpu/ops/nn.py:602")
+    return row
+
+
+def small_attention_kernel_phase(fa, philox, dev, flush):
+    """Rows 5 and 6: the small-sequence attention forward and backward at
+    the BERT-base shape and over the rest of the routed domain, with
+    dropout p = 0.1 (and p = 0 once)."""
+    rng = np.random.RandomState(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+
+    def head_split(bb, h, s, d):
+        return t(_rand(rng, bb, s, h * d)).view(bb, s, h, d) \
+            .permute(0, 2, 1, 3)
+
+    def pad_bias(bb, s):
+        m = (rng.rand(bb, 1, 1, s) > 0.25).astype(np.float32)
+        m[:, :, :, 0] = 1.0
+        return np.broadcast_to((1.0 - m) * -1e4, (bb, 1, s, s))
+
+    cases = [
+        ("main path B=32 H=12 S=128 D=64 strided head split, padding bias "
+         "[B,1,S,S], p=0.1", (32, 12, 128, 64), pad_bias(32, 128), 0.1),
+        ("B=2 H=3 S=128 D=128, head-shared bias, p=0.1", (2, 3, 128, 128),
+         _rand(rng, 2, 1, 128, 128), 0.1),
+        ("B=2 H=3 S=256 D=64, per-head bias, p=0.1", (2, 3, 256, 64),
+         _rand(rng, 2, 3, 256, 256), 0.1),
+        ("B=2 H=3 S=256 D=128, head-shared bias, p=0.1", (2, 3, 256, 128),
+         _rand(rng, 2, 1, 256, 256), 0.1),
+        ("B=2 H=3 S=128 D=64, head-shared bias, p=0", (2, 3, 128, 64),
+         _rand(rng, 2, 1, 128, 128), 0.0),
+    ]
+    worst_f = worst_b = 0.0
+    kept = None
+    for what, (bb, h, s, d), bias, p in cases:
+        q, k, v, do = (head_split(bb, h, s, d) for _ in range(4))
+        bias = t(bias)
+        scale = d ** -0.5
+        seed_t = torch.empty(2, dtype=torch.int32, device=dev)
+        out, lse = fa.small_attention_fwd(q, k, v, bias, scale, p, WORDS,
+                                          seed_out=seed_t)
+        worst_f = max(worst_f, check(
+            "small_attention_fwd", what, [out, lse],
+            fa.small_attention_fwd_reference(q, k, v, bias, scale, p,
+                                             WORDS)))
+        if philox.seed_words(seed_t) != WORDS:
+            fail("small_attention_fwd stored seed words %s, want %s"
+                 % (philox.seed_words(seed_t), WORDS))
+        worst_b = max(worst_b, check(
+            "small_attention_bwd", what,
+            fa.small_attention_bwd(q, k, v, bias, scale, p, seed_t, out,
+                                   lse, do),
+            fa.small_attention_bwd_reference(q, k, v, bias, scale, p, WORDS,
+                                             out, lse, do),
+            FLASH_BWD_ATOL))
+        if kept is None:
+            kept = (what, q, k, v, do, bias, scale, seed_t, out, lse)
+    what, q, k, v, do, bias, scale, seed_t, out, lse = kept
+    bb, h, s, d = q.shape
+    n = bb * h * s * d
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    row = timed_row(
+        "small_attention_fwd",
+        lambda: fa.small_attention_fwd(q, k, v, bias, scale, 0.1, WORDS,
+                                       seed_out=seed_t),
+        lambda: fa.small_attention_fwd_reference(q, k, v, bias, scale, 0.1,
+                                                 WORDS),
+        lambda: sdpa(q, k, v, attn_mask=bias, dropout_p=0.1),
+        4 * (4 * n + bb * s * s + bb * h * s) + 8, 4 * bb * h * s * s * d,
+        flush, worst_f, "%s (SDPA with dropout_p=0.1 and the same mask)"
+        % what)
+    row.update(source="paddle_tpu_torch/kernels/csrc/small_attention.cu",
+               replaces="paddle_tpu/pallas_kernels/flash_attention.py:534")
+    rows.append(row)
+    # yardstick: SDPA's backward with dropout, its graph built once
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = sdpa(*leaves, attn_mask=bias, dropout_p=0.1)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    # read q, k, v, out, dO, the bias, lse and the seed; write dq, dk, dv;
+    # the least work: the scores again, dO v^T, dQ, dK, dV, and delta
+    row = timed_row(
+        "small_attention_bwd",
+        lambda: fa.small_attention_bwd(q, k, v, bias, scale, 0.1, seed_t,
+                                       out, lse, do),
+        lambda: fa.small_attention_bwd_reference(q, k, v, bias, scale, 0.1,
+                                                 WORDS, out, lse, do),
+        sdpa_bwd, 4 * (8 * n + bb * s * s + bb * h * s) + 8,
+        10 * bb * h * s * s * d + 2 * n, flush, worst_b,
+        "%s (library: SDPA's backward with dropout)" % what)
+    row.update(source="paddle_tpu_torch/kernels/csrc/small_attention_bwd.cu",
+               replaces="paddle_tpu/pallas_kernels/flash_attention.py:563")
     rows.append(row)
     return rows
 
@@ -442,8 +633,9 @@ def flash_bwd_kernel_phase(fa, dev, flush):
 
 
 def ln_bwd_kernel_phase(fl, dev, flush):
-    """Row 8: the fused-LN backward from the forward kernel's r, mean and
-    var."""
+    """Row 8: the fused-LN backward from the forward kernel's r, mean, var
+    (and Seed, at p = 0.1).  The kernels line takes p = 0.1; the p = 0
+    time prints beside it."""
     rng = np.random.RandomState(4)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     worst = 0.0
@@ -453,30 +645,60 @@ def ln_bwd_kernel_phase(fl, dev, flush):
         x, y, dz = (t(_rand(rng, n, hd)) for _ in range(3))
         g, b = t(_rand(rng, hd) + 1.0), t(_rand(rng, hd))
         _z, r, mean, var = fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5)
-        tensors[n, hd] = (x, y, g, b, r, mean, var, dz)
         dx, dy, dg, db = fl.fused_ln_bwd(r, g, mean, var, dz)
-        wdx, wdg, wdb = fl.fused_ln_bwd_reference(r, g, mean, var, dz)
+        wdx, _wdy, wdg, wdb = fl.fused_ln_bwd_reference(r, g, mean, var,
+                                                         dz)
         if dy.data_ptr() != dx.data_ptr():
             fail("fused_ln_bwd: dy is not dx at dropout 0")
-        worst = max(worst, check("fused_ln_bwd", what + " dx", [dx], [wdx]))
-        sums = check("fused_ln_bwd", what + " dgamma, dbeta", [dg, db],
+        worst = max(worst, check("fused_ln_bwd", what + " p=0 dx", [dx],
+                                 [wdx]))
+        sums = check("fused_ln_bwd", what + " p=0 dgamma, dbeta", [dg, db],
                      [wdg, wdb], LN_BWD_SUM_RTOL * float(max(
                          wdg.abs().max(), wdb.abs().max())))
         worst = max(worst, sums)
-    x, y, g, b, r, mean, var, dz = tensors[4096, 768]
+        seed_t = torch.empty(2, dtype=torch.int32, device=dev)
+        _z, r1, mean1, var1 = fl.fused_ln_fwd(x, y, g, b, 0.1, WORDS, 1e-5,
+                                              seed_out=seed_t)
+        tensors[n, hd] = (x, y, g, b, r, mean, var, dz, r1, mean1, var1,
+                          seed_t)
+        got = fl.fused_ln_bwd(r1, g, mean1, var1, dz, 0.1, seed_t)
+        want = fl.fused_ln_bwd_reference(r1, g, mean1, var1, dz, 1e-5, 0.1,
+                                          seed_t)
+        worst = max(worst, check("fused_ln_bwd", what + " p=0.1 dx, dy",
+                                 got[:2], want[:2]))
+        worst = max(worst, check(
+            "fused_ln_bwd", what + " p=0.1 dgamma, dbeta", got[2:],
+            want[2:], LN_BWD_SUM_RTOL * float(max(want[2].abs().max(),
+                                                  want[3].abs().max()))))
+    x, y, g, b, r, mean, var, dz, r1, mean1, var1, seed_t = \
+        tensors[4096, 768]
     n, hd = x.shape
+    ln_f = torch.nn.functional.layer_norm
+    drop_f = torch.nn.functional.dropout
     leaves = [a.detach().requires_grad_() for a in (x, y, g, b)]
-    z = torch.nn.functional.layer_norm(leaves[0] + leaves[1], (hd,),
-                                       leaves[2], leaves[3], 1e-5)
+    z0 = ln_f(leaves[0] + leaves[1], (hd,), leaves[2], leaves[3], 1e-5)
+    z1 = ln_f(leaves[0] + drop_f(leaves[1], 0.1), (hd,), leaves[2],
+              leaves[3], 1e-5)
 
-    def ln_autograd():
-        return torch.autograd.grad(z, leaves, dz, retain_graph=True)
+    def ln_autograd(z):
+        return lambda: torch.autograd.grad(z, leaves, dz, retain_graph=True)
 
-    row = timed_row(
+    timed_row(
         "fused_ln_bwd", lambda: fl.fused_ln_bwd(r, g, mean, var, dz),
-        lambda: fl.fused_ln_bwd_reference(r, g, mean, var, dz), ln_autograd,
-        4 * (3 * n * hd + 2 * n + 3 * hd), 11 * n * hd, flush, worst,
-        "BERT rows [4096, 768] (autograd of F.layer_norm(x + y))")
+        lambda: fl.fused_ln_bwd_reference(r, g, mean, var, dz),
+        ln_autograd(z0), 4 * (3 * n * hd + 2 * n + 3 * hd), 11 * n * hd,
+        flush, worst,
+        "p=0 BERT rows [4096, 768] (autograd of F.layer_norm(x + y))")
+    # p = 0.1: dy written besides dx, the seed read
+    row = timed_row(
+        "fused_ln_bwd",
+        lambda: fl.fused_ln_bwd(r1, g, mean1, var1, dz, 0.1, seed_t),
+        lambda: fl.fused_ln_bwd_reference(r1, g, mean1, var1, dz, 1e-5, 0.1,
+                                          WORDS),
+        ln_autograd(z1), 4 * (4 * n * hd + 2 * n + 3 * hd) + 8,
+        12 * n * hd, flush, worst,
+        "p=0.1 BERT rows [4096, 768] (autograd of F.layer_norm(x + "
+        "F.dropout(y)))")
     row.update(source="paddle_tpu_torch/kernels/csrc/fused_ln_bwd.cu",
                replaces="paddle_tpu/pallas_kernels/fused_ln.py:130")
     return row
@@ -823,12 +1045,27 @@ TRAIN_BATCH = 32
 TRAIN_STEPS = 5
 CHECK_BATCH = 2
 CHECK_STEPS = 3
-# per training step, on the main path: 12 layers x (forward + the grad's
-# recompute) flash forwards, 12 dQ and 12 dK/dV, 2 x 12 epilogues forward
-# and backward, one fused Adam, LayerNorm on the embeddings and the head
-STEP_LAUNCHES = {"flash_attention": 24, "flash_attention_bwd_dq": 12,
-                 "flash_attention_bwd_dkv": 12, "fused_ln": 24,
-                 "fused_ln_bwd": 24, "fused_adam": 1, "layer_norm": 2}
+# the training emissions, in the order the phase runs them
+DROPOUT0, COMPOSED, SMALL = ("dropout 0", "dropout 0.1",
+                             "dropout 0.1, small attention")
+# kernel launches per training step of BERT-base (12 layers), by emission;
+# every kernel not named launches 0 times.  In all three: 2 x 12
+# epilogues forward and backward (fused_ln, fused_ln_bwd), one fused
+# Adam, LayerNorm on the embeddings and on the head.  Dropout 0: 12
+# layers x (forward + the grad's recompute) flash forwards, 12 dQ and 12
+# dK/dV.  Dropout 0.1: the dropout kernel on the embeddings and on each
+# layer's attention probabilities (its grad reads the saved mask).
+# Small attention: 12 small forwards and 12 small backwards (the grad
+# reads the saved lse), the dropout kernel on the embeddings.
+_COMMON = {"fused_ln": 24, "fused_ln_bwd": 24, "fused_adam": 1,
+           "layer_norm": 2}
+STEP_LAUNCHES = {
+    DROPOUT0: dict(_COMMON, flash_attention=24, flash_attention_bwd_dq=12,
+                   flash_attention_bwd_dkv=12),
+    COMPOSED: dict(_COMMON, dropout=13),
+    SMALL: dict(_COMMON, small_attention_fwd=12, small_attention_bwd=12,
+                dropout=1),
+}
 
 
 def check_steps(main_p, loss, init, feed, place):
@@ -887,26 +1124,58 @@ def moment_gap(got, want):
     return gap, worst
 
 
+def counted(kmods):
+    """{name: wrapper} of every kernel wrapper that counts launches on the
+    training path."""
+    fa, fl, ln, fad, dk = kmods
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "small_attention_fwd": fa.small_attention_fwd,
+            "small_attention_bwd": fa.small_attention_bwd,
+            "dropout": dk.dropout,
+            "fused_ln": fl.fused_ln_fwd,
+            "fused_ln_bwd": fl.fused_ln_bwd,
+            "fused_adam": fad.fused_adam_step,
+            "layer_norm": ln.layer_norm_2d}
+
+
 def launch_counts(kmods):
-    fa, fl, ln, fad = kmods
-    return {"flash_attention": fa.flash_attention.launches,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
-            "fused_ln": fl.fused_ln_fwd.launches,
-            "fused_ln_bwd": fl.fused_ln_bwd.launches,
-            "fused_adam": fad.fused_adam_step.launches,
-            "layer_norm": ln.layer_norm_2d.launches}
+    return {k: f.launches for k, f in counted(kmods).items()}
 
 
 def zero_counts(kmods):
-    fa, fl, ln, fad = kmods
-    for f in (fa.flash_attention, fa.flash_attention_bwd_dq,
-              fa.flash_attention_bwd_dkv, fl.fused_ln_fwd, fl.fused_ln_bwd,
-              fad.fused_adam_step, ln.layer_norm_2d):
+    for f in counted(kmods).values():
         f.launches = 0
 
 
-def train_phase(kmods, cfg):
+@contextlib.contextmanager
+def emission(name):
+    """The environment of a training emission: ``BERT_FUSED_ATTN=1`` (read
+    when the program is built) and ``FLAGS_fused_small_attention`` (read
+    when it runs) for the small-attention one; restored after."""
+    from paddle_tpu_torch import get_flags, set_flags
+
+    env = os.environ.get("BERT_FUSED_ATTN")
+    flag = get_flags("FLAGS_fused_small_attention")
+    if name == SMALL:
+        os.environ["BERT_FUSED_ATTN"] = "1"
+        set_flags({"FLAGS_fused_small_attention": True})
+    else:
+        os.environ.pop("BERT_FUSED_ATTN", None)
+    try:
+        yield
+    finally:
+        if env is None:
+            os.environ.pop("BERT_FUSED_ATTN", None)
+        else:
+            os.environ["BERT_FUSED_ATTN"] = env
+        set_flags(flag)
+
+
+def train_phase(kmods, cfg, name):
+    """BERT pretraining in the emission ``name`` (set up by ``emission``)
+    -> the launch counts of its TRAIN_STEPS steps."""
     from paddle_tpu_torch import framework
     from paddle_tpu_torch.core import (Executor, Scope, scope_guard,
                                        scope_to_numpy)
@@ -925,11 +1194,11 @@ def train_phase(kmods, cfg):
     if n_params != want_n:
         fail("build_pretrain made %d parameters, want %d" % (n_params,
                                                             want_n))
-    print("train: BERT (vocab %d, hidden %d, %d layers, %d heads, ffn %d, "
-          "max_pos %d, type_vocab %d, dropout %g), seq %d, batch %d, %d "
+    print("train [%s]: BERT (vocab %d, hidden %d, %d layers, %d heads, ffn "
+          "%d, max_pos %d, type_vocab %d, dropout %g), seq %d, batch %d, %d "
           "masked positions; %d parameters in %d tensors (%.1f MB f32), %d "
           "ops in the main program; built in %.1f s"
-          % (cfg.vocab_size, cfg.hidden, cfg.layers, cfg.heads, cfg.ffn,
+          % (name, cfg.vocab_size, cfg.hidden, cfg.layers, cfg.heads, cfg.ffn,
              cfg.max_pos, cfg.type_vocab, cfg.dropout, SEQ, TRAIN_BATCH,
              int(TRAIN_BATCH * SEQ * MASK_FRAC), n_params, len(params),
              n_params * 4 / 1e6, len(main_p.global_block().ops),
@@ -953,14 +1222,15 @@ def train_phase(kmods, cfg):
         launches = launch_counts(kmods)
     del scope
     n_fused = sum(op.type == "fused_adam" for op in main_p.global_block().ops)
-    print("train: %d steps, losses %s; step_ms %s, p50 %.3f (the first "
-          "fuses the optimizer ops and plans); %d fused_adam op(s) over %d "
-          "params; launches %s" % (
-              TRAIN_STEPS, json.dumps(losses),
+    print("train [%s]: %d steps, losses %s; step_ms %s, p50 %.3f (the "
+          "first fuses the optimizer ops and plans); %d fused_adam op(s) "
+          "over %d params; launches %s" % (
+              name, TRAIN_STEPS, json.dumps(losses),
               json.dumps([round(x, 3) for x in step_ms]),
               float(np.percentile(step_ms, 50)), n_fused, len(params),
               json.dumps(launches)), flush=True)
-    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    want = {k: STEP_LAUNCHES[name].get(k, 0) * TRAIN_STEPS
+            for k in launches}
     if launches != want:
         fail("training launches %s over %d steps, want %s"
              % (launches, TRAIN_STEPS, want))
@@ -972,9 +1242,9 @@ def train_phase(kmods, cfg):
     # path, at a batch the CPU runs in seconds
     feed2 = pretrain_feed(np.random.RandomState(4), cfg, CHECK_BATCH, SEQ)
     loss_gap, moment_gap, worst = card_vs_cpu(main_p, loss, init, feed2)
-    print("train: card vs CPU plain path, max loss difference %.3g (limit "
-          "%.3g); Adam moments' gap %.3g (limit %.3g, worst %s)"
-          % (loss_gap, TRAIN_LOSS_ATOL, moment_gap, TRAIN_MOMENT_RTOL,
+    print("train [%s]: card vs CPU plain path, max loss difference %.3g "
+          "(limit %.3g); Adam moments' gap %.3g (limit %.3g, worst %s)"
+          % (name, loss_gap, TRAIN_LOSS_ATOL, moment_gap, TRAIN_MOMENT_RTOL,
              worst), flush=True)
     if not (loss_gap <= TRAIN_LOSS_ATOL and moment_gap <= TRAIN_MOMENT_RTOL):
         fail("training on the card disagrees with the CPU plain path")
@@ -991,11 +1261,13 @@ def main():
     sys.path.insert(0, HERE)
     from paddle_tpu_torch import set_f32_numerics
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import dropout as dk
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_adam as fad
     from paddle_tpu_torch.kernels import fused_ln as fl
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import philox
     from paddle_tpu_torch.models.bert import BertConfig
 
     dev = torch.device("cuda")
@@ -1017,22 +1289,28 @@ def main():
         for line in usage:
             print("  ptxas " + line)
 
-    # BERT-base widths (Devlin et al. 2018) at dropout 0, the slice's cut
-    bert_cfg = BertConfig(dropout=0.0)
+    # BERT-base widths (Devlin et al. 2018) at its published dropout 0.1
+    bert_cfg = BertConfig()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     rows = [paged_kernel_phase(pa, dev, flush),
             flash_kernel_phase(fa, dev, flush)]
     rows += flash_bwd_kernel_phase(fa, dev, flush)
-    rows += ln_kernel_phase(fl, ln, dev, flush)
+    rows += small_attention_kernel_phase(fa, philox, dev, flush)
+    rows += ln_kernel_phase(fl, ln, philox, dev, flush)
     rows.append(ln_bwd_kernel_phase(fl, dev, flush))
     rows.append(adam_kernel_phase(fad, dev, flush, bert_cfg))
+    rows.append(dropout_kernel_phase(dk, philox, dev, flush))
     del flush
     torch.cuda.empty_cache()
     # each path is driven with the counts at 0 and read just after; a
-    # kernel's row carries the newest path that runs it
+    # kernel's row carries the newest path that launches it
     launches = {"paged_attention": decode_phase(pa)}
     launches.update(encoder_phase((fa, fl, ln)))
-    launches.update(train_phase((fa, fl, ln, fad), bert_cfg))
+    for name, dropout in ((DROPOUT0, 0.0), (COMPOSED, 0.1), (SMALL, 0.1)):
+        with emission(name):
+            counts = train_phase((fa, fl, ln, fad, dk),
+                                 BertConfig(dropout=dropout), name)
+        launches.update({k: v for k, v in counts.items() if v})
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

@@ -21,8 +21,18 @@ passes ``device="cpu"`` (or ``CPUPlace()``).  Slices ported so far:
    dropout 0), with CUDA kernels for the attention backward, the fused
    LayerNorm backward and the fused Adam step
    (``kernels/csrc/flash_attention_bwd.cu``, ``fused_ln_bwd.cu``,
-   ``fused_adam.cu``)."""
+   ``fused_adam.cu``);
+4. BERT training at its published dropout 0.1: a Philox stream
+   (``kernels/philox.py``, ``csrc/philox.cuh``), the ``dropout`` op with
+   its mask-drawing kernel (``csrc/dropout.cu``), dropout inside the
+   fused-LayerNorm kernels, and the small-sequence attention kernels
+   (``csrc/small_attention.cu``, ``small_attention_bwd.cu``) that
+   ``FLAGS_fused_small_attention`` routes the flash_attention op to.
+
+``set_flags`` / ``get_flags`` set and read the flags the port has
+(``flags.py``)."""
 
 from .device import resolve_device, set_f32_numerics
+from .flags import get_flags, set_flags
 
-__all__ = ["resolve_device", "set_f32_numerics"]
+__all__ = ["resolve_device", "set_f32_numerics", "get_flags", "set_flags"]

@@ -21,7 +21,7 @@ import torch
 
 from ..device import resolve_device, set_f32_numerics
 from ..framework import Variable, default_main_program, dtype_to_torch
-from .lowering import BlockPlan, new_generator, op_seed, run_op
+from .lowering import BlockPlan, draws, op_seed, run_op
 from .scope import Scope
 
 __all__ = ["Executor", "global_scope", "scope_guard", "place_device"]
@@ -164,9 +164,9 @@ class Executor:
             scope._rng_counter = step + 1
         with torch.no_grad():
             for i, (op, opdef, attrs) in enumerate(plan.steps):
-                gen = new_generator(self.device, op_seed(seed, step, i)) \
-                    if opdef.n_rng else None
-                run_op(op, opdef, attrs, env, self.device, gen)
+                run_op(op, opdef, attrs, env, self.device,
+                       op_seed(seed, step, i) if draws(opdef, attrs)
+                       else None)
                 for n in plan.release[i]:
                     env.pop(n, None)
         for n in plan.persist_written:

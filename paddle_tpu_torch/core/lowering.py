@@ -13,23 +13,50 @@ import torch
 
 from .registry import get_op_def, lower_attrs
 
-__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "run_op"]
+__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "draws", "op_seed",
+           "run_op"]
 
 
 class LowerCtx:
     """Per-op context handed to lowerings: the device the op runs on, the
-    op itself, and for ops that draw random numbers a ``torch.Generator``
-    on that device (``None`` during shape inference)."""
+    op itself, and for an op that draws random numbers its integer seed
+    (``op_seed``; ``None`` during shape inference and for an op whose
+    draw is not active).
 
-    def __init__(self, device, op=None, generator=None):
+    Random ops take their randomness from that seed on the host: dropout
+    derives the two key words of its Philox stream (``seed_words``), and
+    ``uniform_random`` a ``torch.Generator`` (``generator``).  Keys made
+    on the host are the same on every device, so a step on the card draws
+    the masks its plain CPU run draws."""
+
+    def __init__(self, device, op=None, seed=None):
         self.device = device
         self.op = op
-        self.generator = generator
+        self.seed = seed
 
     @property
     def abstract(self):
         """True during shape inference (meta tensors, no data)."""
         return self.device.type == "meta"
+
+    @property
+    def generator(self):
+        """A ``torch.Generator`` on the op's device seeded with the op's
+        seed (None without one)."""
+        if self.seed is None:
+            return None
+        return new_generator(self.device, self.seed)
+
+    def seed_words(self):
+        """The two u32 key words of the op's Philox stream: the low and
+        high words of its seed; zeros during shape inference."""
+        if self.abstract:
+            return 0, 0
+        if self.seed is None:
+            raise RuntimeError(
+                "op %s draws random numbers but was given no seed"
+                % (self.op.type if self.op is not None else "?"))
+        return self.seed & 0xFFFFFFFF, (self.seed >> 32) & 0xFFFFFFFF
 
 
 def _runtime_ops(block):
@@ -114,18 +141,26 @@ def _gather(opdef, op, slot, env):
 
 
 def op_seed(program_seed, step, index):
-    """Seed of op ``index``'s generator at executor step ``step``: a
-    deterministic function of the three, independent across ops."""
+    """Seed of op ``index`` at executor step ``step``: a deterministic
+    function of the three, independent across ops (63 bits)."""
     return int(np.random.SeedSequence(
         [program_seed & 0xFFFFFFFF, step & 0xFFFFFFFF, index]
     ).generate_state(1, np.uint64)[0] >> 1)
 
 
-def run_op(op, opdef, attrs, env, device, generator=None):
+def draws(opdef, attrs):
+    """Whether a run of the op draws random numbers: it declares a draw
+    (``n_rng``) and, where it has one, its ``rng_when(attrs)`` holds (the
+    dropout ops draw only while their dropout is active)."""
+    return bool(opdef.n_rng) and (opdef.rng_when is None
+                                  or bool(opdef.rng_when(attrs)))
+
+
+def run_op(op, opdef, attrs, env, device, seed=None):
     """Run one op: gather its inputs from ``env``, call the lowering,
     scatter its outputs back."""
     args = [_gather(opdef, op, s, env) for s in opdef.input_slots]
-    out = opdef.lower(LowerCtx(device, op, generator), *args, **attrs)
+    out = opdef.lower(LowerCtx(device, op, seed), *args, **attrs)
     if len(opdef.output_slots) == 1 and not isinstance(out, tuple):
         out = (out,)
     for slot, val in zip(opdef.output_slots, out):

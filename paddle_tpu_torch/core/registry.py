@@ -77,6 +77,8 @@ class OpDef:
                                  % (type, label, sorted(members - universe),
                                     sorted(universe)))
         self.n_rng = n_rng  # ops that draw random numbers
+        # (attrs) -> whether a run draws; None: every run of an n_rng op
+        self.rng_when = None
 
     def validate(self, op):
         for slot in op.inputs:

@@ -1,0 +1,61 @@
+"""Process-wide flags of the port.
+
+Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
+``get_flags:419``), holding only the flags the port reads:
+
+* ``FLAGS_fused_small_attention`` (default False, as in the reference):
+  the ``flash_attention`` op with attention-prob dropout takes the
+  small-sequence kernels (``kernels/flash_attention.py``
+  ``small_attention_fwd`` / ``small_attention_bwd``) where
+  ``small_attention_shapes_ok`` holds, instead of the composed emission
+  with a saved keep mask.  The reference keeps it off because it measured
+  slower in a BERT step on its TPU.
+
+Each flag starts from the environment variable of its name when set.
+"""
+
+import os
+
+__all__ = ["set_flags", "get_flags", "flag"]
+
+_DEFAULTS = {
+    "FLAGS_fused_small_attention": False,
+}
+
+
+def _coerce(default, value):
+    if isinstance(default, bool):
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes")
+        return bool(value)
+    return type(default)(value)
+
+
+def _norm(name):
+    return name if name.startswith("FLAGS_") else "FLAGS_" + name
+
+
+_flags = {k: _coerce(d, os.environ[k]) if k in os.environ else d
+          for k, d in _DEFAULTS.items()}
+
+
+def set_flags(flags):
+    """``set_flags({"FLAGS_fused_small_attention": True})``; an unknown
+    name raises, as the reference's registry does."""
+    for k, v in flags.items():
+        k = _norm(k)
+        if k not in _DEFAULTS:
+            raise ValueError("unknown flag %r (the port has: %s)"
+                             % (k, ", ".join(sorted(_DEFAULTS))))
+        _flags[k] = _coerce(_DEFAULTS[k], v)
+
+
+def get_flags(names):
+    """{name: value} of a flag name or a list of names."""
+    if isinstance(names, str):
+        names = [names]
+    return {_norm(n): _flags.get(_norm(n)) for n in names}
+
+
+def flag(name):
+    return _flags.get(_norm(name))

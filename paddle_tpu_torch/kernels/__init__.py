@@ -1,4 +1,6 @@
 """Hand-written CUDA kernels of the port, each in a module beside its
 plain PyTorch version (``csrc/`` holds the sources, ``_build`` compiles
-them): ``paged_attention``, ``flash_attention`` (forward and backward),
-``fused_ln`` (forward and backward), ``layer_norm`` and ``fused_adam``."""
+them): ``paged_attention``, ``flash_attention`` (forward and backward, and the
+small-sequence attention with dropout),
+``fused_ln`` (forward and backward), ``layer_norm``, ``fused_adam`` and
+``dropout``; ``philox`` is the random stream of the dropout paths."""

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "fused_ln", "fused_ln_bwd", "layer_norm", "fused_adam")
+           "fused_ln", "fused_ln_bwd", "layer_norm", "fused_adam",
+           "dropout", "small_attention", "small_attention_bwd")
 
 _lock = threading.Lock()
 _libs = {}

@@ -3,7 +3,7 @@ it was written for and the wrapper raises on anything else."""
 
 import torch
 
-__all__ = ["check_cuda_f32", "raise_on_error"]
+__all__ = ["check_cuda_f32", "check_seed_tensor", "raise_on_error"]
 
 
 def check_cuda_f32(kernel, device, contiguous=True, **tensors):
@@ -23,6 +23,16 @@ def check_cuda_f32(kernel, device, contiguous=True, **tensors):
         if contiguous and not t.is_contiguous():
             raise ValueError("%s kernel: %s is not contiguous"
                              % (kernel, name))
+
+
+def check_seed_tensor(kernel, name, t, device):
+    """``t`` is a dense int32 [2] on ``device``: an op's Seed, which a
+    kernel writes (forward) or reads (backward) on the card."""
+    if not isinstance(t, torch.Tensor) or t.device != device \
+            or t.dtype != torch.int32 or t.numel() != 2 \
+            or not t.is_contiguous():
+        raise ValueError("%s kernel: %s must be a dense int32 [2] tensor on "
+                         "%s (the op's Seed)" % (kernel, name, device))
 
 
 def raise_on_error(kernel, err):

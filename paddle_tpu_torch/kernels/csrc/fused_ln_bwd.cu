@@ -2,18 +2,25 @@
 // float32.
 //
 // Replaces: paddle_tpu/pallas_kernels/fused_ln.py `_bwd_kernel` (launched
-// by `_bwd_pallas`) at dropout probability 0, the training epilogue of
-// every BERT encoder layer.  From the forward's residual sum r and its f32
-// row statistics mean and var (fused_ln.cu), per row of h:
+// by `_bwd_pallas`), the training epilogue of every BERT encoder layer.
+// From the forward's residual sum r and its f32 row statistics mean and
+// var (fused_ln.cu), per row of h:
 //
 //   xhat = (r - mean) * rsqrt(var + eps),  a = dz * gamma,
 //   dr = rsqrt(var + eps) * (a - mean(a) - xhat * mean(a * xhat)),
-//   dx = dr  (and dy = dr: at p = 0 the wrapper hands out one tensor),
+//   dx = dr,  dy = keep ? dr * inv_q : 0   (at p = 0 dy = dr: the wrapper
+//   hands out one tensor and the kernel writes no dy),
 //   dgamma = sum over rows of dz * xhat,  dbeta = sum over rows of dz.
 //
+// The keep mask is the forward's, re-drawn: the same Philox stream
+// (philox.cuh) at the same element index row * h + col, keyed by the two
+// words of the op's Seed tensor, which each thread reads from device
+// memory (the TPU kernel's scalar prefetch; the host never reads it).
+//
 // Bound: bytes.  It must read r and dz and write dx (12 h bytes a row,
-// plus the statistics and the two [h] sums), ~1 flop per byte, far below
-// the card's ridge.  Design:
+// plus the statistics and the two [h] sums; at p > 0 also dy, 16 h),
+// ~1 flop per byte, far below the card's ridge; at p > 0 a Philox call
+// per element adds ~50 integer operations an element.  Design:
 //   * one warp per row with the row in registers (as ln_rows.cuh): r and
 //     dz are read once, xhat and a stay in registers for the write of dx;
 //   * each CTA takes a run of rows_per_cta rows; each lane keeps its
@@ -30,6 +37,9 @@
 // launch error.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -44,14 +54,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int NPL>
+// DROP: p > 0 (dy written, the mask re-drawn); without it the kernel
+// carries none of the draw's code
+template <int NPL, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fused_ln_bwd_rows(const float* __restrict__ r, const float* __restrict__ gamma,
                   const float* __restrict__ mean,
                   const float* __restrict__ var,
                   const float* __restrict__ dz, float* __restrict__ dx,
-                  float* __restrict__ part, int n, int h, float eps,
-                  int rows_per_cta) {
+                  float* __restrict__ dy, float* __restrict__ part, int n,
+                  int h, float eps, int rows_per_cta, uint32_t thr,
+                  const int* __restrict__ seed, float inv_q) {
   extern __shared__ float smem[];  // [kWarps][h] dgamma, then dbeta sums
   float* sg = smem;
   float* sb = smem + (size_t)kWarps * h;
@@ -60,6 +73,19 @@ fused_ln_bwd_rows(const float* __restrict__ r, const float* __restrict__ gamma,
   const int row0 = blockIdx.x * rows_per_cta;
   const int row_end = min(n, row0 + rows_per_cta);
   const float inv_h = 1.f / (float)h;
+  uint32_t k0 = 0u, k1 = 0u;
+  if constexpr (DROP) {
+    k0 = (uint32_t)seed[0];
+    k1 = (uint32_t)seed[1];
+  }
+  // dr of element (base + c) into dx, and its dropout into dy
+  auto store = [&](size_t base, int c, float dr) {
+    dx[base + c] = dr;
+    if constexpr (DROP) {
+      const bool keep = philox::u32_at(base + c, k0, k1) < thr;
+      dy[base + c] = keep ? dr * inv_q : 0.f;
+    }
+  };
   if constexpr (NPL > 0) {
     float ag[NPL], ab[NPL];
 #pragma unroll
@@ -89,7 +115,7 @@ fused_ln_bwd_rows(const float* __restrict__ r, const float* __restrict__ gamma,
 #pragma unroll
       for (int i = 0; i < NPL; ++i) {
         const int c = lane + 32 * i;
-        if (c < h) dx[base + c] = rstd * (a[i] - m1 - xh[i] * m2);
+        if (c < h) store(base, c, rstd * (a[i] - m1 - xh[i] * m2));
       }
     }
 #pragma unroll
@@ -121,7 +147,7 @@ fused_ln_bwd_rows(const float* __restrict__ r, const float* __restrict__ gamma,
       for (int c = lane; c < h; c += 32) {
         const float xh = (r[base + c] - mu) * rstd;
         const float a = dz[base + c] * gamma[c];
-        dx[base + c] = rstd * (a - m1 - xh * m2);
+        store(base, c, rstd * (a - m1 - xh * m2));
       }
     }
   }
@@ -154,55 +180,82 @@ reduce_partials(const float* __restrict__ part, float* __restrict__ dgamma,
   dbeta[c] = b;
 }
 
-template <int NPL>
-cudaError_t launch_rows(const float* r, const float* gamma, const float* mean,
+template <int NPL, bool DROP>
+cudaError_t launch_drop(const float* r, const float* gamma, const float* mean,
                         const float* var, const float* dz, float* dx,
-                        float* part, int n, int h, float eps,
-                        int rows_per_cta, int n_ctas, cudaStream_t stream) {
+                        float* dy, float* part, int n, int h, float eps,
+                        int rows_per_cta, int n_ctas, uint32_t thr,
+                        const int* seed, float inv_q, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 2 * kWarps * (size_t)h;
   if (smem > kDefaultSmem) {  // wide rows only: BERT's h = 768 needs 24 KB
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_ln_bwd_rows<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fused_ln_bwd_rows<NPL, DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  fused_ln_bwd_rows<NPL><<<n_ctas, kThreads, smem, stream>>>(
-      r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta);
+  fused_ln_bwd_rows<NPL, DROP><<<n_ctas, kThreads, smem, stream>>>(
+      r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, thr,
+      seed, inv_q);
   return cudaGetLastError();
+}
+
+// dy == nullptr: no dropout
+template <int NPL>
+cudaError_t launch_rows(const float* r, const float* gamma, const float* mean,
+                        const float* var, const float* dz, float* dx,
+                        float* dy, float* part, int n, int h, float eps,
+                        int rows_per_cta, int n_ctas, uint32_t thr,
+                        const int* seed, float inv_q, cudaStream_t stream) {
+  if (dy != nullptr)
+    return launch_drop<NPL, true>(r, gamma, mean, var, dz, dx, dy, part, n,
+                                  h, eps, rows_per_cta, n_ctas, thr, seed,
+                                  inv_q, stream);
+  return launch_drop<NPL, false>(r, gamma, mean, var, dz, dx, dy, part, n, h,
+                                 eps, rows_per_cta, n_ctas, thr, seed, inv_q,
+                                 stream);
 }
 
 cudaError_t launch_any(const float* r, const float* gamma, const float* mean,
                        const float* var, const float* dz, float* dx,
-                       float* part, int n, int h, float eps, int rows_per_cta,
-                       int n_ctas, cudaStream_t stream) {
+                       float* dy, float* part, int n, int h, float eps,
+                       int rows_per_cta, int n_ctas, uint32_t thr,
+                       const int* seed, float inv_q, cudaStream_t stream) {
   const int need = (h + 31) / 32;
-  if (need <= 1) return launch_rows<1>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 2) return launch_rows<2>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 4) return launch_rows<4>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 8) return launch_rows<8>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 16) return launch_rows<16>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 24) return launch_rows<24>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  if (need <= 32) return launch_rows<32>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
-  return launch_rows<0>(r, gamma, mean, var, dz, dx, part, n, h, eps, rows_per_cta, n_ctas, stream);
+  if (need <= 1) return launch_rows<1>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 2) return launch_rows<2>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 4) return launch_rows<4>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 8) return launch_rows<8>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 16) return launch_rows<16>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 24) return launch_rows<24>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 32) return launch_rows<32>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  return launch_rows<0>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
 }
 
 }  // namespace
 
-// part: [2, n_ctas, h] scratch; rows_per_cta * n_ctas must cover n
+// part: [2, n_ctas, h] scratch; rows_per_cta * n_ctas must cover n.
+// thr == 0: no dropout, dy and seed unused (may be null); else dy gets
+// the dropped gradient and seed points at the op's two int32 seed words
+// on the device.
 extern "C" cudaError_t fused_ln_bwd_f32(const float* r, const float* gamma,
                                         const float* mean, const float* var,
-                                        const float* dz, float* dx,
+                                        const float* dz, float* dx, float* dy,
                                         float* part, float* dgamma,
                                         float* dbeta, int n, int h,
                                         float eps, int rows_per_cta,
-                                        int n_ctas, cudaStream_t stream) {
+                                        int n_ctas, unsigned int thr,
+                                        const int* seed, float inv_q,
+                                        cudaStream_t stream) {
   if (r == nullptr || dz == nullptr || dx == nullptr || part == nullptr ||
       n <= 0 || h <= 0 || rows_per_cta <= 0 || n_ctas <= 0 ||
       (long long)rows_per_cta * n_ctas < n ||
-      (long long)rows_per_cta * (n_ctas - 1) >= n)
+      (long long)rows_per_cta * (n_ctas - 1) >= n ||
+      (thr != 0u && (dy == nullptr || seed == nullptr)))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_any(r, gamma, mean, var, dz, dx, part, n, h, eps,
-                               rows_per_cta, n_ctas, stream);
+  cudaError_t err = launch_any(r, gamma, mean, var, dz, dx,
+                               thr != 0u ? dy : nullptr, part, n, h, eps,
+                               rows_per_cta, n_ctas, thr, seed, inv_q,
+                               stream);
   if (err != cudaSuccess) return err;
   reduce_partials<<<(h + 255) / 256, 256, 0, stream>>>(part, dgamma, dbeta,
                                                        n_ctas, h);

@@ -10,12 +10,43 @@
 // are read once; NPL == 0 is the fallback for wide rows, which re-reads the
 // row from device memory (L2) for each of its three passes.  Lane l takes
 // elements l, l + 32, ...: every load and store of a warp is coalesced.
+//
+// Dropout of y (fused_ln.cu at p > 0): with drop.thr != 0,
+//   y' = keep ? y * drop.inv_q : 0,  keep = u32 < drop.thr,
+// the u32 of element row * h + col of the Philox stream keyed by
+// (drop.k0, drop.k1) (philox.cuh), drawn where y is read; a wide row's
+// re-reads draw it again.  The draw is a template switch (DROP), so the
+// kernels without dropout (p = 0, plain LayerNorm) carry none of its
+// code.  Block 0 stores the two key words to seed_out when given (the
+// op's Seed output, which the backward replays).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
 
 namespace ln_rows {
+
+struct Drop {
+  uint32_t thr = 0u;  // 0: no dropout
+  uint32_t k0 = 0u, k1 = 0u;
+  float inv_q = 1.f;
+};
+
+// y[base + c] after dropout (y non-null)
+template <bool DROP>
+__device__ __forceinline__ float y_at(const float* __restrict__ y,
+                                      size_t base, int c, const Drop& dp) {
+  const float v = y[base + c];
+  if constexpr (DROP) {
+    const bool keep = philox::u32_at(base + c, dp.k0, dp.k1) < dp.thr;
+    return keep ? v * dp.inv_q : 0.f;
+  } else {
+    return v;
+  }
+}
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -28,13 +59,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // y, r may be null (plain LayerNorm: r = x and nothing is stored for it)
-template <int NPL>
+template <int NPL, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ gamma,
                const float* __restrict__ beta, float* __restrict__ z,
                float* __restrict__ r, float* __restrict__ mean,
-               float* __restrict__ var, int n, int h, float eps) {
+               float* __restrict__ var, int n, int h, float eps, Drop dp,
+               int* __restrict__ seed_out) {
+  if (seed_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    seed_out[0] = (int)dp.k0;
+    seed_out[1] = (int)dp.k1;
+  }
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= n) return;
@@ -50,7 +86,7 @@ ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
       float a = 0.f;
       if (c < h) {
         a = x[base + c];
-        if (y != nullptr) a += y[base + c];
+        if (y != nullptr) a += y_at<DROP>(y, base, c, dp);
         if (r != nullptr) r[base + c] = a;
       }
       v[i] = a;
@@ -75,20 +111,20 @@ ln_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
     float sum = 0.f;
     for (int c = lane; c < h; c += 32) {
       float a = x[base + c];
-      if (y != nullptr) a += y[base + c];
+      if (y != nullptr) a += y_at<DROP>(y, base, c, dp);
       if (r != nullptr) r[base + c] = a;
       sum += a;
     }
     mu = warp_sum(sum) * inv_h;
     float sq = 0.f;
     for (int c = lane; c < h; c += 32) {
-      const float a = x[base + c] + (y != nullptr ? y[base + c] : 0.f) - mu;
+      const float a = x[base + c] + (y != nullptr ? y_at<DROP>(y, base, c, dp) : 0.f) - mu;
       sq += a * a;
     }
     var_row = warp_sum(sq) * inv_h;
     const float rstd = rsqrtf(var_row + eps);
     for (int c = lane; c < h; c += 32) {
-      const float a = x[base + c] + (y != nullptr ? y[base + c] : 0.f) - mu;
+      const float a = x[base + c] + (y != nullptr ? y_at<DROP>(y, base, c, dp) : 0.f) - mu;
       z[base + c] = a * rstd * gamma[c] + beta[c];
     }
   }
@@ -102,10 +138,14 @@ template <int NPL>
 cudaError_t launch_npl(const float* x, const float* y, const float* gamma,
                        const float* beta, float* z, float* r, float* mean,
                        float* var, int n, int h, float eps,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, Drop dp, int* seed_out) {
   const int blocks = (n + kWarps - 1) / kWarps;
-  ln_rows_kernel<NPL><<<blocks, kThreads, 0, stream>>>(
-      x, y, gamma, beta, z, r, mean, var, n, h, eps);
+  if (dp.thr != 0u)
+    ln_rows_kernel<NPL, true><<<blocks, kThreads, 0, stream>>>(
+        x, y, gamma, beta, z, r, mean, var, n, h, eps, dp, seed_out);
+  else
+    ln_rows_kernel<NPL, false><<<blocks, kThreads, 0, stream>>>(
+        x, y, gamma, beta, z, r, mean, var, n, h, eps, dp, seed_out);
   return cudaGetLastError();
 }
 
@@ -114,17 +154,18 @@ cudaError_t launch_npl(const float* x, const float* y, const float* gamma,
 inline cudaError_t launch(const float* x, const float* y,
                           const float* gamma, const float* beta, float* z,
                           float* r, float* mean, float* var, int n, int h,
-                          float eps, cudaStream_t stream) {
+                          float eps, cudaStream_t stream,
+                          Drop dp = Drop(), int* seed_out = nullptr) {
   if (n <= 0 || h <= 0) return cudaErrorInvalidValue;
   const int need = (h + 31) / 32;
-  if (need <= 1) return launch_npl<1>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 2) return launch_npl<2>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 4) return launch_npl<4>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 8) return launch_npl<8>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 16) return launch_npl<16>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 24) return launch_npl<24>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  if (need <= 32) return launch_npl<32>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
-  return launch_npl<0>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream);
+  if (need <= 1) return launch_npl<1>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 2) return launch_npl<2>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 4) return launch_npl<4>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 8) return launch_npl<8>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 16) return launch_npl<16>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 24) return launch_npl<24>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  if (need <= 32) return launch_npl<32>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
+  return launch_npl<0>(x, y, gamma, beta, z, r, mean, var, n, h, eps, stream, dp, seed_out);
 }
 
 }  // namespace ln_rows

@@ -23,21 +23,40 @@ recomputes the probabilities from that lse.
   ``flash_attention_bwd_dkv.launches`` count kernel launches.
 * ``FlashAttention`` (``flash_attention_train``) is the differentiable
   form, a ``torch.autograd.Function`` whose backward is the kernels'.
+
+The small-sequence training attention (``small_attention_fwd:618`` /
+``_small_fwd_kernel:534``, ``small_attention_bwd:653`` /
+``_small_bwd_kernel:563``, ``small_attention_shapes_ok:510``):
+softmax(q k^T * scale + bias) with attention-prob dropout applied inside
+the kernel (keep iff u32 < ``keep_threshold(p)``, kept probabilities
+times ``inv_realized_q``), for S <= 256, S % 128 == 0 and D in {64, 128}.
+The forward returns out and the row lse; the backward recomputes the
+probabilities from that lse and re-draws the mask, element
+``((b * H + h) * S + i) * S + j`` of the port's Philox stream keyed by
+the seed words, so no [B, H, S, S] tensor is kept.
+``small_attention_fwd_reference`` / ``small_attention_bwd_reference`` are
+the plain versions; ``small_attention_fwd`` / ``small_attention_bwd``
+launch ``csrc/small_attention.cu`` / ``csrc/small_attention_bwd.cu`` on a
+CUDA tensor (counted in ``.launches``); ``SmallAttention``
+(``small_attention``) is the differentiable form.
 """
 
 import ctypes
 
 import torch
 
-from . import _build
-from ._checks import check_cuda_f32, raise_on_error
+from . import _build, philox
+from ._checks import check_cuda_f32, check_seed_tensor, raise_on_error
 
 __all__ = ["flash_attention_reference", "flash_attention",
            "attention_delta", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference", "flash_attention_bwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "FlashAttention", "flash_attention_train"]
+           "FlashAttention", "flash_attention_train",
+           "small_attention_shapes_ok", "small_attention_fwd_reference",
+           "small_attention_fwd", "small_attention_bwd_reference",
+           "small_attention_bwd", "SmallAttention", "small_attention"]
 
 # finite, as in the reference: a fully masked row averages V, never NaN
 _MASK = -1e30
@@ -330,3 +349,268 @@ def flash_attention_train(q, k, v, bias=None, causal=False, sm_scale=None):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return FlashAttention.apply(q, k, v, bias, causal, sm_scale)[0]
+
+
+# -- small-sequence attention with in-kernel dropout --------------------------
+
+_SMALL_SEQ_MAX = 256
+
+
+def small_attention_shapes_ok(q_shape, k_shape, bias_shape, causal, layout):
+    """Static predicate shared by the op's forward and grad lowerings —
+    BOTH must route identically or the backward replays a wrong mask."""
+    if layout != "BHSD" or causal:
+        return False
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return False
+    B, H, S, D = q_shape
+    if not all(isinstance(d, int) for d in (B, H, S, D)):
+        return False
+    if k_shape[2] != S or k_shape[3] != D or S > _SMALL_SEQ_MAX \
+            or S % 128 != 0:
+        return False
+    if D not in (64, 128):
+        return False
+    if bias_shape is not None:
+        # the kernel tiles the bias as full [Sq, Sk] blocks: broadcast
+        # shapes like [B,1,1,S] must take the composed fallback
+        if (len(bias_shape) != 4 or bias_shape[1] not in (1, H)
+                or bias_shape[2] != S or bias_shape[3] != S):
+            return False
+    return True
+
+
+def _small_keep(seed, thr, q):
+    """The [B, H, S, S] keep mask of the small kernels (None at p = 0;
+    no data on the meta device)."""
+    if thr is None or q.device.type == "meta":
+        return None
+    bb, h, s, _d = q.shape
+    return philox.keep_mask(seed, thr, (bb, h, s, s), q.device)
+
+
+def _dropped_probs(prob, keep, thr):
+    if keep is None:
+        return prob
+    return torch.where(keep, prob * philox.inv_realized_q(thr),
+                       torch.zeros((), dtype=prob.dtype, device=prob.device))
+
+
+def small_attention_fwd_reference(q, k, v, bias, sm_scale, dropout_prob,
+                                  seed):
+    """Plain forward -> (out [B, H, S, D] in q's dtype, lse [B, H, S, 1]
+    f32): the reference's ``_small_fwd_kernel`` per head, the mask drawn
+    from the stream keyed by ``seed`` (two key words)."""
+    thr = philox.keep_threshold(dropout_prob)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    prob = _dropped_probs(p / l, _small_keep(seed, thr, q), thr)
+    out = torch.einsum("bhqk,bhkd->bhqd", prob, v.float())
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def small_attention_bwd_reference(q, k, v, bias, sm_scale, dropout_prob,
+                                  seed, out, lse, do):
+    """Plain backward -> (dq, dk, dv): probabilities from the forward's
+    lse, the mask re-drawn from ``seed`` (two key words, or the forward's
+    int32 Seed tensor, read on the host), delta = rowsum(dO . O)."""
+    thr = philox.keep_threshold(dropout_prob)
+    if thr is not None and q.device.type != "meta":
+        seed = philox.seed_words(seed)
+    keep = _small_keep(seed, thr, q)
+    delta = attention_delta(out, do)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    prob = torch.exp(s - lse)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", _dropped_probs(prob, keep, thr),
+                      dof)
+    dp = _dropped_probs(torch.einsum("bhqd,bhkd->bhqk", dof, v.float()),
+                        keep, thr)
+    ds = prob * (dp - delta) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _small_check(kernel, q, k, v, bias, do=None):
+    check_cuda_f32(kernel, q.device, contiguous=False, q=q, k=k, v=v)
+    if do is not None:
+        check_cuda_f32(kernel, q.device, contiguous=False, do=do)
+    if bias is not None:
+        check_cuda_f32(kernel, q.device, bias=bias)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError("%s kernel: want q, k, v%s of one shape [B, H, S, "
+                         "D], got %s" % (kernel, ", dO" if do is not None
+                                         else "", [tuple(t.shape) for t in
+                                                   (q, k, v, do)
+                                                   if t is not None]))
+    if not small_attention_shapes_ok(
+            tuple(q.shape), tuple(k.shape),
+            None if bias is None else tuple(bias.shape), False, "BHSD") \
+            or (bias is not None and bias.shape[0] != q.shape[0]) \
+            or q.shape[0] > 65535 or q.shape[1] > 65535:
+        raise ValueError("%s kernel: q %s, bias %s outside S <= 256, S %% "
+                         "128 == 0, D in (64, 128), bias [B, 1|H, S, S]"
+                         % (kernel, tuple(q.shape), None if bias is None
+                            else tuple(bias.shape)))
+    for name, t in (("q", q), ("k", k), ("v", v), ("dO", do)):
+        if t is not None and t.stride(3) != 1:
+            raise ValueError("%s kernel: %s's head dim is not dense "
+                             "(stride %d)" % (kernel, name, t.stride(3)))
+
+
+def _small_fwd_kernel():
+    return _build.function(
+        "small_attention", "small_attention_fwd_f32",
+        [_VP] * 6 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint,
+                                ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                                _VP] + [_LL] * 9 + [_VP])
+
+
+def _small_fwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, seed_out):
+    fn = _small_fwd_kernel()
+    _small_check("small_attention_fwd", q, k, v, bias)
+    if seed_out is not None:
+        check_seed_tensor("small_attention_fwd", "seed_out", seed_out,
+                          q.device)
+    thr = philox.keep_threshold(dropout_prob)
+    k0, k1 = philox.seed_words(seed) if seed is not None else (0, 0)
+    bb, h, s, d = q.shape
+    out = torch.empty((bb, h, s, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bb, h, s, 1), dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, out.data_ptr(),
+             lse.data_ptr(), bb, h, s, d,
+             0 if bias is None else bias.shape[1], float(sm_scale),
+             thr or 0, k0, k1,
+             philox.inv_realized_q(thr) if thr is not None else 1.0,
+             seed_out.data_ptr() if seed_out is not None else None,
+             *strides, stream)
+    raise_on_error("small_attention_fwd", err)
+    small_attention_fwd.launches += 1
+    return out, lse
+
+
+def small_attention_fwd(q, k, v, bias, sm_scale, dropout_prob, seed,
+                        seed_out=None):
+    """Small-sequence attention forward -> (out, lse [B, H, S, 1] f32).
+    ``seed``: the two key words (on the host); ``seed_out``, an int32 [2]
+    on q's device, receives them when given (on the card the kernel
+    writes it).  CPU and meta tensors take the plain version."""
+    if q.device.type in ("cpu", "meta"):
+        out = small_attention_fwd_reference(q, k, v, bias, sm_scale,
+                                            dropout_prob, seed)
+        if seed_out is not None and q.device.type == "cpu":
+            seed_out.copy_(philox.seed_tensor(
+                seed if seed is not None else (0, 0)))
+        return out
+    return _small_fwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed,
+                           seed_out)
+
+
+small_attention_fwd.launches = 0
+
+
+def _small_bwd_kernel():
+    return _build.function(
+        "small_attention_bwd", "small_attention_bwd_f32",
+        [_VP] * 10 + [_I] * 5 + [ctypes.c_float, ctypes.c_uint, _VP,
+                                 ctypes.c_float, _VP, _VP])
+
+
+def _small_bwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, out, lse,
+                    do):
+    fn = _small_bwd_kernel()
+    _small_check("small_attention_bwd", q, k, v, bias, do)
+    check_cuda_f32("small_attention_bwd", q.device, lse=lse)
+    bb, h, s, d = q.shape
+    if lse.numel() != bb * h * s:
+        raise ValueError("small_attention_bwd kernel: lse %s, want [%d, %d, "
+                         "%d, 1]" % (tuple(lse.shape), bb, h, s))
+    thr = philox.keep_threshold(dropout_prob)
+    if thr is not None:
+        check_seed_tensor("small_attention_bwd", "seed", seed, q.device)
+    delta = attention_delta(out, do)
+    dq = torch.empty((bb, h, s, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    strides = (ctypes.c_longlong * 12)(
+        *[st for t in (q, k, v, do) for st in t.stride()[:3]])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), bb, h, s, d,
+             0 if bias is None else bias.shape[1], float(sm_scale),
+             thr or 0, seed.data_ptr() if thr is not None else None,
+             philox.inv_realized_q(thr) if thr is not None else 1.0,
+             strides, stream)
+    raise_on_error("small_attention_bwd", err)
+    small_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def small_attention_bwd(q, k, v, bias, sm_scale, dropout_prob, seed, out,
+                        lse, do):
+    """Small-sequence attention backward -> (dq, dk, dv), dense [B, H, S,
+    D].  ``seed`` is the forward's int32 [2] Seed tensor (the kernel reads
+    its words on the card; a CPU tensor's path also takes two key words).
+    CPU and meta tensors take the plain version; CUDA tensors launch the
+    dQ and the dK/dV kernels of ``csrc/small_attention_bwd.cu`` (one
+    launch in the count)."""
+    if q.device.type in ("cpu", "meta"):
+        return small_attention_bwd_reference(q, k, v, bias, sm_scale,
+                                             dropout_prob, seed, out, lse,
+                                             do)
+    return _small_bwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, out,
+                           lse.contiguous(), do)
+
+
+small_attention_bwd.launches = 0
+
+
+class SmallAttention(torch.autograd.Function):
+    """Differentiable small-sequence attention with in-kernel dropout
+    (the reference's custom-VJP ``small_attention``): forward by
+    ``small_attention_fwd``, backward by ``small_attention_bwd`` from the
+    saved out, lse and Seed, which re-draws the forward's mask.  The bias
+    is a mask and gets no gradient."""
+
+    @staticmethod
+    def forward(q, k, v, bias, sm_scale, dropout_prob, seed):
+        seed_t = torch.empty(2, dtype=torch.int32, device=q.device)
+        out, lse = small_attention_fwd(q, k, v, bias, sm_scale, dropout_prob,
+                                       seed, seed_out=seed_t)
+        return out, lse, seed_t
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, bias, sm_scale, dropout_prob, _seed = inputs
+        out, lse, seed_t = output
+        ctx.mark_non_differentiable(lse, seed_t)
+        ctx.save_for_backward(q, k, v, bias, out, lse, seed_t)
+        ctx.sm_scale, ctx.dropout_prob = sm_scale, dropout_prob
+
+    @staticmethod
+    def backward(ctx, dout, _dlse, _dseed):
+        q, k, v, bias, out, lse, seed_t = ctx.saved_tensors
+        dq, dk, dv = small_attention_bwd(q, k, v, bias, ctx.sm_scale,
+                                         ctx.dropout_prob, seed_t, out, lse,
+                                         dout)
+        return dq, dk, dv, None, None, None, None
+
+
+def small_attention(q, k, v, bias, sm_scale, dropout_prob, seed):
+    """Attention output [B, H, S, D] with in-kernel attention-prob
+    dropout, differentiable in q, k and v; ``seed``: two key words."""
+    return SmallAttention.apply(q, k, v, bias, sm_scale, dropout_prob,
+                                seed)[0]

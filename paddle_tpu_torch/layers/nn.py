@@ -1,7 +1,8 @@
 """Op-building layers the BERT encoder calls.  Counterpart of
 ``paddle_tpu/layers/nn.py`` (``fc:133``, ``embedding:174``,
 ``matmul:199``, ``elementwise_add:459``, ``scale:509``,
-``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``transpose:1217``,
+``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``dropout:707``,
+``transpose:1217``,
 ``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``,
 ``softmax_with_cross_entropy:239``, ``accuracy:368``, ``mean:502``,
 ``softmax:587``, ``gather:1385``).  Each appends ops to the current
@@ -12,7 +13,8 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
-           "layer_norm", "fused_dropout_add_ln", "transpose", "reshape",
+           "layer_norm", "fused_dropout_add_ln", "dropout", "transpose",
+           "reshape",
            "unsqueeze", "flash_attention", "gather",
            "softmax_with_cross_entropy", "mean", "softmax", "accuracy"]
 
@@ -154,6 +156,24 @@ def fused_dropout_add_ln(x, y, dropout_prob=0.0, is_test=False,
         attrs={"dropout_prob": float(dropout_prob), "is_test": is_test,
                "epsilon": epsilon, "begin_norm_axis": begin_norm_axis,
                "fix_seed": seed is not None, "seed": seed or 0})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Dropout of x with probability ``dropout_prob``; ``seed`` fixes the
+    op's stream (fix_seed), else the executor's per-op seed keys it."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype="uint8",
+                                                     stop_gradient=True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "fix_seed": seed is not None,
+                            "seed": seed if seed is not None else 0,
+                            "dropout_implementation":
+                                dropout_implementation})
     return out
 
 

@@ -2,15 +2,29 @@
 
 Counterpart of ``paddle_tpu/models/bert.py``: the same configurations,
 layer calls and parameter names, so the two packages build identical
-programs and share saved weights.  Kept: the emission without dropout
-(inference, or training at ``dropout=0``), with one ``flash_attention``
-op per layer, two ``fused_dropout_add_ln`` epilogues per layer and a
-``layer_norm`` on the embeddings, and ``build_pretrain``'s masked-LM
-head with Adam.  The dropout training emission raises until the port has
-a dropout stream; the reference's TPU A/B switches (``BERT_FUSED_ATTN``,
-``BERT_COMPOSED_LN``) are not carried.  ``pretrain_feed`` makes the
-pretraining feed of the reference's ``bench.py`` (``_bert_feed``).
+programs and share saved weights.  Every emission of the reference but
+one:
+
+* without dropout (inference, or training at ``dropout=0``): one
+  ``flash_attention`` op per layer;
+* training at dropout p (BERT's published 0.1 by default): a ``dropout``
+  op on the embeddings and, per layer, the composed attention
+  (``matmul`` with alpha, the bias ``elementwise_add``, ``softmax``,
+  ``dropout``, ``matmul``);
+* training with ``BERT_FUSED_ATTN=1`` in the environment (read at build
+  time, where the reference reads it): one ``flash_attention`` op with
+  in-op dropout per layer, which ``FLAGS_fused_small_attention`` routes
+  to the small-sequence kernels;
+
+each with two ``fused_dropout_add_ln`` epilogues per layer (dropout p in
+training), a ``layer_norm`` on the embeddings, and ``build_pretrain``'s
+masked-LM head with Adam.  The reference's ``BERT_COMPOSED_LN=1``
+epilogue is not carried: building with it set raises.  ``pretrain_feed``
+makes the pretraining feed of the reference's ``bench.py``
+(``_bert_feed``).
 """
+
+import os
 
 import numpy as np
 
@@ -41,18 +55,9 @@ BERT_TINY = BertConfig(vocab_size=1024, hidden=64, layers=2, heads=4,
                        ffn=128, max_pos=64)
 
 
-def _training_emission():
-    raise NotImplementedError(
-        "BERT with dropout (is_test=False and cfg.dropout > 0) is the "
-        "dropout training emission, not in this training slice: build "
-        "with BertConfig(dropout=0.0)")
-
-
 def multi_head_attention(x, cfg, prefix, is_test=False, attn_mask=None):
-    """Self-attention: q/k/v projections, one flash_attention op, the
-    output projection."""
-    if cfg.dropout and not is_test:
-        _training_emission()
+    """Self-attention: q/k/v projections, the attention of the emission
+    (see the module's docstring), the output projection."""
     h, heads = cfg.hidden, cfg.heads
     d = h // heads
     q = layers.fc(x, h, num_flatten_dims=2,
@@ -67,8 +72,24 @@ def multi_head_attention(x, cfg, prefix, is_test=False, attn_mask=None):
         return layers.transpose(t, [0, 2, 1, 3])
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
-    ctxv = layers.flash_attention(q, k, v, bias_qk=attn_mask,
-                                  scale=d ** -0.5)
+    if is_test or not cfg.dropout:
+        ctxv = layers.flash_attention(q, k, v, bias_qk=attn_mask,
+                                      scale=d ** -0.5)
+    elif os.environ.get("BERT_FUSED_ATTN") == "1":
+        # in-op attention-prob dropout: the small-sequence kernels under
+        # FLAGS_fused_small_attention, else the composed route inside the op
+        ctxv = layers.flash_attention(q, k, v, bias_qk=attn_mask,
+                                      scale=d ** -0.5,
+                                      dropout_prob=cfg.dropout,
+                                      is_test=is_test)
+    else:
+        scores = layers.matmul(q, k, transpose_y=True, alpha=d ** -0.5)
+        if attn_mask is not None:
+            scores = layers.elementwise_add(scores, attn_mask)
+        probs = layers.dropout(layers.softmax(scores), cfg.dropout,
+                               is_test=is_test,
+                               dropout_implementation="upscale_in_train")
+        ctxv = layers.matmul(probs, v)
     ctxv = layers.transpose(ctxv, [0, 2, 1, 3])
     ctxv = layers.reshape(ctxv, [0, 0, h])
     return layers.fc(ctxv, h, num_flatten_dims=2,
@@ -76,6 +97,11 @@ def multi_head_attention(x, cfg, prefix, is_test=False, attn_mask=None):
 
 
 def _epilogue(x, y, cfg, is_test):
+    if os.environ.get("BERT_COMPOSED_LN") == "1":
+        raise NotImplementedError(
+            "BERT_COMPOSED_LN=1 (the reference's composed dropout, add and "
+            "layer_norm epilogue) is not ported: unset it to build the "
+            "fused_dropout_add_ln epilogue")
     return layers.fused_dropout_add_ln(x, y, dropout_prob=cfg.dropout,
                                        is_test=is_test, begin_norm_axis=2)
 
@@ -100,7 +126,8 @@ def embeddings(src_ids, pos_ids, sent_ids, cfg, is_test=False):
     emb = layers.elementwise_add(layers.elementwise_add(w, p), s)
     emb = layers.layer_norm(emb, begin_norm_axis=2)
     if cfg.dropout and not is_test:
-        _training_emission()
+        emb = layers.dropout(emb, cfg.dropout, is_test=is_test,
+                             dropout_implementation="upscale_in_train")
     return emb
 
 

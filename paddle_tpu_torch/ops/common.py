@@ -1,4 +1,10 @@
-"""Shared helpers of the op lowerings."""
+"""Shared helpers of the op lowerings.
+
+Counterpart of ``paddle_tpu/ops/common.py``: dtype attrs, Fluid's
+elementwise broadcast, and the dropout op's byte-quantised keep
+probability (``realized_prob:67``, ``realized_keep_prob:78``).  The byte
+draw itself (the reference's ``bernoulli_bytes:91``) is
+``kernels/philox.py`` ``keep_bytes``, from the port's Philox stream."""
 
 from ..framework import convert_np_dtype_to_dtype_, dtype_to_torch
 
@@ -38,11 +44,21 @@ def bcast_y(x, y, axis=-1):
     return y.reshape([1] * ax + yshape + [1] * (x.dim() - ax - len(yshape)))
 
 
-def training_only(ctx, what):
-    """Raise for the dropout training path, which needs a random stream
-    the port does not have yet.  Shape inference (meta tensors) passes:
-    the output shapes do not depend on it."""
-    if not ctx.abstract:
-        raise NotImplementedError(
-            "%s is a dropout training path, not in this training slice: it "
-            "comes with BERT at dropout 0.1 (a Philox stream)" % what)
+def byte_threshold(keep_prob):
+    """The byte threshold of the dropout op's keep draw: keep iff a byte
+    of the stream < round(keep_prob * 256), in 0..256."""
+    return min(max(int(round(float(keep_prob) * 256.0)), 0), 256)
+
+
+def realized_prob(keep_prob):
+    """The keep probability the byte draw actually samples with,
+    round(keep_prob * 256) / 256 in [0, 1] (the reference's
+    ``realized_prob``: the downgrade_in_infer sampling distribution)."""
+    return byte_threshold(keep_prob) / 256.0
+
+
+def realized_keep_prob(keep_prob):
+    """The byte draw's keep probability as the upscale DIVISOR, clamped
+    to >= 1/256 so an all-dropped draw gives exact zeros, never 0/0 (the
+    reference's ``realized_keep_prob``)."""
+    return max(byte_threshold(keep_prob), 1) / 256.0

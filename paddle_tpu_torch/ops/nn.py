@@ -1,27 +1,43 @@
-"""Normalisation and attention ops and their gradients: layer_norm,
-flash_attention, fused_dropout_add_ln.
+"""Normalisation, dropout and attention ops and their gradients:
+layer_norm, dropout, flash_attention, fused_dropout_add_ln.
 
 Counterpart of ``paddle_tpu/ops/nn.py`` (``layer_norm:460``,
-``flash_attention:863`` and its grad op ``:941``,
-``fused_dropout_add_ln:1018`` and its grad op ``:1063``).  Each reaches
-its kernel wrapper, which launches the CUDA kernel on the card and runs
-the plain version on the CPU.  The grads are written out (a vjp replay
-cannot trace a ctypes kernel): ``layer_norm_grad`` in plain torch from
-the forward's statistics (the reference's own backward is the jnp pass
-of ``pallas_kernels/layer_norm.py``), ``flash_attention_grad`` and
-``fused_dropout_add_ln_grad`` through the backward kernels.  Dropout
-paths raise: the port has no dropout stream yet.
+``dropout:602`` and its grad op ``:634``, ``flash_attention:863`` and its
+grad op ``:941``, ``fused_dropout_add_ln:1018`` and its grad op
+``:1063``).  Each reaches its kernel wrapper, which launches the CUDA
+kernel on the card and runs the plain version on the CPU.  The grads are
+written out (a vjp replay cannot trace a ctypes kernel):
+``layer_norm_grad`` in plain torch from the forward's statistics (the
+reference's own backward is the jnp pass of
+``pallas_kernels/layer_norm.py``), ``dropout_grad`` from the saved Mask,
+``flash_attention_grad`` and ``fused_dropout_add_ln_grad`` through the
+backward kernels.
+
+Randomness.  An op whose dropout is active draws from the port's Philox
+stream (``kernels/philox.py``) keyed by two words derived on the host
+from the op's seed (``LowerCtx.seed_words``: program seed, step, op
+index; the ``seed`` attr under ``fix_seed``), so the card and the CPU
+draw the same masks.  Two quantisations, as in the reference: the
+``dropout`` op and the composed attention keep iff a byte of the stream
+< round(q 256) and divide by ``realized_keep_prob``; the fused kernels
+keep iff a u32 < round(q 2^32) and multiply by its inverse in f32.
 """
 
 import torch
 
+from .. import flags
 from ..core.registry import (GradOpDesc, register_grad_lowering, register_op,
                              wants_grad)
 from ..framework import _grad_var_name
-from ..kernels.flash_attention import flash_attention, flash_attention_bwd
+from ..kernels import philox
+from ..kernels.dropout import dropout as dropout_kernel, true_divide
+from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                       small_attention_bwd,
+                                       small_attention_fwd,
+                                       small_attention_shapes_ok)
 from ..kernels.fused_ln import fused_ln_bwd, fused_ln_fwd
 from ..kernels.layer_norm import layer_norm_2d
-from .common import training_only
+from .common import byte_threshold, realized_keep_prob
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),
@@ -91,9 +107,9 @@ _PLACEHOLDERS = {}
 
 
 def _placeholder(shape, dtype, device):
-    """A zero tensor standing in an output slot that only the (not yet
-    ported) backward reads; made once per device and shared, since no op
-    writes it."""
+    """A zero tensor standing in an output slot that no op reads on this
+    path (the reference emits the same placeholders); made once per
+    device and shared, since no op writes it."""
     key = (shape, dtype, device)
     t = _PLACEHOLDERS.get(key)
     if t is None:
@@ -102,8 +118,104 @@ def _placeholder(shape, dtype, device):
     return t
 
 
-def _fa_uses_dropout(dropout_prob, is_test):
-    return float(dropout_prob or 0.0) > 0.0 and not is_test
+def _seed_words(ctx, fix_seed, seed):
+    """The op's two Philox key words: from its ``seed`` attr under
+    ``fix_seed``, else from the executor's per-op seed."""
+    if fix_seed and not ctx.abstract:
+        return philox.words_of(seed)
+    return ctx.seed_words()
+
+
+def _seed_output(device):
+    """The op's Seed output, int32 [2]: the forward's kernel (or its plain
+    version) stores the key words into it, so the host never copies them
+    to the card."""
+    return torch.empty(2, dtype=torch.int32, device=device)
+
+
+# -- dropout -----------------------------------------------------------------
+
+
+def _dropout_grad_maker(op, no_grad_set):
+    x = op.input("X")[0]
+    if x in no_grad_set:
+        return []
+    return [GradOpDesc("dropout_grad",
+                       {"Mask": list(op.output("Mask")),
+                        "GRAD@Out": [_grad_var_name(op.output("Out")[0])]},
+                       {"X@X": [_grad_var_name(x)]}, dict(op.attrs))]
+
+
+_DROPOUT_ATTRS = {"dropout_prob": 0.5, "is_test": False, "fix_seed": False,
+                  "seed": 0, "dropout_implementation": "downgrade_in_infer"}
+
+
+@register_op("dropout", inputs=("X",), outputs=("Out", "Mask"),
+             attrs=_DROPOUT_ATTRS, grad_maker=_dropout_grad_maker, n_rng=1)
+def dropout(ctx, x, dropout_prob=0.5, is_test=False, fix_seed=False, seed=0,
+            dropout_implementation="downgrade_in_infer", **_):
+    """Training: keep iff a byte of the stream < round(q 256), q = 1 - p;
+    upscale_in_train divides the kept values by the realized keep
+    probability, downgrade_in_infer keeps them as they are; Mask (uint8)
+    is what the grad op reads.  Inference: the identity
+    (upscale_in_train) or x * (1 - p) at the nominal p
+    (downgrade_in_infer), Mask all ones."""
+    if is_test:
+        ones = torch.ones(x.shape, dtype=torch.uint8, device=x.device)
+        if dropout_implementation == "upscale_in_train":
+            return x, ones
+        return x * (1.0 - dropout_prob), ones
+    keep_prob = 1.0 - dropout_prob
+    return dropout_kernel(x, _seed_words(ctx, fix_seed, seed),
+                          byte_threshold(keep_prob),
+                          realized_keep_prob(keep_prob),
+                          dropout_implementation == "upscale_in_train")
+
+
+def _dropout_active(attrs):
+    return not attrs.get("is_test", False)
+
+
+dropout.opdef.rng_when = _dropout_active
+
+
+@register_op("dropout_grad", inputs=("Mask", "GRAD@Out"), outputs=("X@X",),
+             attrs=_DROPOUT_ATTRS, grad_maker=None)
+def dropout_grad(ctx, mask, dy, dropout_prob=0.5, is_test=False,
+                 dropout_implementation="downgrade_in_infer", **_):
+    """dX = dY * Mask, divided by the forward's realized keep probability
+    under upscale_in_train."""
+    if dy is None:
+        return None
+    m = mask.to(dy.dtype)
+    if dropout_implementation == "upscale_in_train":
+        return true_divide(dy * m, realized_keep_prob(1.0 - dropout_prob))
+    return dy * m
+
+
+# -- flash_attention ---------------------------------------------------------
+
+
+def _uses_dropout(attrs):
+    """Dropout is active in flash_attention and fused_dropout_add_ln."""
+    return (float(attrs.get("dropout_prob", 0.0) or 0.0) > 0.0
+            and not attrs.get("is_test", False))
+
+
+def _fa_small_route(q, k, bias, attrs):
+    """Routing predicate of the small-sequence kernels, shared by the
+    forward and the grad lowering: both MUST route identically, since the
+    grad re-draws the forward's mask from Seed.  The reference also asks
+    for a TPU backend; here the device decides only inside the kernel
+    wrapper (a CPU tensor takes the plain version), so both lowerings
+    still route alike."""
+    if not flags.flag("FLAGS_fused_small_attention") \
+            or not _uses_dropout(attrs):
+        return False
+    return small_attention_shapes_ok(
+        tuple(q.shape), tuple(k.shape),
+        None if bias is None else tuple(bias.shape),
+        attrs.get("causal", False), attrs.get("layout", "BHSD"))
 
 
 def _flash_attention_grad_maker(op, no_grad_set):
@@ -132,58 +244,123 @@ def _check_layout(layout):
             "reference's BSHD composition is not ported yet" % (layout,))
 
 
+def _composed_probs(q, k, bias, causal, sm_scale):
+    """softmax(q k^T * scale + bias) as the reference's
+    ``_attention_composed`` computes it (the softmax in f32)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    if bias is not None:
+        s = s + bias.to(s.dtype)
+    if causal:
+        sq, sk = s.shape[-2:]
+        above = torch.arange(sk, device=s.device)[None, :] \
+            > torch.arange(sq, device=s.device)[:, None]
+        s = s.masked_fill(above, -1e30)
+    return torch.softmax(s.float(), dim=-1).to(q.dtype)
+
+
+_FA_ATTRS = {"causal": False, "scale": 0.0, "layout": "BHSD",
+             "dropout_prob": 0.0, "is_test": False}
+
+
 @register_op("flash_attention", inputs=("Q", "K", "V", "BiasQK"),
-             outputs=("Out", "Mask", "Seed", "Lse"),
-             attrs={"causal": False, "scale": 0.0, "layout": "BHSD",
-                    "dropout_prob": 0.0, "is_test": False},
+             outputs=("Out", "Mask", "Seed", "Lse"), attrs=_FA_ATTRS,
              optional_inputs=("BiasQK",), no_grad_inputs=("BiasQK",),
-             grad_maker=_flash_attention_grad_maker)
+             grad_maker=_flash_attention_grad_maker, n_rng=1)
 def flash_attention_op(ctx, q, k, v, bias_qk=None, causal=False, scale=0.0,
                        layout="BHSD", dropout_prob=0.0, is_test=False):
-    """softmax(q k^T * scale + bias) v through the flash-attention kernel.
-    q/k/v [B, H, S, D]; BiasQK [B, 1|H, Sq, Sk].  scale 0 means
-    1/sqrt(head_dim).  Mask, Seed and Lse are the reference's placeholders
-    of the dropout-free path; the grad op recomputes the lse."""
+    """softmax(q k^T * scale + bias) v, q/k/v [B, H, S, D], BiasQK [B,
+    1|H, Sq, Sk], scale 0 meaning 1/sqrt(head_dim).  Three routes, as the
+    reference's:
+
+    * small-sequence kernel (``FLAGS_fused_small_attention``, dropout
+      active, ``small_attention_shapes_ok``): bias, softmax and dropout
+      in one kernel; Seed and Lse carry the backward's replay state;
+    * composed, with dropout active otherwise: softmax, the dropout
+      kernel's byte draw (upscale by ``realized_keep_prob``), the product;
+      the keep Mask is saved for the grad;
+    * flash attention without dropout; Mask, Seed and Lse are the
+      reference's placeholders (the grad recomputes the lse)."""
     _check_layout(layout)
-    if _fa_uses_dropout(dropout_prob, is_test):
-        # the reference's composed dropout path and its small-sequence
-        # fused kernel (_fa_small_kernel_ok) both need dropout
-        training_only(ctx, "flash_attention with dropout")
     sm_scale = scale if scale else q.shape[-1] ** -0.5
+    attrs = {"dropout_prob": dropout_prob, "is_test": is_test,
+             "causal": causal, "layout": layout}
+    dev = q.device
+    if _fa_small_route(q, k, bias_qk, attrs):
+        seed_t = _seed_output(dev)
+        out, lse = small_attention_fwd(q, k, v, bias_qk, sm_scale,
+                                       dropout_prob, ctx.seed_words(),
+                                       seed_out=seed_t)
+        return out, _placeholder((1,), torch.uint8, dev), seed_t, lse
+    seed_ph = _placeholder((2,), torch.int32, dev)
+    lse_ph = _placeholder((1, 1, 1, 1), torch.float32, dev)
+    if _uses_dropout(attrs):
+        keep_prob = 1.0 - dropout_prob
+        p = _composed_probs(q, k, bias_qk, causal, sm_scale)
+        pd, mask = dropout_kernel(p, ctx.seed_words(),
+                                  byte_threshold(keep_prob),
+                                  realized_keep_prob(keep_prob), True)
+        return torch.einsum("bhqk,bhkd->bhqd", pd, v), mask, seed_ph, lse_ph
     out, _lse = flash_attention(q, k, v, bias=bias_qk, causal=causal,
                                 sm_scale=sm_scale)
-    dev = q.device
-    return (out, _placeholder((1,), torch.uint8, dev),
-            _placeholder((2,), torch.int32, dev),
-            _placeholder((1, 1, 1, 1), torch.float32, dev))
+    return out, _placeholder((1,), torch.uint8, dev), seed_ph, lse_ph
+
+
+flash_attention_op.opdef.rng_when = _uses_dropout
+
+
+def _composed_grad(q, k, v, bias, mask, dy, causal, sm_scale, keep_prob):
+    """dQ, dK, dV of the composed route from its saved keep Mask: the
+    softmax recomputed, the dropout replayed with the mask."""
+    p = _composed_probs(q, k, bias, causal, sm_scale)
+    kq = realized_keep_prob(keep_prob)
+    keep = mask.bool()
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    pd = torch.where(keep, true_divide(p, kq), zero)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dy)
+    dp = torch.where(keep, true_divide(torch.einsum("bhqd,bhkd->bhqk", dy, v),
+                                       kq), zero)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q)
+    return dq, dk, dv
 
 
 @register_op("flash_attention_grad",
              inputs=("Q", "K", "V", "BiasQK", "Mask", "Out", "Seed", "Lse",
                      "GRAD@Out"),
-             outputs=("X@Q", "X@K", "X@V"),
-             attrs={"causal": False, "scale": 0.0, "layout": "BHSD",
-                    "dropout_prob": 0.0, "is_test": False},
+             outputs=("X@Q", "X@K", "X@V"), attrs=_FA_ATTRS,
              optional_inputs=("BiasQK",), grad_maker=None)
 def flash_attention_grad_op(ctx, q, k, v, bias_qk, mask, out, seed_words,
                             lse, dy, causal=False, scale=0.0, layout="BHSD",
                             dropout_prob=0.0, is_test=False):
-    """dQ, dK, dV through the backward kernels.  The forward's Lse output
-    is the reference's placeholder (programs stay the reference's), so
-    the forward kernel runs again for the out/lse pair, as the
+    """dQ, dK, dV on the forward's route: the small-sequence backward
+    kernels from the saved Seed (read on the card) and Lse; the composed
+    route's replay with the saved Mask; or the flash backward kernels,
+    after running the forward kernel again for the out/lse pair (the
+    forward's Lse output is the reference's placeholder there), as the
     reference's ``jax.vjp`` replays the forward."""
     _check_layout(layout)
-    if _fa_uses_dropout(dropout_prob, is_test):
-        training_only(ctx, "flash_attention_grad with dropout")
     if dy is None:
         return None, None, None
     sm_scale = scale if scale else q.shape[-1] ** -0.5
-    out2, lse2 = flash_attention(q, k, v, bias=bias_qk, causal=causal,
-                                 sm_scale=sm_scale)
-    dq, dk, dv = flash_attention_bwd(q, k, v, bias_qk, out2, lse2, dy,
-                                     causal, sm_scale)
+    attrs = {"dropout_prob": dropout_prob, "is_test": is_test,
+             "causal": causal, "layout": layout}
+    if _fa_small_route(q, k, bias_qk, attrs):
+        grads = small_attention_bwd(q, k, v, bias_qk, sm_scale, dropout_prob,
+                                    seed_words, out, lse, dy)
+    elif _uses_dropout(attrs):
+        grads = _composed_grad(q, k, v, bias_qk, mask, dy, causal, sm_scale,
+                               1.0 - dropout_prob)
+    else:
+        out2, lse2 = flash_attention(q, k, v, bias=bias_qk, causal=causal,
+                                     sm_scale=sm_scale)
+        grads = flash_attention_bwd(q, k, v, bias_qk, out2, lse2, dy, causal,
+                                    sm_scale)
     return tuple(g if wants_grad(ctx, s) else None
-                 for g, s in zip((dq, dk, dv), "QKV"))
+                 for g, s in zip(grads, "QKV"))
+
+
+# -- fused_dropout_add_ln ----------------------------------------------------
 
 
 def _fused_dropout_add_ln_grad_maker(op, no_grad_set):
@@ -203,37 +380,49 @@ def _fused_dropout_add_ln_grad_maker(op, no_grad_set):
                        dict(op.attrs))]
 
 
+_FDALN_ATTRS = {"dropout_prob": 0.0, "is_test": False, "epsilon": 1e-5,
+                "begin_norm_axis": 1, "fix_seed": False, "seed": 0}
+
+
 @register_op("fused_dropout_add_ln", inputs=("X", "Y", "Scale", "Bias"),
              outputs=("Out", "R", "Mean", "Variance", "Seed"),
-             attrs={"dropout_prob": 0.0, "is_test": False, "epsilon": 1e-5,
-                    "begin_norm_axis": 1, "fix_seed": False, "seed": 0},
-             grad_maker=_fused_dropout_add_ln_grad_maker)
+             attrs=_FDALN_ATTRS, grad_maker=_fused_dropout_add_ln_grad_maker,
+             n_rng=1)
 def fused_dropout_add_ln_op(ctx, x, y, scale, bias, dropout_prob=0.0,
                             is_test=False, epsilon=1e-5, begin_norm_axis=1,
                             fix_seed=False, seed=0, **_):
-    """Out = LayerNorm(X + dropout(Y)) through the fused kernel; at
-    inference (is_test, or p = 0) the dropout is the identity and Seed
-    is zeros, as in the reference."""
-    if not is_test and float(dropout_prob) > 0.0:
-        training_only(ctx, "fused_dropout_add_ln with dropout")
+    """Out = LayerNorm(X + dropout(Y)) through the fused kernel.  Training
+    (p > 0): the mask is drawn inside the kernel from the op's key words,
+    which it stores to Seed for the grad op to replay; at inference
+    (is_test, or p = 0) the dropout is the identity and Seed is zeros, as
+    in the reference."""
+    p = 0.0 if is_test else float(dropout_prob)
+    if p > 0.0:
+        seed_t = _seed_output(x.device)
+        z, r, mean, var = fused_ln_fwd(x, y, scale, bias, p,
+                                       _seed_words(ctx, fix_seed, seed),
+                                       epsilon, begin_norm_axis,
+                                       seed_out=seed_t)
+        return z, r, mean, var, seed_t
     z, r, mean, var = fused_ln_fwd(x, y, scale, bias, 0.0, None, epsilon,
                                    begin_norm_axis)
     return z, r, mean, var, _placeholder((2,), torch.int32, x.device)
 
 
+fused_dropout_add_ln_op.opdef.rng_when = _uses_dropout
+
+
 @register_op("fused_dropout_add_ln_grad",
              inputs=("R", "Scale", "Seed", "Mean", "Variance", "GRAD@Out"),
              outputs=("X@X", "X@Y", "X@Scale", "X@Bias"),
-             attrs={"dropout_prob": 0.0, "is_test": False, "epsilon": 1e-5,
-                    "begin_norm_axis": 1, "fix_seed": False, "seed": 0},
-             grad_maker=None)
+             attrs=_FDALN_ATTRS, grad_maker=None)
 def fused_dropout_add_ln_grad_op(ctx, r, scale, seed_words, mean, var, dz,
                                  dropout_prob=0.0, is_test=False,
                                  epsilon=1e-5, begin_norm_axis=1, **_):
-    """dX, dY, dScale, dBias from the saved residual sum R and the row
-    statistics, through the fused-LN backward kernel."""
+    """dX, dY, dScale, dBias from the saved residual sum R, the row
+    statistics and (p > 0) the Seed tensor, whose words the backward
+    kernel reads on the card to re-draw the forward's mask."""
     p = 0.0 if is_test else float(dropout_prob)
-    if p > 0.0:
-        training_only(ctx, "fused_dropout_add_ln_grad with dropout")
-    return fused_ln_bwd(r, scale, mean, var, dz, 0.0, None, epsilon,
+    return fused_ln_bwd(r, scale, mean, var, dz, p,
+                        seed_words if p > 0.0 else None, epsilon,
                         begin_norm_axis)

@@ -4,24 +4,31 @@ JAX reference on the CPU.
 
 * The port's ``fused_ln_fwd`` (its plain version on CPU tensors) gives
   the reference ``fused_ln.fused_ln_fwd``'s z, r, mean and var at
-  dropout probability 0 (the jnp fallback on the CPU), atol 1e-5 (f32).
+  dropout probability 0 (the jnp fallback on the CPU), atol 1e-5 (f32),
+  and at p = 0.1 with the reference's ``_fallback_keep`` patched to the
+  port's Philox mask (the two packages' streams differ), same atol.
 * The port's ``layer_norm_2d``, and the port's ``layer_norm`` op run by
   its own Executor, give what the reference's ``layer_norm`` op gives
   through a JAX CPU Executor (its jnp branch), atol 1e-5.
-* Dropout (the training path) raises on every device, in the function
-  and in the ops.
+* The fused_dropout_add_ln op at p = 0.1 in a training program, run by
+  the port's Executor, gives the reference op's output from the same
+  mask (keyed by the Seed the port's op emits), atol 1e-5.
 * The CUDA branches build or raise and never fall back."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as fluid
+from paddle_tpu.core import registry as jreg
+from paddle_tpu.core.lowering import LowerCtx as JCtx
 from paddle_tpu.pallas_kernels import fused_ln as jfl
 import paddle_tpu_torch.framework as tfw
 from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, philox
 from paddle_tpu_torch.kernels import fused_ln as tfl
 from paddle_tpu_torch.kernels import layer_norm as tln
 
@@ -50,10 +57,35 @@ def test_fused_ln_matches_reference_at_p0(shape, axis):
                                    rtol=0, err_msg=name)
 
 
-def test_fused_ln_dropout_raises():
-    x = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="training"):
-        tfl.fused_ln_fwd(x, x, torch.ones(8), torch.zeros(8), 0.1)
+def _patch_reference_keep(monkeypatch, words):
+    """The reference's jnp keep draw returns the port's mask for the
+    stream keyed by ``words``."""
+    monkeypatch.setattr(
+        jfl, "_fallback_keep",
+        lambda seed, thr, shape: jnp.asarray(
+            philox.keep_mask(words, thr, shape).numpy()))
+
+
+def test_fused_ln_dropout_raises(monkeypatch):
+    """Dropout at p = 0.1, once a raise: z, r, mean and var equal the
+    reference's from the same keep mask, and the mask is in effect."""
+    rng = np.random.RandomState(3)
+    x, y = _rand(rng, 8, 16, 64, scale=2.0), _rand(rng, 8, 16, 64)
+    g, b = _rand(rng, 64, shift=1.0), _rand(rng, 64)
+    words = (0xC0FFEE, 42)
+    _patch_reference_keep(monkeypatch, words)
+    want = jfl.fused_ln_fwd(x, y, g, b, 0.1, np.asarray(words, np.uint32),
+                            1e-5, 2)
+    seed_out = torch.empty(2, dtype=torch.int32)
+    got = tfl.fused_ln_fwd(*(torch.from_numpy(a) for a in (x, y, g, b)),
+                           0.1, words, 1e-5, 2, seed_out=seed_out)
+    assert philox.seed_words(seed_out) == words
+    for name, gv, wv in zip(("z", "r", "mean", "var"), got, want):
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=ATOL,
+                                   rtol=0, err_msg=name)
+    p0 = tfl.fused_ln_fwd(*(torch.from_numpy(a) for a in (x, y, g, b)),
+                          0.0, None, 1e-5, 2)
+    assert float((p0[1] - got[1]).abs().max()) > 0.1
 
 
 def _jax_layer_norm(x, g, b, eps):
@@ -107,21 +139,39 @@ def test_port_layer_norm_op_matches_reference_op():
         np.testing.assert_allclose(gv, wv, atol=ATOL, rtol=0)
 
 
-def test_fused_op_in_training_mode_raises():
+def test_fused_op_in_training_mode_raises(monkeypatch):
+    """The op in training mode (p = 0.1), once a raise: run by the port's
+    Executor, its output equals the reference op's lowering on the same
+    inputs and mask; the Seed it emits holds the key words of the port's
+    per-op seed, and a second step draws another mask."""
     main, startup = tfw.Program(), tfw.Program()
     with tfw.program_guard(main, startup):
         x = tlayers.data("x", shape=[4, 8])
         y = tlayers.data("y", shape=[4, 8])
         out = tlayers.fused_dropout_add_ln(x, y, dropout_prob=0.1,
                                            begin_norm_axis=2)
-    # shape inference still ran (meta tensors): the op's shapes are known
+    # shape inference ran (meta tensors): the op's shapes are known
     assert main.global_block().var(out.name).shape == (-1, 4, 8)
+    op = main.global_block().ops[-1]
     exe = Executor("cpu")
     scope = Scope()
     exe.run(startup, scope=scope)
-    feed = {"x": np.zeros((2, 4, 8), "f"), "y": np.zeros((2, 4, 8), "f")}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    rng = np.random.RandomState(4)
+    feed = {"x": _rand(rng, 2, 4, 8), "y": _rand(rng, 2, 4, 8, scale=3.0)}
+    names = [out.name, op.output("Seed")[0], op.input("Scale")[0],
+             op.input("Bias")[0]]
+    got, seed, g, b = exe.run(main, feed=feed, fetch_list=names, scope=scope)
+    got2, seed2 = exe.run(main, feed=feed, fetch_list=names[:2], scope=scope)
+    assert seed.dtype == np.int32 and not np.array_equal(seed, seed2)
+    assert float(np.abs(got - got2).max()) > 1e-3
+    words = philox.seed_words(torch.from_numpy(seed))
+    _patch_reference_keep(monkeypatch, words)
+    attrs = {k: op.attrs[k] for k in ("dropout_prob", "is_test", "epsilon",
+                                      "begin_norm_axis", "fix_seed", "seed")}
+    want = jreg.get_op_def("fused_dropout_add_ln").lower(
+        JCtx(rng_key=jax.random.key(0), mode="eager"),
+        *(jnp.asarray(a) for a in (feed["x"], feed["y"], g, b)), **attrs)[0]
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("mod,cuda_fn,args", [

@@ -1,22 +1,26 @@
 """Backward of the fused dropout-add-LayerNorm in the PyTorch port
 (paddle_tpu_torch/kernels/fused_ln.py ``fused_ln_bwd``) held against the
 JAX reference (paddle_tpu/pallas_kernels/fused_ln.py ``fused_ln_bwd``,
-its jnp pass on the CPU) at dropout probability 0.
+its jnp pass on the CPU) at dropout probability 0 and 0.1.
 
 * dx, dy, dgamma and dbeta from the forward's r, mean and var, on several
   shapes and norm axes: dx and dy to atol 1e-5 (f32, another library's
   summation order), dgamma and dbeta, sums over all rows, to 1e-5 of
   their largest value.
 * At dropout 0, dy is dx (one tensor).
-* Dropout > 0 raises (the port has no dropout stream yet).
+* At dropout 0.1, dx, dy, dgamma and dbeta equal the reference's from
+  the same keep mask (its ``_fallback_keep`` patched to the port's
+  Philox mask), the port's backward re-drawing it from the forward's
+  Seed tensor; same tolerances.
 * The CUDA branch builds or raises and never falls back."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu.pallas_kernels import fused_ln as jfl
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, philox
 from paddle_tpu_torch.kernels import fused_ln as tfl
 
 ATOL = 1e-5
@@ -75,11 +79,39 @@ def test_port_forward_then_backward_matches_reference():
                                    rtol=0)
 
 
-def test_dropout_raises():
-    r = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfl.fused_ln_bwd(r, torch.ones(8), torch.zeros(2), torch.ones(2), r,
-                         dropout_prob=0.1)
+def test_dropout_raises(monkeypatch):
+    """Dropout at p = 0.1, once a raise: the backward from the port's own
+    forward (its r, statistics and Seed) equals the reference's from the
+    same mask; dy is the dropped dx, not dx."""
+    shape, axis = (8, 16, 64), 2
+    rng = np.random.RandomState(2)
+    x, y = _rand(rng, *shape, scale=2.0), _rand(rng, *shape)
+    h = int(np.prod(shape[axis:]))
+    g, b = _rand(rng, h, shift=1.0), _rand(rng, h)
+    dz = _rand(rng, *shape)
+    words = (0xFACE, 0xB00C)
+    monkeypatch.setattr(
+        jfl, "_fallback_keep",
+        lambda seed, thr, shp: jnp.asarray(
+            philox.keep_mask(words, thr, shp).numpy()))
+    jseed = np.asarray(words, np.uint32)
+    _z, jr, jm, jv = jfl.fused_ln_fwd(x, y, g, b, 0.1, jseed, 1e-5, axis)
+    want = jfl.fused_ln_bwd(jr, g, jseed, jm, jv, dz, 0.1, 1e-5, axis)
+    seed_t = torch.empty(2, dtype=torch.int32)
+    _z, r, mean, var = tfl.fused_ln_fwd(_t(x), _t(y), _t(g), _t(b), 0.1,
+                                        words, 1e-5, axis, seed_out=seed_t)
+    got = tfl.fused_ln_bwd(r, _t(g), mean, var, _t(dz), 0.1, seed_t, 1e-5,
+                           axis)
+    for name, gv, wv in zip(("dx", "dy"), got[:2], want[:2]):
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=ATOL,
+                                   rtol=0, err_msg=name)
+    for name, gv, wv in zip(("dgamma", "dbeta"), got[2:], want[2:]):
+        wv = np.asarray(wv)
+        np.testing.assert_allclose(gv.numpy(), wv, rtol=0,
+                                   atol=SUM_RTOL * float(np.abs(wv).max()),
+                                   err_msg=name)
+    assert got[0] is not got[1]
+    assert float((got[0] - got[1]).abs().max()) > 1e-3
 
 
 def test_backward_grid_covers_every_row():

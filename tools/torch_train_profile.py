@@ -3,17 +3,24 @@
 on the card.
 
     python3 tools/torch_train_profile.py [--steps 5] [--batch 32]
+        [--emission dropout0|composed|small]
 
-Builds BERT-base pretraining (dropout 0, seq 128, Adam at lr 1e-4,
-seeded random weights) with the port's ``build_pretrain`` and runs its
+Builds BERT-base pretraining (seq 128, Adam at lr 1e-4, seeded random
+weights) with the port's ``build_pretrain`` in one of three emissions:
+``dropout0`` (dropout 0, one flash_attention op a layer; the default),
+``composed`` (BERT's dropout 0.1: the embeddings dropout and, a layer,
+matmul, bias add, softmax, dropout, matmul) or ``small`` (dropout 0.1
+with ``BERT_FUSED_ATTN=1`` and ``FLAGS_fused_small_attention``: one
+flash_attention op a layer on the small-sequence kernels), and runs its
 main program through the port's Executor on the card, step after step
 on one fixed batch, as a training loop does: numpy feeds copied in, the
 loss copied back.  After warm-up steps it times ``--steps`` steps on the
 host clock, then records as many with torch.profiler and prints the
 device busy time per step, the device's idle share over the kernels'
 span, kernels per step, and the step's device time split into matrix
-products, the ported kernels (flash forward, dQ, dK/dV, fused LN forward
-and backward, LayerNorm, fused Adam) and the rest.  Last, as many steps
+products, the ported kernels (flash forward, dQ, dK/dV, small-sequence
+attention forward and backward, dropout, fused LN forward and backward,
+LayerNorm, fused Adam) and the rest.  Last, as many steps
 again with each op's host time recorded (the executor's ``run_op``
 wrapped by a clock; launches are asynchronous, so this is the time the
 host spends issuing each op), summed by op type.  Needs one CUDA card.
@@ -36,6 +43,9 @@ SEQ = 128
 _PORTED = (("flash_fwd", "flash attention forward"),
            ("flash_bwd_dq", "flash attention dQ"),
            ("flash_bwd_dkv", "flash attention dK/dV"),
+           ("small_fwd", "small attention forward"),
+           ("small_bwd", "small attention backward (dQ, dK/dV)"),
+           ("dropout_kernel", "dropout"),
            ("fused_ln_bwd", "fused LN backward"),
            ("reduce_partials", "fused LN backward"),
            ("ln_rows", "fused LN forward + LayerNorm"),
@@ -58,6 +68,8 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--emission", choices=("dropout0", "composed", "small"),
+                    default="dropout0")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this profiles the port on the card")
@@ -65,7 +77,7 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import framework, set_flags
     from paddle_tpu_torch.core import Executor, Scope
     from paddle_tpu_torch.models.bert import (BertConfig, build_pretrain,
                                               pretrain_feed)
@@ -74,7 +86,10 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print("card: %s" % card, flush=True)
-    cfg = BertConfig(dropout=0.0)
+    cfg = BertConfig(dropout=0.0 if args.emission == "dropout0" else 0.1)
+    if args.emission == "small":
+        os.environ["BERT_FUSED_ATTN"] = "1"   # read at build time
+        set_flags({"FLAGS_fused_small_attention": True})
     main_prog, startup = framework.Program(), framework.Program()
     startup.random_seed = 11
     with framework.program_guard(main_prog, startup):
@@ -111,11 +126,13 @@ def main():
     span_us = max(e.time_range.end for e in kernels) \
         - min(e.time_range.start for e in kernels)
     ops = len(main_prog.global_block().ops)
-    print("BERT-base pretraining, batch %d, seq %d: %d ops a step; %d "
+    print("BERT-base pretraining, emission %s (dropout %g), batch %d, seq "
+          "%d: %d ops a step; %d "
           "steps: host %.3f ms/step unprofiled (p50 %.3f); device busy "
           "%.3f ms/step; device idle share %.3f over the kernels' span; "
           "peak device memory %.2f GB"
-          % (args.batch, SEQ, ops, n, float(np.mean(host)),
+          % (args.emission, cfg.dropout, args.batch, SEQ, ops, n,
+             float(np.mean(host)),
              float(np.percentile(host, 50)), busy_us / 1e3 / n,
              1.0 - busy_us / span_us, peak_gb), flush=True)
     groups, names = {}, {}
