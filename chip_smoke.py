@@ -9,10 +9,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
 2. the build: every CUDA source of the port compiled with nvcc for
    sm_90a (all started together), with seconds and ptxas usage;
 3. the kernels: each kernel against its plain PyTorch version on the card
-   at its main-path shape and others (the fused Adam bitwise, with and
-   without its bf16 copy; the dropout kernel's mask bytes bitwise, its
-   keep fraction within 5 sigma; the dropout paths at p = 0.1, where one
-   flipped keep bit would move an output by about prob / q), then timed
+   at its main-path shape and others (the fused Adam and the fused
+   momentum bitwise, with and without their bf16 copy; the conv-block
+   kernels at ResNet-50's shapes and odd ones, the affine pass bitwise;
+   the dropout kernel's mask bytes bitwise, its keep fraction within 5
+   sigma; the dropout paths at p = 0.1, where one flipped keep bit
+   would move an output by about prob / q), then timed
    (CUDA events, L2 flushed before every launch, as the serving and
    training loops find it) beside its plain version, a one-call PyTorch
    yardstick and its bound;
@@ -42,7 +44,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
    must give the losses and Adam moments of the port's plain path on the
    CPU (the two devices draw the same masks: the key words come from the
    executor's per-op seed, on the host);
-7. the script's own wall time, a JSON line of the kernels, then the
+7. ResNet-50 serving (v1.5, 224x224, 1000 classes, seeded random
+   weights): the bundled ``resnet(is_test=True)`` and the same
+   architecture as ``conv2d_bn_relu`` ops under
+   ``FLAGS_use_pallas_conv_block``, each saved and served by
+   ServingEngine over buckets 1, 8, 32 to a few client threads through
+   the predictor's passes; every reply ok, the trunk's batches launching
+   the folded conv + BN + relu kernel 53 times each (the bundled one
+   none), sampled replies equal to the plain predictor on the CPU;
+8. ResNet-50 training, both programs, Momentum (0.9) with L2Decay(1e-4)
+   at batch 32 for 5 steps on one batch: the fused momentum kernel once
+   a step, the trunk's conv-with-statistics and affine + relu kernels 53
+   times a step each, the last loss below the first, and 3 steps at
+   batch 2, each from one state on the card and on the CPU's plain path,
+   with the same losses and velocities;
+9. the script's own wall time, a JSON line of the kernels, then the
    result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
@@ -123,18 +139,20 @@ def card_line():
 
 # -- timing ------------------------------------------------------------------
 
-def time_cold(fn, flush, iters=50):
+def time_cold(fn, flush, iters=50, sleep_cycles=1_000_000):
     """Mean device ms of ``fn`` with L2 flushed before each call.  The
-    flush (a 256 MB write) and a device-side sleep of ~0.5 ms keep the
-    card busy while the host enqueues ``fn``, so the events bracket device
-    work, not the wrapper's host time before its first launch."""
+    flush (a 256 MB write) and a device-side sleep (~0.5 ms by default)
+    keep the card busy while the host enqueues ``fn``, so the events
+    bracket device work, not the wrapper's host time before its first
+    launch; a wrapper with more host work before its launch than the
+    sleep covers needs a longer one."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -155,12 +173,13 @@ def bound(nbytes, flops):
 
 
 def timed_row(name, kernel, plain, library, nbytes, flops, flush, worst,
-              what):
+              what, sleep_cycles=1_000_000):
     """Time kernel, plain version and library call; print and return the
     kernel's row (launches filled in after the serving phase)."""
-    kernel_ms = time_cold(kernel, flush)
-    plain_ms = time_cold(plain, flush)
-    library_ms = time_cold(library, flush) if library is not None else None
+    kernel_ms = time_cold(kernel, flush, sleep_cycles=sleep_cycles)
+    plain_ms = time_cold(plain, flush, sleep_cycles=sleep_cycles)
+    library_ms = time_cold(library, flush, sleep_cycles=sleep_cycles) \
+        if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
     print("kernel %s %s: kernel_ms %.6f plain_ms %.6f library_ms %s "
           "bound_ms %.6f (%s; %d bytes over 3.35 TB/s, %d flops over "
@@ -784,6 +803,199 @@ def adam_kernel_phase(fad, dev, flush, cfg):
     return row
 
 
+# the conv kernels (rows 11, 12) vs their plain versions (cuDNN, TF32 off):
+# each output sums K = C kh kw products (up to 4608 at ResNet-50's widths,
+# outputs ~1) in another order; measured against this by the phase
+CONV_ATOL = 1e-4
+# row 12's per-image channel sums over up to 12544 pixels, held relative
+# to each output's largest value
+CONV_STATS_RTOL = 1e-5
+
+
+def resnet50_fused_group():
+    """Shapes of ResNet-50's fused momentum group, as the port's
+    ``FuseOptimizerOpsPass`` forms it: every parameter of rank <= 2 (the
+    53 batch norms' scales and biases, the fc weight and bias)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models.resnet import build_train
+
+    main_p, startup = framework.Program(), framework.Program()
+    with framework.program_guard(main_p, startup):
+        build_train(depth=50)
+    return [tuple(v.shape) for v in main_p.list_vars()
+            if isinstance(v, framework.Parameter) and len(v.shape) <= 2]
+
+
+def conv_case(rng, n, c, hw, co, k, dev):
+    """x [n, c, hw, hw] ~ N(0, 1), w [co, c, k, k] ~ N(0, 2 / fan_in) (the
+    layers' init), a ~ U(0.5, 1.5), b ~ N(0, 0.1^2), on ``dev``."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    f = np.float32
+    return (t(rng.randn(n, c, hw, hw).astype(f)),
+            t((rng.randn(co, c, k, k) * np.sqrt(2.0 / (c * k * k)))
+              .astype(f)),
+            t(rng.uniform(0.5, 1.5, co).astype(f)),
+            t((rng.randn(co) * 0.1).astype(f)))
+
+
+# (what, N, C, H = W, C_out, k, stride, pad, relu): ResNet-50 at batch 32
+# (the stem, a stage-3 3x3, a stage-4 1x1 stride-2 shortcut, a stage-5 3x3
+# at OH OW = 49), then odd shapes the routing predicate accepts
+CONV_CASES = [
+    ("stem x [32, 3, 224, 224] w [64, 3, 7, 7] s2 p3", 32, 3, 224, 64, 7,
+     2, 3, True),
+    ("stage-3 3x3 x [32, 256, 14, 14] w [256, 256, 3, 3] s1 p1", 32, 256,
+     14, 256, 3, 1, 1, True),
+    ("shortcut 1x1 s2 x [32, 512, 28, 28] w [1024, 512, 1, 1]", 32, 512, 28,
+     1024, 1, 2, 0, False),
+    ("stage-5 3x3 OH OW = 49 x [32, 512, 7, 7] w [512, 512, 3, 3] s1 p1",
+     32, 512, 7, 512, 3, 1, 1, True),
+    ("odd x [3, 4, 13, 13] w [24, 4, 5, 5] s2 p2, no relu", 3, 4, 13, 24, 5,
+     2, 2, False),
+    ("odd x [2, 8, 9, 9] w [72, 8, 3, 3] s1 p0", 2, 8, 9, 72, 3, 1, 0, True),
+]
+
+
+def conv_kernel_phase(cb, dev, flush):
+    """Rows 11, 12, 13 against their plain versions at CONV_CASES (row 13
+    bitwise: one rounded product and sum, as the plain version), then
+    timed at the stem and the stage-3 3x3 (the rows carry the 3x3)."""
+    rng = np.random.RandomState(11)
+    worst = {"conv_bn_act": 0.0, "conv_stats": 0.0, "affine_act": 0.0}
+    kept = {}
+    for what, n, c, hw, co, k, stride, pad, relu in CONV_CASES:
+        x, w, a, b = conv_case(rng, n, c, hw, co, k, dev)
+        got = cb.conv_bn_act(x, w, a, b, stride, pad, relu)
+        want = cb.conv_bn_act_reference(x, w, a, b, stride, pad, relu)
+        worst["conv_bn_act"] = max(worst["conv_bn_act"], check(
+            "conv_bn_act", what, [got], [want], CONV_ATOL))
+        conv, s, ss = cb.conv_stats(x, w, stride, pad)
+        pconv, ps, pss = cb.conv_stats_reference(x, w, stride, pad)
+        worst["conv_stats"] = max(worst["conv_stats"], check(
+            "conv_stats", what + " (conv)", [conv], [pconv], CONV_ATOL))
+        for name, g, wv in (("sum", s, ps), ("sum of squares", ss, pss)):
+            check("conv_stats", "%s (%s, relative)" % (what, name),
+                  [g / wv.abs().max()], [wv / wv.abs().max()],
+                  CONV_STATS_RTOL)
+        y = cb.affine_act(conv, a, b, relu)
+        torch.cuda.synchronize()
+        if not torch.equal(y, cb.affine_act_reference(conv, a, b, relu)):
+            fail("affine_act not bitwise equal to the plain version at %s"
+                 % what)
+        print("kernel affine_act %s: bitwise equal to the plain version"
+              % what, flush=True)
+        if what.startswith(("stem", "stage-3")):
+            kept[what] = (x, w, a, b, stride, pad, relu)
+        del x, w, conv, pconv, got, want, y
+    rows = {}
+    for what, (x, w, a, b, stride, pad, relu) in kept.items():
+        n, c, hw, _ = x.shape
+        co, k = w.shape[0], w.shape[2]
+        oh = cb.out_size(hw, k, stride, pad)
+        out_el = n * co * oh * oh
+        flops = 2 * out_el * c * k * k
+        io = 4 * (x.numel() + w.numel() + out_el)
+        wa = (w * a.reshape(-1, 1, 1, 1)).contiguous()
+        f = torch.nn.functional
+        rows["conv_bn_act"] = timed_row(
+            "conv_bn_act", lambda: cb.conv_bn_act(x, w, a, b, stride, pad),
+            lambda: cb.conv_bn_act_reference(x, w, a, b, stride, pad),
+            lambda: f.relu(f.conv2d(x, wa, b, stride=stride, padding=pad)),
+            io + 8 * co, flops + 3 * out_el, flush, worst["conv_bn_act"],
+            "%s (cuDNN F.relu(F.conv2d(x, w a, b)), TF32 off)" % what)
+
+        def lib_stats():
+            cv = f.conv2d(x, w, stride=stride, padding=pad)
+            return cv, cv.sum(dim=(2, 3)), (cv * cv).sum(dim=(2, 3))
+
+        rows["conv_stats"] = timed_row(
+            "conv_stats", lambda: cb.conv_stats(x, w, stride, pad),
+            lambda: cb.conv_stats_reference(x, w, stride, pad), lib_stats,
+            io + 8 * n * co, flops + 3 * out_el, flush, worst["conv_stats"],
+            "%s (cuDNN F.conv2d + the two sums)" % what)
+        conv = cb.conv_stats(x, w, stride, pad)[0]
+        rows["affine_act"] = timed_row(
+            "affine_act", lambda: cb.affine_act(conv, a, b),
+            lambda: cb.affine_act_reference(conv, a, b),
+            lambda: f.relu(torch.addcmul(b.reshape(1, -1, 1, 1), conv,
+                                         a.reshape(1, -1, 1, 1))),
+            4 * (2 * out_el + 2 * co), 3 * out_el, flush, 0.0,
+            "[%d, %d, %d, %d] of the %s (F.relu(torch.addcmul(b, conv, a)))"
+            % (n, co, oh, oh, what.split(" x ")[0]))
+    sources = {"conv_bn_act": 133, "conv_stats": 143, "affine_act": 155}
+    for name, row in rows.items():
+        row.update(source="paddle_tpu_torch/kernels/csrc/conv_block.cu",
+                   replaces="paddle_tpu/pallas_kernels/conv_block.py:%d"
+                   % sources[name])
+    return [rows["conv_bn_act"], rows["conv_stats"], rows["affine_act"]]
+
+
+def momentum_kernel_phase(fm, dev, flush):
+    """Row 10: the fused momentum over ResNet-50's fused group and an odd
+    5-member group, plain and Nesterov, bitwise equal to its plain version
+    with and without the bf16 copy; timed over ResNet-50's group."""
+    rng = np.random.RandomState(6)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    f = np.float32
+
+    def group(shapes):
+        return ([t(rng.randn(*s).astype(f)) for s in shapes],
+                [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes],
+                [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes],
+                t(np.array([0.1], f)))
+
+    resnet = resnet50_fused_group()
+    groups = {"ResNet-50 group, %d members, %d elements" % (
+        len(resnet), sum(int(np.prod(s)) for s in resnet)): resnet,
+        "odd 5-member group": [(37, 5), (1000,), (3, 3, 3), (129,),
+                               (2048, 17)]}
+    kept = None
+    for what, shapes in groups.items():
+        p, g, v, lr = group(shapes)
+        for nesterov in (False, True):
+            want = fm.fused_momentum_reference(p, g, v, lr, 0.9, nesterov,
+                                               bf16_out=True)
+            for carry in (False, True):
+                bf = [torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+                      for x in p] if carry else None
+                got = fm.fused_momentum_step(
+                    [x.clone() for x in p], g, [x.clone() for x in v], lr,
+                    0.9, nesterov, bf16_out=bf)
+                torch.cuda.synchronize()
+                names = ("param", "velocity") + (("bf16 copy",) if carry
+                                                 else ())
+                for name, gs, ws in zip(names, got, want):
+                    if not all(torch.equal(x, y) for x, y in zip(gs, ws)):
+                        fail("fused_momentum %s not bitwise equal to the "
+                             "plain version at %s" % (name, what))
+                print("kernel fused_momentum %s%s%s: bitwise equal to the "
+                      "plain version" % (what, ", Nesterov" if nesterov
+                                         else "", ", with the bf16 copy"
+                                         if carry else ""), flush=True)
+        if kept is None:
+            kept = (p, g, v, lr)
+    p, g, v, lr = kept
+    run = ([x.clone() for x in p], g, [x.clone() for x in v], lr)
+    lib_params = [x.clone().requires_grad_() for x in p]
+    for x, gx in zip(lib_params, g):
+        x.grad = gx
+    lib = torch.optim.SGD(lib_params, lr=0.1, momentum=0.9, fused=True)
+    nel = sum(x.numel() for x in p)
+    # the wrapper's host work before its ~0.03 ms launch (108 members'
+    # grads checked, their pointers copied to the card) can outlast the
+    # default sleep on a busy host: a ~5 ms sleep hides it
+    row = timed_row(
+        "fused_momentum", lambda: fm.fused_momentum_step(*run, mu=0.9),
+        lambda: fm.fused_momentum_reference(p, g, v, lr, 0.9), lib.step,
+        20 * nel, 3 * nel, flush, 0.0,
+        "ResNet-50 group of %d members (torch.optim.SGD(momentum=0.9, "
+        "fused=True), the same recurrence)" % len(p),
+        sleep_cycles=10_000_000)
+    row.update(source="paddle_tpu_torch/kernels/csrc/fused_momentum.cu",
+               replaces="paddle_tpu/pallas_kernels/fused_opt.py:112")
+    return row
+
+
 # -- phase 4: decode serving -------------------------------------------------
 
 def gpt2_small():
@@ -1124,10 +1336,17 @@ def moment_gap(got, want):
     return gap, worst
 
 
-def counted(kmods):
+def counted():
     """{name: wrapper} of every kernel wrapper that counts launches on the
-    training path."""
-    fa, fl, ln, fad, dk = kmods
+    training and conv paths."""
+    from paddle_tpu_torch.kernels import conv_block as cb
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.kernels import fused_ln as fl
+    from paddle_tpu_torch.kernels import fused_momentum as fm
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
     return {"flash_attention": fa.flash_attention,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
@@ -1137,15 +1356,19 @@ def counted(kmods):
             "fused_ln": fl.fused_ln_fwd,
             "fused_ln_bwd": fl.fused_ln_bwd,
             "fused_adam": fad.fused_adam_step,
-            "layer_norm": ln.layer_norm_2d}
+            "layer_norm": ln.layer_norm_2d,
+            "conv_bn_act": cb.conv_bn_act,
+            "conv_stats": cb.conv_stats,
+            "affine_act": cb.affine_act,
+            "fused_momentum": fm.fused_momentum_step}
 
 
-def launch_counts(kmods):
-    return {k: f.launches for k, f in counted(kmods).items()}
+def launch_counts():
+    return {k: f.launches for k, f in counted().items()}
 
 
-def zero_counts(kmods):
-    for f in counted(kmods).values():
+def zero_counts():
+    for f in counted().values():
         f.launches = 0
 
 
@@ -1173,7 +1396,7 @@ def emission(name):
         set_flags(flag)
 
 
-def train_phase(kmods, cfg, name):
+def train_phase(cfg, name):
     """BERT pretraining in the emission ``name`` (set up by ``emission``)
     -> the launch counts of its TRAIN_STEPS steps."""
     from paddle_tpu_torch import framework
@@ -1212,14 +1435,14 @@ def train_phase(kmods, cfg, name):
                              SEQ)
         torch.cuda.synchronize()
         # the counts start at 0 just before the main path runs
-        zero_counts(kmods)
+        zero_counts()
         losses, step_ms = [], []
         for _ in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             out, = exe.run(main_p, feed=feed, fetch_list=[loss])
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(out.reshape(-1)[0]))
-        launches = launch_counts(kmods)
+        launches = launch_counts()
     del scope
     n_fused = sum(op.type == "fused_adam" for op in main_p.global_block().ops)
     print("train [%s]: %d steps, losses %s; step_ms %s, p50 %.3f (the "
@@ -1251,6 +1474,363 @@ def train_phase(kmods, cfg, name):
     return launches
 
 
+# -- phases 7 and 8: ResNet-50 serving and training --------------------------
+
+# ResNet-50 v1.5 (He et al. 2016; the bundled models/resnet.py), 224x224
+# RGB, 1000 classes, NCHW f32; every one of its 53 conv + batch-norm pairs
+# is a row-11 launch per batch in the trunk at is_test and a row-12 plus a
+# row-13 launch per training step of the trunk
+RESNET_DEPTH = 50
+IMAGE = 224
+CLASSES = 1000
+CONV_BN_PAIRS = 53
+RESNET_BUCKETS = "1,8,32"
+# Momentum's learning rate: the published ImageNet recipe's 0.1 per 256
+# images (He et al.; Goyal et al.'s linear scaling), at batch 32.  At
+# build_train's own 0.1, five steps from a random start on one batch
+# overshoot from the third step on (the plain path on the CPU at 112x112,
+# batch 16: losses 7.15, 3.41, 11.85, 20.29, 15.02;
+# tools/torch_resnet_sensitivity.py lr)
+RESNET_LR = 0.0125
+# served logits, card vs the plain predictor on the CPU, held relative to
+# the largest |logit| of the reply: 53 convs in a chain, each summing up
+# to 4608 products in another order (random weights, running statistics
+# at their initial 0 and 1, so activations grow along the residual
+# stream and only a relative limit is scale-free)
+SERVE_RTOL = 1e-4
+# ResNet-50 training, 3 Momentum steps at batch 2, each from one state on
+# the card and on the plain path on the CPU (f32, TF32 off): losses
+# absolutely; each velocity tensor (the L2-decayed gradients' running
+# sum) by the norm of its difference relative to its own norm.  At a
+# batch of 2 a randomly initialised ResNet-50 is f32-sensitive: two CPU
+# conv algorithms (oneDNN on and off) from one state differ by up to
+# 2.0e-5 in a loss (losses 0.7 to 8) and by 0.028 norm-wise in a
+# velocity (tools/torch_resnet_sensitivity.py algorithms; PERF.md §6);
+# the limits sit ~4x above the card's own first reading (1.7e-5, 0.053),
+# and a fault (a gradient zeroed, a kernel mis-routed) moves both by ~1.
+RESNET_LOSS_ATOL = 1e-4
+RESNET_VELOCITY_RTOL = 0.2
+
+
+def resnet_trunk(layers, img, depth=RESNET_DEPTH, class_dim=CLASSES,
+                 is_test=False):
+    """The bundled ResNet's architecture (``models/resnet.py``
+    ``resnet``) with every conv + batch-norm pair one
+    ``layers.conv2d_bn_relu``: only public layers, so the reference can
+    build the same program."""
+    from paddle_tpu_torch.models.resnet import DEPTH_CFG
+
+    def cbr(x, f, k, s, act="relu"):
+        return layers.conv2d_bn_relu(x, f, k, stride=s,
+                                     padding=(k - 1) // 2, act=act,
+                                     is_test=is_test)
+
+    def basic(x, f, s):
+        y = cbr(cbr(x, f, 3, s), f, 3, 1, act=None)
+        short = cbr(x, f, 1, s, act=None) if s != 1 or x.shape[1] != f \
+            else x
+        return layers.relu(layers.elementwise_add(y, short))
+
+    def bottleneck(x, f, s):
+        y = cbr(cbr(cbr(x, f, 1, 1), f, 3, s), f * 4, 1, 1, act=None)
+        short = cbr(x, f * 4, 1, s, act=None) \
+            if s != 1 or x.shape[1] != f * 4 else x
+        return layers.relu(layers.elementwise_add(y, short))
+
+    kind, counts = DEPTH_CFG[depth]
+    block = basic if kind == "basic" else bottleneck
+    x = cbr(img, 64, 7, 2)
+    x = layers.pool2d(x, pool_size=3, pool_stride=2, pool_padding=1)
+    for stage, n in enumerate(counts):
+        for i in range(n):
+            x = block(x, 64 * 2 ** stage,
+                      2 if (i == 0 and stage > 0) else 1)
+    x = layers.pool2d(x, pool_type="avg", global_pooling=True)
+    return layers.fc(x, class_dim)
+
+
+def resnet_program(which, is_test):
+    """(main, startup, img, label, output): ``which`` is "bundled" (the
+    port's models.resnet) or "trunk"; the output is the logits at
+    is_test, else the loss, Momentum(0.1, 0.9, L2Decay(1e-4)) appended as
+    ``build_train`` appends it."""
+    from paddle_tpu_torch import framework, layers
+    from paddle_tpu_torch.models import resnet
+
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 13
+    with framework.program_guard(main_p, startup):
+        if which == "bundled" and not is_test:
+            img, label, out, _acc = resnet.build_train(
+                depth=RESNET_DEPTH, class_dim=CLASSES, image_size=IMAGE,
+                lr=RESNET_LR)
+            return main_p, startup, img, label, out
+        img = layers.data("img", shape=[3, IMAGE, IMAGE])
+        label = layers.data("label", shape=[1], dtype="int64")
+        if which == "bundled":
+            out = resnet.resnet(img, CLASSES, RESNET_DEPTH, is_test=True)
+        else:
+            out = resnet_trunk(layers, img, is_test=is_test)
+        if not is_test:
+            from paddle_tpu_torch.optimizer import Momentum
+            from paddle_tpu_torch.regularizer import L2Decay
+
+            out = layers.mean(layers.softmax_with_cross_entropy(out, label))
+            Momentum(learning_rate=RESNET_LR, momentum=0.9,
+                     regularization=L2Decay(1e-4)).minimize(out)
+    return main_p, startup, img, label, out
+
+
+@contextlib.contextmanager
+def conv_block_flag(on):
+    """``FLAGS_use_pallas_conv_block`` set for a phase, restored after."""
+    from paddle_tpu_torch import get_flags, set_flags
+
+    saved = get_flags("FLAGS_use_pallas_conv_block")
+    set_flags({"FLAGS_use_pallas_conv_block": on})
+    try:
+        yield
+    finally:
+        set_flags(saved)
+
+
+def image_requests(n=24, sampled=(0, 12, 23)):
+    """``n`` requests of 1 to 6 images (the ``sampled`` ones, which the
+    CPU re-runs, of 1 or 2)."""
+    rng = np.random.RandomState(8)
+    out = []
+    for i in range(n):
+        rows = 1 + i % 2 if i in sampled else int(rng.randint(1, 7))
+        out.append({"img": rng.randn(rows, 3, IMAGE, IMAGE)
+                    .astype(np.float32)})
+    return out
+
+
+def conv_serve_phase(which, clients=3):
+    """ResNet-50 ``which`` ("bundled" or "trunk", the trunk under the
+    flag) saved and served by ServingEngine at buckets 1, 8, 32 -> the
+    kernel launches of the served batches."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import Executor, Scope, scope_guard
+    from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor
+    from paddle_tpu_torch.serving import ServingEngine
+
+    trunk = which == "trunk"
+    with conv_block_flag(trunk), tempfile.TemporaryDirectory() as tmp:
+        dirname = os.path.join(tmp, which)
+        t0 = time.perf_counter()
+        main_p, startup, img, _label, logits = resnet_program(which, True)
+        exe = Executor()                          # the card
+        with scope_guard(Scope()):
+            exe.run(startup)
+            io.save_inference_model(dirname, [img.name], [logits], exe,
+                                    main_program=main_p)
+        eng = ServingEngine(buckets=RESNET_BUCKETS, batch_window_ms=5.0,
+                            deadline_ms=600000.0)
+        pred = eng.add_model("resnet", dirname)
+        types = [op.type for op in pred.program().global_block().ops]
+        print("serve [%s]: ResNet-50 (%d ops after the predictor's passes: "
+              "%d conv2d, %d conv2d_bn_relu, %d batch_norm, %d "
+              "fused_elemwise_activation, %d fc), built on the card and "
+              "saved in %.1f s" % (
+                  which, len(types), types.count("conv2d"),
+                  types.count("conv2d_bn_relu"), types.count("batch_norm"),
+                  types.count("fused_elemwise_activation"),
+                  types.count("fc"), time.perf_counter() - t0), flush=True)
+        t0 = time.perf_counter()
+        manifest = eng.prewarm()
+        print("serve [%s]: prewarm %s in %.1f s"
+              % (which, json.dumps(manifest["resnet"]),
+                 time.perf_counter() - t0), flush=True)
+        reqs = image_requests()
+        replies = [None] * len(reqs)
+        eng.start()
+        try:
+            torch.cuda.synchronize()
+            zero_counts()   # just before the main path runs
+            batches0 = len(eng.batch_log)
+            t0 = time.perf_counter()
+
+            def client(k):
+                for i in range(k, len(reqs), clients):
+                    replies[i] = eng.infer("resnet", reqs[i],
+                                           deadline_ms=600000.0)
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            batches = list(eng.batch_log)[batches0:]
+        finally:
+            eng.stop()
+        for i, (q, r) in enumerate(zip(reqs, replies)):
+            rows = q["img"].shape[0]
+            if r is None or r.status != "ok":
+                fail("serve [%s] request %d: %s" % (
+                    which, i, None if r is None else (r.status, r.error)))
+            out, = r.outputs.values()
+            if out.shape != (rows, CLASSES) or not np.isfinite(out).all():
+                fail("serve [%s] request %d: output %s, want finite [%d, %d]"
+                     % (which, i, out.shape, rows, CLASSES))
+        nb = len(batches)
+        print("serve [%s]: %d replies ok (%d images) in %.3f s = %.2f "
+              "images/s from %d client threads; %d batches; launches %s"
+              % (which, len(reqs), sum(q["img"].shape[0] for q in reqs),
+                 wall, sum(q["img"].shape[0] for q in reqs) / wall, clients,
+                 nb, json.dumps({k: v for k, v in launches.items() if v})),
+              flush=True)
+        want = {k: 0 for k in launches}
+        if trunk:
+            want["conv_bn_act"] = CONV_BN_PAIRS * nb
+        if nb == 0 or launches != want:
+            fail("serve [%s] launches %s over %d batches, want %s"
+                 % (which, launches, nb, want))
+        for b in sorted({x["bucket"] for x in batches}):
+            sel = [x for x in batches if x["bucket"] == b]
+            print("serve [%s]: bucket %d: %d batches, execute_ms p50 %.3f, "
+                  "rows filled %s" % (which, b, len(sel), float(np.percentile(
+                      [x["execute_ms"] for x in sel], 50)),
+                                      [x["rows"] for x in sel]), flush=True)
+        cpu_cfg = AnalysisConfig(dirname)
+        cpu_cfg.disable_gpu()
+        plain = AnalysisPredictor(cpu_cfg)
+        worst = 0.0
+        for i in (0, len(reqs) // 2, len(reqs) - 1):
+            want_out, = plain.run_feed(reqs[i]).values()
+            got, = replies[i].outputs.values()
+            worst = max(worst, float(np.abs(got - want_out).max())
+                        / float(np.abs(want_out).max()))
+        print("serve [%s]: 3 requests vs the plain predictor on the CPU: "
+              "max |diff| / max |logit| %.3g (limit %g)"
+              % (which, worst, SERVE_RTOL), flush=True)
+        if not worst <= SERVE_RTOL:
+            fail("serve [%s] output disagrees with the plain CPU predictor"
+                 % which)
+    return {k: v for k, v in launches.items() if v}
+
+
+def resnet_feed(rng, batch):
+    return {"img": rng.randn(batch, 3, IMAGE, IMAGE).astype(np.float32),
+            "label": rng.randint(0, CLASSES, (batch, 1)).astype(np.int64)}
+
+
+def resnet_card_vs_cpu(main_p, loss, init, feed):
+    """CHECK_STEPS steps on the card from the persistables ``init``, each
+    replayed on the CPU's plain path from the card's state before it ->
+    (largest loss difference, the velocities' largest norm-wise relative
+    difference and the tensor where it is).  Each step starts both
+    devices from one state, so the gaps are one step's f32 rounding:
+    chained steps of a randomly initialised ResNet-50 part by far more
+    (PERF.md §6)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
+                                       scope_to_numpy)
+
+    card, cpu = Executor(), Executor(framework.CPUPlace())
+    sc = scope_from_numpy(Scope(), init, card.device, program=main_p)
+    loss_gap, vel_gap, worst, losses = 0.0, 0.0, None, []
+    t0 = time.perf_counter()
+    for _ in range(CHECK_STEPS):
+        state = scope_to_numpy(sc, main_p)
+        got = float(card.run(main_p, feed=feed, fetch_list=[loss],
+                             scope=sc)[0].reshape(-1)[0])
+        sp = scope_from_numpy(Scope(), state, "cpu", program=main_p)
+        want = float(cpu.run(main_p, feed=feed, fetch_list=[loss],
+                             scope=sp)[0].reshape(-1)[0])
+        losses.append((got, want))
+        loss_gap = max(loss_gap, abs(got - want))
+        for n in state:
+            if "_velocity_" not in n:
+                continue
+            v = sp.find_var(n).get_tensor().numpy()
+            rel = float(np.linalg.norm(sc.find_var(n).get_tensor().numpy()
+                                       - v)) / max(float(np.linalg.norm(v)),
+                                                   1e-30)
+            if worst is None or rel > vel_gap:
+                vel_gap, worst = rel, n
+    print("train resnet: %d steps at batch %d, (card, CPU) losses %s (%.1f "
+          "s)" % (CHECK_STEPS, len(feed["img"]), json.dumps(losses),
+                  time.perf_counter() - t0), flush=True)
+    return loss_gap, vel_gap, worst
+
+
+def conv_train_phase(which):
+    """ResNet-50 ``which`` trained TRAIN_STEPS Momentum steps at batch 32
+    on one batch (the trunk under the flag) -> the launch counts."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_guard,
+                                       scope_to_numpy)
+
+    trunk = which == "trunk"
+    with conv_block_flag(trunk):
+        t0 = time.perf_counter()
+        main_p, startup, _img, _label, loss = resnet_program(which, False)
+        params = [v for v in main_p.list_vars()
+                  if isinstance(v, framework.Parameter)]
+        n_params = sum(int(np.prod(v.shape)) for v in params)
+        print("train resnet [%s]: ResNet-50 v1.5, %dx%d, %d classes, batch "
+              "%d; %d parameters in %d tensors; %d ops; built in %.1f s"
+              % (which, IMAGE, IMAGE, CLASSES, TRAIN_BATCH, n_params,
+                 len(params), len(main_p.global_block().ops),
+                 time.perf_counter() - t0), flush=True)
+        exe, scope = Executor(), Scope()
+        with scope_guard(scope):
+            exe.run(startup)
+            init = scope_to_numpy(scope, main_p)
+            feed = resnet_feed(np.random.RandomState(3), TRAIN_BATCH)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            zero_counts()   # just before the main path runs
+            losses, step_ms = [], []
+            for _ in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                out, = exe.run(main_p, feed=feed, fetch_list=[loss])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(out.reshape(-1)[0]))
+            launches = launch_counts()
+        del scope
+        ops = main_p.global_block().ops
+        print("train resnet [%s]: %d steps, losses %s; step_ms %s, p50 %.3f "
+              "(the first fuses the optimizer ops and plans); %d momentum + "
+              "%d fused_momentum ops; peak %.2f GB; launches %s" % (
+                  which, TRAIN_STEPS, json.dumps(losses),
+                  json.dumps([round(x, 3) for x in step_ms]),
+                  float(np.percentile(step_ms, 50)),
+                  sum(op.type == "momentum" for op in ops),
+                  sum(op.type == "fused_momentum" for op in ops),
+                  torch.cuda.max_memory_allocated() / 1e9,
+                  json.dumps({k: v for k, v in launches.items() if v})),
+              flush=True)
+        want = {k: 0 for k in launches}
+        want["fused_momentum"] = TRAIN_STEPS
+        if trunk:
+            want["conv_stats"] = want["affine_act"] = \
+                CONV_BN_PAIRS * TRAIN_STEPS
+        if launches != want:
+            fail("train resnet [%s] launches %s over %d steps, want %s"
+                 % (which, launches, TRAIN_STEPS, want))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail("train resnet [%s] losses %s: not finite, or the last is "
+                 "not below the first" % (which, losses))
+        feed2 = resnet_feed(np.random.RandomState(4), CHECK_BATCH)
+        loss_gap, vel_gap, worst = resnet_card_vs_cpu(main_p, loss, init,
+                                                      feed2)
+    print("train resnet [%s]: card vs CPU plain path, each step from one "
+          "state: max loss difference %.3g (limit %.3g); velocities' "
+          "norm-wise gap %.3g (limit %.3g, worst %s)"
+          % (which, loss_gap, RESNET_LOSS_ATOL, vel_gap,
+             RESNET_VELOCITY_RTOL, worst), flush=True)
+    if not (loss_gap <= RESNET_LOSS_ATOL
+            and vel_gap <= RESNET_VELOCITY_RTOL):
+        fail("train resnet [%s] on the card disagrees with the CPU plain "
+             "path" % which)
+    return {k: v for k, v in launches.items() if v}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1261,10 +1841,12 @@ def main():
     sys.path.insert(0, HERE)
     from paddle_tpu_torch import set_f32_numerics
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import conv_block as cb
     from paddle_tpu_torch.kernels import dropout as dk
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_adam as fad
     from paddle_tpu_torch.kernels import fused_ln as fl
+    from paddle_tpu_torch.kernels import fused_momentum as fm
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels import philox
@@ -1300,6 +1882,8 @@ def main():
     rows.append(ln_bwd_kernel_phase(fl, dev, flush))
     rows.append(adam_kernel_phase(fad, dev, flush, bert_cfg))
     rows.append(dropout_kernel_phase(dk, philox, dev, flush))
+    rows.append(momentum_kernel_phase(fm, dev, flush))
+    rows += conv_kernel_phase(cb, dev, flush)
     del flush
     torch.cuda.empty_cache()
     # each path is driven with the counts at 0 and read just after; a
@@ -1308,9 +1892,12 @@ def main():
     launches.update(encoder_phase((fa, fl, ln)))
     for name, dropout in ((DROPOUT0, 0.0), (COMPOSED, 0.1), (SMALL, 0.1)):
         with emission(name):
-            counts = train_phase((fa, fl, ln, fad, dk),
-                                 BertConfig(dropout=dropout), name)
+            counts = train_phase(BertConfig(dropout=dropout), name)
         launches.update({k: v for k, v in counts.items() if v})
+    for which in ("bundled", "trunk"):
+        launches.update(conv_serve_phase(which))
+    for which in ("bundled", "trunk"):
+        launches.update(conv_train_phase(which))
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

@@ -8,8 +8,8 @@ program's optimizer ops (once per program version), then builds a
 and caches it; parameters come from the Scope, the ops launch their
 kernels on the executor's device, and persistables the block writes (the
 startup program's initialisers; a training step's parameters, moments
-and beta pows) are stored back.  No ``torch.compile``: each op's
-lowering runs as written.
+and beta pows, velocities, BN running statistics) are stored back.  No
+``torch.compile``: each op's lowering runs as written.
 """
 
 import contextlib
@@ -80,9 +80,9 @@ def _fetch_name(f):
 
 class Executor:
     """Runs programs on one device (``place=None``: the CUDA card).  A
-    training program's adam ops are coalesced into one fused_adam before
-    its first plan, as the reference does by default
-    (FLAGS_fuse_optimizer_ops)."""
+    training program's adam or momentum ops are coalesced into one
+    fused_adam / fused_momentum before its first plan, as the reference
+    does by default (FLAGS_fuse_optimizer_ops)."""
 
     def __init__(self, place=None):
         self.place = place
@@ -102,7 +102,7 @@ class Executor:
             return
         self._fuse_attempted.add(key)
         block = program.global_block()
-        if sum(op.type == "adam" for op in block.ops) < 4:
+        if sum(op.type in ("momentum", "adam") for op in block.ops) < 4:
             return
         from .. import ir
 

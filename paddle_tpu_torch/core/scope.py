@@ -82,9 +82,10 @@ def scope_from_numpy(scope, arrays, device, program=None):
     """Set ``{name: ndarray}`` into ``scope`` as tensors on ``device`` (a
     torch device or name).  With ``program``, the arrays are its
     persistables (parameters and optimizer state: moments, beta pows,
-    learning rate), each must be given and each is set in the dtype its
-    variable declares; this is how a JAX scope's training state is
-    carried into the port."""
+    velocities, learning rate; a batch norm's running mean and variance;
+    conv filters like any parameter), each must be given and each is set
+    in the dtype its variable declares; this is how a JAX scope's
+    training state is carried into the port."""
     from ..framework import dtype_to_torch
 
     dev = torch.device(device)

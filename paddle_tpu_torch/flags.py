@@ -10,6 +10,14 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   ``small_attention_shapes_ok`` holds, instead of the composed emission
   with a saved keep mask.  The reference keeps it off because it measured
   slower in a BERT step on its TPU.
+* ``FLAGS_use_pallas_conv_block`` (default False, as in the reference):
+  the ``conv2d_bn_relu`` op takes the conv-block kernels
+  (``kernels/conv_block.py``: the folded-BN inference kernel, or the
+  training pair of conv with channel statistics and affine + relu) where
+  ``conv_block_ok`` holds, instead of the exact conv2d + batch-norm
+  composition.  The reference also gates its kernel on a measured
+  speed-up; the port takes the kernel wherever the flag and the shapes
+  allow.
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -20,6 +28,7 @@ __all__ = ["set_flags", "get_flags", "flag"]
 
 _DEFAULTS = {
     "FLAGS_fused_small_attention": False,
+    "FLAGS_use_pallas_conv_block": False,
 }
 
 

@@ -4,14 +4,19 @@ Counterpart of ``paddle_tpu/inference.py``: load a
 ``save_inference_model`` directory into a private Scope and run it with
 an Executor, through the PaddleTensor or the zero-copy API.  Clones share
 the program, the scope and the executor.  The predictor runs on the CUDA
-card unless ``disable_gpu()`` is called.  The reference's IR passes are
-not applied: none of them rewrites the BERT encoder, the one model this
-slice serves.
+card unless ``disable_gpu()`` is called.  Under ``ir_optim()`` (on by
+default, as in the reference) the loaded program goes through the
+reference's pass pipeline, ``ir.INFERENCE_PASSES`` in its order: dropout
+deletion, the conv + batch-norm fold, fc fusion and the add + activation
+fusion rewrite it (a ResNet's convs lose their batch norms, its
+residual add + relu pairs and the fc become fused ops); the passes the
+port does not carry raise where they would rewrite.
 """
 
 import numpy as np
 
 from . import io as _io
+from . import ir
 from .core.executor import Executor, scope_guard
 from .core.scope import Scope
 from .framework import CPUPlace, CUDAPlace
@@ -29,6 +34,7 @@ class AnalysisConfig:
         self._model_dir = model_dir
         self._use_gpu = True
         self._device_id = 0
+        self._ir_optim = True
 
     def set_model(self, model_dir):
         self._model_dir = model_dir
@@ -48,6 +54,12 @@ class AnalysisConfig:
 
     def gpu_device_id(self):
         return self._device_id
+
+    def switch_ir_optim(self, x=True):
+        self._ir_optim = bool(x)
+
+    def ir_optim(self):
+        return self._ir_optim
 
     def place(self):
         return CUDAPlace(self._device_id) if self._use_gpu else CPUPlace()
@@ -108,6 +120,14 @@ class AnalysisPredictor:
             with scope_guard(self._scope):
                 self._program, self._feed_names, self._fetch_vars = \
                     _io.load_inference_model(config.model_dir(), self._exe)
+            if config.ir_optim():
+                # feeds and fetch targets stay produced (fetch ops are not
+                # in a loaded program, so a fetched var has no reader)
+                protected = set(self._feed_names) | {
+                    v.name for v in self._fetch_vars}
+                for name in ir.INFERENCE_PASSES:
+                    ir.apply_pass(name, self._program, self._scope,
+                                  protected=protected)
         self._fetch_names = [v.name for v in self._fetch_vars]
         self._staged_feed = {}
         self._last_outputs = None

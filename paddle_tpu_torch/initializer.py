@@ -1,14 +1,15 @@
 """Initializers that emit init ops into the startup program: the subset of
-``paddle_tpu/initializer.py`` that ``fc``, ``embedding`` and the norm
-layers use by default (Constant, Uniform, Xavier)."""
+``paddle_tpu/initializer.py`` that ``fc``, ``embedding``, the conv and
+the norm layers use by default (Constant, Uniform, Normal, Xavier)."""
 
 import math
 
 from .framework import default_startup_program
 from .ops.common import dtype_enum
 
-__all__ = ["Initializer", "Constant", "Uniform", "Xavier",
-           "ConstantInitializer", "UniformInitializer", "XavierInitializer"]
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "Xavier",
+           "ConstantInitializer", "UniformInitializer", "NormalInitializer",
+           "XavierInitializer"]
 
 
 class Initializer:
@@ -72,6 +73,23 @@ class UniformInitializer(Initializer):
         return self._append_uniform(var, block, self._low, self._high)
 
 
+class NormalInitializer(Initializer):
+    """N(loc, scale^2) through the ``gaussian_random`` op (the default
+    of ``layers.conv2d`` and ``conv2d_bn_relu``: scale sqrt(2 / fan_in))."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block=None):
+        block = self._startup_block(block)
+        self._declare(var, block)
+        return block.append_op(
+            type="gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": dtype_enum(var.dtype),
+                   "mean": self._mean, "std": self._std,
+                   "seed": self._resolve_seed(block)})
+
+
 def _fan_in_out(shape):
     if len(shape) < 2:
         n = int(shape[0]) if shape else 1
@@ -105,4 +123,5 @@ class XavierInitializer(Initializer):
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

@@ -2,5 +2,6 @@
 plain PyTorch version (``csrc/`` holds the sources, ``_build`` compiles
 them): ``paged_attention``, ``flash_attention`` (forward and backward, and the
 small-sequence attention with dropout),
-``fused_ln`` (forward and backward), ``layer_norm``, ``fused_adam`` and
-``dropout``; ``philox`` is the random stream of the dropout paths."""
+``fused_ln`` (forward and backward), ``layer_norm``, ``fused_adam``,
+``dropout``, ``conv_block`` (the conv + batch-norm + relu block) and
+``fused_momentum``; ``philox`` is the random stream of the dropout paths."""

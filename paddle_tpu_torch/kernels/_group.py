@@ -1,0 +1,36 @@
+"""The device table of a fused optimizer kernel's group
+(``csrc/fused_adam.cu``, ``csrc/fused_momentum.cu``): one launch updates
+every member in place, each CTA finding its member by binary search over
+the table's block-count prefixes."""
+
+import numpy as np
+import torch
+
+__all__ = ["PER_BLOCK", "group_table"]
+
+# elements a CTA updates (both kernels: 256 threads x 4)
+PER_BLOCK = 1024
+
+# keyed by the members' storage, which the in-place updates keep from
+# step to step
+_TABLES = {}
+
+
+def group_table(rows, sizes, device, check):
+    """(device int64 table, total blocks): ``rows`` of one pointer (or 0)
+    per member, then the members' sizes, then the n + 1 block-count
+    prefixes, as the kernels read them.  Built, after ``check()`` of the
+    members, on a group's first step and cached."""
+    key = tuple(tuple(r) for r in rows) + (tuple(sizes),)
+    hit = _TABLES.get(key)
+    if hit is not None:
+        return hit
+    check()
+    blocks = [max(1, -(-s // PER_BLOCK)) for s in sizes]
+    starts = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
+    flat = np.concatenate([np.asarray(list(rows) + [list(sizes)],
+                                      np.int64).reshape(-1), starts])
+    if len(_TABLES) > 64:  # groups of programs no longer run
+        _TABLES.clear()
+    _TABLES[key] = hit = (torch.from_numpy(flat).to(device), int(starts[-1]))
+    return hit

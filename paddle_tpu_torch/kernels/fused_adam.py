@@ -30,6 +30,7 @@ import torch
 
 from . import _build
 from ._checks import check_cuda_f32, raise_on_error
+from ._group import group_table
 
 __all__ = ["fused_adam_reference", "fused_adam_step", "adam_lr_t"]
 
@@ -67,8 +68,6 @@ def fused_adam_reference(params, grads, m1s, m2s, lr, b1pows, b2pows,
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# elements a CTA updates (csrc/fused_adam.cu: 256 threads x 4)
-_PER_BLOCK = 1024
 
 
 def _kernel():
@@ -76,39 +75,20 @@ def _kernel():
                            [_VP, _VP, _VP, _I, _LL] + [_F] * 5 + [_VP])
 
 
-# static table per group: keyed by the members' storage, which the
-# in-place update keeps from step to step
-_TABLES = {}
-
-
 def _table(params, grads, m1s, m2s, lr, b1pows, b2pows, bf16s):
-    """(device table, total blocks) of the group, checked and built on
-    its first step; later steps check only what changes, the grads."""
-    key = tuple(t.data_ptr() for ts in (params, m1s, m2s, b1pows, b2pows)
-                for t in ts) + tuple(
-        t.data_ptr() for t in bf16s or ()) + tuple(p.numel()
-                                                   for p in params)
-    hit = _TABLES.get(key)
-    if hit is not None:
-        _check_grads(params, grads, lr)
-        return hit
-    _check(params, grads, m1s, m2s, lr, b1pows, b2pows, bf16s)
-    n = len(params)
-    sizes = [p.numel() for p in params]
+    """(device table, total blocks) of the group, its members checked and
+    the table built on its first step; every step checks what changes,
+    the grads."""
+    _check_grads(params, grads, lr)
     # rows as csrc/fused_adam.cu reads them: p, m1, m2, beta1_pow,
-    # beta2_pow, bf16 copy, size; then the block-count prefixes
-    blocks = [max(1, -(-s // _PER_BLOCK)) for s in sizes]
-    starts = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int64)
+    # beta2_pow, bf16 copy
     rows = [[t.data_ptr() for t in ts]
             for ts in (params, m1s, m2s, b1pows, b2pows)]
-    rows.append([t.data_ptr() for t in bf16s] if bf16s else [0] * n)
-    rows.append(sizes)
-    flat = np.concatenate([np.asarray(rows, np.int64).reshape(-1), starts])
-    table = torch.from_numpy(flat).to(params[0].device)
-    if len(_TABLES) > 64:  # groups of programs no longer run
-        _TABLES.clear()
-    _TABLES[key] = hit = (table, int(starts[-1]))
-    return hit
+    rows.append([t.data_ptr() for t in bf16s] if bf16s
+                else [0] * len(params))
+    return group_table(rows, [p.numel() for p in params], params[0].device,
+                       lambda: _check(params, grads, m1s, m2s, lr, b1pows,
+                                      b2pows, bf16s))
 
 
 def _check(params, grads, m1s, m2s, lr, b1pows, b2pows, bf16s):

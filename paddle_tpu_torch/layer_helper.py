@@ -77,6 +77,12 @@ class LayerHelper:
             name=unique_name.generate(self.name + ".tmp"), dtype=dtype,
             stop_gradient=stop_gradient)
 
+    def create_or_get_global_variable(self, name, **kwargs):
+        gblock = self.main_program.global_block()
+        if gblock.has_var(name):
+            return gblock.vars[name]
+        return gblock.create_var(name=name, **kwargs)
+
     def append_op(self, **kwargs):
         return self.block.append_op(**kwargs)
 

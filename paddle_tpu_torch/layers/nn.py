@@ -5,18 +5,22 @@
 ``transpose:1217``,
 ``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``,
 ``softmax_with_cross_entropy:239``, ``accuracy:368``, ``mean:502``,
-``softmax:587``, ``gather:1385``).  Each appends ops to the current
-block and names its variables and parameters exactly as the reference
-does."""
+``softmax:587``, ``gather:1385``, ``relu:583``, ``conv2d:748``,
+``conv2d_bn_relu:805``, ``pool2d:956``, ``batch_norm:1002``).  Each
+appends ops to the current block and names its variables and parameters
+exactly as the reference does."""
 
-from ..initializer import Constant
+import math
+
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
            "layer_norm", "fused_dropout_add_ln", "dropout", "transpose",
            "reshape",
            "unsqueeze", "flash_attention", "gather",
-           "softmax_with_cross_entropy", "mean", "softmax", "accuracy"]
+           "softmax_with_cross_entropy", "mean", "softmax", "accuracy",
+           "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -290,3 +294,169 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc_out], "Correct": [correct],
                               "Total": [total]})
     return acc_out
+
+
+def relu(x, name=None):
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="relu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={})
+    return out
+
+
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def _conv_filter(helper, input, num_filters, filter_size, groups,
+                 param_attr, data_format):
+    """The OIHW filter parameter, N(0, 2 / fan_in) by default; -> (filter,
+    groups, [kh, kw])."""
+    num_channels = input.shape[1] if data_format == "NCHW" \
+        else input.shape[-1]
+    groups = groups or 1
+    filter_size = _pair(filter_size)
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    w = helper.create_parameter(
+        attr=param_attr,
+        shape=[num_filters, num_channels // groups] + filter_size,
+        dtype=input.dtype,
+        default_initializer=Normal(0.0, math.sqrt(2.0 / fan_in)))
+    return w, groups
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    helper = LayerHelper("conv2d", bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    w, groups = _conv_filter(helper, input, num_filters, filter_size, groups,
+                             param_attr, data_format)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format})
+    pre_act = pre_bias
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.kwargs.get("bias_attr"),
+                                    shape=[num_filters], dtype=dtype,
+                                    is_bias=True)
+        if b is not None:
+            pre_act = helper.create_variable_for_type_inference(dtype)
+            helper.append_op(
+                type="elementwise_add", inputs={"X": [pre_bias], "Y": [b]},
+                outputs={"Out": [pre_act]},
+                attrs={"axis": 1 if data_format == "NCHW" else 3})
+    return helper.append_activation(pre_act)
+
+
+def _bn_state(helper, c, dtype, param_attr, bias_attr, moving_mean_name,
+              moving_variance_name):
+    """Scale (1), Bias (0) and the running Mean (0) and Variance (1) of a
+    batch norm over ``c`` channels, the running pair initialised once."""
+    scale_p = helper.create_parameter(attr=param_attr, shape=[c],
+                                      dtype=dtype,
+                                      default_initializer=Constant(1.0))
+    bias_p = helper.create_parameter(attr=bias_attr, shape=[c], dtype=dtype,
+                                     is_bias=True,
+                                     default_initializer=Constant(0.0))
+    mean = helper.create_or_get_global_variable(
+        name=moving_mean_name or helper.name + ".mean", shape=[c],
+        dtype=dtype, persistable=True)
+    mean.stop_gradient = True
+    variance = helper.create_or_get_global_variable(
+        name=moving_variance_name or helper.name + ".var", shape=[c],
+        dtype=dtype, persistable=True)
+    variance.stop_gradient = True
+    if not getattr(mean, "_bn_initialized", False):
+        Constant(0.0)(mean)
+        Constant(1.0)(variance)
+        mean._bn_initialized = True
+        variance._bn_initialized = True
+    return scale_p, bias_p, mean, variance
+
+
+def conv2d_bn_relu(input, num_filters, filter_size, stride=1, padding=0,
+                   dilation=1, groups=1, param_attr=None, bn_param_attr=None,
+                   bn_bias_attr=None, act="relu", momentum=0.9, epsilon=1e-5,
+                   is_test=False, moving_mean_name=None,
+                   moving_variance_name=None, name=None, data_format="NCHW"):
+    """One ``conv2d_bn_relu`` op for a conv (no bias: the BN absorbs it)
+    + batch norm (+ relu); only act None or "relu"."""
+    if act not in (None, "relu"):
+        raise ValueError("conv2d_bn_relu supports act None or 'relu', got %r"
+                         % (act,))
+    helper = LayerHelper("conv2d_bn_relu", name=name)
+    dtype = input.dtype
+    w, groups = _conv_filter(helper, input, num_filters, filter_size, groups,
+                             param_attr, data_format)
+    scale_p, bias_p, mean, variance = _bn_state(
+        helper, num_filters, dtype, bn_param_attr, bn_bias_attr,
+        moving_mean_name, moving_variance_name)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_bn_relu",
+        inputs={"Input": [input], "Filter": [w], "Scale": [scale_p],
+                "Bias": [bias_p], "Mean": [mean], "Variance": [variance]},
+        outputs={"Output": [out], "MeanOut": [mean],
+                 "VarianceOut": [variance], "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_var]},
+        attrs={"strides": _pair(stride), "paddings": _pair(padding),
+               "dilations": _pair(dilation), "groups": groups,
+               "data_format": data_format, "momentum": momentum,
+               "epsilon": epsilon, "is_test": is_test,
+               "with_relu": act == "relu"})
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size),
+               "strides": _pair(pool_stride),
+               "paddings": _pair(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch norm over the channel axis (the port's statistics are exact:
+    ``stat_subsample`` is 1, the reference's flag default)."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale_p, bias_p, mean, variance = _bn_state(
+        helper, c, dtype, param_attr, bias_attr, moving_mean_name,
+        moving_variance_name)
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale_p], "Bias": [bias_p],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats, "stat_subsample": 1})
+    return helper.append_activation(out)

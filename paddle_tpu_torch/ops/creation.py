@@ -1,6 +1,7 @@
-"""Tensor creation: fill_constant and uniform_random, the ops the startup
-program's initialisers emit.  Counterpart of ``paddle_tpu/ops/creation.py``
-(``fill_constant:18``, ``uniform_random:76``)."""
+"""Tensor creation: fill_constant, uniform_random and gaussian_random, the
+ops the startup program's initialisers emit, and assign.  Counterpart of
+``paddle_tpu/ops/creation.py`` (``fill_constant:18``,
+``uniform_random:76``, ``gaussian_random:96``, ``assign:143``)."""
 
 import torch
 
@@ -48,3 +49,31 @@ def uniform_random(ctx, shape_tensor, shape_tensor_list, shape=(), min=-1.0,
         return out
     gen = new_generator(ctx.device, seed) if seed else ctx.generator
     return out.uniform_(min, max, generator=gen)
+
+
+@register_op("gaussian_random", inputs=("ShapeTensor", "ShapeTensorList"),
+             outputs=("Out",),
+             attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                    "dtype": 5},
+             optional_inputs=("ShapeTensor", "ShapeTensorList"),
+             duplicable_inputs=("ShapeTensorList",), grad_maker=None,
+             n_rng=1)
+def gaussian_random(ctx, shape_tensor, shape_tensor_list, shape=(),
+                    mean=0.0, std=1.0, seed=0, dtype=5):
+    """N(mean, std^2) drawn on the op's device from a torch.Generator, as
+    ``uniform_random`` draws: the op's own seed when set, else the
+    executor's per-op generator.  The values differ from the reference's
+    JAX draw; the distribution is the same."""
+    out = torch.empty(tuple(int(s) for s in shape), dtype=attr_dtype(dtype),
+                      device=ctx.device)
+    if ctx.abstract:
+        return out
+    gen = new_generator(ctx.device, seed) if seed else ctx.generator
+    return out.normal_(mean, std, generator=gen)
+
+
+@register_op("assign", inputs=("X",), outputs=("Out",))
+def assign(ctx, x):
+    """The identity (what ``delete_dropout_pass`` leaves of an inference
+    dropout)."""
+    return x

@@ -1,8 +1,11 @@
-"""Dense math ops: mul, matmul, elementwise_add, scale, sum, mean, and
-the explicit grads of mul and elementwise_add.
+"""Dense math ops: mul, matmul, elementwise_add, scale, sum, mean, the
+explicit grads of mul and elementwise_add, and the two ops the
+predictor's passes emit, fc and fused_elemwise_activation.
 
 Counterpart of ``paddle_tpu/ops/math.py`` (``mul:48``, ``matmul:66``,
-``elementwise_add:140``, ``scale:151``, ``sum:163``, ``mean:172``).  The
+``elementwise_add:140``, ``scale:151``, ``sum:163``, ``mean:172``) and
+of ``paddle_tpu/ops/coverage_tail.py`` (``fc:92``,
+``fused_elemwise_activation:469``).  The
 products are plain ``torch.matmul`` calls (cuBLAS on the card, in full
 f32: TF32 is off), as the reference leaves them to XLA.  The reference
 differentiates mul and elementwise_add by replaying them under
@@ -117,3 +120,53 @@ def elementwise_add_grad(ctx, x, y, out, dout, axis=-1):
         yb = bcast_y(x, y, axis)  # y as the forward broadcast it
         dy = _unbroadcast(dout, yb.shape).reshape(y.shape)
     return dx, dy
+
+
+# -- ops of the inference passes (ir.py) ------------------------------------
+
+
+@register_op("fc", inputs=("Input", "W", "Bias"), outputs=("Out",),
+             attrs={"in_num_col_dims": 1, "activation_type": "",
+                    "use_mkldnn": False, "padding_weights": False},
+             optional_inputs=("Bias",))
+def fc(ctx, x, w, bias=None, in_num_col_dims=1, activation_type="", **_):
+    """What ``fc_fuse_pass`` makes of mul + elementwise_add (+ relu): x
+    flattened to 2-D at ``in_num_col_dims``, times w, plus the bias row."""
+    out = torch.matmul(_flatten2d(x, in_num_col_dims), w)
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    if activation_type == "relu":
+        out = torch.relu(out)
+    return out.reshape(tuple(x.shape[:in_num_col_dims]) + (w.shape[-1],))
+
+
+_FUSED_ACTS = {"relu": torch.relu, "tanh": torch.tanh,
+               "sigmoid": torch.sigmoid, "identity": lambda v: v,
+               "": lambda v: v}
+
+
+@register_op("fused_elemwise_activation", inputs=("X", "Y"),
+             outputs=("Out", "IntermediateOut"),
+             attrs={"functor_list": [], "axis": -1, "scale": 1.0,
+                    "save_intermediate_out": False})
+def fused_elemwise_activation(ctx, x, y, functor_list=(), axis=-1,
+                              scale=1.0, save_intermediate_out=False):
+    """f1(f2(x, y)) over {elementwise_add, elementwise_mul} x {relu, tanh,
+    sigmoid, scale, identity}, as the reference composes it; -> (Out, the
+    inner result)."""
+
+    def apply_one(name, a, b=None):
+        if name == "elementwise_add":
+            return a + bcast_y(a, b, axis)
+        if name == "elementwise_mul":
+            return a * bcast_y(a, b, axis)
+        if name == "scale":
+            return a * scale
+        return _FUSED_ACTS[name](a)
+
+    f1, f2 = (list(functor_list) + ["identity", "identity"])[:2]
+    if f2.startswith("elementwise_"):
+        inter = apply_one(f2, x, y)
+        return apply_one(f1, inter), inter
+    inter = apply_one(f2, y)
+    return apply_one(f1, x, inter), inter

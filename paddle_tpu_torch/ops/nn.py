@@ -1,11 +1,27 @@
-"""Normalisation, dropout and attention ops and their gradients:
-layer_norm, dropout, flash_attention, fused_dropout_add_ln.
+"""Conv, pooling, normalisation, dropout and attention ops and their
+gradients: conv2d, pool2d, batch_norm, conv2d_bn_relu, layer_norm,
+dropout, flash_attention, fused_dropout_add_ln.
 
-Counterpart of ``paddle_tpu/ops/nn.py`` (``layer_norm:460``,
-``dropout:602`` and its grad op ``:634``, ``flash_attention:863`` and its
-grad op ``:941``, ``fused_dropout_add_ln:1018`` and its grad op
-``:1063``).  Each reaches its kernel wrapper, which launches the CUDA
-kernel on the card and runs the plain version on the CPU.  The grads are
+Counterpart of ``paddle_tpu/ops/nn.py`` (``conv2d:42``, ``pool2d:175``,
+``batch_norm:332`` with ``_bn_impl:254`` and its grad op ``:357``,
+``conv2d_bn_relu:406``, ``layer_norm:460``, ``dropout:602`` and its grad
+op ``:634``, ``flash_attention:863`` and its grad op ``:941``,
+``fused_dropout_add_ln:1018`` and its grad op ``:1063``).
+
+Conv and pooling are plain PyTorch (``F.conv2d``, cuDNN on the card with
+TF32 off), as the reference leaves them to XLA; their grads are written
+out (``convolution_backward``; pooling by autograd over its forward),
+which costs a fraction of a ``torch.func.vjp`` replay's host time.
+``batch_norm`` follows ``_bn_impl``: f32 statistics as E[x^2] - m^2, the
+normalisation folded into one per-channel affine (``F.batch_norm``'s
+variance algorithm differs).  ``conv2d_bn_relu`` takes the conv-block
+kernels under ``FLAGS_use_pallas_conv_block`` where
+``conv_block_ok`` holds, else the exact conv2d + ``_bn_impl`` (+ relu)
+composition; its grad replays that composition under autograd on both
+routes, as the reference's custom VJP does.
+
+The other ops reach their kernel wrappers, which launch the CUDA kernel
+on the card and run the plain version on the CPU.  The grads are
 written out (a vjp replay cannot trace a ctypes kernel):
 ``layer_norm_grad`` in plain torch from the forward's statistics (the
 reference's own backward is the jnp pass of
@@ -24,12 +40,15 @@ keep iff a u32 < round(q 2^32) and multiply by its inverse in f32.
 """
 
 import torch
+import torch.nn.functional as F
 
 from .. import flags
 from ..core.registry import (GradOpDesc, register_grad_lowering, register_op,
                              wants_grad)
 from ..framework import _grad_var_name
 from ..kernels import philox
+from ..kernels.conv_block import (affine_act, conv_bn_act, conv_block_ok,
+                                  conv_stats, fold_affine)
 from ..kernels.dropout import dropout as dropout_kernel, true_divide
 from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                        small_attention_bwd,
@@ -38,6 +57,343 @@ from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
 from ..kernels.fused_ln import fused_ln_bwd, fused_ln_fwd
 from ..kernels.layer_norm import layer_norm_2d
 from .common import byte_threshold, realized_keep_prob
+
+
+# -- conv --------------------------------------------------------------------
+
+
+def _check_nchw(data_format, op):
+    if data_format not in ("NCHW", "AnyLayout"):
+        raise NotImplementedError(
+            "%s data_format %r: the port runs NCHW; channels-last is not "
+            "ported yet (ROADMAP)" % (op, data_format))
+
+
+def _conv_pads(x, w, strides, paddings, dilations, padding_algorithm):
+    """[(top, bottom), (left, right)] of the reference's conv2d padding:
+    EXPLICIT [ph, pw] or [top, bottom, left, right], VALID, or SAME as
+    XLA pads it (the excess split low-first)."""
+    if padding_algorithm == "VALID":
+        return [(0, 0), (0, 0)]
+    if padding_algorithm == "SAME":
+        pads = []
+        for i in (0, 1):
+            n, k = x.shape[2 + i], w.shape[2 + i]
+            s, d = int(strides[i]), int(dilations[i])
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    p = [int(v) for v in paddings]
+    return [(p[0], p[0]), (p[1], p[1])] if len(p) == 2 \
+        else [(p[0], p[1]), (p[2], p[3])]
+
+
+def _padded(x, pads, value=0.0):
+    """x with [(top, bottom), (left, right)] padding of ``value``."""
+    (t, b), (l, r) = pads
+    return F.pad(x, (l, r, t, b), value=value)
+
+
+_CONV_ATTRS = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+               "groups": 1, "data_format": "NCHW",
+               "padding_algorithm": "EXPLICIT", "use_cudnn": True,
+               "use_mkldnn": False, "fuse_relu_before_depthwise_conv": False,
+               "workspace_size_MB": 512, "exhaustive_search": False}
+
+
+@register_op("conv2d", inputs=("Input", "Filter"), outputs=("Output",),
+             attrs=_CONV_ATTRS)
+def conv2d(ctx, x, w, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
+           groups=1, data_format="NCHW", padding_algorithm="EXPLICIT", **_):
+    """NCHW x, OIHW filters; asymmetric padding is applied before the
+    conv."""
+    _check_nchw(data_format, "conv2d")
+    pads = _conv_pads(x, w, strides, paddings, dilations, padding_algorithm)
+    (t, b), (l, r) = pads
+    if t == b and l == r:
+        return F.conv2d(x, w, stride=tuple(strides), padding=(t, l),
+                        dilation=tuple(dilations), groups=groups)
+    return F.conv2d(_padded(x, pads), w, stride=tuple(strides),
+                    dilation=tuple(dilations), groups=groups)
+
+
+@register_grad_lowering("conv2d")
+def conv2d_grad(ctx, x, w, out, dout, strides=(1, 1), paddings=(0, 0),
+                dilations=(1, 1), groups=1, data_format="NCHW",
+                padding_algorithm="EXPLICIT", **_):
+    """dInput and dFilter in one ``convolution_backward`` (cuDNN on the
+    card), only those the op writes."""
+    want_x, want_w = wants_grad(ctx, "Input"), wants_grad(ctx, "Filter")
+    if dout is None or not (want_x or want_w):
+        return None, None
+    pads = _conv_pads(x, w, strides, paddings, dilations, padding_algorithm)
+    (t, b), (l, r) = pads
+    sym = t == b and l == r
+    xin = x if sym else _padded(x, pads)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dout.contiguous(), xin, w, None, list(strides),
+        [t, l] if sym else [0, 0], list(dilations), False, [0, 0], groups,
+        [want_x, want_w, False])
+    if dx is not None and not sym:
+        dx = dx[:, :, t:t + x.shape[2], l:l + x.shape[3]]
+    return dx, dw
+
+
+# -- pooling -----------------------------------------------------------------
+
+_POOL_ATTRS = {"pooling_type": "max", "ksize": [1, 1], "strides": [1, 1],
+               "paddings": [0, 0], "global_pooling": False,
+               "ceil_mode": False, "exclusive": True, "adaptive": False,
+               "data_format": "NCHW", "padding_algorithm": "EXPLICIT",
+               "use_cudnn": True}
+
+
+@register_op("pool2d", inputs=("X",), outputs=("Out",), attrs=_POOL_ATTRS)
+def pool2d(ctx, x, pooling_type="max", ksize=(1, 1), strides=(1, 1),
+           paddings=(0, 0), global_pooling=False, ceil_mode=False,
+           exclusive=True, adaptive=False, data_format="NCHW", **_):
+    """The reference's windows exactly: max pads with -inf and avg with 0,
+    ceil_mode extends the END padding so a window may start in it
+    (``F.max_pool2d(ceil_mode=True)`` would drop that window), exclusive
+    avg divides by the in-bounds cells, adaptive bins start at
+    floor(i I / O) and end at ceil((i + 1) I / O)."""
+    _check_nchw(data_format, "pool2d")
+    is_max = pooling_type == "max"
+    if global_pooling:
+        return x.amax(dim=(2, 3), keepdim=True) if is_max \
+            else x.mean(dim=(2, 3), keepdim=True)
+    if adaptive:
+        size = (int(ksize[0]), int(ksize[1]))
+        return F.adaptive_max_pool2d(x, size) if is_max \
+            else F.adaptive_avg_pool2d(x, size)
+    kh, kw = int(ksize[0]), int(ksize[1])
+    sh, sw = int(strides[0]), int(strides[1])
+    ph, pw = int(paddings[0]), int(paddings[1])
+    eh = -(x.shape[2] + 2 * ph - kh) % sh if ceil_mode else 0
+    ew = -(x.shape[3] + 2 * pw - kw) % sw if ceil_mode else 0
+    pads = [(ph, ph + eh), (pw, pw + ew)]
+    if is_max:
+        low = float("-inf") if x.is_floating_point() \
+            else torch.iinfo(x.dtype).min
+        return F.max_pool2d(_padded(x, pads, low), (kh, kw), (sh, sw))
+    total = F.avg_pool2d(_padded(x, pads), (kh, kw), (sh, sw),
+                         divisor_override=1)
+    if exclusive and (ph or pw or eh or ew):
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        return total / F.avg_pool2d(_padded(ones, pads), (kh, kw), (sh, sw),
+                                    divisor_override=1)
+    return total / (kh * kw)
+
+
+@register_grad_lowering("pool2d")
+def pool2d_grad(ctx, x, out, dout, **attrs):
+    """dX by autograd over the forward (max routes each window's gradient
+    to its first maximum, as XLA's select-and-scatter does)."""
+    if dout is None or not wants_grad(ctx, "X"):
+        return (None,)
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_()
+        return torch.autograd.grad(pool2d(ctx, xg, **attrs), xg, dout)
+
+
+# -- batch norm --------------------------------------------------------------
+
+
+def _bn_axes(x, data_layout):
+    """(reduced axes, per-channel shape) of a batch norm over ``x``."""
+    c_ax = 1 if data_layout in ("NCHW", "AnyLayout") else x.dim() - 1
+    cshape = [1] * x.dim()
+    cshape[c_ax] = x.shape[c_ax]
+    return tuple(i for i in range(x.dim()) if i != c_ax), cshape
+
+
+def _bn_impl(x, scale, bias, mean, variance, axes, cshape, momentum,
+             epsilon, use_stored_stats):
+    """The reference's ``_bn_impl``: f32 statistics (E[x^2] - m^2), the
+    running ones blended as momentum old + (1 - momentum) batch, and the
+    normalisation folded into one per-channel affine.  -> (y, MeanOut,
+    VarianceOut, SavedMean, SavedVariance = the inverse std)."""
+    if use_stored_stats:
+        m, v = mean, variance
+        new_mean, new_var = mean, variance
+    else:
+        xs = x.float()
+        m = xs.mean(dim=axes)
+        v = (xs * xs).mean(dim=axes) - m * m
+        new_mean = momentum * mean + (1 - momentum) * m
+        new_var = momentum * variance + (1 - momentum) * v
+    inv = 1.0 / torch.sqrt(v + epsilon)
+    a = (inv * scale).reshape(cshape)
+    b = (bias - m * inv * scale).reshape(cshape)
+    return (x * a.to(x.dtype) + b.to(x.dtype), new_mean, new_var, m, inv)
+
+
+def _bn_grad_maker(op, no_grad_set):
+    """batch_norm_grad over Y only (the running statistics are
+    stop-gradient), from SavedMean and SavedVariance."""
+    inputs = {"X": list(op.input("X")), "Scale": list(op.input("Scale")),
+              "Bias": list(op.input("Bias")),
+              "SavedMean": list(op.output("SavedMean")),
+              "SavedVariance": list(op.output("SavedVariance")),
+              "GRAD@Y": [_grad_var_name(op.output("Y")[0])]}
+    outputs = {}
+    for slot in ("X", "Scale", "Bias"):
+        n = op.input(slot)[0]
+        if n not in no_grad_set:
+            outputs["X@" + slot] = [_grad_var_name(n)]
+    if not outputs:
+        return []
+    return [GradOpDesc("batch_norm_grad", inputs, outputs, dict(op.attrs))]
+
+
+_BN_ATTRS = {"momentum": 0.9, "epsilon": 1e-5, "is_test": False,
+             "data_layout": "NCHW", "use_global_stats": False,
+             "trainable_statistics": False, "fuse_with_relu": False,
+             "stat_subsample": 1}
+
+
+@register_op("batch_norm", inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance", "ReserveSpace"),
+             attrs=_BN_ATTRS, grad_maker=_bn_grad_maker)
+def batch_norm(ctx, x, scale, bias, mean, variance, momentum=0.9,
+               epsilon=1e-5, is_test=False, data_layout="NCHW",
+               use_global_stats=False, stat_subsample=1, **_):
+    if int(stat_subsample) != 1:
+        raise NotImplementedError(
+            "batch_norm stat_subsample %s (ghost batch statistics) is not "
+            "ported yet" % (stat_subsample,))
+    axes, cshape = _bn_axes(x, data_layout)
+    return _bn_impl(x, scale, bias, mean, variance, axes, cshape, momentum,
+                    epsilon, is_test or use_global_stats) + (None,)
+
+
+@register_op("batch_norm_grad",
+             inputs=("X", "Scale", "Bias", "SavedMean", "SavedVariance",
+                     "GRAD@Y"),
+             outputs=("X@X", "X@Scale", "X@Bias"),
+             attrs={"momentum": 0.9, "epsilon": 1e-5, "is_test": False,
+                    "data_layout": "NCHW", "use_global_stats": False},
+             grad_maker=None, optional_inputs=("GRAD@Y",))
+def batch_norm_grad(ctx, x, scale, bias, saved_mean, saved_inv_std, dy,
+                    momentum=0.9, epsilon=1e-5, is_test=False,
+                    data_layout="NCHW", use_global_stats=False, **_):
+    """The reference's batch_norm_grad: f32 sums, dX as one per-channel
+    affine a1 dY + a2 X + a3 of the training statistics (a1 dY alone with
+    the stored ones)."""
+    axes, cshape = _bn_axes(x, data_layout)
+    if dy is None:
+        dy = torch.zeros_like(x)
+    n = 1
+    for i in axes:
+        n *= x.shape[i]
+    mu = saved_mean.reshape(cshape).float()
+    inv = saved_inv_std.reshape(cshape).float()
+    dyf = dy.float()
+    dscale = (dyf * ((x.float() - mu) * inv)).sum(dim=axes)
+    dbias = dyf.sum(dim=axes)
+    sinv = scale.float().reshape(cshape) * inv
+    if is_test or use_global_stats:
+        dx = dy * sinv.to(x.dtype)
+    else:
+        a2 = -sinv * inv * dscale.reshape(cshape) / n
+        a3 = (-sinv * dbias.reshape(cshape)
+              + sinv * inv * dscale.reshape(cshape) * mu) / n
+        dx = dy * sinv.to(x.dtype) + x * a2.to(x.dtype) + a3.to(x.dtype)
+    return (dx if wants_grad(ctx, "X") else None,
+            dscale.to(scale.dtype) if wants_grad(ctx, "Scale") else None,
+            dbias.to(scale.dtype) if wants_grad(ctx, "Bias") else None)
+
+
+# -- conv2d_bn_relu ----------------------------------------------------------
+
+_CBR_ATTRS = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+              "groups": 1, "data_format": "NCHW", "momentum": 0.9,
+              "epsilon": 1e-5, "is_test": False, "with_relu": True}
+
+
+def _conv_bn_composed(ctx, x, w, scale, bias, mean, variance, strides,
+                      paddings, dilations, groups, data_format, momentum,
+                      epsilon, is_test, with_relu):
+    """The exact conv2d + ``_bn_impl`` (+ relu) composition."""
+    conv = conv2d(ctx, x, w, strides, paddings, dilations, groups,
+                  data_format)
+    axes, cshape = _bn_axes(conv, data_format)
+    y, new_mean, new_var, m, inv = _bn_impl(
+        conv, scale, bias, mean, variance, axes, cshape, momentum, epsilon,
+        is_test)
+    return (torch.relu(y) if with_relu else y), new_mean, new_var, m, inv
+
+
+@register_op("conv2d_bn_relu",
+             inputs=("Input", "Filter", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Output", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"),
+             attrs=_CBR_ATTRS, no_grad_inputs=("Mean", "Variance"))
+def conv2d_bn_relu(ctx, x, w, scale, bias, mean, variance, strides=(1, 1),
+                   paddings=(0, 0), dilations=(1, 1), groups=1,
+                   data_format="NCHW", momentum=0.9, epsilon=1e-5,
+                   is_test=False, with_relu=True, **_):
+    """Conv + batch norm (+ relu) in one op; SavedVariance holds the
+    inverse std, as batch_norm's does.  Kernel route (the flag on and
+    ``conv_block_ok``): inference folds the running statistics into (a,
+    b) for one pass (row 11); training runs the conv with its channel
+    partials (row 12), folds the batch statistics v = E[x^2] - m^2 on the
+    host side, then the affine + relu pass (row 13)."""
+    if not (flags.flag("FLAGS_use_pallas_conv_block") and conv_block_ok(
+            tuple(x.shape), tuple(w.shape), strides, paddings, dilations,
+            groups, data_format)):
+        return _conv_bn_composed(ctx, x, w, scale, bias, mean, variance,
+                                 strides, paddings, dilations, groups,
+                                 data_format, momentum, epsilon, is_test,
+                                 with_relu)
+    stride, pad = int(strides[0]), int(paddings[0])
+    if is_test:
+        a, b = fold_affine(scale, bias, mean, variance, epsilon)
+        y = conv_bn_act(x, w, a, b, stride, pad, bool(with_relu))
+        m, v = mean.float(), variance.float()
+        new_mean, new_var = mean, variance
+    else:
+        conv, s, ss = conv_stats(x, w, stride, pad)
+        cnt = float(conv.shape[0] * conv.shape[2] * conv.shape[3])
+        m = s.sum(dim=0) / cnt
+        v = ss.sum(dim=0) / cnt - m * m
+        a, b = fold_affine(scale, bias, m, v, epsilon)
+        y = affine_act(conv, a, b, bool(with_relu))
+        new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
+        new_var = momentum * variance + (1 - momentum) * v.to(variance.dtype)
+    return y, new_mean, new_var, m, 1.0 / torch.sqrt(v + epsilon)
+
+
+@register_grad_lowering("conv2d_bn_relu")
+def conv2d_bn_relu_grad(ctx, x, w, scale, bias, mean, variance, y, dy,
+                        mean_out, dmean_out, var_out, dvar_out, saved_mean,
+                        dsaved_mean, saved_var, dsaved_var, **attrs):
+    """dInput, dFilter, dScale, dBias: the composition replayed under
+    autograd on either route (a ctypes kernel cannot be replayed; the
+    reference's kernel route differentiates the same composition,
+    ``conv_block.py:335``).  The statistics outputs are stop-gradient."""
+    if any(g is not None for g in (dmean_out, dvar_out, dsaved_mean,
+                                   dsaved_var)):
+        raise NotImplementedError(
+            "conv2d_bn_relu_grad through its statistics outputs")
+    slots = ("Input", "Filter", "Scale", "Bias")
+    want = [wants_grad(ctx, s) for s in slots]
+    if dy is None or not any(want):
+        return (None,) * 6
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(k)
+                  for t, k in zip((x, w, scale, bias), want)]
+        out = _conv_bn_composed(
+            ctx, *leaves, mean, variance, attrs.get("strides", (1, 1)),
+            attrs.get("paddings", (0, 0)), attrs.get("dilations", (1, 1)),
+            attrs.get("groups", 1), attrs.get("data_format", "NCHW"),
+            attrs.get("momentum", 0.9), attrs.get("epsilon", 1e-5),
+            attrs.get("is_test", False), attrs.get("with_relu", True))[0]
+        grads = iter(torch.autograd.grad(
+            out, [t for t, k in zip(leaves, want) if k], dy))
+    return tuple(next(grads) if k else None for k in want) + (None, None)
 
 
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),

@@ -1,19 +1,74 @@
-"""Optimizer update ops: adam and fused_adam.
+"""Optimizer update ops: momentum, adam and their fused forms.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``adam:50``,
-``fused_adam:367``).  Scalars enter the arithmetic as f32 tensors, as the
-reference's ``jnp.asarray(beta1, dt)`` does, so each update is the same
-sequence of f32 operations.  ``adam`` returns new tensors;
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``momentum:36``,
+``adam:50``, ``fused_momentum:332``, ``fused_adam:367``).  Scalars enter
+the arithmetic as f32 tensors, as the reference's
+``jnp.asarray(beta1, dt)`` does, so each update is the same sequence of
+f32 operations.  ``adam`` returns new tensors;
 ``fused_adam`` (what ``ir.FuseOptimizerOpsPass`` makes of a group of
 adam ops) reaches the fused-Adam kernel, which updates the parameters,
-moments and beta pows in place on the card.  The ``sgd`` and ``momentum``
-updates come with their optimizers.
+moments and beta pows in place on the card; ``fused_momentum`` reaches
+the fused-momentum kernel the same way, except under an l2_decay
+attribute, which keeps the plain path as in the reference.  ``sgd``
+comes with its optimizer.
 """
 
 import torch
 
 from ..core.registry import register_op
 from ..kernels.fused_adam import fused_adam_step
+from ..kernels.fused_momentum import fused_momentum_step
+
+_MOMENTUM_ATTRS = {"mu": 0.0, "use_nesterov": False,
+                   "regularization_method": "", "regularization_coeff": 0.0}
+
+
+def _momentum_update(p, g, v, lr, mu, use_nesterov, regularization_method,
+                     regularization_coeff):
+    """The reference's unfused recurrence in f32, returning new tensors:
+    an l2_decay attribute folds coeff * p into g first."""
+    g = g.to(p.dtype)
+    if regularization_method == "l2_decay":
+        g = g + regularization_coeff * p
+    vn = mu * v + g
+    if use_nesterov:
+        return p - (g + mu * vn) * lr, vn
+    return p - lr * vn, vn
+
+
+@register_op("momentum", inputs=("Param", "Grad", "Velocity", "LearningRate"),
+             outputs=("ParamOut", "VelocityOut"), attrs=_MOMENTUM_ATTRS,
+             grad_maker=None)
+def momentum(ctx, param, grad, velocity, lr, mu=0.0, use_nesterov=False,
+             regularization_method="", regularization_coeff=0.0):
+    return _momentum_update(param, grad, velocity,
+                            lr.reshape(()).to(param.dtype), mu, use_nesterov,
+                            regularization_method, regularization_coeff)
+
+
+@register_op("fused_momentum",
+             inputs=("Param", "Grad", "Velocity", "LearningRate"),
+             outputs=("ParamOut", "VelocityOut"),
+             duplicable_inputs=("Param", "Grad", "Velocity"),
+             duplicable_outputs=("ParamOut", "VelocityOut"),
+             attrs=_MOMENTUM_ATTRS, grad_maker=None)
+def fused_momentum(ctx, params, grads, vels, lr, mu=0.0, use_nesterov=False,
+                   regularization_method="", regularization_coeff=0.0):
+    """One momentum step over the group.  Without an l2_decay attribute
+    (ResNet's L2Decay comes as appended scale + sum ops, so its attribute
+    is empty) it is the fused kernel, in place on the card: ParamOut and
+    VelocityOut names equal Param and Velocity names."""
+    if ctx.abstract:  # shape inference: the outputs are the inputs
+        return params, vels
+    if regularization_method != "l2_decay":
+        p, v, _bf16 = fused_momentum_step(params, grads, vels, lr, mu,
+                                          use_nesterov)
+        return p, v
+    lr_ = lr.reshape(()).to(params[0].dtype)
+    pv = [_momentum_update(p, g, v, lr_, mu, use_nesterov,
+                           regularization_method, regularization_coeff)
+          for p, g, v in zip(params, grads, vels)]
+    return [p for p, _ in pv], [v for _, v in pv]
 
 
 @register_op("adam",

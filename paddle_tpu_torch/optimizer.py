@@ -1,15 +1,17 @@
-"""Optimizers: the ``Optimizer`` base and Adam.
+"""Optimizers: the ``Optimizer`` base, Momentum and Adam.
 
 Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer:77``:
 ``_create_global_learning_rate:88``, ``_add_accumulator:149``,
 ``minimize:169``, ``backward:176``, ``apply_gradients:214``;
-``AdamOptimizer:366``; ``Adam``).  ``minimize`` is ``append_backward``,
-then the clip and regularization passes (no-ops with neither set), then
+``MomentumOptimizer:278``; ``AdamOptimizer:366``; ``Momentum``,
+``Adam``).  ``minimize`` is ``append_backward``, then the clip pass (a
+no-op without clipping) and the regularization pass (``regularizer.py``:
+a decay op and an in-place ``sum`` into each regularized gradient), then
 one update op per parameter, appended under the Optimize role exactly
 as the reference appends them, so the programs are the reference's.
-The executor later fuses the adam ops into one ``fused_adam``
-(``ir.FuseOptimizerOpsPass``).  The other optimizers of the reference
-come with models that use them.
+The executor later fuses the adam and momentum ops of rank <= 2 into one
+``fused_adam`` / ``fused_momentum`` (``ir.FuseOptimizerOpsPass``).  The
+other optimizers of the reference come with models that use them.
 """
 
 from .backward import append_backward
@@ -19,7 +21,8 @@ from .initializer import Constant
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
-__all__ = ["Optimizer", "AdamOptimizer", "Adam"]
+__all__ = ["Optimizer", "MomentumOptimizer", "AdamOptimizer", "Momentum",
+           "Adam"]
 
 
 class Optimizer:
@@ -123,6 +126,28 @@ class Optimizer:
         raise NotImplementedError
 
 
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param], "Grad": [grad], "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
@@ -160,4 +185,5 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, "lazy_mode": self._lazy_mode})
 
 
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

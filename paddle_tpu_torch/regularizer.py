@@ -1,18 +1,42 @@
-"""Weight-decay regularizers: the path ``Optimizer.apply_gradients`` runs
-when neither the optimizer nor any parameter sets one.  Counterpart of
-``paddle_tpu/regularizer.py`` (``append_regularization_ops``); the L1/L2
-decays come with a model that uses them."""
+"""Weight-decay regularizers.  Counterpart of ``paddle_tpu/regularizer.py``
+(``L2DecayRegularizer:14``, ``append_regularization_ops:36``): the L2
+decay, which ResNet's ``Momentum(regularization=L2Decay(1e-4))`` uses;
+L1 comes with a model that uses it."""
 
-__all__ = ["append_regularization_ops"]
+from .framework import OpRole, default_main_program
+
+__all__ = ["L2Decay", "L2DecayRegularizer", "append_regularization_ops"]
+
+
+class L2DecayRegularizer:
+    """decay = coeff * param, one ``scale`` op."""
+
+    def __init__(self, regularization_coeff=0.0):
+        self._coeff = regularization_coeff
+
+    def __call__(self, param, grad, block):
+        from . import layers
+
+        return layers.scale(param, scale=self._coeff)
 
 
 def append_regularization_ops(parameters_and_grads, regularization=None):
-    """grad += the decay of each regularized param; with none set the
-    pairs pass through unchanged."""
+    """grad += the decay of each regularized param (its own regularizer,
+    else ``regularization``): the decay op, then a ``sum`` whose Out is
+    the gradient variable itself, both under the Optimize role as the
+    reference appends them.  The executor runs the sum as a rewrite of
+    the gradient's value, which the update op after it reads."""
+    program = default_main_program()
+    block = program.current_block()
     for param, grad in parameters_and_grads:
         reg = getattr(param, "regularizer", None) or regularization
-        if grad is not None and reg is not None:
-            raise NotImplementedError(
-                "weight-decay regularizers are not ported yet (param %r)"
-                % param.name)
+        if grad is None or reg is None:
+            continue
+        with program._role_guard(OpRole.Optimize):
+            decay = reg(param, grad, block)
+            block.append_op(type="sum", inputs={"X": [grad, decay]},
+                            outputs={"Out": [grad]})
     return list(parameters_and_grads)
+
+
+L2Decay = L2DecayRegularizer

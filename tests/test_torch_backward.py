@@ -236,8 +236,8 @@ def _cases():
 @pytest.mark.parametrize("op_type", sorted(_cases()))
 def test_grad_op_matches_reference(op_type):
     """The grad op of the auto maker, fed the same forward inputs, outputs
-    and output grads: explicit in the port for mul, elementwise_add and
-    layer_norm, the vjp replay for the rest."""
+    and output grads: explicit in the port for mul, elementwise_add,
+    layer_norm and relu, the vjp replay for the rest."""
     _slots, ins, attrs = _cases()[op_type]
     rng = np.random.RandomState(1)
     args = _auto_args(rng, op_type, ins, attrs)

@@ -144,8 +144,9 @@ def test_reshape2_xshape_and_batch_stand_ins():
 
 
 def test_unknown_op_type_names_the_ported_ones():
-    with pytest.raises(ValueError, match="unknown op type 'conv2d'"):
-        registry.get_op_def("conv2d")
+    with pytest.raises(ValueError,
+                       match="unknown op type 'conv2d_transpose'"):
+        registry.get_op_def("conv2d_transpose")
 
 
 def test_startup_initialisers_shapes_dtypes_and_ranges():
