@@ -12,6 +12,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    at its main-path shape and others (the fused Adam and the fused
    momentum bitwise, with and without their bf16 copy; the conv-block
    kernels at ResNet-50's shapes and odd ones, the affine pass bitwise;
+   the embedding bag bitwise at DLRM's largest bag and ragged, all-pad
+   and D = 256 cases; the channel statistics against float64 sums;
    the dropout kernel's mask bytes bitwise, its keep fraction within 5
    sigma; the dropout paths at p = 0.1, where one flipped keep bit
    would move an output by about prob / q), then timed
@@ -58,8 +60,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    times a step each, the last loss below the first, and 3 steps at
    batch 2, each from one state on the card and on the CPU's plain path,
    with the same losses and velocities;
-9. the script's own wall time, a JSON line of the kernels, then the
-   result line.
+9. DLRM training (the Criteo Terabyte configuration: 26 tables of
+   width 128 in 2 host-resident shards each, MLPerf's multi-hot bag
+   sizes, seeded random weights and ids) through the port's sparse-table
+   path under ``FLAGS_use_pallas_embedding_bag``, SGD for 5 steps on one
+   batch of 2048: the embedding-bag kernel 26 times a step, one
+   fused_sgd group, the last loss below the first, and 3 steps at batch
+   8, each from one state (dense parameters and table shards) on the
+   card and on the CPU's plain path, with the same losses, pushed row
+   gradients and parameters;
+10. the channel statistics' microbenchmark
+    (``tools/torch_bench_reduce.py``) once at a few passes, launching
+    rows 16 and 17's kernels;
+11. the script's own wall time, a JSON line of the kernels, then the
+    result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -1338,9 +1352,11 @@ def moment_gap(got, want):
 
 def counted():
     """{name: wrapper} of every kernel wrapper that counts launches on the
-    training and conv paths."""
+    training, conv, DLRM and reduction paths."""
+    from paddle_tpu_torch.kernels import channel_stats as cst
     from paddle_tpu_torch.kernels import conv_block as cb
     from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.kernels import embedding_bag as eb
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_adam as fad
     from paddle_tpu_torch.kernels import fused_ln as fl
@@ -1360,7 +1376,10 @@ def counted():
             "conv_bn_act": cb.conv_bn_act,
             "conv_stats": cb.conv_stats,
             "affine_act": cb.affine_act,
-            "fused_momentum": fm.fused_momentum_step}
+            "fused_momentum": fm.fused_momentum_step,
+            "embedding_bag": eb.embedding_bag,
+            "channel_stats": cst.stats,
+            "affine_stats": cst.affine_stats}
 
 
 def launch_counts():
@@ -1582,12 +1601,12 @@ def resnet_program(which, is_test):
 
 
 @contextlib.contextmanager
-def conv_block_flag(on):
-    """``FLAGS_use_pallas_conv_block`` set for a phase, restored after."""
+def flag_set(name, on):
+    """The port's flag ``name`` set for a phase, restored after."""
     from paddle_tpu_torch import get_flags, set_flags
 
-    saved = get_flags("FLAGS_use_pallas_conv_block")
-    set_flags({"FLAGS_use_pallas_conv_block": on})
+    saved = get_flags(name)
+    set_flags({name: on})
     try:
         yield
     finally:
@@ -1616,7 +1635,8 @@ def conv_serve_phase(which, clients=3):
     from paddle_tpu_torch.serving import ServingEngine
 
     trunk = which == "trunk"
-    with conv_block_flag(trunk), tempfile.TemporaryDirectory() as tmp:
+    with flag_set("FLAGS_use_pallas_conv_block", trunk), \
+            tempfile.TemporaryDirectory() as tmp:
         dirname = os.path.join(tmp, which)
         t0 = time.perf_counter()
         main_p, startup, img, _label, logits = resnet_program(which, True)
@@ -1766,7 +1786,7 @@ def conv_train_phase(which):
                                        scope_to_numpy)
 
     trunk = which == "trunk"
-    with conv_block_flag(trunk):
+    with flag_set("FLAGS_use_pallas_conv_block", trunk):
         t0 = time.perf_counter()
         main_p, startup, _img, _label, loss = resnet_program(which, False)
         params = [v for v in main_p.list_vars()
@@ -1831,6 +1851,461 @@ def conv_train_phase(which):
     return {k: v for k, v in launches.items() if v}
 
 
+# -- phases 9 and 10: DLRM training, the channel statistics -------------------
+
+# DLRM (Naumov et al. 2019), the Criteo Terabyte configuration of
+# facebookresearch/dlrm bench/run_and_time.sh: 26 categorical tables of
+# width 128 (--arch-sparse-feature-size=128, rows capped at 40,000,000 as
+# MLPerf caps Criteo 1TB), bottom MLP 13-512-256-128, top MLP
+# 1024-1024-512-256-1, dot interaction without self pairs, BCE loss, SGD
+# at lr 1.0; the bags take the multi-hot sizes of MLPerf Training's
+# DLRM-DCNv2 Criteo multi-hot dataset (214 ids a sample).  Width 128 is
+# exactly the embedding-bag kernel's eligibility (row 15: D % 128 == 0).
+class DlrmConfig:
+    def __init__(self, rows, bags, bottom, top, dim=128, dense=13,
+                 shards=2):
+        self.rows, self.bags = tuple(rows), tuple(bags)
+        self.bottom, self.top = tuple(bottom), tuple(top)
+        self.dim, self.dense, self.shards = dim, dense, shards
+
+
+DLRM = DlrmConfig(
+    rows=(40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+          3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000,
+          40000000, 40000000, 590152, 12973, 108, 36),
+    bags=(3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100,
+          27, 10, 3, 1, 1),
+    bottom=(512, 256, 128), top=(1024, 1024, 512, 256))
+# the CPU tests' DLRM: 3 tables (one smaller than a batch's ids), narrow
+# MLPs
+DLRM_TINY = DlrmConfig(rows=(40, 7, 1000), bags=(3, 1, 5), bottom=(32, 128),
+                       top=(64,))
+DLRM_LR = 1.0
+DLRM_BATCH = 2048
+DLRM_CHECK_BATCH = 8
+# DLRM, 3 SGD steps at batch 8, each from one state (dense parameters and
+# table shards) on the card and on the plain path on the CPU, f32 with
+# TF32 off: they differ by summation order (and the card's atomic
+# scatter-add of the row gradients) only.  Losses (~0.69) absolutely; the
+# pushed row gradients and the dense parameters after the step relative
+# to each tensor's largest element.
+DLRM_LOSS_ATOL = 1e-5
+DLRM_RTOL = 1e-5
+# rows 16 and 17's column sums against float64 sums of the same f32
+# terms, held relative to the sum of the terms' magnitudes (the
+# condition of the sum): f32 partials over a few thousand rows each
+CHANNEL_STATS_RTOL = 1e-5
+
+
+def tool(name):
+    """The module of ``tools/<name>.py``, loaded from its path."""
+    import importlib.util
+
+    mod = sys.modules.get("_tool_" + name)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "_tool_" + name, os.path.join(HERE, "tools", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["_tool_" + name] = mod
+    return mod
+
+
+def dlrm_pairs(n):
+    """Flat indices i n + j of the strictly lower pairs (i > j) of an
+    n x n interaction, in DLRM's order (i, then j)."""
+    return np.array([i * n + j for i in range(n) for j in range(i)],
+                    np.int64)
+
+
+def build_dlrm(pkg, emb_cls, clients, batch, cfg=DLRM, lr=DLRM_LR):
+    """DLRM trained by SGD(lr) under the current ``program_guard``, in
+    ``pkg`` (the module ``paddle_tpu`` or ``paddle_tpu_torch``) with its
+    ``emb_cls`` (``DistributedEmbedding``), table t pulling through
+    ``clients[t]`` -> (loss, the tables' embeddings).  Only public layers,
+    so both packages build the same program.  Feeds: ``dense`` [B, 13],
+    ``label`` [B, 1] f32, ``pairs`` (``dlrm_pairs``) and each table's
+    rows and local ids (``prepare_feed_bags``)."""
+    import importlib
+
+    L = importlib.import_module(pkg.__name__ + ".layers")
+    ParamAttr = importlib.import_module(pkg.__name__ + ".param_attr") \
+        .ParamAttr
+    Normal = importlib.import_module(pkg.__name__ + ".initializer").Normal
+    SGD = importlib.import_module(pkg.__name__ + ".optimizer").SGD
+
+    def mlp(x, n, sizes, last_relu):
+        # DLRM's init: weights N(0, 2 / (m + n)), biases N(0, 1 / m)
+        for i, m in enumerate(sizes):
+            x = L.fc(x, m, act="relu" if last_relu or i < len(sizes) - 1
+                     else None,
+                     param_attr=ParamAttr(initializer=Normal(
+                         0.0, float(np.sqrt(2.0 / (m + n))))),
+                     bias_attr=ParamAttr(initializer=Normal(
+                         0.0, float(np.sqrt(1.0 / m)))))
+            n = m
+        return x
+
+    n_vec = 1 + len(cfg.rows)
+    n_pairs = n_vec * (n_vec - 1) // 2
+    dense = L.data("dense", shape=[batch, cfg.dense],
+                   append_batch_size=False)
+    label = L.data("label", shape=[batch, 1], append_batch_size=False)
+    pairs = L.data("pairs", shape=[n_pairs], dtype="int64",
+                   append_batch_size=False)
+    x = mlp(dense, cfg.dense, cfg.bottom, True)
+    embs, bags = [], []
+    for t, (rows, k) in enumerate(zip(cfg.rows, cfg.bags)):
+        emb = emb_cls("dlrm_t%d" % t, cfg.dim, client=clients[t])
+        bags.append(emb.lookup_bag(batch, k, min(batch * k, rows)))
+        embs.append(emb)
+    t_ = L.reshape(L.concat([x] + bags, axis=1), [-1, n_vec, cfg.dim])
+    z = L.reshape(L.matmul(t_, t_, transpose_y=True), [-1, n_vec * n_vec])
+    z = L.transpose(L.gather(L.transpose(z, [1, 0]), pairs), [1, 0])
+    logit = mlp(L.concat([x, z], axis=1), cfg.dim + n_pairs,
+                cfg.top + (1,), False)
+    loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+    SGD(learning_rate=lr).minimize(loss)
+    return loss, embs
+
+
+def dlrm_tables(cfg=DLRM, lr=DLRM_LR, seed=0):
+    """The port's in-process clients, table t in ``cfg.shards`` SGD
+    shards with DLRM's uniform init range sqrt(1 / rows_t)."""
+    from paddle_tpu_torch.distributed import (SparseTableClient,
+                                              SparseTableShard)
+
+    return [SparseTableClient("dlrm_t%d" % t, [
+        SparseTableShard(cfg.dim, "sgd", lr, float(np.sqrt(1.0 / rows)),
+                         seed=seed + cfg.shards * t + s)
+        for s in range(cfg.shards)]) for t, rows in enumerate(cfg.rows)]
+
+
+def dlrm_batch(rng, batch, cfg=DLRM):
+    """(dense [B, 13] f32, label [B, 1] f32, per table [B, K_t] global
+    ids drawn uniformly, repeats allowed)."""
+    dense = rng.rand(batch, cfg.dense).astype(np.float32)
+    label = rng.randint(0, 2, (batch, 1)).astype(np.float32)
+    ids = [rng.randint(0, rows, (batch, k)).astype(np.int64)
+           for rows, k in zip(cfg.rows, cfg.bags)]
+    return dense, label, ids
+
+
+def dlrm_step(exe, main_p, loss, embs, data, scope=None):
+    """One step: pull every table's rows, run, push the row gradients ->
+    (loss, the fetched row gradients, the pushed counts, (pull, run, push)
+    host seconds)."""
+    dense, label, ids = data
+    t0 = time.perf_counter()
+    feed = {"dense": dense, "label": label,
+            "pairs": dlrm_pairs(len(embs) + 1)}
+    infos = []
+    for emb, bags in zip(embs, ids):
+        f, info = emb.prepare_feed_bags(bags)
+        feed.update(f)
+        infos.append(info)
+    t1 = time.perf_counter()
+    outs = exe.run(main_p, feed=feed, scope=scope, fetch_list=[loss] + [
+        emb.grad_var(main_p) for emb in embs])
+    t2 = time.perf_counter()
+    for emb, info, g in zip(embs, infos, outs[1:]):
+        emb.push_grads(info, g)
+    return (float(outs[0].reshape(-1)[0]), outs[1:],
+            [info["n"] for info in infos],
+            (t1 - t0, t2 - t1, time.perf_counter() - t2))
+
+
+def dlrm_program(batch, cfg=DLRM, lr=DLRM_LR, seed=0):
+    """(main, startup, loss, embeddings) of the port's DLRM at ``batch``
+    over fresh tables."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.distributed import DistributedEmbedding
+
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 17
+    with framework.program_guard(main_p, startup):
+        loss, embs = build_dlrm(paddle_tpu_torch, DistributedEmbedding,
+                                dlrm_tables(cfg, lr, seed), batch, cfg, lr)
+    return main_p, startup, loss, embs
+
+
+def dlrm_card_vs_cpu(data):
+    """CHECK_STEPS steps of DLRM at DLRM_CHECK_BATCH on the card, each
+    replayed on the CPU's plain path from the card's state before it
+    (dense persistables and every table shard) -> (largest loss gap,
+    largest relative gap of the pushed row gradients and of the dense
+    parameters, and where it is)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
+                                       scope_to_numpy)
+    from paddle_tpu_torch.distributed import SparseTableShard
+
+    main_p, startup, loss, embs = dlrm_program(DLRM_CHECK_BATCH)
+    card, cpu = Executor(), Executor(framework.CPUPlace())
+    sc = Scope()
+    card.run(startup, scope=sc)
+    params = [v.name for v in main_p.list_vars()
+              if isinstance(v, framework.Parameter)]
+    loss_gap, gap, worst, losses = 0.0, 0.0, None, []
+    t0 = time.perf_counter()
+    for _ in range(CHECK_STEPS):
+        state = scope_to_numpy(sc, main_p)
+        shards = [[s.state() for s in e.client.shards] for e in embs]
+        got, g_card, _n, _t = dlrm_step(card, main_p, loss, embs, data, sc)
+        sp = scope_from_numpy(Scope(), state, "cpu", program=main_p)
+        live = [e.client.shards for e in embs]
+        for e, st in zip(embs, shards):
+            e.client.shards = [SparseTableShard.from_state(s) for s in st]
+        want, g_cpu, _n, _t = dlrm_step(cpu, main_p, loss, embs, data, sp)
+        for e, sh in zip(embs, live):
+            e.client.shards = sh     # the card's tables go on
+        losses.append((got, want))
+        loss_gap = max(loss_gap, abs(got - want))
+        pairs = [("%s@GRAD" % e.rows_name, a, b)
+                 for e, a, b in zip(embs, g_card, g_cpu)]
+        pairs += [(n, sc.find_var(n).get_tensor().numpy(),
+                   sp.find_var(n).get_tensor().numpy()) for n in params]
+        for n, a, b in pairs:
+            rel = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                   1e-30)
+            if worst is None or rel > gap:
+                gap, worst = rel, n
+    print("train dlrm: %d steps at batch %d, (card, CPU) losses %s (%.1f s)"
+          % (CHECK_STEPS, DLRM_CHECK_BATCH, json.dumps(losses),
+             time.perf_counter() - t0), flush=True)
+    return loss_gap, gap, worst
+
+
+def dlrm_phase():
+    """DLRM trained TRAIN_STEPS SGD steps at DLRM_BATCH on one batch under
+    FLAGS_use_pallas_embedding_bag -> the launch counts."""
+    from paddle_tpu_torch.core import Executor, Scope
+
+    with flag_set("FLAGS_use_pallas_embedding_bag", True):
+        t0 = time.perf_counter()
+        main_p, startup, loss, embs = dlrm_program(DLRM_BATCH)
+        from paddle_tpu_torch import framework
+
+        ops = main_p.global_block().ops
+        n_params = sum(int(np.prod(v.shape)) for v in main_p.list_vars()
+                       if isinstance(v, framework.Parameter))
+        print("train dlrm: DLRM, %d tables of width %d in %d shards each, "
+              "bags %s (%d ids a sample), bottom 13-%s, top %s-1; batch %d; "
+              "%d ops; %d dense parameters; built in %.1f s" % (
+                  len(embs), DLRM.dim, DLRM.shards, list(DLRM.bags),
+                  sum(DLRM.bags), "-".join(map(str, DLRM.bottom)),
+                  "-".join(map(str, DLRM.top)), DLRM_BATCH, len(ops),
+                  n_params, time.perf_counter() - t0), flush=True)
+        exe, scope = Executor(), Scope()
+        exe.run(startup, scope=scope)
+        data = dlrm_batch(np.random.RandomState(3), DLRM_BATCH)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        zero_counts()   # just before the main path runs
+        losses, step_ms, host = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            lo, _g, pushed, t = dlrm_step(exe, main_p, loss, embs, data,
+                                          scope)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(lo)
+            host.append(t)
+        launches = launch_counts()
+        ops = main_p.global_block().ops
+        n_fused = sum(op.type == "fused_sgd" for op in ops)
+        n_sgd = sum(op.type == "sgd" for op in ops)
+        pull, run, push = (1e3 * np.array(x) for x in zip(*host))
+        print("train dlrm: %d steps, losses %s; step_ms %s, p50 %.3f (the "
+              "first draws the touched rows and plans); pull ms p50 %.3f, "
+              "Executor.run ms p50 %.3f, push ms p50 %.3f; rows pulled a "
+              "step %d of %d padded; %d fused_sgd op(s) over %d params, %d "
+              "sgd ops; peak %.2f GB; launches %s" % (
+                  TRAIN_STEPS, json.dumps(losses),
+                  json.dumps([round(x, 3) for x in step_ms]),
+                  float(np.percentile(step_ms, 50)),
+                  float(np.percentile(pull, 50)),
+                  float(np.percentile(run, 50)),
+                  float(np.percentile(push, 50)), sum(pushed),
+                  sum(e.max_rows for e in embs), n_fused,
+                  sum(len(op.input("Param")) for op in ops
+                      if op.type == "fused_sgd"), n_sgd,
+                  torch.cuda.max_memory_allocated() / 1e9,
+                  json.dumps({k: v for k, v in launches.items() if v})),
+              flush=True)
+        want = {k: 0 for k in launches}
+        want["embedding_bag"] = len(embs) * TRAIN_STEPS
+        if launches != want:
+            fail("train dlrm launches %s over %d steps, want %s"
+                 % (launches, TRAIN_STEPS, want))
+        if n_fused != 1 or n_sgd:
+            fail("train dlrm: %d fused_sgd and %d sgd ops, want one group"
+                 % (n_fused, n_sgd))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail("train dlrm losses %s: not finite, or the last is not "
+                 "below the first" % losses)
+        del scope
+        loss_gap, gap, worst = dlrm_card_vs_cpu(
+            dlrm_batch(np.random.RandomState(4), DLRM_CHECK_BATCH))
+    print("train dlrm: card vs CPU plain path, each step from one state: "
+          "max loss difference %.3g (limit %.3g); row gradients' and dense "
+          "parameters' gap %.3g of their largest element (limit %.3g, "
+          "worst %s)" % (loss_gap, DLRM_LOSS_ATOL, gap, DLRM_RTOL, worst),
+          flush=True)
+    if not (loss_gap <= DLRM_LOSS_ATOL and gap <= DLRM_RTOL):
+        fail("train dlrm on the card disagrees with the CPU plain path")
+    return {k: v for k, v in launches.items() if v}
+
+
+def bag_case(rng, b, k, u, d, pad, dev):
+    """rows [u, d] ~ N(0, 1) and ids [b, k] in [0, u), each bag's tail
+    -1-padded to a random length with probability ``pad`` (1: all pads)."""
+    rows = torch.from_numpy(rng.randn(u, d).astype(np.float32)).to(dev)
+    ids = rng.randint(0, u, (b, k)).astype(np.int64)
+    if pad:
+        keep = np.where(rng.rand(b) < pad, rng.randint(0, k, b), k)
+        ids[np.arange(k)[None, :] >= keep[:, None]] = -1
+    return rows, torch.from_numpy(ids).to(dev)
+
+
+# (what, B, K, U, D, pad): DLRM's largest bag (table 20, K 100, its
+# batch_ids_max), then ragged, all-pad and D 256 cases
+BAG_CASES = [
+    ("DLRM's largest bag: B 2048, K 100, U 204800, D 128", 2048, 100,
+     204800, 128, 0.0),
+    ("ragged: B 37, K 13, U 500, D 128", 37, 13, 500, 128, 0.6),
+    ("all pads: B 16, K 5, U 8, D 128", 16, 5, 8, 128, 1.0),
+    ("D 256, ragged: B 300, K 7, U 1000", 300, 7, 1000, 256, 0.5),
+]
+
+
+def bag_kernel_phase(eb, dev, flush):
+    """Row 15 bitwise equal to its plain version at BAG_CASES, then timed
+    at DLRM's largest bag beside F.embedding_bag over the compacted ids
+    (the compaction outside the timing) and the bytes bound."""
+    rng = np.random.RandomState(15)
+    kept = None
+    for what, b, k, u, d, pad in BAG_CASES:
+        rows, ids = bag_case(rng, b, k, u, d, pad, dev)
+        got = eb.embedding_bag(rows, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, eb.embedding_bag_reference(rows, ids)):
+            fail("embedding_bag not bitwise equal to the plain version at %s"
+                 % what)
+        print("kernel embedding_bag %s: bitwise equal to the plain version"
+              % what, flush=True)
+        if kept is None:
+            kept = (rows, ids)
+    rows, ids = kept
+    valid = ids >= 0
+    flat = ids[valid]
+    offsets = torch.cumsum(valid.sum(1), 0) - valid.sum(1)
+    b, d = ids.shape[0], rows.shape[1]
+    row = timed_row(
+        "embedding_bag", lambda: eb.embedding_bag(rows, ids),
+        lambda: eb.embedding_bag_reference(rows, ids),
+        lambda: torch.nn.functional.embedding_bag(flat, rows, offsets,
+                                                  mode="sum"),
+        int(flat.numel()) * d * 4 + ids.numel() * 8 + b * d * 4, 0, flush,
+        0.0, "%s (F.embedding_bag over the compacted ids, mode sum)"
+        % BAG_CASES[0][0])
+    row.update(source="paddle_tpu_torch/kernels/csrc/embedding_bag.cu",
+               replaces="paddle_tpu/pallas_kernels/embedding_bag.py:75")
+    return row
+
+
+def channel_stats_kernel_phase(cst, dev, flush):
+    """Rows 16 and 17 at the microbenchmark's two shapes against plain
+    versions run in float64 (y of row 17 bitwise), then timed beside
+    their plain versions, torch's own passes and the bytes bounds."""
+    SHAPES = tool("torch_bench_reduce").SHAPES
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    rows = {}
+    for sname, (m, c) in SHAPES.items():
+        x = torch.randn((m, c), generator=g, device=dev).to(torch.bfloat16)
+        cv = torch.full((1, 1), 0.25, device=dev)
+        a = 1.0 + 0.1 * torch.randn((1, c), generator=g, device=dev)
+        b = 0.1 * torch.randn((1, c), generator=g, device=dev)
+        what = "[%d, %d] bf16 (%s, %.0f MB)" % (m, c, sname, m * c * 2 / 1e6)
+        s, ss = cst.stats(x, cv)
+        xd = x.double() + cv.double().reshape(())
+        err16 = max(float(((s - xd.sum(0)).abs() / xd.abs().sum(0)).max()),
+                    float(((ss - (xd * xd).sum(0)).abs()
+                           / (xd * xd).sum(0)).max()))
+        abs16 = max(float((s - xd.sum(0)).abs().max()),
+                    float((ss - (xd * xd).sum(0)).abs().max()))
+        del xd
+        y, s2, ss2 = cst.affine_stats(x, a, b)
+        y32 = x.float() * a.reshape(-1) + b.reshape(-1)
+        if not torch.equal(y, y32.to(torch.bfloat16)):
+            fail("affine_stats y not bitwise the plain version's at %s"
+                 % what)
+        yd = y32.double()
+        err17 = max(float(((s2 - yd.sum(0)).abs() / yd.abs().sum(0)).max()),
+                    float(((ss2 - (yd * yd).sum(0)).abs()
+                           / (yd * yd).sum(0)).max()))
+        abs17 = max(float((s2 - yd.sum(0)).abs().max()),
+                    float((ss2 - (yd * yd).sum(0)).abs().max()))
+        del yd, y32
+        print("kernel channel_stats %s: sums vs float64, max |err| %.3g, "
+              "relative to the sum of |terms| %.3g (limit %g); "
+              "affine_stats: y bitwise, sums max |err| %.3g, relative %.3g"
+              % (what, abs16, err16, CHANNEL_STATS_RTOL, abs17, err17),
+              flush=True)
+        if not (err16 <= CHANNEL_STATS_RTOL and err17 <= CHANNEL_STATS_RTOL):
+            fail("channel statistics disagree with float64 at %s" % what)
+        nb = m * c * 2
+
+        def lib16():
+            xf = x.float().add(cv.reshape(()))
+            return xf.sum(0), xf.square().sum(0)
+
+        def lib17():
+            yf = torch.addcmul(b, x.float(), a)
+            return yf.to(torch.bfloat16), yf.sum(0), yf.square().sum(0)
+
+        r16 = timed_row(
+            "channel_stats", lambda: cst.stats(x, cv),
+            lambda: cst.stats_reference(x, cv), lib16, nb + 8 * c + 4,
+            4 * m * c, flush, abs16, "%s (torch: x.float().add(c), .sum(0) "
+            "and .square().sum(0), several calls)" % what)
+        r17 = timed_row(
+            "affine_stats", lambda: cst.affine_stats(x, a, b),
+            lambda: cst.affine_stats_reference(x, a, b), lib17,
+            2 * nb + 16 * c, 6 * m * c, flush, abs17,
+            "%s (torch: addcmul, the bf16 cast and the two sums, several "
+            "calls)" % what)
+        rows.setdefault("channel_stats", r16)
+        rows.setdefault("affine_stats", r17)
+        del x, y
+    rows["channel_stats"].update(
+        source="paddle_tpu_torch/kernels/csrc/channel_stats.cu",
+        replaces="tools/bench_reduce_pallas.py:72")
+    rows["affine_stats"].update(
+        source="paddle_tpu_torch/kernels/csrc/channel_stats.cu",
+        replaces="tools/bench_reduce_pallas.py:112")
+    return [rows["channel_stats"], rows["affine_stats"]]
+
+
+def reduce_tool_phase():
+    """The port's counterpart of the reduction microbenchmark
+    (tools/torch_bench_reduce.py), all variants at REP 4 (and the one
+    warm-up pass each) -> the launch counts of rows 16 and 17."""
+    torch_bench_reduce = tool("torch_bench_reduce")
+    torch.cuda.synchronize()
+    zero_counts()   # just before the tool runs
+    torch_bench_reduce.run(rep=4)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {k: 0 for k in launches}
+    want["channel_stats"] = want["affine_stats"] = \
+        (4 + 1) * len(torch_bench_reduce.SHAPES)
+    if launches != want:
+        fail("the reduction tool launched %s, want %s" % (launches, want))
+    return {k: v for k, v in launches.items() if v}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1841,8 +2316,10 @@ def main():
     sys.path.insert(0, HERE)
     from paddle_tpu_torch import set_f32_numerics
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import channel_stats as cst
     from paddle_tpu_torch.kernels import conv_block as cb
     from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.kernels import embedding_bag as eb
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_adam as fad
     from paddle_tpu_torch.kernels import fused_ln as fl
@@ -1884,6 +2361,8 @@ def main():
     rows.append(dropout_kernel_phase(dk, philox, dev, flush))
     rows.append(momentum_kernel_phase(fm, dev, flush))
     rows += conv_kernel_phase(cb, dev, flush)
+    rows.append(bag_kernel_phase(eb, dev, flush))
+    rows += channel_stats_kernel_phase(cst, dev, flush)
     del flush
     torch.cuda.empty_cache()
     # each path is driven with the counts at 0 and read just after; a
@@ -1898,6 +2377,8 @@ def main():
         launches.update(conv_serve_phase(which))
     for which in ("bundled", "trunk"):
         launches.update(conv_train_phase(which))
+    launches.update(dlrm_phase())
+    launches.update(reduce_tool_phase())
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

@@ -80,9 +80,9 @@ def _fetch_name(f):
 
 class Executor:
     """Runs programs on one device (``place=None``: the CUDA card).  A
-    training program's adam or momentum ops are coalesced into one
-    fused_adam / fused_momentum before its first plan, as the reference
-    does by default (FLAGS_fuse_optimizer_ops)."""
+    training program's sgd, momentum or adam ops are coalesced into one
+    fused_sgd / fused_momentum / fused_adam before its first plan, as the
+    reference does by default (FLAGS_fuse_optimizer_ops)."""
 
     def __init__(self, place=None):
         self.place = place
@@ -102,7 +102,8 @@ class Executor:
             return
         self._fuse_attempted.add(key)
         block = program.global_block()
-        if sum(op.type in ("momentum", "adam") for op in block.ops) < 4:
+        if sum(op.type in ("sgd", "momentum", "adam")
+               for op in block.ops) < 4:
             return
         from .. import ir
 

@@ -18,6 +18,11 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   composition.  The reference also gates its kernel on a measured
   speed-up; the port takes the kernel wherever the flag and the shapes
   allow.
+* ``FLAGS_use_pallas_embedding_bag`` (default False, as in the
+  reference): the ``embedding_bag`` op takes the embedding-bag kernel
+  (``kernels/embedding_bag.py``) where ``bag_checks`` holds, instead of
+  the masked gather + sum composition; as for the conv block, no
+  measured speed-up gates it.
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -29,6 +34,7 @@ __all__ = ["set_flags", "get_flags", "flag"]
 _DEFAULTS = {
     "FLAGS_fused_small_attention": False,
     "FLAGS_use_pallas_conv_block": False,
+    "FLAGS_use_pallas_embedding_bag": False,
 }
 
 

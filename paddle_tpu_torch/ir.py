@@ -383,8 +383,8 @@ class SeqPoolConcatFuseCheck(_UnportedPass):
 
 @register_pass("fuse_optimizer_ops_pass")
 class FuseOptimizerOpsPass(Pass):
-    """Coalesce per-parameter adam or momentum ops into one
-    ``fused_adam`` / ``fused_momentum`` op.
+    """Coalesce per-parameter sgd, momentum or adam ops into one
+    ``fused_sgd`` / ``fused_momentum`` / ``fused_adam`` op.
 
     Groups ops sharing their hyperparameter attrs, LearningRate var and
     param dtype; a group of at least MIN_GROUP becomes one fused op over
@@ -398,17 +398,21 @@ class FuseOptimizerOpsPass(Pass):
     all 1-D or 2-D, so its whole set is one group, and ResNet's BN scales
     and biases and its fc weight and bias are one group while each conv
     filter keeps its own momentum op (those interleave with the group's
-    members but touch none of its state, so no hazard)."""
+    members but touch none of its state, so no hazard); DLRM's dense
+    weights and biases are one sgd group."""
 
     MIN_GROUP = 4
     MAX_PARAM_RANK = 2
-    _STATE_SLOTS = {"momentum": ("Param", "Grad", "Velocity"),
+    _STATE_SLOTS = {"sgd": ("Param", "Grad"),
+                    "momentum": ("Param", "Grad", "Velocity"),
                     "adam": ("Param", "Grad", "Moment1", "Moment2",
                              "Beta1Pow", "Beta2Pow")}
-    _OUT_SLOTS = {"momentum": ("ParamOut", "VelocityOut"),
+    _OUT_SLOTS = {"sgd": ("ParamOut",),
+                  "momentum": ("ParamOut", "VelocityOut"),
                   "adam": ("ParamOut", "Moment1Out", "Moment2Out",
                            "Beta1PowOut", "Beta2PowOut")}
-    _FUSED_ATTRS = {"momentum": ("mu", "use_nesterov",
+    _FUSED_ATTRS = {"sgd": (),
+                    "momentum": ("mu", "use_nesterov",
                                  "regularization_method",
                                  "regularization_coeff"),
                     "adam": ("beta1", "beta2", "epsilon")}

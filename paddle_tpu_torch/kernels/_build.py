@@ -27,7 +27,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
            "fused_ln", "fused_ln_bwd", "layer_norm", "fused_adam",
            "dropout", "small_attention", "small_attention_bwd",
-           "conv_block", "fused_momentum")
+           "conv_block", "fused_momentum", "embedding_bag",
+           "channel_stats")
 
 _lock = threading.Lock()
 _libs = {}

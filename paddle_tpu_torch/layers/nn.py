@@ -4,8 +4,10 @@
 ``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``dropout:707``,
 ``transpose:1217``,
 ``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``,
-``softmax_with_cross_entropy:239``, ``accuracy:368``, ``mean:502``,
-``softmax:587``, ``gather:1385``, ``relu:583``, ``conv2d:748``,
+``softmax_with_cross_entropy:239``,
+``sigmoid_cross_entropy_with_logits:257``, ``accuracy:368``,
+``mean:502``, ``softmax:587``, ``concat:1292``, ``gather:1385``,
+``relu:583``, ``conv2d:748``,
 ``conv2d_bn_relu:805``, ``pool2d:956``, ``batch_norm:1002``).  Each
 appends ops to the current block and names its variables and parameters
 exactly as the reference does."""
@@ -18,8 +20,9 @@ from ..layer_helper import LayerHelper
 __all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
            "layer_norm", "fused_dropout_add_ln", "dropout", "transpose",
            "reshape",
-           "unsqueeze", "flash_attention", "gather",
-           "softmax_with_cross_entropy", "mean", "softmax", "accuracy",
+           "unsqueeze", "flash_attention", "concat", "gather",
+           "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
+           "mean", "softmax", "accuracy",
            "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm"]
 
 
@@ -235,6 +238,14 @@ def flash_attention(q, k, v, bias_qk=None, causal=False, scale=0.0,
     return out
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def gather(input, index, overwrite=True):
     helper = LayerHelper("gather")
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
@@ -259,6 +270,18 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
 
 
 def mean(x, name=None):

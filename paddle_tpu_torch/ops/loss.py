@@ -1,6 +1,8 @@
-"""Loss op: softmax_with_cross_entropy.  Counterpart of
-``paddle_tpu/ops/loss.py`` (``softmax_with_cross_entropy:68``); its
-gradient is the synthesized vjp replay."""
+"""Loss ops: softmax_with_cross_entropy and
+sigmoid_cross_entropy_with_logits.  Counterpart of
+``paddle_tpu/ops/loss.py`` (``softmax_with_cross_entropy:68``,
+``sigmoid_cross_entropy_with_logits:134``); their gradients are the
+synthesized vjp replays."""
 
 import torch
 
@@ -38,3 +40,21 @@ def softmax_with_cross_entropy(ctx, logits, label, soft_label=False,
     loss = torch.where(lab == ignore_index, torch.zeros_like(picked),
                        -picked)
     return softmax, loss
+
+
+@register_op("sigmoid_cross_entropy_with_logits", inputs=("X", "Label"),
+             outputs=("Out",),
+             attrs={"ignore_index": -100, "normalize": False},
+             no_grad_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits(ctx, x, label, ignore_index=-100,
+                                      normalize=False):
+    """max(x, 0) - x label + log(1 + exp(-|x|)) per element, 0 where the
+    label is ``ignore_index``; ``normalize`` divides by the count of the
+    others (at least 1), as the reference."""
+    loss = torch.maximum(x, torch.zeros_like(x)) - x * label \
+        + torch.log1p(torch.exp(-torch.abs(x)))
+    mask = label != ignore_index
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if normalize:
+        loss = loss / torch.clamp_min(mask.to(loss.dtype).sum(), 1.0)
+    return loss

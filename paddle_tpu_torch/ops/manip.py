@@ -1,19 +1,25 @@
-"""Shape ops, gather and the embedding lookup: reshape2, transpose2,
-unsqueeze2, gather, lookup_table.
+"""Shape ops, gather and the embedding lookups: reshape2, transpose2,
+unsqueeze2, concat, gather, lookup_table, embedding_bag.
 
 Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
-``transpose2:101``, ``unsqueeze2:214``, ``gather:284``,
-``lookup_table:322``).  Their gradients are the synthesized vjp replays:
-gather's and lookup_table's accumulate repeated indices (in a varying
-order where the card adds them with atomics).  The
+``transpose2:101``, ``concat:113``, ``unsqueeze2:214``, ``gather:284``,
+``lookup_table:322``, ``embedding_bag:345``).  Most gradients are the
+synthesized vjp replays: gather's and lookup_table's accumulate repeated
+indices (in a varying order where the card adds them with atomics).
+``concat_grad`` (a split of the output gradient) and
+``embedding_bag_grad`` are written out: the bag's forward may be a CUDA
+kernel, which a replay cannot trace.  The
 ``XShape`` outputs are placeholders for the grad ops, as in the reference:
 the lowerings leave them unset.  Reshape and transpose return views where
 PyTorch can; a consumer that needs contiguous memory makes it so.
 """
 
+import torch
 import torch.nn.functional as F
 
-from ..core.registry import register_op
+from .. import flags
+from ..core.registry import register_grad_lowering, register_op, wants_grad
+from ..kernels.embedding_bag import bag_checks, embedding_bag as bag_kernel
 
 
 def _resolve_shape(x, shape):
@@ -93,6 +99,22 @@ def unsqueeze2(ctx, x, axes_t, axes=()):
     return x, None
 
 
+@register_op("concat", inputs=("X", "AxisTensor"), outputs=("Out",),
+             attrs={"axis": 0}, duplicable_inputs=("X",),
+             optional_inputs=("AxisTensor",))
+def concat(ctx, xs, axis_tensor, axis=0):
+    return torch.cat(xs, dim=axis)
+
+
+@register_grad_lowering("concat")
+def concat_grad(ctx, xs, axis_tensor, out, dout, axis=0):
+    """Each input's slice of the output gradient (views of it)."""
+    if dout is None:
+        return [torch.zeros_like(x) for x in xs], None
+    return list(torch.split(dout, [x.shape[axis] for x in xs],
+                            dim=axis)), None
+
+
 @register_op("gather", inputs=("X", "Index"), outputs=("Out",),
              attrs={"overwrite": True}, no_grad_inputs=("Index",))
 def gather(ctx, x, index, overwrite=True):
@@ -114,3 +136,48 @@ def lookup_table(ctx, w, ids, padding_idx=-1, **_):
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
     return out
+
+
+def _bag_composed(w, ids):
+    """The op's route without the kernel, the reference's jnp fallback: a
+    masked gather of [B, K, D] summed over K."""
+    g = w.index_select(0, ids.reshape(-1).long().clamp(min=0))
+    g = g.reshape(tuple(ids.shape) + (w.shape[1],))
+    return torch.where((ids >= 0).unsqueeze(-1), g, 0.0).sum(dim=1)
+
+
+@register_op("embedding_bag", inputs=("W", "Ids"), outputs=("Out",),
+             attrs={"mode": "sum"}, no_grad_inputs=("Ids",))
+def embedding_bag(ctx, w, ids, mode="sum"):
+    """Bagged lookup: Out[b] = sum_k W[Ids[b, k]] over Ids >= 0 (-1 pads
+    ragged bags), the multi-hot read of the recommender path
+    (``distributed/sparse_table.py`` ``lookup_bag``).  Under
+    ``FLAGS_use_pallas_embedding_bag`` with ``bag_checks`` holding it is
+    the embedding-bag kernel (its plain version on the CPU), else the
+    masked gather + sum."""
+    if mode != "sum":
+        raise ValueError("embedding_bag supports mode='sum', got %r"
+                         % (mode,))
+    if flags.flag("FLAGS_use_pallas_embedding_bag") and all(
+            ok for _, ok in bag_checks(tuple(w.shape), tuple(ids.shape),
+                                       w.dtype)):
+        return bag_kernel(w, ids)
+    return _bag_composed(w, ids)
+
+
+@register_grad_lowering("embedding_bag")
+def embedding_bag_grad(ctx, w, ids, out, dout, mode="sum"):
+    """dW: each bag's output gradient added into the row of each of its
+    valid ids (``index_add_``; the card adds with atomics, in a varying
+    order).  A pad adds into a spare row past the end, so no step waits
+    on the device to count the valid ids."""
+    if not wants_grad(ctx, "W"):
+        return None, None
+    u, d = w.shape
+    grad = torch.zeros((u + 1, d), dtype=w.dtype, device=w.device)
+    if dout is not None:
+        idx = torch.where(ids >= 0, ids.long(), u).reshape(-1)
+        src = dout.to(w.dtype).unsqueeze(1).expand(
+            ids.shape[0], ids.shape[1], d).reshape(-1, d)
+        grad.index_add_(0, idx, src)
+    return grad[:u], None

@@ -1,7 +1,8 @@
-"""Optimizer update ops: momentum, adam and their fused forms.
+"""Optimizer update ops: sgd, momentum, adam and their fused forms.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``momentum:36``,
-``adam:50``, ``fused_momentum:332``, ``fused_adam:367``).  Scalars enter
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``sgd:22``,
+``momentum:36``, ``adam:50``, ``fused_sgd:307``, ``fused_momentum:332``,
+``fused_adam:367``).  Scalars enter
 the arithmetic as f32 tensors, as the reference's
 ``jnp.asarray(beta1, dt)`` does, so each update is the same sequence of
 f32 operations.  ``adam`` returns new tensors;
@@ -9,8 +10,9 @@ f32 operations.  ``adam`` returns new tensors;
 adam ops) reaches the fused-Adam kernel, which updates the parameters,
 moments and beta pows in place on the card; ``fused_momentum`` reaches
 the fused-momentum kernel the same way, except under an l2_decay
-attribute, which keeps the plain path as in the reference.  ``sgd``
-comes with its optimizer.
+attribute, which keeps the plain path as in the reference.  ``sgd`` and
+``fused_sgd`` are plain PyTorch, as the reference's are jnp: one
+subtraction of ``lr g`` per element, new tensors.
 """
 
 import torch
@@ -18,6 +20,25 @@ import torch
 from ..core.registry import register_op
 from ..kernels.fused_adam import fused_adam_step
 from ..kernels.fused_momentum import fused_momentum_step
+
+@register_op("sgd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), grad_maker=None)
+def sgd(ctx, param, grad, lr):
+    return param - lr.reshape(()).to(param.dtype) * grad.to(param.dtype)
+
+
+@register_op("fused_sgd", inputs=("Param", "Grad", "LearningRate"),
+             outputs=("ParamOut",), duplicable_inputs=("Param", "Grad"),
+             duplicable_outputs=("ParamOut",), grad_maker=None)
+def fused_sgd(ctx, params, grads, lr):
+    """One SGD step over the group (what ``ir.FuseOptimizerOpsPass``
+    makes of the sgd ops), member by member: the reference's flat-buffer
+    update is elementwise, so the values are the same."""
+    if ctx.abstract:  # shape inference: the outputs are the inputs
+        return (params,)
+    lr_ = lr.reshape(()).to(params[0].dtype)
+    return ([p - lr_ * g.to(p.dtype) for p, g in zip(params, grads)],)
+
 
 _MOMENTUM_ATTRS = {"mu": 0.0, "use_nesterov": False,
                    "regularization_method": "", "regularization_coeff": 0.0}

@@ -1,16 +1,17 @@
-"""Optimizers: the ``Optimizer`` base, Momentum and Adam.
+"""Optimizers: the ``Optimizer`` base, SGD, Momentum and Adam.
 
 Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer:77``:
 ``_create_global_learning_rate:88``, ``_add_accumulator:149``,
 ``minimize:169``, ``backward:176``, ``apply_gradients:214``;
-``MomentumOptimizer:278``; ``AdamOptimizer:366``; ``Momentum``,
-``Adam``).  ``minimize`` is ``append_backward``, then the clip pass (a
+``SGDOptimizer:262``; ``MomentumOptimizer:278``; ``AdamOptimizer:366``;
+``SGD``, ``Momentum``, ``Adam``).  ``minimize`` is ``append_backward``, then the clip pass (a
 no-op without clipping) and the regularization pass (``regularizer.py``:
 a decay op and an in-place ``sum`` into each regularized gradient), then
 one update op per parameter, appended under the Optimize role exactly
 as the reference appends them, so the programs are the reference's.
-The executor later fuses the adam and momentum ops of rank <= 2 into one
-``fused_adam`` / ``fused_momentum`` (``ir.FuseOptimizerOpsPass``).  The
+The executor later fuses the sgd, momentum and adam ops of rank <= 2
+into one ``fused_sgd`` / ``fused_momentum`` / ``fused_adam``
+(``ir.FuseOptimizerOpsPass``).  The
 other optimizers of the reference come with models that use them.
 """
 
@@ -21,8 +22,8 @@ from .initializer import Constant
 from .regularizer import append_regularization_ops
 from .utils import unique_name
 
-__all__ = ["Optimizer", "MomentumOptimizer", "AdamOptimizer", "Momentum",
-           "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "SGD", "Momentum", "Adam"]
 
 
 class Optimizer:
@@ -126,6 +127,16 @@ class Optimizer:
         raise NotImplementedError
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param]})
+
+
 class MomentumOptimizer(Optimizer):
     def __init__(self, learning_rate, momentum, use_nesterov=False,
                  **kwargs):
@@ -185,5 +196,6 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, "lazy_mode": self._lazy_mode})
 
 
+SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
