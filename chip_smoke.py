@@ -13,7 +13,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    momentum bitwise, with and without their bf16 copy; the conv-block
    kernels at ResNet-50's shapes and odd ones, the affine pass bitwise;
    the embedding bag bitwise at DLRM's largest bag and ragged, all-pad
-   and D = 256 cases; the channel statistics against float64 sums;
+   and D = 256 cases; the channel statistics against float64 sums; the
+   fused flash backward's dQ bitwise over two runs at two key tiles;
    the dropout kernel's mask bytes bitwise, its keep fraction within 5
    sigma; the dropout paths at p = 0.1, where one flipped keep bit
    would move an output by about prob / q), then timed
@@ -127,9 +128,9 @@ KEEP_SIGMAS = 5.0
 # sign flip of its ~lr step), with a floor (``moment_gap``).
 # tools/torch_train_faults.py reads both gaps sound and with faults
 # planted on the card (an H100; PERF.md): sound 9.5e-07 (loss) and
-# 1.5e-04 (moments); the faults' smallest 1.5e-04 (loss, dK zeroed) and
-# 1.0 (moments), so each limit sits about 10x above the sound reading
-# and 10x below the nearest fault's.
+# 2.5e-04 (moments); the faults' smallest 1.5e-04 (loss, dK zeroed) and
+# 1.0 (moments), so each limit sits 10x or more above the sound reading
+# and 10x or more below the nearest fault's.
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_MOMENT_RTOL = 1e-2
 MOMENT_FLOOR = 1e-4
@@ -585,8 +586,9 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
 
 
 def flash_bwd_kernel_phase(fa, dev, flush):
-    """Rows 3 and 4: the dQ and the dK/dV kernels against their plain
-    versions, from the forward kernel's out and lse."""
+    """Rows 3 and 4: the fused backward kernel's dQ, dK and dV against the
+    plain versions, from the forward kernel's out and lse; its dQ bitwise
+    equal across two runs at the main shape (two key tiles)."""
     rng = np.random.RandomState(3)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
 
@@ -606,8 +608,11 @@ def flash_bwd_kernel_phase(fa, dev, flush):
          False),
         ("odd B=2 H=3 S=77 D=40 head-shared bias, a fully masked row",
          (2, 3, 77, 40), odd_bias, False, False),
+        ("B=2 H=3 S=200 D=64 per-head bias (four key tiles, the last 8 "
+         "rows)", (2, 3, 200, 64), _rand(rng, 2, 3, 200, 200), False,
+         False),
     ]
-    worst_q = worst_kv = 0.0
+    worst = 0.0
     tensors = {}
     for what, (bb, h, s, d), bias, causal, strided in cases:
         if strided:   # q, k, v and dO as the main path hands them over
@@ -619,15 +624,23 @@ def flash_bwd_kernel_phase(fa, dev, flush):
         delta = fa.attention_delta(out, do)
         args = (q, k, v, bias, do, lse, delta, causal)
         tensors[what] = args
-        worst_q = max(worst_q, check(
-            "flash_attention_bwd_dq", what, [fa.flash_attention_bwd_dq(*args)],
-            [fa.flash_attention_bwd_dq_reference(*args)], FLASH_BWD_ATOL))
-        worst_kv = max(worst_kv, check(
-            "flash_attention_bwd_dkv", what,
-            fa.flash_attention_bwd_dkv(*args),
-            fa.flash_attention_bwd_dkv_reference(*args), FLASH_BWD_ATOL))
+        want = [fa.flash_attention_bwd_dq_reference(*args),
+                *fa.flash_attention_bwd_dkv_reference(*args)]
+        worst = max(worst, check("flash_attention_bwd_fused", what,
+                                 fa.flash_attention_bwd_fused(*args), want,
+                                 FLASH_BWD_ATOL))
     what = cases[0][0]
-    q, k, v, bias, do, lse, delta, _c = tensors[what]
+    args = tensors[what]
+    q, k, v, bias, do, lse, delta, _c = args
+    dq1 = fa.flash_attention_bwd_fused(*args)[0]
+    dq2 = fa.flash_attention_bwd_fused(*args)[0]
+    if not torch.equal(dq1, dq2):
+        fail("flash_attention_bwd_fused: dQ differs between two runs at %s "
+             "(max %.3g)" % (what, float((dq1 - dq2).abs().max())))
+    print("kernel flash_attention_bwd_fused %s: dQ bitwise equal over two "
+          "runs; %d CTAs an SM at D=%d" % (
+              what, fa.flash_attention_bwd_ctas_per_sm(q.shape[3]),
+              q.shape[3]), flush=True)
     bb, h, s, d = q.shape
     # yardstick: the whole SDPA backward (dQ, dK and dV) with the same
     # mask, its forward graph built once and not timed
@@ -638,31 +651,22 @@ def flash_bwd_kernel_phase(fa, dev, flush):
     def sdpa_bwd():
         return torch.autograd.grad(o, leaves, do, retain_graph=True)
 
+    def plain():
+        return (fa.flash_attention_bwd_dq_reference(*args),
+                fa.flash_attention_bwd_dkv_reference(*args))
+
     n = bb * h * s * d
-    # read once: q, k, v, dO; the bias; lse and delta
-    common = 4 * (4 * n + bb * s * s + 2 * bb * h * s)
-    rows = []
+    # read once: q, k, v, dO, the bias, lse and delta; write dQ, dK, dV.
+    # Five multiply-adds per (i, j, d): s, dO v^T, dV, dK, dQ
     row = timed_row(
-        "flash_attention_bwd_dq",
-        lambda: fa.flash_attention_bwd_dq(q, k, v, bias, do, lse, delta),
-        lambda: fa.flash_attention_bwd_dq_reference(q, k, v, bias, do, lse,
-                                                    delta),
-        sdpa_bwd, common + 4 * n, 6 * bb * h * s * s * d, flush, worst_q,
-        "%s (library: the whole SDPA backward)" % what)
+        "flash_attention_bwd_fused",
+        lambda: fa.flash_attention_bwd_fused(*args), plain, sdpa_bwd,
+        4 * (7 * n + bb * s * s + 2 * bb * h * s), 10 * bb * h * s * s * d,
+        flush, worst, "%s (library: the whole SDPA backward)" % what)
     row.update(source="paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
-               replaces="paddle_tpu/pallas_kernels/flash_attention.py:112")
-    rows.append(row)
-    row = timed_row(
-        "flash_attention_bwd_dkv",
-        lambda: fa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta),
-        lambda: fa.flash_attention_bwd_dkv_reference(q, k, v, bias, do, lse,
-                                                     delta),
-        sdpa_bwd, common + 8 * n, 8 * bb * h * s * s * d, flush, worst_kv,
-        "%s (library: the whole SDPA backward)" % what)
-    row.update(source="paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
-               replaces="paddle_tpu/pallas_kernels/flash_attention.py:157")
-    rows.append(row)
-    return rows
+               replaces="paddle_tpu/pallas_kernels/flash_attention.py:112, "
+                        "paddle_tpu/pallas_kernels/flash_attention.py:157")
+    return row
 
 
 def ln_bwd_kernel_phase(fl, dev, flush):
@@ -1277,17 +1281,16 @@ DROPOUT0, COMPOSED, SMALL = ("dropout 0", "dropout 0.1",
 # kernel launches per training step of BERT-base (12 layers), by emission;
 # every kernel not named launches 0 times.  In all three: 2 x 12
 # epilogues forward and backward (fused_ln, fused_ln_bwd), one fused
-# Adam, LayerNorm on the embeddings and on the head.  Dropout 0: 12
-# layers x (forward + the grad's recompute) flash forwards, 12 dQ and 12
-# dK/dV.  Dropout 0.1: the dropout kernel on the embeddings and on each
+# Adam, LayerNorm on the embeddings and on the head.  Dropout 0: 12 flash
+# forwards and 12 fused backwards (the grad reads the saved Out and Lse).
+# Dropout 0.1: the dropout kernel on the embeddings and on each
 # layer's attention probabilities (its grad reads the saved mask).
 # Small attention: 12 small forwards and 12 small backwards (the grad
 # reads the saved lse), the dropout kernel on the embeddings.
 _COMMON = {"fused_ln": 24, "fused_ln_bwd": 24, "fused_adam": 1,
            "layer_norm": 2}
 STEP_LAUNCHES = {
-    DROPOUT0: dict(_COMMON, flash_attention=24, flash_attention_bwd_dq=12,
-                   flash_attention_bwd_dkv=12),
+    DROPOUT0: dict(_COMMON, flash_attention=12, flash_attention_bwd_fused=12),
     COMPOSED: dict(_COMMON, dropout=13),
     SMALL: dict(_COMMON, small_attention_fwd=12, small_attention_bwd=12,
                 dropout=1),
@@ -1364,8 +1367,7 @@ def counted():
     from paddle_tpu_torch.kernels import layer_norm as ln
 
     return {"flash_attention": fa.flash_attention,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "flash_attention_bwd_fused": fa.flash_attention_bwd_fused,
             "small_attention_fwd": fa.small_attention_fwd,
             "small_attention_bwd": fa.small_attention_bwd,
             "dropout": dk.dropout,
@@ -2342,7 +2344,8 @@ def main():
           % (len(_build.SOURCES), time.perf_counter() - t0), flush=True)
     for name, info in _build.BUILD_INFO.items():
         usage = [line.strip() for line in info["ptxas"].splitlines()
-                 if "registers" in line or "spill" in line]
+                 if "registers" in line or "spill" in line
+                 or "entry function" in line]
         print("build %s: %.2f s%s" % (name, info["seconds"],
                                       " (cached)" if info["cached"] else ""))
         for line in usage:
@@ -2353,7 +2356,7 @@ def main():
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     rows = [paged_kernel_phase(pa, dev, flush),
             flash_kernel_phase(fa, dev, flush)]
-    rows += flash_bwd_kernel_phase(fa, dev, flush)
+    rows.append(flash_bwd_kernel_phase(fa, dev, flush))
     rows += small_attention_kernel_phase(fa, philox, dev, flush)
     rows += ln_kernel_phase(fl, ln, philox, dev, flush)
     rows.append(ln_bwd_kernel_phase(fl, dev, flush))

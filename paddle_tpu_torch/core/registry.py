@@ -27,7 +27,8 @@ becomes -1.
 import torch
 
 __all__ = ["OpDef", "GradOpDesc", "register_op", "register_grad_lowering",
-           "get_op_def", "all_op_types", "lower_attrs", "wants_grad"]
+           "get_op_def", "all_op_types", "lower_attrs", "wants_grad",
+           "default_infer_shape"]
 
 _OP_REGISTRY = {}
 
@@ -96,7 +97,7 @@ class OpDef:
         if self.infer_shape is not None:
             self.infer_shape(op, block)
         elif self.lower is not None:
-            _default_infer_shape(self, op, block)
+            default_infer_shape(self, op, block)
 
     def make_grad_ops(self, op, no_grad_set):
         """[GradOpDesc] of this forward op.  The auto maker's op reads the
@@ -356,7 +357,7 @@ def _meta_inputs(opdef, op, block, batch):
     return args
 
 
-def _default_infer_shape(opdef, op, block):
+def default_infer_shape(opdef, op, block):
     from ..framework import torch_dtype_name
     from .lowering import LowerCtx
 

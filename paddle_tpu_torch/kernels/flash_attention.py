@@ -16,11 +16,11 @@ recomputes the probabilities from that lse.
   lives: CPU (and meta, for shape inference) tensors take the plain
   version; a CUDA tensor launches the hand-written kernels
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) at every
-  shape, or the call raises.  The TPU package takes its kernel only at
-  Sk >= 1024 with 128-multiple blocks, a cutoff measured on the TPU; the
-  port has no such gate.  ``flash_attention.launches``,
-  ``flash_attention_bwd_dq.launches`` and
-  ``flash_attention_bwd_dkv.launches`` count kernel launches.
+  shape, or the call raises.  The backward is one fused kernel for dQ,
+  dK and dV (``flash_attention_bwd_fused``).  The TPU package takes its
+  kernel only at Sk >= 1024 with 128-multiple blocks, a cutoff measured
+  on the TPU; the port has no such gate.  ``flash_attention.launches``
+  and ``flash_attention_bwd_fused.launches`` count kernel launches.
 * ``FlashAttention`` (``flash_attention_train``) is the differentiable
   form, a ``torch.autograd.Function`` whose backward is the kernels'.
 
@@ -52,7 +52,7 @@ __all__ = ["flash_attention_reference", "flash_attention",
            "attention_delta", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference", "flash_attention_bwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_fused",
            "FlashAttention", "flash_attention_train",
            "small_attention_shapes_ok", "small_attention_fwd_reference",
            "small_attention_fwd", "small_attention_bwd_reference",
@@ -156,10 +156,10 @@ def _kernel():
         [_VP] * 6 + [_I] * 7 + [ctypes.c_float] + [_LL] * 9 + [_VP])
 
 
-def _bwd_kernel(symbol):
-    return _build.function("flash_attention_bwd", symbol,
-                           [_VP] * (9 if symbol.endswith("dkv_f32") else 8)
-                           + [_I] * 7 + [ctypes.c_float, _VP, _VP])
+def _bwd_kernel():
+    return _build.function("flash_attention_bwd", "flash_attention_bwd_f32",
+                           [_VP] * 10 + [_I] * 7
+                           + [ctypes.c_float, _VP, _VP])
 
 
 def _check(q, k, v, bias, kernel="flash_attention"):
@@ -243,78 +243,64 @@ def _check_bwd(kernel, q, k, v, bias, do, lse, delta):
                              % (kernel, name, tuple(t.shape), bb, h, sq))
 
 
-def _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale):
-    bb, h, sq, d = q.shape
-    strides = (ctypes.c_longlong * 12)(
-        *[s for t in (q, k, v, do) for s in t.stride()[:3]])
-    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             bias.data_ptr() if bias is not None else None, do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()],
-            [bb, h, sq, k.shape[2], d,
-             0 if bias is None else bias.shape[1], int(bool(causal)),
-             float(sm_scale), strides,
-             torch.cuda.current_stream(q.device).cuda_stream])
-
-
-def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal=False,
-                           sm_scale=None):
-    """dQ [B, H, Sq, D] by the CUDA kernel (``csrc/flash_attention_bwd.cu``
-    ``flash_bwd_dq_kernel``); CUDA tensors only: the plain version is
-    ``flash_attention_bwd_dq_reference``."""
-    fn = _bwd_kernel("flash_attention_bwd_dq_f32")
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
-    _check_bwd("flash_attention_bwd_dq", q, k, v, bias, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ptrs, rest = _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale)
-    err = fn(*ptrs, dq.data_ptr(), *rest)
-    raise_on_error("flash_attention_bwd_dq", err)
-    flash_attention_bwd_dq.launches += 1
-    return dq
-
-
-flash_attention_bwd_dq.launches = 0
-
-
-def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal=False,
-                            sm_scale=None):
-    """(dK, dV) [B, H, Sk, D] by the CUDA kernel
-    (``flash_bwd_dkv_kernel``); CUDA tensors only: the plain version is
+def flash_attention_bwd_fused(q, k, v, bias, do, lse, delta, causal=False,
+                              sm_scale=None):
+    """(dQ, dK, dV) dense [B, H, S, D] by the fused CUDA kernel
+    (``csrc/flash_attention_bwd.cu``); CUDA tensors only: the plain
+    versions are ``flash_attention_bwd_dq_reference`` and
     ``flash_attention_bwd_dkv_reference``."""
-    fn = _bwd_kernel("flash_attention_bwd_dkv_f32")
+    fn = _bwd_kernel()
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    _check_bwd("flash_attention_bwd_dkv", q, k, v, bias, do, lse, delta)
+    _check_bwd("flash_attention_bwd_fused", q, k, v, bias, do, lse, delta)
+    bb, h, sq, d = q.shape
+    # the kernel adds each key tile's share of dQ into it
+    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    ptrs, rest = _bwd_args(q, k, v, bias, do, lse, delta, causal, sm_scale)
-    err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
-    raise_on_error("flash_attention_bwd_dkv", err)
-    flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    strides = (ctypes.c_longlong * 12)(
+        *[s for t in (q, k, v, do) for s in t.stride()[:3]])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None, do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), bb, h, sq, k.shape[2], d,
+             0 if bias is None else bias.shape[1], int(bool(causal)),
+             float(sm_scale), strides,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    raise_on_error("flash_attention_bwd_fused", err)
+    flash_attention_bwd_fused.launches += 1
+    return dq, dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_fused.launches = 0
+
+
+def flash_attention_bwd_ctas_per_sm(head_dim):
+    """CTAs of the fused backward kernel an SM holds at once for this head
+    width (a report of its occupancy; needs the card)."""
+    fn = _build.function("flash_attention_bwd",
+                         "flash_attention_bwd_ctas_per_sm",
+                         [_I, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    raise_on_error("flash_attention_bwd_fused",
+                   fn(int(head_dim), ctypes.byref(n)))
+    return n.value
 
 
 def flash_attention_bwd(q, k, v, bias, out, lse, do, causal=False,
                         sm_scale=None):
     """Attention backward -> (dq, dk, dv), dense [B, H, S, D], from the
     forward's out and lse.  CPU and meta tensors take
-    ``flash_attention_bwd_reference``; CUDA tensors launch the dQ and the
-    dK/dV kernels."""
+    ``flash_attention_bwd_reference``; CUDA tensors launch the fused
+    kernel."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type in ("cpu", "meta"):
         return flash_attention_bwd_reference(q, k, v, bias, out, lse, do,
                                              causal, sm_scale)
-    delta = attention_delta(out, do)
-    lse = lse.contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta, causal,
-                                sm_scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, causal,
+    return flash_attention_bwd_fused(q, k, v, bias, do, lse.contiguous(),
+                                     attention_delta(out, do), causal,
                                      sm_scale)
-    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags
-from ..core.registry import (GradOpDesc, register_grad_lowering, register_op,
+from ..core.registry import (GradOpDesc, default_infer_shape, get_op_def,
+                             lower_attrs, register_grad_lowering, register_op,
                              wants_grad)
 from ..framework import _grad_var_name
 from ..kernels import philox
@@ -618,10 +619,21 @@ _FA_ATTRS = {"causal": False, "scale": 0.0, "layout": "BHSD",
              "dropout_prob": 0.0, "is_test": False}
 
 
+def _flash_attention_infer(op, block):
+    """The default inference, but for Lse on the flash route (dropout
+    off): the lowering carries the real lse [B, H, Sq, 1] there, while the
+    reference's desc records its [1, 1, 1, 1] placeholder; the desc keeps
+    the reference's, so the port's programs stay equal to it."""
+    default_infer_shape(get_op_def("flash_attention"), op, block)
+    if not _uses_dropout(lower_attrs(op.attrs)) and op.output("Lse"):
+        block.var(op.output("Lse")[0]).shape = (1, 1, 1, 1)
+
+
 @register_op("flash_attention", inputs=("Q", "K", "V", "BiasQK"),
              outputs=("Out", "Mask", "Seed", "Lse"), attrs=_FA_ATTRS,
              optional_inputs=("BiasQK",), no_grad_inputs=("BiasQK",),
-             grad_maker=_flash_attention_grad_maker, n_rng=1)
+             grad_maker=_flash_attention_grad_maker, n_rng=1,
+             infer_shape=_flash_attention_infer)
 def flash_attention_op(ctx, q, k, v, bias_qk=None, causal=False, scale=0.0,
                        layout="BHSD", dropout_prob=0.0, is_test=False):
     """softmax(q k^T * scale + bias) v, q/k/v [B, H, S, D], BiasQK [B,
@@ -634,8 +646,10 @@ def flash_attention_op(ctx, q, k, v, bias_qk=None, causal=False, scale=0.0,
     * composed, with dropout active otherwise: softmax, the dropout
       kernel's byte draw (upscale by ``realized_keep_prob``), the product;
       the keep Mask is saved for the grad;
-    * flash attention without dropout; Mask, Seed and Lse are the
-      reference's placeholders (the grad recomputes the lse)."""
+    * flash attention without dropout; Lse is the forward kernel's row
+      log-sum-exp [B, H, Sq, 1], which the grad reads with Out (the
+      reference returns a placeholder there and replays the forward);
+      Mask and Seed are the reference's placeholders."""
     _check_layout(layout)
     sm_scale = scale if scale else q.shape[-1] ** -0.5
     attrs = {"dropout_prob": dropout_prob, "is_test": is_test,
@@ -648,17 +662,17 @@ def flash_attention_op(ctx, q, k, v, bias_qk=None, causal=False, scale=0.0,
                                        seed_out=seed_t)
         return out, _placeholder((1,), torch.uint8, dev), seed_t, lse
     seed_ph = _placeholder((2,), torch.int32, dev)
-    lse_ph = _placeholder((1, 1, 1, 1), torch.float32, dev)
     if _uses_dropout(attrs):
         keep_prob = 1.0 - dropout_prob
         p = _composed_probs(q, k, bias_qk, causal, sm_scale)
         pd, mask = dropout_kernel(p, ctx.seed_words(),
                                   byte_threshold(keep_prob),
                                   realized_keep_prob(keep_prob), True)
-        return torch.einsum("bhqk,bhkd->bhqd", pd, v), mask, seed_ph, lse_ph
-    out, _lse = flash_attention(q, k, v, bias=bias_qk, causal=causal,
-                                sm_scale=sm_scale)
-    return out, _placeholder((1,), torch.uint8, dev), seed_ph, lse_ph
+        return (torch.einsum("bhqk,bhkd->bhqd", pd, v), mask, seed_ph,
+                _placeholder((1, 1, 1, 1), torch.float32, dev))
+    out, lse = flash_attention(q, k, v, bias=bias_qk, causal=causal,
+                               sm_scale=sm_scale)
+    return out, _placeholder((1,), torch.uint8, dev), seed_ph, lse
 
 
 flash_attention_op.opdef.rng_when = _uses_dropout
@@ -691,10 +705,9 @@ def flash_attention_grad_op(ctx, q, k, v, bias_qk, mask, out, seed_words,
                             dropout_prob=0.0, is_test=False):
     """dQ, dK, dV on the forward's route: the small-sequence backward
     kernels from the saved Seed (read on the card) and Lse; the composed
-    route's replay with the saved Mask; or the flash backward kernels,
-    after running the forward kernel again for the out/lse pair (the
-    forward's Lse output is the reference's placeholder there), as the
-    reference's ``jax.vjp`` replays the forward."""
+    route's replay with the saved Mask; or the fused flash backward
+    kernel from the saved Out and Lse (the reference's ``jax.vjp``
+    replays the forward there instead)."""
     _check_layout(layout)
     if dy is None:
         return None, None, None
@@ -708,9 +721,7 @@ def flash_attention_grad_op(ctx, q, k, v, bias_qk, mask, out, seed_words,
         grads = _composed_grad(q, k, v, bias_qk, mask, dy, causal, sm_scale,
                                1.0 - dropout_prob)
     else:
-        out2, lse2 = flash_attention(q, k, v, bias=bias_qk, causal=causal,
-                                     sm_scale=sm_scale)
-        grads = flash_attention_bwd(q, k, v, bias_qk, out2, lse2, dy, causal,
+        grads = flash_attention_bwd(q, k, v, bias_qk, out, lse, dy, causal,
                                     sm_scale)
     return tuple(g if wants_grad(ctx, s) else None
                  for g, s in zip(grads, "QKV"))

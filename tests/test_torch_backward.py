@@ -271,17 +271,26 @@ def _attention_inputs(rng, bb=2, h=3, s=11, d=8):
 
 
 def test_flash_attention_grad_op_matches_reference():
+    """Each grad op from its own package's forward: the port's flash route
+    saves the real lse in Lse (the reference's holds a placeholder and its
+    grad replays the forward)."""
     rng = np.random.RandomState(2)
     q, k, v, bias = _attention_inputs(rng)
     attrs = {"causal": False, "scale": 0.0, "layout": "BHSD",
              "dropout_prob": 0.0, "is_test": False}
-    out, mask, seed, lse = jreg.get_op_def("flash_attention").lower(
-        JCtx(mode="eager"), q, k, v, bias, **attrs)
     dout = _rand(rng, *q.shape)
-    args = [q, k, v, bias, np.asarray(mask), np.asarray(out),
-            np.asarray(seed), np.asarray(lse), dout]
-    want = _jax_grad("flash_attention_grad", args, attrs)
-    got = _port_grad("flash_attention_grad", args, attrs)
+
+    def grad_args(fwd):
+        out, mask, seed, lse = (np.asarray(o) for o in fwd)
+        return [q, k, v, bias, mask, out, seed, lse, dout]
+
+    jfwd = jreg.get_op_def("flash_attention").lower(
+        JCtx(mode="eager"), q, k, v, bias, **attrs)
+    tfwd = treg.get_op_def("flash_attention").lower(
+        TCtx(torch.device("cpu")), *(torch.from_numpy(a)
+                                     for a in (q, k, v, bias)), **attrs)
+    want = _jax_grad("flash_attention_grad", grad_args(jfwd), attrs)
+    got = _port_grad("flash_attention_grad", grad_args(tfwd), attrs)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=ATOL_ATTENTION, rtol=0)
 

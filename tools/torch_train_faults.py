@@ -12,7 +12,7 @@ once as the code stands and once under each planted fault:
 
 * ``adam not launched``: the fused-Adam kernel does nothing, so
   parameters, moments and beta pows keep their values;
-* ``dK zeroed``: the dK/dV kernel's dK is replaced by zeros;
+* ``dK zeroed``: the fused backward kernel's dK is replaced by zeros;
 * ``dQ, dK swapped``: the attention grad hands dK out as dQ and back;
 * ``fused-LN dY zeroed``: the fused-LN backward's dY (the residual
   branch's gradient, one tensor with dX at dropout 0) is zeros.
@@ -52,7 +52,7 @@ def faults():
     from paddle_tpu_torch.ops import nn as ops_nn
 
     real_kernel = fad._kernel
-    real_dkv = fa.flash_attention_bwd_dkv
+    real_fused = fa.flash_attention_bwd_fused
     real_bwd = ops_nn.flash_attention_bwd
     real_ln_bwd = ops_nn.fused_ln_bwd
 
@@ -60,12 +60,12 @@ def faults():
         real_kernel()                  # built as usual, then never run
         return lambda *args: 0
 
-    def dkv_zero_dk(*args, **kw):
-        dk, dv = real_dkv(*args, **kw)
-        return torch.zeros_like(dk), dv
+    def fused_zero_dk(*args, **kw):
+        dq, dk, dv = real_fused(*args, **kw)
+        return dq, torch.zeros_like(dk), dv
 
     # the wrapper counts its launches on the module's name, now this one
-    dkv_zero_dk.launches = 0
+    fused_zero_dk.launches = 0
 
     def bwd_swapped(*args, **kw):
         dq, dk, dv = real_bwd(*args, **kw)
@@ -82,8 +82,8 @@ def faults():
     return {
         "sound": contextlib.nullcontext,
         "adam not launched": lambda: patched(fad, "_kernel", idle_adam),
-        "dK zeroed": lambda: patched(fa, "flash_attention_bwd_dkv",
-                                     dkv_zero_dk),
+        "dK zeroed": lambda: patched(fa, "flash_attention_bwd_fused",
+                                     fused_zero_dk),
         "dQ, dK swapped": lambda: patched(ops_nn, "flash_attention_bwd",
                                           bwd_swapped),
         "fused-LN dY zeroed": lambda: patched(ops_nn, "fused_ln_bwd",

@@ -18,9 +18,10 @@ loss copied back.  After warm-up steps it times ``--steps`` steps on the
 host clock, then records as many with torch.profiler and prints the
 device busy time per step, the device's idle share over the kernels'
 span, kernels per step, and the step's device time split into matrix
-products, the ported kernels (flash forward, dQ, dK/dV, small-sequence
-attention forward and backward, dropout, fused LN forward and backward,
-LayerNorm, fused Adam) and the rest.  Last, as many steps
+products, the ported kernels (flash forward, the fused flash backward,
+small-sequence attention forward and backward, dropout, fused LN
+forward and backward, LayerNorm, fused Adam) and the rest.  Last, as
+many steps
 again with each op's host time recorded (the executor's ``run_op``
 wrapped by a clock; launches are asynchronous, so this is the time the
 host spends issuing each op), summed by op type.  Needs one CUDA card.
@@ -41,8 +42,7 @@ SEQ = 128
 
 # kernel name fragments of the ported kernels (csrc/*.cu)
 _PORTED = (("flash_fwd", "flash attention forward"),
-           ("flash_bwd_dq", "flash attention dQ"),
-           ("flash_bwd_dkv", "flash attention dK/dV"),
+           ("flash_bwd", "flash attention backward (fused dQ, dK, dV)"),
            ("small_fwd", "small attention forward"),
            ("small_bwd", "small attention backward (dQ, dK/dV)"),
            ("dropout_kernel", "dropout"),
