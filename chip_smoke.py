@@ -94,10 +94,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet rates (dense): device memory and f32 outside the
-# tensor cores
+# H100 SXM data-sheet rates (dense): device memory, f32 outside the
+# tensor cores, and TF32 on them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 # kernel vs plain version, f32: the two sum in different orders only
 KERNEL_ATOL = 2e-5
@@ -178,29 +179,32 @@ def time_cold(fn, flush, iters=50, sleep_cycles=1_000_000):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by) of work moving ``nbytes`` and doing ``flops``
-    f32 operations on the card."""
+def bound(nbytes, flops, tf32_flops=0):
+    """(bound_ms, bound_by) of work moving ``nbytes``, doing ``flops`` f32
+    operations on the SIMT pipes and ``tf32_flops`` TF32 operations on the
+    tensor cores (the two units run at once)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = max(flops / F32_FLOPS, tf32_flops / TF32_FLOPS) * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
 
 def timed_row(name, kernel, plain, library, nbytes, flops, flush, worst,
-              what, sleep_cycles=1_000_000):
+              what, sleep_cycles=1_000_000, tf32_flops=0):
     """Time kernel, plain version and library call; print and return the
     kernel's row (launches filled in after the serving phase)."""
     kernel_ms = time_cold(kernel, flush, sleep_cycles=sleep_cycles)
     plain_ms = time_cold(plain, flush, sleep_cycles=sleep_cycles)
     library_ms = time_cold(library, flush, sleep_cycles=sleep_cycles) \
         if library is not None else None
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, tf32_flops)
     print("kernel %s %s: kernel_ms %.6f plain_ms %.6f library_ms %s "
           "bound_ms %.6f (%s; %d bytes over 3.35 TB/s, %d flops over "
-          "67 TF/s)" % (name, what, kernel_ms, plain_ms,
-                        "%.6f" % library_ms if library_ms is not None
-                        else "none", bound_ms, bound_by, nbytes, flops),
+          "67 TF/s%s)" % (name, what, kernel_ms, plain_ms,
+                          "%.6f" % library_ms if library_ms is not None
+                          else "none", bound_ms, bound_by, nbytes, flops,
+                          ", %d TF32 flops over 495 TF/s" % tf32_flops
+                          if tf32_flops else ""),
           flush=True)
     return {"name": name, "route": "cuda", "max_abs_err": worst,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -858,7 +862,11 @@ def conv_case(rng, n, c, hw, co, k, dev):
 
 # (what, N, C, H = W, C_out, k, stride, pad, relu): ResNet-50 at batch 32
 # (the stem, a stage-3 3x3, a stage-4 1x1 stride-2 shortcut, a stage-5 3x3
-# at OH OW = 49), then odd shapes the routing predicate accepts
+# at OH OW = 49, a stage-1 1x1 reduce through the 16-byte 1x1 loader and
+# the wide tile, a stage-4 1x1 reduce at OH OW = 49, where the 1x1 loader
+# does not apply),
+# then odd shapes the routing predicate accepts (the last with pixel
+# tiles spanning four images and C_out a multiple of no tile)
 CONV_CASES = [
     ("stem x [32, 3, 224, 224] w [64, 3, 7, 7] s2 p3", 32, 3, 224, 64, 7,
      2, 3, True),
@@ -868,33 +876,63 @@ CONV_CASES = [
      1024, 1, 2, 0, False),
     ("stage-5 3x3 OH OW = 49 x [32, 512, 7, 7] w [512, 512, 3, 3] s1 p1",
      32, 512, 7, 512, 3, 1, 1, True),
+    ("stage-1 1x1 x [32, 256, 56, 56] w [64, 256, 1, 1]", 32, 256, 56, 64,
+     1, 1, 0, True),
+    ("stage-4 1x1 OH OW = 49 x [32, 2048, 7, 7] w [512, 2048, 1, 1]", 32,
+     2048, 7, 512, 1, 1, 0, True),
     ("odd x [3, 4, 13, 13] w [24, 4, 5, 5] s2 p2, no relu", 3, 4, 13, 24, 5,
      2, 2, False),
     ("odd x [2, 8, 9, 9] w [72, 8, 3, 3] s1 p0", 2, 8, 9, 72, 3, 1, 0, True),
+    ("odd x [6, 8, 7, 7] w [40, 8, 3, 3] s2 p1, OH OW = 16", 6, 8, 7, 40, 3,
+     2, 1, True),
 ]
+# every tile of conv_block.TILES through each input loader (the gather,
+# the 16-byte 1x1 slice, tap-major), each at a shape ragged in C_out and
+# pixels
+TILE_CASES = [
+    ("3x3 x [5, 24, 10, 10] w [136, 24, 3, 3] s1 p1", 5, 24, 10, 136, 3, 1,
+     1, True),
+    ("1x1 x [3, 40, 12, 12] w [72, 40, 1, 1]", 3, 40, 12, 72, 1, 1, 0,
+     True),
+    ("3x3 x [3, 64, 9, 9] w [72, 64, 3, 3] s2 p1", 3, 64, 9, 72, 3, 2, 1,
+     True),
+]
+
+def conv_pair(cb, x, w, a, b, stride, pad, relu, what, worst, tile=None):
+    """Rows 11 and 12 against their plain versions at one shape; row 12
+    twice, bitwise."""
+    got = cb._conv_bn_act(x, w, a, b, stride, pad, relu, tile)
+    want = cb.conv_bn_act_reference(x, w, a, b, stride, pad, relu)
+    worst["conv_bn_act"] = max(worst["conv_bn_act"], check(
+        "conv_bn_act", what, [got], [want], CONV_ATOL))
+    first = cb._conv_stats(x, w, stride, pad, tile)
+    again = cb._conv_stats(x, w, stride, pad, tile)
+    pconv, ps, pss = cb.conv_stats_reference(x, w, stride, pad)
+    worst["conv_stats"] = max(worst["conv_stats"], check(
+        "conv_stats", what + " (conv)", [first[0]], [pconv], CONV_ATOL))
+    for name, g, wv in (("sum", first[1], ps),
+                        ("sum of squares", first[2], pss)):
+        check("conv_stats", "%s (%s, relative)" % (what, name),
+              [g / wv.abs().max()], [wv / wv.abs().max()], CONV_STATS_RTOL)
+    if not all(torch.equal(g, h) for g, h in zip(first, again)):
+        fail("conv_stats not bitwise equal over two runs at %s" % what)
+    return first[0]
 
 
 def conv_kernel_phase(cb, dev, flush):
-    """Rows 11, 12, 13 against their plain versions at CONV_CASES (row 13
-    bitwise: one rounded product and sum, as the plain version), then
-    timed at the stem and the stage-3 3x3 (the rows carry the 3x3)."""
+    """Rows 11, 12, 13 against their plain versions at CONV_CASES (row 12
+    bitwise over two runs; row 13 bitwise: one rounded product and sum, as
+    the plain version) and at every tile (TILE_CASES), then timed at the
+    stem and the stage-3 3x3 (the rows carry the 3x3)."""
     rng = np.random.RandomState(11)
     worst = {"conv_bn_act": 0.0, "conv_stats": 0.0, "affine_act": 0.0}
     kept = {}
     for what, n, c, hw, co, k, stride, pad, relu in CONV_CASES:
         x, w, a, b = conv_case(rng, n, c, hw, co, k, dev)
-        got = cb.conv_bn_act(x, w, a, b, stride, pad, relu)
-        want = cb.conv_bn_act_reference(x, w, a, b, stride, pad, relu)
-        worst["conv_bn_act"] = max(worst["conv_bn_act"], check(
-            "conv_bn_act", what, [got], [want], CONV_ATOL))
-        conv, s, ss = cb.conv_stats(x, w, stride, pad)
-        pconv, ps, pss = cb.conv_stats_reference(x, w, stride, pad)
-        worst["conv_stats"] = max(worst["conv_stats"], check(
-            "conv_stats", what + " (conv)", [conv], [pconv], CONV_ATOL))
-        for name, g, wv in (("sum", s, ps), ("sum of squares", ss, pss)):
-            check("conv_stats", "%s (%s, relative)" % (what, name),
-                  [g / wv.abs().max()], [wv / wv.abs().max()],
-                  CONV_STATS_RTOL)
+        tile = cb.conv_tile(co, n * cb.out_size(hw, k, stride, pad) ** 2)
+        conv = conv_pair(cb, x, w, a, b, stride, pad, relu,
+                         "%s, tile %dx%d" % ((what,) + cb.TILES[tile]),
+                         worst)
         y = cb.affine_act(conv, a, b, relu)
         torch.cuda.synchronize()
         if not torch.equal(y, cb.affine_act_reference(conv, a, b, relu)):
@@ -904,7 +942,12 @@ def conv_kernel_phase(cb, dev, flush):
               % what, flush=True)
         if what.startswith(("stem", "stage-3")):
             kept[what] = (x, w, a, b, stride, pad, relu)
-        del x, w, conv, pconv, got, want, y
+        del x, w, conv, y
+    for what, n, c, hw, co, k, stride, pad, relu in TILE_CASES:
+        x, w, a, b = conv_case(rng, n, c, hw, co, k, dev)
+        for tile, (bm, bn) in enumerate(cb.TILES):
+            conv_pair(cb, x, w, a, b, stride, pad, relu,
+                      "%s, tile %dx%d" % (what, bm, bn), worst, tile)
     rows = {}
     for what, (x, w, a, b, stride, pad, relu) in kept.items():
         n, c, hw, _ = x.shape
@@ -915,12 +958,16 @@ def conv_kernel_phase(cb, dev, flush):
         io = 4 * (x.numel() + w.numel() + out_el)
         wa = (w * a.reshape(-1, 1, 1, 1)).contiguous()
         f = torch.nn.functional
+        # the bound of the kernels' 3xTF32 design: three TF32 products per
+        # f32 product on the tensor cores, the epilogue's 3 flops an output
+        # on the SIMT pipes
         rows["conv_bn_act"] = timed_row(
             "conv_bn_act", lambda: cb.conv_bn_act(x, w, a, b, stride, pad),
             lambda: cb.conv_bn_act_reference(x, w, a, b, stride, pad),
             lambda: f.relu(f.conv2d(x, wa, b, stride=stride, padding=pad)),
-            io + 8 * co, flops + 3 * out_el, flush, worst["conv_bn_act"],
-            "%s (cuDNN F.relu(F.conv2d(x, w a, b)), TF32 off)" % what)
+            io + 8 * co, 3 * out_el, flush, worst["conv_bn_act"],
+            "%s (cuDNN F.relu(F.conv2d(x, w a, b)), TF32 off)" % what,
+            tf32_flops=3 * flops)
 
         def lib_stats():
             cv = f.conv2d(x, w, stride=stride, padding=pad)
@@ -929,8 +976,20 @@ def conv_kernel_phase(cb, dev, flush):
         rows["conv_stats"] = timed_row(
             "conv_stats", lambda: cb.conv_stats(x, w, stride, pad),
             lambda: cb.conv_stats_reference(x, w, stride, pad), lib_stats,
-            io + 8 * n * co, flops + 3 * out_el, flush, worst["conv_stats"],
-            "%s (cuDNN F.conv2d + the two sums)" % what)
+            io + 8 * n * co, 3 * out_el, flush, worst["conv_stats"],
+            "%s (cuDNN F.conv2d + the two sums)" % what,
+            tf32_flops=3 * flops)
+        bm, bn = cb.TILES[cb.conv_tile(co, n * oh * oh)]
+        for name in ("conv_bn_act", "conv_stats"):
+            row = rows[name]
+            print("kernel %s %s: %.1f TF/s (cuDNN %.1f); tile %dx%d, %d "
+                  "CTAs; %.1f%% of the 3xTF32 bound; the same products on "
+                  "the f32 SIMT pipes %.6f ms (%d flops over 67 TF/s)"
+                  % (name, what.split(" x ")[0], flops / row["ms"] / 1e9,
+                     flops / row["library_ms"] / 1e9, bm, bn,
+                     -(-co // bm) * -(-(n * oh * oh) // bn),
+                     100 * row["bound_ms"] / row["ms"],
+                     flops / F32_FLOPS * 1e3, flops), flush=True)
         conv = cb.conv_stats(x, w, stride, pad)[0]
         rows["affine_act"] = timed_row(
             "affine_act", lambda: cb.affine_act(conv, a, b),

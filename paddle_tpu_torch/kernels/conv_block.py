@@ -15,14 +15,17 @@ Counterpart of ``paddle_tpu/pallas_kernels/conv_block.py``:
 Each wrapper takes its plain version for CPU and meta tensors (the meta
 run is the op's shape inference) and launches ``csrc/conv_block.cu`` for
 CUDA tensors, raising on anything the kernel does not take; each counts
-its launches in ``<wrapper>.launches`` (row 12's launch is the conv pass
-and the in-order reduction of its partials, one count).  Everything is
-NCHW float32.
+its launches in ``<wrapper>.launches`` (one count a call: rows 11 and
+12 may first reorder the weights for the tap-major loader, and row 12
+ends with the in-order reduction of its partials).  Everything is
+NCHW float32.  The conv kernels compute in 3xTF32 on the tensor cores
+(each f32 operand split into two TF32 parts, three products summed in
+f32), which keeps f32 accuracy; their plain versions are f32 convs.
 
 ``conv_block_checks`` is the reference's routing predicate without its
 TPU-only checks (the backend, and the 12 MB VMEM plan cap, which a CUDA
-kernel that tiles within an image does not have); the kernels take every
-shape it accepts.
+kernel that tiles the GEMM does not have); the kernels take every shape
+it accepts.
 """
 
 import ctypes
@@ -33,14 +36,39 @@ import torch.nn.functional as F
 from . import _build
 from ._checks import check_cuda_f32, raise_on_error
 
-__all__ = ["conv_block_checks", "conv_block_ok", "out_size", "fold_affine",
+__all__ = ["TILES", "LOADERS", "conv_tile", "stats_layout", "ctas_per_sm",
+           "conv_block_checks", "conv_block_ok", "out_size", "fold_affine",
            "conv_bn_act_reference", "conv_stats_reference",
            "affine_act_reference", "conv_bn_act", "conv_stats",
            "affine_act"]
 
-# output pixels of one image per CTA of the conv kernel (csrc/conv_block.cu
-# kTilePix): row 12's partials are [N, ceil(OH * OW / 64), C_out]
-PIX_TILE = 64
+# CTA tiles of the conv kernel, (C_out rows, pixels of the flattened
+# N * OH * OW) each (csrc/conv_block.cu kTiles, in the same order)
+TILES = ((64, 128), (64, 64))
+# H100 SXM: 132 SMs; the wide tile wants four CTAs an SM (two resident at
+# once, so two waves at least)
+WIDE_MIN_CTAS = 4 * 132
+
+
+def conv_tile(co, npix):
+    """Index into TILES for a conv of ``co`` output channels over ``npix``
+    output pixels (the batch's): 64 x 128 where its grid has at least
+    WIDE_MIN_CTAS CTAs, else 64 x 64.  Over ResNet-50's 53 convs at batch
+    32 on an H100 this is within 0.1% of the better of the two tiles for
+    each conv; 128-channel tiles won only at the three stride-2 1x1
+    shortcuts (by 4-17% there) and are not built (PERF.md, the sweeps of
+    tools/torch_conv_bench.py)."""
+    bm, bn = TILES[0]
+    return 0 if -(-co // bm) * -(-npix // bn) >= WIDE_MIN_CTAS else 1
+
+
+def stats_layout(n, p, bn):
+    """(tiles, slots) of row 12's partials [tiles, slots, C_out] for n
+    images of p output pixels in pixel tiles of bn: a tile's column sums
+    go to slot (image - the tile's first image), and bn consecutive
+    pixels touch at most ceil((bn - 1) / p) + 1 images."""
+    tiles = -(-(n * p) // bn)
+    return tiles, min(n, -(-(bn - 1) // p) + 1)
 
 
 def out_size(h, k, s, p):
@@ -141,20 +169,67 @@ def _check_chan(kernel, dev, co, **vecs):
                              % (kernel, name, t.numel(), co))
 
 
+def _pick_tile(kernel, tile, co, npix):
+    if tile is None:
+        return conv_tile(co, npix)
+    if tile not in range(len(TILES)):
+        raise ValueError("%s kernel: tile %r is not an index of TILES"
+                         % (kernel, tile))
+    return tile
+
+
+# the conv kernel's input loaders (csrc/conv_block.cu kLoad)
+LOADERS = ("gather", "1x1 16-byte", "tap-major")
+
+
+def ctas_per_sm(tile, stats, load):
+    """CTAs of one conv-kernel instantiation (TILES index, row 12 or 11,
+    LOADERS index) an SM of the current card holds at once (the occupancy
+    query); for reports."""
+    fn = _build.function("conv_block", "conv_ctas_per_sm",
+                         [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    raise_on_error("conv_ctas_per_sm", fn(tile, int(stats), load,
+                                          ctypes.byref(out)))
+    return out.value
+
+
+def _tap_scratch(x, w):
+    """The tap-major weights' scratch ([C_out, kh, kw, C], written by the
+    kernel's entry) where the kernel reads x tap-major: C % 32 == 0 and a
+    filter wider than 1x1."""
+    if x.shape[1] % 32 == 0 and w.shape[2] > 1:
+        return torch.empty_like(w)
+    return None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def conv_bn_act(x, w, a, b, stride, pad, relu=True):
     """Row 11: act(conv(x, w) a + b) -> [N, C_out, OH, OW]."""
+    return _conv_bn_act(x, w, a, b, stride, pad, relu, None)
+
+
+def _conv_bn_act(x, w, a, b, stride, pad, relu, tile):
+    """``conv_bn_act`` on the tile ``tile`` (an index of TILES; None:
+    ``conv_tile``'s), so that a check or a sweep can reach every tile."""
     if x.device.type in ("cpu", "meta"):
         return conv_bn_act_reference(x, w, a, b, stride, pad, relu)
     fn = _build.function("conv_block", "conv_bn_act_f32",
-                         [_VP] * 5 + _SHAPE_ARGS + [_I, _VP])
+                         [_VP] * 6 + _SHAPE_ARGS + [_I, _I, _VP])
     oh, ow = _check_conv("conv_bn_act", x, w, stride, pad)
     n, c, h, wd = x.shape
     co, k = w.shape[0], w.shape[2]
     _check_chan("conv_bn_act", x.device, co, a=a, b=b)
+    tile = _pick_tile("conv_bn_act", tile, co, n * oh * ow)
     out = torch.empty((n, co, oh, ow), dtype=x.dtype, device=x.device)
-    err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-             out.data_ptr(), n, c, h, wd, co, k, stride, pad, oh, ow,
-             int(bool(relu)), torch.cuda.current_stream(x.device).cuda_stream)
+    wtap = _tap_scratch(x, w)
+    err = fn(x.data_ptr(), w.data_ptr(), _ptr(wtap), a.data_ptr(),
+             b.data_ptr(), out.data_ptr(), n, c, h, wd, co, k, stride, pad,
+             oh, ow, int(bool(relu)), tile,
+             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error("conv_bn_act", err)
     conv_bn_act.launches += 1
     return out
@@ -165,22 +240,31 @@ conv_bn_act.launches = 0
 
 def conv_stats(x, w, stride, pad):
     """Row 12: (conv [N, C_out, OH, OW], s [N, C_out], ss [N, C_out])."""
+    return _conv_stats(x, w, stride, pad, None)
+
+
+def _conv_stats(x, w, stride, pad, tile):
+    """``conv_stats`` on the tile ``tile``, as ``_conv_bn_act``."""
     if x.device.type in ("cpu", "meta"):
         return conv_stats_reference(x, w, stride, pad)
     fn = _build.function("conv_block", "conv_stats_f32",
-                         [_VP] * 6 + _SHAPE_ARGS + [_I, _VP])
+                         [_VP] * 7 + _SHAPE_ARGS + [_I, _I, _I, _VP])
     oh, ow = _check_conv("conv_stats", x, w, stride, pad)
     n, c, h, wd = x.shape
     co, k = w.shape[0], w.shape[2]
-    tiles = -(-(oh * ow) // PIX_TILE)
+    tile = _pick_tile("conv_stats", tile, co, n * oh * ow)
+    tiles, slots = stats_layout(n, oh * ow, TILES[tile][1])
     dev = x.device
     conv = torch.empty((n, co, oh, ow), dtype=x.dtype, device=dev)
-    part = torch.empty(2 * n * tiles * co, dtype=torch.float32, device=dev)
+    part = torch.empty(2 * tiles * slots * co, dtype=torch.float32,
+                       device=dev)
     s = torch.empty((n, co), dtype=torch.float32, device=dev)
     ss = torch.empty((n, co), dtype=torch.float32, device=dev)
-    err = fn(x.data_ptr(), w.data_ptr(), conv.data_ptr(), part.data_ptr(),
-             s.data_ptr(), ss.data_ptr(), n, c, h, wd, co, k, stride, pad,
-             oh, ow, tiles, torch.cuda.current_stream(dev).cuda_stream)
+    wtap = _tap_scratch(x, w)
+    err = fn(x.data_ptr(), w.data_ptr(), _ptr(wtap), conv.data_ptr(),
+             part.data_ptr(), s.data_ptr(), ss.data_ptr(), n, c, h, wd, co,
+             k, stride, pad, oh, ow, tile, tiles, slots,
+             torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("conv_stats", err)
     conv_stats.launches += 1
     return conv, s, ss

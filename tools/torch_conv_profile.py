@@ -26,6 +26,7 @@ time by op type.  Needs one CUDA card.
 import argparse
 import collections
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -36,20 +37,28 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# kernel name fragments of the ported kernels (csrc/conv_block.cu,
+_ROW11 = "ported: row 11 conv + BN + relu"
+_ROW12 = "ported: row 12 conv + channel sums"
+# kernel name patterns of the ported kernels (csrc/conv_block.cu: the conv
+# core's instantiations conv_mma_kernel<BM, BN, WM, WN, kStats, kLoad>;
 # csrc/fused_momentum.cu), checked before the library's
-_PORTED = (("conv_kernel<false>", "ported: row 11 conv + BN + relu"),
-           ("conv_kernel<true>", "ported: row 12 conv + channel sums"),
-           ("stats_reduce", "ported: row 12 conv + channel sums"),
+_PORTED = ((r"conv_mma_kernel<\d+, \d+, \d+, \d+, false", _ROW11),
+           (r"conv_mma_kernel<\d+, \d+, \d+, \d+, true", _ROW12),
+           ("stats_reduce", _ROW12),
            ("affine_act", "ported: row 13 affine + relu"),
            ("fused_momentum", "ported: row 10 fused momentum"))
+# the weight reorder of the tap-major loader, which rows 11 and 12 launch
+# before their conv: a served batch runs row 11, a training step row 12
+_REORDER = {"serve": _ROW11, "train": _ROW12}
 _LIBRARY = ("conv", "xmma", "implicit", "gemm", "gemv", "cudnn", "dgrad",
             "wgrad", "fprop", "cutlass", "winograd", "fft")
 
 
-def _group(name):
-    for frag, group in _PORTED:
-        if frag in name:
+def _group(name, mode):
+    if "tap_major_kernel" in name:
+        return _REORDER[mode]
+    for pattern, group in _PORTED:
+        if re.search(pattern, name):
             return group
     n = name.lower()
     if any(f in n for f in _LIBRARY):
@@ -127,7 +136,7 @@ def profile_one(which, args, tmp):
     groups, names = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        g = _group(e.name)
+        g = _group(e.name, which.split("-")[0])
         groups[g] = groups.get(g, 0.0) + us
         c = names.setdefault(e.name, [0, 0.0])
         c[0] += 1
@@ -135,6 +144,11 @@ def profile_one(which, args, tmp):
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print("  group %-52s %9.4f ms/run %5.1f%% of busy"
               % (g, us / 1e3 / n, 100.0 * us / busy_us))
+    reorder = [v for k, v in names.items() if "tap_major_kernel" in k]
+    if reorder:
+        print("  of it the tap-major weight reorder: %.1f launches/run, "
+              "%.4f ms/run" % (sum(c for c, _ in reorder) / n,
+                               sum(us for _, us in reorder) / 1e3 / n))
     print("  kernels per run: %.1f; top by device time (launches/run, "
           "ms/run):" % (len(kernels) / n))
     for name, (cnt, us) in sorted(names.items(),
