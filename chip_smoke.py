@@ -14,7 +14,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    kernels at ResNet-50's shapes and odd ones, the affine pass bitwise;
    the embedding bag bitwise at DLRM's largest bag and ragged, all-pad
    and D = 256 cases; the channel statistics against float64 sums; the
-   fused flash backward's dQ bitwise over two runs at two key tiles;
+   flash forward at each of its CTA shapes; the fused flash backward's
+   and the small backward's dQ bitwise over two runs at two key tiles;
    the dropout kernel's mask bytes bitwise, its keep fraction within 5
    sigma; the dropout paths at p = 0.1, where one flipped keep bit
    would move an output by about prob / q), then timed
@@ -346,25 +347,52 @@ def flash_kernel_phase(fa, dev, flush):
         else:
             q, k, v = (t(_rand(rng, bb, h, s, d)) for _ in range(3))
         bias = t(bias) if bias is not None else None
-        tensors[what] = (q, k, v, bias)
-        got = fa.flash_attention(q, k, v, bias, causal)
+        tensors[what] = (q, k, v, bias, causal)
         want = fa.flash_attention_reference(q, k, v, bias, causal)
-        worst = max(worst, check("flash_attention", what, got, want))
-    what = cases[0][0]
-    q, k, v, bias = tensors[what]
-    bb, h, s, d = q.shape
+        got = fa.flash_attention(q, k, v, bias, causal)
+        worst = max(worst, check(
+            "flash_attention", "%s, %d warps" % (
+                what, fa.FWD_DEFAULT_WARPS), got, want))
+        # every other CTA shape
+        if what.startswith(("BERT", "odd")):
+            for w in fa.FWD_WARPS:
+                if w != fa.FWD_DEFAULT_WARPS:
+                    got = fa.flash_attention(q, k, v, bias, causal, warps=w)
+                    worst = max(worst, check("flash_attention", "%s, %d "
+                                             "warps" % (what, w), got, want))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = float((sdpa(q, k, v, attn_mask=bias)
-                     - fa.flash_attention_reference(q, k, v, bias)[0])
-                    .abs().max())
-    nbytes = 4 * (4 * bb * h * s * d + bb * s * s + bb * h * s)
-    row = timed_row(
-        "flash_attention", lambda: fa.flash_attention(q, k, v, bias),
-        lambda: fa.flash_attention_reference(q, k, v, bias),
-        lambda: sdpa(q, k, v, attn_mask=bias), nbytes,
-        4 * bb * h * s * s * d, flush, worst,
-        "%s (SDPA with the same attn_mask, err vs plain %.3g)"
-        % (what, lib_err))
+    rows = []
+    for what in (cases[0][0], cases[1][0]):
+        q, k, v, bias, _c = tensors[what]
+        bb, h, s, d = q.shape
+        lib_err = float((sdpa(q, k, v, attn_mask=bias)
+                         - fa.flash_attention_reference(q, k, v, bias)[0])
+                        .abs().max())
+        flops = 4 * bb * h * s * s * d
+        # the bound of the 3xTF32 design: three TF32 products per f32
+        # product on the tensor cores, ~5 flops a score (scale, bias, max,
+        # exp, sum) on the SIMT pipes
+        row = timed_row(
+            "flash_attention", lambda: fa.flash_attention(q, k, v, bias),
+            lambda: fa.flash_attention_reference(q, k, v, bias),
+            lambda: sdpa(q, k, v, attn_mask=bias),
+            4 * (4 * bb * h * s * d + bb * s * s + bb * h * s),
+            5 * bb * h * s * s, flush, worst,
+            "%s (SDPA with the same attn_mask, err vs plain %.3g)"
+            % (what, lib_err), tf32_flops=3 * flops)
+        w = fa.FWD_DEFAULT_WARPS
+        print("kernel flash_attention %s: %.1f TF/s (SDPA %.1f); %d warps, "
+              "%d CTAs, %d an SM; %.1f%% of the 3xTF32 bound; the products "
+              "on the f32 SIMT pipes %.6f ms (%d flops over 67 TF/s)"
+              % (what.split(" D=")[0], flops / row["ms"] / 1e9,
+                 flops / row["library_ms"] / 1e9, w,
+                 bb * h * -(-s // (16 * w)),
+                 fa.flash_attention_fwd_ctas_per_sm(d, w),
+                 100 * row["bound_ms"] / row["ms"], flops / F32_FLOPS * 1e3,
+                 flops), flush=True)
+        rows.append(row)
+    # the kernels line carries B = 8 (an encoder bucket); B = 32 prints
+    row = rows[0]
     row.update(source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
                replaces="paddle_tpu/pallas_kernels/flash_attention.py:49")
     return row
@@ -549,6 +577,17 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
             kept = (what, q, k, v, do, bias, scale, seed_t, out, lse)
     what, q, k, v, do, bias, scale, seed_t, out, lse = kept
     bb, h, s, d = q.shape
+    # two key tiles: each dQ element is 0 + a + b, in either order
+    dq1 = fa.small_attention_bwd(q, k, v, bias, scale, 0.1, seed_t, out, lse,
+                                 do)[0]
+    dq2 = fa.small_attention_bwd(q, k, v, bias, scale, 0.1, seed_t, out, lse,
+                                 do)[0]
+    if not torch.equal(dq1, dq2):
+        fail("small_attention_bwd: dQ differs between two runs at %s (max "
+             "%.3g)" % (what, float((dq1 - dq2).abs().max())))
+    print("kernel small_attention_bwd %s: dQ bitwise equal over two runs; "
+          "%d CTAs an SM at D=%d" % (
+              what, fa.small_attention_bwd_ctas_per_sm(d), d), flush=True)
     n = bb * h * s * d
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
@@ -573,7 +612,8 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
         return torch.autograd.grad(o, leaves, do, retain_graph=True)
 
     # read q, k, v, out, dO, the bias, lse and the seed; write dq, dk, dv;
-    # the least work: the scores again, dO v^T, dQ, dK, dV, and delta
+    # the least work: the scores again, dO v^T, dQ, dK, dV (five
+    # multiply-adds per (i, j, d), the fused kernel's), and delta
     row = timed_row(
         "small_attention_bwd",
         lambda: fa.small_attention_bwd(q, k, v, bias, scale, 0.1, seed_t,
@@ -585,6 +625,14 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
         "%s (library: SDPA's backward with dropout)" % what)
     row.update(source="paddle_tpu_torch/kernels/csrc/small_attention_bwd.cu",
                replaces="paddle_tpu/pallas_kernels/flash_attention.py:563")
+    # the row times the op's call, delta = rowsum(dO . O) included, as
+    # SDPA's backward computes its own; the kernel alone beside it
+    delta = fa.attention_delta(out, do)
+    fused_ms = time_cold(
+        lambda: fa.small_attention_bwd_fused(q, k, v, bias, scale, 0.1,
+                                             seed_t, do, lse, delta), flush)
+    print("kernel small_attention_bwd %s: the kernel alone (dQ's zero fill "
+          "included, delta given) %.6f ms" % (what, fused_ms), flush=True)
     rows.append(row)
     return rows
 

@@ -23,8 +23,10 @@
 // pipes (67 TF/s) are a quarter of what the tensor cores give f32 work
 // through 3xTF32 (495 TF/s TF32, three products per f32 product).  The
 // design:
-//   * arithmetic: `mma.sync.m16n8k8` on TF32 operands.  Each f32 operand
-//     is split at fragment load into big = v rounded to TF32 and small =
+//   * arithmetic: `mma.sync.m16n8k8` on TF32 operands (`split_tf32`,
+//     `mma_tf32` and the cp.async helpers: mma_tf32.cuh, shared with the
+//     flash-attention kernels).  Each f32 operand is split at fragment
+//     load into big = v rounded to TF32 and small =
 //     v - big; small * big and big * small are summed first, then big *
 //     big.  The dropped small * small term is ~2^-22 of a product, so the
 //     result keeps the port's f32 contract (1xTF32 misses it ~10x at
@@ -83,6 +85,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // the weight-order, reduce and affine kernels
@@ -116,49 +120,6 @@ struct __align__(16) Tap {
   int rs;         // r * k + s: the bit of the thread's tap mask
   int unused;
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v ~ big + small: big = v rounded to TF32, to nearest with ties away
-// from zero (half a TF32 ulp added to the magnitude bits, the low 13 cut:
-// the bits of cvt.rna.tf32.f32, in two integer operations at full rate);
-// small = v - big, exact, of which the tensor core reads the top 10
-// mantissa bits (2^-21 of v)
-__device__ __forceinline__ void split_tf32(float v, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// d += a * b over one m16n8k8 fragment
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int BM, int BN>
 constexpr int ring_floats() {

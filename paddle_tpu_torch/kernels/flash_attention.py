@@ -16,8 +16,9 @@ recomputes the probabilities from that lse.
   lives: CPU (and meta, for shape inference) tensors take the plain
   version; a CUDA tensor launches the hand-written kernels
   (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) at every
-  shape, or the call raises.  The backward is one fused kernel for dQ,
-  dK and dV (``flash_attention_bwd_fused``).  The TPU package takes its
+  shape, or the call raises.  The forward runs on the tensor cores in
+  3xTF32.  The backward is one fused kernel for dQ, dK and dV
+  (``flash_attention_bwd_fused``).  The TPU package takes its
   kernel only at Sk >= 1024 with 128-multiple blocks, a cutoff measured
   on the TPU; the port has no such gate.  ``flash_attention.launches``
   and ``flash_attention_bwd_fused.launches`` count kernel launches.
@@ -36,8 +37,9 @@ probabilities from that lse and re-draws the mask, element
 the seed words, so no [B, H, S, S] tensor is kept.
 ``small_attention_fwd_reference`` / ``small_attention_bwd_reference`` are
 the plain versions; ``small_attention_fwd`` / ``small_attention_bwd``
-launch ``csrc/small_attention.cu`` / ``csrc/small_attention_bwd.cu`` on a
-CUDA tensor (counted in ``.launches``); ``SmallAttention``
+launch ``csrc/small_attention.cu`` / ``csrc/small_attention_bwd.cu`` (the
+fused backward's core with the mask) on a CUDA tensor (counted in
+``.launches``); ``SmallAttention``
 (``small_attention``) is the differentiable form.
 """
 
@@ -48,7 +50,8 @@ import torch
 from . import _build, philox
 from ._checks import check_cuda_f32, check_seed_tensor, raise_on_error
 
-__all__ = ["flash_attention_reference", "flash_attention",
+__all__ = ["flash_attention_reference", "flash_attention", "FWD_WARPS",
+           "FWD_DEFAULT_WARPS", "flash_attention_fwd_ctas_per_sm",
            "attention_delta", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference", "flash_attention_bwd",
@@ -56,7 +59,8 @@ __all__ = ["flash_attention_reference", "flash_attention",
            "FlashAttention", "flash_attention_train",
            "small_attention_shapes_ok", "small_attention_fwd_reference",
            "small_attention_fwd", "small_attention_bwd_reference",
-           "small_attention_bwd", "SmallAttention", "small_attention"]
+           "small_attention_bwd", "small_attention_bwd_fused",
+           "SmallAttention", "small_attention"]
 
 # finite, as in the reference: a fully masked row averages V, never NaN
 _MASK = -1e30
@@ -153,7 +157,27 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _kernel():
     return _build.function(
         "flash_attention", "flash_attention_fwd_f32",
-        [_VP] * 6 + [_I] * 7 + [ctypes.c_float] + [_LL] * 9 + [_VP])
+        [_VP] * 6 + [_I] * 7 + [ctypes.c_float] + [_LL] * 9 + [_I, _VP])
+
+
+# the forward kernel's CTA shapes: warps a CTA, 16 query rows each
+FWD_WARPS = (2, 4, 8)
+# 64 query rows a CTA: on an H100 the fastest of the three at B = 1 and 8
+# (BERT-base heads, S = 128) and within 1% of 128 rows at B = 32, so one
+# shape serves every batch (tools/torch_flash_bwd_bench.py --sweep;
+# PERF.md)
+FWD_DEFAULT_WARPS = 4
+
+
+def flash_attention_fwd_ctas_per_sm(head_dim, warps):
+    """CTAs of the forward kernel an SM holds at once for this head width
+    and CTA shape (a report of its occupancy; needs the card)."""
+    fn = _build.function("flash_attention", "flash_attention_fwd_ctas_per_sm",
+                         [_I, _I, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    raise_on_error("flash_attention", fn(int(head_dim), int(warps),
+                                         ctypes.byref(n)))
+    return n.value
 
 
 def _bwd_kernel():
@@ -194,11 +218,16 @@ def _check(q, k, v, bias, kernel="flash_attention"):
                          "%d, %d]" % (tuple(bias.shape), bb, h, sq, sk))
 
 
-def _flash_cuda(q, k, v, bias, causal, sm_scale):
+def _flash_cuda(q, k, v, bias, causal, sm_scale, warps=None):
     fn = _kernel()
+    if warps is not None and warps not in FWD_WARPS:
+        raise ValueError("flash_attention kernel: warps %r not in %s"
+                         % (warps, FWD_WARPS))
     _check(q, k, v, bias)
     bb, h, sq, d = q.shape
     sk = k.shape[2]
+    if warps is None:
+        warps = FWD_DEFAULT_WARPS
     out = torch.empty((bb, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bb, h, sq, 1), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
@@ -207,21 +236,24 @@ def _flash_cuda(q, k, v, bias, causal, sm_scale):
              bias.data_ptr() if bias is not None else None,
              out.data_ptr(), lse.data_ptr(), bb, h, sq, sk, d,
              0 if bias is None else bias.shape[1], int(bool(causal)),
-             float(sm_scale), *strides, stream)
+             float(sm_scale), *strides, warps, stream)
     raise_on_error("flash_attention", err)
     flash_attention.launches += 1
     return out, lse
 
 
-def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None):
+def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None,
+                    warps=None):
     """Attention forward -> (out [B, H, Sq, D], lse [B, H, Sq, 1] f32).
     CPU and meta tensors take ``flash_attention_reference``; CUDA tensors
-    launch the kernel."""
+    launch the kernel, with ``warps`` a CTA (``FWD_WARPS``; None:
+    ``FWD_DEFAULT_WARPS``), so that a check or a sweep can reach every
+    tile."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type in ("cpu", "meta"):
         return flash_attention_reference(q, k, v, bias, causal, sm_scale)
-    return _flash_cuda(q, k, v, bias, causal, sm_scale)
+    return _flash_cuda(q, k, v, bias, causal, sm_scale, warps)
 
 
 flash_attention.launches = 0
@@ -513,20 +545,26 @@ def _small_bwd_kernel():
                                  ctypes.c_float, _VP, _VP])
 
 
-def _small_bwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, out, lse,
-                    do):
+def small_attention_bwd_fused(q, k, v, bias, sm_scale, dropout_prob, seed,
+                              do, lse, delta):
+    """(dQ, dK, dV) dense [B, H, S, D] by the fused kernel
+    (``csrc/small_attention_bwd.cu``) from the forward's lse and delta =
+    rowsum(dO . O) (``attention_delta``); CUDA tensors only, counted in
+    ``small_attention_bwd.launches``.  The plain version is
+    ``small_attention_bwd_reference``."""
     fn = _small_bwd_kernel()
     _small_check("small_attention_bwd", q, k, v, bias, do)
-    check_cuda_f32("small_attention_bwd", q.device, lse=lse)
+    check_cuda_f32("small_attention_bwd", q.device, lse=lse, delta=delta)
     bb, h, s, d = q.shape
-    if lse.numel() != bb * h * s:
-        raise ValueError("small_attention_bwd kernel: lse %s, want [%d, %d, "
-                         "%d, 1]" % (tuple(lse.shape), bb, h, s))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.numel() != bb * h * s:
+            raise ValueError("small_attention_bwd kernel: %s %s, want [%d, "
+                             "%d, %d, 1]" % (name, tuple(t.shape), bb, h, s))
     thr = philox.keep_threshold(dropout_prob)
     if thr is not None:
         check_seed_tensor("small_attention_bwd", "seed", seed, q.device)
-    delta = attention_delta(out, do)
-    dq = torch.empty((bb, h, s, d), dtype=q.dtype, device=q.device)
+    # the kernel adds each key tile's share of dQ into it
+    dq = torch.zeros((bb, h, s, d), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
     strides = (ctypes.c_longlong * 12)(
@@ -545,14 +583,31 @@ def _small_bwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, out, lse,
     return dq, dk, dv
 
 
+def _small_bwd_cuda(q, k, v, bias, sm_scale, dropout_prob, seed, out, lse,
+                    do):
+    return small_attention_bwd_fused(q, k, v, bias, sm_scale, dropout_prob,
+                                     seed, do, lse, attention_delta(out, do))
+
+
+def small_attention_bwd_ctas_per_sm(head_dim):
+    """CTAs of the small backward kernel an SM holds at once for this head
+    width (a report of its occupancy; needs the card)."""
+    fn = _build.function("small_attention_bwd",
+                         "small_attention_bwd_ctas_per_sm",
+                         [_I, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    raise_on_error("small_attention_bwd", fn(int(head_dim), ctypes.byref(n)))
+    return n.value
+
+
 def small_attention_bwd(q, k, v, bias, sm_scale, dropout_prob, seed, out,
                         lse, do):
     """Small-sequence attention backward -> (dq, dk, dv), dense [B, H, S,
     D].  ``seed`` is the forward's int32 [2] Seed tensor (the kernel reads
     its words on the card; a CPU tensor's path also takes two key words).
     CPU and meta tensors take the plain version; CUDA tensors launch the
-    dQ and the dK/dV kernels of ``csrc/small_attention_bwd.cu`` (one
-    launch in the count)."""
+    fused kernel of ``csrc/small_attention_bwd.cu`` (the core of
+    ``csrc/flash_bwd.cuh`` with the dropout mask) once."""
     if q.device.type in ("cpu", "meta"):
         return small_attention_bwd_reference(q, k, v, bias, sm_scale,
                                              dropout_prob, seed, out, lse,

@@ -15,6 +15,10 @@ CPU.
 * Autograd of the plain forward equals the plain backward (atol 1e-5),
   and ``SmallAttention`` gives the plain backward's gradients.
 * ``small_attention_shapes_ok`` routes as the reference's does.
+* The backward kernel's order (one pass: a CTA per 64-key tile walks the
+  query tiles, draws each tile pair's mask once by element index, dQ
+  summed key tile by key tile) against the same kernel bodies, atol
+  1e-5, at S in {128, 256}, D in {64, 128}, p in {0, 0.1}.
 * The CUDA branches build or raise and never fall back; the sources name
   the TPU kernel each replaces and its bound.
 """
@@ -126,6 +130,82 @@ def test_plain_matches_reference_kernel_bodies(monkeypatch, shape, bias_heads,
                                    err_msg=name)
 
 
+TILE = 64     # keys of a CTA's tile and rows of a query tile in the kernel
+
+
+def _tile_keep(words, thr, bb, h, s, q0, k0):
+    """Keep bits [B, H, 64, 64] of the tile pair (q0, k0), each drawn by
+    its element index ((b * H + h) * S + i) * S + j, as the fused kernel
+    draws them: lane e & 3 of counter e >> 2."""
+    w0, w1 = philox.seed_words(words)
+    head = torch.arange(bb * h, dtype=torch.int64).reshape(bb, h, 1, 1)
+    rows = torch.arange(q0, q0 + TILE, dtype=torch.int64)[:, None]
+    cols = torch.arange(k0, k0 + TILE, dtype=torch.int64)[None, :]
+    e = (head * s + rows) * s + cols
+    ctr = e >> 2
+    zero = torch.zeros_like(ctr)
+    lanes = torch.stack(philox.philox4x32(ctr & 0xFFFFFFFF, ctr >> 32, zero,
+                                          zero, w0, w1), dim=-1)
+    return lanes.gather(-1, (e & 3)[..., None])[..., 0] < thr
+
+
+def _fused_order_bwd(q, k, v, bias, do, lse, delta, scale, p):
+    """(dq, dk, dv) as csrc/small_attention_bwd.cu (flash_bwd.cuh with
+    the mask) associates them: each 64-key tile walks the query tiles,
+    draws the pair's mask once, and sums its dK and dV over them; dQ is
+    zeros plus one term per key tile, in key order."""
+    bb, h, s, d = q.shape
+    thr = philox.keep_threshold(p)
+    dq = torch.zeros_like(q)
+    dks, dvs = [], []
+    for k0 in range(0, s, TILE):
+        kt, vt = k[:, :, k0:k0 + TILE], v[:, :, k0:k0 + TILE]
+        dk = torch.zeros_like(kt)
+        dv = torch.zeros_like(vt)
+        for q0 in range(0, s, TILE):
+            qt, dot = q[:, :, q0:q0 + TILE], do[:, :, q0:q0 + TILE]
+            x = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+            if bias is not None:
+                x = x + bias[:, :, q0:q0 + TILE, k0:k0 + TILE]
+            prob = torch.exp(x - lse[:, :, q0:q0 + TILE])
+            dp = torch.einsum("bhqd,bhkd->bhqk", dot, vt)
+            pd = prob
+            if thr is not None:
+                keep = _tile_keep(WORDS, thr, bb, h, s, q0, k0)
+                inv_q = philox.inv_realized_q(thr)
+                dp = torch.where(keep, dp * inv_q, torch.zeros(()))
+                pd = torch.where(keep, prob * inv_q, torch.zeros(()))
+            ds = prob * (dp - delta[:, :, q0:q0 + TILE]) * scale
+            dv = dv + torch.einsum("bhqk,bhqd->bhkd", pd, dot)
+            dk = dk + torch.einsum("bhqk,bhqd->bhkd", ds, qt)
+            dq[:, :, q0:q0 + TILE] = dq[:, :, q0:q0 + TILE] + torch.einsum(
+                "bhqk,bhkd->bhqd", ds, kt)
+        dks.append(dk)
+        dvs.append(dv)
+    return dq, torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("shape,bias_heads", [
+    ((2, 2, 128, 64), 1), ((1, 2, 256, 64), 2), ((1, 2, 128, 128), 1),
+    ((1, 1, 256, 128), 1)])
+def test_fused_kernel_order_matches_reference_kernel_body(monkeypatch, shape,
+                                                          bias_heads, p):
+    """The one-pass kernel's tiling and mask draw (a keep tile per tile
+    pair, by element index) against the reference's ``_small_bwd_kernel``
+    under the shared mask, S = 128 (two key tiles) and 256 (four), D = 64
+    and 128."""
+    q, k, v, bias, do = _inputs(3, *shape, bias_heads)
+    out, lse, *want = _reference(monkeypatch, q, k, v, bias, do, p)
+    tout, tdo = _t(out), _t(do)
+    got = _fused_order_bwd(_t(q), _t(k), _t(v), _t(bias), tdo, _t(lse),
+                           tfa.attention_delta(tout, tdo), shape[3] ** -0.5,
+                           p)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_autograd_of_plain_forward_is_plain_backward(p):
     q, k, v, bias, do = _inputs(1, 2, 3, 128, 64, 1)
@@ -217,3 +297,7 @@ def test_kernel_sources_name_what_they_replace_and_their_bound():
         src = (_build.CSRC / (name + ".cu")).read_text()
         assert replaces in src and "Bound:" in src
         assert name in _build.SOURCES
+    # the backward is the fused flash backward's core with the mask
+    src = (_build.CSRC / "small_attention_bwd.cu").read_text()
+    assert '#include "flash_bwd.cuh"' in src and "launch_any<true>" in src
+    assert "keep_tile" in (_build.CSRC / "flash_bwd.cuh").read_text()

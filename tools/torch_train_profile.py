@@ -41,10 +41,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ = 128
 
 # kernel name fragments of the ported kernels (csrc/*.cu)
+# (first match wins: the small backward is the fused backward's core
+# instantiated with the mask, flash_bwd_kernel<.., .., true>)
 _PORTED = (("flash_fwd", "flash attention forward"),
+           ("true>(flash_bwd::args)",
+            "small attention backward (fused dQ, dK, dV, the mask)"),
            ("flash_bwd", "flash attention backward (fused dQ, dK, dV)"),
            ("small_fwd", "small attention forward"),
-           ("small_bwd", "small attention backward (dQ, dK/dV)"),
            ("dropout_kernel", "dropout"),
            ("fused_ln_bwd", "fused LN backward"),
            ("reduce_partials", "fused LN backward"),
