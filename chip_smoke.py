@@ -457,14 +457,19 @@ def ln_kernel_phase(fl, ln, philox, dev, flush):
     row.update(source="paddle_tpu_torch/kernels/csrc/fused_ln.cu",
                replaces="paddle_tpu/pallas_kernels/fused_ln.py:106")
     rows.append(row)
-    x, y, g, b = tensors[1024, 768]
-    n, hd = x.shape
-    row = timed_row(
-        "layer_norm", lambda: ln.layer_norm_2d(x, g, b, 1e-5),
-        lambda: ln.layer_norm_2d_reference(x, g, b, 1e-5),
-        lambda: ln_f(x, (hd,), g, b, 1e-5),
-        4 * (2 * n * hd + 2 * hd + 2 * n), 8 * n * hd, flush, worst_l,
-        "BERT rows [1024, 768] (F.layer_norm)")
+    # the kernels line takes [1024, 768] (an encoder batch of 8); [4096,
+    # 768] (bucket 32, the training step's embeddings) prints beside it
+    ln_timed = []
+    for n_rows in (1024, 4096):
+        x, y, g, b = tensors[n_rows, 768]
+        n, hd = x.shape
+        ln_timed.append(timed_row(
+            "layer_norm", lambda: ln.layer_norm_2d(x, g, b, 1e-5),
+            lambda: ln.layer_norm_2d_reference(x, g, b, 1e-5),
+            lambda: ln_f(x, (hd,), g, b, 1e-5),
+            4 * (2 * n * hd + 2 * hd + 2 * n), 8 * n * hd, flush, worst_l,
+            "rows [%d, 768] (F.layer_norm)" % n))
+    row = ln_timed[0]
     row.update(source="paddle_tpu_torch/kernels/csrc/layer_norm.cu",
                replaces="paddle_tpu/pallas_kernels/layer_norm.py:29")
     rows.append(row)
@@ -591,6 +596,10 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
     n = bb * h * s * d
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
+    flops = 4 * bb * h * s * s * d
+    # the bound of the 3xTF32 design (flash_fwd.cuh, row 2's core): three
+    # TF32 products per f32 product on the tensor cores, ~6 flops a score
+    # (scale, bias, max, exp, sum, the mask's select) on the SIMT pipes
     row = timed_row(
         "small_attention_fwd",
         lambda: fa.small_attention_fwd(q, k, v, bias, scale, 0.1, WORDS,
@@ -598,9 +607,17 @@ def small_attention_kernel_phase(fa, philox, dev, flush):
         lambda: fa.small_attention_fwd_reference(q, k, v, bias, scale, 0.1,
                                                  WORDS),
         lambda: sdpa(q, k, v, attn_mask=bias, dropout_p=0.1),
-        4 * (4 * n + bb * s * s + bb * h * s) + 8, 4 * bb * h * s * s * d,
+        4 * (4 * n + bb * s * s + bb * h * s) + 8, 6 * bb * h * s * s,
         flush, worst_f, "%s (SDPA with dropout_p=0.1 and the same mask)"
-        % what)
+        % what, tf32_flops=3 * flops)
+    print("kernel small_attention_fwd %s: %.1f TF/s (SDPA %.1f); %d CTAs, "
+          "%d an SM at D=%d; %.1f%% of the 3xTF32 bound; the products on "
+          "the f32 SIMT pipes %.6f ms (%d flops over 67 TF/s)"
+          % (what.split(" D=")[0], flops / row["ms"] / 1e9,
+             flops / row["library_ms"] / 1e9, bb * h * -(-s // 64),
+             fa.small_attention_fwd_ctas_per_sm(d), d,
+             100 * row["bound_ms"] / row["ms"], flops / F32_FLOPS * 1e3,
+             flops), flush=True)
     row.update(source="paddle_tpu_torch/kernels/csrc/small_attention.cu",
                replaces="paddle_tpu/pallas_kernels/flash_attention.py:534")
     rows.append(row)

@@ -4,22 +4,159 @@
 // (launched by `_fwd_pallas`):
 //
 //   y = (x - mean) * rsqrt(var + eps) * gamma + beta over the last dim of
-//   x [R, C], emitting y and the f32 row statistics mean and var.
+//   x [R, C], emitting y and the f32 row statistics mean and var (the
+//   variance the mean of the centred square, never E[x^2] - mean^2).
 //
-// Bound: bytes (read x once, write y once, 8 bytes of statistics per
-// row).  Design (ln_rows.cuh, shared with fused_ln.cu): one warp per row
-// with the row held in registers, so the statistics and the normalise
-// read x from device memory once; eight rows per 256-thread block.
+// Bound: bytes (read x once, write y once, gamma and beta once, 8 bytes
+// of statistics per row); at BERT's [1024, 768] 6.3 MB take 0.0019 ms at
+// 3.35 TB/s, under the ~0.005 ms a launch takes to reach the card and
+// end, so the time is latency: the chain of loads, two warp reductions
+// and the store, and how many rows are in flight on the 132 SMs.
+// Design:
+//   * one warp per row with the row in registers, kRows = 4 rows a CTA
+//     of 128 threads: 256 CTAs at 1024 rows on the 132 SMs (2 and 8 rows
+//     a CTA timed within 2% of 4 at 614, 1024 and 4096 rows on an H100,
+//     PERF.md);
+//   * 16-byte loads: lane l holds float4s l, l + 32, ... of the row (6 at
+//     C = 768), so every load and store of a warp is coalesced and a lane
+//     issues a quarter of the scalar version's load instructions: this is
+//     what took [1024, 768] from 0.0103-0.0106 ms to 0.0078-0.0079
+//     on an H100 (PERF.md);
+//   * gamma and beta are loaded as float4s right after x, before the
+//     reductions (loading them after the reductions timed the same);
+//   * the row sum: each lane adds its float4s component-wise, folds the
+//     four partials as (x + y) + (z + w), and the warp sums the lanes by
+//     an xor butterfly (every lane ends with the same sum); the centred
+//     squares the same way; one lane stores the statistics;
+//   * other rows: C % 4 != 0, a pointer not 16-byte aligned, or C past
+//     32 x 4 x 8 = 1024 columns take ln_rows.cuh (scalar loads, eight rows
+//     a CTA; past 1024 columns it re-reads the row from L2 for each pass).
 //
 // Entry point: plain C, returns the launch's cudaError_t.
 
+#include <cuda_runtime.h>
+
 #include "ln_rows.cuh"
 
+namespace {
+
+constexpr int kMaxVec = 8;  // float4s a lane holds: C <= 1024
+constexpr int kRows = 4;    // rows (warps) a CTA
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// NV float4s a lane; h4 = C / 4
+template <int NV>
+__global__ void __launch_bounds__(32 * kRows)
+layer_norm_vec_kernel(const float4* __restrict__ x,
+                      const float4* __restrict__ gamma,
+                      const float4* __restrict__ beta,
+                      float4* __restrict__ y, float* __restrict__ mean,
+                      float* __restrict__ var, int n, int h4, float inv_h,
+                      float eps) {
+  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const size_t base = (size_t)row * h4;
+  float4 v[NV], gv[NV], bv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < h4 ? x[base + c] : zero4();
+  }
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    gv[i] = c < h4 ? gamma[c] : zero4();
+    bv[i] = c < h4 ? beta[c] : zero4();
+  }
+  float4 acc = zero4();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    acc.x += v[i].x;
+    acc.y += v[i].y;
+    acc.z += v[i].z;
+    acc.w += v[i].w;
+  }
+  const float mu =
+      ln_rows::warp_sum((acc.x + acc.y) + (acc.z + acc.w)) * inv_h;
+  acc = zero4();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (lane + 32 * i < h4) {
+      v[i].x -= mu;
+      v[i].y -= mu;
+      v[i].z -= mu;
+      v[i].w -= mu;
+    } else {
+      v[i] = zero4();
+    }
+    acc.x += v[i].x * v[i].x;
+    acc.y += v[i].y * v[i].y;
+    acc.z += v[i].z * v[i].z;
+    acc.w += v[i].w * v[i].w;
+  }
+  const float var_row =
+      ln_rows::warp_sum((acc.x + acc.y) + (acc.z + acc.w)) * inv_h;
+  const float rstd = rsqrtf(var_row + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < h4)
+      y[base + c] = make_float4(v[i].x * rstd * gv[i].x + bv[i].x,
+                                v[i].y * rstd * gv[i].y + bv[i].y,
+                                v[i].z * rstd * gv[i].z + bv[i].z,
+                                v[i].w * rstd * gv[i].w + bv[i].w);
+  }
+  if (lane == 0) {
+    mean[row] = mu;
+    var[row] = var_row;
+  }
+}
+
+template <int NV>
+cudaError_t launch_vec(const float* x, const float* gamma, const float* beta,
+                       float* y, float* mean, float* var, int n, int h,
+                       float eps, cudaStream_t stream) {
+  const int blocks = (n + kRows - 1) / kRows;
+  layer_norm_vec_kernel<NV><<<blocks, 32 * kRows, 0, stream>>>(
+      reinterpret_cast<const float4*>(x),
+      reinterpret_cast<const float4*>(gamma),
+      reinterpret_cast<const float4*>(beta), reinterpret_cast<float4*>(y),
+      mean, var, n, h / 4, 1.f / (float)h, eps);
+  return cudaGetLastError();
+}
+
+// the smallest register-holding variant for the row
+cudaError_t launch_rows(const float* x, const float* gamma, const float* beta,
+                        float* y, float* mean, float* var, int n, int h,
+                        float eps, cudaStream_t stream) {
+  const int need = (h / 4 + 31) / 32;
+  if (need <= 1) return launch_vec<1>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+  if (need <= 2) return launch_vec<2>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+  if (need <= 3) return launch_vec<3>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+  if (need <= 4) return launch_vec<4>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+  if (need <= 6) return launch_vec<6>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+  return launch_vec<kMaxVec>(x, gamma, beta, y, mean, var, n, h, eps, stream);
+}
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
+}  // namespace
+
+// rows the float4 kernel does not take run on ln_rows.cuh's eight-row CTAs
 extern "C" cudaError_t layer_norm_fwd_f32(const float* x, const float* gamma,
                                           const float* beta, float* y,
                                           float* mean, float* var, int rows,
                                           int cols, float eps,
                                           cudaStream_t stream) {
-  return ln_rows::launch(x, nullptr, gamma, beta, y, nullptr, mean, var,
-                         rows, cols, eps, stream);
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  const bool vec = cols % 4 == 0 && cols <= 128 * kMaxVec && aligned16(x) &&
+                   aligned16(gamma) && aligned16(beta) && aligned16(y);
+  if (!vec)
+    return ln_rows::launch(x, nullptr, gamma, beta, y, nullptr, mean, var,
+                           rows, cols, eps, stream);
+  return launch_rows(x, gamma, beta, y, mean, var, rows, cols, eps, stream);
 }

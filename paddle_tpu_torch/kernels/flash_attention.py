@@ -37,8 +37,10 @@ probabilities from that lse and re-draws the mask, element
 the seed words, so no [B, H, S, S] tensor is kept.
 ``small_attention_fwd_reference`` / ``small_attention_bwd_reference`` are
 the plain versions; ``small_attention_fwd`` / ``small_attention_bwd``
-launch ``csrc/small_attention.cu`` / ``csrc/small_attention_bwd.cu`` (the
-fused backward's core with the mask) on a CUDA tensor (counted in
+launch ``csrc/small_attention.cu`` (the flash forward's core,
+``csrc/flash_fwd.cuh``, with the mask drawn in registers) /
+``csrc/small_attention_bwd.cu`` (the fused backward's core with the
+mask) on a CUDA tensor (counted in
 ``.launches``); ``SmallAttention``
 (``small_attention``) is the differentiable form.
 """
@@ -58,7 +60,8 @@ __all__ = ["flash_attention_reference", "flash_attention", "FWD_WARPS",
            "flash_attention_bwd_fused",
            "FlashAttention", "flash_attention_train",
            "small_attention_shapes_ok", "small_attention_fwd_reference",
-           "small_attention_fwd", "small_attention_bwd_reference",
+           "small_attention_fwd", "small_attention_fwd_ctas_per_sm",
+           "small_attention_bwd_reference",
            "small_attention_bwd", "small_attention_bwd_fused",
            "SmallAttention", "small_attention"]
 
@@ -536,6 +539,16 @@ def small_attention_fwd(q, k, v, bias, sm_scale, dropout_prob, seed,
 
 
 small_attention_fwd.launches = 0
+
+
+def small_attention_fwd_ctas_per_sm(head_dim):
+    """CTAs of the small forward kernel an SM holds at once for this head
+    width (a report of its occupancy; needs the card)."""
+    fn = _build.function("small_attention", "small_attention_fwd_ctas_per_sm",
+                         [_I, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    raise_on_error("small_attention_fwd", fn(int(head_dim), ctypes.byref(n)))
+    return n.value
 
 
 def _small_bwd_kernel():

@@ -69,9 +69,13 @@ def _product(a, b, passes):
     return acc
 
 
-def fwd_3xtf32(q, k, v, bias, causal, scale, rows=64, passes=3):
+def fwd_3xtf32(q, k, v, bias, causal, scale, rows=64, passes=3, keep=None,
+               inv_q=1.0):
     """(out, lse) of the kernel's arithmetic and order; ``rows``: query
-    rows a CTA (the causal skip is per CTA)."""
+    rows a CTA (the causal skip is per CTA).  ``keep`` [B, H, Sq, Sk]
+    (bool): the small forward's dropout (flash_fwd.cuh with kDrop), the
+    row sum taking the undropped p and p . v's A operand ``keep ? p *
+    inv_q : 0`` in f32."""
     bb, h, sq, d = q.shape
     sk = k.shape[2]
     dp = -(-d // 8) * 8                       # D padded with zeros to 8
@@ -106,6 +110,9 @@ def fwd_3xtf32(q, k, v, bias, causal, scale, rows=64, passes=3):
             p = torch.exp(x - mx)
             l = l * alpha + p.sum(-1, keepdim=True)
             m = mx
+            if keep is not None:
+                kp = keep[:, :, q0:q0 + nr, k0:k0 + KEYS]
+                p = torch.where(kp, p * inv_q, torch.zeros(()))
             o = o * alpha + _product(p, vt.transpose(-1, -2), passes)
         ll = torch.where(l == 0, torch.ones_like(l), l)
         outs.append(o[..., :d] / ll)
@@ -187,18 +194,29 @@ def test_1xtf32_misses_kernel_atol_where_3xtf32_holds():
 
 def test_shared_device_code_is_included_not_copied():
     """split_tf32, mma_tf32 and the cp.async helpers live in mma_tf32.cuh,
-    included by the conv and attention kernels; the fused backward's core
-    lives in flash_bwd.cuh, instantiated by rows 3-4 and row 6."""
+    included by the conv and attention kernels; the forward's core lives
+    in flash_fwd.cuh, instantiated by row 2 and, with the mask (kDrop), by
+    row 5; the fused backward's core lives in flash_bwd.cuh, instantiated
+    by rows 3-4 and row 6."""
     header = (_build.CSRC / "mma_tf32.cuh").read_text()
     for helper in ("split_tf32", "mma_tf32", "cp_async16", "cp_async4",
                    "cp_async_wait"):
         assert "void %s(" % helper in header
-    for name in ("conv_block", "flash_attention"):
-        src = (_build.CSRC / (name + ".cu")).read_text()
+    for name in ("conv_block.cu", "flash_fwd.cuh"):
+        src = (_build.CSRC / name).read_text()
         assert '#include "mma_tf32.cuh"' in src
         assert "void split_tf32(" not in src and "void mma_tf32(" not in src
     assert "mma.sync.aligned.m16n8k8" not in (
-        _build.CSRC / "flash_attention.cu").read_text()
+        _build.CSRC / "flash_fwd.cuh").read_text()
+    fwd = (_build.CSRC / "flash_fwd.cuh").read_text()
+    assert "flash_fwd_kernel" in fwd and "bool kDrop" in fwd
+    assert "keep_bits" in fwd and '#include "philox.cuh"' in fwd
+    for name, drop in (("flash_attention", "false"),
+                       ("small_attention", "true")):
+        src = (_build.CSRC / (name + ".cu")).read_text()
+        assert '#include "flash_fwd.cuh"' in src
+        assert "__global__" not in src and "mma_tf32(" not in src
+        assert ", %s>(" % drop in src
     core = (_build.CSRC / "flash_bwd.cuh").read_text()
     assert "flash_bwd_kernel" in core and "kSmall" in core
     for name in ("flash_attention_bwd", "small_attention_bwd"):

@@ -19,6 +19,17 @@ CPU.
   query tiles, draws each tile pair's mask once by element index, dQ
   summed key tile by key tile) against the same kernel bodies, atol
   1e-5, at S in {128, 256}, D in {64, 128}, p in {0, 0.1}.
+* The forward kernel's arithmetic and order (flash_fwd.cuh with kDrop:
+  3xTF32 products in 32-key tiles, the online softmax, the row sum of the
+  undropped p, p . v's operand ``keep ? p * inv_q : 0``;
+  ``test_torch_flash_tf32.fwd_3xtf32``) against ``_small_fwd_kernel``
+  under the shared mask, atol KERNEL_ATOL (2e-5, the limit chip_smoke.py
+  holds the card's kernel to), p in {0, 0.1}, D in {64, 128}, S in {128,
+  256}, the bias shared and per head.
+* The forward's register draw of the mask (keep_bits: the thread pair
+  that shares a Philox group draws rows g and g + 8, one group each, and
+  swaps halves by one shuffle) picks, bit for bit, the u32 of each
+  score's element index, at S = 128 and 256 with B * H > 1.
 * The CUDA branches build or raise and never fall back; the sources name
   the TPU kernel each replaces and its bound.
 """
@@ -30,9 +41,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from paddle_tpu.pallas_kernels import prng as jprng
 from paddle_tpu_torch.kernels import _build, philox
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from test_torch_flash_tf32 import fwd_3xtf32
 
 # the package re-exports the function under the module's name
 jfa = importlib.import_module("paddle_tpu.pallas_kernels.flash_attention")
@@ -69,8 +82,9 @@ def _patch_prng(monkeypatch, keep, block):
         lambda shape, thr: jnp.asarray(keep[block["b"]].reshape(shape)))
 
 
-def _reference(monkeypatch, q, k, v, bias, do, p):
-    """(out, lse, dq, dk, dv) of the reference's kernel bodies."""
+def _reference_fwd(monkeypatch, q, k, v, bias, p):
+    """(out, lse, block, kw) of the reference's forward kernel body, with
+    what its backward body needs."""
     bb, h, s, d = q.shape
     thr = jprng.keep_threshold(p)
     keep = None if thr is None else \
@@ -79,15 +93,22 @@ def _reference(monkeypatch, q, k, v, bias, do, p):
     _patch_prng(monkeypatch, keep, block)
     kw = dict(sm_scale=d ** -0.5, thr=thr, H=h, S=s, D=d,
               bias_per_head=bias is not None and bias.shape[1] != 1)
-    seed_ref = np.asarray(WORDS, np.uint32)
     out = np.zeros_like(q)
     lse = np.zeros((bb, h, s, 1), np.float32)
     for b in range(bb):
         block["b"] = b
         sl = slice(b, b + 1)
-        jfa._small_fwd_kernel(seed_ref, q[sl], k[sl], v[sl],
-                              None if bias is None else bias[sl], out[sl],
-                              lse[sl], **kw)
+        jfa._small_fwd_kernel(np.asarray(WORDS, np.uint32), q[sl], k[sl],
+                              v[sl], None if bias is None else bias[sl],
+                              out[sl], lse[sl], **kw)
+    return out, lse, block, kw
+
+
+def _reference(monkeypatch, q, k, v, bias, do, p):
+    """(out, lse, dq, dk, dv) of the reference's kernel bodies."""
+    bb = q.shape[0]
+    out, lse, block, kw = _reference_fwd(monkeypatch, q, k, v, bias, p)
+    seed_ref = np.asarray(WORDS, np.uint32)
     delta = np.sum(do * out, axis=-1, keepdims=True)
     grads = [np.zeros_like(q) for _ in range(3)]
     for b in range(bb):
@@ -206,6 +227,86 @@ def test_fused_kernel_order_matches_reference_kernel_body(monkeypatch, shape,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("p", [0.1, 0.0])
+@pytest.mark.parametrize("shape,bias_heads", [
+    ((2, 2, 128, 64), 1), ((1, 2, 128, 128), 2), ((1, 2, 256, 64), 2),
+    ((1, 1, 256, 128), 1)])
+def test_3xtf32_forward_matches_reference_kernel_body(monkeypatch, shape,
+                                                      bias_heads, p):
+    """The redesigned forward (flash_fwd.cuh with kDrop) in its own
+    arithmetic and order against ``_small_fwd_kernel`` under the shared
+    mask, at the card's limit for the kernel."""
+    q, k, v, bias, _do = _inputs(4, *shape, bias_heads)
+    want_o, want_l, _block, _kw = _reference_fwd(monkeypatch, q, k, v, bias,
+                                                 p)
+    bb, h, s, d = shape
+    thr = philox.keep_threshold(p)
+    keep = None if thr is None else \
+        philox.keep_mask(WORDS, thr, (bb, h, s, s))
+    got_o, got_l = fwd_3xtf32(
+        _t(q), _t(k), _t(v), _t(bias), False, d ** -0.5, keep=keep,
+        inv_q=1.0 if thr is None else philox.inv_realized_q(thr))
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=cs.KERNEL_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got_l.numpy(), want_l, atol=cs.KERNEL_ATOL,
+                               rtol=0)
+
+
+ROWS = 64     # query rows of a forward CTA (four warps of 16)
+
+
+def _register_keep(words, thr, bb, h, s):
+    """The forward's keep bits as flash_fwd.cuh's ``keep_bits`` draws them,
+    laid out [B * H, S, S] (-1 where no thread decided).  Thread (warp,
+    lane) of the CTA at query row q0 holds, for key tile k0, keys nf * 8 +
+    2 t4 + {0, 1} of rows g and g + 8; it draws one Philox group per 8-key
+    group nf, of row g + 8 (t4 & 1), at counter ((bh * S + row) * S >> 2)
+    + (t4 >> 1) + (k0 >> 2) + 2 nf, packs the four compares as nibble nf,
+    and takes the other row's nibbles from lane ^ 1."""
+    w0, w1 = philox.seed_words(words)
+    ar = lambda *a: torch.arange(*a, dtype=torch.int64)  # noqa: E731
+    # dims: (bh, q tile, warp, key tile, lane)
+    bh = ar(bb * h).reshape(-1, 1, 1, 1, 1)
+    q0 = ar(0, s, ROWS).reshape(1, -1, 1, 1, 1)
+    warp = ar(4).reshape(1, 1, -1, 1, 1)
+    k0 = ar(0, s, 32).reshape(1, 1, 1, -1, 1)
+    lane = ar(32)
+    g, t4 = lane >> 2, lane & 3
+    odd = t4 & 1
+    row = q0 + 16 * warp + g + 8 * odd
+    ctr = ((bh * s + row) * s >> 2) + (t4 >> 1) + (k0 >> 2)
+    mine = torch.zeros_like(ctr)
+    for nf in range(4):
+        c = ctr + 2 * nf
+        zero = torch.zeros_like(c)
+        words4 = philox.philox4x32(c & 0xFFFFFFFF, c >> 32, zero, zero, w0,
+                                   w1)
+        for i, u in enumerate(words4):
+            mine |= (u < thr).long() << (4 * nf + i)
+    other = mine[..., lane ^ 1]
+    rg = torch.where(odd == 1, other, mine) >> (2 * odd)
+    rg8 = torch.where(odd == 1, mine, other) >> (2 * odd)
+    bits = (rg & 0x3333) | ((rg8 & 0x3333) << 2)
+    keep = torch.full((bb * h, s, s), -1, dtype=torch.int64)
+    for nf in range(4):
+        for e in range(4):
+            r = q0 + 16 * warp + g + 8 * (e >> 1)
+            col = k0 + nf * 8 + 2 * t4 + (e & 1)
+            idx = torch.broadcast_tensors(bh, r, col, bits)
+            keep[idx[0], idx[1], idx[2]] = (idx[3] >> (4 * nf + e)) & 1
+    return keep
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 128), (1, 2, 256)])
+def test_register_mask_draw_is_the_element_stream(shape):
+    bb, h, s = shape
+    thr = philox.keep_threshold(0.1)
+    got = _register_keep(WORDS, thr, bb, h, s)
+    assert int((got < 0).sum()) == 0, "a score no thread decided"
+    want = philox.keep_mask(WORDS, thr, (bb * h, s, s))
+    assert torch.equal(got == 1, want)
+
+
 @pytest.mark.parametrize("p", [0.0, 0.1])
 def test_autograd_of_plain_forward_is_plain_backward(p):
     q, k, v, bias, do = _inputs(1, 2, 3, 128, 64, 1)
@@ -301,3 +402,7 @@ def test_kernel_sources_name_what_they_replace_and_their_bound():
     src = (_build.CSRC / "small_attention_bwd.cu").read_text()
     assert '#include "flash_bwd.cuh"' in src and "launch_any<true>" in src
     assert "keep_tile" in (_build.CSRC / "flash_bwd.cuh").read_text()
+    # the forward is the flash forward's core with the mask
+    src = (_build.CSRC / "small_attention.cu").read_text()
+    assert '#include "flash_fwd.cuh"' in src
+    assert "launch_d<kWarps, true>" in src and "__global__" not in src

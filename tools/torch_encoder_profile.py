@@ -32,9 +32,10 @@ def _group(name):
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention kernel"
+    if "layer_norm_vec" in n:
+        return "layer_norm kernel"
     if "ln_rows" in n:
-        # fused_ln and layer_norm share the row kernel: told apart by count
-        return "fused_ln + layer_norm kernels"
+        return "fused_ln kernel"
     if "gemm" in n or "gemv" in n or "xmma" in n or "cutlass" in n:
         return "matrix products (cuBLAS)"
     return "other kernels (elementwise, embedding, copies)"

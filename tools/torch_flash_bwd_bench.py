@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the flash-attention kernels' time goes on the card.
 
-    python3 tools/torch_flash_bwd_bench.py [--mode fwd,bwd,small]
+    python3 tools/torch_flash_bwd_bench.py [--mode fwd,bwd,small,small_fwd]
                                            [--sweep] [--root DIR]
 
 At BERT-base's heads (H = 12, D = 64), strided q/k/v/dO as the main path
@@ -28,7 +28,16 @@ events, L2 flushed before each call (``chip_smoke.time_cold``):
   fill and the kernel) each timed alone;
 
 each with the rate on 10 flops per (i, j, d) of the backward and the
-operations bound at 67 TF/s.  ``--root DIR`` times the kernels of the
+operations bound at 67 TF/s;
+
+* ``small_fwd`` (row 5): ``small_attention_fwd`` (the kernel writes the
+  seed words too) at B = 32, S = 128 and B = 16, S = 256, dropout p = 0.1
+  and p = 0, against SDPA with ``dropout_p`` p and the same mask, with
+  the rate on 4 flops per (i, j, d), the bound of the 3xTF32 design
+  (bytes at 3.35 TB/s; the TF32 products at 495 TF/s) and the f32 SIMT
+  bound beside it, and the kernel's CTAs an SM.
+
+``--root DIR`` times the kernels of the
 checkout at DIR (for example a parent commit unpacked under build/), so
 that two trees can be timed in turns in one call to the card.  Ends with
 one JSON line of the readings.  Needs one CUDA card.
@@ -181,10 +190,46 @@ def small_mode(smoke, fa, dev, flush, rng):
     return rows
 
 
+def small_fwd_mode(smoke, fa, dev, flush, rng):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    scale = D ** -0.5
+    for bb, s in ((32, 128), (16, 256)):
+        (q, k, v), bias = inputs(rng, dev, bb, s, 3)
+        seed_t = torch.empty(2, dtype=torch.int32, device=dev)
+        flops = 4 * bb * H * s * s * D
+        # read q, k, v, the bias; write out, lse and the seed words; ~6
+        # SIMT operations a score (scale, bias, max, exp, sum, the mask)
+        nbytes = 4 * (4 * bb * H * s * D + bb * s * s + bb * H * s) + 8
+        bound_ms, by = smoke.bound(nbytes, 6 * bb * H * s * s, 3 * flops)
+        for p in (0.1, 0.0):
+            ms = smoke.time_cold(
+                lambda: fa.small_attention_fwd(q, k, v, bias, scale, p,
+                                               smoke.WORDS, seed_out=seed_t),
+                flush)
+            sdpa_ms = smoke.time_cold(
+                lambda: sdpa(q, k, v, attn_mask=bias, dropout_p=p), flush)
+            row = {"mode": "small_fwd", "B": bb, "S": s, "p": p,
+                   "kernel_ms": ms, "sdpa_ms": sdpa_ms, "bound_ms": bound_ms,
+                   "bound_by": by,
+                   "f32_simt_bound_ms": smoke.bound(nbytes, flops)[0],
+                   "kernel_tflops": flops / ms / 1e9}
+            if hasattr(fa, "small_attention_fwd_ctas_per_sm"):
+                row["ctas_per_sm"] = fa.small_attention_fwd_ctas_per_sm(D)
+            print("small_fwd B=%d S=%d p=%g: kernel %.6f ms (%.1f TF/s%s), "
+                  "SDPA with dropout %.6f, bound %.6f (%s; f32 SIMT %.6f)"
+                  % (bb, s, p, ms, row["kernel_tflops"],
+                     ", %d CTAs an SM" % row["ctas_per_sm"]
+                     if "ctas_per_sm" in row else "", sdpa_ms, bound_ms, by,
+                     row["f32_simt_bound_ms"]), flush=True)
+            rows.append(row)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="fwd,bwd,small",
-                    help="comma-separated: fwd, bwd, small")
+    ap.add_argument("--mode", default="fwd,bwd,small,small_fwd",
+                    help="comma-separated: fwd, bwd, small, small_fwd")
     ap.add_argument("--sweep", action="store_true",
                     help="fwd: also time each CTA shape")
     ap.add_argument("--root", default=ROOT,
@@ -213,6 +258,8 @@ def main():
             rows += bwd_mode(smoke, fa, dev, flush, rng)
         elif mode == "small":
             rows += small_mode(smoke, fa, dev, flush, rng)
+        elif mode == "small_fwd":
+            rows += small_fwd_mode(smoke, fa, dev, flush, rng)
         else:
             sys.exit("unknown mode %r" % mode)
     print(json.dumps({"flash_bwd_bench": rows}), flush=True)

@@ -41,17 +41,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ = 128
 
 # kernel name fragments of the ported kernels (csrc/*.cu)
-# (first match wins: the small backward is the fused backward's core
-# instantiated with the mask, flash_bwd_kernel<.., .., true>)
-_PORTED = (("flash_fwd", "flash attention forward"),
+# (first match wins: the small forward and backward are the flash
+# forward's and the fused backward's cores instantiated with the mask,
+# flash_fwd_kernel<.., .., true> and flash_bwd_kernel<.., .., true>)
+_PORTED = (("true>(flash_fwd::args)",
+            "small attention forward (the flash forward's core, the mask)"),
+           ("flash_fwd", "flash attention forward"),
            ("true>(flash_bwd::args)",
             "small attention backward (fused dQ, dK, dV, the mask)"),
            ("flash_bwd", "flash attention backward (fused dQ, dK, dV)"),
-           ("small_fwd", "small attention forward"),
            ("dropout_kernel", "dropout"),
            ("fused_ln_bwd", "fused LN backward"),
            ("reduce_partials", "fused LN backward"),
-           ("ln_rows", "fused LN forward + LayerNorm"),
+           ("layer_norm_vec", "LayerNorm"),
+           ("ln_rows", "fused LN forward"),
            ("fused_adam", "fused Adam"))
 
 
