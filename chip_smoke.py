@@ -251,7 +251,13 @@ def paged_case(rng, bb, h, d, bs, maxb, lens, dev):
 
 
 def paged_kernel_phase(pa, dev, flush):
+    """Row 1 against its plain version: the timed decode shape, lens on
+    each side of a chunk boundary of the split kernel, full tables, a
+    table of one block, and the head widths of each load path (float4 at
+    D = 40, 64, 128, 256; scalar at D = 30); two calls at the timed shape
+    give the same bits."""
     rng = np.random.RandomState(0)
+    ck = pa.CHUNK
     cases = {
         "decode B=8 H=12 D=64 bs=16 MAXB=64": paged_case(
             rng, 8, 12, 64, 16, 64,
@@ -260,7 +266,18 @@ def paged_kernel_phase(pa, dev, flush):
             rng, 4, 8, 128, 16, 32, [1, 77, 256, 512], dev),
         "odd B=4 H=3 D=40 bs=5 MAXB=7 with an idle lane": paged_case(
             rng, 4, 3, 40, 5, 7, [1, 7, 33, 0], dev),
+        "lens = MAXB x bs, B=8 H=12 D=64 bs=16 MAXB=64": paged_case(
+            rng, 8, 12, 64, 16, 64, [1024] * 8, dev),
+        "a table of one block, B=8 H=12 D=64 bs=16 MAXB=1": paged_case(
+            rng, 8, 12, 64, 16, 1, [16, 1, 9, 16, 0, 3, 16, 2], dev),
+        "scalar loads B=3 H=2 D=30 bs=7 MAXB=40": paged_case(
+            rng, 3, 2, 30, 7, 40, [1, ck + 2, 280], dev),
+        "B=2 H=4 D=256 bs=16 MAXB=16": paged_case(
+            rng, 2, 4, 256, 16, 16, [200, 256], dev),
     }
+    for n in (ck - 1, ck, ck + 1):
+        cases["uniform lens %d (chunk %d), B=8 H=12 D=64 bs=16 MAXB=64"
+              % (n, ck)] = paged_case(rng, 8, 12, 64, 16, 64, [n] * 8, dev)
     worst = 0.0
     for name, c in cases.items():
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
@@ -274,6 +291,10 @@ def paged_kernel_phase(pa, dev, flush):
 
     c = cases["decode B=8 H=12 D=64 bs=16 MAXB=64"]
     args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+    if not torch.equal(pa.paged_attention(*args), pa.paged_attention(*args)):
+        fail("paged_attention: two calls at the decode shape differ")
+    print("kernel paged_attention: two calls at the decode shape give the "
+          "same bits", flush=True)
     bb, h, d = c["q"].shape
     bs = c["k"].shape[1]
     lens = c["lens"].cpu().numpy().astype(np.int64)
@@ -738,16 +759,44 @@ def flash_bwd_kernel_phase(fa, dev, flush):
     return row
 
 
-def ln_bwd_kernel_phase(fl, dev, flush):
+def ln_bwd_repeat_and_mask(fl, philox, r, g, mean, var, dz, seed_t):
+    """Row 8 at p = 0.1: dx, dy, dgamma and dbeta are the same bits over
+    two calls (the partials are added in a fixed order), and dy keeps
+    exactly the elements the forward kernel kept under the same seed
+    (its r at x = 0, y = 1 is inv_q where kept, 0 where dropped)."""
+    got = fl.fused_ln_bwd(r, g, mean, var, dz, 0.1, seed_t)
+    again = fl.fused_ln_bwd(r, g, mean, var, dz, 0.1, seed_t)
+    for name, u, w in zip(("dx", "dy", "dgamma", "dbeta"), got, again):
+        if not torch.equal(u, w):
+            fail("fused_ln_bwd: two calls give different %s" % name)
+    ones = torch.ones_like(r)
+    _z, r_keep, _m, _v = fl.fused_ln_fwd(torch.zeros_like(r), ones, g, g,
+                                         0.1, philox.seed_words(seed_t),
+                                         1e-5)
+    inv_q = torch.tensor(philox.inv_realized_q(philox.keep_threshold(0.1)),
+                         dtype=torch.float32, device=r.device)
+    want = torch.where(r_keep != 0, got[0] * inv_q, torch.zeros_like(r))
+    if not torch.equal(got[1], want):
+        fail("fused_ln_bwd: dy's keep pattern is not the forward's")
+    print("kernel fused_ln_bwd p=0.1 [%d, %d]: dx, dy, dgamma, dbeta the "
+          "same bits over two calls; dy = dx * inv_q exactly where the "
+          "forward kept, 0 elsewhere" % tuple(r.shape), flush=True)
+
+
+def ln_bwd_kernel_phase(fl, philox, dev, flush):
     """Row 8: the fused-LN backward from the forward kernel's r, mean, var
-    (and Seed, at p = 0.1).  The kernels line takes p = 0.1; the p = 0
-    time prints beside it."""
+    (and Seed, at p = 0.1), on its float4 path (h % 4 == 0, h <= 1024)
+    and its scalar one.  The kernels line takes p = 0.1; the p = 0 time
+    prints beside it."""
     rng = np.random.RandomState(4)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     worst = 0.0
     tensors = {}
     for (n, hd), what in (((4096, 768), "BERT rows [4096, 768]"),
-                          ((37, 200), "odd [37, 200]")):
+                          ((614, 768), "masked-LM rows [614, 768]"),
+                          ((37, 200), "odd [37, 200]"),
+                          ((37, 202), "scalar path [37, 202]"),
+                          ((16, 1500), "wide scalar path [16, 1500]")):
         x, y, dz = (t(_rand(rng, n, hd)) for _ in range(3))
         g, b = t(_rand(rng, hd) + 1.0), t(_rand(rng, hd))
         _z, r, mean, var = fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5)
@@ -779,6 +828,7 @@ def ln_bwd_kernel_phase(fl, dev, flush):
     x, y, g, b, r, mean, var, dz, r1, mean1, var1, seed_t = \
         tensors[4096, 768]
     n, hd = x.shape
+    ln_bwd_repeat_and_mask(fl, philox, r1, g, mean1, var1, dz, seed_t)
     ln_f = torch.nn.functional.layer_norm
     drop_f = torch.nn.functional.dropout
     leaves = [a.detach().requires_grad_() for a in (x, y, g, b)]
@@ -2483,7 +2533,7 @@ def main():
     rows.append(flash_bwd_kernel_phase(fa, dev, flush))
     rows += small_attention_kernel_phase(fa, philox, dev, flush)
     rows += ln_kernel_phase(fl, ln, philox, dev, flush)
-    rows.append(ln_bwd_kernel_phase(fl, dev, flush))
+    rows.append(ln_bwd_kernel_phase(fl, philox, dev, flush))
     rows.append(adam_kernel_phase(fad, dev, flush, bert_cfg))
     rows.append(dropout_kernel_phase(dk, philox, dev, flush))
     rows.append(momentum_kernel_phase(fm, dev, flush))

@@ -19,19 +19,32 @@
 //
 // Bound: bytes.  It must read r and dz and write dx (12 h bytes a row,
 // plus the statistics and the two [h] sums; at p > 0 also dy, 16 h),
-// ~1 flop per byte, far below the card's ridge; at p > 0 a Philox call
-// per element adds ~50 integer operations an element.  Design:
-//   * one warp per row with the row in registers (as ln_rows.cuh): r and
-//     dz are read once, xhat and a stay in registers for the write of dx;
-//   * each CTA takes a run of rows_per_cta rows; each lane keeps its
-//     columns' dgamma / dbeta sums over its warp's rows in registers, the
-//     CTA adds its warps' sums in shared memory in a fixed order and
-//     writes one [h] partial of each to a [2, n_ctas, h] buffer;
-//   * a second kernel adds the n_ctas partials of each column in order:
-//     no atomics, so the sums are the same on every run.  The TPU kernel
-//     also leaves the partials to a reduction outside it.
-// Rows wider than 32 * 32 floats take a variant that keeps the sums in
-// shared memory and reads each row twice.
+// ~1 flop per byte, far below the card's ridge; at p > 0 a Philox group
+// per four elements adds ~15 integer operations an element.  At BERT's
+// [4096, 768] on an H100, adding the partials on 3 CTAs took ~0.015 ms of
+// 0.039-0.052, and a Philox group drawn per element most of p > 0's extra
+// time (PERF.md).  Design, rows of h % 4 == 0 and h <= 1024:
+//   * one warp per row with the row in registers, as float4 runs: lane l
+//     holds columns 4 (l + 32 i) .. 4 (l + 32 i) + 3, 16-byte loads of r,
+//     dz and gamma and 16-byte stores of dx and dy;
+//   * one Philox call per run: elements 4 k .. 4 k + 3 of the stream are
+//     the four words of counter k, and the run at column 4 c of row `row`
+//     is counter row * h / 4 + c, so the mask is bit for bit the
+//     forward's;
+//   * each warp adds its rows' dz * xhat and dz into its own [h] slice of
+//     shared memory (not registers: ~100 registers a thread let 4 CTAs of
+//     4 warps share an SM); the CTA adds its warps' slices in a fixed
+//     order and writes one [h] partial of each sum to [2, n_ctas, h];
+//   * a second kernel adds the partials: a CTA takes 32 columns, its
+//     threads split the n_ctas partials 32 ways, each adding its share in
+//     order, and the 32 shares are added in a fixed tree.  No atomics, so
+//     the sums are the same bits on every run.  The TPU kernel also leaves
+//     the partials to a reduction outside it.
+// Other rows (h % 4 != 0, h > 1024, or a pointer not 16-byte aligned)
+// take the scalar kernel, a lane columns l + 32 i and a Philox call an
+// element; rows wider than 32 * 32 floats keep the sums in shared memory
+// and read each row twice.  Its partials go through the same reduction,
+// in floats.
 //
 // Entry point: plain C, launches both kernels and returns the first
 // launch error.
@@ -165,19 +178,139 @@ fused_ln_bwd_rows(const float* __restrict__ r, const float* __restrict__ gamma,
   }
 }
 
-// column c of dgamma / dbeta: the n_ctas partials added in order
-__global__ void __launch_bounds__(256)
-reduce_partials(const float* __restrict__ part, float* __restrict__ dgamma,
-                float* __restrict__ dbeta, int n_ctas, int h) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= h) return;
-  float g = 0.f, b = 0.f;
-  for (int i = 0; i < n_ctas; ++i) {
-    g += part[(size_t)i * h + c];
-    b += part[((size_t)n_ctas + i) * h + c];
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// NV float4 runs a lane; h4 = h / 4
+template <int NV, bool DROP>
+__global__ void __launch_bounds__(kThreads, 4)
+fused_ln_bwd_vec(const float4* __restrict__ r,
+                 const float4* __restrict__ gamma,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ var,
+                 const float4* __restrict__ dz, float4* __restrict__ dx,
+                 float4* __restrict__ dy, float4* __restrict__ part, int n,
+                 int h4, float inv_h, float eps, int rows_per_cta,
+                 uint32_t thr, const int* __restrict__ seed, float inv_q) {
+  extern __shared__ float4 smem4[];  // [kWarps][h4] dgamma, then dbeta
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float4* sg = smem4 + (size_t)warp * h4;
+  float4* sb = smem4 + (size_t)(kWarps + warp) * h4;
+  const int row0 = blockIdx.x * rows_per_cta;
+  const int row_end = min(n, row0 + rows_per_cta);
+  uint32_t k0 = 0u, k1 = 0u;
+  if constexpr (DROP) {
+    k0 = (uint32_t)seed[0];
+    k1 = (uint32_t)seed[1];
   }
-  dgamma[c] = g;
-  dbeta[c] = b;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < h4) sg[c] = sb[c] = zero4();
+  }
+  for (int row = row0 + warp; row < row_end; row += kWarps) {
+    const size_t base = (size_t)row * h4;
+    const float mu = mean[row];
+    const float rstd = rsqrtf(var[row] + eps);
+    float4 xh[NV], a[NV];  // r and dz as loaded, then xhat and dz * gamma
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      xh[i] = c < h4 ? r[base + c] : zero4();
+      a[i] = c < h4 ? dz[base + c] : zero4();
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < h4) {
+        const float4 g = gamma[c];
+        const float4 d = a[i];
+        float4 x = xh[i];
+        x.x = (x.x - mu) * rstd;
+        x.y = (x.y - mu) * rstd;
+        x.z = (x.z - mu) * rstd;
+        x.w = (x.w - mu) * rstd;
+        xh[i] = x;
+        a[i] = make_float4(d.x * g.x, d.y * g.y, d.z * g.z, d.w * g.w);
+        add_to(sg[c], make_float4(d.x * x.x, d.y * x.y, d.z * x.z,
+                                  d.w * x.w));
+        add_to(sb[c], d);
+        s1 += (a[i].x + a[i].y) + (a[i].z + a[i].w);
+        s2 += (a[i].x * x.x + a[i].y * x.y) + (a[i].z * x.z + a[i].w * x.w);
+      }
+    }
+    const float m1 = warp_sum(s1) * inv_h;
+    const float m2 = warp_sum(s2) * inv_h;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < h4) {
+        const float4 dr =
+            make_float4(rstd * (a[i].x - m1 - xh[i].x * m2),
+                        rstd * (a[i].y - m1 - xh[i].y * m2),
+                        rstd * (a[i].z - m1 - xh[i].z * m2),
+                        rstd * (a[i].w - m1 - xh[i].w * m2));
+        dx[base + c] = dr;
+        if constexpr (DROP) {
+          // elements 4 (base + c) .. + 3: the four words of one counter
+          const uint4 u = philox::group(base + c, k0, k1);
+          dy[base + c] = make_float4(u.x < thr ? dr.x * inv_q : 0.f,
+                                     u.y < thr ? dr.y * inv_q : 0.f,
+                                     u.z < thr ? dr.z * inv_q : 0.f,
+                                     u.w < thr ? dr.w * inv_q : 0.f);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const size_t n_ctas = gridDim.x;
+  for (int c = threadIdx.x; c < h4; c += kThreads) {
+    float4 g = zero4(), b = zero4();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      add_to(g, smem4[(size_t)w * h4 + c]);
+      add_to(b, smem4[(size_t)(kWarps + w) * h4 + c]);
+    }
+    part[(size_t)blockIdx.x * h4 + c] = g;
+    part[(n_ctas + blockIdx.x) * h4 + c] = b;
+  }
+}
+
+// dgamma (blockIdx.y 0) or dbeta (1) of COLS columns of V: the n_ctas
+// partials split SLICES ways, slice k adding partials k, k + SLICES, ...
+// in order, then the slices added in a fixed tree
+template <typename V, int COLS, int SLICES>
+__global__ void __launch_bounds__(COLS * SLICES)
+reduce_partials(const V* __restrict__ part, V* __restrict__ dgamma,
+                V* __restrict__ dbeta, int n_ctas, int hv) {
+  __shared__ V s[SLICES][COLS];
+  const int cx = threadIdx.x % COLS;
+  const int sl = threadIdx.x / COLS;
+  const int c = blockIdx.x * COLS + cx;
+  const V* p = part + (size_t)blockIdx.y * n_ctas * hv;
+  V acc = V();
+  if (c < hv) {
+#pragma unroll 4
+    for (int i = sl; i < n_ctas; i += SLICES) add_to(acc, p[(size_t)i * hv + c]);
+  }
+  s[sl][cx] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int st = SLICES / 2; st > 0; st >>= 1) {
+    if (sl < st) add_to(s[sl][cx], s[sl + st][cx]);
+    __syncthreads();
+  }
+  if (sl == 0 && c < hv) (blockIdx.y == 0 ? dgamma : dbeta)[c] = s[0][cx];
 }
 
 template <int NPL, bool DROP>
@@ -231,6 +364,59 @@ cudaError_t launch_any(const float* r, const float* gamma, const float* mean,
   return launch_rows<0>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
 }
 
+template <int NV, bool DROP>
+cudaError_t launch_vec(const float* r, const float* gamma, const float* mean,
+                       const float* var, const float* dz, float* dx,
+                       float* dy, float* part, int n, int h, float eps,
+                       int rows_per_cta, int n_ctas, uint32_t thr,
+                       const int* seed, float inv_q, cudaStream_t stream) {
+  // 2 x 4 warps x h floats: 24 KB at h = 768, 32 KB at the widest
+  const size_t smem = sizeof(float) * 2 * kWarps * (size_t)h;
+  fused_ln_bwd_vec<NV, DROP><<<n_ctas, kThreads, smem, stream>>>(
+      reinterpret_cast<const float4*>(r),
+      reinterpret_cast<const float4*>(gamma), mean, var,
+      reinterpret_cast<const float4*>(dz), reinterpret_cast<float4*>(dx),
+      reinterpret_cast<float4*>(dy), reinterpret_cast<float4*>(part), n,
+      h / 4, 1.f / (float)h, eps, rows_per_cta, thr, seed, inv_q);
+  return cudaGetLastError();
+}
+
+template <int NV>
+cudaError_t launch_vec_drop(const float* r, const float* gamma,
+                            const float* mean, const float* var,
+                            const float* dz, float* dx, float* dy,
+                            float* part, int n, int h, float eps,
+                            int rows_per_cta, int n_ctas, uint32_t thr,
+                            const int* seed, float inv_q,
+                            cudaStream_t stream) {
+  if (dy != nullptr)
+    return launch_vec<NV, true>(r, gamma, mean, var, dz, dx, dy, part, n, h,
+                                eps, rows_per_cta, n_ctas, thr, seed, inv_q,
+                                stream);
+  return launch_vec<NV, false>(r, gamma, mean, var, dz, dx, dy, part, n, h,
+                               eps, rows_per_cta, n_ctas, thr, seed, inv_q,
+                               stream);
+}
+
+// the smallest register-holding float4 variant for the row
+cudaError_t launch_vec_any(const float* r, const float* gamma,
+                           const float* mean, const float* var,
+                           const float* dz, float* dx, float* dy,
+                           float* part, int n, int h, float eps,
+                           int rows_per_cta, int n_ctas, uint32_t thr,
+                           const int* seed, float inv_q,
+                           cudaStream_t stream) {
+  const int need = (h / 4 + 31) / 32;
+  if (need <= 1) return launch_vec_drop<1>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 2) return launch_vec_drop<2>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 3) return launch_vec_drop<3>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 4) return launch_vec_drop<4>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  if (need <= 6) return launch_vec_drop<6>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+  return launch_vec_drop<8>(r, gamma, mean, var, dz, dx, dy, part, n, h, eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+}
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
 }  // namespace
 
 // part: [2, n_ctas, h] scratch; rows_per_cta * n_ctas must cover n.
@@ -252,12 +438,30 @@ extern "C" cudaError_t fused_ln_bwd_f32(const float* r, const float* gamma,
       (long long)rows_per_cta * (n_ctas - 1) >= n ||
       (thr != 0u && (dy == nullptr || seed == nullptr)))
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_any(r, gamma, mean, var, dz, dx,
-                               thr != 0u ? dy : nullptr, part, n, h, eps,
-                               rows_per_cta, n_ctas, thr, seed, inv_q,
-                               stream);
+  float* dy_or_null = thr != 0u ? dy : nullptr;
+  const bool vec = h % 4 == 0 && h <= 1024 && aligned16(r) &&
+                   aligned16(gamma) && aligned16(dz) && aligned16(dx) &&
+                   aligned16(part) && aligned16(dgamma) &&
+                   aligned16(dbeta) &&
+                   (dy_or_null == nullptr || aligned16(dy_or_null));
+  if (vec) {
+    const cudaError_t err =
+        launch_vec_any(r, gamma, mean, var, dz, dx, dy_or_null, part, n, h,
+                       eps, rows_per_cta, n_ctas, thr, seed, inv_q, stream);
+    if (err != cudaSuccess) return err;
+    const int h4 = h / 4;
+    reduce_partials<float4, 8, 32><<<dim3((h4 + 7) / 8, 2), 256, 0,
+                                     stream>>>(
+        reinterpret_cast<const float4*>(part),
+        reinterpret_cast<float4*>(dgamma), reinterpret_cast<float4*>(dbeta),
+        n_ctas, h4);
+    return cudaGetLastError();
+  }
+  const cudaError_t err = launch_any(r, gamma, mean, var, dz, dx, dy_or_null,
+                                     part, n, h, eps, rows_per_cta, n_ctas,
+                                     thr, seed, inv_q, stream);
   if (err != cudaSuccess) return err;
-  reduce_partials<<<(h + 255) / 256, 256, 0, stream>>>(part, dgamma, dbeta,
-                                                       n_ctas, h);
+  reduce_partials<float, 32, 8><<<dim3((h + 31) / 32, 2), 256, 0, stream>>>(
+      part, dgamma, dbeta, n_ctas, h);
   return cudaGetLastError();
 }

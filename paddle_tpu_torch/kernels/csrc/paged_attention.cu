@@ -12,23 +12,44 @@
 // Bound: the kernel must read the live K and V rows once each,
 // sum_b lens_b * H * D * 4 bytes twice, and does ~4 flops per byte read,
 // far below the card's ~20 f32 flop/byte ridge, so it is memory-bound.
-// Design against that bound:
-//   * one thread block per (lane, head), 8 warps;
-//   * each block copies its own table row into shared memory and walks only
-//     the ceil(lens / bs) blocks that hold live positions: masked positions
-//     contribute exactly 0 to the reference's softmax (exp(-1e30 - m) == 0
-//     once any live score exists), so skipping them is exact up to the order
-//     of summation, and no byte past a lane's length is read;
-//   * a warp takes 4 positions at a time, each lane of the warp reading
-//     consecutive floats of one K row and one V row (coalesced), so every
-//     warp has 8 independent loads per lane in flight before it reduces;
-//   * f32 online-softmax state (max, sum, accumulator) lives in registers
-//     per warp, and the 8 warps are merged once through shared memory at
-//     the end: no gathered [B, S, H, D] copy ever reaches device memory.
+// At decode sizes the bytes take a few microseconds, so what sets the
+// time is the chain of dependent loads one CTA walks.  Design:
+//   * the grid is (H, B, S): each lane's context is cut into S splits of
+//     `chunk` positions (the host derives both from the table width
+//     MAXB * bs and the SM count, never from context_lens, which it would
+//     have to wait for).  A CTA walks its own chunk only, so the longest
+//     chain is chunk positions, not the lane's whole context;
+//   * a CTA whose chunk starts at or past its lane's length exits: its
+//     state would be (m = -1e30, l = 0, acc = 0), which weighs
+//     exp(-1e30 - M) == 0 in the combine, so it is neither written nor
+//     read;
+//   * a lane whose context fits one chunk is finished by its one CTA,
+//     which writes out directly: no partial, no combine (decode at short
+//     contexts, and every table no wider than a chunk);
+//   * otherwise each live CTA writes its (m, l, acc[D]) to a scratch
+//     buffer, fences, and counts itself in on a per-(lane, head) counter;
+//     the CTA that arrives last merges the partials in split order (so
+//     the result is the same bits on every run, whichever CTA merges) and
+//     sets the counter back to 0 for the next launch;
+//   * inside a CTA, 16-byte loads: a group of LP lanes reads one K row and
+//     one V row (LP = 16 float4s at D = 64: a warp takes two positions at
+//     a time, each group's 256 bytes one coalesced segment), and each
+//     group holds SLOTS positions' rows in registers before it reduces,
+//     so a lane has 8 loads of 16 bytes in flight; the dot product is
+//     reduced over the group's lanes by an xor butterfly;
+//   * the chunk's table entries and q are loaded beside context_lens, not
+//     after it, so a CTA waits for one load before its first K/V load;
+//   * f32 online-softmax state (max, sum, accumulator) per group in
+//     registers; a warp's groups are merged by an xor butterfly, the CTA's
+//     8 warps once through shared memory (merging 16 group states there
+//     cost 0.0003 ms at one block of 16 positions on an H100, PERF.md);
+//     the last CTA's merge weighs each split once, not once a column.
+//   Head widths that are not a multiple of 4 or under 16 (or unaligned
+//   pools) take the same code with scalar loads, a warp a position.
 // Lanes with context_lens <= 0 are idle lanes of a decode bucket; they write
 // zeros (the reference yields a uniform average there, and the engine
 // discards both).  The TPU grid (b, j) with a sequential j axis is not
-// carried over: the j loop runs inside the block.
+// carried over: the j loop runs inside the CTA over its chunk.
 //
 // Entry point: plain C, returns the launch's cudaError_t.  Block ids are
 // clamped to [0, num_blocks) so a bad table can never read outside the pool.
@@ -40,120 +61,200 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTok = 4;            // positions per warp per iteration
 constexpr int kMaxD = 256;
-constexpr int kMaxTable = 8192;    // table row kept in shared memory
+constexpr int kMaxTable = 8192;
+constexpr int kMaxSplits = 1024;   // splits a lane
 constexpr float kMask = -1e30f;    // finite, as in the reference
 
-template <int NI>  // NI = ceil(D / 32) floats per lane
+__device__ __forceinline__ float dot(float a, float b) { return a * b; }
+__device__ __forceinline__ float dot(const float4& a, const float4& b) {
+  return (a.x * b.x + a.y * b.y) + (a.z * b.z + a.w * b.w);
+}
+__device__ __forceinline__ void fma_to(float& acc, float p, float v) {
+  acc += p * v;
+}
+__device__ __forceinline__ void fma_to(float4& acc, float p,
+                                       const float4& v) {
+  acc.x += p * v.x;
+  acc.y += p * v.y;
+  acc.z += p * v.z;
+  acc.w += p * v.w;
+}
+__device__ __forceinline__ void scale_by(float& acc, float a) { acc *= a; }
+__device__ __forceinline__ void scale_by(float4& acc, float a) {
+  acc.x *= a;
+  acc.y *= a;
+  acc.z *= a;
+  acc.w *= a;
+}
+__device__ __forceinline__ float shfl_xor(float v, int off) {
+  return __shfl_xor_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ float4 shfl_xor(const float4& v, int off) {
+  return make_float4(shfl_xor(v.x, off), shfl_xor(v.y, off),
+                     shfl_xor(v.z, off), shfl_xor(v.w, off));
+}
+template <typename V>
+__device__ __forceinline__ V zero();
+template <>
+__device__ __forceinline__ float zero<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// V: float4 or float; W = the floats in a V.  LP lanes read one position's
+// row, VPL V's a lane (Dv = D / W <= LP * VPL); SLOTS positions a group
+// holds before it reduces.  part / count are used only when the grid has
+// more than one split.
+template <typename V, int LP, int VPL, int SLOTS>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k_cache,
-                       const float* __restrict__ v_cache,
+paged_attention_kernel(const V* __restrict__ q, const V* __restrict__ k_cache,
+                       const V* __restrict__ v_cache,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ context_lens,
-                       float* __restrict__ out,
-                       int H, int D, int NB, int BS, int MAXB, float scale) {
-  extern __shared__ int s_table[];
+                       float* __restrict__ out, float* __restrict__ part,
+                       int* __restrict__ count, int H, int D, int NB, int BS,
+                       int MAXB, int chunk, float scale) {
+  constexpr int W = sizeof(V) / sizeof(float);
+  constexpr int G = 32 / LP;          // groups (positions at once) a warp
+  constexpr int PW = G * SLOTS;       // positions a warp per step
+  extern __shared__ int s_table[];    // the chunk's block ids
   __shared__ float s_m[kWarps];
   __shared__ float s_l[kWarps];
-  __shared__ float s_acc[kWarps][NI * 32];
+  __shared__ V s_acc[kWarps][LP * VPL];
+  __shared__ float s_pm[kMaxSplits];  // the merge: each split's m, l
+  __shared__ float s_pl[kMaxSplits];
+  __shared__ int s_last;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int S = gridDim.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float* o = out + ((size_t)b * H + h) * D;
+  const int grp = lane / LP;
+  const int gl = lane % LP;
+  const int Dv = D / W;
+  const size_t bh = (size_t)b * H + h;
+  float* o = out + bh * D;
 
-  int n = context_lens[b];
-  if (n > MAXB * BS) n = MAXB * BS;
-  if (n <= 0) {
-    for (int d = tid; d < D; d += kThreads) o[d] = 0.f;
-    return;
-  }
-  const int nblk = (n + BS - 1) / BS;
+  // the chunk's table entries and q do not depend on the lane's length:
+  // their loads go out beside context_lens', not after it
+  const int start = split * chunk;
+  const int blk0 = start / BS;
+  const int nblk = min(MAXB, (start + chunk - 1) / BS + 1) - blk0;
   for (int j = tid; j < nblk; j += kThreads) {
-    int t = block_tables[(size_t)b * MAXB + j];
+    int t = block_tables[(size_t)b * MAXB + blk0 + j];
     t = t < 0 ? 0 : (t >= NB ? NB - 1 : t);
     s_table[j] = t;
   }
+  V qr[VPL];
+  const V* qp = q + bh * Dv;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int d = gl + LP * i;
+    qr[i] = d < Dv ? qp[d] : zero<V>();
+  }
+  int n = context_lens[b];
+  if (n > MAXB * BS) n = MAXB * BS;
+  if (n <= 0) {
+    if (split == 0)
+      for (int d = tid; d < D; d += kThreads) o[d] = 0.f;
+    return;
+  }
+  if (start >= n) return;             // an empty chunk: weighs nothing
+  const int end = min(n, start + chunk);
+  const int n_live = (n + chunk - 1) / chunk;
   __syncthreads();
 
-  float qr[NI];
-  const float* qp = q + ((size_t)b * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < D ? qp[d] : 0.f;
-  }
-
-  const size_t row = (size_t)H * D;  // floats between positions of a block
+  const size_t row = (size_t)H * Dv;  // V's between positions of a block
   float m = kMask, l = 0.f;
-  float acc[NI];
+  V acc[VPL];
 #pragma unroll
-  for (int i = 0; i < NI; ++i) acc[i] = 0.f;
+  for (int i = 0; i < VPL; ++i) acc[i] = zero<V>();
 
-  for (int t0 = warp * kTok; t0 < n; t0 += kWarps * kTok) {
-    float kr[kTok][NI], vr[kTok][NI];
+  for (int t0 = start + warp * PW; t0 < end; t0 += kWarps * PW) {
+    V kr[SLOTS][VPL], vr[SLOTS][VPL];
 #pragma unroll
-    for (int u = 0; u < kTok; ++u) {
-      const int t = t0 + u;
-      if (t < n) {
+    for (int u = 0; u < SLOTS; ++u) {
+      const int t = t0 + u * G + grp;
+      if (t < end) {
         const size_t base =
-            ((size_t)s_table[t / BS] * BS + t % BS) * row + (size_t)h * D;
+            ((size_t)s_table[t / BS - blk0] * BS + t % BS) * row +
+            (size_t)h * Dv;
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const int d = lane + 32 * i;
-          kr[u][i] = d < D ? k_cache[base + d] : 0.f;
-          vr[u][i] = d < D ? v_cache[base + d] : 0.f;
+        for (int i = 0; i < VPL; ++i) {
+          const int d = gl + LP * i;
+          kr[u][i] = d < Dv ? k_cache[base + d] : zero<V>();
+          vr[u][i] = d < Dv ? v_cache[base + d] : zero<V>();
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < NI; ++i) kr[u][i] = vr[u][i] = 0.f;
+        for (int i = 0; i < VPL; ++i) kr[u][i] = vr[u][i] = zero<V>();
       }
     }
-    float s[kTok];
+    float s[SLOTS];
 #pragma unroll
-    for (int u = 0; u < kTok; ++u) {
-      float dot = 0.f;
+    for (int u = 0; u < SLOTS; ++u) {
+      float dt = 0.f;
 #pragma unroll
-      for (int i = 0; i < NI; ++i) dot += qr[i] * kr[u][i];
+      for (int i = 0; i < VPL; ++i) dt += dot(qr[i], kr[u][i]);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      for (int off = LP / 2; off > 0; off >>= 1)
+        dt += __shfl_xor_sync(0xffffffffu, dt, off);
       // scale after the dot product, as the reference does
-      s[u] = (t0 + u < n) ? dot * scale : -INFINITY;
+      s[u] = (t0 + u * G + grp < end) ? dt * scale : -INFINITY;
     }
     float mx = m;
 #pragma unroll
-    for (int u = 0; u < kTok; ++u) mx = fmaxf(mx, s[u]);
+    for (int u = 0; u < SLOTS; ++u) mx = fmaxf(mx, s[u]);
     const float alpha = expf(m - mx);
-    float p[kTok], psum = 0.f;
+    float p[SLOTS], psum = 0.f;
 #pragma unroll
-    for (int u = 0; u < kTok; ++u) {
+    for (int u = 0; u < SLOTS; ++u) {
       p[u] = expf(s[u] - mx);
       psum += p[u];
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      float a = acc[i] * alpha;
+    for (int i = 0; i < VPL; ++i) {
+      scale_by(acc[i], alpha);
 #pragma unroll
-      for (int u = 0; u < kTok; ++u) a += p[u] * vr[u][i];
-      acc[i] = a;
+      for (int u = 0; u < SLOTS; ++u) fma_to(acc[i], p[u], vr[u][i]);
     }
     m = mx;
   }
 
-  // merge the warps: a warp that saw no position holds (kMask, 0, 0) and
-  // weighs exp(kMask - M) == 0
+  // merge the warp's groups by an xor butterfly over the lane bits above
+  // LP (a group that saw no position holds (kMask, 0, 0) and weighs
+  // exp(kMask - M) == 0), then the CTA's warps through shared memory
+#pragma unroll
+  for (int off = LP; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mx = fmaxf(m, mo);
+    const float a = expf(m - mx), c = expf(mo - mx);
+    l = l * a + lo * c;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const V other = shfl_xor(acc[i], off);  // before this lane rescales
+      scale_by(acc[i], a);
+      fma_to(acc[i], c, other);
+    }
+    m = mx;
+  }
   if (lane == 0) {
     s_m[warp] = m;
     s_l[warp] = l;
   }
+  if (grp == 0) {
 #pragma unroll
-  for (int i = 0; i < NI; ++i) s_acc[warp][lane + 32 * i] = acc[i];
+    for (int i = 0; i < VPL; ++i) s_acc[warp][gl + LP * i] = acc[i];
+  }
   __syncthreads();
   float M = s_m[0];
 #pragma unroll
@@ -164,44 +265,115 @@ paged_attention_kernel(const float* __restrict__ q,
     wsc[w] = expf(s_m[w] - M);
     L += s_l[w] * wsc[w];
   }
+  const float* sa = reinterpret_cast<const float*>(&s_acc[0][0]);
+  constexpr int kRow = LP * VPL * W;  // floats of one warp's accumulator
+  if (n_live == 1) {                  // the lane's only chunk
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
+      o[d] = a / L;
+    }
+    return;
+  }
+
+  // a partial of the lane's S: (m, l) then acc[D]
+  float* pp = part + (bh * S + split) * (size_t)(D + 2);
   for (int d = tid; d < D; d += kThreads) {
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += s_acc[w][d] * wsc[w];
-    o[d] = a / L;
+    for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
+    pp[2 + d] = a;
   }
+  if (tid == 0) {
+    pp[0] = M;
+    pp[1] = L;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&count[bh], 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last CTA of the lane's live chunks merges them in split order
+  const float* pb = part + bh * S * (size_t)(D + 2);
+  for (int j = tid; j < n_live; j += kThreads) {
+    s_pm[j] = __ldcg(pb + (size_t)j * (D + 2));
+    s_pl[j] = __ldcg(pb + (size_t)j * (D + 2) + 1);
+  }
+  __syncthreads();
+  float Mg = kMask;
+  for (int j = 0; j < n_live; ++j) Mg = fmaxf(Mg, s_pm[j]);
+  __syncthreads();
+  for (int j = tid; j < n_live; j += kThreads)
+    s_pm[j] = expf(s_pm[j] - Mg);     // split j's weight
+  __syncthreads();
+  float Lg = 0.f;
+  for (int j = 0; j < n_live; ++j) Lg += s_pl[j] * s_pm[j];
+  for (int d = tid; d < D; d += kThreads) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n_live; ++j)
+      a += __ldcg(pb + (size_t)j * (D + 2) + 2 + d) * s_pm[j];
+    o[d] = a / Lg;
+  }
+  if (tid == 0) count[bh] = 0;        // ready for the next launch
 }
 
-template <int NI>
+template <typename V, int LP, int VPL, int SLOTS>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* tables, const int* lens, float* out, int B,
-                   int H, int D, int NB, int BS, int MAXB, float scale,
+                   const int* tables, const int* lens, float* out,
+                   float* part, int* count, int B, int H, int D, int NB,
+                   int BS, int MAXB, int chunk, int splits, float scale,
                    cudaStream_t stream) {
-  const dim3 grid(H, B);
-  const size_t smem = (size_t)MAXB * sizeof(int);
-  paged_attention_kernel<NI><<<grid, kThreads, smem, stream>>>(
-      q, k, v, tables, lens, out, H, D, NB, BS, MAXB, scale);
+  const dim3 grid(H, B, splits);
+  // the block ids of one chunk: it may start and end inside a block
+  const size_t smem = (size_t)(chunk / BS + 2) * sizeof(int);
+  paged_attention_kernel<V, LP, VPL, SLOTS><<<grid, kThreads, smem, stream>>>(
+      reinterpret_cast<const V*>(q), reinterpret_cast<const V*>(k),
+      reinterpret_cast<const V*>(v), tables, lens, out, part, count, H, D,
+      NB, BS, MAXB, chunk, scale);
   return cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
 }  // namespace
 
+// chunk positions a split, splits * chunk covering MAXB * BS and no split
+// empty for a full table; part ([B, H, splits, D + 2] floats) and count
+// ([B * H] ints, zero before the first launch, left zero by each) are
+// read only when splits > 1.
 extern "C" cudaError_t paged_attention_f32(
     const float* q, const float* k_cache, const float* v_cache,
-    const int* block_tables, const int* context_lens, float* out, int B,
-    int H, int D, int NB, int BS, int MAXB, float scale,
-    cudaStream_t stream) {
+    const int* block_tables, const int* context_lens, float* out,
+    float* part, int* count, int B, int H, int D, int NB, int BS, int MAXB,
+    int chunk, int splits, float scale, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || NB <= 0 || BS <= 0 ||
-      MAXB <= 0 || MAXB > kMaxTable || B > 65535)
+      MAXB <= 0 || MAXB > kMaxTable || B > 65535 || H > 65535 ||
+      chunk <= 0 || splits <= 0 || splits > kMaxSplits ||
+      (long long)chunk * splits < (long long)MAXB * BS ||
+      (long long)chunk * (splits - 1) >= (long long)MAXB * BS ||
+      (splits > 1 && (part == nullptr || count == nullptr)))
     return cudaErrorInvalidValue;
-  switch ((D + 31) / 32) {
-    case 1: return launch<1>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 2: return launch<2>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 3: return launch<3>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 4: return launch<4>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 5: return launch<5>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 6: return launch<6>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    case 7: return launch<7>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
-    default: return launch<8>(q, k_cache, v_cache, block_tables, context_lens, out, B, H, D, NB, BS, MAXB, scale, stream);
+  const bool vec = D % 4 == 0 && D >= 16 && aligned16(q) &&
+                   aligned16(k_cache) && aligned16(v_cache);
+#define PAGED_ARGS                                                        \
+  q, k_cache, v_cache, block_tables, context_lens, out, part, count, B, H, \
+      D, NB, BS, MAXB, chunk, splits, scale, stream
+  if (vec) {  // LP lanes a position, a float4 each (two past D = 128)
+    const int dv = D / 4;
+    if (dv <= 4) return launch<float4, 4, 1, 4>(PAGED_ARGS);
+    if (dv <= 8) return launch<float4, 8, 1, 4>(PAGED_ARGS);
+    if (dv <= 16) return launch<float4, 16, 1, 4>(PAGED_ARGS);
+    if (dv <= 32) return launch<float4, 32, 1, 4>(PAGED_ARGS);
+    return launch<float4, 32, 2, 2>(PAGED_ARGS);
   }
+  // a warp a position, lane + 32 i of its row
+  const int ni = (D + 31) / 32;
+  if (ni <= 1) return launch<float, 32, 1, 4>(PAGED_ARGS);
+  if (ni <= 2) return launch<float, 32, 2, 4>(PAGED_ARGS);
+  if (ni <= 4) return launch<float, 32, 4, 4>(PAGED_ARGS);
+  return launch<float, 32, 8, 4>(PAGED_ARGS);
+#undef PAGED_ARGS
 }

@@ -170,10 +170,14 @@ def fused_ln_bwd_reference(r2, gamma, mean, var, dz2, epsilon=1e-5,
     return dx, _dropped(dr, seed, thr).to(r2.dtype), dg, db
 
 
-# the kernel gives each CTA a run of rows; about two CTAs per SM of the
-# card's 132 keep the dgamma/dbeta partials few
+# the kernel gives each CTA a run of rows, a multiple of its 4 warps;
+# about four CTAs per SM of the card's 132 (its float4 kernel's
+# occupancy) fill the card at BERT's 4096 rows: 512 CTAs of 8 rows there
+# (256 CTAs of 16 rows timed 3% slower on an H100, PERF.md).
+# The geometry depends on n alone, so the dgamma/dbeta partials, and the
+# order they are added in, are the same on every run.
 _BWD_WARPS = 4
-_BWD_TARGET_CTAS = 264
+_BWD_TARGET_CTAS = 528
 
 
 def _bwd_grid(n):

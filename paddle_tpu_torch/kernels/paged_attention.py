@@ -15,6 +15,10 @@ lane's block table.
   kernel (``csrc/paged_attention.cu``), which is built at first use, or
   the call raises.  There is no fallback from the kernel to the plain
   version.  ``paged_attention.launches`` counts kernel launches.
+* ``context_splits`` is the kernel's cut of a lane's context into
+  splits of a fixed chunk, from the table width and the card's SM count
+  alone: the host never reads ``context_lens``, which would make it
+  wait for the card every decode step.
 """
 
 import ctypes
@@ -24,7 +28,7 @@ import torch
 
 from . import _build
 
-__all__ = ["masked_attention", "paged_attention_reference",
+__all__ = ["masked_attention", "paged_attention_reference", "context_splits",
            "paged_attention"]
 
 # finite, as in the reference: a fully-masked (idle, context_lens == 0)
@@ -65,13 +69,46 @@ def paged_attention_reference(q, k_cache, v_cache, block_tables,
 _MAX_D = 256
 _MAX_TABLE = 8192
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+# positions a CTA of the kernel walks: 128 at D = 64 is two steps of its
+# 8 warps x 8 positions (64 and 256 timed slower at the smoke's decode
+# shape on an H100, PERF.md)
+CHUNK = 128
+_MAX_SPLITS = 1024
+
+
+def context_splits(width, sm_count):
+    """(chunk, splits) of a table ``width`` = MAXB * bs positions wide on a
+    card of ``sm_count`` SMs: splits of CHUNK positions, at most one per
+    SM for a lane (past that a split takes several chunks), so that the
+    scratch of the partials and their merge stay small."""
+    s = -(-width // CHUNK)
+    chunk = CHUNK * -(-s // max(1, min(sm_count, _MAX_SPLITS)))
+    return chunk, -(-width // chunk)
 
 
 def _kernel():
     return _build.function(
         "paged_attention", "paged_attention_f32",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-         ctypes.c_float, _VP])
+        [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP])
+
+
+# per (device, stream): the int32 merge counters, zero between launches
+_counters = {}
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _counter(device, stream, n):
+    """int32 [>= n] counters of ``stream``, zeroed once: the kernel sets
+    each back to 0 after its merge.  One buffer a stream, so launches on
+    two streams never share a counter."""
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        c = _counters[device, stream] = torch.zeros(
+            n, dtype=torch.int32, device=device)
+    return c
 
 
 def _check(q, k_cache, v_cache, block_tables, context_lens):
@@ -125,12 +162,20 @@ def _paged_cuda(q, k_cache, v_cache, block_tables, context_lens):
     _check(q, k_cache, v_cache, block_tables, context_lens)
     bb, h, d = q.shape
     nb, bs = k_cache.shape[:2]
+    maxb = block_tables.shape[1]
+    chunk, splits = context_splits(maxb * bs, _sm_count(q.device))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = count = None
+    if splits > 1:
+        part = torch.empty(bb * h * splits * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        count = _counter(q.device, stream, bb * h)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), bb, h, d, nb, bs, block_tables.shape[1],
-             1.0 / math.sqrt(d), stream)
+             out.data_ptr(), part.data_ptr() if part is not None else None,
+             count.data_ptr() if count is not None else None, bb, h, d, nb,
+             bs, maxb, chunk, splits, 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            "cudaError_t %d" % err)

@@ -12,7 +12,14 @@ its jnp pass on the CPU) at dropout probability 0 and 0.1.
   the same keep mask (its ``_fallback_keep`` patched to the port's
   Philox mask), the port's backward re-drawing it from the forward's
   Seed tensor; same tolerances.
+* The kernel's float4 mask draw (one Philox group per run of four
+  columns), its geometry and the order in which it adds the dgamma and
+  dbeta partials, emulated in torch, are held to the stream and to the
+  plain version.
 * The CUDA branch builds or raises and never falls back."""
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +159,153 @@ def test_kernel_source_names_what_it_replaces_and_its_bound():
     src = (_build.CSRC / "fused_ln_bwd.cu").read_text()
     assert "fused_ln.py `_bwd_kernel`" in src and "Bound:" in src
     assert "fused_ln_bwd" in _build.SOURCES
+    # the float4 path: one Philox group a run, the strip reduction; the
+    # scalar kernel kept for the other rows; no atomics anywhere
+    assert "fused_ln_bwd_vec" in src and "fused_ln_bwd_rows" in src
+    assert "philox::group(base + c, k0, k1)" in src
+    assert "reduce_partials<float4, 8, 32>" in src
+    assert "reduce_partials<float, 32, 8>" in src
+    assert "atomic" not in src.lower().replace("no atomics", "")
+
+
+# -- the float4 kernel, emulated ----------------------------------------------
+
+def _float4_keep(words, thr, row0, rows, h):
+    """The kernel's draw: the run of columns 4 c .. 4 c + 3 of row ``row``
+    takes the four words of Philox counter row * h / 4 + c, one call."""
+    k0, k1 = philox.seed_words(words)
+    row = torch.arange(row0, row0 + rows, dtype=torch.int64)[:, None]
+    ctr = row * (h // 4) + torch.arange(h // 4, dtype=torch.int64)[None, :]
+    zero = torch.zeros_like(ctr)
+    lanes = philox.philox4x32(ctr & 0xFFFFFFFF, ctr >> 32, zero, zero, k0,
+                              k1)
+    return torch.stack([w < thr for w in lanes], dim=-1).reshape(rows, h)
+
+
+def _element_keep(words, thr, row0, rows, h):
+    """The scalar kernel's draw: element e takes lane e & 3 of counter
+    e >> 2, one call an element."""
+    k0, k1 = philox.seed_words(words)
+    e = (torch.arange(row0, row0 + rows, dtype=torch.int64)[:, None] * h
+         + torch.arange(h, dtype=torch.int64)[None, :])
+    ctr = e >> 2
+    zero = torch.zeros_like(ctr)
+    lanes = torch.stack(philox.philox4x32(ctr & 0xFFFFFFFF, ctr >> 32, zero,
+                                          zero, k0, k1), dim=-1)
+    return lanes.gather(-1, (e & 3)[..., None])[..., 0] < thr
+
+
+@pytest.mark.parametrize("row0", [0, 37])
+def test_float4_mask_draw_is_the_forwards_stream(row0):
+    """At h = 768, p = 0.1, from row 0 and from an odd row: bit for bit
+    ``philox.keep_mask``, the mask of the forward and the plain version."""
+    words, thr, h = (0x5EED, 0xC0DE), philox.keep_threshold(0.1), 768
+    got = _float4_keep(words, thr, row0, 5, h)
+    want = philox.keep_mask(words, thr, (row0 + 5, h))[row0:]
+    assert torch.equal(got, want)
+    assert 0.85 < float(got.float().mean()) < 0.95
+
+
+def test_float4_mask_draw_past_a_32_bit_counter():
+    """Rows whose counters cross 2^32 (the high word of the counter): one
+    group a run equals one group an element."""
+    words, thr, h = (0xFACE, 0xB00C), philox.keep_threshold(0.1), 768
+    row0 = (1 << 32) // (h // 4) - 1
+    assert torch.equal(_float4_keep(words, thr, row0, 3, h),
+                       _element_keep(words, thr, row0, 3, h))
+
+
+@pytest.mark.parametrize("n", [1, 37, 614, 4096, 100003])
+def test_backward_geometry_covers_every_row_and_column(n):
+    """Rows: CTA i's warp w takes rows i * rows + w, + 4, ... below the
+    CTA's end, each row once, every CTA at least one (each writes a
+    partial).  Columns at h = 768: lane l takes float4 runs l + 32 i.  The
+    reduction: CTA x takes runs 8 x .. 8 x + 7, slice k partials k, k +
+    32, ..., each partial once."""
+    rows, ctas = tfl._bwd_grid(n)
+    assert rows % 4 == 0 and rows * (ctas - 1) < n <= rows * ctas
+    seen = np.zeros(n, np.int64)
+    start = np.arange(ctas)[:, None] * rows
+    end = np.minimum(n, start + rows)
+    for w in range(4):
+        r = start + w + 4 * np.arange(rows // 4)[None, :]
+        np.add.at(seen, r[r < end], 1)
+    assert (seen == 1).all()
+    h4 = 768 // 4
+    lanes = (np.arange(32)[:, None] + 32 * np.arange(-(-h4 // 32))).ravel()
+    assert sorted(lanes[lanes < h4]) == list(range(h4))
+    strips = (np.arange(-(-h4 // 8))[:, None] * 8 + np.arange(8)).ravel()
+    assert sorted(strips[strips < h4]) == list(range(h4))
+    parts = np.concatenate([np.arange(k, ctas, 32) for k in range(32)])
+    assert sorted(parts) == list(range(ctas))
+
+
+def _kernel_sums(dz, xhat, rows, ctas):
+    """dgamma and dbeta in the kernel's order: each warp adds its rows
+    into its slice, the CTA adds its 4 slices in order, the reduction's
+    32 slices add their partials in order, then a fixed tree."""
+    n, h = dz.shape
+    g_part = torch.zeros(ctas, h)
+    b_part = torch.zeros(ctas, h)
+    for i in range(ctas):
+        sg = torch.zeros(4, h)
+        sb = torch.zeros(4, h)
+        for w in range(4):
+            for row in range(i * rows + w, min(n, (i + 1) * rows), 4):
+                sg[w] += dz[row] * xhat[row]
+                sb[w] += dz[row]
+        g_part[i] = ((sg[0] + sg[1]) + sg[2]) + sg[3]
+        b_part[i] = ((sb[0] + sb[1]) + sb[2]) + sb[3]
+    out = []
+    for part in (g_part, b_part):
+        sl = [torch.zeros(h) for _ in range(32)]
+        for k in range(32):
+            for i in range(k, ctas, 32):
+                sl[k] = sl[k] + part[i]
+        st = 16
+        while st:
+            sl = [sl[k] + sl[k + st] for k in range(st)]
+            st //= 2
+        out.append(sl[0])
+    return out
+
+
+def test_partials_in_the_kernels_order_match_the_reference():
+    """At [614, 768] (154 CTAs of 4 rows), the kernel's summation order
+    of dgamma and dbeta equals the reference's sums to SUM_RTOL."""
+    n, h = 614, 768
+    rng = np.random.RandomState(5)
+    x, y, dz = (_rand(rng, n, h) for _ in range(3))
+    g, b = _rand(rng, h, shift=1.0), _rand(rng, h)
+    seed = np.zeros(2, np.uint32)
+    _z, r, mean, var = jfl.fused_ln_fwd(x, y, g, b, 0.0, seed, 1e-5, 1)
+    want = jfl.fused_ln_bwd(r, g, seed, mean, var, dz, 0.0, 1e-5, 1)
+    xhat = (_t(r) - _t(mean)[:, None]) * torch.rsqrt(_t(var)[:, None]
+                                                      + 1e-5)
+    rows, ctas = tfl._bwd_grid(n)
+    assert (rows, ctas) == (4, 154)
+    for got, wv in zip(_kernel_sums(_t(dz), xhat, rows, ctas), want[2:]):
+        wv = np.asarray(wv)
+        np.testing.assert_allclose(got.numpy(), wv, rtol=0,
+                                   atol=SUM_RTOL * float(np.abs(wv).max()))
+
+
+def test_wrapper_types_every_argument_of_the_c_entry(monkeypatch):
+    """The ctypes types of ``fused_ln_bwd_f32`` are the C entry's
+    parameters, one for one: ten pointers, two ints, eps, two ints, the
+    unsigned threshold, the seed pointer, inv_q, the stream."""
+    src = (_build.CSRC / "fused_ln_bwd.cu").read_text()
+    decl = re.search(r'extern "C" cudaError_t fused_ln_bwd_f32\((.*?)\)',
+                     src, re.S).group(1)
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "unsigned int": ctypes.c_uint}
+    want = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+            else kinds[" ".join(p.split()[:-1])] for p in decl.split(",")]
+
+    class _Lib:
+        fused_ln_bwd_f32 = ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "load", lambda name: _Lib())
+    assert len(want) == 19
+    assert list(tfl._bwd_kernel().argtypes) == want

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The LayerNorm kernel (row 14) on the card, with the fused LN forward
-(row 7) timed beside it as a control.
+"""The LayerNorm kernel (row 14) and the fused LN backward (row 8) on the
+card, with the fused LN forward (row 7) timed beside them.
 
     python3 tools/torch_ln_bench.py [--root DIR]
 
@@ -14,6 +14,11 @@ Times with CUDA events, L2 flushed before each call
   bytes bound at 3.35 TB/s;
 * ``fused_ln_fwd`` at [4096, 768], p = 0 and p = 0.1, against
   ``F.layer_norm(x + y)`` (and with ``F.dropout(y)``);
+* ``fused_ln_bwd`` at [4096, 768] (the 24 encoder epilogues of a BERT-base
+  training step at batch 32) and [614, 768], p = 0 and p = 0.1, from the
+  forward kernel's r, statistics and Seed, against the autograd of
+  ``F.layer_norm(x + y)`` (and with ``F.dropout(y)``), with the bytes
+  bound (read r and dz, write dx, and dy at p > 0);
 * the floor of a cold-L2 timing on the card: a one-element add timed the
   same way.
 
@@ -103,7 +108,50 @@ def main():
                   n, C, p, row["ms"], ", dropped" if p else "",
                   row["library_ms"], row["bound_ms"]), flush=True)
         rows.append(row)
+    rows += bwd_rows(smoke, fl, t, g, b, flush)
     print(json.dumps({"ln_bench": rows}), flush=True)
+
+
+def bwd_rows(smoke, fl, t, g, b, flush):
+    ln_f = torch.nn.functional.layer_norm
+    drop_f = torch.nn.functional.dropout
+    seed_t = torch.empty(2, dtype=torch.int32, device=g.device)
+    rows = []
+    for n in (4096, 614):
+        x, y, dz = t(n, C), t(n, C), t(n, C)
+        leaves = [a.detach().requires_grad_() for a in (x, y, g, b)]
+        for p in (0.0, 0.1):
+            words = smoke.WORDS if p else None
+            _z, r, mean, var = fl.fused_ln_fwd(x, y, g, b, p, words, 1e-5,
+                                               seed_out=seed_t)
+            args = (r, g, mean, var, dz, p, seed_t if p else None)
+            got = fl.fused_ln_bwd(*args)
+            want = fl.fused_ln_bwd_reference(r, g, mean, var, dz, 1e-5, p,
+                                             words)
+            err = max(float((u - w).abs().max())
+                      for u, w in zip(got[:2], want[:2]))
+            z = ln_f(leaves[0] + (drop_f(leaves[1], p) if p else leaves[1]),
+                     (C,), leaves[2], leaves[3], 1e-5)
+            nbytes = 4 * ((4 if p else 3) * n * C + 2 * n + 3 * C) + \
+                (8 if p else 0)
+            row = {"kernel": "fused_ln_bwd", "rows": n, "cols": C, "p": p,
+                   "ms": smoke.time_cold(lambda: fl.fused_ln_bwd(*args),
+                                         flush),
+                   "library_ms": smoke.time_cold(
+                       lambda: torch.autograd.grad(z, leaves, dz,
+                                                   retain_graph=True),
+                       flush),
+                   "bound_ms": smoke.bound(nbytes,
+                                           (12 if p else 11) * n * C)[0],
+                   "max_abs_err": err}
+            print("fused_ln_bwd [%d, %d] p=%g: kernel %.6f ms, autograd of "
+                  "F.layer_norm(x + y%s) %.6f, bound %.6f (bytes), err vs "
+                  "plain %.3g" % (n, C, p, row["ms"],
+                                  ", dropped" if p else "",
+                                  row["library_ms"], row["bound_ms"], err),
+                  flush=True)
+            rows.append(row)
+    return rows
 
 
 if __name__ == "__main__":
