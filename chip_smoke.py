@@ -11,7 +11,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
 3. the kernels: each kernel against its plain PyTorch version on the card
    at its main-path shape and others (the fused Adam and the fused
    momentum bitwise, with and without their bf16 copy; the conv-block
-   kernels at ResNet-50's shapes and odd ones, the affine pass bitwise;
+   kernels at ResNet-50's shapes and odd ones, the fold of the batch
+   statistics and the affine pass bitwise, both timed at the trunk's 23
+   conv shapes and added up over its 53 convs; the fused LayerNorm at
+   encoder buckets 1, 8 and 32, an odd width and a misaligned x, its
+   keep mask bitwise and re-drawn by the backward;
    the embedding bag bitwise at DLRM's largest bag and ragged, all-pad
    and D = 256 cases; the channel statistics against float64 sums; the
    flash forward at each of its CTA shapes; the fused flash backward's
@@ -58,8 +62,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    none), sampled replies equal to the plain predictor on the CPU;
 8. ResNet-50 training, both programs, Momentum (0.9) with L2Decay(1e-4)
    at batch 32 for 5 steps on one batch: the fused momentum kernel once
-   a step, the trunk's conv-with-statistics and affine + relu kernels 53
-   times a step each, the last loss below the first, and 3 steps at
+   a step, the trunk's conv-with-statistics, statistics-fold and affine +
+   relu kernels 53 times a step each, the last loss below the first, and
+   3 steps at
    batch 2, each from one state on the card and on the CPU's plain path,
    with the same losses and velocities;
 9. DLRM training (the Criteo Terabyte configuration: 26 tables of
@@ -423,40 +428,74 @@ def flash_kernel_phase(fa, dev, flush):
 WORDS = (0x5EED, 0xC0DE)
 
 
+def ln_mask_check(fl, like, g, seed_t, what):
+    """Row 7's keep mask at p = 0.1 bitwise the plain version's: at x = 0,
+    y = 1 its r is inv_q where kept and 0 where dropped, in both (``like``
+    gives the shape and the storage offset of x and y)."""
+    zeros = torch.zeros_like(like) if like.data_ptr() % 16 == 0 else \
+        torch.zeros(like.numel() + 1, device=like.device)[1:].view(
+            like.shape)
+    ones = zeros + 1.0
+    b = torch.zeros_like(g)
+    got = fl.fused_ln_fwd(zeros, ones, g, b, 0.1, WORDS, 1e-5,
+                          seed_out=seed_t)[1]
+    want = fl.fused_ln_reference(zeros, ones, g, b, 1e-5, 0.1, WORDS)[1]
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("fused_ln keep mask differs from the plain version's at %s"
+             % what)
+    print("kernel fused_ln %s p=0.1: keep mask bitwise the plain "
+          "version's (keep fraction %.6f)"
+          % (what, float((got != 0).float().mean())), flush=True)
+
+
 def ln_kernel_phase(fl, ln, philox, dev, flush):
-    """Rows 7 and 14: fused_ln at p = 0 and p = 0.1, LayerNorm.  The
-    kernels line takes fused_ln at p = 0.1 over the training step's
-    [4096, 768] rows; its p = 0 times print beside it."""
+    """Rows 7 and 14: fused_ln at p = 0 and p = 0.1 on its float4 path
+    (encoder buckets 1 and 8, the training step's [4096, 768]), its
+    scalar path ([37, 200]) and its fallback for a misaligned x; the keep
+    mask bitwise the plain version's, and row 8 re-drawing it from the
+    Seed the forward stored; LayerNorm.  The kernels line takes fused_ln
+    at p = 0.1 over the training step's [4096, 768] rows; its p = 0 times
+    print beside it."""
     rng = np.random.RandomState(2)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     ln_f = torch.nn.functional.layer_norm
     drop_f = torch.nn.functional.dropout
     worst_f = worst_l = 0.0
-    shapes = {(1024, 768): "BERT rows [1024, 768]",
+    shapes = {(128, 768): "encoder bucket 1 rows [128, 768]",
+              (1024, 768): "BERT rows [1024, 768]",
               (4096, 768): "training rows [4096, 768]",
-              (37, 200): "odd [37, 200]"}
+              (37, 200): "scalar path [37, 200]",
+              (64, 768, 1): "misaligned x [64, 768] (the rows fallback)"}
     tensors = {}
     seed_t = torch.empty(2, dtype=torch.int32, device=dev)
-    for (n, hd), what in shapes.items():
-        x, y, g, b = (t(_rand(rng, *s)) for s in ((n, hd), (n, hd), (hd,),
-                                                  (hd,)))
+    for key, what in shapes.items():
+        n, hd = key[:2]
+        x, y, g, b, dz = (t(_rand(rng, *s)) for s in (
+            (n, hd), (n, hd), (hd,), (hd,), (n, hd)))
+        if len(key) == 3:       # x one float past a 16-byte boundary
+            x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(n, hd)
         tensors[n, hd] = (x, y, g, b)
         worst_f = max(worst_f, check(
             "fused_ln", what + " p=0",
             fl.fused_ln_fwd(x, y, g, b, 0.0, None, 1e-5),
             fl.fused_ln_reference(x, y, g, b, 1e-5)))
+        got = fl.fused_ln_fwd(x, y, g, b, 0.1, WORDS, 1e-5, seed_out=seed_t)
         worst_f = max(worst_f, check(
-            "fused_ln", what + " p=0.1",
-            fl.fused_ln_fwd(x, y, g, b, 0.1, WORDS, 1e-5, seed_out=seed_t),
+            "fused_ln", what + " p=0.1", got,
             fl.fused_ln_reference(x, y, g, b, 1e-5, 0.1, WORDS)))
         if philox.seed_words(seed_t) != WORDS:
             fail("fused_ln stored seed words %s, want %s"
                  % (philox.seed_words(seed_t), WORDS))
+        ln_mask_check(fl, x, g, seed_t, what)
+        # row 8 re-draws the forward's mask from the stored Seed
+        ln_bwd_repeat_and_mask(fl, philox, got[1], g, got[2], got[3], dz,
+                               seed_t)
         worst_l = max(worst_l, check(
             "layer_norm", what, ln.layer_norm_2d(x, g, b, 1e-5),
             ln.layer_norm_2d_reference(x, g, b, 1e-5)))
     rows = []
-    for n_rows in (1024, 4096):         # p = 0: printed beside the row
+    for n_rows in (128, 1024, 4096):    # p = 0: printed beside the row
         x, y, g, b = tensors[n_rows, 768]
         n, hd = x.shape
         timed_row(
@@ -1031,33 +1070,134 @@ def conv_pair(cb, x, w, a, b, stride, pad, relu, what, worst, tile=None):
               [g / wv.abs().max()], [wv / wv.abs().max()], CONV_STATS_RTOL)
     if not all(torch.equal(g, h) for g, h in zip(first, again)):
         fail("conv_stats not bitwise equal over two runs at %s" % what)
-    return first[0]
+    return first
+
+
+def fold_and_affine_check(cb, conv, s, ss, scale, bias, relu, rng, what):
+    """The fold bitwise its plain version from row 12's sums (running
+    statistics drawn from ``rng``), then row 13 with the fold's a and b
+    bitwise its plain version."""
+    co = s.shape[1]
+    mean = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32)).to(
+        s.device)
+    var = torch.from_numpy(rng.uniform(0.5, 2.0, co).astype(np.float32)).to(
+        s.device)
+    cnt = conv.shape[0] * conv.shape[2] * conv.shape[3]
+    got = cb.bn_fold(s, ss, scale, bias, mean, var, cnt, 0.9, 1e-5)
+    want = cb.bn_fold_reference(s, ss, scale, bias, mean, var, cnt, 0.9,
+                                1e-5)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("a", "b", "MeanOut", "VarianceOut", "SavedMean",
+                           "SavedVariance"), got, want):
+        if not torch.equal(g, w):
+            fail("bn_fold %s not bitwise equal to the plain version at %s "
+                 "(max abs err %.3g)" % (name, what,
+                                         float((g - w).abs().max())))
+    y = cb.affine_act(conv, got[0], got[1], relu)
+    torch.cuda.synchronize()
+    if not torch.equal(y, cb.affine_act_reference(conv, got[0], got[1],
+                                                  relu)):
+        fail("affine_act not bitwise equal to the plain version at %s"
+             % what)
+    print("kernel bn_fold, affine_act %s: the fold's six outputs and the "
+          "affine pass bitwise equal to their plain versions" % what,
+          flush=True)
+
+
+def trunk_conv_shapes(batch):
+    """[((x shape, w shape, stride, pad), count)] of the ResNet-50 trunk's
+    conv2d_bn_relu ops (53 convs of 23 shapes), in program order."""
+    import collections
+
+    main_p = resnet_program("trunk", True)[0]
+    blk = main_p.global_block()
+    shapes = collections.Counter()
+    for op in blk.ops:
+        if op.type == "conv2d_bn_relu":
+            x = blk.var(op.input("Input")[0]).shape
+            w = blk.var(op.input("Filter")[0]).shape
+            shapes[((batch,) + tuple(x[1:]), tuple(w),
+                    int(op.attr("strides")[0]),
+                    int(op.attr("paddings")[0]))] += 1
+    return list(shapes.items())
+
+
+def tail_rows(cb, dev, flush):
+    """Row 13 and the fold timed at each of the trunk's 23 conv shapes at
+    batch 32 and added up weighted by each shape's count: the rows of the
+    kernels line are the 53 convs of one training step."""
+    rng = np.random.RandomState(12)
+    f = torch.nn.functional
+    total = {name: dict.fromkeys(("ms", "plain_ms", "bound_ms",
+                                  "library_ms"), 0.0)
+             for name in ("affine_act", "bn_fold")}
+    for (xs, ws, stride, pad), count in trunk_conv_shapes(32):
+        n, co, k = xs[0], ws[0], ws[2]
+        oh = cb.out_size(xs[2], k, stride, pad)
+        conv = torch.randn((n, co, oh, oh), device=dev)
+        s, ss = conv.sum(dim=(2, 3)), (conv * conv).sum(dim=(2, 3))
+        scale, bias, mean = (torch.randn(co, device=dev) for _ in range(3))
+        var = torch.rand(co, device=dev) + 0.5
+        a, b = cb.bn_fold(s, ss, scale, bias, mean, var, n * oh * oh, 0.9,
+                          1e-5)[:2]
+        el = n * co * oh * oh
+        what = "[%d, %d, %d, %d] x%d" % (n, co, oh, oh, count)
+        rows = {"affine_act": timed_row(
+            "affine_act", lambda: cb.affine_act(conv, a, b),
+            lambda: cb.affine_act_reference(conv, a, b),
+            lambda: f.relu(torch.addcmul(b.reshape(1, -1, 1, 1), conv,
+                                         a.reshape(1, -1, 1, 1))),
+            4 * (2 * el + 2 * co), 3 * el, flush, 0.0,
+            "%s (F.relu(torch.addcmul(b, conv, a)))" % what),
+            "bn_fold": timed_row(
+            "bn_fold", lambda: cb.bn_fold(s, ss, scale, bias, mean, var,
+                                          n * oh * oh, 0.9, 1e-5),
+            lambda: cb.bn_fold_reference(s, ss, scale, bias, mean, var,
+                                         n * oh * oh, 0.9, 1e-5),
+            None, 4 * (2 * n * co + 10 * co), 2 * n * co + 14 * co, flush,
+            0.0, "%s (no one-call equivalent)" % what,
+            sleep_cycles=4_000_000)}
+        for name, row in rows.items():
+            for key in ("ms", "plain_ms", "bound_ms"):
+                total[name][key] += count * row[key]
+            if row["library_ms"] is not None:
+                total[name]["library_ms"] += count * row["library_ms"]
+        del conv, s, ss
+    out = []
+    for name, tot in total.items():
+        lib = tot["library_ms"] if name == "affine_act" else None
+        print("kernel %s over the trunk's 53 convs at batch 32 (a training "
+              "step): kernel_ms %.6f plain_ms %.6f library_ms %s bound_ms "
+              "%.6f (bytes)" % (name, tot["ms"], tot["plain_ms"],
+                                "%.6f" % lib if lib is not None else "none",
+                                tot["bound_ms"]), flush=True)
+        out.append({"name": name, "route": "cuda", "max_abs_err": 0.0,
+                    "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                    "bound_ms": tot["bound_ms"], "bound_by": "bytes",
+                    "library_ms": lib})
+    return out
 
 
 def conv_kernel_phase(cb, dev, flush):
-    """Rows 11, 12, 13 against their plain versions at CONV_CASES (row 12
-    bitwise over two runs; row 13 bitwise: one rounded product and sum, as
-    the plain version) and at every tile (TILE_CASES), then timed at the
-    stem and the stage-3 3x3 (the rows carry the 3x3)."""
+    """Rows 11, 12, 13 and the fold against their plain versions at
+    CONV_CASES (row 12 bitwise over two runs; the fold and row 13 bitwise:
+    one rounded operation a step, as their plain versions) and at every
+    tile (TILE_CASES), then rows 11 and 12 timed at the stem and the
+    stage-3 3x3 (the rows carry the 3x3), row 13 and the fold at the
+    trunk's 23 shapes (the rows carry the 53 convs' sum)."""
     rng = np.random.RandomState(11)
-    worst = {"conv_bn_act": 0.0, "conv_stats": 0.0, "affine_act": 0.0}
+    worst = {"conv_bn_act": 0.0, "conv_stats": 0.0}
     kept = {}
     for what, n, c, hw, co, k, stride, pad, relu in CONV_CASES:
         x, w, a, b = conv_case(rng, n, c, hw, co, k, dev)
         tile = cb.conv_tile(co, n * cb.out_size(hw, k, stride, pad) ** 2)
-        conv = conv_pair(cb, x, w, a, b, stride, pad, relu,
-                         "%s, tile %dx%d" % ((what,) + cb.TILES[tile]),
-                         worst)
-        y = cb.affine_act(conv, a, b, relu)
-        torch.cuda.synchronize()
-        if not torch.equal(y, cb.affine_act_reference(conv, a, b, relu)):
-            fail("affine_act not bitwise equal to the plain version at %s"
-                 % what)
-        print("kernel affine_act %s: bitwise equal to the plain version"
-              % what, flush=True)
+        conv, s, ss = conv_pair(cb, x, w, a, b, stride, pad, relu,
+                                "%s, tile %dx%d" % ((what,) + cb.TILES[tile]),
+                                worst)
+        fold_and_affine_check(cb, conv, s, ss, a, b, relu, rng, what)
         if what.startswith(("stem", "stage-3")):
             kept[what] = (x, w, a, b, stride, pad, relu)
-        del x, w, conv, y
+        del x, w, conv
     for what, n, c, hw, co, k, stride, pad, relu in TILE_CASES:
         x, w, a, b = conv_case(rng, n, c, hw, co, k, dev)
         for tile, (bm, bn) in enumerate(cb.TILES):
@@ -1105,21 +1245,17 @@ def conv_kernel_phase(cb, dev, flush):
                      -(-co // bm) * -(-(n * oh * oh) // bn),
                      100 * row["bound_ms"] / row["ms"],
                      flops / F32_FLOPS * 1e3, flops), flush=True)
-        conv = cb.conv_stats(x, w, stride, pad)[0]
-        rows["affine_act"] = timed_row(
-            "affine_act", lambda: cb.affine_act(conv, a, b),
-            lambda: cb.affine_act_reference(conv, a, b),
-            lambda: f.relu(torch.addcmul(b.reshape(1, -1, 1, 1), conv,
-                                         a.reshape(1, -1, 1, 1))),
-            4 * (2 * out_el + 2 * co), 3 * out_el, flush, 0.0,
-            "[%d, %d, %d, %d] of the %s (F.relu(torch.addcmul(b, conv, a)))"
-            % (n, co, oh, oh, what.split(" x ")[0]))
-    sources = {"conv_bn_act": 133, "conv_stats": 143, "affine_act": 155}
+    del kept
+    rows["affine_act"], rows["bn_fold"] = tail_rows(cb, dev, flush)
+    sources = {"conv_bn_act": "paddle_tpu/pallas_kernels/conv_block.py:133",
+               "conv_stats": "paddle_tpu/pallas_kernels/conv_block.py:143",
+               "affine_act": "paddle_tpu/pallas_kernels/conv_block.py:155",
+               # the jnp fold around the reference's Pallas calls
+               "bn_fold": "paddle_tpu/pallas_kernels/conv_block.py:319"}
     for name, row in rows.items():
         row.update(source="paddle_tpu_torch/kernels/csrc/conv_block.cu",
-                   replaces="paddle_tpu/pallas_kernels/conv_block.py:%d"
-                   % sources[name])
-    return [rows["conv_bn_act"], rows["conv_stats"], rows["affine_act"]]
+                   replaces=sources[name])
+    return [rows[name] for name in sources]
 
 
 def momentum_kernel_phase(fm, dev, flush):
@@ -1552,6 +1688,7 @@ def counted():
             "conv_bn_act": cb.conv_bn_act,
             "conv_stats": cb.conv_stats,
             "affine_act": cb.affine_act,
+            "bn_fold": cb.bn_fold,
             "fused_momentum": fm.fused_momentum_step,
             "embedding_bag": eb.embedding_bag,
             "channel_stats": cst.stats,
@@ -2004,7 +2141,7 @@ def conv_train_phase(which):
         want = {k: 0 for k in launches}
         want["fused_momentum"] = TRAIN_STEPS
         if trunk:
-            want["conv_stats"] = want["affine_act"] = \
+            want["conv_stats"] = want["bn_fold"] = want["affine_act"] = \
                 CONV_BN_PAIRS * TRAIN_STEPS
         if launches != want:
             fail("train resnet [%s] launches %s over %d steps, want %s"

@@ -10,7 +10,12 @@ Counterpart of ``paddle_tpu/pallas_kernels/conv_block.py``:
   ``_train_conv_kernel:143``): the conv and its per-image, per-channel
   sum and sum of squares, [N, C_out] each;
 * ``affine_act`` (row 13, ``_affine_pallas:211`` /
-  ``_affine_relu_kernel:155``): ``act(conv * a + b)``.
+  ``_affine_relu_kernel:155``): ``act(conv * a + b)``;
+* ``bn_fold``: between rows 12 and 13, the batch statistics of row 12's
+  sums folded into row 13's (a, b), with the op's running statistics,
+  SavedMean and SavedVariance (the jnp around the reference's Pallas
+  calls, ``_train_fwd_impl:319`` and ``_fold_affine:240``, and its op's
+  running-statistics update, ``ops/nn.py:438``).
 
 Each wrapper takes its plain version for CPU and meta tensors (the meta
 run is the op's shape inference) and launches ``csrc/conv_block.cu`` for
@@ -30,6 +35,7 @@ it accepts.
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,8 +45,8 @@ from ._checks import check_cuda_f32, raise_on_error
 __all__ = ["TILES", "LOADERS", "conv_tile", "stats_layout", "ctas_per_sm",
            "conv_block_checks", "conv_block_ok", "out_size", "fold_affine",
            "conv_bn_act_reference", "conv_stats_reference",
-           "affine_act_reference", "conv_bn_act", "conv_stats",
-           "affine_act"]
+           "affine_act_reference", "bn_fold_reference", "conv_bn_act",
+           "conv_stats", "affine_act", "bn_fold"]
 
 # CTA tiles of the conv kernel, (C_out rows, pixels of the flattened
 # N * OH * OW) each (csrc/conv_block.cu kTiles, in the same order)
@@ -140,6 +146,36 @@ def conv_stats_reference(x, w, stride, pad):
 def affine_act_reference(conv, a, b, relu=True):
     y = conv * _chan(a) + _chan(b)
     return torch.relu(y) if relu else y
+
+
+def _reciprocal(cnt):
+    """1 / cnt rounded to f32: the fold divides by the count as PyTorch
+    divides a CUDA tensor by a Python scalar, by a product with it."""
+    return float(np.float32(1.0) / np.float32(cnt))
+
+
+def bn_fold_reference(s, ss, scale, bias, mean, var, cnt, momentum, eps):
+    """Plain version of the fold -> (a, b, MeanOut, VarianceOut, SavedMean,
+    SavedVariance), each [C_out]: from row 12's sums s, ss [N, C_out] over
+    ``cnt`` = N OH OW values a channel, m = sum_n s / cnt and v = sum_n ss
+    / cnt - m^2 (the reference's formula, never a centred pass; the
+    division a product with ``_reciprocal(cnt)``), a and b as
+    ``fold_affine`` gives them, the running statistics momentum * old +
+    (1 - momentum) * batch, and the inverse std 1 / sqrt(v + eps).  The
+    images are added one after the other, in order, as the kernel adds
+    them, and every step is one rounded f32 operation: the kernel is
+    bitwise this."""
+    sum_s, sum_ss = s[0].float(), ss[0].float()
+    for i in range(1, s.shape[0]):
+        sum_s = sum_s + s[i].float()
+        sum_ss = sum_ss + ss[i].float()
+    rcnt = _reciprocal(cnt)
+    m = sum_s * rcnt
+    v = sum_ss * rcnt - m * m
+    a, b = fold_affine(scale, bias, m, v, eps)
+    new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
+    new_var = momentum * var + (1 - momentum) * v.to(var.dtype)
+    return a, b, new_mean, new_var, m, 1.0 / torch.sqrt(v + eps)
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -273,12 +309,22 @@ def _conv_stats(x, w, stride, pad, tile):
 conv_stats.launches = 0
 
 
+def _affine_kernel():
+    return _build.function("conv_block", "affine_act_f32",
+                           [_VP] * 4 + [_LL, _I, _I, _I, _VP])
+
+
+def _fold_kernel():
+    return _build.function("conv_block", "bn_fold_f32",
+                           [_VP] * 7 + [_I, _I] + [ctypes.c_float] * 4
+                           + [_VP])
+
+
 def affine_act(conv, a, b, relu=True):
     """Row 13: act(conv a + b) over [N, C_out, OH, OW], a, b [C_out]."""
     if conv.device.type in ("cpu", "meta"):
         return affine_act_reference(conv, a, b, relu)
-    fn = _build.function("conv_block", "affine_act_f32",
-                         [_VP] * 4 + [_LL, _I, _I, _I, _VP])
+    fn = _affine_kernel()
     check_cuda_f32("affine_act", conv.device, conv=conv)
     if conv.dim() != 4 or conv.data_ptr() % 16:
         raise ValueError("affine_act kernel: conv %s must be a 16-byte "
@@ -295,3 +341,32 @@ def affine_act(conv, a, b, relu=True):
 
 
 affine_act.launches = 0
+
+
+def bn_fold(s, ss, scale, bias, mean, var, cnt, momentum, eps):
+    """The fold (``bn_fold_reference``'s six outputs, each [C_out]) in one
+    launch on the card: s, ss [N, C_out] from ``conv_stats``; scale, bias,
+    mean and var [C_out], all float32."""
+    if s.device.type in ("cpu", "meta"):
+        return bn_fold_reference(s, ss, scale, bias, mean, var, cnt,
+                                 momentum, eps)
+    fn = _fold_kernel()
+    check_cuda_f32("bn_fold", s.device, s=s, ss=ss)
+    if s.dim() != 2 or tuple(ss.shape) != tuple(s.shape) or s.numel() == 0:
+        raise ValueError("bn_fold kernel: s %s, ss %s must be one [N, C] "
+                         "shape" % (tuple(s.shape), tuple(ss.shape)))
+    n, co = s.shape
+    _check_chan("bn_fold", s.device, co, scale=scale, bias=bias, mean=mean,
+                var=var)
+    out = torch.empty((6, co), dtype=torch.float32, device=s.device)
+    err = fn(s.data_ptr(), ss.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             mean.data_ptr(), var.data_ptr(), out.data_ptr(), n, co,
+             _reciprocal(cnt), float(momentum), float(1 - momentum),
+             float(eps),
+             torch.cuda.current_stream(s.device).cuda_stream)
+    raise_on_error("bn_fold", err)
+    bn_fold.launches += 1
+    return out.unbind(0)
+
+
+bn_fold.launches = 0

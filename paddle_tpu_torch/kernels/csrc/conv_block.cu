@@ -74,11 +74,22 @@
 // image in the tile) pair sums its columns in a fixed order into partials
 // [pixel tile, image slot, channel] (slot = image - the tile's first
 // image); a second small kernel sums each (image, channel)'s partials in
-// tile order.  No float atomics: card runs repeat bit for bit.  The host
-// folds the batch statistics as the reference does (v = E[x^2] - m^2).
+// tile order.  No float atomics: card runs repeat bit for bit.
 //
-// Row 13 is a pass over memory: bound by bytes (read the conv, write y).
-// Its multiply and add are explicitly rounded intrinsics, never contracted
+// Between rows 12 and 13, one small kernel folds the batch statistics as
+// the reference does around its Pallas calls (`_train_fwd_impl`,
+// `_fold_affine`: v = E[x^2] - m^2) into row 13's a and b, and writes the
+// op's running statistics, SavedMean and SavedVariance (`bn_fold_f32`, a
+// thread a channel).  It takes the place of ~22 eager PyTorch operations
+// a conv, each a launch of its own (53 convs a ResNet-50 step).
+//
+// Row 13 is a pass over memory: bound by bytes (read the conv, write y;
+// at ResNet-50's 53 convs at batch 32, 2.85 GB, 0.85 ms at 3.35 TB/s).
+// A thread moves one float4 and finds its channel by a multiply-high
+// division of a 32-bit index (no 64-bit divide or modulo); where a plane's size is not a multiple of 4 (ResNet-50's 7
+// x 7 stage) a float4 may straddle two planes, and its later elements
+// step the channel by a compare.  Every shape takes 16-byte loads.  Its
+// multiply and add are explicitly rounded intrinsics, never contracted
 // into an FMA, so it is bitwise the plain version's conv * a + b.
 //
 // Entry points: plain C, each returns the launch's cudaError_t.
@@ -500,42 +511,144 @@ stats_reduce_kernel(const float* __restrict__ part_s,
   ss[i] = b;
 }
 
-// y = act(conv * a[c] + b[c]), rounded after the product as the plain
-// version is; kVec: 4 elements of one channel plane per
-// float4 (the plane size is a multiple of 4)
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-affine_act_kernel(const float* __restrict__ conv, const float* __restrict__ a,
-                  const float* __restrict__ b, float* __restrict__ y,
-                  long long total, int co, int plane, int relu) {
-  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
-  if (i0 >= total) return;
-  if (kVec) {
-    const int c = (int)((i0 / plane) % co);
-    const float sa = a[c], sb = b[c];
-    float4 v = *reinterpret_cast<const float4*>(conv + i0);
-    v.x = __fadd_rn(__fmul_rn(v.x, sa), sb);
-    v.y = __fadd_rn(__fmul_rn(v.y, sa), sb);
-    v.z = __fadd_rn(__fmul_rn(v.z, sa), sb);
-    v.w = __fadd_rn(__fmul_rn(v.w, sa), sb);
-    if (relu) {
-      v.x = fmaxf(v.x, 0.f);
-      v.y = fmaxf(v.y, 0.f);
-      v.z = fmaxf(v.z, 0.f);
-      v.w = fmaxf(v.w, 0.f);
-    }
-    *reinterpret_cast<float4*>(y + i0) = v;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long i = i0 + j;
-      if (i >= total) break;
-      const int c = (int)((i / plane) % co);
-      float v = __fadd_rn(__fmul_rn(conv[i], a[c]), b[c]);
-      if (relu) v = fmaxf(v, 0.f);
-      y[i] = v;
-    }
+// Channel and position of a flat index over [n, co, plane]: q / d and
+// q - (q / d) d.  FastDiv divides a 32-bit index by a multiply-high, as
+// CUTLASS's FastDivmod does: for 1 < d < 2^31, l = ceil(log2 d) and mul =
+// ceil(2^(31 + l) / d), q / d = umulhi(q, mul) >> (l - 1), exact for 0 <=
+// q < 2^31 (the host picks it only where every index is below 2^31).
+// WideDiv is the 64-bit division, for tensors of 2^31 elements or more.
+struct FastDiv {
+  int d;
+  unsigned mul, shr;
+  __device__ __forceinline__ int div(int q) const {
+    return d == 1 ? q : (int)(__umulhi((unsigned)q, mul) >> shr);
   }
+};
+
+FastDiv fast_div(int d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;
+    while ((1LL << l) < d) ++l;
+    const unsigned long long p = 1ULL << (31 + l);
+    f.mul = (unsigned)((p + (unsigned long long)d - 1) / d);
+    f.shr = (unsigned)(l - 1);
+  }
+  return f;
+}
+
+struct WideDiv {
+  long long d;
+  __device__ __forceinline__ long long div(long long q) const {
+    return q / d;
+  }
+};
+
+__device__ __forceinline__ float affine(float v, float sa, float sb,
+                                        int relu) {
+  const float u = __fadd_rn(__fmul_rn(v, sa), sb);
+  return relu ? fmaxf(u, 0.f) : u;
+}
+
+// Row 13: y = act(conv * a[c] + b[c]), the product and the sum each
+// rounded, as the plain version's.  A thread takes one float4 (two or
+// four a thread, kThreads apart, timed 2% and 4% slower over ResNet-50's
+// 53 convs at batch 32 on an H100, PERF.md) and finds the channel of its
+// first element by one division of its index by plane and one by co;
+// with kStraddle (plane % 4 != 0) the float4 may cross into the next
+// plane, and each later element steps its position by one and compares
+// it with plane, never dividing again.  The elements past the last whole
+// float4 (total % 4 of them) are block 0's.
+template <bool kStraddle, typename Div>
+__global__ void __launch_bounds__(kThreads)
+affine_act_kernel(const float4* __restrict__ conv, const float* __restrict__ a,
+                  const float* __restrict__ b, float4* __restrict__ y,
+                  decltype(Div::d) total, Div plane, Div co, int relu) {
+  using I = decltype(Div::d);
+  const I total4 = total / 4;
+  const I q = (I)blockIdx.x * kThreads + threadIdx.x;
+  if (q < total4) {
+    const float4 v = conv[q];
+    const I i0 = q * 4;
+    const I pl = plane.div(i0);   // image * co + channel
+    I off = i0 - pl * plane.d;    // position in the plane
+    I c = pl - co.div(pl) * co.d;
+    float sa = __ldg(a + c), sb = __ldg(b + c);
+    float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (kStraddle && k > 0 && ++off == plane.d) {
+        off = 0;
+        c = c + 1 == co.d ? 0 : c + 1;
+        sa = __ldg(a + c);
+        sb = __ldg(b + c);
+      }
+      e[k] = affine(e[k], sa, sb, relu);
+    }
+    y[q] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < (int)(total - total4 * 4)) {
+    const I i = total4 * 4 + threadIdx.x;
+    const I pl = plane.div(i);
+    const I c = pl - co.div(pl) * co.d;
+    const float* src = reinterpret_cast<const float*>(conv);
+    reinterpret_cast<float*>(y)[i] =
+        affine(src[i], __ldg(a + c), __ldg(b + c), relu);
+  }
+}
+
+template <typename Div>
+cudaError_t launch_affine(const float* conv, const float* a, const float* b,
+                          float* y, decltype(Div::d) total, Div plane,
+                          Div co, int relu, cudaStream_t stream) {
+  // at least one block: block 0 also takes the ragged tail
+  const long long blocks = (total / 4 + kThreads - 1) / kThreads + (total < 4);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto in = reinterpret_cast<const float4*>(conv);
+  const auto out = reinterpret_cast<float4*>(y);
+  if (plane.d % 4 == 0)
+    affine_act_kernel<false, Div><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        in, a, b, out, total, plane, co, relu);
+  else
+    affine_act_kernel<true, Div><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        in, a, b, out, total, plane, co, relu);
+  return cudaGetLastError();
+}
+
+// The batch statistics folded into row 13's a and b, and the op's other
+// outputs, a thread a channel: from row 12's per-image sums s and ss [n,
+// co], m = sum_n s rcnt, v = sum_n ss rcnt - m^2 (the reference's
+// formula; rcnt = 1 / cnt rounded to f32, the division by a count as
+// PyTorch divides by a scalar), inv = 1 / sqrt(v + eps), a = inv scale, b
+// = bias - m a, the running statistics mom * old + omm * batch, SavedMean
+// m and SavedVariance inv.  The images are added in order, and every
+// product, quotient, root and sum is an explicitly rounded intrinsic,
+// never contracted: bitwise conv_block.py's bn_fold_reference, which adds
+// in the same order.
+__global__ void __launch_bounds__(kThreads)
+bn_fold_kernel(const float* __restrict__ s, const float* __restrict__ ss,
+               const float* __restrict__ scale,
+               const float* __restrict__ bias,
+               const float* __restrict__ mean, const float* __restrict__ var,
+               float* __restrict__ out, int n, int co, float rcnt,
+               float mom, float omm, float eps) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= co) return;
+  float sum = s[c], sq = ss[c];
+  for (int i = 1; i < n; ++i) {
+    sum = __fadd_rn(sum, s[(size_t)i * co + c]);
+    sq = __fadd_rn(sq, ss[(size_t)i * co + c]);
+  }
+  const float m = __fmul_rn(sum, rcnt);
+  const float v = __fsub_rn(__fmul_rn(sq, rcnt), __fmul_rn(m, m));
+  const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(v, eps)));
+  const float sa = __fmul_rn(inv, scale[c]);
+  out[c] = sa;                                        // a
+  out[co + c] = __fsub_rn(bias[c], __fmul_rn(m, sa));  // b
+  out[2 * co + c] = __fadd_rn(__fmul_rn(mom, mean[c]), __fmul_rn(omm, m));
+  out[3 * co + c] = __fadd_rn(__fmul_rn(mom, var[c]), __fmul_rn(omm, v));
+  out[4 * co + c] = m;
+  out[5 * co + c] = inv;
 }
 
 bool shape_ok(int n, const Shape& s) {
@@ -719,21 +832,40 @@ extern "C" cudaError_t conv_ctas_per_sm(int tile, int stats, int load,
   return cudaErrorInvalidValue;
 }
 
-// Row 13.  conv, y [total = n * co * plane]; a, b [co].
+// Row 13.  conv, y [total = n * co * plane], 16-byte aligned; a, b [co].
 extern "C" cudaError_t affine_act_f32(const float* conv, const float* a,
                                       const float* b, float* y,
                                       long long total, int co, int plane,
                                       int relu, cudaStream_t stream) {
   if (conv == nullptr || a == nullptr || b == nullptr || y == nullptr ||
-      total <= 0 || co <= 0 || plane <= 0 || total % ((long long)co * plane))
+      total <= 0 || co <= 0 || plane <= 0 ||
+      total % ((long long)co * plane) || (size_t)conv % 16 ||
+      (size_t)y % 16)
     return cudaErrorInvalidValue;
-  const long long blocks = (total + 4LL * kThreads - 1) / (4LL * kThreads);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (plane % 4 == 0)
-    affine_act_kernel<true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        conv, a, b, y, total, co, plane, relu);
-  else
-    affine_act_kernel<false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        conv, a, b, y, total, co, plane, relu);
+  // 32-bit indices while every index, and a block's reach past the end,
+  // stays below 2^31
+  if (total + 4LL * kThreads < 0x7fffffffLL)
+    return launch_affine(conv, a, b, y, (int)total, fast_div(plane),
+                         fast_div(co), relu, stream);
+  return launch_affine(conv, a, b, y, total, WideDiv{plane}, WideDiv{co},
+                       relu, stream);
+}
+
+// The fold.  s, ss [n, co] (row 12's sums); scale, bias, mean, var [co];
+// out [6, co]: a, b, MeanOut, VarianceOut, SavedMean, SavedVariance (the
+// inverse std).  rcnt = 1 / (n * oh * ow) in f32; mom, omm: momentum and
+// 1 - momentum.
+extern "C" cudaError_t bn_fold_f32(const float* s, const float* ss,
+                                   const float* scale, const float* bias,
+                                   const float* mean, const float* var,
+                                   float* out, int n, int co, float rcnt,
+                                   float mom, float omm, float eps,
+                                   cudaStream_t stream) {
+  if (s == nullptr || ss == nullptr || scale == nullptr || bias == nullptr ||
+      mean == nullptr || var == nullptr || out == nullptr || n <= 0 ||
+      co <= 0)
+    return cudaErrorInvalidValue;
+  bn_fold_kernel<<<(co + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      s, ss, scale, bias, mean, var, out, n, co, rcnt, mom, omm, eps);
   return cudaGetLastError();
 }

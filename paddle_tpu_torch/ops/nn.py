@@ -48,8 +48,8 @@ from ..core.registry import (GradOpDesc, default_infer_shape, get_op_def,
                              wants_grad)
 from ..framework import _grad_var_name
 from ..kernels import philox
-from ..kernels.conv_block import (affine_act, conv_bn_act, conv_block_ok,
-                                  conv_stats, fold_affine)
+from ..kernels.conv_block import (affine_act, bn_fold, conv_bn_act,
+                                  conv_block_ok, conv_stats, fold_affine)
 from ..kernels.dropout import dropout as dropout_kernel, true_divide
 from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                        small_attention_bwd,
@@ -340,8 +340,9 @@ def conv2d_bn_relu(ctx, x, w, scale, bias, mean, variance, strides=(1, 1),
     inverse std, as batch_norm's does.  Kernel route (the flag on and
     ``conv_block_ok``): inference folds the running statistics into (a,
     b) for one pass (row 11); training runs the conv with its channel
-    partials (row 12), folds the batch statistics v = E[x^2] - m^2 on the
-    host side, then the affine + relu pass (row 13)."""
+    partials (row 12), folds the batch statistics v = E[x^2] - m^2 into
+    (a, b) and the op's statistics outputs (``bn_fold``, one launch), then
+    the affine + relu pass (row 13)."""
     if not (flags.flag("FLAGS_use_pallas_conv_block") and conv_block_ok(
             tuple(x.shape), tuple(w.shape), strides, paddings, dilations,
             groups, data_format)):
@@ -353,18 +354,15 @@ def conv2d_bn_relu(ctx, x, w, scale, bias, mean, variance, strides=(1, 1),
     if is_test:
         a, b = fold_affine(scale, bias, mean, variance, epsilon)
         y = conv_bn_act(x, w, a, b, stride, pad, bool(with_relu))
-        m, v = mean.float(), variance.float()
-        new_mean, new_var = mean, variance
-    else:
-        conv, s, ss = conv_stats(x, w, stride, pad)
-        cnt = float(conv.shape[0] * conv.shape[2] * conv.shape[3])
-        m = s.sum(dim=0) / cnt
-        v = ss.sum(dim=0) / cnt - m * m
-        a, b = fold_affine(scale, bias, m, v, epsilon)
-        y = affine_act(conv, a, b, bool(with_relu))
-        new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
-        new_var = momentum * variance + (1 - momentum) * v.to(variance.dtype)
-    return y, new_mean, new_var, m, 1.0 / torch.sqrt(v + epsilon)
+        v = variance.float()
+        return y, mean, variance, mean.float(), 1.0 / torch.sqrt(v + epsilon)
+    conv, s, ss = conv_stats(x, w, stride, pad)
+    cnt = conv.shape[0] * conv.shape[2] * conv.shape[3]
+    a, b, new_mean, new_var, m, inv = bn_fold(s, ss, scale, bias, mean,
+                                              variance, cnt, momentum,
+                                              epsilon)
+    return (affine_act(conv, a, b, bool(with_relu)), new_mean, new_var, m,
+            inv)
 
 
 @register_grad_lowering("conv2d_bn_relu")

@@ -1,8 +1,9 @@
 """The conv-block kernels' module of the PyTorch port
 (paddle_tpu_torch/kernels/conv_block.py: the routing predicate, the plain
-versions of rows 11, 12 and 13) and the ``conv2d_bn_relu`` op's kernel
-route, held against the JAX package's Pallas kernels run in interpret
-mode on the CPU, as tests/test_pallas_blocks.py runs them
+versions of rows 11, 12 and 13 and of the batch-statistics fold between
+rows 12 and 13) and the ``conv2d_bn_relu`` op's kernel route, held
+against the JAX package's Pallas kernels run in interpret mode on the
+CPU, as tests/test_pallas_blocks.py runs them
 (``PADDLE_PALLAS_INTERPRET=1``, the flag on, ``adoption.reset()``).
 
 On the CPU each wrapper runs its plain version (F.conv2d and f32
@@ -10,8 +11,17 @@ elementwise ops); the CUDA kernels are held against the same plain
 versions on the card by chip_smoke.py.  Tolerances, f32: conv outputs to
 1e-5 (the reference's kernel sums kh kw shifted matmuls, the plain
 version one conv: another order), the channel sums to 1e-5 of their
-largest value, the affine pass exactly up to one rounding (1e-6).
+largest value, the affine pass exactly up to one rounding (1e-6), the
+fold's batch mean and variance to 1e-5 of their largest value (they sum
+the channel sums of two convs that round differently), the op's outputs
+as ``test_conv2d_bn_relu_kernel_route`` holds them (rtol 1e-5, atol
+1e-5).  The affine kernel's index arithmetic (a multiply-high division,
+then a walk by compares across plane edges) is emulated in Python and
+held exactly to integer division; so are the C entries' ctypes types.
 """
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +40,7 @@ from paddle_tpu_torch import layers as tlayers
 from paddle_tpu_torch.core import Executor, Scope, scope_guard
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lowering import LowerCtx as TCtx
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import conv_block as tcb
 
 ATOL = 1e-5
@@ -174,6 +185,152 @@ def test_meta_tensors_take_the_plain_versions():
     conv, s, ss = tcb.conv_stats(x, w, 2, 1)
     assert conv.shape == (2, 16, 5, 5) and s.shape == ss.shape == (2, 16)
     assert tcb.affine_act(conv, a, b).device.type == "meta"
+    fold = tcb.bn_fold(s, ss, a, b, a, b, 50, 0.9, 1e-5)
+    assert len(fold) == 6 and all(t.shape == (16,) and t.device.type
+                                  == "meta" for t in fold)
+
+
+# -- the batch-statistics fold between rows 12 and 13 
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("hw", [7, 8])   # planes of 49 and of 64 pixels
+def test_bn_fold_reference_matches_the_reference(kernel_route, n, hw):
+    """From row 12's sums, the plain fold gives the reference's batch mean
+    and variance (``_train_fwd_impl``; at momentum 0 the running outputs
+    are the batch statistics themselves) and, with row 13 after it, the
+    reference op's five outputs at momentum 0.9."""
+    rng = np.random.RandomState(8 + n + hw)
+    x, w = _rand(rng, n, 8, hw, hw), _rand(rng, 16, 8, 3, 3, scale=0.2)
+    scale = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    bias, mean = _rand(rng, 16, scale=0.1), _rand(rng, 16, scale=0.2)
+    var = rng.uniform(0.5, 2.0, 16).astype(np.float32)
+    _y, jm, jv = jcb._train_fwd_impl(*(jnp.asarray(a) for a in
+                                       (x, w, scale, bias)), 1e-5, 1, 1,
+                                     True)
+    conv, s, ss = tcb.conv_stats(_t(x), _t(w), 1, 1)
+    cnt = n * hw * hw
+    _a, _b, mo, vo, sm, sv = tcb.bn_fold_reference(
+        s, ss, _t(scale), _t(bias), _t(mean), _t(var), cnt, 0.0, 1e-5)
+    for got in (mo, sm):
+        _close_sum(got.numpy(), np.asarray(jm))
+    _close_sum(vo.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(sv.numpy(), 1 / np.sqrt(np.asarray(jv)
+                                                        + 1e-5), rtol=1e-5)
+    attrs = {"strides": [1, 1], "paddings": [1, 1], "is_test": False,
+             "with_relu": True, "momentum": 0.9, "epsilon": 1e-5}
+    want = _jax_op([x, w, scale, bias, mean, var], attrs)
+    a, b, mo, vo, sm, sv = tcb.bn_fold_reference(
+        s, ss, _t(scale), _t(bias), _t(mean), _t(var), cnt, 0.9, 1e-5)
+    got = [tcb.affine_act_reference(conv, a, b, True), mo, vo, sm, sv]
+    for name, g, wv in zip(("Output", "MeanOut", "VarianceOut", "SavedMean",
+                            "SavedVariance"), got, want):
+        np.testing.assert_allclose(g.numpy(), wv, rtol=1e-5, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_bn_fold_adds_the_images_in_order():
+    """The plain fold's sums are the images added one after the other (the
+    kernel's order), not ``sum(dim=0)``'s, and divided by the count as a
+    product with its f32 reciprocal (the kernel's arithmetic): bitwise."""
+    rng = np.random.RandomState(12)
+    s = _t(_rand(rng, 5, 24, scale=100.0))
+    ss = _t(np.abs(_rand(rng, 5, 24, scale=1e4)))
+    one, zero = torch.ones(24), torch.zeros(24)
+    _a, _b, mo, vo, m, _inv = tcb.bn_fold_reference(s, ss, one, zero, zero,
+                                                    one, 49 * 5, 0.0, 1e-5)
+    acc, acc2 = s[0].clone(), ss[0].clone()
+    for i in range(1, 5):
+        acc, acc2 = acc + s[i], acc2 + ss[i]
+    rcnt = np.float32(1.0) / np.float32(49 * 5)
+    assert torch.equal(m, acc * float(rcnt)) and torch.equal(mo, m)
+    assert torch.equal(vo, acc2 * float(rcnt) - m * m)
+
+
+# -- row 13's index arithmetic, emulated 
+
+def _fast_div(d):
+    """csrc/conv_block.cu ``fast_div``: (mul, shr) with l = ceil(log2 d)
+    and mul = ceil(2^(31 + l) / d)."""
+    if d == 1:
+        return 0, 0
+    lg = 0
+    while (1 << lg) < d:
+        lg += 1
+    return -(-(1 << (31 + lg)) // d), lg - 1
+
+
+def _div(q, d, magic):
+    mul, shr = magic
+    return q if d == 1 else ((q * mul) >> 32) >> shr
+
+
+# ResNet-50's planes (112^2 .. 7^2) and channel counts, small planes that
+# a float4 crosses more than once, and divisors near 2^31
+DIVISORS = [12544, 3136, 784, 196, 49, 64, 128, 256, 512, 1024, 2048, 1, 2,
+            3, 5, 7, 24, 777, 65535, 65537, (1 << 30) + 1, (1 << 31) - 1]
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_fast_division_is_exact_below_2_31(d):
+    magic = _fast_div(d)
+    assert 0 <= magic[0] < 1 << 32
+    rng = np.random.RandomState(d % 1000)
+    qs = np.concatenate([np.arange(0, 4096), rng.randint(0, 1 << 31, 20000),
+                         (1 << 31) - 1 - np.arange(4096),
+                         np.arange(1, 4097) * d - 1, np.arange(4096) * d])
+    qs = qs[(qs >= 0) & (qs < 1 << 31)].astype(object)
+    assert all(_div(int(q), d, magic) == int(q) // d for q in qs)
+
+
+@pytest.mark.parametrize("n,co,plane", [(32, 512, 49), (2, 8, 196),
+                                        (2, 8, 1), (2, 8, 3), (3, 5, 7),
+                                        (1, 3, 5)])
+def test_affine_pass_finds_every_elements_channel(n, co, plane):
+    """The kernel's walk: a float4 at flat index 4 q takes the channel of
+    its first element by two divisions; where plane % 4 != 0 each later
+    element steps its position and, at the plane's end, the channel (back
+    to 0 after the last).  Every element gets (i // plane) % co."""
+    total = n * co * plane
+    pm, cm = _fast_div(plane), _fast_div(co)
+    got = np.empty(total, np.int64)
+    for q in range(total // 4):
+        i0 = 4 * q
+        pl = _div(i0, plane, pm)
+        off, c = i0 - pl * plane, pl - _div(pl, co, cm) * co
+        for k in range(4):
+            if plane % 4 and k > 0:
+                off += 1
+                if off == plane:
+                    off, c = 0, (0 if c + 1 == co else c + 1)
+            got[i0 + k] = c
+    for i in range(total // 4 * 4, total):     # the ragged tail
+        pl = _div(i, plane, pm)
+        got[i] = pl - _div(pl, co, cm) * co
+    assert np.array_equal(got, (np.arange(total) // plane) % co)
+
+
+@pytest.mark.parametrize("getter,symbol", [("_affine_kernel",
+                                            "affine_act_f32"),
+                                           ("_fold_kernel", "bn_fold_f32")])
+def test_wrappers_type_every_argument_of_the_c_entry(monkeypatch, getter,
+                                                     symbol):
+    """The ctypes types of the row 13 and fold entries are the C
+    parameters, one for one."""
+    src = (_build.CSRC / "conv_block.cu").read_text()
+    decl = re.search(r'extern "C" cudaError_t %s\((.*?)\)' % symbol, src,
+                     re.S).group(1)
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
+    want = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+            else kinds[" ".join(p.split()[:-1])] for p in decl.split(",")]
+
+    class _Lib:
+        pass
+
+    setattr(_Lib, symbol, ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0))
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "load", lambda name: _Lib())
+    assert list(getattr(tcb, getter)().argtypes) == want
 
 
 # -- the conv2d_bn_relu op on the kernel route 
@@ -204,10 +361,10 @@ def _port_op(args, attrs):
 def test_conv2d_bn_relu_kernel_route(kernel_route, monkeypatch, is_test,
                                      stride):
     """Flag on, an eligible shape: the port takes its kernel wrappers (row
-    11 at is_test; rows 12 and 13 in training) and gives the reference's
-    kernel route, all five outputs."""
+    11 at is_test; in training row 12, the fold and row 13) and gives the
+    reference's kernel route, all five outputs."""
     called = []
-    for name in ("conv_bn_act", "conv_stats", "affine_act"):
+    for name in ("conv_bn_act", "conv_stats", "bn_fold", "affine_act"):
         fn = getattr(tcb, name)
         monkeypatch.setattr(
             "paddle_tpu_torch.ops.nn." + name,
@@ -220,7 +377,7 @@ def test_conv2d_bn_relu_kernel_route(kernel_route, monkeypatch, is_test,
     want = _jax_op(args, attrs)
     got = _port_op(args, attrs)
     assert called == (["conv_bn_act"] if is_test
-                      else ["conv_stats", "affine_act"])
+                      else ["conv_stats", "bn_fold", "affine_act"])
     assert "conv_block" in adoption.active_kernels()
     for name, g, w in zip(("Output", "MeanOut", "VarianceOut", "SavedMean",
                            "SavedVariance"), got, want):
@@ -230,7 +387,7 @@ def test_conv2d_bn_relu_kernel_route(kernel_route, monkeypatch, is_test,
 def test_conv2d_bn_relu_ineligible_shapes_take_the_composition(
         kernel_route, monkeypatch):
     """Flag on but groups = 2 (or C_out % 8 != 0): no wrapper is called."""
-    for name in ("conv_bn_act", "conv_stats", "affine_act"):
+    for name in ("conv_bn_act", "conv_stats", "bn_fold", "affine_act"):
         monkeypatch.setattr("paddle_tpu_torch.ops.nn." + name,
                             lambda *a, **k: pytest.fail("kernel route"))
     rng = np.random.RandomState(4)

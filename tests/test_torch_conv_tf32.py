@@ -252,9 +252,7 @@ def test_conv_tile_fills_the_card_at_resnet50_shapes():
     """At every ResNet-50 conv at batch 32 the chosen tile's grid has at
     least one CTA per SM, and the wide tile two waves of its two resident
     CTAs an SM."""
-    import tools.torch_conv_bench as bench
-
-    shapes = bench.trunk_shapes(32)
+    shapes = cs.trunk_conv_shapes(32)
     assert len(shapes) == 23 and sum(c for _, c in shapes) == 53
     picks = set()
     for (xs, ws, stride, pad), _count in shapes:

@@ -13,7 +13,11 @@ JAX reference on the CPU.
 * The fused_dropout_add_ln op at p = 0.1 in a training program, run by
   the port's Executor, gives the reference op's output from the same
   mask (keyed by the Seed the port's op emits), atol 1e-5.
-* The CUDA branches build or raise and never fall back."""
+* The CUDA branches build or raise and never fall back.
+* The forward kernel's float4 draw (one Philox group a run of four
+  columns, emulated as in tests/test_torch_fused_ln_bwd.py) is bit for
+  bit ``philox.keep_mask``, and the r it forms (the kept y rounded after
+  its product, then added) is the plain version's r, bitwise."""
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
 from paddle_tpu_torch.kernels import _build, philox
 from paddle_tpu_torch.kernels import fused_ln as tfl
 from paddle_tpu_torch.kernels import layer_norm as tln
+from test_torch_fused_ln_bwd import _float4_keep
 
 ATOL = 1e-5
 
@@ -205,3 +210,23 @@ def test_kernel_sources_name_what_they_replace_and_their_bound():
         src = (_build.CSRC / (name + ".cu")).read_text()
         assert replaces in src and "Bound:" in src
         assert name in _build.SOURCES
+
+
+@pytest.mark.parametrize("h", [768, 1024])
+def test_forward_float4_draw_is_the_stream(h):
+    """At p = 0.1, h = 768 (six runs a lane) and 1024 (eight), rows from 0
+    and from an odd row: the forward's draw of one group a run equals
+    ``philox.keep_mask``, so its r equals the plain version's bitwise and
+    the backward's float4 kernel re-draws the same mask."""
+    words, thr = (0xBEEF, 0x1234), philox.keep_threshold(0.1)
+    rng = np.random.RandomState(h)
+    rows = 41
+    keep = _float4_keep(words, thr, 0, rows, h)
+    assert torch.equal(keep, philox.keep_mask(words, thr, (rows, h)))
+    assert torch.equal(_float4_keep(words, thr, 37, 4, h), keep[37:])
+    x, y = (torch.from_numpy(_rand(rng, rows, h)) for _ in range(2))
+    g, b = torch.ones(h), torch.zeros(h)
+    inv_q = philox.inv_realized_q(thr)
+    r = x + torch.where(keep, y * inv_q, torch.zeros(()))
+    _z, want, _m, _v = tfl.fused_ln_reference(x, y, g, b, 1e-5, 0.1, words)
+    assert torch.equal(r, want)

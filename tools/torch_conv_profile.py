@@ -4,6 +4,7 @@ PyTorch port spend their time on the card.
 
     python3 tools/torch_conv_profile.py [--steps 5] [--batch 32]
         [--which train-bundled train-trunk serve-bundled serve-trunk]
+        [--root DIR]
 
 Builds ResNet-50 v1.5 (224x224, 1000 classes, NCHW f32, seeded random
 weights) as chip_smoke.py does (``resnet_program``): ``bundled`` is the
@@ -18,9 +19,12 @@ does.  After warm-up it times ``--steps`` runs on the host clock, then
 records as many with torch.profiler and prints the device busy time per
 run, the device's idle share over the kernels' span, peak device memory,
 and the device time split into cuDNN / cuBLAS (the convs and the fc),
-the conv-block kernels (rows 11, 12, 13), the fused momentum (row 10)
-and the rest (batch norm, elementwise, pooling, copies); then the host
-time by op type.  Needs one CUDA card.
+the conv-block kernels (rows 11, 12, 13, and the fold of the batch
+statistics between 12 and 13), the fused momentum (row 10) and the rest
+(batch norm, elementwise, pooling, copies); then the host time by op
+type.  ``--root DIR`` runs the port of the checkout at DIR (for example
+the parent commit unpacked under build/), so that two trees can be
+profiled in turns in one call to the card.  Needs one CUDA card.
 """
 
 import argparse
@@ -46,6 +50,7 @@ _PORTED = ((r"conv_mma_kernel<\d+, \d+, \d+, \d+, false", _ROW11),
            (r"conv_mma_kernel<\d+, \d+, \d+, \d+, true", _ROW12),
            ("stats_reduce", _ROW12),
            ("affine_act", "ported: row 13 affine + relu"),
+           ("bn_fold", "ported: the batch-statistics fold"),
            ("fused_momentum", "ported: row 10 fused momentum"))
 # the weight reorder of the tap-major loader, which rows 11 and 12 launch
 # before their conv: a served batch runs row 11, a training step row 12
@@ -191,10 +196,15 @@ def main():
                              "serve-bundled", "serve-trunk"],
                     choices=["train-bundled", "train-trunk",
                              "serve-bundled", "serve-trunk"])
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose port is profiled")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this profiles the port on the card")
     sys.path.insert(0, ROOT)
+    import chip_smoke  # noqa: F401  (this checkout's, before DIR's)
+    sys.path.insert(0, os.path.abspath(args.root))
+    print("port of %s" % os.path.abspath(args.root), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

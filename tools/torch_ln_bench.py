@@ -12,8 +12,12 @@ Times with CUDA events, L2 flushed before each call
   the training step's embeddings) and 614 (the training step's masked-LM
   transform, 15% of 32 x 128 tokens), against ``F.layer_norm``, with the
   bytes bound at 3.35 TB/s;
-* ``fused_ln_fwd`` at [4096, 768], p = 0 and p = 0.1, against
-  ``F.layer_norm(x + y)`` (and with ``F.dropout(y)``);
+* ``fused_ln_fwd`` at [128, 768], [1024, 768] and [4096, 768] (encoder
+  buckets 1, 8 and 32, and the training step's rows), p = 0 and p = 0.1,
+  against ``F.layer_norm(x + y)`` (and with ``F.dropout(y)``), with the
+  bytes bound;
+* the dropout op's kernel at the attention probabilities' [32, 12, 128,
+  128], p = 0.1, against ``F.dropout``;
 * ``fused_ln_bwd`` at [4096, 768] (the 24 encoder epilogues of a BERT-base
   training step at batch 32) and [614, 768], p = 0 and p = 0.1, from the
   forward kernel's r, statistics and Seed, against the autograd of
@@ -89,27 +93,53 @@ def main():
                   n, C, row["ms"], row["library_ms"], row["bound_ms"], err),
               flush=True)
         rows.append(row)
-    n = 4096
-    x, y = t(n, C), t(n, C)
     drop_f = torch.nn.functional.dropout
-    for p in (0.0, 0.1):
-        words = smoke.WORDS if p else None
-        row = {"kernel": "fused_ln", "rows": n, "cols": C, "p": p,
-               "ms": smoke.time_cold(
-                   lambda: fl.fused_ln_fwd(x, y, g, b, p, words, 1e-5),
-                   flush),
-               "library_ms": smoke.time_cold(
-                   lambda: ln_f(x + (drop_f(y, p) if p else y), (C,), g, b,
-                                1e-5), flush),
-               "bound_ms": smoke.bound(4 * (4 * n * C + 2 * C + 2 * n),
-                                       9 * n * C)[0]}
-        print("fused_ln [%d, %d] p=%g: kernel %.6f ms, F.layer_norm(x + y%s) "
-              "%.6f, bound %.6f (bytes)" % (
-                  n, C, p, row["ms"], ", dropped" if p else "",
-                  row["library_ms"], row["bound_ms"]), flush=True)
-        rows.append(row)
+    for n in (128, 1024, 4096):
+        x, y = t(n, C), t(n, C)
+        for p in (0.0, 0.1):
+            words = smoke.WORDS if p else None
+            err = max(float((u - w).abs().max()) for u, w in zip(
+                fl.fused_ln_fwd(x, y, g, b, p, words, 1e-5),
+                fl.fused_ln_reference(x, y, g, b, 1e-5, p, words)))
+            row = {"kernel": "fused_ln", "rows": n, "cols": C, "p": p,
+                   "ms": smoke.time_cold(
+                       lambda: fl.fused_ln_fwd(x, y, g, b, p, words, 1e-5),
+                       flush),
+                   "library_ms": smoke.time_cold(
+                       lambda: ln_f(x + (drop_f(y, p) if p else y), (C,), g,
+                                    b, 1e-5), flush),
+                   "bound_ms": smoke.bound(4 * (4 * n * C + 2 * C + 2 * n),
+                                           9 * n * C)[0],
+                   "max_abs_err": err}
+            print("fused_ln [%d, %d] p=%g: kernel %.6f ms, F.layer_norm(x + "
+                  "y%s) %.6f, bound %.6f (bytes), err vs plain %.3g" % (
+                      n, C, p, row["ms"], ", dropped" if p else "",
+                      row["library_ms"], row["bound_ms"], err), flush=True)
+            rows.append(row)
+    rows.append(dropout_row(smoke, t, flush))
     rows += bwd_rows(smoke, fl, t, g, b, flush)
     print(json.dumps({"ln_bench": rows}), flush=True)
+
+
+def dropout_row(smoke, t, flush):
+    """The dropout op's kernel at the attention probabilities' shape,
+    p = 0.1, against F.dropout (bytes: read x, write out and the mask
+    bytes)."""
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.ops.common import byte_threshold, realized_keep_prob
+
+    x = t(32, 12, 128, 128)
+    thr, q = byte_threshold(0.9), realized_keep_prob(0.9)
+    row = {"kernel": "dropout", "shape": list(x.shape), "p": 0.1,
+           "ms": smoke.time_cold(
+               lambda: dk.dropout(x, smoke.WORDS, thr, q, True), flush),
+           "library_ms": smoke.time_cold(
+               lambda: torch.nn.functional.dropout(x, 0.1), flush),
+           "bound_ms": smoke.bound(9 * x.numel(), x.numel())[0]}
+    print("dropout [32, 12, 128, 128] p=0.1: kernel %.6f ms, F.dropout "
+          "%.6f, bound %.6f (bytes)" % (row["ms"], row["library_ms"],
+                                        row["bound_ms"]), flush=True)
+    return row
 
 
 def bwd_rows(smoke, fl, t, g, b, flush):
