@@ -10,7 +10,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sm_90a (all started together), with seconds and ptxas usage;
 3. the kernels: each kernel against its plain PyTorch version on the card
    at its main-path shape and others (the fused Adam and the fused
-   momentum bitwise, with and without their bf16 copy; the conv-block
+   momentum bitwise, with and without their bf16 copy, the momentum also
+   over members at odd offsets of one buffer and over a group split into
+   several launches, as many as planned; the conv-block
    kernels at ResNet-50's shapes and odd ones, the fold of the batch
    statistics and the affine pass bitwise, both timed at the trunk's 23
    conv shapes and added up over its 53 convs; the fused LayerNorm at
@@ -1259,66 +1261,120 @@ def conv_kernel_phase(cb, dev, flush):
 
 
 def momentum_kernel_phase(fm, dev, flush):
-    """Row 10: the fused momentum over ResNet-50's fused group and an odd
-    5-member group, plain and Nesterov, bitwise equal to its plain version
-    with and without the bf16 copy; timed over ResNet-50's group."""
+    """Row 10: the fused momentum over ResNet-50's fused group, an odd
+    5-member group, members that are views at odd float offsets of one
+    buffer each (sizes not a multiple of 4: the scalar head and tail; one
+    member's grad out of phase: a CTA one element a thread) and a group of
+    more members than one parameter block holds (the split launch), plain
+    and Nesterov, bitwise equal to its plain version with and without the
+    bf16 copy, every group launching as many times as planned, the views'
+    buffers unchanged between the members; timed over ResNet-50's
+    group."""
     rng = np.random.RandomState(6)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     f = np.float32
+    bf16 = torch.bfloat16
 
-    def group(shapes):
-        return ([t(rng.randn(*s).astype(f)) for s in shapes],
-                [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes],
-                [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes],
-                t(np.array([0.1], f)))
+    def dense(shapes):
+        p = [t(rng.randn(*s).astype(f)) for s in shapes]
+        g = [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes]
+        v = [t((rng.randn(*s) * 1e-2).astype(f)) for s in shapes]
 
+        def fresh():
+            return ([x.clone() for x in p], [x.clone() for x in v],
+                    [torch.empty(x.shape, dtype=bf16, device=dev)
+                     for x in p], lambda: True)
+        return p, g, v, fresh
+
+    def views(sizes, g_shifted):
+        offs, o = [], 1
+        for s in sizes:
+            offs.append(o)
+            o += s + 3
+        bufs = [t(rng.randn(o + 1).astype(f)),
+                t((rng.randn(o + 1) * 1e-2).astype(f)),
+                t((rng.randn(o + 1) * 1e-2).astype(f))]
+        gaps = torch.ones(o + 1, dtype=torch.bool, device=dev)
+        for a, s in zip(offs, sizes):
+            gaps[a:a + s] = False
+
+        def cut(buf, shift=()):
+            return [buf[a + (i in shift):a + (i in shift) + s]
+                    for i, (a, s) in enumerate(zip(offs, sizes))]
+
+        def fresh():
+            pb, vb = bufs[0].clone(), bufs[1].clone()
+            bb = torch.zeros(o + 1, dtype=bf16, device=dev)
+            return cut(pb), cut(vb), cut(bb), lambda: (
+                torch.equal(pb[gaps], bufs[0][gaps])
+                and torch.equal(vb[gaps], bufs[1][gaps])
+                and not bb[gaps].any())
+        return cut(bufs[0]), cut(bufs[2], g_shifted), cut(bufs[1]), fresh
+
+    per_block, capacity = fm.kernel_layout()
     resnet = resnet50_fused_group()
-    groups = {"ResNet-50 group, %d members, %d elements" % (
-        len(resnet), sum(int(np.prod(s)) for s in resnet)): resnet,
-        "odd 5-member group": [(37, 5), (1000,), (3, 3, 3), (129,),
-                               (2048, 17)]}
+    split = [(int(s),) for s in rng.randint(1, 3000, 2 * capacity + 44)]
+    groups = {
+        "ResNet-50 group, %d members, %d elements" % (
+            len(resnet), sum(int(np.prod(s)) for s in resnet)):
+            dense(resnet),
+        "odd 5-member group": dense([(37, 5), (1000,), (3, 3, 3), (129,),
+                                     (2048, 17)]),
+        "views at odd float offsets, member 3's grad out of phase":
+            views([4097, 3, 1, 5001, 2051, 130, 2, 999], (3,)),
+        "%d members, more than one parameter block's %d" % (
+            len(split), capacity): dense(split)}
+    lr = t(np.array([0.1], f))
     kept = None
-    for what, shapes in groups.items():
-        p, g, v, lr = group(shapes)
+    for what, (p, g, v, fresh) in groups.items():
+        planned = len(fm.plan_launches([x.numel() for x in p], per_block,
+                                       capacity))
+        if len(p) > capacity and planned < 2:
+            fail("fused_momentum: %s planned as one launch" % what)
         for nesterov in (False, True):
             want = fm.fused_momentum_reference(p, g, v, lr, 0.9, nesterov,
                                                bf16_out=True)
             for carry in (False, True):
-                bf = [torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
-                      for x in p] if carry else None
-                got = fm.fused_momentum_step(
-                    [x.clone() for x in p], g, [x.clone() for x in v], lr,
-                    0.9, nesterov, bf16_out=bf)
+                ps, vs, bfs, untouched = fresh()
+                before = fm.fused_momentum_step.launches
+                got = fm.fused_momentum_step(ps, g, vs, lr, 0.9, nesterov,
+                                             bf16_out=bfs if carry else None)
                 torch.cuda.synchronize()
+                launched = fm.fused_momentum_step.launches - before
+                if launched != planned:
+                    fail("fused_momentum launched %d times at %s, planned "
+                         "%d" % (launched, what, planned))
                 names = ("param", "velocity") + (("bf16 copy",) if carry
                                                  else ())
                 for name, gs, ws in zip(names, got, want):
                     if not all(torch.equal(x, y) for x, y in zip(gs, ws)):
                         fail("fused_momentum %s not bitwise equal to the "
                              "plain version at %s" % (name, what))
+                if not untouched():
+                    fail("fused_momentum wrote between the members at %s"
+                         % what)
                 print("kernel fused_momentum %s%s%s: bitwise equal to the "
-                      "plain version" % (what, ", Nesterov" if nesterov
-                                         else "", ", with the bf16 copy"
-                                         if carry else ""), flush=True)
+                      "plain version, %d launch(es)" % (
+                          what, ", Nesterov" if nesterov else "",
+                          ", with the bf16 copy" if carry else "",
+                          launched), flush=True)
         if kept is None:
-            kept = (p, g, v, lr)
-    p, g, v, lr = kept
+            kept = (p, g, v)
+    p, g, v = kept
     run = ([x.clone() for x in p], g, [x.clone() for x in v], lr)
     lib_params = [x.clone().requires_grad_() for x in p]
     for x, gx in zip(lib_params, g):
         x.grad = gx
     lib = torch.optim.SGD(lib_params, lr=0.1, momentum=0.9, fused=True)
     nel = sum(x.numel() for x in p)
-    # the wrapper's host work before its ~0.03 ms launch (108 members'
-    # grads checked, their pointers copied to the card) can outlast the
-    # default sleep on a busy host: a ~5 ms sleep hides it
+    # the wrapper's host work before its launch (108 grads checked, their
+    # pointers written into the parameter block) fits in the default sleep
     row = timed_row(
         "fused_momentum", lambda: fm.fused_momentum_step(*run, mu=0.9),
         lambda: fm.fused_momentum_reference(p, g, v, lr, 0.9), lib.step,
         20 * nel, 3 * nel, flush, 0.0,
         "ResNet-50 group of %d members (torch.optim.SGD(momentum=0.9, "
-        "fused=True), the same recurrence)" % len(p),
-        sleep_cycles=10_000_000)
+        "fused=True), the same recurrence)" % len(p))
     row.update(source="paddle_tpu_torch/kernels/csrc/fused_momentum.cu",
                replaces="paddle_tpu/pallas_kernels/fused_opt.py:112")
     return row

@@ -1,14 +1,14 @@
-"""The device table of a fused optimizer kernel's group
-(``csrc/fused_adam.cu``, ``csrc/fused_momentum.cu``): one launch updates
-every member in place, each CTA finding its member by binary search over
-the table's block-count prefixes."""
+"""The device table of the fused Adam kernel's group
+(``csrc/fused_adam.cu``): one launch updates every member in place, each
+CTA finding its member by binary search over the table's block-count
+prefixes."""
 
 import numpy as np
 import torch
 
 __all__ = ["PER_BLOCK", "group_table"]
 
-# elements a CTA updates (both kernels: 256 threads x 4)
+# elements a CTA updates (256 threads x 4)
 PER_BLOCK = 1024
 
 # keyed by the members' storage, which the in-place updates keep from

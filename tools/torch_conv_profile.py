@@ -182,7 +182,7 @@ def profile_one(which, args, tmp):
     print("  host: %.3f ms/run, %.3f of it issuing ops; by op type "
           "(ops/run, host ms/run):" % (wall, in_ops))
     for t, (cnt, sec) in sorted(host_by_type.items(),
-                                key=lambda kv: -kv[1][1])[:10]:
+                                key=lambda kv: -kv[1][1]):
         print("    %6.1f %9.4f  %s" % (cnt / n, sec * 1e3 / n, t))
 
 

@@ -3,6 +3,7 @@
 checkouts, kernel by kernel.
 
     python3 tools/torch_sass_diff.py --root DIR [--libs flash_attention,...]
+        [--show PATTERN]
 
 Builds each named ``csrc/<name>.cu`` in this checkout and in the one at
 DIR (for example the parent commit unpacked under build/), disassembles
@@ -12,7 +13,11 @@ library has a kernel with the same instruction text, branch labels
 renumbered per kernel, whatever its name (a kernel moved into a shared
 header takes a namespace and a template argument).  Prints, for each
 kernel, its pairing or how many instructions differ, and ends with one
-JSON line.  Needs the CUDA toolkit (nvcc, cuobjdump); no card.
+JSON line.  ``--show PATTERN`` also prints the global-memory and
+constant-bank instructions (loads, stores, atomics) of this checkout's
+kernels whose name holds PATTERN, in program order, to read where a
+kernel's loads fall against its stores.  Needs the CUDA toolkit (nvcc,
+cuobjdump); no card.
 """
 
 import argparse
@@ -26,6 +31,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"\.L_x_\d+")
+_MEMORY = re.compile(r"\b(LDG|STG|U?LDC|RED|ATOMG)\b")
 
 
 def _build_lib(root, name):
@@ -73,11 +79,21 @@ def main():
     ap.add_argument("--root", required=True,
                     help="the other checkout (for example the parent)")
     ap.add_argument("--libs", default="flash_attention,fused_ln")
+    ap.add_argument("--show", default=None,
+                    help="print the memory instructions of this "
+                         "checkout's kernels whose name holds this")
     args = ap.parse_args()
     other = os.path.abspath(args.root)
     result = {}
     for name in args.libs.split(","):
         mine = kernels(_build_lib(ROOT, name))
+        for k, insns in sorted(mine.items()):
+            if args.show is not None and args.show in k:
+                print("%s: %s, memory instructions in order:"
+                      % (name, k))
+                for i, insn in enumerate(insns):
+                    if _MEMORY.search(insn):
+                        print("  %4d  %s" % (i, insn))
         theirs = kernels(_build_lib(other, name))
         by_code = {tuple(v): k for k, v in mine.items()}
         rows = []
