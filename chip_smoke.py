@@ -24,7 +24,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and the small backward's dQ bitwise over two runs at two key tiles;
    the dropout kernel's mask bytes bitwise, its keep fraction within 5
    sigma; the dropout paths at p = 0.1, where one flipped keep bit
-   would move an output by about prob / q), then timed
+   would move an output by about prob / q; the bf16 AMP policy's
+   kernels: the dropout's bf16 instantiation bitwise, row 14's within
+   one bf16 ulp of y and past it LN_BF16_OPERAND_ULPS f32 ulps of its
+   operands, rows 9 and 10's bf16 copies of the carried members bitwise
+   the cast of the new params), then timed
    (CUDA events, L2 flushed before every launch, as the serving and
    training loops find it) beside its plain version, a one-call PyTorch
    yardstick and its bound;
@@ -54,6 +58,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    must give the losses and Adam moments of the port's plain path on the
    CPU (the two devices draw the same masks: the key words come from the
    executor's per-op seed, on the host);
+6b. BERT-base under the bf16 AMP policy (``decorate(Adam(1e-4))``,
+   dropout 0.1, the default emission, batch 32, 5 steps): 12 bf16
+   dropouts, 1 bf16 LayerNorm and 1 fused Adam writing the 74 carried
+   weights' copies a step, every copy bitwise its master's cast after
+   each step, host ms and busy beside the f32 twin's from the same
+   state, and 3 chained steps at batch 2 from one state within
+   AMP_BERT_LOSS_ATOL of the CPU's plain path;
 7. ResNet-50 serving (v1.5, 224x224, 1000 classes, seeded random
    weights): the bundled ``resnet(is_test=True)`` and the same
    architecture as ``conv2d_bn_relu`` ops under
@@ -69,6 +80,16 @@ Phases, each fatal on failure (nonzero exit, no result line):
    3 steps at
    batch 2, each from one state on the card and on the CPU's plain path,
    with the same losses and velocities;
+8b. ResNet-50 under the policy: the bundled ``build_train(amp=True)`` at
+   batch 32 for 5 steps (the fused momentum once a step; no weight
+   carried, since L2Decay reads them all), beside its f32 twin; 3 steps
+   at batch 32, each from one state on the card and on the CPU's plain
+   path, losses within AMP_RESNET_LOSS_RTOL; one step op by op (the
+   backward, the casts and the fused momentum included), each op on the
+   card fed the CPU's inputs, every output in the CPU's dtype and within
+   AMP_RESNET_OP_RTOL of its largest value; and the same net under
+   Momentum without decay, 54 weights carried, row 10 writing the fc
+   weight's copy once a step;
 9. DLRM training (the Criteo Terabyte configuration: 26 tables of
    width 128 in 2 host-resident shards each, MLPerf's multi-hot bag
    sizes, seeded random weights and ids) through the port's sparse-table
@@ -143,6 +164,35 @@ KEEP_SIGMAS = 5.0
 TRAIN_LOSS_ATOL = 1e-5
 TRAIN_MOMENT_RTOL = 1e-2
 MOMENT_FLOOR = 1e-4
+
+# the bf16 AMP policy: the bf16 dropout kernel bitwise its plain version;
+# row 14 in bf16 to one bf16 ulp of y, past which an element may differ by
+# LN_BF16_OPERAND_ULPS f32 ulps of its operands (|b| + the row's max|x|
+# rstd |g|): the kernel and the plain version sum the statistics in other
+# orders, which moves y by an f32 ulp or so of the operands, many bf16
+# ulps of a y the final add cancels (a CPU model of it reads 0.23; one
+# operand rounded to bf16 reads 16000 or more, which the phase checks),
+# and to 1e-6 of the f32 statistics' largest value (two f32 summation
+# orders); rows 9 and 10's bf16 copies bitwise p_new.to(bfloat16).  Card
+# vs CPU, both rounding every product to bf16 (f32 sums): BERT-base losses
+# within AMP_BERT_LOSS_ATOL at each compared step; ResNet-50 at batch 32:
+# CHECK_STEPS steps each from one state, losses within
+# AMP_RESNET_LOSS_RTOL, and one step op by op, each op on the card fed
+# the CPU's inputs, every output in the CPU's dtype (an op that left the
+# policy shows) and within one bf16 ulp of its largest value (2^-7 of it:
+# a bf16 rounding that flips moves an element by at most that much; 0.0058
+# read on an H100).  The velocities are not held: from one state the
+# card's and the CPU's part by 1.13 norm-wise at the worst conv weight,
+# the f32 twin's from the CPU's by 1.38, and a batch norm's by 1.47.  Both
+# devices sum each conv in f32 (under 0.5% of a bf16 conv's outputs, its
+# grads' too, land off the exactly rounded value on either:
+# tools/torch_bf16_conv_rounding.py), so this is one-ulp roundings at
+# near-ties, which the batch norms' backward passes amplify.
+LN_BF16_OPERAND_ULPS = 8
+LN_BF16_STATS_RTOL = 1e-6
+AMP_BERT_LOSS_ATOL = 1e-2
+AMP_RESNET_LOSS_RTOL = 1e-2
+AMP_RESNET_OP_RTOL = 2 ** -7
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -587,6 +637,249 @@ def dropout_kernel_phase(dk, philox, dev, flush):
     row.update(source="paddle_tpu_torch/kernels/csrc/dropout.cu",
                replaces="paddle_tpu/ops/nn.py:602")
     return row
+
+
+def _ulp(t, bits):
+    """The spacing of a float with ``bits`` stored mantissa bits at |t|."""
+    return torch.exp2(torch.floor(torch.log2(t.clamp_min(2.0 ** -126)))
+                      - bits)
+
+
+def ln_bf16_gap(got, want, x, g, b, var, eps):
+    """A bf16 LayerNorm's y against another's -> (the largest |got - want|
+    in bf16 ulps of the larger of the two, the largest excess of |got -
+    want| over that ulp in f32 ulps of the element's operands, |b| +
+    max|x| of the row * rstd * |g|)."""
+    d = (got.float() - want.float()).abs()
+    ulp_y = _ulp(torch.maximum(got.float().abs(), want.float().abs()), 7)
+    ops = (x.float().abs().amax(dim=1, keepdim=True)
+           * torch.rsqrt(var[:, None] + eps) * g.abs() + b.abs())
+    return (float((d / ulp_y).max()),
+            float(((d - ulp_y).clamp_min(0) / _ulp(ops, 23)).max()))
+
+
+def ln_bf16_faults(ln, x, g, b, eps):
+    """Row 14's plain version with one operand rounded to bf16 (gamma,
+    (x - mean) rstd, beta) -> each one's excess over the plain version's
+    y in ``ln_bf16_gap``'s f32 ulps of the operands."""
+    want, mean, var = ln.layer_norm_2d_reference(x, g, b, eps)
+    xf = x.float()
+    c = xf - mean[:, None]
+    r = torch.rsqrt(var[:, None] + eps)
+    rb = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    faults = (c * r * rb(g) + b, rb(c * r) * g + b, c * r * g + rb(b))
+    return [ln_bf16_gap(f.to(torch.bfloat16), want, x, g, b, var, eps)[1]
+            for f in faults]
+
+
+def amp_kernel_phase(dk, ln, fad, fm, dev, flush, cfg):
+    """The bf16 AMP policy's kernels, each beside its f32 self in the same
+    run: the dropout kernel's bf16 instantiation (bitwise its plain
+    version, mask and out, at the attention probabilities' shape and an
+    odd unaligned one); row 14's (one bf16 ulp of y and past it
+    LN_BF16_OPERAND_ULPS f32 ulps of the operands, LN_BF16_STATS_RTOL of
+    the statistics, at the MLM head's [614, 768], [4096, 768] and two
+    shapes of its scalar kernel); rows 9 and 10 writing the carry's bf16
+    copies of the members the AMP paths carry (BERT-base's product
+    weights; the fc weight of ResNet-50's fused group), bitwise
+    ``p_new.to(bfloat16)``; each timed against its f32 launch, its plain
+    version and the library call on the same tensors."""
+    from paddle_tpu_torch.ops.common import (byte_threshold,
+                                             realized_keep_prob,
+                                             realized_prob)
+
+    rows = []
+    rng = np.random.RandomState(15)
+    bf16 = torch.bfloat16
+    thr, q = byte_threshold(0.9), realized_keep_prob(0.9)
+    probs = torch.from_numpy(rng.rand(32, 12, 128, 128).astype(
+        np.float32)).to(dev).to(bf16)
+    odd = torch.from_numpy(_rand(rng, 1002)).to(dev).to(bf16)[1:]
+    for what, x in (("attention probs [32, 12, 128, 128]", probs),
+                    ("odd 1001 elements at an unaligned offset", odd)):
+        for upscale in (True, False):
+            out, mask = dk.dropout(x, WORDS, thr, q, upscale)
+            wout, wmask = dk.dropout_reference(x, WORDS, thr, q, upscale)
+            torch.cuda.synchronize()
+            if out.dtype != bf16 or not torch.equal(mask, wmask) \
+                    or not torch.equal(out, wout):
+                fail("bf16 dropout not bitwise its plain version at %s"
+                     % what)
+        qr = realized_prob(0.9)
+        frac = float(mask.float().mean())
+        sigma = (qr * (1 - qr) / x.numel()) ** 0.5
+        if abs(frac - qr) > KEEP_SIGMAS * sigma:
+            fail("bf16 dropout keep fraction %.6f at %s" % (frac, what))
+        print("kernel dropout (bf16) %s: mask and out bitwise equal to the "
+              "plain version; keep fraction %.6f (%.2f sigma)"
+              % (what, frac, abs(frac - qr) / sigma), flush=True)
+    n = probs.numel()
+    f32 = probs.float()
+    f32_ms = time_cold(lambda: dk.dropout(f32, WORDS, thr, q, True), flush)
+    row = timed_row(
+        "dropout (bf16)", lambda: dk.dropout(probs, WORDS, thr, q, True),
+        lambda: dk.dropout_reference(probs, WORDS, thr, q, True),
+        lambda: torch.nn.functional.dropout(probs, 0.1), 5 * n, n, flush,
+        0.0, "attention probs [32, 12, 128, 128] bf16 at p = 0.1 "
+        "(F.dropout on the bf16 tensor; the f32 kernel in this run %.6f)"
+        % f32_ms)
+    row.update(source="paddle_tpu_torch/kernels/csrc/dropout.cu",
+               replaces="paddle_tpu/ops/nn.py:602")
+    rows.append(row)
+
+    ln_f = torch.nn.functional.layer_norm
+    worst = 0.0
+    ln_timed = {}
+    for n_rows, h in ((614, 768), (4096, 768), (64, 200), (16, 1200)):
+        x = torch.from_numpy(_rand(rng, n_rows, h)).to(dev).to(bf16)
+        g = torch.from_numpy(_rand(rng, h) + 1.0).to(dev)
+        b = torch.from_numpy(_rand(rng, h)).to(dev)
+        got = ln.layer_norm_2d(x, g, b, 1e-5)
+        want = ln.layer_norm_2d_reference(x, g, b, 1e-5)
+        torch.cuda.synchronize()
+        ulps, excess = ln_bf16_gap(got[0], want[0], x, g, b, want[2], 1e-5)
+        stats = max(float((gs - ws).abs().max())
+                    / max(float(ws.abs().max()), 1e-30)
+                    for gs, ws in zip(got[1:], want[1:]))
+        worst = max(worst, float((got[0].float() - want[0].float())
+                                 .abs().max()))
+        print("kernel layer_norm (bf16) [%d, %d]: y %.3g bf16 ulps of y "
+              "from the plain version at the worst element, past one ulp "
+              "%.3g f32 ulps of its operands (limit %g); statistics %.3g "
+              "of their largest value (limit %g)"
+              % (n_rows, h, ulps, excess, LN_BF16_OPERAND_ULPS, stats,
+                 LN_BF16_STATS_RTOL), flush=True)
+        if got[0].dtype != bf16 or excess > LN_BF16_OPERAND_ULPS \
+                or stats > LN_BF16_STATS_RTOL \
+                or not torch.isfinite(got[0].float()).all():
+            fail("bf16 layer_norm disagrees with its plain version at "
+                 "[%d, %d]" % (n_rows, h))
+        if n_rows == 614:
+            faults = ln_bf16_faults(ln, x, g, b, 1e-5)
+            print("kernel layer_norm (bf16) [614, 768]: the plain version "
+                  "with gamma, (x - mean) rstd or beta rounded to bf16 is "
+                  "%s f32 ulps of the operands past one ulp of y"
+                  % json.dumps(faults), flush=True)
+            if min(faults) <= LN_BF16_OPERAND_ULPS:
+                fail("the bf16 layer_norm check does not see a rounded "
+                     "operand")
+        if h == 768:
+            ln_timed[n_rows] = (x, g, b)
+    for n_rows in (614, 4096):  # the head's rows in the line, 4096 beside
+        x, g, b = ln_timed[n_rows]
+        nx, hd = x.shape
+        xf, gb, bb = x.float(), g.to(bf16), b.to(bf16)
+        f32_ms = time_cold(lambda: ln.layer_norm_2d(xf, g, b, 1e-5), flush)
+        r = timed_row(
+            "layer_norm (bf16)", lambda: ln.layer_norm_2d(x, g, b, 1e-5),
+            lambda: ln.layer_norm_2d_reference(x, g, b, 1e-5),
+            lambda: ln_f(x, (hd,), gb, bb, 1e-5),
+            2 * 2 * nx * hd + 4 * 2 * hd + 4 * 2 * nx, 8 * nx * hd, flush,
+            worst, "rows [%d, 768] bf16 x, f32 gamma and beta "
+            "(F.layer_norm on the bf16 x with bf16 gamma and beta; the f32 "
+            "kernel in this run %.6f)" % (nx, f32_ms))
+        if n_rows == 614:
+            r.update(source="paddle_tpu_torch/kernels/csrc/layer_norm.cu",
+                     replaces="paddle_tpu/pallas_kernels/layer_norm.py:29")
+            rows.append(r)
+
+    # rows 9 and 10 with the carry: the copies of the members the AMP
+    # paths carry, bitwise, and timed beside the same group without them
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    f = np.float32
+    shapes = bert_param_shapes(cfg)
+    carried = [len(sh) == 2 and sh[0] not in (cfg.vocab_size, cfg.max_pos,
+                                             cfg.type_vocab)
+               for sh in shapes]
+    grp = ([t(rng.randn(*sh).astype(f)) for sh in shapes],
+           [t((rng.randn(*sh) * 1e-3).astype(f)) for sh in shapes],
+           [t((rng.randn(*sh) * 1e-3).astype(f)) for sh in shapes],
+           [t((rng.rand(*sh) * 1e-6).astype(f)) for sh in shapes],
+           t(np.array([1e-4], f)),
+           [t(np.array([0.9 ** 2], f)) for _ in shapes],
+           [t(np.array([0.999 ** 2], f)) for _ in shapes])
+
+    def adam_run():
+        p, g, m1, m2, lr, b1, b2 = grp
+        c = lambda ts: [x.clone() for x in ts]  # noqa: E731
+        return c(p), g, c(m1), c(m2), lr, c(b1), c(b2)
+
+    bfs = [torch.empty(p.shape, dtype=bf16, device=dev) if k else None
+           for p, k in zip(grp[0], carried)]
+    want = fad.fused_adam_reference(*grp, bf16_out=True)
+    got = fad.fused_adam_step(*adam_run(), bf16_out=bfs)
+    torch.cuda.synchronize()
+    for i, k in enumerate(carried):
+        if not torch.equal(got[0][i], want[0][i]) or (
+                k and not torch.equal(got[5][i], want[0][i].to(bf16))):
+            fail("fused_adam with the carry not bitwise at member %d" % i)
+    nel = sum(p.numel() for p in grp[0])
+    n_bf = sum(p.numel() for p, k in zip(grp[0], carried) if k)
+    print("kernel fused_adam (carry): BERT-base group, %d members, %d of "
+          "them (%d elements) with their bf16 copy: bitwise "
+          "p_new.to(bfloat16)" % (len(shapes), sum(carried), n_bf),
+          flush=True)
+    run = adam_run()
+    lib_params = [p.clone().requires_grad_() for p in grp[0]]
+    for p, g in zip(lib_params, grp[1]):
+        p.grad = g
+    lib = torch.optim.Adam(lib_params, lr=1e-4, fused=True)
+    plain_ms = time_cold(lambda: fad.fused_adam_step(*run), flush)
+    row = timed_row(
+        "fused_adam (carry)", lambda: fad.fused_adam_step(*run,
+                                                          bf16_out=bfs),
+        lambda: fad.fused_adam_reference(*grp, bf16_out=True), lib.step,
+        28 * nel + 2 * n_bf, 12 * nel, flush, 0.0,
+        "BERT-base group writing the %d carried members' copies "
+        "(torch.optim.Adam(fused=True), no copy; the kernel without the "
+        "copies in this run %.6f)" % (sum(carried), plain_ms))
+    row.update(source="paddle_tpu_torch/kernels/csrc/fused_adam.cu",
+               replaces="paddle_tpu/pallas_kernels/fused_opt.py:96")
+    rows.append(row)
+    del grp, run, want, got, lib, lib_params
+
+    shapes = resnet50_fused_group()
+    carried = [len(sh) == 2 for sh in shapes]       # the fc weight
+    p = [t(rng.randn(*sh).astype(f)) for sh in shapes]
+    g = [t((rng.randn(*sh) * 1e-2).astype(f)) for sh in shapes]
+    v = [t((rng.randn(*sh) * 1e-2).astype(f)) for sh in shapes]
+    lr = t(np.array([0.1], f))
+    bfs = [torch.empty(x.shape, dtype=bf16, device=dev) if k else None
+           for x, k in zip(p, carried)]
+    want = fm.fused_momentum_reference(p, g, v, lr, 0.9, bf16_out=True)
+    got = fm.fused_momentum_step([x.clone() for x in p], g,
+                                 [x.clone() for x in v], lr, 0.9,
+                                 bf16_out=bfs)
+    torch.cuda.synchronize()
+    for i, k in enumerate(carried):
+        if not torch.equal(got[0][i], want[0][i]) or (
+                k and not torch.equal(got[2][i], want[0][i].to(bf16))):
+            fail("fused_momentum with the carry not bitwise at member %d"
+                 % i)
+    nel = sum(x.numel() for x in p)
+    n_bf = sum(x.numel() for x, k in zip(p, carried) if k)
+    print("kernel fused_momentum (carry): ResNet-50 group, %d members, %d "
+          "of them (%d elements) with their bf16 copy: bitwise "
+          "p_new.to(bfloat16)" % (len(p), sum(carried), n_bf), flush=True)
+    run = ([x.clone() for x in p], g, [x.clone() for x in v], lr)
+    lib_params = [x.clone().requires_grad_() for x in p]
+    for x, gx in zip(lib_params, g):
+        x.grad = gx
+    lib = torch.optim.SGD(lib_params, lr=0.1, momentum=0.9, fused=True)
+    plain_ms = time_cold(lambda: fm.fused_momentum_step(*run, mu=0.9), flush)
+    row = timed_row(
+        "fused_momentum (carry)",
+        lambda: fm.fused_momentum_step(*run, mu=0.9, bf16_out=bfs),
+        lambda: fm.fused_momentum_reference(p, g, v, lr, 0.9,
+                                            bf16_out=True), lib.step,
+        20 * nel + 2 * n_bf, 3 * nel, flush, 0.0,
+        "ResNet-50 group writing the fc weight's copy "
+        "(torch.optim.SGD(momentum=0.9, fused=True), no copy; the kernel "
+        "without the copy in this run %.6f)" % plain_ms)
+    row.update(source="paddle_tpu_torch/kernels/csrc/fused_momentum.cu",
+               replaces="paddle_tpu/pallas_kernels/fused_opt.py:112")
+    rows.append(row)
+    return rows
 
 
 def small_attention_kernel_phase(fa, philox, dev, flush):
@@ -1751,13 +2044,33 @@ def counted():
             "affine_stats": cst.affine_stats}
 
 
+def sub_counted():
+    """{name: (wrapper, counter)}: the launches of the bf16
+    instantiations (dropout, row 14) and of rows 9 and 10 writing the
+    param carry's bf16 copies, counted beside each wrapper's total."""
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.kernels import fused_momentum as fm
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    return {"dropout (bf16)": (dk.dropout, "launches_bf16"),
+            "layer_norm (bf16)": (ln.layer_norm_2d, "launches_bf16"),
+            "fused_adam (carry)": (fad.fused_adam_step, "launches_carry"),
+            "fused_momentum (carry)": (fm.fused_momentum_step,
+                                       "launches_carry")}
+
+
 def launch_counts():
-    return {k: f.launches for k, f in counted().items()}
+    counts = {k: f.launches for k, f in counted().items()}
+    counts.update({k: getattr(f, a) for k, (f, a) in sub_counted().items()})
+    return counts
 
 
 def zero_counts():
     for f in counted().values():
         f.launches = 0
+    for f, a in sub_counted().values():
+        setattr(f, a, 0)
 
 
 @contextlib.contextmanager
@@ -1860,6 +2173,295 @@ def train_phase(cfg, name):
     if not (loss_gap <= TRAIN_LOSS_ATOL and moment_gap <= TRAIN_MOMENT_RTOL):
         fail("training on the card disagrees with the CPU plain path")
     return launches
+
+
+# -- phase 6b: BERT-base under the bf16 AMP policy ----------------------------
+
+# launches a step of BERT-base's AMP program (the composed emission under
+# decorate(Adam)): the f32 program's, of which the 12 attention-probs
+# dropouts and the head's LayerNorm take the bf16 instantiations and the
+# fused Adam writes the carried weights' copies; the embeddings' dropout
+# and LayerNorm and the fused epilogues (an f32 residual) stay f32
+AMP_STEP_LAUNCHES = dict(STEP_LAUNCHES[COMPOSED], **{
+    "dropout (bf16)": 12, "layer_norm (bf16)": 1, "fused_adam (carry)": 1})
+
+
+def busy_ms(step, n=2):
+    """(device busy ms a step, the device's idle share over the kernels'
+    span) of ``n`` profiled calls of ``step``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        fail("the profiler recorded no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in ks)
+    span = max(e.time_range.end for e in ks) \
+        - min(e.time_range.start for e in ks)
+    return busy / 1e3 / n, 1.0 - busy / span
+
+
+def carry_is_the_cast(scope, plan):
+    """Each carried weight's cached bf16 copy is bitwise its master's
+    cast (the executor keeps them per scope)."""
+    cache = scope.__dict__.get("_layout_carry_cache", {})
+    return all(cache[n][0] is scope.find_var(n).get_tensor().get()
+               and torch.equal(cache[n][2], cache[n][0].to(torch.bfloat16))
+               for n in plan.carry_names)
+
+
+def plan_of(exe, main_p):
+    return [p for p in exe._cache.values() if p.block.program is main_p][-1]
+
+
+def twin_programs(build, amps=(False, True)):
+    """{amp: (main, startup, loss)} of ``build(amp)`` built once per
+    ``amps`` under one name scope each, so the AMP program and its f32
+    twin share their variable names and initial state."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.utils import unique_name
+
+    out = {}
+    for amp in amps:
+        main_p, startup = framework.Program(), framework.Program()
+        startup.random_seed = 11
+        with unique_name.guard(), framework.program_guard(main_p, startup):
+            out[amp] = (main_p, startup, build(amp))
+    return out
+
+
+def amp_steps(main_p, loss, init, feed, steps, check_carry=True):
+    """``steps`` steps of ``main_p`` on the card from ``init``, the counts
+    zeroed just before -> (losses, host ms a step, launch counts, plan,
+    (busy ms, idle) of two more profiled steps)."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    exe = Executor()
+    sc = scope_from_numpy(Scope(), init, exe.device, program=main_p)
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out, = exe.run(main_p, feed=feed, fetch_list=[loss], scope=sc)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.reshape(-1)[0]))
+        if check_carry and not carry_is_the_cast(sc, plan_of(exe, main_p)):
+            fail("a carried weight's bf16 copy is not its master's cast "
+                 "after step %d" % i)
+    launches = launch_counts()
+    busy = busy_ms(lambda: exe.run(main_p, feed=feed, fetch_list=[loss],
+                                   scope=sc))
+    return losses, ms, launches, plan_of(exe, main_p), busy
+
+
+def amp_train_phase(cfg):
+    """BERT-base pretraining under decorate(Adam(1e-4)) (the composed
+    emission at dropout 0.1), TRAIN_STEPS steps at batch 32 -> the launch
+    counts; beside it the f32 twin from the same state: the first loss,
+    host ms and busy; and the CPU's plain path from one state."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+    from paddle_tpu_torch.models.bert import build_pretrain, pretrain_feed
+
+    progs = twin_programs(lambda amp: build_pretrain(cfg, SEQ, lr=1e-4,
+                                                     amp=amp)[1])
+    main_p, startup, loss = progs[True]
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    init = scope_to_numpy(scope, main_p)
+    del scope
+    feed = pretrain_feed(np.random.RandomState(3), cfg, TRAIN_BATCH, SEQ)
+    losses, ms, launches, plan, (busy, idle) = amp_steps(
+        main_p, loss, init, feed, TRAIN_STEPS)
+    print("train AMP: BERT-base under decorate(Adam(1e-4)), dropout %g, "
+          "seq %d, batch %d; %d carried weights; %d steps, losses %s; "
+          "step_ms %s, p50 %.3f (the first fuses, plans and casts the "
+          "carry); busy %.3f ms/step, idle %.3f; launches %s"
+          % (cfg.dropout, SEQ, TRAIN_BATCH, len(plan.carry_names),
+             TRAIN_STEPS, json.dumps(losses),
+             json.dumps([round(x, 3) for x in ms]),
+             float(np.percentile(ms[1:], 50)), busy, idle,
+             json.dumps({k: v for k, v in launches.items() if v})),
+          flush=True)
+    want = {k: AMP_STEP_LAUNCHES.get(k, 0) * TRAIN_STEPS for k in launches}
+    if launches != want:
+        fail("AMP training launches %s, want %s" % (launches, want))
+    if len(plan.carry_names) != cfg.layers * 6 + 2:
+        fail("AMP BERT carries %d weights, want %d (every product's)"
+             % (len(plan.carry_names), cfg.layers * 6 + 2))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("AMP training losses %s" % losses)
+    f_main, _f_startup, f_loss = progs[False]
+    f_losses, f_ms, _l, _p, (f_busy, f_idle) = amp_steps(
+        f_main, f_loss, init, feed, 3, check_carry=False)
+    print("train AMP: the f32 twin from the same state: losses %s; step_ms "
+          "%s, p50 %.3f; busy %.3f ms/step, idle %.3f; AMP - f32 first "
+          "loss %.4g" % (json.dumps(f_losses),
+                         json.dumps([round(x, 3) for x in f_ms]),
+                         float(np.percentile(f_ms[1:], 50)), f_busy, f_idle,
+                         losses[0] - f_losses[0]), flush=True)
+    feed2 = pretrain_feed(np.random.RandomState(4), cfg, CHECK_BATCH, SEQ)
+    card, _m = check_steps(main_p, loss, init, feed2, None)
+    cpu, _m = check_steps(main_p, loss, init, feed2, framework.CPUPlace())
+    gap = max(abs(a - b) for a, b in zip(card, cpu))
+    print("train AMP: card vs CPU plain path, %d chained steps from one "
+          "state: max loss difference %.3g (limit %g)"
+          % (CHECK_STEPS, gap, AMP_BERT_LOSS_ATOL), flush=True)
+    if not gap <= AMP_BERT_LOSS_ATOL:
+        fail("AMP training on the card disagrees with the CPU plain path")
+    return {k: v for k, v in launches.items() if v}
+
+
+def resnet_amp_build(decay):
+    """A builder of ResNet-50's program for ``twin_programs``: with
+    ``decay`` the bundled ``build_train`` (Momentum, L2Decay(1e-4));
+    without, the same net under Momentum alone, whose weights the carry
+    takes (L2Decay's scale ops read them, which bars them)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def build(amp):
+        if decay:
+            return resnet.build_train(depth=RESNET_DEPTH, class_dim=CLASSES,
+                                      image_size=IMAGE, lr=RESNET_LR,
+                                      amp=amp)[2]
+        img = layers.data("img", shape=[3, IMAGE, IMAGE])
+        label = layers.data("label", shape=[1], dtype="int64")
+        out = resnet.resnet(img, CLASSES, RESNET_DEPTH)
+        loss = layers.mean(layers.softmax_with_cross_entropy(out, label))
+        opt = Momentum(learning_rate=RESNET_LR, momentum=0.9)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
+        return loss
+    return build
+
+
+def amp_resnet_phase():
+    """Bundled ResNet-50 ``build_train(amp=True)`` at batch 32,
+    TRAIN_STEPS steps -> the launch counts: row 10 once a step, no carry
+    (L2Decay reads every weight, as the reference decides); beside it the
+    f32 twin from the same state; then CHECK_STEPS steps at batch 32, each
+    from one state on the card and on the CPU's plain path, and one step
+    op by op, each op on the card fed the CPU's inputs.  The conv2d_bn_relu
+    trunk is left out: its kernels are f32, as the reference's trunk
+    kernels are under the policy."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+
+    progs = twin_programs(resnet_amp_build(True))
+    main_p, startup, loss = progs[True]
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    init = scope_to_numpy(scope, main_p)
+    del scope
+    feed = resnet_feed(np.random.RandomState(3), TRAIN_BATCH)
+    losses, ms, launches, plan, (busy, idle) = amp_steps(
+        main_p, loss, init, feed, TRAIN_STEPS)
+    print("train resnet AMP [bundled]: ResNet-50 build_train(amp=True), "
+          "batch %d; %d carried weights (the reference's rule: L2Decay "
+          "reads them); %d steps, losses %s; step_ms %s, p50 %.3f; busy "
+          "%.3f ms/step, idle %.3f; launches %s"
+          % (TRAIN_BATCH, len(plan.carry_names), TRAIN_STEPS,
+             json.dumps(losses), json.dumps([round(x, 3) for x in ms]),
+             float(np.percentile(ms[1:], 50)), busy, idle,
+             json.dumps({k: v for k, v in launches.items() if v})),
+          flush=True)
+    want = {k: 0 for k in launches}
+    want["fused_momentum"] = TRAIN_STEPS
+    if launches != want or plan.carry_names:
+        fail("AMP ResNet-50 launches %s (want %s), carry %s"
+             % (launches, want, plan.carry_names))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("AMP ResNet-50 losses %s" % losses)
+    f_main, _s, f_loss = progs[False]
+    f_losses, f_ms, _l, _p, (f_busy, f_idle) = amp_steps(
+        f_main, f_loss, init, feed, 3, check_carry=False)
+    print("train resnet AMP: the f32 twin from the same state: losses %s; "
+          "step_ms %s, p50 %.3f; busy %.3f ms/step, idle %.3f; AMP - f32 "
+          "first loss %.4g" % (json.dumps(f_losses),
+                               json.dumps([round(x, 3) for x in f_ms]),
+                               float(np.percentile(f_ms[1:], 50)), f_busy,
+                               f_idle, losses[0] - f_losses[0]), flush=True)
+    # CHECK_STEPS steps at batch 32, each from one state on the card and
+    # the CPU (the f32 twin's first step beside them), then one step op by
+    # op, each op on the card fed the CPU's inputs
+    feed2 = resnet_feed(np.random.RandomState(4), TRAIN_BATCH)
+    pairs, vels, (t_loss, t_vels) = resnet_card_vs_cpu(
+        main_p, loss, init, feed2, twin=(f_main, f_loss))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    weights = [n for n in vels if init[n].ndim >= 2]  # the convs' and fc's
+    w_worst = max(weights, key=vels.get)
+    t_worst = max(weights, key=t_vels.get)
+    others = max(v for n, v in vels.items() if n not in weights)
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from torch_amp_opdiff import step_op_by_op
+
+    t0 = time.perf_counter()
+    iso, _chain, _first, (op_loss, _l) = step_op_by_op(
+        main_p, loss, feed2, init, "cuda", chained=False)
+    worst = max(iso)
+    dtypes = [r for r in iso if r[4] != r[5]]
+    print("train resnet AMP: card vs CPU plain path, %d steps at batch %d, "
+          "each from one state: losses' relative difference %.3g (limit "
+          "%g); one step op by op, each op on the card fed the CPU's "
+          "inputs (%.1f s): %d float outputs, %d of another dtype than "
+          "the CPU's, the largest difference %.3g of the output's largest "
+          "value (limit %g; op %d %s %s); not held, noise-dominated: the "
+          "conv and fc weights' velocities norm-wise %.3g (%s), the batch "
+          "norms' and the fc bias's %.3g, the f32 twin's first step "
+          "against the CPU's AMP step %.3g (%s), its loss %.3g relative"
+          % (CHECK_STEPS, TRAIN_BATCH, rel, AMP_RESNET_LOSS_RTOL,
+             time.perf_counter() - t0, len(iso), len(dtypes), worst[0],
+             AMP_RESNET_OP_RTOL, worst[1], worst[2], worst[3],
+             vels[w_worst], w_worst, others, t_vels[t_worst], t_worst,
+             abs(t_loss - pairs[0][1]) / abs(pairs[0][1])), flush=True)
+    if not rel <= AMP_RESNET_LOSS_RTOL or worst[0] > AMP_RESNET_OP_RTOL \
+            or dtypes or not np.isfinite(op_loss):
+        fail("AMP ResNet-50 on the card disagrees with the CPU plain path"
+             " %s" % dtypes[:3])
+    return {k: v for k, v in launches.items() if v}
+
+
+def amp_resnet_carry_phase(steps=3):
+    """ResNet-50 under decorate(Momentum) without weight decay, batch 32:
+    every conv and the fc weight carried (54), row 10 writing the fc
+    weight's copy in its group once a step, each copy bitwise its
+    master's cast after every step -> the launch counts."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+
+    main_p, startup, loss = twin_programs(resnet_amp_build(False),
+                                          (True,))[True]
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    init = scope_to_numpy(scope, main_p)
+    del scope
+    feed = resnet_feed(np.random.RandomState(3), TRAIN_BATCH)
+    losses, ms, launches, plan, (busy, idle) = amp_steps(
+        main_p, loss, init, feed, steps)
+    print("train resnet AMP [no decay]: %d carried weights, each its "
+          "master's cast after every step; %d steps, losses %s; step_ms "
+          "%s; busy %.3f ms/step, idle %.3f; launches %s"
+          % (len(plan.carry_names), steps, json.dumps(losses),
+             json.dumps([round(x, 3) for x in ms]), busy, idle,
+             json.dumps({k: v for k, v in launches.items() if v})),
+          flush=True)
+    want = {k: 0 for k in launches}
+    want["fused_momentum"] = want["fused_momentum (carry)"] = steps
+    if launches != want or len(plan.carry_names) != CONV_BN_PAIRS + 1:
+        fail("AMP ResNet-50 without decay: launches %s (want %s), %d "
+             "carried" % (launches, want, len(plan.carry_names)))
+    if not all(np.isfinite(losses)):
+        fail("AMP ResNet-50 without decay: losses %s" % losses)
+    return {k: v for k, v in launches.items() if v}
 
 
 # -- phases 7 and 8: ResNet-50 serving and training --------------------------
@@ -2107,44 +2709,54 @@ def resnet_feed(rng, batch):
             "label": rng.randint(0, CLASSES, (batch, 1)).astype(np.int64)}
 
 
-def resnet_card_vs_cpu(main_p, loss, init, feed):
+def resnet_card_vs_cpu(main_p, loss, init, feed, twin=None):
     """CHECK_STEPS steps on the card from the persistables ``init``, each
     replayed on the CPU's plain path from the card's state before it ->
-    (largest loss difference, the velocities' largest norm-wise relative
-    difference and the tensor where it is).  Each step starts both
-    devices from one state, so the gaps are one step's f32 rounding:
-    chained steps of a randomly initialised ResNet-50 part by far more
-    (PERF.md §6)."""
+    ([(card loss, CPU loss)], {velocity: its largest norm-wise relative
+    difference over the steps}, and with ``twin``, (main, loss) of a
+    program over the same variables, its first step on the card against
+    the CPU's first step of ``main_p``: (its loss, {velocity: difference}),
+    else None).  Each step starts both devices from one state, so the gaps
+    are one step's rounding: chained steps of a randomly initialised
+    ResNet-50 part by far more (PERF.md §6)."""
     from paddle_tpu_torch import framework
     from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
                                        scope_to_numpy)
 
     card, cpu = Executor(), Executor(framework.CPUPlace())
     sc = scope_from_numpy(Scope(), init, card.device, program=main_p)
-    loss_gap, vel_gap, worst, losses = 0.0, 0.0, None, []
+    vels = [n for n in init if "_velocity_" in n]
+    losses, gaps, twin_out = [], dict.fromkeys(vels, 0.0), None
+
+    def run(exe, prog, fetch, scope):
+        return float(exe.run(prog, feed=feed, fetch_list=[fetch],
+                             scope=scope)[0].reshape(-1)[0])
+
+    def vel_gaps(scope, want):
+        out = {}
+        for n in vels:
+            v = want.find_var(n).get_tensor().numpy()
+            out[n] = float(np.linalg.norm(
+                scope.find_var(n).get_tensor().numpy() - v)) / max(
+                    float(np.linalg.norm(v)), 1e-30)
+        return out
+
     t0 = time.perf_counter()
-    for _ in range(CHECK_STEPS):
+    for step in range(CHECK_STEPS):
         state = scope_to_numpy(sc, main_p)
-        got = float(card.run(main_p, feed=feed, fetch_list=[loss],
-                             scope=sc)[0].reshape(-1)[0])
+        got = run(card, main_p, loss, sc)
         sp = scope_from_numpy(Scope(), state, "cpu", program=main_p)
-        want = float(cpu.run(main_p, feed=feed, fetch_list=[loss],
-                             scope=sp)[0].reshape(-1)[0])
-        losses.append((got, want))
-        loss_gap = max(loss_gap, abs(got - want))
-        for n in state:
-            if "_velocity_" not in n:
-                continue
-            v = sp.find_var(n).get_tensor().numpy()
-            rel = float(np.linalg.norm(sc.find_var(n).get_tensor().numpy()
-                                       - v)) / max(float(np.linalg.norm(v)),
-                                                   1e-30)
-            if worst is None or rel > vel_gap:
-                vel_gap, worst = rel, n
+        losses.append((got, run(cpu, main_p, loss, sp)))
+        for n, gap in vel_gaps(sc, sp).items():
+            gaps[n] = max(gaps[n], gap)
+        if twin is not None and step == 0:
+            st = scope_from_numpy(Scope(), state, card.device,
+                                  program=twin[0])
+            twin_out = (run(card, twin[0], twin[1], st), vel_gaps(st, sp))
     print("train resnet: %d steps at batch %d, (card, CPU) losses %s (%.1f "
           "s)" % (CHECK_STEPS, len(feed["img"]), json.dumps(losses),
                   time.perf_counter() - t0), flush=True)
-    return loss_gap, vel_gap, worst
+    return losses, gaps, twin_out
 
 
 def conv_train_phase(which):
@@ -2206,8 +2818,10 @@ def conv_train_phase(which):
             fail("train resnet [%s] losses %s: not finite, or the last is "
                  "not below the first" % (which, losses))
         feed2 = resnet_feed(np.random.RandomState(4), CHECK_BATCH)
-        loss_gap, vel_gap, worst = resnet_card_vs_cpu(main_p, loss, init,
-                                                      feed2)
+        pairs, vels, _twin = resnet_card_vs_cpu(main_p, loss, init, feed2)
+        loss_gap = max(abs(a - b) for a, b in pairs)
+        worst = max(vels, key=vels.get)
+        vel_gap = vels[worst]
     print("train resnet [%s]: card vs CPU plain path, each step from one "
           "state: max loss difference %.3g (limit %.3g); velocities' "
           "norm-wise gap %.3g (limit %.3g, worst %s)"
@@ -2730,6 +3344,7 @@ def main():
     rows.append(adam_kernel_phase(fad, dev, flush, bert_cfg))
     rows.append(dropout_kernel_phase(dk, philox, dev, flush))
     rows.append(momentum_kernel_phase(fm, dev, flush))
+    rows += amp_kernel_phase(dk, ln, fad, fm, dev, flush, bert_cfg)
     rows += conv_kernel_phase(cb, dev, flush)
     rows.append(bag_kernel_phase(eb, dev, flush))
     rows += channel_stats_kernel_phase(cst, dev, flush)
@@ -2745,8 +3360,14 @@ def main():
         launches.update({k: v for k, v in counts.items() if v})
     for which in ("bundled", "trunk"):
         launches.update(conv_serve_phase(which))
+    amp = amp_train_phase(BertConfig(dropout=0.1))
     for which in ("bundled", "trunk"):
         launches.update(conv_train_phase(which))
+    amp.update(amp_resnet_phase())
+    amp.update(amp_resnet_carry_phase())
+    # the f32 rows keep their f32 paths' counts; the bf16 and carry rows
+    # take the AMP paths'
+    launches.update({k: v for k, v in amp.items() if k in sub_counted()})
     launches.update(dlrm_phase())
     launches.update(reduce_tool_phase())
     for row in rows:

@@ -19,9 +19,10 @@ import time
 import numpy as np
 import torch
 
+from .. import flags
 from ..device import resolve_device, set_f32_numerics
 from ..framework import Variable, default_main_program, dtype_to_torch
-from .lowering import BlockPlan, draws, op_seed, run_op
+from .lowering import MASTER_SUFFIX, BlockPlan, draws, op_seed, run_op
 from .scope import Scope
 
 __all__ = ["Executor", "global_scope", "scope_guard", "place_device"]
@@ -78,6 +79,43 @@ def _fetch_name(f):
     raise TypeError("bad fetch target %r" % (f,))
 
 
+def _gather_carry(scope, plan, env):
+    """{name: bf16 copy} of the plan's carried params, from the scope's
+    cache where it still mirrors the master, else cast afresh; each copy
+    goes into ``env`` under the param's name and the master under
+    ``<name>@MASTER``."""
+    if not plan.carry_names:
+        return None
+    cache = scope.__dict__.setdefault("_layout_carry_cache", {})
+    carry = {}
+    for n in plan.carry_names:
+        master = env[n]
+        hit = cache.get(n)
+        if hit is not None and hit[0] is master \
+                and hit[1] == master._version:
+            bf = hit[2]
+        else:
+            bf = master.to(torch.bfloat16)
+            cache[n] = (master, master._version, bf)
+        carry[n] = env[n] = bf
+        env[n + MASTER_SUFFIX] = master
+    return carry
+
+
+def _store_carry(scope, env, carry, written):
+    """After the step: each carried param's copy of its new master (the
+    optimizer's own where it wrote one), cached against the master the
+    scope now holds.  A param no op wrote keeps its copy."""
+    cache = scope.__dict__["_layout_carry_cache"]
+    for n, bf in carry.items():
+        value = env[n]  # the new f32 master (ParamOut), else the copy
+        if value.dtype == torch.bfloat16:
+            continue
+        if n not in written:
+            bf = value.to(torch.bfloat16)
+        cache[n] = (value, value._version, bf)
+
+
 class Executor:
     """Runs programs on one device (``place=None``: the CUDA card).  A
     training program's sgd, momentum or adam ops are coalesced into one
@@ -112,15 +150,16 @@ class Executor:
         self._fuse_attempted.add((program._uid, program.version))
 
     def _plan(self, program, feeds, fetch_names):
+        allow_carry = bool(flags.flag("FLAGS_layout_match_params"))
         key = (program._uid, program.version,
                tuple(sorted((n, tuple(t.shape), str(t.dtype))
                             for n, t in feeds.items())),
-               tuple(fetch_names))
+               tuple(fetch_names), allow_carry)
         plan = self._cache.get(key)
         cached = plan is not None
         if not cached:
             plan = BlockPlan(program.global_block(), list(feeds),
-                             fetch_names)
+                             fetch_names, allow_carry=allow_carry)
             self._cache[key] = plan
         return plan, cached
 
@@ -159,6 +198,8 @@ class Executor:
                 val = self._to_device(n, val, block)
                 var.set(val)  # the scope keeps the device copy
             env[n] = val
+        carry = _gather_carry(scope, plan, env)
+        carry_written = set()
         seed = program.random_seed or 0
         with _RNG_LOCK:
             step = scope._rng_counter
@@ -167,12 +208,14 @@ class Executor:
             for i, (op, opdef, attrs) in enumerate(plan.steps):
                 run_op(op, opdef, attrs, env, self.device,
                        op_seed(seed, step, i) if draws(opdef, attrs)
-                       else None)
+                       else None, carry, carry_written)
                 for n in plan.release[i]:
                     env.pop(n, None)
         for n in plan.persist_written:
             if n in env and n not in feeds:
                 scope.var(n).set(env[n])
+        if carry:
+            _store_carry(scope, env, carry, carry_written)
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError("fetch targets %s were never produced" % missing)

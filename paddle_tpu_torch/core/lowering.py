@@ -2,10 +2,17 @@
 back, and how one op runs.
 
 Counterpart of ``paddle_tpu/core/lowering.py`` (``LowerCtx``,
-``analyze_block:88``, ``BlockPlan:126``, ``run_op:336``).  The reference
-traces a whole block into one XLA computation; the port interprets the
-block op by op in eager PyTorch, each op's lowering launching its kernels
-directly.
+``analyze_block:88``, ``BlockPlan:126``, ``analyze_param_carry:181``,
+``_gather_slot:273``, ``run_op:336``).  The reference traces a whole
+block into one XLA computation; the port interprets the block op by op in
+eager PyTorch, each op's lowering launching its kernels directly.
+
+The param carry (``FLAGS_layout_match_params`` under the bf16 AMP
+policy): ``analyze_param_carry`` picks the f32 weights whose only readers
+are one product, its grad and its optimizer.  The executor puts a bf16
+copy of each under the weight's name and the f32 master under
+``<name>@MASTER``, which only an optimizer's ``Param`` slot reads
+(``_gather``).
 """
 
 import numpy as np
@@ -13,8 +20,8 @@ import torch
 
 from .registry import get_op_def, lower_attrs
 
-__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "draws", "op_seed",
-           "run_op"]
+__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "analyze_param_carry",
+           "draws", "op_seed", "run_op", "MASTER_SUFFIX"]
 
 
 class LowerCtx:
@@ -27,12 +34,27 @@ class LowerCtx:
     derives the two key words of its Philox stream (``seed_words``), and
     ``uniform_random`` a ``torch.Generator`` (``generator``).  Keys made
     on the host are the same on every device, so a step on the card draws
-    the masks its plain CPU run draws."""
+    the masks its plain CPU run draws.
 
-    def __init__(self, device, op=None, seed=None):
+    ``carry`` (a step's param carry, or None): carried param name -> its
+    bf16 copy.  An optimizer op that writes a carried param's new bf16
+    copy itself (the fused kernels do, in the copy's own buffer on the
+    card) stores it there and adds the name to ``carry_written``."""
+
+    def __init__(self, device, op=None, seed=None, carry=None,
+                 carry_written=None):
         self.device = device
         self.op = op
         self.seed = seed
+        self.carry = carry
+        self.carry_written = carry_written
+
+    def amp_bf16(self):
+        """True when the op's program runs under the bf16 AMP policy
+        (``contrib.mixed_precision.decorate`` sets ``_amp_bf16``)."""
+        block = self.op.block if self.op is not None else None
+        return bool(getattr(block.program if block is not None else None,
+                            "_amp_bf16", False))
 
     @property
     def abstract(self):
@@ -90,14 +112,20 @@ def analyze_block(block, feed_names):
 class BlockPlan:
     """Execution plan of one block for one feed/fetch signature: the ops
     with their definitions and attrs resolved once, so a run only gathers,
-    calls and scatters."""
+    calls and scatters.  With ``allow_carry``, ``carry_names`` lists the
+    params the step reads as bf16 copies (``analyze_param_carry``)."""
 
-    def __init__(self, block, feed_names, fetch_names):
+    def __init__(self, block, feed_names, fetch_names, allow_carry=False):
         self.block = block
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
         self.external, _written, self.persist_written = analyze_block(
             block, feed_names)
+        rw = set(self.persist_written)
+        self.carry_names = analyze_param_carry(
+            block, self.feed_names, self.fetch_names,
+            [n for n in self.external if n not in rw],
+            [n for n in self.external if n in rw]) if allow_carry else []
         ops = _runtime_ops(block)
         self.steps = [(op, get_op_def(op.type), lower_attrs(op.attrs))
                       for op in ops]
@@ -117,6 +145,76 @@ class BlockPlan:
                 self.release[i].append(n)
 
 
+# forward op types whose lowerings take their weight operand in bf16 under
+# the AMP policy: a carried param may be read by one of these and its grad
+_CARRY_CONSUMERS = frozenset((
+    "mul", "matmul", "matmul_v2", "conv2d", "depthwise_conv2d",
+))
+
+# optimizer op types: their "Param" slot reads the f32 master
+_OPTIMIZER_TYPES = frozenset((
+    "sgd", "momentum", "adam", "adamax", "adagrad", "decayed_adagrad",
+    "adadelta", "rmsprop", "lars_momentum", "lamb", "ftrl", "dpsgd",
+    "fused_sgd", "fused_momentum", "fused_adam",
+))
+
+# ops with sub-blocks read outer vars the scan below cannot see
+_SUBBLOCK_OPS = frozenset((
+    "while", "conditional_block", "recurrent", "py_func",
+))
+
+MASTER_SUFFIX = "@MASTER"
+
+
+def analyze_param_carry(block, feed_names, fetch_names, ro_names, rw_names):
+    """Names of the persistable f32 params a step may read as bf16 copies,
+    the reference's rule: every reader is an optimizer's ``Param`` slot
+    (it reads the master), or one forward op of ``_CARRY_CONSUMERS`` plus
+    at most one of its grad ops; the only writer, if any, is that
+    optimizer's ParamOut.  Feeds, fetches, programs with sub-block ops and
+    programs not under the AMP policy carry nothing.  One forward reader
+    keeps gradient accumulation out: two bf16 branch grads would be summed
+    in bf16 where the per-step cast sums their f32 casts."""
+    if any(op.type in _SUBBLOCK_OPS for op in block.ops):
+        return []
+    if not getattr(block.program, "_amp_bf16", False):
+        return []
+    skip = set(feed_names) | set(fetch_names)
+    readers, writers = {}, {}
+    for op in _runtime_ops(block):
+        for n in op.input_arg_names:
+            if n:
+                readers.setdefault(n, []).append(op)
+        for n in op.output_arg_names:
+            if n:
+                writers.setdefault(n, []).append(op)
+    out = []
+    for n in list(ro_names) + list(rw_names):
+        v = block._find_var_recursive(n)
+        if n in skip or v is None or not v.persistable or v.shape is None \
+                or v.dtype != "float32":
+            continue
+        n_fwd = n_grad = 0
+        ok = True
+        for op in readers.get(n, ()):
+            if op.type in _OPTIMIZER_TYPES and n in op.input("Param"):
+                continue
+            if op.type in _CARRY_CONSUMERS:
+                n_fwd += 1
+            elif op.type.endswith("_grad") \
+                    and op.type[:-5] in _CARRY_CONSUMERS:
+                n_grad += 1
+            else:
+                ok = False
+                break
+        ok = ok and n_fwd == 1 and n_grad <= 1 and all(
+            op.type in _OPTIMIZER_TYPES and n in op.output("ParamOut")
+            for op in writers.get(n, ()))
+        if ok:
+            out.append(n)
+    return out
+
+
 def _is_grad_name(name):
     return name.endswith("@GRAD") or "@GRAD@" in name
 
@@ -125,9 +223,14 @@ def _gather(opdef, op, slot, env):
     names = op.input(slot)
     optional = slot in opdef.optional_inputs or slot.startswith(
         ("GRAD@", "Out@"))
+    # an optimizer's Param slot reads a carried param's f32 master; only
+    # optimizer ops have a Param slot
+    master = slot == "Param"
     vals = []
     for n in names:
-        if n in env:
+        if master and n + MASTER_SUFFIX in env:
+            vals.append(env[n + MASTER_SUFFIX])
+        elif n in env:
             vals.append(env[n])
         elif not n or optional or _is_grad_name(n):
             vals.append(None)
@@ -156,11 +259,13 @@ def draws(opdef, attrs):
                                   or bool(opdef.rng_when(attrs)))
 
 
-def run_op(op, opdef, attrs, env, device, seed=None):
+def run_op(op, opdef, attrs, env, device, seed=None, carry=None,
+           carry_written=None):
     """Run one op: gather its inputs from ``env``, call the lowering,
     scatter its outputs back."""
     args = [_gather(opdef, op, s, env) for s in opdef.input_slots]
-    out = opdef.lower(LowerCtx(device, op, seed), *args, **attrs)
+    out = opdef.lower(LowerCtx(device, op, seed, carry, carry_written),
+                      *args, **attrs)
     if len(opdef.output_slots) == 1 and not isinstance(out, tuple):
         out = (out,)
     for slot, val in zip(opdef.output_slots, out):

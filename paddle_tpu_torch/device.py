@@ -25,6 +25,10 @@ def set_f32_numerics():
     """The JAX reference computes in full float32, and so does the port:
     TF32 keeps about three decimal digits and would drift the decode
     logits away from the reference.  PyTorch leaves matmul TF32 off by
-    default but convolutions on, so both are set explicitly."""
+    default but convolutions on, so both are set explicitly.  Under the
+    bf16 AMP policy the products take bf16 operands and keep f32 sums, as
+    the reference's (the MXU accumulates in f32), so cuBLAS may not reduce
+    a split sum in bf16 either."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -23,6 +23,14 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   (``kernels/embedding_bag.py``) where ``bag_checks`` holds, instead of
   the masked gather + sum composition; as for the conv block, no
   measured speed-up gates it.
+* ``FLAGS_layout_match_params`` (default True, as in the reference): a
+  program under the bf16 AMP policy (``contrib.mixed_precision``) keeps
+  a bf16 copy of each weight whose only readers are one product
+  (``mul`` / ``matmul`` / ``conv2d``), its grad and its optimizer
+  (``core.lowering.analyze_param_carry``), cached across steps and
+  refreshed from the new f32 master after each step; the products read
+  the copy and the optimizer the master.  The copy is bitwise the
+  per-step cast, so the flag moves no value.
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -35,6 +43,7 @@ _DEFAULTS = {
     "FLAGS_fused_small_attention": False,
     "FLAGS_use_pallas_conv_block": False,
     "FLAGS_use_pallas_embedding_bag": False,
+    "FLAGS_layout_match_params": True,
 }
 
 

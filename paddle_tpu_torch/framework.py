@@ -352,6 +352,10 @@ class Program:
         self.random_seed = 0
         self._version = 0
         self._is_test = False
+        # the bf16 AMP policy (contrib.mixed_precision.decorate sets it):
+        # products take bf16 operands and give bf16 results; not carried
+        # by clone or to_dict, as in the reference
+        self._amp_bf16 = False
         # role stamped on ops appended now (backward / optimizer guards)
         self._op_role = OpRole.Forward
 

@@ -1,12 +1,13 @@
-"""The device table of the fused Adam kernel's group
-(``csrc/fused_adam.cu``): one launch updates every member in place, each
-CTA finding its member by binary search over the table's block-count
-prefixes."""
+"""What the fused optimizer kernels' groups share: the device table of
+the fused Adam kernel's group (``csrc/fused_adam.cu``: one launch updates
+every member in place, each CTA finding its member by binary search over
+the table's block-count prefixes), and which bf16 copies of the new
+params the plain versions return."""
 
 import numpy as np
 import torch
 
-__all__ = ["PER_BLOCK", "group_table"]
+__all__ = ["PER_BLOCK", "group_table", "requested_copies"]
 
 # elements a CTA updates (256 threads x 4)
 PER_BLOCK = 1024
@@ -34,3 +35,11 @@ def group_table(rows, sizes, device, check):
         _TABLES.clear()
     _TABLES[key] = hit = (torch.from_numpy(flat).to(device), int(starts[-1]))
     return hit
+
+
+def requested_copies(copies, bf16_out):
+    """The plain version's bf16 copies of the members ``bf16_out`` asks
+    for (a list with a tensor or None per member, or True for all)."""
+    if copies is None or bf16_out is True:
+        return copies
+    return [c if b is not None else None for c, b in zip(copies, bf16_out)]

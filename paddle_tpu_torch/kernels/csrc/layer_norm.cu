@@ -32,8 +32,19 @@
 //     32 x 4 x 8 = 1024 columns take ln_rows.cuh (scalar loads, eight rows
 //     a CTA; past 1024 columns it re-reads the row from L2 for each pass).
 //
-// Entry point: plain C, returns the launch's cudaError_t.
+// The bf16 instantiation (the bf16 AMP policy: the MLM head's LayerNorm
+// reads a bf16 activation): x and y bf16, gamma and beta f32 (the f32
+// masters of the LN params, which are never carried), f32 statistics and
+// mean/var buffers, y = bf16(the f32 expression above), one rounding.
+// The same layout: a warp a row, four rows a CTA, lane l holding 16-byte
+// chunks l, l + 32, ... of eight bf16 (3 at C = 768) and the two float4
+// of gamma and of beta under each; C % 8 != 0, C > 1024 or a pointer not
+// 16-byte aligned take a scalar warp-a-row kernel that reads the row from
+// device memory for each of its three passes.
+//
+// Entry points: plain C, return the launch's cudaError_t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "ln_rows.cuh"
@@ -144,6 +155,144 @@ cudaError_t launch_rows(const float* x, const float* gamma, const float* beta,
 
 bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
+// -- bf16 x and y -------------------------------------------------------------
+
+// eight bf16 of one 16-byte chunk as f32: a bf16 is the high half of the f32
+// of the same value
+__device__ __forceinline__ void widen8(const uint4 a, float* v) {
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// NV chunks of eight bf16 a lane; h8 = C / 8
+template <int NV>
+__global__ void __launch_bounds__(32 * kRows)
+layer_norm_bf16_vec_kernel(const uint4* __restrict__ x,
+                           const float4* __restrict__ gamma,
+                           const float4* __restrict__ beta,
+                           uint4* __restrict__ y, float* __restrict__ mean,
+                           float* __restrict__ var, int n, int h8,
+                           float inv_h, float eps) {
+  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const size_t base = (size_t)row * h8;
+  float v[NV][8];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    widen8(c < h8 ? x[base + c] : make_uint4(0u, 0u, 0u, 0u), v[i]);
+  }
+  float4 g[NV][2], b[NV][2];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      g[i][k] = c < h8 ? gamma[2 * c + k] : zero4();
+      b[i][k] = c < h8 ? beta[2 * c + k] : zero4();
+    }
+  }
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] += v[i][k];
+  const float mu = ln_rows::warp_sum(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
+                                     ((acc[4] + acc[5]) + (acc[6] + acc[7]))) *
+                   inv_h;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const bool in = lane + 32 * i < h8;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      v[i][k] = in ? v[i][k] - mu : 0.f;
+      acc[k] += v[i][k] * v[i][k];
+    }
+  }
+  const float var_row =
+      ln_rows::warp_sum(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
+                        ((acc[4] + acc[5]) + (acc[6] + acc[7]))) *
+      inv_h;
+  const float rstd = rsqrtf(var_row + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < h8) {
+      const float gv[8] = {g[i][0].x, g[i][0].y, g[i][0].z, g[i][0].w,
+                           g[i][1].x, g[i][1].y, g[i][1].z, g[i][1].w};
+      const float bv[8] = {b[i][0].x, b[i][0].y, b[i][0].z, b[i][0].w,
+                           b[i][1].x, b[i][1].y, b[i][1].z, b[i][1].w};
+      float o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) o[k] = v[i][k] * rstd * gv[k] + bv[k];
+      y[base + c] = make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]),
+                               pack2(o[4], o[5]), pack2(o[6], o[7]));
+    }
+  }
+  if (lane == 0) {
+    mean[row] = mu;
+    var[row] = var_row;
+  }
+}
+
+// any width and alignment: a warp a row, three passes over the row
+__global__ void __launch_bounds__(32 * kRows)
+layer_norm_bf16_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            __nv_bfloat16* __restrict__ y,
+                            float* __restrict__ mean,
+                            float* __restrict__ var, int n, int h,
+                            float inv_h, float eps) {
+  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const size_t base = (size_t)row * h;
+  float s = 0.f;
+  for (int c = lane; c < h; c += 32) s += __bfloat162float(x[base + c]);
+  const float mu = ln_rows::warp_sum(s) * inv_h;
+  s = 0.f;
+  for (int c = lane; c < h; c += 32) {
+    const float d = __bfloat162float(x[base + c]) - mu;
+    s += d * d;
+  }
+  const float var_row = ln_rows::warp_sum(s) * inv_h;
+  const float rstd = rsqrtf(var_row + eps);
+  for (int c = lane; c < h; c += 32)
+    y[base + c] = __float2bfloat16_rn(
+        (__bfloat162float(x[base + c]) - mu) * rstd * gamma[c] + beta[c]);
+  if (lane == 0) {
+    mean[row] = mu;
+    var[row] = var_row;
+  }
+}
+
+template <int NV>
+cudaError_t launch_bf16_vec(const void* x, const float* gamma,
+                            const float* beta, void* y, float* mean,
+                            float* var, int n, int h, float eps,
+                            cudaStream_t stream) {
+  const int blocks = (n + kRows - 1) / kRows;
+  layer_norm_bf16_vec_kernel<NV><<<blocks, 32 * kRows, 0, stream>>>(
+      reinterpret_cast<const uint4*>(x),
+      reinterpret_cast<const float4*>(gamma),
+      reinterpret_cast<const float4*>(beta), reinterpret_cast<uint4*>(y),
+      mean, var, n, h / 8, 1.f / (float)h, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // rows the float4 kernel does not take run on ln_rows.cuh's eight-row CTAs
@@ -159,4 +308,35 @@ extern "C" cudaError_t layer_norm_fwd_f32(const float* x, const float* gamma,
     return ln_rows::launch(x, nullptr, gamma, beta, y, nullptr, mean, var,
                            rows, cols, eps, stream);
   return launch_rows(x, gamma, beta, y, mean, var, rows, cols, eps, stream);
+}
+
+// x, y bf16 [rows, cols]; gamma, beta f32 [cols]; mean, var f32 [rows]
+extern "C" cudaError_t layer_norm_fwd_bf16(const void* x, const float* gamma,
+                                           const float* beta, void* y,
+                                           float* mean, float* var, int rows,
+                                           int cols, float eps,
+                                           cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  const int need = (cols / 8 + 31) / 32;
+  const bool vec = cols % 8 == 0 && need <= 4 && aligned16(x) &&
+                   aligned16(gamma) && aligned16(beta) && aligned16(y);
+  if (!vec) {
+    layer_norm_bf16_rows_kernel<<<(rows + kRows - 1) / kRows, 32 * kRows, 0,
+                                  stream>>>(
+        static_cast<const __nv_bfloat16*>(x), gamma, beta,
+        static_cast<__nv_bfloat16*>(y), mean, var, rows, cols,
+        1.f / (float)cols, eps);
+    return cudaGetLastError();
+  }
+  if (need <= 1)
+    return launch_bf16_vec<1>(x, gamma, beta, y, mean, var, rows, cols, eps,
+                              stream);
+  if (need <= 2)
+    return launch_bf16_vec<2>(x, gamma, beta, y, mean, var, rows, cols, eps,
+                              stream);
+  if (need <= 3)
+    return launch_bf16_vec<3>(x, gamma, beta, y, mean, var, rows, cols, eps,
+                              stream);
+  return launch_bf16_vec<4>(x, gamma, beta, y, mean, var, rows, cols, eps,
+                            stream);
 }

@@ -10,9 +10,16 @@ byte e of the Philox stream keyed by ``seed`` (``philox.keep_bytes``) is
 below ``thr``; kept values are ``x / q`` (upscale_in_train) or ``x``
 (downgrade_in_infer), dropped ones 0.
 
+A bf16 x (the attention probabilities under the bf16 AMP policy) takes
+the kernel's bf16 instantiation: x / q in f32, rounded once to bf16,
+which is the correctly rounded bf16 quotient (q has at most 8
+significant bits), as the plain version and the reference compute it.
+
 * ``dropout_reference``: the plain version.
 * ``dropout``: CPU and meta tensors take the plain version; a CUDA tensor
-  launches the kernel or raises.  ``dropout.launches`` counts launches.
+  of float32 or bfloat16 launches the kernel, any other raises.
+  ``dropout.launches`` counts launches (``dropout.launches_bf16`` those of
+  the bf16 instantiation).
 """
 
 import ctypes
@@ -20,7 +27,7 @@ import ctypes
 import torch
 
 from . import _build, philox
-from ._checks import check_cuda_f32, raise_on_error
+from ._checks import check_cuda, raise_on_error
 
 __all__ = ["true_divide", "dropout_reference", "dropout"]
 
@@ -46,16 +53,20 @@ def dropout_reference(x, seed, thr, q, upscale=True):
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 
 
-def _kernel():
+_SYMBOLS = {torch.float32: "dropout_fwd_f32",
+            torch.bfloat16: "dropout_fwd_bf16"}
+
+
+def _kernel(dtype=torch.float32):
     return _build.function(
-        "dropout", "dropout_fwd_f32",
+        "dropout", _SYMBOLS[dtype],
         [_VP] * 3 + [ctypes.c_longlong, _U, _U, _U, ctypes.c_float, _I,
                      _VP])
 
 
 def _dropout_cuda(x, seed, thr, q, upscale):
-    fn = _kernel()
-    check_cuda_f32("dropout", x.device, x=x)
+    fn = _kernel(x.dtype if x.dtype in _SYMBOLS else torch.float32)
+    check_cuda("dropout", x.device, tuple(_SYMBOLS), x=x)
     if x.numel() == 0 or not 0 <= thr <= 256 or not q > 0:
         raise ValueError("dropout kernel: %d elements, thr %r, q %r"
                          % (x.numel(), thr, q))
@@ -67,6 +78,8 @@ def _dropout_cuda(x, seed, thr, q, upscale):
              k1, int(thr), float(q), int(bool(upscale)), stream)
     raise_on_error("dropout", err)
     dropout.launches += 1
+    if x.dtype == torch.bfloat16:
+        dropout.launches_bf16 += 1
     return out, mask
 
 
@@ -79,3 +92,4 @@ def dropout(x, seed, thr, q, upscale=True):
 
 
 dropout.launches = 0
+dropout.launches_bf16 = 0

@@ -11,7 +11,9 @@ of the group, with lr_t_i = lr * sqrt(1 - beta2_pow_i) / (1 - beta1_pow_i)
     p  = p - lr_t_i (m1 / (sqrt(m2) + eps)),
 
 the beta pows advance by one factor of b1 / b2, and an optional bf16
-copy of the new p is written (the TPU kernel's carry output).
+copy of the new p is written (the TPU kernel's carry output): the
+executor's param carry under the bf16 AMP policy takes it for each
+carried member.
 
 * ``fused_adam_reference``: the plain version, one torch op per
   operation in f32 (scalars as f32 tensors, as the reference's
@@ -20,7 +22,8 @@ copy of the new p is written (the TPU kernel's carry output).
   tensors launch ``csrc/fused_adam.cu`` once for the whole group, which
   updates p, m1, m2 and the beta pows IN PLACE and is bitwise equal to
   the plain version on the card.  ``fused_adam_step.launches`` counts
-  kernel launches.
+  kernel launches, ``fused_adam_step.launches_carry`` those that wrote a
+  bf16 copy.
 """
 
 import ctypes
@@ -30,7 +33,7 @@ import torch
 
 from . import _build
 from ._checks import check_cuda_f32, raise_on_error
-from ._group import group_table
+from ._group import group_table, requested_copies
 
 __all__ = ["fused_adam_reference", "fused_adam_step", "adam_lr_t"]
 
@@ -84,8 +87,8 @@ def _table(params, grads, m1s, m2s, lr, b1pows, b2pows, bf16s):
     # beta2_pow, bf16 copy
     rows = [[t.data_ptr() for t in ts]
             for ts in (params, m1s, m2s, b1pows, b2pows)]
-    rows.append([t.data_ptr() for t in bf16s] if bf16s
-                else [0] * len(params))
+    rows.append([0 if t is None else t.data_ptr() for t in bf16s]
+                if bf16s else [0] * len(params))
     return group_table(rows, [p.numel() for p in params], params[0].device,
                        lambda: _check(params, grads, m1s, m2s, lr, b1pows,
                                       b2pows, bf16s))
@@ -112,7 +115,12 @@ def _check(params, grads, m1s, m2s, lr, b1pows, b2pows, bf16s):
                                 tuple(m1.shape), tuple(m2.shape),
                                 tuple(b1p.shape), tuple(b2p.shape)))
     _check_grads(params, grads, lr)
+    if bf16s is not None and len(bf16s) != n:
+        raise ValueError("fused_adam kernel: %d bf16 buffers for %d params"
+                         % (len(bf16s), n))
     for i, (p, b) in enumerate(zip(params, bf16s or ())):
+        if b is None:
+            continue
         if b.dtype != torch.bfloat16 or b.shape != p.shape \
                 or b.device != dev or not b.is_contiguous():
             raise ValueError("fused_adam kernel: bf16 buffer %d is %s %s "
@@ -157,23 +165,29 @@ def _fused_adam_cuda(params, grads, m1s, m2s, lr, b1pows, b2pows, beta1,
              float(epsilon), torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("fused_adam", err)
     fused_adam_step.launches += 1
+    if bf16s is not None and any(b is not None for b in bf16s):
+        fused_adam_step.launches_carry += 1
     return params, m1s, m2s, b1pows, b2pows, bf16s
 
 
 def fused_adam_step(params, grads, m1s, m2s, lr, b1pows, b2pows,
                     beta1=0.9, beta2=0.999, epsilon=1e-8, bf16_out=None):
     """One Adam step of the group -> (params, m1s, m2s, b1pows, b2pows,
-    bf16s).  On the card the first five are the input tensors, updated in
-    place, and ``bf16_out`` (a list of bf16 tensors shaped like the
-    params, or None) receives the bf16 copy; on the CPU all are new
-    tensors and a true ``bf16_out`` asks for the copy."""
+    bf16s).  ``bf16_out`` asks for the bf16 copy of the new params: a
+    list with, per member, a bf16 tensor shaped like the param or None
+    (no copy of that member); True (CPU only) asks for every member's.
+    On the card the first five are the input tensors, updated in place,
+    and the list's tensors receive the copies; on the CPU all are new
+    tensors, the copies too (None where none was asked for)."""
     if params[0].device.type in ("cpu", "meta"):
-        return fused_adam_reference(params, grads, m1s, m2s, lr, b1pows,
-                                    b2pows, beta1, beta2, epsilon,
-                                    bool(bf16_out))
+        out = fused_adam_reference(params, grads, m1s, m2s, lr, b1pows,
+                                   b2pows, beta1, beta2, epsilon,
+                                   bool(bf16_out))
+        return out[:5] + (requested_copies(out[5], bf16_out),)
     return _fused_adam_cuda(params, [g.contiguous() for g in grads], m1s,
                             m2s, lr, b1pows, b2pows, beta1, beta2, epsilon,
                             bf16_out or None)
 
 
 fused_adam_step.launches = 0
+fused_adam_step.launches_carry = 0

@@ -9,7 +9,8 @@ the plain path as the reference does: per element of every member,
 
     v = mu v + g,   p = p - lr v   (Nesterov: p = p - (g + mu v) lr),
 
-and an optional bf16 copy of the new p (the TPU kernel's carry output).
+and an optional bf16 copy of the new p (the TPU kernel's carry output),
+which the executor's param carry takes under the bf16 AMP policy.
 
 * ``fused_momentum_reference``: the plain version, one torch op per
   operation in f32 (mu as an f32 tensor, as the reference's weak-typed
@@ -21,7 +22,9 @@ and an optional bf16 copy of the new p (the TPU kernel's carry output).
   them, its size and block-count prefix) rides in the launch as a
   parameter block; a group of more members than one block holds takes as
   many launches as ``plan_launches`` lays out (ResNet-50's 108 take one).
-  ``fused_momentum_step.launches`` counts kernel launches.
+  ``fused_momentum_step.launches`` counts kernel launches,
+  ``fused_momentum_step.launches_carry`` those of a group with a bf16
+  copy.
 * ``plan_launches`` and ``cta_ranges``: the host's plan of the launches
   (at the built kernel's ``kernel_layout``) and the kernel's map from a
   CTA to its member's elements.
@@ -37,6 +40,7 @@ import torch
 
 from . import _build
 from ._checks import check_cuda_f32, raise_on_error
+from ._group import requested_copies
 
 __all__ = ["fused_momentum_reference", "fused_momentum_step",
            "kernel_layout", "plan_launches", "cta_ranges"]
@@ -131,7 +135,8 @@ class _Group:
         self.ptrs[:, 0] = [t.data_ptr() for t in params]
         self.ptrs[:, 1] = [t.data_ptr() for t in vels]
         if bf16s:
-            self.ptrs[:, 2] = [t.data_ptr() for t in bf16s]
+            self.ptrs[:, 2] = [0 if t is None else t.data_ptr()
+                               for t in bf16s]
         self.sizes = np.array([p.numel() for p in params], np.int64)
         self.launches = plan_launches(self.sizes, self.per_block, capacity)
         # each step's grads must read the same, in order (_check_grads)
@@ -148,7 +153,8 @@ _GROUPS = {}
 def _group(params, vels, bf16s):
     ptr = torch.Tensor.data_ptr
     key = (tuple(map(ptr, params)), tuple(map(ptr, vels)),
-           tuple(map(ptr, bf16s)) if bf16s else None,
+           tuple(0 if b is None else b.data_ptr() for b in bf16s)
+           if bf16s else None,
            tuple(map(torch.Tensor.numel, params)))
     grp = _GROUPS.get(key)
     if grp is None:
@@ -172,12 +178,13 @@ def _check_members(params, vels, bf16s):
                              "velocity %s" % (i, tuple(p.shape),
                                               tuple(v.shape)))
     if bf16s is not None and (len(bf16s) != n or any(
-            b.dtype != torch.bfloat16 or b.shape != p.shape
-            or b.device != dev or not b.is_contiguous()
+            b is not None and (b.dtype != torch.bfloat16
+                               or b.shape != p.shape or b.device != dev
+                               or not b.is_contiguous())
             for b, p in zip(bf16s, params))):
         raise ValueError("fused_momentum kernel: the bf16 buffers must be "
-                         "dense bf16 tensors shaped like the params on %s"
-                         % dev)
+                         "dense bf16 tensors shaped like the params on %s "
+                         "(or None)" % dev)
 
 
 _GRAD_SPEC = operator.attrgetter("device", "dtype", "shape")
@@ -228,21 +235,27 @@ def _fused_momentum_cuda(params, grads, vels, lr, mu, use_nesterov, bf16s):
                      mu, nesterov, grp.per_block, stream)
             raise_on_error("fused_momentum", err)
             fused_momentum_step.launches += 1
+            if bf16s is not None and any(b is not None for b in bf16s):
+                fused_momentum_step.launches_carry += 1
     return params, vels, bf16s
 
 
 def fused_momentum_step(params, grads, vels, lr, mu=0.0, use_nesterov=False,
                         bf16_out=None):
-    """One momentum step of the group -> (params, vels, bf16s).  On the
-    card the first two are the input tensors, updated in place, and
-    ``bf16_out`` (a list of bf16 tensors shaped like the params, or None)
-    receives the bf16 copy; on the CPU all are new tensors and a true
-    ``bf16_out`` asks for the copy."""
+    """One momentum step of the group -> (params, vels, bf16s).
+    ``bf16_out`` asks for the bf16 copy of the new params: a list with,
+    per member, a bf16 tensor shaped like the param or None (no copy of
+    that member); True (CPU only) asks for every member's.  On the card
+    the first two are the input tensors, updated in place, and the list's
+    tensors receive the copies; on the CPU all are new tensors, the copies
+    too (None where none was asked for)."""
     if params[0].device.type in ("cpu", "meta"):
-        return fused_momentum_reference(params, grads, vels, lr, mu,
-                                        use_nesterov, bool(bf16_out))
+        ps, vs, copies = fused_momentum_reference(
+            params, grads, vels, lr, mu, use_nesterov, bool(bf16_out))
+        return ps, vs, requested_copies(copies, bf16_out)
     return _fused_momentum_cuda(params, [g.contiguous() for g in grads],
                                 vels, lr, mu, use_nesterov, bf16_out or None)
 
 
 fused_momentum_step.launches = 0
+fused_momentum_step.launches_carry = 0

@@ -8,10 +8,15 @@ statistics.  The JAX package takes its kernel only under
 ``FLAGS_use_pallas_layer_norm``; the port's ``layer_norm`` op routes
 through this one whenever Scale and Bias are present.
 
+A bf16 x (the bf16 AMP policy's activations) with f32 gamma and beta
+takes the kernel's bf16 instantiation: f32 statistics, y rounded once to
+bf16, mean and var f32.
+
 * ``layer_norm_2d_reference``: the plain version.
 * ``layer_norm_2d``: CPU and meta tensors take the plain version; CUDA
-  tensors launch ``csrc/layer_norm.cu`` or raise.
-  ``layer_norm_2d.launches`` counts kernel launches.
+  tensors launch ``csrc/layer_norm.cu`` (x f32 or bf16, gamma and beta
+  f32) or raise.  ``layer_norm_2d.launches`` counts kernel launches
+  (``layer_norm_2d.launches_bf16`` those of the bf16 instantiation).
 """
 
 import ctypes
@@ -19,7 +24,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._checks import check_cuda_f32, raise_on_error
+from ._checks import check_cuda, check_cuda_f32, raise_on_error
 
 __all__ = ["layer_norm_2d_reference", "layer_norm_2d"]
 
@@ -37,14 +42,19 @@ def layer_norm_2d_reference(x, g, b, eps=1e-5):
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _kernel():
-    return _build.function("layer_norm", "layer_norm_fwd_f32",
+_SYMBOLS = {torch.float32: "layer_norm_fwd_f32",
+            torch.bfloat16: "layer_norm_fwd_bf16"}
+
+
+def _kernel(dtype=torch.float32):
+    return _build.function("layer_norm", _SYMBOLS[dtype],
                            [_VP] * 6 + [_I, _I, ctypes.c_float, _VP])
 
 
 def _layer_norm_cuda(x, g, b, eps):
-    fn = _kernel()
-    check_cuda_f32("layer_norm", x.device, x=x, gamma=g, beta=b)
+    fn = _kernel(x.dtype if x.dtype in _SYMBOLS else torch.float32)
+    check_cuda("layer_norm", x.device, tuple(_SYMBOLS), x=x)
+    check_cuda_f32("layer_norm", x.device, gamma=g, beta=b)
     if x.dim() != 2 or g.numel() != x.shape[1] or b.numel() != x.shape[1] \
             or x.numel() == 0:
         raise ValueError("layer_norm kernel: x %s, gamma %s, beta %s"
@@ -59,6 +69,8 @@ def _layer_norm_cuda(x, g, b, eps):
              stream)
     raise_on_error("layer_norm", err)
     layer_norm_2d.launches += 1
+    if x.dtype == torch.bfloat16:
+        layer_norm_2d.launches_bf16 += 1
     return y, mean, var
 
 
@@ -71,3 +83,4 @@ def layer_norm_2d(x, g, b, eps=1e-5):
 
 
 layer_norm_2d.launches = 0
+layer_norm_2d.launches_bf16 = 0

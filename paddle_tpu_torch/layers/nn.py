@@ -1,6 +1,6 @@
 """Op-building layers the BERT encoder calls.  Counterpart of
 ``paddle_tpu/layers/nn.py`` (``fc:133``, ``embedding:174``,
-``matmul:199``, ``elementwise_add:459``, ``scale:509``,
+``matmul:199``, the elementwise layers ``:459-467``, ``scale:509``,
 ``layer_norm:1074``, ``fused_dropout_add_ln:1109``, ``dropout:707``,
 ``transpose:1217``,
 ``reshape:1232``, ``unsqueeze:1262``, ``flash_attention:1605``,
@@ -17,7 +17,10 @@ import math
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "matmul", "elementwise_add", "scale",
+__all__ = ["fc", "embedding", "matmul", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "elementwise_min", "elementwise_pow",
+           "elementwise_mod", "elementwise_floordiv", "scale",
            "layer_norm", "fused_dropout_add_ln", "dropout", "transpose",
            "reshape",
            "unsqueeze", "flash_attention", "concat", "gather",
@@ -84,12 +87,27 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
-    out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
+elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
+elementwise_mod = _elementwise_layer("elementwise_mod")
+elementwise_floordiv = _elementwise_layer("elementwise_floordiv")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

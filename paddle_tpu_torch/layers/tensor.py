@@ -1,6 +1,7 @@
-"""Input declaration and constants: ``data``, ``create_global_var``,
-``fill_constant``.  Counterpart of ``paddle_tpu/layers/tensor.py``
-(``data:43``, ``create_global_var:83``, ``fill_constant:154``)."""
+"""Input declaration, constants and casts: ``data``,
+``create_global_var``, ``fill_constant``, ``cast``.  Counterpart of
+``paddle_tpu/layers/tensor.py`` (``data:43``, ``create_global_var:83``,
+``cast:96``, ``fill_constant:154``)."""
 
 from ..framework import convert_np_dtype_to_dtype_
 from ..initializer import Constant
@@ -8,7 +9,7 @@ from ..layer_helper import LayerHelper
 from ..ops.common import dtype_enum
 from ..utils import unique_name
 
-__all__ = ["data", "create_global_var", "fill_constant"]
+__all__ = ["data", "create_global_var", "fill_constant", "cast"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -44,4 +45,14 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                      attrs={"shape": list(shape), "dtype": dtype_enum(dtype),
                             "value": float(value), "force_cpu": force_cpu})
     out.stop_gradient = True
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": dtype_enum(x.dtype),
+                            "out_dtype": dtype_enum(dtype)})
     return out

@@ -18,7 +18,9 @@ one:
 
 each with two ``fused_dropout_add_ln`` epilogues per layer (dropout p in
 training), a ``layer_norm`` on the embeddings, and ``build_pretrain``'s
-masked-LM head with Adam.  The reference's ``BERT_COMPOSED_LN=1``
+masked-LM head with Adam (``amp=True``: the bf16 AMP policy's decorated
+Adam, as the reference's ``bench.py`` trains it).  The reference's
+``BERT_COMPOSED_LN=1``
 epilogue is not carried: building with it set raises.  ``pretrain_feed``
 makes the pretraining feed of the reference's ``bench.py``
 (``_bert_feed``).
@@ -29,6 +31,7 @@ import os
 import numpy as np
 
 from .. import layers
+from ..contrib import mixed_precision
 from ..optimizer import Adam
 from ..param_attr import ParamAttr
 
@@ -149,12 +152,15 @@ def bert_encoder(cfg, seq_len, is_test=False):
     return (src_ids, pos_ids, sent_ids, input_mask), x
 
 
-def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False):
+def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False,
+                   amp=False):
     """Masked-LM pretraining: the encoder, a gather of the mask positions
     (flat indices into [batch * seq_len]), fc + gelu, layer_norm, fc to
     the vocabulary, softmax_with_cross_entropy and mean; with
-    ``is_test=False`` Adam(lr).minimize(loss).  Returns (inputs + (mask_pos,
-    mask_label), loss)."""
+    ``is_test=False`` Adam(lr).minimize(loss), the Adam decorated by
+    ``mixed_precision.decorate`` under ``amp`` (the program the
+    reference's ``bench.py`` trains, ``_bench_bert_at``).  Returns (inputs
+    + (mask_pos, mask_label), loss)."""
     inputs, seq_out = bert_encoder(cfg, seq_len, is_test)
     mask_pos = layers.data("mask_pos", shape=[1], dtype="int64")
     mask_label = layers.data("mask_label", shape=[1], dtype="int64")
@@ -165,7 +171,10 @@ def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False):
     logits = layers.fc(trans, cfg.vocab_size)
     loss = layers.mean(layers.softmax_with_cross_entropy(logits, mask_label))
     if not is_test:
-        Adam(learning_rate=lr).minimize(loss)
+        opt = Adam(learning_rate=lr)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return inputs + (mask_pos, mask_label), loss
 
 

@@ -3,12 +3,14 @@
 Counterpart of ``paddle_tpu/models/resnet.py`` (``conv_bn:19``,
 ``basic_block:34``, ``bottleneck_block:47``, ``resnet:63``,
 ``build_train:91``): the same layer calls (conv2d + batch_norm pairs,
-Momentum with L2 decay), so both packages build the same programs.  The
-port runs NCHW; the channels-last variant and ``amp=True`` raise (ROADMAP
-A: layouts, bf16 AMP).
+Momentum with L2 decay; ``amp=True`` decorates the Momentum with the bf16
+AMP policy, as ``paddle_tpu/models/resnet.py:112-113``), so both packages
+build the same programs.  The port runs NCHW; the channels-last variant
+raises (ROADMAP A: layouts).
 """
 
 from .. import layers
+from ..contrib import mixed_precision
 from ..optimizer import Momentum
 from ..regularizer import L2Decay
 
@@ -79,18 +81,18 @@ def build_train(depth=50, class_dim=1000, image_size=224, lr=0.1,
                 data_format="NCHW"):
     """-> (img, label, loss, acc) inside the current program guard; with
     ``is_test`` False, Momentum(lr, momentum, L2Decay(weight_decay)) has
-    minimised the loss."""
+    minimised the loss, decorated by ``mixed_precision.decorate`` under
+    ``amp``."""
     _check_layout(data_format)
-    if amp:
-        raise NotImplementedError(
-            "ResNet amp=True: the bf16 AMP decorator is not ported yet "
-            "(ROADMAP A, the bf16 AMP policy)")
     img = layers.data("img", shape=[3, image_size, image_size])
     label = layers.data("label", shape=[1], dtype="int64")
     logits = resnet(img, class_dim, depth, is_test=is_test)
     loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
     acc = layers.accuracy(layers.softmax(logits), label)
     if not is_test:
-        Momentum(learning_rate=lr, momentum=momentum,
-                 regularization=L2Decay(weight_decay)).minimize(loss)
+        opt = Momentum(learning_rate=lr, momentum=momentum,
+                       regularization=L2Decay(weight_decay))
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return img, label, loss, acc

@@ -1,19 +1,34 @@
 """Activations: gelu, relu, softmax.  Counterpart of
 ``paddle_tpu/ops/activations.py`` (``gelu:136``, ``relu:20``,
-``softmax:152``).  relu's gradient is written out (ResNet runs ~50 a
+``softmax:152``); a bf16 input (the AMP policy's activations) is
+computed in f32 and returned in bf16 by gelu and softmax, as there.  relu's gradient is written out (ResNet runs ~50 a
 step, and a vjp replay costs ~0.6 ms of host each on the card); the
 others' are the synthesized vjp replays."""
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_grad_lowering, register_op
 
+_SQRT_HALF = math.sqrt(0.5)
+
 
 @register_op("gelu", inputs=("X",), outputs=("Out",),
              attrs={"approximate": False})
 def gelu(ctx, x, approximate=False):
-    # the erf form by default (fluid's gelu op), the tanh form on request
+    # the erf form by default (fluid's gelu op), the tanh form on request.
+    # A bf16 x (the AMP policy's activations) is computed in f32 and
+    # rounded once, as the reference's _gelu_bf16 (its grad replays the
+    # same composition); the erf form as jax.nn.gelu writes it, with
+    # erfc, which keeps the tail x < -3 where 1 + erf(x) cancels (F.gelu's
+    # f32 there is off by up to 60%, many bf16 ulps)
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        if approximate:
+            return F.gelu(xf, approximate="tanh").to(x.dtype)
+        return (xf * (torch.special.erfc(xf * -_SQRT_HALF) / 2)).to(x.dtype)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
@@ -28,6 +43,7 @@ def relu_grad(ctx, x, out, dout):
     0)."""
     if dout is None:
         return (None,)
+    dout = dout.to(out.dtype)  # the replay's cotangent dtype
     return (torch.where(x > 0, dout, torch.zeros((), dtype=dout.dtype,
                                                  device=dout.device)),)
 

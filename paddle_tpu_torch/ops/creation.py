@@ -1,7 +1,8 @@
 """Tensor creation: fill_constant, uniform_random and gaussian_random, the
-ops the startup program's initialisers emit, and assign.  Counterpart of
-``paddle_tpu/ops/creation.py`` (``fill_constant:18``,
-``uniform_random:76``, ``gaussian_random:96``, ``assign:143``)."""
+ops the startup program's initialisers emit, assign and cast.
+Counterpart of ``paddle_tpu/ops/creation.py`` (``fill_constant:18``,
+``uniform_random:76``, ``gaussian_random:96``, ``assign:143``,
+``cast:163``)."""
 
 import torch
 
@@ -77,3 +78,11 @@ def assign(ctx, x):
     """The identity (what ``delete_dropout_pass`` leaves of an inference
     dropout)."""
     return x
+
+
+@register_op("cast", inputs=("X",), outputs=("Out",),
+             attrs={"in_dtype": 5, "out_dtype": 5})
+def cast(ctx, x, in_dtype=5, out_dtype=5):
+    """x in ``out_dtype`` (round to nearest even into bf16); its grad is
+    the synthesized replay, the output grad cast back to x's dtype."""
+    return x.to(attr_dtype(out_dtype))

@@ -1,23 +1,46 @@
-"""Dense math ops: mul, matmul, elementwise_add, scale, sum, mean, the
-explicit grads of mul and elementwise_add, and the two ops the
+"""Dense math ops: mul, matmul, the elementwise family, scale, sum,
+mean, the explicit grads of mul and elementwise_add, and the two ops the
 predictor's passes emit, fc and fused_elemwise_activation.
 
-Counterpart of ``paddle_tpu/ops/math.py`` (``mul:48``, ``matmul:66``,
-``elementwise_add:140``, ``scale:151``, ``sum:163``, ``mean:172``) and
-of ``paddle_tpu/ops/coverage_tail.py`` (``fc:92``,
-``fused_elemwise_activation:469``).  The
-products are plain ``torch.matmul`` calls (cuBLAS on the card, in full
-f32: TF32 is off), as the reference leaves them to XLA.  The reference
-differentiates mul and elementwise_add by replaying them under
-``jax.vjp``, where XLA drops the replayed product; an eager replay would
-pay it, so the port's ``mul_grad`` and ``elementwise_add_grad`` are
-written out.
+Counterpart of ``paddle_tpu/ops/math.py`` (``_amp_dot:25``, ``mul:48``,
+``matmul:66``, the elementwise ops ``:120-148``, ``scale:151``,
+``sum:163``, ``mean:172``) and of ``paddle_tpu/ops/coverage_tail.py``
+(``fc:92``, ``fused_elemwise_activation:469``).  The products are plain
+``torch.matmul`` calls (cuBLAS on the card, in full f32: TF32 is off), as
+the reference leaves them to XLA.  The reference differentiates mul and
+elementwise_add by replaying them under ``jax.vjp``, where XLA drops the
+replayed product; an eager replay would pay it, so the port's
+``mul_grad`` and ``elementwise_add_grad`` are written out.
+
+Under the bf16 AMP policy (``LowerCtx.amp_bf16``) a product takes bf16
+operands and gives a bf16 result (f32 sums), so the activations after
+the first product stay bf16; an elementwise op over a bf16 / f32 pair
+computes in bf16.  The explicit grads give what the reference's vjp
+gives: the output grad cast to the output's dtype first, each input's
+grad in that input's dtype.
 """
 
 import torch
 
 from ..core.registry import register_grad_lowering, register_op, wants_grad
 from .common import bcast_y
+
+_BF16 = torch.bfloat16
+_FLOAT = (torch.float32, torch.bfloat16)
+
+
+def _amp(ctx, x):
+    """Whether a product over ``x`` takes bf16 operands (the reference's
+    ``_amp_dot``: the policy is on and x is f32 or bf16)."""
+    return x.dtype in _FLOAT and ctx.amp_bf16()
+
+
+def _amp_pair(ctx, x, y):
+    """x, y of an elementwise op: a bf16 / f32 pair under the policy is
+    computed in bf16, as the reference's."""
+    if {x.dtype, y.dtype} == set(_FLOAT) and ctx.amp_bf16():
+        return x.to(_BF16), y.to(_BF16)
+    return x, y
 
 
 def _flatten2d(x, num_col_dims):
@@ -34,6 +57,8 @@ def _flatten2d(x, num_col_dims):
 def mul(ctx, x, y, x_num_col_dims=1, y_num_col_dims=1, **_):
     """Fluid's flatten-to-2D product (mul_op.cc:37); the output keeps the
     unflattened leading dims of x and trailing dims of y."""
+    if _amp(ctx, x):
+        x, y = x.to(_BF16), y.to(_BF16)
     out = torch.matmul(_flatten2d(x, x_num_col_dims),
                        _flatten2d(y, y_num_col_dims))
     return out.reshape(tuple(x.shape[:x_num_col_dims])
@@ -49,26 +74,53 @@ def matmul(ctx, x, y, transpose_X=False, transpose_Y=False, alpha=1.0,
         x = x.transpose(-1, -2)
     if transpose_Y and y.dim() > 1:
         y = y.transpose(-1, -2)
+    if _amp(ctx, x):
+        x, y = x.to(_BF16), y.to(_BF16)
     out = torch.matmul(x, y)
     if alpha != 1.0:
-        out = out * alpha
+        # alpha in the product's dtype, as the reference's
+        # jnp.asarray(alpha, dtype=out.dtype)
+        out = out * _bf16_scalar(alpha, out)
     return out
 
 
-@register_op("elementwise_add", inputs=("X", "Y"), outputs=("Out",),
-             attrs={"axis": -1})
-def elementwise_add(ctx, x, y, axis=-1):
-    return x + bcast_y(x, y, axis)
+def _elementwise(fn):
+    def lower(ctx, x, y, axis=-1):
+        x, y = _amp_pair(ctx, x, y)
+        return fn(x, bcast_y(x, y, axis))
+
+    return lower
+
+
+_ELEMENTWISE = {
+    "add": torch.add, "sub": torch.sub, "mul": torch.mul,
+    "div": torch.true_divide, "max": torch.maximum, "min": torch.minimum,
+    "pow": torch.pow, "mod": torch.remainder,
+    "floordiv": torch.floor_divide,
+}
+
+for _name, _fn in _ELEMENTWISE.items():
+    register_op("elementwise_" + _name, inputs=("X", "Y"), outputs=("Out",),
+                attrs={"axis": -1})(_elementwise(_fn))
+
+
+def _bf16_scalar(v, x):
+    """A Python scalar in bf16 where x is bf16, as the reference's
+    jnp.asarray(v, dtype=x.dtype): 1e4 times a bf16 one is 9984, not a
+    rounding of 10000 (an f32 x takes the number as it is)."""
+    return torch.tensor(v, dtype=_BF16) if x.dtype == _BF16 else v
 
 
 @register_op("scale", inputs=("X", "ScaleTensor"), outputs=("Out",),
              attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True},
              optional_inputs=("ScaleTensor",))
 def scale(ctx, x, scale_tensor, scale=1.0, bias=0.0, bias_after_scale=True):
-    s = scale_tensor.reshape(()) if scale_tensor is not None else scale
+    s = scale_tensor.reshape(()) if scale_tensor is not None \
+        else _bf16_scalar(scale, x)
+    b = _bf16_scalar(bias, x)
     if bias_after_scale:
-        return x * s + bias
-    return (x + bias) * s
+        return x * s + b
+    return (x + b) * s
 
 
 @register_op("sum", inputs=("X",), outputs=("Out",),
@@ -89,13 +141,17 @@ def mean(ctx, x):
 def mul_grad(ctx, x, y, out, dout, x_num_col_dims=1, y_num_col_dims=1,
              **_):
     """dX = dOut . Y^T and dY = X^T . dOut over the flattened 2-D views,
-    reshaped back; only the gradients the op writes are computed."""
+    reshaped back; only the gradients the op writes are computed.  Under
+    AMP the products take bf16 operands, as the forward's."""
+    xd, yd = x.dtype, y.dtype
+    if _amp(ctx, x):
+        x, y = x.to(_BF16), y.to(_BF16)
     x2 = _flatten2d(x, x_num_col_dims)
     y2 = _flatten2d(y, y_num_col_dims)
-    d2 = dout.reshape(x2.shape[0], y2.shape[1])
-    dx = torch.matmul(d2, y2.t()).reshape(x.shape) \
+    d2 = dout.to(out.dtype).reshape(x2.shape[0], y2.shape[1])
+    dx = torch.matmul(d2, y2.t()).reshape(x.shape).to(xd) \
         if wants_grad(ctx, "X") else None
-    dy = torch.matmul(x2.t(), d2).reshape(y.shape) \
+    dy = torch.matmul(x2.t(), d2).reshape(y.shape).to(yd) \
         if wants_grad(ctx, "Y") else None
     return dx, dy
 
@@ -114,11 +170,16 @@ def _unbroadcast(g, shape):
 
 @register_grad_lowering("elementwise_add")
 def elementwise_add_grad(ctx, x, y, out, dout, axis=-1):
-    dx = _unbroadcast(dout, x.shape) if wants_grad(ctx, "X") else None
+    """dX and dY: the output grad in the output's dtype, summed over the
+    dims the broadcast added (in f32, rounded once: the reference's
+    XLA:CPU sums a bf16 cotangent in bf16), each in its input's dtype."""
+    dout = dout.to(out.dtype)
+    dx = _unbroadcast(dout, x.shape).to(x.dtype) \
+        if wants_grad(ctx, "X") else None
     dy = None
     if wants_grad(ctx, "Y"):
         yb = bcast_y(x, y, axis)  # y as the forward broadcast it
-        dy = _unbroadcast(dout, yb.shape).reshape(y.shape)
+        dy = _unbroadcast(dout, yb.shape).reshape(y.shape).to(y.dtype)
     return dx, dy
 
 
@@ -131,8 +192,12 @@ def elementwise_add_grad(ctx, x, y, out, dout, axis=-1):
              optional_inputs=("Bias",))
 def fc(ctx, x, w, bias=None, in_num_col_dims=1, activation_type="", **_):
     """What ``fc_fuse_pass`` makes of mul + elementwise_add (+ relu): x
-    flattened to 2-D at ``in_num_col_dims``, times w, plus the bias row."""
-    out = torch.matmul(_flatten2d(x, in_num_col_dims), w)
+    flattened to 2-D at ``in_num_col_dims``, times w, plus the bias row.
+    The reference's fc does not read the AMP policy (only the inference
+    passes emit it): it computes in the promoted dtype of x and w, as
+    ``x @ w`` promotes in jnp, and so does this one."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    out = torch.matmul(_flatten2d(x.to(dt), in_num_col_dims), w.to(dt))
     if bias is not None:
         out = out + bias.reshape(1, -1)
     if activation_type == "relu":

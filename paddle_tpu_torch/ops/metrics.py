@@ -1,5 +1,8 @@
-"""Metric ops: top_k and accuracy.  Counterpart of
-``paddle_tpu/ops/metrics.py`` (``top_k:13``, ``accuracy:38``)."""
+"""Metric and comparison ops: top_k, accuracy, the six comparisons and
+isfinite.  Counterpart of ``paddle_tpu/ops/metrics.py`` (``top_k:13``,
+``accuracy:38``, the comparisons ``:79-93``, ``isfinite:114``, which
+the dynamic loss scaling of ``contrib.mixed_precision`` runs over every
+gradient at once)."""
 
 import torch
 
@@ -23,3 +26,31 @@ def accuracy(ctx, out, indices, label):
     return ((correct.float() / n).reshape(1),
             correct.to(torch.int32).reshape(1),
             torch.full((1,), n, dtype=torch.int32, device=indices.device))
+
+
+_COMPARE = {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
+            "less_equal": torch.le, "greater_than": torch.gt,
+            "greater_equal": torch.ge}
+
+
+def _compare(fn):
+    def lower(ctx, x, y, axis=-1, force_cpu=False):
+        return fn(x, y)
+
+    return lower
+
+
+for _name, _fn in _COMPARE.items():
+    register_op(_name, inputs=("X", "Y"), outputs=("Out",),
+                attrs={"axis": -1, "force_cpu": False},
+                grad_maker=None)(_compare(_fn))
+
+
+@register_op("isfinite", inputs=("X",), outputs=("Out",), grad_maker=None,
+             duplicable_inputs=("X",))
+def isfinite(ctx, xs):
+    """One flag [1]: every element of every input is finite."""
+    ok = torch.ones((), dtype=torch.bool, device=ctx.device)
+    for x in xs:
+        ok = ok & torch.isfinite(x).all()
+    return ok.reshape(1)

@@ -95,6 +95,12 @@ def _padded(x, pads, value=0.0):
     return F.pad(x, (l, r, t, b), value=value)
 
 
+def _amp_conv(ctx, x):
+    """Whether a conv over ``x`` takes bf16 operands (the AMP policy on,
+    x f32 or bf16)."""
+    return x.dtype in (torch.float32, torch.bfloat16) and ctx.amp_bf16()
+
+
 _CONV_ATTRS = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
                "groups": 1, "data_format": "NCHW",
                "padding_algorithm": "EXPLICIT", "use_cudnn": True,
@@ -107,8 +113,11 @@ _CONV_ATTRS = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
 def conv2d(ctx, x, w, strides=(1, 1), paddings=(0, 0), dilations=(1, 1),
            groups=1, data_format="NCHW", padding_algorithm="EXPLICIT", **_):
     """NCHW x, OIHW filters; asymmetric padding is applied before the
-    conv."""
+    conv.  Under the bf16 AMP policy both operands are bf16 and so is the
+    result (cuDNN keeps f32 sums), as the reference's."""
     _check_nchw(data_format, "conv2d")
+    if _amp_conv(ctx, x):
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     pads = _conv_pads(x, w, strides, paddings, dilations, padding_algorithm)
     (t, b), (l, r) = pads
     if t == b and l == r:
@@ -127,6 +136,10 @@ def conv2d_grad(ctx, x, w, out, dout, strides=(1, 1), paddings=(0, 0),
     want_x, want_w = wants_grad(ctx, "Input"), wants_grad(ctx, "Filter")
     if dout is None or not (want_x or want_w):
         return None, None
+    xd, wd = x.dtype, w.dtype
+    if _amp_conv(ctx, x):
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    dout = dout.to(out.dtype)
     pads = _conv_pads(x, w, strides, paddings, dilations, padding_algorithm)
     (t, b), (l, r) = pads
     sym = t == b and l == r
@@ -137,7 +150,8 @@ def conv2d_grad(ctx, x, w, out, dout, strides=(1, 1), paddings=(0, 0),
         [want_x, want_w, False])
     if dx is not None and not sym:
         dx = dx[:, :, t:t + x.shape[2], l:l + x.shape[3]]
-    return dx, dw
+    return (None if dx is None else dx.to(xd),
+            None if dw is None else dw.to(wd))
 
 
 # -- pooling -----------------------------------------------------------------
@@ -195,7 +209,8 @@ def pool2d_grad(ctx, x, out, dout, **attrs):
         return (None,)
     with torch.enable_grad():
         xg = x.detach().requires_grad_()
-        return torch.autograd.grad(pool2d(ctx, xg, **attrs), xg, dout)
+        return torch.autograd.grad(pool2d(ctx, xg, **attrs), xg,
+                                   dout.to(out.dtype))
 
 
 # -- batch norm --------------------------------------------------------------
@@ -431,7 +446,11 @@ def layer_norm(ctx, x, scale, bias, epsilon=1e-5, begin_norm_axis=1):
 def layer_norm_grad(ctx, x, scale, bias, y, dy, mean, dmean, var, dvar,
                     epsilon=1e-5, begin_norm_axis=1):
     """dX, dScale, dBias from the forward's Mean and Variance.  Mean and
-    Variance are stop-gradient outputs: no gradient flows into them."""
+    Variance are stop-gradient outputs: no gradient flows into them.  A
+    bf16 X's statistics come out of the forward rounded to bf16, which
+    the reference's replay never uses: they are recomputed from X in f32
+    here, as that replay does.  dY is taken in Y's dtype first, as the
+    replay's cotangent."""
     if dmean is not None or dvar is not None:
         raise NotImplementedError(
             "layer_norm_grad through the Mean/Variance outputs")
@@ -442,9 +461,12 @@ def layer_norm_grad(ctx, x, scale, bias, y, dy, mean, dmean, var, dvar,
     for d in tail:
         cols *= d
     x2 = x.reshape(-1, cols).float()
+    if mean.dtype != torch.float32:
+        mean = x2.mean(dim=1)
+        var = ((x2 - mean[:, None]) ** 2).mean(dim=1)
     rstd = torch.rsqrt(var.reshape(-1, 1).float() + epsilon)
     xhat = (x2 - mean.reshape(-1, 1).float()) * rstd
-    d = dy.reshape(-1, cols).float()
+    d = dy.to(y.dtype).reshape(-1, cols).float()
     dscale = (d * xhat).sum(dim=0).reshape(scale.shape).to(scale.dtype) \
         if scale is not None and wants_grad(ctx, "Scale") else None
     dbias = d.sum(dim=0).reshape(bias.shape).to(bias.dtype) \
@@ -762,6 +784,9 @@ def fused_dropout_add_ln_op(ctx, x, y, scale, bias, dropout_prob=0.0,
     (is_test, or p = 0) the dropout is the identity and Seed is zeros, as
     in the reference."""
     p = 0.0 if is_test else float(dropout_prob)
+    # the epilogue computes in X's dtype: a bf16 Y (an AMP product's)
+    # is cast to the f32 residual's first, as the reference's
+    y = y.to(x.dtype)
     if p > 0.0:
         seed_t = _seed_output(x.device)
         z, r, mean, var = fused_ln_fwd(x, y, scale, bias, p,

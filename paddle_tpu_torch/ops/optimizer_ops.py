@@ -13,6 +13,14 @@ the fused-momentum kernel the same way, except under an l2_decay
 attribute, which keeps the plain path as in the reference.  ``sgd`` and
 ``fused_sgd`` are plain PyTorch, as the reference's are jnp: one
 subtraction of ``lr g`` per element, new tensors.
+
+Under the bf16 AMP policy an op's Param slot reads a carried param's f32
+master (``core.lowering``), its grad may be bf16 (a carried weight's
+grad is in the copy's dtype) and is cast to f32 before the update, as
+the reference's ``fused_opt.py:142-149`` does; the fused kernels write
+the new bf16 copy of each carried member in the same pass
+(``_carry_buffers``), which the reference's kernels stash for the same
+use (``stash_bf16_carry``).
 """
 
 import torch
@@ -20,6 +28,32 @@ import torch
 from ..core.registry import register_op
 from ..kernels.fused_adam import fused_adam_step
 from ..kernels.fused_momentum import fused_momentum_step
+
+
+def _f32(grads, dtype):
+    return [g if g.dtype == dtype else g.to(dtype) for g in grads]
+
+
+def _carry_buffers(ctx):
+    """Per member of the op's Param slot: the bf16 copy of a carried
+    param (its buffer, which the kernel overwrites on the card), else
+    None; None when no member is carried."""
+    carry = ctx.carry
+    if not carry:
+        return None
+    bufs = [carry.get(n) for n in ctx.op.input("Param")]
+    return bufs if any(b is not None for b in bufs) else None
+
+
+def _hand_carry(ctx, bufs, copies):
+    """Record the new bf16 copies the kernel (or its plain version)
+    wrote for the carried members."""
+    if bufs is None:
+        return
+    for n, b, c in zip(ctx.op.input("Param"), bufs, copies):
+        if b is not None:
+            ctx.carry[n] = c
+            ctx.carry_written.add(n)
 
 @register_op("sgd", inputs=("Param", "Grad", "LearningRate"),
              outputs=("ParamOut",), grad_maker=None)
@@ -81,9 +115,12 @@ def fused_momentum(ctx, params, grads, vels, lr, mu=0.0, use_nesterov=False,
     VelocityOut names equal Param and Velocity names."""
     if ctx.abstract:  # shape inference: the outputs are the inputs
         return params, vels
+    grads = _f32(grads, params[0].dtype)
     if regularization_method != "l2_decay":
-        p, v, _bf16 = fused_momentum_step(params, grads, vels, lr, mu,
-                                          use_nesterov)
+        bufs = _carry_buffers(ctx)
+        p, v, copies = fused_momentum_step(params, grads, vels, lr, mu,
+                                           use_nesterov, bufs)
+        _hand_carry(ctx, bufs, copies)
         return p, v
     lr_ = lr.reshape(()).to(params[0].dtype)
     pv = [_momentum_update(p, g, v, lr_, mu, use_nesterov,
@@ -140,6 +177,9 @@ def fused_adam(ctx, params, grads, m1s, m2s, lr, b1pows, b2pows, beta1=0.9,
     inputs, updated in place: ParamOut names equal Param names."""
     if ctx.abstract:  # shape inference: the outputs are the inputs
         return (params, m1s, m2s, b1pows, b2pows)
-    p, m1, m2, b1o, b2o, _bf16 = fused_adam_step(
-        params, grads, m1s, m2s, lr, b1pows, b2pows, beta1, beta2, epsilon)
+    bufs = _carry_buffers(ctx)
+    p, m1, m2, b1o, b2o, copies = fused_adam_step(
+        params, _f32(grads, params[0].dtype), m1s, m2s, lr, b1pows, b2pows,
+        beta1, beta2, epsilon, bufs)
+    _hand_carry(ctx, bufs, copies)
     return p, m1, m2, b1o, b2o

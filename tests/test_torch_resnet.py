@@ -171,12 +171,18 @@ def test_resnet50_op_surface():
 
 
 def test_layouts_and_amp_raise():
+    """NHWC raises; ``amp=True`` (which raised before the bf16 AMP policy
+    was ported) builds the decorated program: flagged, and equal to the
+    reference's (``tests/test_torch_amp.py`` holds it through
+    ``to_dict()``)."""
     main, startup = tfw.Program(), tfw.Program()
     with tfw.program_guard(main, startup):
         with pytest.raises(NotImplementedError, match="NCHW"):
             tres.build_train(depth=18, data_format="NHWC")
-        with pytest.raises(NotImplementedError, match="AMP"):
-            tres.build_train(depth=18, amp=True)
+    main, startup = tfw.Program(), tfw.Program()
+    with tfw.program_guard(main, startup):
+        tres.build_train(depth=18, amp=True)
+    assert main._amp_bf16
 
 
 # -- the predictor 
