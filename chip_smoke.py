@@ -26,9 +26,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sigma; the dropout paths at p = 0.1, where one flipped keep bit
    would move an output by about prob / q; the bf16 AMP policy's
    kernels: the dropout's bf16 instantiation bitwise, row 14's within
-   one bf16 ulp of y and past it LN_BF16_OPERAND_ULPS f32 ulps of its
-   operands, rows 9 and 10's bf16 copies of the carried members bitwise
-   the cast of the new params), then timed
+   one bf16 ulp of y of its plain version in the kernel's order, rows 9
+   and 10's bf16 copies of the carried members bitwise the cast of the
+   new params), then timed
    (CUDA events, L2 flushed before every launch, as the serving and
    training loops find it) beside its plain version, a one-call PyTorch
    yardstick and its bound;
@@ -87,7 +87,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    path, losses within AMP_RESNET_LOSS_RTOL; one step op by op (the
    backward, the casts and the fused momentum included), each op on the
    card fed the CPU's inputs, every output in the CPU's dtype and within
-   AMP_RESNET_OP_RTOL of its largest value; and the same net under
+   AMP_RESNET_OP_RTOL of its largest value, the max pool's grad
+   bitwise; the same step replayed on the card, the backward on the card
+   with the bf16 products' forward outputs and input grads taken from the
+   CPU, every velocity within AMP_VELOCITY_RTOL of the CPU's, three
+   planted faults (the decay dropped from one conv weight's grad,
+   momentum 0.89, one grad scaled by 1 + 2^-7) each failing it; and the
+   same net under
    Momentum without decay, 54 weights carried, row 10 writing the fc
    weight's copy once a step;
 9. DLRM training (the Criteo Terabyte configuration: 26 tables of
@@ -166,33 +172,62 @@ TRAIN_MOMENT_RTOL = 1e-2
 MOMENT_FLOOR = 1e-4
 
 # the bf16 AMP policy: the bf16 dropout kernel bitwise its plain version;
-# row 14 in bf16 to one bf16 ulp of y, past which an element may differ by
-# LN_BF16_OPERAND_ULPS f32 ulps of its operands (|b| + the row's max|x|
-# rstd |g|): the kernel and the plain version sum the statistics in other
-# orders, which moves y by an f32 ulp or so of the operands, many bf16
-# ulps of a y the final add cancels (a CPU model of it reads 0.23; one
-# operand rounded to bf16 reads 16000 or more, which the phase checks),
-# and to 1e-6 of the f32 statistics' largest value (two f32 summation
-# orders); rows 9 and 10's bf16 copies bitwise p_new.to(bfloat16).  Card
-# vs CPU, both rounding every product to bf16 (f32 sums): BERT-base losses
-# within AMP_BERT_LOSS_ATOL at each compared step; ResNet-50 at batch 32:
-# CHECK_STEPS steps each from one state, losses within
-# AMP_RESNET_LOSS_RTOL, and one step op by op, each op on the card fed
-# the CPU's inputs, every output in the CPU's dtype (an op that left the
-# policy shows) and within one bf16 ulp of its largest value (2^-7 of it:
-# a bf16 rounding that flips moves an element by at most that much; 0.0058
-# read on an H100).  The velocities are not held: from one state the
-# card's and the CPU's part by 1.13 norm-wise at the worst conv weight,
-# the f32 twin's from the CPU's by 1.38, and a batch norm's by 1.47.  Both
-# devices sum each conv in f32 (under 0.5% of a bf16 conv's outputs, its
-# grads' too, land off the exactly rounded value on either:
-# tools/torch_bf16_conv_rounding.py), so this is one-ulp roundings at
-# near-ties, which the batch norms' backward passes amplify.
-LN_BF16_OPERAND_ULPS = 8
+# row 14 in bf16 to LN_BF16_Y_ULPS bf16 ulp of y of its plain version in
+# the kernel's order (``layer_norm_2d_bf16_kernel_order``: the same lanes,
+# folds, butterflies and fused multiply-adds, which the kernel spells out
+# in round-to-nearest intrinsics), so only rsqrt and the final rounding
+# may differ, at every element, a y that its final add cancels included;
+# the plain version with gamma, (x - mean) rstd or beta rounded to bf16
+# must miss that limit (453-473 bf16 ulps read on an H100, where the add
+# cancels; the kernel read 0, bitwise, at all four shapes); and
+# to LN_BF16_STATS_RTOL of the f32 statistics' largest value against the
+# unordered plain version (two f32 summation orders); rows 9 and 10's bf16
+# copies bitwise p_new.to(bfloat16).  Card vs CPU, both rounding every
+# product to bf16 (f32 sums): BERT-base losses within AMP_BERT_LOSS_ATOL
+# at each compared step; ResNet-50 at batch 32: CHECK_STEPS steps each
+# from one state, losses within AMP_RESNET_LOSS_RTOL, and one step op by
+# op, each op on the card fed the CPU's inputs, every output in the CPU's
+# dtype (an op that left the policy shows) and within one bf16 ulp of its
+# largest value (2^-7 of it: a bf16 rounding that flips moves an element
+# by at most that much; 0.0058 read on an H100).
+LN_BF16_Y_ULPS = 1
 LN_BF16_STATS_RTOL = 1e-6
 AMP_BERT_LOSS_ATOL = 1e-2
 AMP_RESNET_LOSS_RTOL = 1e-2
 AMP_RESNET_OP_RTOL = 2 ** -7
+# ResNet-50 under AMP, the velocities after one step replayed on the card
+# from one state (the card's after CHECK_STEPS - 1 steps, velocities not
+# zero).  Chained steps part by near-tie bf16 roundings that the net's
+# backward amplifies (1.13 norm-wise at a conv weight, 1.47 at a batch
+# norm, the f32 twin's 1.38); with the bf16 products' forward outputs
+# alone from the CPU (``AMP_REPLAYS["forward products"]``, printed and not
+# held) they still read 0.0696 and 0.251, past what any planted fault
+# adds.  So the held replay (``AMP_REPLAYS["held"]``) runs the backward on
+# the card with each bf16 product pinned where the chain carries it on:
+# the convs' and the fc's forward outputs and input grads from the CPU,
+# their weight grads the card's own from the CPU's inputs; batch norms,
+# relus, the max pool, adds, the loss, the decay and the momentum update
+# chained on the card.  Then a weight's velocity reads the card's bf16
+# weight grad (a rounding off at 0.002-0.48% of elements, 2^-8 of each:
+# norm-wise 3e-4 at most) through the card's decay, cast and momentum; a
+# batch norm's, f32 sums in another order over the CPU's cotangents (the
+# max pool's grad adds in the CPU's order, bitwise: 1e-5 at most).  One
+# limit, AMP_VELOCITY_RTOL, norm-wise relative to the CPU's, for every
+# velocity: 6.7x the conv bound, 2.4x under the smallest planted fault.
+# Planted faults must each fail it: the decay term dropped from one conv
+# weight's gradient, momentum 0.89 for 0.9, and one conv weight's
+# gradient scaled by 1 + 2^-7 (2^-7 of a gradient is 0.0078 of it, 0.01
+# of a velocity 0.005-0.011 of the next; read 0.0101, 0.00873 and
+# 0.00473 at the conv and fc weights with every product from the CPU).
+# The probes' conv weight is the one whose decay term weighs most in its
+# velocity.  Readings on an H100.
+AMP_REPLAYS = {
+    "held": {"conv2d": "cpu", "mul": "cpu",
+             "conv2d_grad": {"X@Input": "cpu", "X@Filter": "isolated"},
+             "mul_grad": {"X@X": "cpu", "X@Y": "isolated"}},
+    "forward products": {"conv2d": "cpu", "mul": "cpu"},
+}
+AMP_VELOCITY_RTOL = 2e-3
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -645,41 +680,34 @@ def _ulp(t, bits):
                       - bits)
 
 
-def ln_bf16_gap(got, want, x, g, b, var, eps):
-    """A bf16 LayerNorm's y against another's -> (the largest |got - want|
-    in bf16 ulps of the larger of the two, the largest excess of |got -
-    want| over that ulp in f32 ulps of the element's operands, |b| +
-    max|x| of the row * rstd * |g|)."""
+def bf16_ulps(got, want):
+    """The largest |got - want| of two bf16 tensors in bf16 ulps of the
+    larger of the two at that element."""
     d = (got.float() - want.float()).abs()
     ulp_y = _ulp(torch.maximum(got.float().abs(), want.float().abs()), 7)
-    ops = (x.float().abs().amax(dim=1, keepdim=True)
-           * torch.rsqrt(var[:, None] + eps) * g.abs() + b.abs())
-    return (float((d / ulp_y).max()),
-            float(((d - ulp_y).clamp_min(0) / _ulp(ops, 23)).max()))
+    return float((d / ulp_y).max())
 
 
-def ln_bf16_faults(ln, x, g, b, eps):
+def ln_bf16_faults(ln, x, g, b, eps, want):
     """Row 14's plain version with one operand rounded to bf16 (gamma,
-    (x - mean) rstd, beta) -> each one's excess over the plain version's
-    y in ``ln_bf16_gap``'s f32 ulps of the operands."""
-    want, mean, var = ln.layer_norm_2d_reference(x, g, b, eps)
+    (x - mean) rstd, beta) -> each one's ``bf16_ulps`` from ``want``."""
+    _y, mean, var = ln.layer_norm_2d_reference(x, g, b, eps)
     xf = x.float()
     c = xf - mean[:, None]
     r = torch.rsqrt(var[:, None] + eps)
     rb = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
     faults = (c * r * rb(g) + b, rb(c * r) * g + b, c * r * g + rb(b))
-    return [ln_bf16_gap(f.to(torch.bfloat16), want, x, g, b, var, eps)[1]
-            for f in faults]
+    return [bf16_ulps(f.to(torch.bfloat16), want) for f in faults]
 
 
 def amp_kernel_phase(dk, ln, fad, fm, dev, flush, cfg):
     """The bf16 AMP policy's kernels, each beside its f32 self in the same
     run: the dropout kernel's bf16 instantiation (bitwise its plain
     version, mask and out, at the attention probabilities' shape and an
-    odd unaligned one); row 14's (one bf16 ulp of y and past it
-    LN_BF16_OPERAND_ULPS f32 ulps of the operands, LN_BF16_STATS_RTOL of
-    the statistics, at the MLM head's [614, 768], [4096, 768] and two
-    shapes of its scalar kernel); rows 9 and 10 writing the carry's bf16
+    odd unaligned one); row 14's (LN_BF16_Y_ULPS of y from its plain
+    version in the kernel's order, LN_BF16_STATS_RTOL of the statistics,
+    at the MLM head's [614, 768], [4096, 768], [64, 200] and [16, 1200],
+    the last on its scalar kernel); rows 9 and 10 writing the carry's bf16
     copies of the members the AMP paths carry (BERT-base's product
     weights; the fc weight of ResNet-50's fused group), bitwise
     ``p_new.to(bfloat16)``; each timed against its f32 launch, its plain
@@ -736,31 +764,36 @@ def amp_kernel_phase(dk, ln, fad, fm, dev, flush, cfg):
         b = torch.from_numpy(_rand(rng, h)).to(dev)
         got = ln.layer_norm_2d(x, g, b, 1e-5)
         want = ln.layer_norm_2d_reference(x, g, b, 1e-5)
+        order = ln.layer_norm_2d_bf16_kernel_order(x, g, b, 1e-5)
         torch.cuda.synchronize()
-        ulps, excess = ln_bf16_gap(got[0], want[0], x, g, b, want[2], 1e-5)
+        ulps = bf16_ulps(got[0], order[0])
+        loose = bf16_ulps(got[0], want[0])
         stats = max(float((gs - ws).abs().max())
                     / max(float(ws.abs().max()), 1e-30)
                     for gs, ws in zip(got[1:], want[1:]))
         worst = max(worst, float((got[0].float() - want[0].float())
                                  .abs().max()))
-        print("kernel layer_norm (bf16) [%d, %d]: y %.3g bf16 ulps of y "
-              "from the plain version at the worst element, past one ulp "
-              "%.3g f32 ulps of its operands (limit %g); statistics %.3g "
-              "of their largest value (limit %g)"
-              % (n_rows, h, ulps, excess, LN_BF16_OPERAND_ULPS, stats,
+        print("kernel layer_norm (bf16) [%d, %d] (%s kernel): y %.3g bf16 "
+              "ulps of y from the plain version in the kernel's order "
+              "(limit %g), %d elements differ; %.3g from the unordered "
+              "plain version; statistics %.3g of their largest value "
+              "(limit %g)"
+              % (n_rows, h, "16-byte" if ln.bf16_vec_ok(x, g, b)
+                 else "scalar", ulps, LN_BF16_Y_ULPS,
+                 int((got[0] != order[0]).sum()), loose, stats,
                  LN_BF16_STATS_RTOL), flush=True)
-        if got[0].dtype != bf16 or excess > LN_BF16_OPERAND_ULPS \
+        if got[0].dtype != bf16 or not ulps <= LN_BF16_Y_ULPS \
                 or stats > LN_BF16_STATS_RTOL \
                 or not torch.isfinite(got[0].float()).all():
             fail("bf16 layer_norm disagrees with its plain version at "
                  "[%d, %d]" % (n_rows, h))
         if n_rows == 614:
-            faults = ln_bf16_faults(ln, x, g, b, 1e-5)
+            faults = ln_bf16_faults(ln, x, g, b, 1e-5, order[0])
             print("kernel layer_norm (bf16) [614, 768]: the plain version "
                   "with gamma, (x - mean) rstd or beta rounded to bf16 is "
-                  "%s f32 ulps of the operands past one ulp of y"
-                  % json.dumps(faults), flush=True)
-            if min(faults) <= LN_BF16_OPERAND_ULPS:
+                  "%s bf16 ulps of y from the plain version in the "
+                  "kernel's order" % json.dumps(faults), flush=True)
+            if min(faults) <= LN_BF16_Y_ULPS:
                 fail("the bf16 layer_norm check does not see a rounded "
                      "operand")
         if h == 768:
@@ -1692,7 +1725,41 @@ def prompts(vocab):
     return out, late
 
 
+def check_decode_tokens(what, allp, replies, refs):
+    """Each reply's tokens against the plain unpaged loop's (``refs``:
+    (tokens, logits) per prompt); a divergence must sit at a near-tie of
+    the plain loop's logits.  -> the number of near-tie divergences."""
+    ties = 0
+    for i, (p, r, (want, logits)) in enumerate(zip(allp, replies, refs)):
+        got = [int(t) for t in r.outputs["tokens"]]
+        if got == want:
+            continue
+        j = next((k for k in range(min(len(got), len(want)))
+                  if got[k] != want[k]), min(len(got), len(want)))
+        if j >= len(logits):
+            fail("%s request %d: %d tokens, the plain loop %d"
+                 % (what, i, len(got), len(want)))
+        top2 = np.sort(logits[j])[-2:]
+        gap = float(top2[1] - top2[0])
+        print("%s: request %d (prompt %d) diverges at token %d: paged %d, "
+              "unpaged %d, unpaged top-2 gap %.3g"
+              % (what, i, len(p), j, got[j] if j < len(got) else -1,
+                 want[j], gap), flush=True)
+        if gap >= LOGIT_TIE_TOL:
+            fail("%s request %d diverges from the unpaged loop where the "
+                 "top-2 logit gap %.3g >= %g" % (what, i, gap,
+                                                 LOGIT_TIE_TOL))
+        ties += 1
+    print("%s: tokens equal the unpaged plain loop for %d of %d requests; "
+          "%d near-tie divergences (gap < %g)"
+          % (what, len(replies) - ties, len(replies), ties, LOGIT_TIE_TOL),
+          flush=True)
+    return ties
+
+
 def decode_phase(pa):
+    """-> (paged_attention launches, the decoder's params, the plain
+    unpaged loop's (tokens, logits) per prompt of ``prompts``)."""
     from paddle_tpu_torch.serving import DecodeEngine, init_decoder_params
 
     cfg = gpt2_small()
@@ -1700,7 +1767,6 @@ def decode_phase(pa):
     params = init_decoder_params(cfg, seed=0)
     eng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0)
     m = eng.add_model("gpt2-small", (cfg, params), kv_blocks=520)
-    del params
     torch.cuda.synchronize()
     print("decode: GPT-2-small width (vocab %d, %d layers, %d heads x %d, "
           "ffn %d, max_seq %d), %d KV blocks of 16 (%.1f MB), set up in "
@@ -1750,30 +1816,11 @@ def decode_phase(pa):
                                 float(np.percentile(step_ms, 50)),
                                 float(np.percentile(ttft, 50))), flush=True)
 
-    ties = 0
-    for i, (p, r) in enumerate(zip(allp, replies)):
-        got = [int(t) for t in r.outputs["tokens"]]
-        want, logits = m.decoder.unpaged_generate(
-            p, 32, pad_len=m.maxb * m.kv_config.block_size,
-            return_logits=True)
-        if got == want:
-            continue
-        j = next(k for k in range(min(len(got), len(want)))
-                 if got[k] != want[k])
-        top2 = np.sort(logits[j])[-2:]
-        gap = float(top2[1] - top2[0])
-        print("decode: request %d (prompt %d) diverges at token %d: "
-              "paged %d, unpaged %d, unpaged top-2 gap %.3g"
-              % (i, len(p), j, got[j], want[j], gap), flush=True)
-        if gap >= LOGIT_TIE_TOL:
-            fail("request %d diverges from the unpaged loop where the "
-                 "top-2 logit gap %.3g >= %g" % (i, gap, LOGIT_TIE_TOL))
-        ties += 1
-    print("decode: tokens equal the unpaged plain loop for %d of %d "
-          "requests; %d near-tie divergences (gap < %g)"
-          % (len(replies) - ties, len(replies), ties, LOGIT_TIE_TOL),
-          flush=True)
-    return launches
+    refs = [m.decoder.unpaged_generate(
+        p, 32, pad_len=m.maxb * m.kv_config.block_size, return_logits=True)
+        for p in allp]
+    check_decode_tokens("decode", allp, replies, refs)
+    return launches, params, refs
 
 
 # -- phase 5: encoder serving ------------------------------------------------
@@ -1821,110 +1868,359 @@ def build_bert_dir(dirname, cfg):
     return main
 
 
-def encoder_phase(kmods, cfg=None, clients=3):
+ENCODER_SAMPLED = (0, 12, 23)
+
+
+def encoder_phase(kmods, dirname, cfg=None, clients=3):
+    """BERT built, initialised and saved into ``dirname``, then served ->
+    (the kernels' launches, {request index: the plain CPU predictor's
+    output} at ENCODER_SAMPLED)."""
     from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor
     from paddle_tpu_torch.models.bert import BERT_BASE
     from paddle_tpu_torch.serving import ServingEngine
 
     cfg = cfg or BERT_BASE
     fa, fl, ln = kmods
-    with tempfile.TemporaryDirectory() as tmp:
-        dirname = os.path.join(tmp, "bert")
+    t0 = time.perf_counter()
+    main = build_bert_dir(dirname, cfg)
+    n_params = sum(int(np.prod(v.shape)) for v in main.list_vars()
+                   if v.persistable and not v.is_data)
+    print("encoder: BERT (vocab %d, hidden %d, %d layers, %d heads, ffn "
+          "%d, max_pos %d, type_vocab %d), seq %d, %d f32 parameters "
+          "(%.1f MB), %d ops; built, initialised on the card and saved "
+          "in %.1f s" % (cfg.vocab_size, cfg.hidden, cfg.layers,
+                         cfg.heads, cfg.ffn, cfg.max_pos,
+                         cfg.type_vocab, SEQ, n_params,
+                         n_params * 4 / 1e6,
+                         len(main.global_block().ops),
+                         time.perf_counter() - t0), flush=True)
+    eng = ServingEngine(buckets=BUCKETS, batch_window_ms=5.0,
+                        deadline_ms=600000.0)
+    eng.add_model("bert", dirname)
+    t0 = time.perf_counter()
+    manifest = eng.prewarm()
+    print("encoder: prewarm %s in %.1f s"
+          % (json.dumps(manifest["bert"]), time.perf_counter() - t0),
+          flush=True)
+    reqs = encoder_requests(cfg)
+    replies = [None] * len(reqs)
+    eng.start()
+    try:
+        # the counts start at 0 just before the main path runs
+        fa.flash_attention.launches = 0
+        fl.fused_ln_fwd.launches = 0
+        ln.layer_norm_2d.launches = 0
+        batches0 = len(eng.batch_log)
         t0 = time.perf_counter()
-        main = build_bert_dir(dirname, cfg)
-        n_params = sum(int(np.prod(v.shape)) for v in main.list_vars()
-                       if v.persistable and not v.is_data)
-        print("encoder: BERT (vocab %d, hidden %d, %d layers, %d heads, ffn "
-              "%d, max_pos %d, type_vocab %d), seq %d, %d f32 parameters "
-              "(%.1f MB), %d ops; built, initialised on the card and saved "
-              "in %.1f s" % (cfg.vocab_size, cfg.hidden, cfg.layers,
-                             cfg.heads, cfg.ffn, cfg.max_pos,
-                             cfg.type_vocab, SEQ, n_params,
-                             n_params * 4 / 1e6,
-                             len(main.global_block().ops),
-                             time.perf_counter() - t0), flush=True)
-        eng = ServingEngine(buckets=BUCKETS, batch_window_ms=5.0,
-                            deadline_ms=600000.0)
-        eng.add_model("bert", dirname)
-        t0 = time.perf_counter()
-        manifest = eng.prewarm()
-        print("encoder: prewarm %s in %.1f s"
-              % (json.dumps(manifest["bert"]), time.perf_counter() - t0),
-              flush=True)
-        reqs = encoder_requests(cfg)
-        replies = [None] * len(reqs)
-        eng.start()
-        try:
-            # the counts start at 0 just before the main path runs
-            fa.flash_attention.launches = 0
-            fl.fused_ln_fwd.launches = 0
-            ln.layer_norm_2d.launches = 0
-            batches0 = len(eng.batch_log)
-            t0 = time.perf_counter()
 
+        def client(k):
+            for i in range(k, len(reqs), clients):
+                replies[i] = eng.infer("bert", reqs[i],
+                                       deadline_ms=600000.0)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(clients)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "fused_ln": fl.fused_ln_fwd.launches,
+                    "layer_norm": ln.layer_norm_2d.launches}
+        batches = list(eng.batch_log)[batches0:]
+    finally:
+        eng.stop()
+    for i, (q, r) in enumerate(zip(reqs, replies)):
+        rows = q["src_ids"].shape[0]
+        if r is None or r.status != "ok":
+            fail("encoder request %d: %s" % (
+                i, None if r is None else (r.status, r.error)))
+        out, = r.outputs.values()
+        if out.shape != (rows, SEQ, cfg.hidden) \
+                or not np.isfinite(out).all():
+            fail("encoder request %d: output %s, want finite [%d, %d, "
+                 "%d]" % (i, out.shape, rows, SEQ, cfg.hidden))
+    nb = len(batches)
+    print("encoder: %d replies ok (%d rows) in %.3f s = %.2f requests/s "
+          "from %d client threads; %d batches; launches %s"
+          % (len(reqs), sum(q["src_ids"].shape[0] for q in reqs), wall,
+             len(reqs) / wall, clients, nb, json.dumps(launches)),
+          flush=True)
+    want = {"flash_attention": cfg.layers * nb,
+            "fused_ln": 2 * cfg.layers * nb, "layer_norm": nb}
+    if nb == 0 or launches != want:
+        fail("encoder launches %s over %d batches, want %s"
+             % (launches, nb, want))
+    for b in sorted({x["bucket"] for x in batches}):
+        sel = [x for x in batches if x["bucket"] == b]
+        print("encoder: bucket %d: %d batches, execute_ms p50 %.3f, "
+              "rows filled %s (mean fill %.3f)"
+              % (b, len(sel), float(np.percentile(
+                  [x["execute_ms"] for x in sel], 50)),
+                 [x["rows"] for x in sel],
+                 float(np.mean([x["rows"] / b for x in sel]))),
+              flush=True)
+
+    # the same directory on the CPU is the plain path by construction
+    cpu_cfg = AnalysisConfig(dirname)
+    cpu_cfg.disable_gpu()
+    plain = AnalysisPredictor(cpu_cfg)
+    worst, plain_outs = 0.0, {}
+    for i in ENCODER_SAMPLED:
+        want_out, = plain.run_feed(reqs[i]).values()
+        plain_outs[i] = want_out
+        got, = replies[i].outputs.values()
+        worst = max(worst, float(np.abs(got - want_out).max()))
+    print("encoder: 3 requests vs the plain predictor on the CPU: "
+          "max_abs_err %.3g (atol %g)" % (worst, ENCODER_ATOL),
+          flush=True)
+    if not worst <= ENCODER_ATOL:
+        fail("encoder output disagrees with the plain CPU predictor")
+    return launches, plain_outs
+
+
+# -- phase 5b: serving over the wire ----------------------------------------
+
+WIRE_MODES = ("no stream", "stream", "generate_stream")
+
+
+def wire_mode(i, clients=3):
+    """The mode of request ``i``: a third each, every client thread (``i``
+    mod ``clients``) taking each mode in turn."""
+    return WIRE_MODES[(i + i // clients) % 3]
+
+
+def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
+               clients=3):
+    """decode_phase's GPT-2-small engine (its buckets, 16-token blocks,
+    520 KV blocks; no prefix cache, so both passes below do the same
+    work) and encoder_phase's BERT-base directory (seq 128, buckets 1, 8,
+    32) behind one ServingServer on 127.0.0.1.  ``clients`` threads send
+    ``prompts`` (32 new tokens; a third each without the stream, with it,
+    and through generate_stream), then ``encoder_requests`` through infer:
+    first in process on the same engines (the yardstick), then over the
+    wire through a ServingClient each.  Then one streamed generate is
+    abandoned after its first token.  -> the wire path's launches."""
+    from paddle_tpu_torch.models.bert import BERT_BASE
+    from paddle_tpu_torch.native.rpc import RpcClient
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
+                                          ServingEngine, ServingServer,
+                                          codec)
+
+    fa, fl, ln = kmods
+    cfg = cfg or BERT_BASE
+    dcfg = gpt2_small()
+    t0 = time.perf_counter()
+    deng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0,
+                        prefix_cache=False)
+    m = deng.add_model("gpt2-small", (dcfg, params), kv_blocks=520)
+    eeng = ServingEngine(buckets=BUCKETS, batch_window_ms=5.0,
+                         deadline_ms=600000.0)
+    eeng.add_model("bert", bert_dir)
+    eeng.prewarm()
+    srv = ServingServer(eeng, port=0, decode_engine=deng)
+    first, late = prompts(dcfg.vocab)
+    allp = first + [late]
+    enc = encoder_requests(cfg)
+    torch.cuda.synchronize()
+    print("wire: GPT-2-small decode engine and BERT-base encoder engine "
+          "behind one ServingServer, set up in %.1f s"
+          % (time.perf_counter() - t0), flush=True)
+
+    def drive(gen, infer):
+        """``clients`` threads: thread k sends prompts k, k + clients, ...
+        by ``gen(k, i, prompt, mode)``, then its encoder requests by
+        ``infer(k, feeds)`` -> (replies, encoder replies, streamed
+        chunks, decode wall s, encoder wall s)."""
+        replies, enc_replies = [None] * len(allp), [None] * len(enc)
+        chunks = [[] for _ in allp]
+        walls = {}
+
+        def run(part):
             def client(k):
-                for i in range(k, len(reqs), clients):
-                    replies[i] = eng.infer("bert", reqs[i],
-                                           deadline_ms=600000.0)
-
-            threads = [threading.Thread(target=client, args=(k,))
-                       for k in range(clients)]
-            for th in threads:
+                if part == "decode":
+                    for i in range(k, len(allp), clients):
+                        replies[i] = gen(k, i, allp[i],
+                                         wire_mode(i, clients),
+                                         chunks[i])
+                else:
+                    for i in range(k, len(enc), clients):
+                        enc_replies[i] = infer(k, enc[i])
+            ts = [threading.Thread(target=client, args=(k,))
+                  for k in range(clients)]
+            t0 = time.perf_counter()
+            for th in ts:
                 th.start()
-            for th in threads:
+            for th in ts:
                 th.join(900)
-            wall = time.perf_counter() - t0
-            launches = {"flash_attention": fa.flash_attention.launches,
-                        "fused_ln": fl.fused_ln_fwd.launches,
-                        "layer_norm": ln.layer_norm_2d.launches}
-            batches = list(eng.batch_log)[batches0:]
-        finally:
-            eng.stop()
-        for i, (q, r) in enumerate(zip(reqs, replies)):
-            rows = q["src_ids"].shape[0]
-            if r is None or r.status != "ok":
-                fail("encoder request %d: %s" % (
-                    i, None if r is None else (r.status, r.error)))
-            out, = r.outputs.values()
-            if out.shape != (rows, SEQ, cfg.hidden) \
-                    or not np.isfinite(out).all():
-                fail("encoder request %d: output %s, want finite [%d, %d, "
-                     "%d]" % (i, out.shape, rows, SEQ, cfg.hidden))
-        nb = len(batches)
-        print("encoder: %d replies ok (%d rows) in %.3f s = %.2f requests/s "
-              "from %d client threads; %d batches; launches %s"
-              % (len(reqs), sum(q["src_ids"].shape[0] for q in reqs), wall,
-                 len(reqs) / wall, clients, nb, json.dumps(launches)),
-              flush=True)
-        want = {"flash_attention": cfg.layers * nb,
-                "fused_ln": 2 * cfg.layers * nb, "layer_norm": nb}
-        if nb == 0 or launches != want:
-            fail("encoder launches %s over %d batches, want %s"
-                 % (launches, nb, want))
-        for b in sorted({x["bucket"] for x in batches}):
-            sel = [x for x in batches if x["bucket"] == b]
-            print("encoder: bucket %d: %d batches, execute_ms p50 %.3f, "
-                  "rows filled %s (mean fill %.3f)"
-                  % (b, len(sel), float(np.percentile(
-                      [x["execute_ms"] for x in sel], 50)),
-                     [x["rows"] for x in sel],
-                     float(np.mean([x["rows"] / b for x in sel]))),
-                  flush=True)
+            walls[part] = time.perf_counter() - t0
+            if any(th.is_alive() for th in ts):
+                fail("wire: a %s client thread did not finish" % part)
 
-        # the same directory on the CPU is the plain path by construction
-        cpu_cfg = AnalysisConfig(dirname)
-        cpu_cfg.disable_gpu()
-        plain = AnalysisPredictor(cpu_cfg)
-        worst = 0.0
-        for i in (0, len(reqs) // 2, len(reqs) - 1):
-            want_out, = plain.run_feed(reqs[i]).values()
-            got, = replies[i].outputs.values()
-            worst = max(worst, float(np.abs(got - want_out).max()))
-        print("encoder: 3 requests vs the plain predictor on the CPU: "
-              "max_abs_err %.3g (atol %g)" % (worst, ENCODER_ATOL),
-              flush=True)
-        if not worst <= ENCODER_ATOL:
-            fail("encoder output disagrees with the plain CPU predictor")
+        run("decode")
+        run("encoder")
+        return replies, enc_replies, chunks, walls
+
+    def in_process_gen(k, i, p, mode, got):
+        return deng.submit("gpt2-small", p, max_new_tokens=32).wait(900)
+
+    srv.start()
+    try:
+        local = drive(in_process_gen, lambda k, f: eeng.infer(
+            "bert", f, deadline_ms=600000.0))
+        ep = "127.0.0.1:%d" % srv.port
+        cli = [ServingClient(endpoints=[ep], deadline_ms=600000.0)
+               for _ in range(clients)]
+
+        def wire_gen(k, i, p, mode, got):
+            if mode == "generate_stream":
+                it = cli[k].generate_stream("gpt2-small", p,
+                                            max_new_tokens=32)
+                while True:
+                    try:
+                        got.append(next(it))
+                    except StopIteration as stop:
+                        return stop.value
+            return cli[k].generate(
+                "gpt2-small", p, max_new_tokens=32,
+                stream=mode == "stream",
+                on_token=lambda j, t: got.append((j, t)))
+
+        # the counts start at 0 just before the wire path runs
+        pa.paged_attention.launches = 0
+        fa.flash_attention.launches = 0
+        fl.fused_ln_fwd.launches = 0
+        ln.layer_norm_2d.launches = 0
+        steps0, batches0 = deng.steps, len(eeng.batch_log)
+        bytes0 = sum(srv.rpc.bytes_moved())
+        wire = drive(wire_gen, lambda k, f: cli[k].infer("bert", f))
+        wire_b = sum(srv.rpc.bytes_moved()) - bytes0
+        # one streamed generate abandoned after its first token
+        before = {k: v for k, v in m.cache.allocator.stats().items()
+                  if k != "high_water"}
+        c = RpcClient(ep, connect_timeout=10.0, rpc_deadline=120.0,
+                      retry_times=0)
+        try:
+            c.send_var(codec.GEN_KEY + "abandoned", codec.pack(
+                {"model": "gpt2-small", "max_new_tokens": 512,
+                 "stream": True, "deadline_ms": 600000.0},
+                [np.asarray(allp[1], np.int32)]))
+            chunk0, _ = codec.unpack(c.get_var(codec.STREAM_KEY
+                                               + "abandoned:0"))
+            held = m.cache.allocator.stats()["in_use"]
+            c.send_var(codec.ABORT_KEY + "abandoned",
+                       codec.pack({"req_id": "abandoned"}))
+            ab_reply, _ = codec.unpack(c.get_var(codec.REPLY_KEY
+                                                 + "abandoned"))
+        finally:
+            c.close()
+        t_end = time.perf_counter() + 30.0
+        while True:
+            after = {k: v for k, v in m.cache.allocator.stats().items()
+                     if k != "high_water"}
+            if after == before or time.perf_counter() > t_end:
+                break
+            time.sleep(0.01)
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches,
+                    "fused_ln": fl.fused_ln_fwd.launches,
+                    "layer_norm": ln.layer_norm_2d.launches}
+        steps = deng.steps - steps0
+        batches = list(eeng.batch_log)[batches0:]
+    finally:
+        srv.shutdown()
+
+    replies, enc_replies, chunks, walls = wire
+    l_replies, l_enc, _c, l_walls = local
+    for what, rs in (("in process", l_replies), ("wire", replies),
+                     ("in process encoder", l_enc),
+                     ("wire encoder", enc_replies)):
+        for i, r in enumerate(rs):
+            if r is None or r.status != "ok":
+                fail("%s request %d: %s" % (what, i, None if r is None
+                                             else (r.status, r.error)))
+    check_decode_tokens("wire", allp, replies, refs)
+    check_decode_tokens("wire in process", allp, l_replies, refs)
+    for i, (r, got) in enumerate(zip(replies, chunks)):
+        mode = wire_mode(i, clients)
+        toks = [int(t) for t in r.outputs["tokens"]]
+        if mode == "no stream":
+            if got:
+                fail("wire request %d streamed without the stream" % i)
+        elif [j for j, _t in got] != list(range(len(toks))) \
+                or [t for _j, t in got] != toks:
+            fail("wire request %d (%s): chunks %s, the reply's %d tokens"
+                 % (i, mode, [j for j, _t in got][:40], len(toks)))
+    print("wire: %d generates ok (%s by mode); the streamed chunks are "
+          "indices 0..n-1 each once and equal the final reply's tokens"
+          % (len(replies), json.dumps({md: sum(
+              wire_mode(i, clients) == md
+              for i in range(len(allp))) for md in WIRE_MODES})),
+          flush=True)
+    if chunk0.get("token") is None or held == before["in_use"] \
+            or ab_reply.get("status") != "aborted" or after != before:
+        fail("wire: the abandoned request held %d blocks after its first "
+             "token (%d before), its reply %s, the allocator %s after, %s "
+             "before" % (held, before["in_use"], ab_reply.get("status"),
+                         after, before))
+    print("wire: a streamed generate abandoned after its first token held "
+          "%d KV blocks (%d before it) and returned them all on its "
+          "abort (reply %s); allocator %s"
+          % (held, before["in_use"], ab_reply["status"],
+             json.dumps(after)), flush=True)
+    worst = 0.0
+    for i, r in enumerate(enc_replies):
+        out, = r.outputs.values()
+        rows = enc[i]["src_ids"].shape[0]
+        if out.shape != (rows, SEQ, cfg.hidden) or not np.isfinite(out).all():
+            fail("wire encoder request %d: output %s" % (i, out.shape))
+        if i in plain_outs:
+            worst = max(worst, float(np.abs(out - plain_outs[i]).max()))
+        local_out, = l_enc[i].outputs.values()
+        worst = max(worst, float(np.abs(out - local_out).max()))
+    print("wire: %d encoder replies ok; against the plain CPU predictor at "
+          "requests %s and the in-process replies: max_abs_err %.3g "
+          "(atol %g)" % (len(enc_replies), list(plain_outs), worst,
+                         ENCODER_ATOL), flush=True)
+    if not worst <= ENCODER_ATOL:
+        fail("wire encoder output disagrees with the plain CPU predictor")
+    nb = len(batches)
+    want = {"paged_attention": dcfg.layers * steps,
+            "flash_attention": cfg.layers * nb,
+            "fused_ln": 2 * cfg.layers * nb, "layer_norm": nb}
+    print("wire: launches %s over %d decode steps and %d encoder batches"
+          % (json.dumps(launches), steps, nb), flush=True)
+    if launches != want or steps == 0 or nb == 0:
+        fail("wire launches %s, want %s" % (launches, want))
+
+    card = card_line()
+    ntok = sum(len(r.outputs["tokens"]) for r in replies)
+    streamed = [r for i, r in enumerate(replies)
+                if wire_mode(i, clients) != "no stream"]
+    p50 = lambda xs: float(np.percentile(xs, 50))  # noqa: E731
+    print("wire: %s; %d client threads; decode %d tokens: over the wire "
+          "%.3f s = %.2f tokens/s, in process %.3f s = %.2f tokens/s; "
+          "encoder %d requests: over the wire %.3f s = %.2f requests/s, in "
+          "process %.3f s = %.2f requests/s"
+          % (card, clients, ntok, walls["decode"], ntok / walls["decode"],
+             l_walls["decode"], ntok / l_walls["decode"], len(enc),
+             walls["encoder"], len(enc) / walls["encoder"],
+             l_walls["encoder"], len(enc) / l_walls["encoder"]), flush=True)
+    print("wire: %s; the %d streamed generates: client TTFT p50 %.3f ms "
+          "against the engine's ttft_ms p50 %.3f; client ITL p50 %.3f ms "
+          "against the engine's %.3f; wire_ms p50 %.3f"
+          % (card, len(streamed),
+             p50([r.phases["client_ttft_ms"] for r in streamed]),
+             p50([r.phases["ttft_ms"] for r in streamed]),
+             p50([x for r in streamed
+                  for x in r.phases["client_itl_ms_samples"]]),
+             p50([x for r in streamed for x in r.phases["itl_ms_samples"]]),
+             p50([r.phases["wire_ms"] for r in replies])), flush=True)
+    print("wire: %s; %d bytes on the wire for %d requests = %.1f a request "
+          "(the server's sockets, both ways)"
+          % (card, wire_b, len(allp) + len(enc),
+             wire_b / (len(allp) + len(enc))), flush=True)
     return launches
 
 
@@ -2346,13 +2642,84 @@ def resnet_amp_build(decay):
     return build
 
 
+def _norm_gap(got, want):
+    """||got - want|| / ||want||, float64 on got's device."""
+    want = want.to(got.device).double()
+    return float((got.double() - want).norm()) / max(float(want.norm()),
+                                                     1e-30)
+
+
+def amp_replay(main_p, loss, feed, state, card="cuda"):
+    """One step of the AMP ``main_p`` (its optimizer ops fused) from the
+    persistables ``state`` by ``tools/torch_amp_opdiff.step_op_by_op``:
+    op by op on the CPU, each op on the card fed the CPU's inputs, and
+    the AMP_REPLAYS chained on the card; then the optimizer tail (decay
+    and momentum) again from the "held" replay's state before it, once per
+    planted fault.  -> (isolated rows: (difference relative to the CPU
+    output's largest value, op index, op type, output, CPU dtype, card
+    dtype); the max pool's grad's row; the CPU's loss; {replay: {velocity:
+    norm-wise gap}}; {fault: {velocity: gap}}; {velocity: param}; the
+    probes' conv weight)."""
+    from paddle_tpu_torch.core.lowering import draws, op_seed, run_op
+
+    updates = [op for op in main_p.global_block().ops
+               if op.type in ("momentum", "fused_momentum")]
+    vel_param = {v: p for op in updates
+                 for p, v in zip(op.input("Param"), op.input("Velocity"))}
+    updated = set(vel_param) | set(vel_param.values())
+    pre_tail = {}
+
+    def keep(i, envs):  # the updates write params and velocities in place
+        pre_tail.update(tail=i, env={n: t.clone() if n in updated else t
+                                     for n, t in envs["held"].items()})
+
+    got = tool("torch_amp_opdiff").step_op_by_op(
+        main_p, loss, feed, state, card, AMP_REPLAYS, keep)
+    cenv = got.cpu
+    replays = {k: {v: _norm_gap(env[v], cenv[v]) for v in vel_param}
+               for k, env in got.envs.items()}
+    got.envs.clear()
+    # the probes' conv weight: its decay term the largest share of its
+    # velocity on the CPU
+    convs = [v for v, p in vel_param.items()
+             if p.startswith("conv2d") and cenv[p].dim() == 4]
+    pick = max(convs, key=lambda v: float(cenv[vel_param[v]].norm())
+               / max(float(cenv[v].norm()), 1e-30))
+    grad = vel_param[pick] + "@GRAD"
+
+    def tail_run(fault):
+        env = {n: t.clone() if n in updated else t
+               for n, t in pre_tail["env"].items()}
+        if fault == "grad x (1 + 2^-7)":
+            env[grad] = env[grad] * (1.0 + 2.0 ** -7)
+        for i in range(pre_tail["tail"], len(got.steps)):
+            op, opdef, attrs = got.steps[i]
+            if fault == "decay dropped" and op.type == "sum" \
+                    and op.output("Out") == [grad]:
+                continue
+            if fault == "momentum 0.89" and op in updates:
+                attrs = dict(attrs, mu=0.89)
+            seed = op_seed(0, 0, i) if draws(opdef, attrs) else None
+            run_op(op, opdef, attrs, env, torch.device(card), seed)
+        return {v: _norm_gap(env[v], cenv[v]) for v in vel_param}
+
+    faults = {f: tail_run(f) for f in ("decay dropped", "momentum 0.89",
+                                       "grad x (1 + 2^-7)")}
+    pool = max(r for r in got.iso if r[2] == "pool2d_grad"
+               and got.steps[r[1]][2].get("pooling_type") == "max")
+    return got.iso, pool, got.loss, replays, faults, vel_param, pick
+
+
 def amp_resnet_phase():
     """Bundled ResNet-50 ``build_train(amp=True)`` at batch 32,
     TRAIN_STEPS steps -> the launch counts: row 10 once a step, no carry
     (L2Decay reads every weight, as the reference decides); beside it the
     f32 twin from the same state; then CHECK_STEPS steps at batch 32, each
     from one state on the card and on the CPU's plain path, and one step
-    op by op, each op on the card fed the CPU's inputs.  The conv2d_bn_relu
+    from the last state op by op (``amp_replay``): each op on the card fed
+    the CPU's inputs, and the velocities replayed with the backward on the
+    card (AMP_REPLAYS), held and probed with planted faults.  The
+    conv2d_bn_relu
     trunk is left out: its kernels are f32, as the reference's trunk
     kernels are under the policy."""
     from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
@@ -2392,42 +2759,67 @@ def amp_resnet_phase():
                                float(np.percentile(f_ms[1:], 50)), f_busy,
                                f_idle, losses[0] - f_losses[0]), flush=True)
     # CHECK_STEPS steps at batch 32, each from one state on the card and
-    # the CPU (the f32 twin's first step beside them), then one step op by
-    # op, each op on the card fed the CPU's inputs
+    # the CPU (the f32 twin's first step beside them), then one step from
+    # the last state op by op: each op on the card fed the CPU's inputs,
+    # and the velocity replays (AMP_REPLAYS)
     feed2 = resnet_feed(np.random.RandomState(4), TRAIN_BATCH)
-    pairs, vels, (t_loss, t_vels) = resnet_card_vs_cpu(
+    pairs, vels, (t_loss, t_vels), last = resnet_card_vs_cpu(
         main_p, loss, init, feed2, twin=(f_main, f_loss))
     rel = max(abs(a - b) / abs(b) for a, b in pairs)
     weights = [n for n in vels if init[n].ndim >= 2]  # the convs' and fc's
     w_worst = max(weights, key=vels.get)
     t_worst = max(weights, key=t_vels.get)
-    others = max(v for n, v in vels.items() if n not in weights)
-    sys.path.insert(0, os.path.join(HERE, "tools"))
-    from torch_amp_opdiff import step_op_by_op
-
     t0 = time.perf_counter()
-    iso, _chain, _first, (op_loss, _l) = step_op_by_op(
-        main_p, loss, feed2, init, "cuda", chained=False)
+    iso, pool, op_loss, replays, faults, vel_param, pick = amp_replay(
+        main_p, loss, feed2, last)
     worst = max(iso)
     dtypes = [r for r in iso if r[4] != r[5]]
     print("train resnet AMP: card vs CPU plain path, %d steps at batch %d, "
           "each from one state: losses' relative difference %.3g (limit "
-          "%g); one step op by op, each op on the card fed the CPU's "
-          "inputs (%.1f s): %d float outputs, %d of another dtype than "
-          "the CPU's, the largest difference %.3g of the output's largest "
-          "value (limit %g; op %d %s %s); not held, noise-dominated: the "
-          "conv and fc weights' velocities norm-wise %.3g (%s), the batch "
-          "norms' and the fc bias's %.3g, the f32 twin's first step "
-          "against the CPU's AMP step %.3g (%s), its loss %.3g relative"
+          "%g), chained velocities (not held) %.3g at the conv and fc "
+          "weights' worst (%s), the f32 twin's first step against the "
+          "CPU's AMP step %.3g (%s), its loss %.3g relative; one step op "
+          "by op from the last state (%.1f s), each op on the card fed the "
+          "CPU's inputs: %d float outputs, %d of another dtype than the "
+          "CPU's, the largest difference %.3g of the output's largest "
+          "value (limit %g; op %d %s %s); the max pool's grad %.3g "
+          "(bitwise: limit 0)"
           % (CHECK_STEPS, TRAIN_BATCH, rel, AMP_RESNET_LOSS_RTOL,
+             vels[w_worst], w_worst, t_vels[t_worst], t_worst,
+             abs(t_loss - pairs[0][1]) / abs(pairs[0][1]),
              time.perf_counter() - t0, len(iso), len(dtypes), worst[0],
-             AMP_RESNET_OP_RTOL, worst[1], worst[2], worst[3],
-             vels[w_worst], w_worst, others, t_vels[t_worst], t_worst,
-             abs(t_loss - pairs[0][1]) / abs(pairs[0][1])), flush=True)
+             AMP_RESNET_OP_RTOL, worst[1], worst[2], worst[3], pool[0]),
+          flush=True)
+    weight_v = [v for v, p in vel_param.items() if init[p].ndim >= 2]
+    other_v = [v for v in vel_param if v not in weight_v]
+    for k, gaps in replays.items():
+        w = max(weight_v, key=gaps.get)
+        o = max(other_v, key=gaps.get)
+        print("train resnet AMP: velocity replay %r: conv and fc weights "
+              "%.3g norm-wise at the worst (%s), batch norms and the fc "
+              "bias %.3g (%s); limit %g%s"
+              % (k, gaps[w], w, gaps[o], o, AMP_VELOCITY_RTOL,
+                 "" if k == "held" else ", not held"), flush=True)
+
+    def fails(gaps):
+        return max(gaps.values()) > AMP_VELOCITY_RTOL
+
+    print("train resnet AMP: probes from the held replay's state on %s "
+          "(its decay term %.3g of its velocity's norm "
+          "before the step): (conv and fc weights, batch norms) at the "
+          "worst %s" % (pick, 1e-4 * float(np.linalg.norm(
+              last[vel_param[pick]])) / max(float(np.linalg.norm(
+                  last[pick])), 1e-30), json.dumps(
+              {f: [max(g[v] for v in weight_v), max(g[v] for v in other_v)]
+               for f, g in faults.items()})), flush=True)
     if not rel <= AMP_RESNET_LOSS_RTOL or worst[0] > AMP_RESNET_OP_RTOL \
-            or dtypes or not np.isfinite(op_loss):
+            or dtypes or pool[0] != 0 or not np.isfinite(op_loss):
         fail("AMP ResNet-50 on the card disagrees with the CPU plain path"
              " %s" % dtypes[:3])
+    if fails(replays["held"]):
+        fail("AMP ResNet-50 velocities on the card disagree with the CPU's")
+    if not all(fails(g) for g in faults.values()):
+        fail("the AMP velocity check does not see a planted fault")
     return {k: v for k, v in launches.items() if v}
 
 
@@ -2716,9 +3108,10 @@ def resnet_card_vs_cpu(main_p, loss, init, feed, twin=None):
     difference over the steps}, and with ``twin``, (main, loss) of a
     program over the same variables, its first step on the card against
     the CPU's first step of ``main_p``: (its loss, {velocity: difference}),
-    else None).  Each step starts both devices from one state, so the gaps
-    are one step's rounding: chained steps of a randomly initialised
-    ResNet-50 part by far more (PERF.md §6)."""
+    else None; the state before the last step, numpy).  Each step
+    starts both devices from one state, so the gaps are one step's
+    rounding: chained steps of a randomly initialised ResNet-50 part by
+    far more (PERF.md §6)."""
     from paddle_tpu_torch import framework
     from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
                                        scope_to_numpy)
@@ -2756,7 +3149,7 @@ def resnet_card_vs_cpu(main_p, loss, init, feed, twin=None):
     print("train resnet: %d steps at batch %d, (card, CPU) losses %s (%.1f "
           "s)" % (CHECK_STEPS, len(feed["img"]), json.dumps(losses),
                   time.perf_counter() - t0), flush=True)
-    return losses, gaps, twin_out
+    return losses, gaps, twin_out, state
 
 
 def conv_train_phase(which):
@@ -2818,7 +3211,8 @@ def conv_train_phase(which):
             fail("train resnet [%s] losses %s: not finite, or the last is "
                  "not below the first" % (which, losses))
         feed2 = resnet_feed(np.random.RandomState(4), CHECK_BATCH)
-        pairs, vels, _twin = resnet_card_vs_cpu(main_p, loss, init, feed2)
+        pairs, vels, _twin, _state = resnet_card_vs_cpu(main_p, loss, init,
+                                                        feed2)
         loss_gap = max(abs(a - b) for a, b in pairs)
         worst = max(vels, key=vels.get)
         vel_gap = vels[worst]
@@ -3352,8 +3746,14 @@ def main():
     torch.cuda.empty_cache()
     # each path is driven with the counts at 0 and read just after; a
     # kernel's row carries the newest path that launches it
-    launches = {"paged_attention": decode_phase(pa)}
-    launches.update(encoder_phase((fa, fl, ln)))
+    with tempfile.TemporaryDirectory() as tmp:
+        bert_dir = os.path.join(tmp, "bert")
+        dec_launches, params, refs = decode_phase(pa)
+        launches, plain_outs = encoder_phase((fa, fl, ln), bert_dir)
+        launches["paged_attention"] = dec_launches
+        launches.update(wire_phase(pa, (fa, fl, ln), params, refs,
+                                   bert_dir, plain_outs))
+        del params, refs
     for name, dropout in ((DROPOUT0, 0.0), (COMPOSED, 0.1), (SMALL, 0.1)):
         with emission(name):
             counts = train_phase(BertConfig(dropout=dropout), name)

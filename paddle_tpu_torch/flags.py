@@ -31,6 +31,12 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   refreshed from the new f32 master after each step; the products read
   the copy and the optimizer the master.  The copy is bitwise the
   per-step cast, so the flag moves no value.
+* ``FLAGS_serving_deadline_ms`` (default 2000.0),
+  ``FLAGS_serving_endpoints_file`` (default "", none) and
+  ``FLAGS_serving_client_shed_retries`` (default 2), the reference's: a
+  ``ServingClient``'s request deadline, the endpoints file it re-reads on
+  failure, and how many shed replies it retries after their
+  ``retry_after_ms`` (``serving/client.py``).
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -44,6 +50,9 @@ _DEFAULTS = {
     "FLAGS_use_pallas_conv_block": False,
     "FLAGS_use_pallas_embedding_bag": False,
     "FLAGS_layout_match_params": True,
+    "FLAGS_serving_deadline_ms": 2000.0,
+    "FLAGS_serving_endpoints_file": "",
+    "FLAGS_serving_client_shed_retries": 2,
 }
 
 

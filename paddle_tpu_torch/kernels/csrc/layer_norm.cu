@@ -40,7 +40,13 @@
 // chunks l, l + 32, ... of eight bf16 (3 at C = 768) and the two float4
 // of gamma and of beta under each; C % 8 != 0, C > 1024 or a pointer not
 // 16-byte aligned take a scalar warp-a-row kernel that reads the row from
-// device memory for each of its three passes.
+// device memory for each of its three passes.  Both bf16 kernels spell
+// their arithmetic out in round-to-nearest intrinsics (the mean and var
+// multiplies, x - mean, the squares' and y's fused multiply-adds), so no
+// contraction the compiler may choose moves y: a y that is the small
+// difference of its two terms is then exactly the one of
+// layer_norm.py's `layer_norm_2d_bf16_kernel_order`, which the card's
+// check holds it to within one bf16 ulp.
 //
 // Entry points: plain C, return the launch's cudaError_t.
 
@@ -207,9 +213,10 @@ layer_norm_bf16_vec_kernel(const uint4* __restrict__ x,
   for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[k] += v[i][k];
-  const float mu = ln_rows::warp_sum(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-                                     ((acc[4] + acc[5]) + (acc[6] + acc[7]))) *
-                   inv_h;
+  const float mu = __fmul_rn(
+      ln_rows::warp_sum(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
+                        ((acc[4] + acc[5]) + (acc[6] + acc[7]))),
+      inv_h);
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
 #pragma unroll
@@ -217,15 +224,15 @@ layer_norm_bf16_vec_kernel(const uint4* __restrict__ x,
     const bool in = lane + 32 * i < h8;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      v[i][k] = in ? v[i][k] - mu : 0.f;
-      acc[k] += v[i][k] * v[i][k];
+      v[i][k] = in ? __fsub_rn(v[i][k], mu) : 0.f;
+      acc[k] = __fmaf_rn(v[i][k], v[i][k], acc[k]);
     }
   }
-  const float var_row =
+  const float var_row = __fmul_rn(
       ln_rows::warp_sum(((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-                        ((acc[4] + acc[5]) + (acc[6] + acc[7]))) *
-      inv_h;
-  const float rstd = rsqrtf(var_row + eps);
+                        ((acc[4] + acc[5]) + (acc[6] + acc[7]))),
+      inv_h);
+  const float rstd = rsqrtf(__fadd_rn(var_row, eps));
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
@@ -236,7 +243,8 @@ layer_norm_bf16_vec_kernel(const uint4* __restrict__ x,
                            b[i][1].x, b[i][1].y, b[i][1].z, b[i][1].w};
       float o[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) o[k] = v[i][k] * rstd * gv[k] + bv[k];
+      for (int k = 0; k < 8; ++k)
+        o[k] = __fmaf_rn(__fmul_rn(v[i][k], rstd), gv[k], bv[k]);
       y[base + c] = make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]),
                                pack2(o[4], o[5]), pack2(o[6], o[7]));
     }
@@ -262,17 +270,18 @@ layer_norm_bf16_rows_kernel(const __nv_bfloat16* __restrict__ x,
   const size_t base = (size_t)row * h;
   float s = 0.f;
   for (int c = lane; c < h; c += 32) s += __bfloat162float(x[base + c]);
-  const float mu = ln_rows::warp_sum(s) * inv_h;
+  const float mu = __fmul_rn(ln_rows::warp_sum(s), inv_h);
   s = 0.f;
   for (int c = lane; c < h; c += 32) {
-    const float d = __bfloat162float(x[base + c]) - mu;
-    s += d * d;
+    const float d = __fsub_rn(__bfloat162float(x[base + c]), mu);
+    s = __fmaf_rn(d, d, s);
   }
-  const float var_row = ln_rows::warp_sum(s) * inv_h;
-  const float rstd = rsqrtf(var_row + eps);
+  const float var_row = __fmul_rn(ln_rows::warp_sum(s), inv_h);
+  const float rstd = rsqrtf(__fadd_rn(var_row, eps));
   for (int c = lane; c < h; c += 32)
-    y[base + c] = __float2bfloat16_rn(
-        (__bfloat162float(x[base + c]) - mu) * rstd * gamma[c] + beta[c]);
+    y[base + c] = __float2bfloat16_rn(__fmaf_rn(
+        __fmul_rn(__fsub_rn(__bfloat162float(x[base + c]), mu), rstd),
+        gamma[c], beta[c]));
   if (lane == 0) {
     mean[row] = mu;
     var[row] = var_row;

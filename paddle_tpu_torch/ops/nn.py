@@ -181,19 +181,13 @@ def pool2d(ctx, x, pooling_type="max", ksize=(1, 1), strides=(1, 1),
         size = (int(ksize[0]), int(ksize[1]))
         return F.adaptive_max_pool2d(x, size) if is_max \
             else F.adaptive_avg_pool2d(x, size)
-    kh, kw = int(ksize[0]), int(ksize[1])
-    sh, sw = int(strides[0]), int(strides[1])
-    ph, pw = int(paddings[0]), int(paddings[1])
-    eh = -(x.shape[2] + 2 * ph - kh) % sh if ceil_mode else 0
-    ew = -(x.shape[3] + 2 * pw - kw) % sw if ceil_mode else 0
-    pads = [(ph, ph + eh), (pw, pw + ew)]
+    (kh, kw), (sh, sw), pads = _pool_windows(x, ksize, strides, paddings,
+                                             ceil_mode)
     if is_max:
-        low = float("-inf") if x.is_floating_point() \
-            else torch.iinfo(x.dtype).min
-        return F.max_pool2d(_padded(x, pads, low), (kh, kw), (sh, sw))
+        return F.max_pool2d(_max_padded(x, pads), (kh, kw), (sh, sw))
     total = F.avg_pool2d(_padded(x, pads), (kh, kw), (sh, sw),
                          divisor_override=1)
-    if exclusive and (ph or pw or eh or ew):
+    if exclusive and pads != [(0, 0), (0, 0)]:
         ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
                           device=x.device)
         return total / F.avg_pool2d(_padded(ones, pads), (kh, kw), (sh, sw),
@@ -201,16 +195,76 @@ def pool2d(ctx, x, pooling_type="max", ksize=(1, 1), strides=(1, 1),
     return total / (kh * kw)
 
 
+def _pool_windows(x, ksize, strides, paddings, ceil_mode):
+    """((kh, kw), (sh, sw), [(top, bottom), (left, right)] padding) of a
+    pool2d window over ``x``; ceil_mode extends the END padding."""
+    kh, kw = int(ksize[0]), int(ksize[1])
+    sh, sw = int(strides[0]), int(strides[1])
+    ph, pw = int(paddings[0]), int(paddings[1])
+    eh = -(x.shape[2] + 2 * ph - kh) % sh if ceil_mode else 0
+    ew = -(x.shape[3] + 2 * pw - kw) % sw if ceil_mode else 0
+    return (kh, kw), (sh, sw), [(ph, ph + eh), (pw, pw + ew)]
+
+
+def _max_padded(x, pads):
+    low = float("-inf") if x.is_floating_point() \
+        else torch.iinfo(x.dtype).min
+    return _padded(x, pads, low)
+
+
+def _max_pool2d_grad_in_order(x, dout, ksize=(1, 1), strides=(1, 1),
+                              paddings=(0, 0), ceil_mode=False, **_):
+    """dX of a max pool2d whose windows overlap: each element adds the
+    grads of the windows whose first maximum it is one at a time, in the
+    windows' row-major order, in dout's dtype (one rounding an add), on
+    any device.  For each element, a = 0 .. ceil(kh / sh) - 1 walks its
+    candidate window rows and b its columns, so (a, b) in turn is the
+    row-major order."""
+    (kh, kw), (sh, sw), pads = _pool_windows(x, ksize, strides, paddings,
+                                             ceil_mode)
+    xp = _max_padded(x, pads)
+    _, idx = F.max_pool2d(xp, (kh, kw), (sh, sw), return_indices=True)
+    n_oh, n_ow = idx.shape[2:]
+    h = torch.arange(x.shape[2], device=x.device) + pads[0][0]
+    w = torch.arange(x.shape[3], device=x.device) + pads[1][0]
+    target = h[:, None] * xp.shape[3] + w[None, :]
+    first_h = ((h - kh + 1).clamp(min=0) + sh - 1) // sh
+    first_w = ((w - kw + 1).clamp(min=0) + sw - 1) // sw
+    dx = dout.new_zeros(x.shape)
+    for a in range(-(-kh // sh)):
+        oh = first_h + a
+        ok_h = (oh * sh <= h) & (oh < n_oh)
+        rows = oh.clamp(max=n_oh - 1)[:, None]
+        for b in range(-(-kw // sw)):
+            ow = first_w + b
+            ok = ok_h[:, None] & ((ow * sw <= w) & (ow < n_ow))[None, :]
+            cols = ow.clamp(max=n_ow - 1)[None, :]
+            hit = (idx[:, :, rows, cols] == target) & ok
+            dx = dx + torch.where(hit, dout[:, :, rows, cols], 0)
+    return dx
+
+
 @register_grad_lowering("pool2d")
 def pool2d_grad(ctx, x, out, dout, **attrs):
     """dX by autograd over the forward (max routes each window's gradient
-    to its first maximum, as XLA's select-and-scatter does)."""
+    to its first maximum, as XLA's select-and-scatter does).  A bf16 max
+    pool whose windows overlap takes ``_max_pool2d_grad_in_order``: the
+    reference and the CPU's autograd round after each of an element's
+    adds, the card's autograd sums in f32 and rounds once (1 ulp apart at
+    0.5% of a ResNet stem's elements)."""
     if dout is None or not wants_grad(ctx, "X"):
         return (None,)
+    dout = dout.to(out.dtype)
+    a = dict(_POOL_ATTRS, **attrs)
+    if x.dtype == torch.bfloat16 and a["pooling_type"] == "max" \
+            and not (a["global_pooling"] or a["adaptive"]) \
+            and (int(a["ksize"][0]) > int(a["strides"][0])
+                 or int(a["ksize"][1]) > int(a["strides"][1])):
+        _check_nchw(a["data_format"], "pool2d")
+        return (_max_pool2d_grad_in_order(x, dout, **a),)
     with torch.enable_grad():
         xg = x.detach().requires_grad_()
-        return torch.autograd.grad(pool2d(ctx, xg, **attrs), xg,
-                                   dout.to(out.dtype))
+        return torch.autograd.grad(pool2d(ctx, xg, **attrs), xg, dout)
 
 
 # -- batch norm --------------------------------------------------------------

@@ -1,16 +1,22 @@
-"""Serving on the port: decode (paged KV cache, decoder, DecodeEngine)
-and batched inference (ServingEngine over AnalysisPredictor)."""
+"""Serving on the port: decode (paged KV cache, decoder, DecodeEngine),
+batched inference (ServingEngine over AnalysisPredictor), and the wire
+(ServingServer and ServingClient over the port's RPC transport, frames
+packed by ``codec``)."""
 
+from .client import ServingClient, read_endpoints_doc, read_endpoints_file
 from .decode_model import (Decoder, DecoderConfig, from_jax_params,
                            init_decoder_params, load_decoder, save_decoder)
 from .engine import (DecodeEngine, InferReply, ServingEngine, parse_buckets,
                      parse_tier_weights, tier_weight)
 from .kv_cache import (BlockAllocator, KVCacheConfig, PagedKVCache,
                        PrefixCache, block_bytes, plan_num_blocks)
+from .server import ServingServer
 
 __all__ = ["Decoder", "DecoderConfig", "from_jax_params",
            "init_decoder_params", "load_decoder", "save_decoder",
            "DecodeEngine", "InferReply", "ServingEngine",
            "parse_tier_weights", "tier_weight",
            "parse_buckets", "BlockAllocator", "KVCacheConfig",
-           "PagedKVCache", "PrefixCache", "block_bytes", "plan_num_blocks"]
+           "PagedKVCache", "PrefixCache", "block_bytes", "plan_num_blocks",
+           "ServingServer", "ServingClient", "read_endpoints_file",
+           "read_endpoints_doc"]

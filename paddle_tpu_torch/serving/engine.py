@@ -86,6 +86,17 @@ class InferReply:
     def ok(self):
         return self.status == "ok"
 
+    def to_meta(self):
+        """The reply's JSON-able meta as the wire carries it (the outputs'
+        names in order; their arrays travel beside it)."""
+        meta = {"status": self.status, "error": self.error,
+                "retry_after_ms": round(self.retry_after_ms, 3),
+                "latency_ms": round(self.latency_ms, 3),
+                "outputs": list(self.outputs)}
+        if self.phases:
+            meta["phases"] = self.phases
+        return meta
+
 
 class _Pending:
     """Handle returned by submit(): wait() blocks for the InferReply."""
@@ -251,6 +262,21 @@ class DecodeEngine:
         self._models[name] = _DecodeModel(name, cfg, decoder, kv_config,
                                           cache, prefix)
         return self._models[name]
+
+    def models(self):
+        return list(self._models)
+
+    def spec(self, model):
+        """JSON-able description of ``model`` (the reference's keys; the
+        port's KV pool is f32 and it has no speculative decode)."""
+        m = self._models[model]
+        return {"model": model, "type": "decode",
+                "vocab": m.cfg.vocab, "max_seq": m.cfg.max_seq,
+                "buckets": list(self.buckets), "mode": self.mode,
+                "block_size": m.kv_config.block_size,
+                "num_blocks": m.kv_config.num_blocks,
+                "kv_dtype": "f32", "speculative_k": 0,
+                "prefix_cache": m.prefix is not None}
 
     # -- admission -----------------------------------------------------------
 

@@ -348,6 +348,38 @@ def test_pool2d_and_grad(attrs):
     check_all("pool2d_grad", jg, tg)
 
 
+@pytest.mark.parametrize("attrs", [
+    {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+    {"ksize": [3, 3], "strides": [2, 2], "paddings": [0, 0],
+     "ceil_mode": True},
+    {"ksize": [2, 3], "strides": [1, 2], "paddings": [1, 0]},
+], ids=["stem", "ceil", "stride1"])
+def test_max_pool2d_grad_on_bf16_adds_in_window_order(attrs):
+    """Where overlapping windows send several grads to one bf16 element,
+    the port adds them one at a time in the windows' row-major order,
+    rounding after each add, bitwise the CPU's bf16 autograd (the card's
+    autograd rounds their f32 sum once: this input tells the two apart)."""
+    import torch.nn.functional as F
+
+    attrs = dict(attrs, pooling_type="max")
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rand(rng, 2, 8, 33, 32)).relu().to(torch.bfloat16)
+    out = tdef("pool2d").lower(TCtx(), x, **attrs)
+    out = out[0] if isinstance(out, tuple) else out
+    d = torch.from_numpy(rand(rng, *out.shape)).to(torch.bfloat16)
+    got, = tdef("pool2d_grad").lower(TCtx(), x, out, d, **attrs)
+
+    def autograd(dtype):
+        xg = x.to(dtype).requires_grad_()
+        y = tdef("pool2d").lower(TCtx(), xg, **attrs)
+        y = y[0] if isinstance(y, tuple) else y
+        return torch.autograd.grad(y, xg, d.to(dtype))[0]
+
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, autograd(torch.bfloat16))
+    assert not torch.equal(got, autograd(torch.float32).to(torch.bfloat16))
+
+
 # -- conv ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", [

@@ -11,6 +11,15 @@ xor butterfly; the centred squares the same way (multiply-adds, one
 rounding each).  Other rows take ln_rows.cuh: lane l holds columns l, l +
 32, ... and adds them in turn before the same butterfly.  Tolerance: atol
 1e-5 (f32 sums in another order than the reference's; outputs ~1).
+
+The bf16 instantiation's plain version in the kernel's order
+(``layer_norm_2d_bf16_kernel_order``, which the card's check holds the
+kernel to within one bf16 ulp of y) is held here to the unordered plain
+version and to the JAX package's ``layer_norm_2d`` on the same bf16 x:
+one bf16 ulp of y, and past it BF16_OPERAND_ULPS f32 ulps of the
+element's operands (|b| + the row's max|x| rstd |g|), since y is rounded
+once from an f32 sum of two terms that summation order moves by an f32
+ulp or so of the larger.
 """
 
 import ctypes
@@ -18,6 +27,7 @@ import re
 
 import numpy as np
 import pytest
+import jax.numpy as jnp
 import torch
 from jax.experimental import pallas as pl
 
@@ -27,6 +37,7 @@ from paddle_tpu_torch.kernels import layer_norm as tln
 
 ATOL = 1e-5
 LANES = torch.arange(32)
+BF16_OPERAND_ULPS = 8
 
 
 def _fma(a, b, c):
@@ -165,3 +176,68 @@ def test_row_7_keeps_its_own_kernel():
     fused = (_build.CSRC / "fused_ln.cu").read_text()
     assert "layer_norm_vec" not in fused and "ln_rows::launch(" in fused
     assert "layer_norm_vec" not in (_build.CSRC / "ln_rows.cuh").read_text()
+
+
+def _ulp(t, bits):
+    return torch.exp2(torch.floor(torch.log2(t.clamp_min(2.0 ** -126)))
+                      - bits)
+
+
+def _bf16_gap(got, want, x, g, b, var, eps):
+    """(|got - want| in bf16 ulps of y at the worst element, the largest
+    excess over one such ulp in f32 ulps of the element's operands)."""
+    d = (got.float() - want.float()).abs()
+    ulp_y = _ulp(torch.maximum(got.float().abs(), want.float().abs()), 7)
+    ops = (x.float().abs().amax(dim=1, keepdim=True)
+           * torch.rsqrt(var[:, None] + eps) * g.abs() + b.abs())
+    return (float((d / ulp_y).max()),
+            float(((d - ulp_y).clamp_min(0) / _ulp(ops, 23)).max()))
+
+
+@pytest.mark.parametrize("rows,cols,vec", [(616, 768, True), (64, 200, True),
+                                           (16, 1200, False),
+                                           (24, 1104, False)])
+def test_bf16_kernel_order_is_the_layer_norm(monkeypatch, rows, cols, vec):
+    """The bf16 plain version in the kernel's order at the smoke's shapes
+    ([616, 768], the MLM head's 614 rows rounded up to the reference
+    kernel's row block, and [64, 200] on the 16-byte kernel, [16, 1200]
+    past its 1024 columns on the scalar one, [24, 1104] too): bf16 y within one
+    ulp plus BF16_OPERAND_ULPS of the unordered plain version's and of
+    the JAX package's (its Pallas forward in interpret mode), the
+    statistics to 1e-6 of their largest value."""
+    monkeypatch.setattr(jln, "pl", _Interpret())
+    rng = np.random.RandomState(rows + cols)
+    x = (rng.randn(rows, cols) * 3.0 - 1.0).astype(np.float32)
+    g = (rng.randn(cols) + 1.0).astype(np.float32)
+    b = rng.randn(cols).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    gt, bt = torch.from_numpy(g), torch.from_numpy(b)
+    assert tln.bf16_vec_ok(xt, gt, bt) == vec
+    got = tln.layer_norm_2d_bf16_kernel_order(xt, gt, bt, 1e-5)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (rows, cols)
+    plain = tln.layer_norm_2d_reference(xt, gt, bt, 1e-5)
+    jy, jm, jv = jln.layer_norm_2d(
+        jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16), g, b, 1e-5)
+    jax_out = (torch.from_numpy(np.asarray(jy.astype(jnp.float32)))
+               .to(torch.bfloat16), torch.from_numpy(np.asarray(jm)),
+               torch.from_numpy(np.asarray(jv)))
+    for want in (plain, jax_out):
+        ulps, excess = _bf16_gap(got[0], want[0], xt, gt, bt, want[2], 1e-5)
+        assert excess <= BF16_OPERAND_ULPS, (ulps, excess)
+        for gs, ws in zip(got[1:], want[1:]):
+            assert float((gs - ws).abs().max()) <= 1e-6 * max(
+                float(ws.abs().max()), 1e-30)
+
+
+def test_bf16_kernels_spell_out_their_arithmetic():
+    """Both bf16 kernels of layer_norm.cu state every rounding of the
+    statistics and of y in round-to-nearest intrinsics (so no
+    contraction the compiler chooses moves y away from the plain version
+    in the kernel's order): no bare ``* rstd * g + b`` is left."""
+    src = (_build.CSRC / "layer_norm.cu").read_text()
+    body = src[src.index("layer_norm_bf16_vec_kernel("):]
+    body = body[:body.index("template <int NV>\ncudaError_t "
+                            "launch_bf16_vec")]
+    assert body.count("__fmaf_rn(") == 4 and body.count("__fsub_rn(") == 3
+    assert body.count("rsqrtf(__fadd_rn(var_row, eps))") == 2
+    assert "* rstd *" not in body and "* inv_h" not in body

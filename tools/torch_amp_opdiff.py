@@ -23,6 +23,7 @@ chained step on each device.  Needs a CUDA card; the carry is off
 import argparse
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,19 +60,38 @@ def rel(a, b):
     return float((a - b).abs().max()) / max(scale, 1e-30)
 
 
-def step_op_by_op(main_p, loss, feed, state, card, chained=True):
+class OpByOp(NamedTuple):
+    """What ``step_op_by_op`` found.  A row: (the largest difference
+    relative to the CPU output's largest value, op index, op type, output
+    name, the CPU's dtype, the card's dtype)."""
+    iso: list        # each op on the card fed the CPU's inputs
+    rows: dict       # {replay: rows of its chained outputs}
+    first: dict      # {replay: (op index, type, output, gap) above 2^-7}
+    loss: float      # the CPU's
+    losses: dict     # {replay: the card's}
+    cpu: dict        # the CPU's variables after the step
+    envs: dict       # {replay: the card's variables after the step}
+    steps: list      # the plan's (op, opdef, attrs)
+
+
+def step_op_by_op(main_p, loss, feed, state, card, replays=None,
+                  before_tail=None):
     """One step of ``main_p`` (its optimizer ops fused) from the
-    persistables ``state`` (numpy), op by op, three ways: on the CPU, on
-    ``card`` fed the CPU's inputs op by op, and (``chained``) on ``card``
-    chained -> (isolated rows, chained rows, the first chained output
-    above 2^-7, (the CPU's loss, the card's chained loss or None)).  A row: (the largest
-    difference relative to the CPU output's largest value, op index, op
-    type, output name, the CPU's dtype, the card's dtype)."""
+    persistables ``state`` (numpy), op by op: on the CPU (the yardstick),
+    each op on ``card`` fed the CPU's inputs (isolated), and once per
+    entry of ``replays`` (default ``{"chained": {}}``) chained on
+    ``card``.  A replay's ``{op type: source}`` takes those ops' outputs
+    instead of running them: "cpu" the CPU's, "isolated" the card's from
+    the CPU's inputs, or ``{output slot: "cpu" | "isolated"}``.
+    ``before_tail(i, envs)`` is called before the first optimizer op
+    (index ``i`` of the plan's steps) with {replay: its variables} ->
+    OpByOp."""
     from paddle_tpu_torch import framework
     from paddle_tpu_torch.core import Executor
     from paddle_tpu_torch.core.lowering import (BlockPlan, draws, op_seed,
                                                 run_op)
 
+    replays = {"chained": {}} if replays is None else replays
     cpu_exe = Executor(framework.CPUPlace())
     cpu, card = torch.device("cpu"), torch.device(card)
     cenv = {n: torch.from_numpy(np.array(v)) for n, v in state.items()}
@@ -81,32 +101,50 @@ def step_op_by_op(main_p, loss, feed, state, card, chained=True):
     block = main_p.global_block()
     for n in feed:
         cenv[n] = cpu_exe._to_device(n, cenv[n], block)
-    genv = {n: v.to(card) for n, v in cenv.items()} if chained else None
-    plan = BlockPlan(block, list(feed), [loss.name])
-    iso_rows, chain_rows, first = [], [], None
-    for i, (op, opdef, attrs) in enumerate(plan.steps):
+    envs = {k: {n: v.to(card, copy=True) for n, v in cenv.items()}
+            for k in replays}
+    steps = BlockPlan(block, list(feed), [loss.name]).steps
+    tail = next((i for i, (op, _d, _a) in enumerate(steps)
+                 if int(op.attrs.get("op_role", 0))
+                 & framework.OpRole.Optimize), len(steps))
+    iso_rows = []
+    rows = {k: [] for k in replays}
+    first = dict.fromkeys(replays)
+    for i, (op, opdef, attrs) in enumerate(steps):
+        if i == tail and before_tail is not None:
+            before_tail(i, envs)
         seed = op_seed(0, 0, i) if draws(opdef, attrs) else None
-        iso = {n: cenv[n].to(card) for n in op.input_arg_names
+        iso = {n: cenv[n].to(card, copy=True) for n in op.input_arg_names
                if n in cenv}
         run_op(op, opdef, attrs, cenv, cpu, seed)
         run_op(op, opdef, attrs, iso, card, seed)
-        if chained:
-            run_op(op, opdef, attrs, genv, card, seed)
+        for k, env in envs.items():
+            how = replays[k].get(op.type)
+            if how is None:
+                run_op(op, opdef, attrs, env, card, seed)
+                continue
+            for slot, names in op.outputs.items():
+                src = how if isinstance(how, str) else how[slot]
+                for n in names:
+                    if n in cenv:
+                        env[n] = cenv[n].to(card, copy=True) \
+                            if src == "cpu" else iso[n]
         for n in op.output_arg_names:
             if not n or n not in cenv or not cenv[n].is_floating_point():
                 continue
-            iso_rows.append((rel(cenv[n], iso[n]), i, op.type, n,
+            want = cenv[n].to(card)
+            iso_rows.append((rel(want, iso[n]), i, op.type, n,
                              str(cenv[n].dtype), str(iso[n].dtype)))
-            if not chained:
-                continue
-            r_chain = rel(cenv[n], genv[n])
-            chain_rows.append((r_chain, i, op.type, n, str(cenv[n].dtype),
-                               str(genv[n].dtype)))
-            if first is None and r_chain > 2 ** -7:
-                first = (i, op.type, n, r_chain)
-    return iso_rows, chain_rows, first, (
-        float(cenv[loss.name].reshape(-1)[0]),
-        float(genv[loss.name].reshape(-1)[0]) if chained else None)
+            for k, env in envs.items():
+                r = rel(want, env[n])
+                rows[k].append((r, i, op.type, n, str(cenv[n].dtype),
+                                str(env[n].dtype)))
+                if first[k] is None and r > 2 ** -7:
+                    first[k] = (i, op.type, n, r)
+    return OpByOp(iso_rows, rows, first,
+                  float(cenv[loss.name].reshape(-1)[0]),
+                  {k: float(env[loss.name].reshape(-1)[0])
+                   for k, env in envs.items()}, cenv, envs, steps)
 
 
 def main():
@@ -134,19 +172,20 @@ def main():
     for _ in range(args.cpu_steps):
         cpu_exe.run(main_p, feed=feed, fetch_list=[loss], scope=scope)
     cpu_exe._maybe_fuse_optimizers(main_p, list(feed), [loss.name])
-    iso_rows, chain_rows, first, losses = step_op_by_op(
-        main_p, loss, feed, scope_to_numpy(scope, main_p), args.card)
+    got = step_op_by_op(main_p, loss, feed, scope_to_numpy(scope, main_p),
+                        args.card)
     print("%s AMP, batch %d, state after %d CPU steps: %d float outputs"
-          % (args.model, args.batch, args.cpu_steps, len(iso_rows)))
-    over = [r for r in iso_rows if r[0] > 2 ** -7]
+          % (args.model, args.batch, args.cpu_steps, len(got.iso)))
+    over = [r for r in got.iso if r[0] > 2 ** -7]
     print("isolated: %d outputs above 2^-7 of their largest value" %
           len(over))
-    for r in sorted(iso_rows, reverse=True)[:args.top]:
+    for r in sorted(got.iso, reverse=True)[:args.top]:
         print("  iso   %.3g  op %d %s %s %s (card %s)" % r)
-    print("chained: first output above 2^-7: %s" % (first,))
-    for r in sorted(chain_rows, reverse=True)[:args.top]:
+    print("chained: first output above 2^-7: %s" % (got.first["chained"],))
+    for r in sorted(got.rows["chained"], reverse=True)[:args.top]:
         print("  chain %.3g  op %d %s %s %s (card %s)" % r)
-    print("loss: CPU %.6f, card chained %.6f" % losses)
+    print("loss: CPU %.6f, card chained %.6f"
+          % (got.loss, got.losses["chained"]))
 
 
 if __name__ == "__main__":
