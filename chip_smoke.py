@@ -44,6 +44,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
    launched the flash-attention, fused-LayerNorm and LayerNorm kernels
    12, 24 and 1 times each, and sampled replies must equal the same
    directory run by the plain predictor on the CPU;
+5b. serving over the wire: the same decode and encoder engines behind one
+   ServingServer, three client threads in process and then over the
+   port's RPC transport, an abandoned stream's KV blocks returned;
+5c. a serving fleet: two ``tools/torch_serve.py`` replicas on the card
+   (GPT-2 small as a decoder bundle, BERT-base, and a BERT-base of another
+   seed as ``bert@v2``), heartbeating over one endpoints file; the wire
+   mix through ServingClients of the file (tokens, chunks, outputs and the
+   replicas' summed ``__metrics__`` checked, the coordinator's
+   ``__fleet__`` listing both), a canary rollout whose split must be
+   exactly the route hash's and whose flip must reach both replicas
+   within 2 s, the mix again with rank 1 SIGKILLed after four generates
+   (nothing dropped, the file shrunk within the heartbeat timeout + 5 s),
+   rank 1 relaunched (rejoining, its routes converged), and both retired,
+   the survivor's LAUNCHES holding rows 1, 2, 7 and 14 in whole steps and
+   batches;
 6. BERT-base pretraining (seeded random weights, seq 128, batch 32)
    built with the port's ``build_pretrain`` and trained 5 steps on one
    batch through ``Executor.run``, in three emissions, one after the
@@ -118,6 +133,7 @@ the repository.
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1849,15 +1865,16 @@ def encoder_requests(cfg, n=24):
     return out
 
 
-def build_bert_dir(dirname, cfg):
+def build_bert_dir(dirname, cfg, seed=7):
     """BERT at seq SEQ through the port's entry points: program, startup
-    on the card from a seeded generator, save_inference_model."""
+    on the card from a generator seeded with ``seed``,
+    save_inference_model."""
     from paddle_tpu_torch import framework, io
     from paddle_tpu_torch.core import Executor, Scope, scope_guard
     from paddle_tpu_torch.models.bert import bert_encoder
 
     main, startup = framework.Program(), framework.Program()
-    startup.random_seed = 7
+    startup.random_seed = seed
     with framework.program_guard(main, startup):
         inputs, seq_out = bert_encoder(cfg, SEQ, is_test=True)
     exe = Executor()                  # the card
@@ -1991,6 +2008,72 @@ def wire_mode(i, clients=3):
     return WIRE_MODES[(i + i // clients) % 3]
 
 
+def client_gen(cli, p, mode, got):
+    """One GPT-2-small generate of 32 tokens through a ServingClient in
+    ``mode`` (WIRE_MODES), the streamed (index, token) pairs appended to
+    ``got``."""
+    if mode == "generate_stream":
+        it = cli.generate_stream("gpt2-small", p, max_new_tokens=32)
+        while True:
+            try:
+                got.append(next(it))
+            except StopIteration as stop:
+                return stop.value
+    return cli.generate("gpt2-small", p, max_new_tokens=32,
+                        stream=mode == "stream",
+                        on_token=lambda j, t: got.append((j, t)))
+
+
+def check_chunks(what, replies, chunks, clients):
+    """Each streamed generate's chunks are indices 0..n-1, once each, and
+    equal its reply's tokens; an unstreamed one got none."""
+    for i, (r, got) in enumerate(zip(replies, chunks)):
+        mode = wire_mode(i, clients)
+        toks = [int(t) for t in r.outputs["tokens"]]
+        if mode == "no stream":
+            if got:
+                fail("%s request %d streamed without the stream"
+                     % (what, i))
+        elif [j for j, _t in got] != list(range(len(toks))) \
+                or [t for _j, t in got] != toks:
+            fail("%s request %d (%s): chunks %s, the reply's %d tokens"
+                 % (what, i, mode, [j for j, _t in got][:40], len(toks)))
+
+
+def drive_mix(allp, enc, gen, infer, clients, what):
+    """``clients`` threads: thread k sends prompts k, k + clients, ... by
+    ``gen(k, i, prompt, mode, chunks)``, then its encoder requests by
+    ``infer(k, i, feeds)`` -> (replies, encoder replies, streamed chunks,
+    {"decode": wall s, "encoder": wall s})."""
+    replies, enc_replies = [None] * len(allp), [None] * len(enc)
+    chunks = [[] for _ in allp]
+    walls = {}
+
+    def run(part):
+        def client(k):
+            if part == "decode":
+                for i in range(k, len(allp), clients):
+                    replies[i] = gen(k, i, allp[i], wire_mode(i, clients),
+                                     chunks[i])
+            else:
+                for i in range(k, len(enc), clients):
+                    enc_replies[i] = infer(k, i, enc[i])
+        ts = [threading.Thread(target=client, args=(k,))
+              for k in range(clients)]
+        t0 = time.perf_counter()
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(900)
+        walls[part] = time.perf_counter() - t0
+        if any(th.is_alive() for th in ts):
+            fail("%s: a %s client thread did not finish" % (what, part))
+
+    run("decode")
+    run("encoder")
+    return replies, enc_replies, chunks, walls
+
+
 def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
                clients=3):
     """decode_phase's GPT-2-small engine (its buckets, 16-token blocks,
@@ -2029,63 +2112,21 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
           % (time.perf_counter() - t0), flush=True)
 
     def drive(gen, infer):
-        """``clients`` threads: thread k sends prompts k, k + clients, ...
-        by ``gen(k, i, prompt, mode)``, then its encoder requests by
-        ``infer(k, feeds)`` -> (replies, encoder replies, streamed
-        chunks, decode wall s, encoder wall s)."""
-        replies, enc_replies = [None] * len(allp), [None] * len(enc)
-        chunks = [[] for _ in allp]
-        walls = {}
-
-        def run(part):
-            def client(k):
-                if part == "decode":
-                    for i in range(k, len(allp), clients):
-                        replies[i] = gen(k, i, allp[i],
-                                         wire_mode(i, clients),
-                                         chunks[i])
-                else:
-                    for i in range(k, len(enc), clients):
-                        enc_replies[i] = infer(k, enc[i])
-            ts = [threading.Thread(target=client, args=(k,))
-                  for k in range(clients)]
-            t0 = time.perf_counter()
-            for th in ts:
-                th.start()
-            for th in ts:
-                th.join(900)
-            walls[part] = time.perf_counter() - t0
-            if any(th.is_alive() for th in ts):
-                fail("wire: a %s client thread did not finish" % part)
-
-        run("decode")
-        run("encoder")
-        return replies, enc_replies, chunks, walls
+        return drive_mix(allp, enc, gen, infer, clients, "wire")
 
     def in_process_gen(k, i, p, mode, got):
         return deng.submit("gpt2-small", p, max_new_tokens=32).wait(900)
 
     srv.start()
     try:
-        local = drive(in_process_gen, lambda k, f: eeng.infer(
+        local = drive(in_process_gen, lambda k, i, f: eeng.infer(
             "bert", f, deadline_ms=600000.0))
         ep = "127.0.0.1:%d" % srv.port
         cli = [ServingClient(endpoints=[ep], deadline_ms=600000.0)
                for _ in range(clients)]
 
         def wire_gen(k, i, p, mode, got):
-            if mode == "generate_stream":
-                it = cli[k].generate_stream("gpt2-small", p,
-                                            max_new_tokens=32)
-                while True:
-                    try:
-                        got.append(next(it))
-                    except StopIteration as stop:
-                        return stop.value
-            return cli[k].generate(
-                "gpt2-small", p, max_new_tokens=32,
-                stream=mode == "stream",
-                on_token=lambda j, t: got.append((j, t)))
+            return client_gen(cli[k], p, mode, got)
 
         # the counts start at 0 just before the wire path runs
         pa.paged_attention.launches = 0
@@ -2094,7 +2135,7 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
         ln.layer_norm_2d.launches = 0
         steps0, batches0 = deng.steps, len(eeng.batch_log)
         bytes0 = sum(srv.rpc.bytes_moved())
-        wire = drive(wire_gen, lambda k, f: cli[k].infer("bert", f))
+        wire = drive(wire_gen, lambda k, i, f: cli[k].infer("bert", f))
         wire_b = sum(srv.rpc.bytes_moved()) - bytes0
         # one streamed generate abandoned after its first token
         before = {k: v for k, v in m.cache.allocator.stats().items()
@@ -2142,16 +2183,7 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
                                              else (r.status, r.error)))
     check_decode_tokens("wire", allp, replies, refs)
     check_decode_tokens("wire in process", allp, l_replies, refs)
-    for i, (r, got) in enumerate(zip(replies, chunks)):
-        mode = wire_mode(i, clients)
-        toks = [int(t) for t in r.outputs["tokens"]]
-        if mode == "no stream":
-            if got:
-                fail("wire request %d streamed without the stream" % i)
-        elif [j for j, _t in got] != list(range(len(toks))) \
-                or [t for _j, t in got] != toks:
-            fail("wire request %d (%s): chunks %s, the reply's %d tokens"
-                 % (i, mode, [j for j, _t in got][:40], len(toks)))
+    check_chunks("wire", replies, chunks, clients)
     print("wire: %d generates ok (%s by mode); the streamed chunks are "
           "indices 0..n-1 each once and equal the final reply's tokens"
           % (len(replies), json.dumps({md: sum(
@@ -2169,26 +2201,15 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
           "abort (reply %s); allocator %s"
           % (held, before["in_use"], ab_reply["status"],
              json.dumps(after)), flush=True)
-    worst = 0.0
-    for i, r in enumerate(enc_replies):
-        out, = r.outputs.values()
-        rows = enc[i]["src_ids"].shape[0]
-        if out.shape != (rows, SEQ, cfg.hidden) or not np.isfinite(out).all():
-            fail("wire encoder request %d: output %s" % (i, out.shape))
-        if i in plain_outs:
-            worst = max(worst, float(np.abs(out - plain_outs[i]).max()))
-        local_out, = l_enc[i].outputs.values()
-        worst = max(worst, float(np.abs(out - local_out).max()))
+    worst = check_encoder("wire encoder", enc_replies, enc, cfg, plain_outs,
+                          {i: list(r.outputs.values())[0]
+                           for i, r in enumerate(l_enc)})
     print("wire: %d encoder replies ok; against the plain CPU predictor at "
           "requests %s and the in-process replies: max_abs_err %.3g "
           "(atol %g)" % (len(enc_replies), list(plain_outs), worst,
                          ENCODER_ATOL), flush=True)
-    if not worst <= ENCODER_ATOL:
-        fail("wire encoder output disagrees with the plain CPU predictor")
     nb = len(batches)
-    want = {"paged_attention": dcfg.layers * steps,
-            "flash_attention": cfg.layers * nb,
-            "fused_ln": 2 * cfg.layers * nb, "layer_norm": nb}
+    want = serving_launches(dcfg, cfg, steps, nb)
     print("wire: launches %s over %d decode steps and %d encoder batches"
           % (json.dumps(launches), steps, nb), flush=True)
     if launches != want or steps == 0 or nb == 0:
@@ -2222,6 +2243,481 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
           % (card, wire_b, len(allp) + len(enc),
              wire_b / (len(allp) + len(enc))), flush=True)
     return launches
+
+
+# -- phase 5c: a serving fleet ------------------------------------------------
+
+# the replicas' environment: telemetry on (their __metrics__), heartbeats
+# every 0.3 s, eviction after 3 s of silence
+FLEET_ENV = {"FLAGS_telemetry": "1", "FLAGS_serving_hb_interval": "0.3",
+             "FLAGS_serving_hb_timeout": "3.0"}
+FLEET_HB_TIMEOUT = 3.0
+FLEET_READY_S = 300.0       # a replica's start, its prewarm on the card
+CANARY_FRACTION = 0.25
+CONVERGE_S = 2.0            # a rollout change reaching every replica
+FLEET_DEVICE = "cuda"       # the replicas' --device
+REBROADCAST_S = 0.5         # the controller's re-broadcast interval
+
+
+def free_ports(n):
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Replica:
+    """One ``tools/torch_serve.py`` child process; a reader thread keeps
+    its output lines."""
+
+    def __init__(self, argv, env):
+        self.proc = subprocess.Popen(argv, cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            if line.startswith("READY"):
+                self._ready.set()
+        self._ready.set()                   # the process ended
+
+    def tail(self, n=30):
+        return "\n".join(self.lines[-n:])
+
+    def line(self, prefix):
+        """The JSON after ``prefix`` on the first line that starts with
+        it, or None."""
+        for ln in list(self.lines):
+            if ln.startswith(prefix):
+                return json.loads(ln[len(prefix):])
+        return None
+
+    def ready(self, what):
+        """Wait (bounded) for READY -> the PREWARM manifest."""
+        self._ready.wait(FLEET_READY_S)
+        if not any(ln.startswith("READY") for ln in list(self.lines)):
+            fail("%s: no READY within %.0f s; its output ends:\n%s"
+                 % (what, FLEET_READY_S, self.tail()))
+        return self.line("PREWARM ")
+
+    def wait(self, timeout):
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            return None
+        self._reader.join(10.0)
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def endpoints_doc(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {"epoch": -1, "endpoints": []}
+
+
+def wait_for(what, cond, timeout, step=0.01):
+    """Poll ``cond`` until it holds -> the seconds it took; fail after
+    ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail("fleet: %s did not happen within %.1f s" % (what, timeout))
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+def plain_rows(dirname, feeds):
+    """The plain predictor on the CPU over ``feeds`` -> its one output."""
+    from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor
+
+    cfg = AnalysisConfig(dirname)
+    cfg.disable_gpu()
+    out, = AnalysisPredictor(cfg).run_feed(feeds).values()
+    return out
+
+
+def check_encoder(what, replies, reqs, cfg, *wants):
+    """Every reply ok, finite and of its request's shape, and within
+    ENCODER_ATOL of each reference in ``wants`` ({index: array}) that
+    holds its index -> the largest error."""
+    worst = 0.0
+    for i, r in enumerate(replies):
+        if r is None or r.status != "ok":
+            fail("%s request %d: %s" % (what, i, None if r is None
+                                         else (r.status, r.error)))
+        out, = r.outputs.values()
+        rows = reqs[i]["src_ids"].shape[0]
+        if out.shape != (rows, SEQ, cfg.hidden) or not np.isfinite(out).all():
+            fail("%s request %d: output %s" % (what, i, out.shape))
+        for want in wants:
+            if i in want:
+                worst = max(worst, float(np.abs(out - want[i]).max()))
+    if not worst <= ENCODER_ATOL:
+        fail("%s: output %.3g from its reference (atol %g)"
+             % (what, worst, ENCODER_ATOL))
+    return worst
+
+
+def serving_launches(dcfg, cfg, steps, batches):
+    """The kernel launches of ``steps`` decode steps of the decoder
+    ``dcfg`` and ``batches`` batches of the BERT encoder ``cfg``: one
+    paged attention a layer a step; a flash attention, two fused_ln and,
+    on the embeddings, one layer_norm a batch."""
+    return {"paged_attention": dcfg.layers * steps,
+            "flash_attention": cfg.layers * batches,
+            "fused_ln": 2 * cfg.layers * batches, "layer_norm": batches}
+
+
+def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
+    """Two ``tools/torch_serve.py`` replicas on this card, as a fleet over
+    one endpoints file: decode_phase's GPT-2-small weights saved as a
+    decoder bundle, encoder_phase's BERT-base directory as "bert" and a
+    BERT-base of another weight seed as "bert@v2".  wire_phase's mix
+    through ServingClients of the endpoints file, then a canary rollout
+    started and flipped, the mix again with rank 1 SIGKILLed once four
+    generates are done, rank 1 relaunched, and both retired; each check
+    fails the script.  The earlier phases' launch counts stay the rows'."""
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.models.bert import BERT_BASE
+    from paddle_tpu_torch.native.rpc import RpcClient
+    from paddle_tpu_torch.serving import ServingClient, codec, save_decoder
+    from paddle_tpu_torch.serving.engine import _route_hash
+    from paddle_tpu_torch.serving.fleetmon import FLEET_RPC_KEY
+
+    cfg = cfg or BERT_BASE
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    dcfg = gpt2_small()
+    dec_dir = save_decoder(os.path.join(tmp, "gpt2-small"), dcfg, params)
+    bert2_dir = os.path.join(tmp, "bert2")
+    build_bert_dir(bert2_dir, cfg, seed=11)
+    eps_file = os.path.join(tmp, "endpoints.json")
+    eps = ["127.0.0.1:%d" % p for p in free_ports(2)]
+
+    def argv(rank):
+        return [sys.executable, "-u", os.path.join(HERE, "tools",
+                                                   "torch_serve.py"),
+                "--model", "gpt2-small=" + dec_dir, "--model",
+                "bert=" + bert_dir, "--model", "bert@v2=" + bert2_dir,
+                "--buckets", BUCKETS, "--decode-buckets", "4,8",
+                "--kv-blocks", "520", "--rank", str(rank), "--fleet",
+                ",".join(eps), "--endpoints-file", eps_file,
+                "--device", FLEET_DEVICE]
+
+    env = dict(os.environ, **FLEET_ENV)
+    reps = {}
+    first, late = prompts(dcfg.vocab)
+    allp = first + [late]
+    enc = encoder_requests(cfg)
+    # the canary's requests: the first row of each encoder request
+    canary = [{k: v[:1] for k, v in q.items()} for q in enc]
+    try:
+        t0 = time.perf_counter()
+        for r in (0, 1):
+            reps[r] = Replica(argv(r), env)
+        # the plain CPU outputs of every encoder request under both
+        # versions, while the replicas start
+        stacked = {k: np.concatenate([q[k] for q in enc]) for k in enc[0]}
+        cuts = np.cumsum([q["src_ids"].shape[0] for q in enc])[:-1]
+        plain_v = {v: dict(enumerate(np.split(plain_rows(d, stacked), cuts)))
+                   for v, d in (("bert", bert_dir), ("bert@v2", bert2_dir))}
+        for r in (0, 1):
+            manifest = reps[r].ready("fleet replica %d" % r)
+            if manifest is None or manifest.get("device") != kind:
+                fail("fleet replica %d prewarmed on %r, not the card %r"
+                     % (r, None if manifest is None
+                        else manifest.get("device"), kind))
+            print("fleet: replica %d PREWARM on %s: %s"
+                  % (r, manifest["device"], json.dumps(
+                      {m: sorted(v, key=int) for m, v in manifest.items()
+                       if m != "device"})), flush=True)
+        wait_for("the endpoints file listing both replicas",
+                 lambda: endpoints_doc(eps_file)["endpoints"] == eps, 60.0)
+        print("fleet: 2 replicas (GPT-2 small, BERT-base, BERT-base@v2) "
+              "ready and published in %.1f s" % (time.perf_counter() - t0),
+              flush=True)
+        cli = [ServingClient(endpoints_file=eps_file, deadline_ms=600000.0)
+               for _ in range(clients)]
+
+        def gen(k, i, p, mode, got):
+            return client_gen(cli[k], p, mode, got)
+
+        # 1. healthy traffic
+        replies, enc_replies, chunks, walls = drive_mix(
+            allp, enc, gen, lambda k, i, f: cli[k].infer("bert", f),
+            clients, "fleet")
+        for i, r in enumerate(replies):
+            if r is None or r.status != "ok":
+                fail("fleet request %d: %s" % (i, None if r is None
+                                               else (r.status, r.error)))
+        check_decode_tokens("fleet", allp, replies, refs)
+        check_chunks("fleet", replies, chunks, clients)
+        worst = check_encoder("fleet encoder", enc_replies, enc, cfg,
+                              plain_v["bert"])
+        ntok = sum(len(r.outputs["tokens"]) for r in replies)
+
+        def fleet_counts():
+            snaps = [telemetry.scrape(ep, timeout=10.0) for ep in eps]
+            return (sum(v for s in snaps for k, v in s["counters"].items()
+                        if k.startswith("serving_requests_total{model=bert,")),
+                    sum(v for s in snaps for k, v in s["counters"].items()
+                        if k.startswith("serving_tokens_generated_total{")))
+
+        counted = [None]
+
+        def counts_match():
+            counted[0] = fleet_counts()
+            return counted[0] == (len(enc), ntok)
+
+        t_c = time.perf_counter()
+        while not counts_match():
+            if time.perf_counter() - t_c > 15.0:
+                fail("fleet: the replicas' __metrics__ count %s (bert "
+                     "requests, tokens generated), the clients %s"
+                     % (counted[0], (len(enc), ntok)))
+            time.sleep(0.2)
+        doc = [None]
+
+        def fleet_doc_lists_both():
+            doc[0] = telemetry.scrape(eps[0], timeout=10.0,
+                                      key=FLEET_RPC_KEY)
+            return doc[0]["replicas_up"] == 2 and [
+                row["endpoint"] for row in doc[0]["replicas"]] == eps
+
+        wait_for("the coordinator's __fleet__ document listing both",
+                 fleet_doc_lists_both, 15.0, step=0.2)
+        print("fleet: %d generates and %d encoder requests ok from %d "
+              "client threads; tokens equal the plain loop's (near ties "
+              "aside), streamed chunks 0..n-1 once each, every encoder "
+              "reply within %.3g of the plain CPU predictor's (atol %g); "
+              "the replicas' __metrics__ sum to "
+              "%d bert requests and %d tokens; __fleet__ lists %d replicas"
+              % (len(replies), len(enc), clients, worst, ENCODER_ATOL,
+                 counted[0][0], counted[0][1], doc[0]["replicas_up"]),
+              flush=True)
+        print("fleet: %s; decode %d tokens in %.3f s = %.2f tokens/s; "
+              "encoder %d requests in %.3f s = %.2f requests/s (2 replicas "
+              "on one card, %d client threads)"
+              % (card, ntok, walls["decode"], ntok / walls["decode"],
+                 len(enc), walls["encoder"], len(enc) / walls["encoder"],
+                 clients), flush=True)
+
+        # 2. a canary rollout, then the flip
+        ctl = cli[0]
+        epoch0 = endpoints_doc(eps_file)["epoch"]
+        route = {"active": "bert", "canary": "bert@v2",
+                 "fraction": CANARY_FRACTION, "state": "canary"}
+        got = ctl.rollout({"op": "start", "model": "bert", "active": "bert",
+                           "canary": "bert@v2",
+                           "fraction": CANARY_FRACTION})
+        if got.get("status") != "ok":
+            fail("fleet: rollout start answered %s" % got)
+
+        def converged(want):
+            doc = endpoints_doc(eps_file)
+            return doc.get("rollout") == want and doc["epoch"] > epoch0 \
+                and all(ctl.rollout_state(ep) == want for ep in eps)
+
+        start_s = wait_for("the canary route on both replicas and in the "
+                           "endpoints file", lambda: converged(
+                               {"models": {"bert": route}}), CONVERGE_S)
+        ids = ["canary-%02d" % i for i in range(len(canary))]
+        to_v2 = [_route_hash(rid) < CANARY_FRACTION for rid in ids]
+        if all(to_v2) or not any(to_v2):
+            fail("fleet: the canary ids split %d/%d" % (sum(to_v2),
+                                                       len(ids)))
+        cerr = 0.0
+        for i, q in enumerate(canary):
+            r = ctl.infer("bert", q, req_id=ids[i])
+            want = "bert@v2" if to_v2[i] else "bert"
+            if r.status != "ok" or r.phases.get("model") != want:
+                fail("fleet canary request %s: %s on %s, the route hash "
+                     "sends it to %s" % (ids[i], r.status,
+                                         r.phases.get("model"), want))
+            out, = r.outputs.values()
+            cerr = max(cerr, float(np.abs(out - plain_v[want][i][:1])
+                                   .max()))
+        if not cerr <= ENCODER_ATOL:
+            fail("fleet canary outputs %.3g from their versions' plain "
+                 "outputs" % cerr)
+        epoch0 = endpoints_doc(eps_file)["epoch"]
+        if ctl.rollout({"op": "flip", "model": "bert"}).get("status") \
+                != "ok":
+            fail("fleet: the flip was refused")
+        flipped = {"models": {"bert": {"active": "bert@v2", "canary": None,
+                                       "fraction": 0.0,
+                                       "state": "flipped"}}}
+        flip_s = wait_for("the flip on both replicas and in the file",
+                          lambda: converged(flipped), CONVERGE_S)
+        for i in range(6):
+            r = cli[i % clients].infer("bert", canary[i])
+            out, = r.outputs.values()
+            if r.status != "ok" or r.phases.get("model") != "bert@v2" or \
+                    not float(np.abs(out - plain_v["bert@v2"][i][:1])
+                              .max()) <= ENCODER_ATOL:
+                fail("fleet: after the flip request %d went to %s (%s)"
+                     % (i, r.phases.get("model"), r.status))
+        print("fleet: canary %.2f started, on both replicas and in the "
+              "file in %.3f s; %d of %d requests on bert@v2, each exactly "
+              "where the route hash sends it, outputs max_abs_err %.3g "
+              "from their versions' plain outputs; flipped in %.3f s, the "
+              "next 6 requests all on bert@v2"
+              % (CANARY_FRACTION, start_s, sum(to_v2), len(ids), cerr,
+                 flip_s), flush=True)
+
+        # 3. rank 1 SIGKILLed mid-traffic
+        epoch0 = endpoints_doc(eps_file)["epoch"]
+        lock = threading.Lock()
+        kill = {"t": None, "shrink": None, "done": 0}
+        spans = []
+
+        def watch():
+            while time.perf_counter() - kill["t"] < 60.0:
+                if endpoints_doc(eps_file)["endpoints"] == [eps[0]]:
+                    kill["shrink"] = time.perf_counter()
+                    return
+                time.sleep(0.005)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            r = fn()
+            spans.append((t0, time.perf_counter()))
+            return r
+
+        def gen3(k, i, p, mode, got):
+            r = timed(lambda: client_gen(cli[k], p, mode, got))
+            with lock:
+                kill["done"] += 1
+                if kill["done"] == 4:
+                    kill["t"] = time.perf_counter()
+                    reps[1].proc.kill()
+                    watcher.start()
+            return r
+
+        replies, enc_replies, chunks, walls = drive_mix(
+            allp, enc, gen3,
+            lambda k, i, f: timed(lambda: cli[k].infer("bert", f)),
+            clients, "fleet kill")
+        rc = reps[1].wait(30.0)
+        if rc != -9:
+            fail("fleet: the SIGKILLed replica's wait() gave %r" % rc)
+        watcher.join(60.0)
+        for i, r in enumerate(replies):
+            if r is None or r.status != "ok":
+                fail("fleet kill request %d: %s" % (i, None if r is None
+                                                    else (r.status,
+                                                          r.error)))
+        check_decode_tokens("fleet kill", allp, replies, refs)
+        check_chunks("fleet kill", replies, chunks, clients)
+        worst = check_encoder("fleet kill encoder", enc_replies, enc, cfg,
+                              plain_v["bert@v2"])
+        doc = endpoints_doc(eps_file)
+        if kill["shrink"] is None or doc["epoch"] <= epoch0:
+            fail("fleet: the file never shrank to the survivor: %s" % doc)
+        shrink_s = kill["shrink"] - kill["t"]
+        if shrink_s > FLEET_HB_TIMEOUT + 5.0:
+            fail("fleet: the file shrank %.3f s after the kill, past %.1f"
+                 % (shrink_s, FLEET_HB_TIMEOUT + 5.0))
+        straddle = [(b - a) * 1e3 for a, b in spans
+                    if a < kill["t"] < b]
+        if not straddle:
+            fail("fleet: no request was in flight at the kill")
+        print("fleet: %s; rank 1 SIGKILLed after 4 generates (rc %d); "
+              "%d generates and %d encoder requests all ok (every encoder "
+              "reply within %.3g of bert@v2's plain output), %d client "
+              "failovers; the file shrank to the survivor %.3f s after the "
+              "kill (heartbeat timeout %.1f s), epoch %d; the %d requests "
+              "in flight at the kill: client latency p50 %.1f ms, max %.1f "
+              "ms" % (card, rc, len(replies), len(enc), worst,
+                      sum(c.failovers for c in cli), shrink_s,
+                      FLEET_HB_TIMEOUT, doc["epoch"], len(straddle),
+                      float(np.percentile(straddle, 50)), max(straddle)),
+              flush=True)
+
+        # 4. rank 1 relaunched
+        t0 = time.perf_counter()
+        reps[1] = Replica(argv(1), env)
+        reps[1].ready("relaunched fleet replica 1")
+        rejoin_s = wait_for("the relaunched replica rejoining the file",
+                            lambda: endpoints_doc(eps_file)["endpoints"]
+                            == eps, 60.0)
+        conv_s = wait_for("the flipped route on the relaunched replica",
+                          lambda: ctl.rollout_state(eps[1]) == flipped,
+                          4 * REBROADCAST_S)
+        c1 = ServingClient(endpoints=[eps[1]], deadline_ms=600000.0)
+        for i in range(2):
+            r = c1.infer("bert", canary[i])
+            out, = r.outputs.values()
+            if r.status != "ok" or r.phases.get("model") != "bert@v2" or \
+                    not float(np.abs(out - plain_v["bert@v2"][i][:1])
+                              .max()) <= ENCODER_ATOL:
+                fail("fleet: the relaunched replica's request %d: %s on %s"
+                     % (i, r.status, r.phases.get("model")))
+        r = c1.generate("gpt2-small", allp[0], max_new_tokens=32)
+        if r.status != "ok":
+            fail("fleet: the relaunched replica's generate: %s"
+                 % ((r.status, r.error),))
+        check_decode_tokens("fleet rejoin", allp[:1], [r], refs[:1])
+        print("fleet: rank 1 relaunched, in the file %.3f s after its "
+              "READY (%.1f s from the launch), its routes converged in "
+              "%.3f s; 2 encoder requests and 1 generate on it ok"
+              % (rejoin_s, time.perf_counter() - t0, conv_s), flush=True)
+
+        # 5. retire both; each replica's launches since its READY
+        launches, served = {}, {}
+        for r in (1, 0):
+            c = RpcClient(eps[r], connect_timeout=10.0, rpc_deadline=30.0,
+                          retry_times=0)
+            try:
+                c.send_var(codec.RETIRE_KEY, codec.pack({}))
+            finally:
+                c.close()
+            rc = reps[r].wait(120.0)
+            launches[r] = reps[r].line("LAUNCHES ")
+            served[r] = reps[r].line("SERVED ")
+            if rc != 0 or launches[r] is None or served[r] is None:
+                fail("fleet replica %d after __retire__: rc %r, LAUNCHES "
+                     "%s, SERVED %s; output ends:\n%s"
+                     % (r, rc, launches[r], served[r], reps[r].tail()))
+        for r, what in ((0, "the survivor"), (1, "relaunched")):
+            steps = served[r]["decode_steps"]
+            nb = served[r]["encoder_batches"]
+            want = serving_launches(dcfg, cfg, steps, nb)
+            print("fleet: rank %d (%s) retired and exited 0; launches %s "
+                  "over %d decode steps and %d encoder batches since its "
+                  "READY" % (r, what, json.dumps(launches[r]), steps, nb),
+                  flush=True)
+            if launches[r] != want or steps == 0 or nb == 0:
+                fail("fleet: rank %d launches %s, want %s"
+                     % (r, launches[r], want))
+    finally:
+        for rep in reps.values():
+            rep.kill()
+    print("fleet: %s; phase wall %.1f s" % (card, time.perf_counter()
+                                            - t_phase), flush=True)
 
 
 # -- phase 6: BERT-base pretraining -----------------------------------------
@@ -3753,6 +4249,7 @@ def main():
         launches["paged_attention"] = dec_launches
         launches.update(wire_phase(pa, (fa, fl, ln), params, refs,
                                    bert_dir, plain_outs))
+        fleet_phase(params, refs, bert_dir, tmp)
         del params, refs
     for name, dropout in ((DROPOUT0, 0.0), (COMPOSED, 0.1), (SMALL, 0.1)):
         with emission(name):

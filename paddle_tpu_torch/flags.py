@@ -38,6 +38,20 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   failure, and how many shed replies it retries after their
   ``retry_after_ms`` (``serving/client.py``).
 
+* Telemetry (``core/telemetry.py``), the reference's defaults:
+  ``FLAGS_telemetry`` (off), ``FLAGS_telemetry_dir`` ("", in memory only),
+  ``FLAGS_telemetry_max_bytes`` (256 MiB before ``steps.jsonl`` rotates)
+  and ``FLAGS_telemetry_series_cap`` (1024 ring samples).
+* The serving fleet (``serving/fleet.py``, ``rollout.py``,
+  ``fleetmon.py``), the reference's defaults: the heartbeat interval and
+  eviction timeout (``FLAGS_serving_hb_interval`` 0.3 s,
+  ``FLAGS_serving_hb_timeout`` 2.0 s), the autoscaler's poll, streaks,
+  cooldown, pressure depth and replica clamp, the canary fraction and the
+  rollout gate (p99 ratio, error rate, minimum samples), the fleet
+  monitor's interval and rate window, and the SLO burn-rate rules with
+  their fast and slow windows, threshold and clear ratio.
+  ``FLAGS_worker_hb_timeout`` (60 s) is ``HeartBeatMonitor``'s default.
+
 Each flag starts from the environment variable of its name when set.
 """
 
@@ -53,6 +67,32 @@ _DEFAULTS = {
     "FLAGS_serving_deadline_ms": 2000.0,
     "FLAGS_serving_endpoints_file": "",
     "FLAGS_serving_client_shed_retries": 2,
+    "FLAGS_telemetry": False,
+    "FLAGS_telemetry_dir": "",
+    "FLAGS_telemetry_max_bytes": 256 << 20,
+    "FLAGS_telemetry_series_cap": 1024,
+    "FLAGS_worker_hb_timeout": 60.0,
+    "FLAGS_serving_hb_interval": 0.3,
+    "FLAGS_serving_hb_timeout": 2.0,
+    "FLAGS_serving_autoscale_interval": 0.5,
+    "FLAGS_serving_scale_up_ticks": 3,
+    "FLAGS_serving_scale_down_ticks": 8,
+    "FLAGS_serving_autoscale_cooldown": 6,
+    "FLAGS_serving_scale_up_depth": 4.0,
+    "FLAGS_serving_min_replicas": 1,
+    "FLAGS_serving_max_replicas": 4,
+    "FLAGS_serving_canary_fraction": 0.25,
+    "FLAGS_rollout_gate_p99_ratio": 2.0,
+    "FLAGS_rollout_gate_error_rate": 0.05,
+    "FLAGS_rollout_gate_min_samples": 20,
+    "FLAGS_serving_fleetmon_interval": 1.0,
+    "FLAGS_serving_rate_window": 30.0,
+    "FLAGS_serving_slo_rules":
+        "paid_server:server_ms{tier=paid}:p99:500;decode_itl:itl_ms:p99:250",
+    "FLAGS_serving_slo_fast_window": 60.0,
+    "FLAGS_serving_slo_slow_window": 900.0,
+    "FLAGS_serving_slo_burn_threshold": 1.0,
+    "FLAGS_serving_slo_clear_ratio": 0.5,
 }
 
 

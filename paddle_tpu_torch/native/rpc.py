@@ -7,9 +7,13 @@ dtype codes (``_DTYPES``) are the reference's, in its order.
 
 A SEND frame's name may carry a trace context after ``\\x1f`` (the
 reference's ``tracing.stamp_wire_name``, when its tracing is on); ``poll``
-hands callers the bare name.  Left out, compared with the reference: the
-telemetry counters, the trace instants and the ``rpc.send`` / ``rpc.get``
-fault points.
+hands callers the bare name.  The client counts, under the reference's
+names (``core/telemetry.py``, inert unless ``FLAGS_telemetry``), each
+send and its bytes (``rpc_send_total``, ``rpc_send_bytes_total``), each
+get (``rpc_get_total``), and per op each retry, failed attempt and
+exhausted call (``rpc_retry_total``, ``rpc_failure_total``,
+``rpc_exhausted_total``).  Left out, compared with the reference: the
+trace instants and the ``rpc.send`` / ``rpc.get`` fault points.
 """
 
 import ctypes
@@ -18,6 +22,7 @@ import time
 
 import numpy as np
 
+from ..core import telemetry as _tm
 from . import load
 
 __all__ = ["RpcServer", "RpcClient", "backoff_delay", "probe", "EV_SEND",
@@ -212,9 +217,11 @@ class RpcClient:
                 % (what, self.endpoint))
 
     def _with_retry(self, what, attempt_fn):
+        op = what.split("(", 1)[0]
         last = None
         for i in range(self.retry_times + 1):
             if i:
+                _tm.inc("rpc_retry_total", op=op)
                 time.sleep(backoff_delay(i - 1, rng=self._rng))
             try:
                 if not self._h:
@@ -224,12 +231,17 @@ class RpcClient:
                 return attempt_fn()
             except ConnectionError as e:
                 last = e
+                _tm.inc("rpc_failure_total", op=op)
+        _tm.inc("rpc_exhausted_total", op=op)
         raise last
 
     def send_var(self, name, arr):
         arr = np.ascontiguousarray(arr)
         dims = _dims(arr)
         what = "send_var(%s)" % name
+        if _tm.enabled():
+            _tm.inc("rpc_send_total")
+            _tm.inc("rpc_send_bytes_total", int(arr.nbytes))
 
         def attempt():
             self._check_open(what)
@@ -244,6 +256,7 @@ class RpcClient:
     def get_var(self, name):
         """The server's ``name``, parked server-side until it exists."""
         what = "get_var(%s)" % name
+        _tm.inc("rpc_get_total")
 
         def attempt():
             self._check_open(what)

@@ -14,11 +14,13 @@ to a replica it abandons, so a half-prefilled sequence frees its KV
 blocks there, and replays under a fresh request id; streamed tokens are
 delivered by index, each once, however many attempts a request takes
 (greedy decode is deterministic, so a replayed prefix is the same).
+``scrape`` reads a replica's ``__metrics__`` snapshot; ``rollout`` sends
+an admin command to the fleet's coordinator and ``rollout_state`` reads a
+replica's applied routes.
 
 Left out, compared with the reference: the disaggregated roles (the
 ``__pair__`` walk; ``roles=`` raises), crash-resume (``__resume__``) and
-following a migrated session, ``scrape`` (telemetry), the rollout admin
-commands (``rollout``, ``rollout_state``) and tracing.
+following a migrated session, and tracing.
 """
 
 import json
@@ -29,6 +31,7 @@ import uuid
 import numpy as np
 
 from .. import flags
+from ..core import telemetry as _tm
 from ..native import rpc as _rpc
 from ..native.rpc import RpcClient
 from . import codec
@@ -134,6 +137,49 @@ class ServingClient:
         got = _rpc.probe(endpoint, key=codec.ALIVE_KEY, timeout=timeout)
         return None if got is None else [int(x) for x in got]
 
+    def scrape(self, endpoint=None, timeout=10.0):
+        """One replica's live ``__metrics__`` snapshot (default: the
+        first endpoint)."""
+        return _tm.scrape(endpoint or self.endpoints()[0], timeout=timeout)
+
+    # -- rollout admin -------------------------------------------------------
+
+    def rollout(self, cmd, timeout=10.0):
+        """One RolloutController command ({"op": start|flip|abort|status,
+        ...}) to the coordinator, tried first; -> the reply meta.  A
+        replica that answers "not coordinator" is skipped."""
+        last_err = None
+        eps = sorted(self.endpoints(), key=lambda ep: 0 if (
+            (self.alive(ep) or [0, 0, 0])[2]) else 1)
+        for ep in eps:
+            req_id = uuid.uuid4().hex
+            try:
+                c = RpcClient(ep, connect_timeout=2.0, rpc_deadline=timeout,
+                              retry_times=0)
+                try:
+                    c.send_var(codec.ROLLOUT_CTL_KEY + req_id,
+                               codec.pack(cmd))
+                    meta, _ = codec.unpack(
+                        c.get_var(codec.REPLY_KEY + req_id))
+                finally:
+                    c.close()
+            except ConnectionError as e:
+                last_err = str(e)
+                continue
+            if meta.get("status") == "error" and "coordinator" in (
+                    meta.get("error") or ""):
+                last_err = meta["error"]
+                continue
+            return meta
+        raise ConnectionError("rollout command failed everywhere: %s"
+                              % last_err)
+
+    def rollout_state(self, endpoint, timeout=10.0):
+        """One replica's applied routes (its ``__rollout__`` var):
+        {"models": {base: {active, canary, fraction, state}}}."""
+        meta, _ = self._get_packed(endpoint, codec.ROLLOUT_KEY, timeout)
+        return meta
+
     # -- inference -----------------------------------------------------------
 
     def _shed_backoff(self, reply, sheds):
@@ -149,12 +195,14 @@ class ServingClient:
         return shed_cap, int(max_attempts or max(2 * n_eps, 2) + shed_cap)
 
     def infer(self, model, feeds, deadline_ms=None, max_attempts=None,
-              tier=None):
+              tier=None, req_id=None):
         """One request, failing over across endpoints -> an InferReply
         whose status is ok|shed|timeout|error, or "dropped" when every
-        attempt failed."""
+        attempt failed.  ``req_id`` (default a fresh uuid) names the
+        request; a canary route splits by its hash, so a replay lands on
+        the same version (a shed's retry takes a fresh id)."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
-        req_id = uuid.uuid4().hex
+        req_id = req_id or uuid.uuid4().hex
         names = list(feeds)
         meta_req = {"model": model, "tenant": self.tenant,
                     "req_id": req_id, "deadline_ms": deadline_ms,

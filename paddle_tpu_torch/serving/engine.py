@@ -29,10 +29,17 @@ cover sheds with ``retry_after_ms``.  Prefix caching (on by default)
 seeds a new sequence's table with shared, refcounted blocks of an
 earlier identical prompt prefix and jumps its feed pointer past them.
 
+Both engines emit the reference's serving metrics into the port's
+telemetry registry (``core/telemetry.py``, inert unless
+``FLAGS_telemetry``), under the reference's names, labels and buckets,
+and call ``on_batch_boundary`` (the fleet's eviction hook) between
+batches and between decode steps, never while ``in_batch`` is true.
+``DecodeEngine.prewarm`` runs one step per lane bucket.
+
 Left out of the decode engine, compared with the reference: speculative
 decode, int8 KV, disaggregated handoff, session migration and history
-publication, tier weights and tier eviction, telemetry and tracing, and
-fault injection.
+publication, tier weights and tier eviction (every decode request is tier
+"default"), tracing, and fault injection.
 """
 
 import collections
@@ -45,6 +52,7 @@ import zlib
 import numpy as np
 import torch
 
+from ..core import telemetry as _tm
 from ..device import resolve_device, set_f32_numerics
 from . import decode_model as _dm
 from . import kv_cache as _kvc
@@ -53,6 +61,9 @@ __all__ = ["DecodeEngine", "ServingEngine", "InferReply", "parse_buckets",
            "parse_tier_weights", "tier_weight"]
 
 _log = logging.getLogger(__name__)
+
+_QPS_WINDOW_S = 5.0         # trailing window of the serving_qps gauge
+_DEFAULT_TIER = "default"   # the tier label of every decode request
 
 
 def parse_buckets(spec):
@@ -185,7 +196,7 @@ class _DecodeSeq:
 
 class _DecodeModel:
     __slots__ = ("name", "cfg", "decoder", "kv_config", "cache", "maxb",
-                 "step_ms", "step_ms_samples", "prefix")
+                 "step_ms", "step_ms_samples", "prefix", "warmed")
 
     def __init__(self, name, cfg, decoder, kv_config, cache, prefix):
         self.name = name
@@ -197,6 +208,7 @@ class _DecodeModel:
         self.step_ms = 0.0              # EWMA of one decode step
         self.step_ms_samples = collections.deque(maxlen=4096)
         self.prefix = prefix
+        self.warmed = set()             # lane buckets prewarm has run
 
 
 class DecodeEngine:
@@ -233,6 +245,12 @@ class DecodeEngine:
         self._step_no = 0
         self._rr_prefill = 0        # round-robin pointer (token budget)
         self.preemptions = 0
+        # true while a decode step runs on the device; the fleet publishes
+        # a membership change only when it is false
+        self.in_batch = False
+        # called with the lock released after every decode step (the
+        # fleet's tick), so a view change lands between steps
+        self.on_batch_boundary = None
 
     @property
     def steps(self):
@@ -278,6 +296,39 @@ class DecodeEngine:
                 "kv_dtype": "f32", "speculative_k": 0,
                 "prefix_cache": m.prefix is not None}
 
+    # -- prewarm -------------------------------------------------------------
+
+    def prewarm(self):
+        """One decode step per (model, lane bucket) before any request:
+        every lane feeds token 0 at position 0 through the scratch block 0
+        (context length 1), so the step's kernels and libraries are loaded
+        and run at each bucket's shape.  Returns the manifest {model:
+        {bucket: {"source", "compile_ms"}}}: "compiled" the first time a
+        (model, bucket) runs, "memory" after, and the step's wall ms."""
+        manifest = {}
+        for name, m in self._models.items():
+            per = {}
+            for b in self.buckets:
+                source = "memory" if b in m.warmed else "compiled"
+                dev = self.device
+                t0 = time.perf_counter()
+                nxt, _logits = m.decoder.paged_step(
+                    m.cache.k, m.cache.v,
+                    torch.zeros(b, dtype=torch.int32, device=dev),
+                    torch.zeros(b, dtype=torch.int32, device=dev),
+                    torch.full((b, m.maxb), -1, dtype=torch.int32,
+                               device=dev),
+                    torch.ones(b, dtype=torch.int32, device=dev))
+                nxt.cpu()                   # waits for the device
+                ms = (time.perf_counter() - t0) * 1e3
+                m.warmed.add(b)
+                per[b] = {"source": source, "compile_ms": round(ms, 3)}
+                _tm.inc("serving_prewarm_total", model=name, source=source)
+                _tm.event("serving_prewarm", model=name, bucket=b,
+                          source=source, decode=True, ms=round(ms, 3))
+            manifest[name] = per
+        return manifest
+
     # -- admission -----------------------------------------------------------
 
     def _retry_after_ms(self, m):
@@ -285,12 +336,19 @@ class DecodeEngine:
         per = m.step_ms if m.step_ms > 0 else 1.0
         return max(per * m.kv_config.block_size, 1.0)
 
+    @staticmethod
+    def _count_shed(reason):
+        _tm.inc("serving_shed_total", reason=reason)
+        _tm.inc("serving_tier_shed_total", tier=_DEFAULT_TIER)
+
     def submit(self, model, prompt_ids, max_new_tokens=16, deadline_ms=None,
-               eos_id=-1, callback=None, on_token=None, req_id=None):
+               eos_id=-1, callback=None, on_token=None, req_id=None,
+               tenant="default"):
         """Enqueue one request; returns a _Pending whose reply carries
         outputs={"tokens"} plus queue/TTFT/ITL phases.
         ``on_token(req_id, index, token, done, status)`` fires per
-        generated token; on a non-ok end it fires once with token None."""
+        generated token; on a non-ok end it fires once with token None.
+        ``tenant`` labels the request counter only."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = _Pending(model, deadline_ms, req_id or uuid.uuid4().hex,
@@ -324,14 +382,17 @@ class DecodeEngine:
             return _early(InferReply(
                 "error", error="sequence needs %d KV blocks, pool holds %d"
                 % (need_cap, m.cache.allocator.capacity)))
+        _tm.inc("serving_decode_requests_total", model=model, tenant=tenant)
         seq = _DecodeSeq(req, prompt_ids, max_new_tokens, eos_id, on_token,
                          m.maxb)
         with self._cond:
             if self._draining:
+                self._count_shed("draining")
                 return _early(InferReply(
                     "shed", error="replica draining",
                     retry_after_ms=self._retry_after_ms(m)))
             if len(self._waiting) >= self.max_queue:
+                self._count_shed("queue_full")
                 return _early(InferReply(
                     "shed", error="queue full (%d)" % len(self._waiting),
                     retry_after_ms=self._retry_after_ms(m)))
@@ -344,11 +405,13 @@ class DecodeEngine:
             need_now = promised + m.cache.blocks_for_tokens(seq.replay_upto)
             free_now = m.cache.allocator.reclaimable
             if need_now > free_now:
+                self._count_shed("kv_oom")
                 return _early(InferReply(
                     "shed", error="KV pool exhausted (%d reclaimable "
                     "blocks)" % free_now,
                     retry_after_ms=self._retry_after_ms(m)))
             self._waiting.append(seq)
+            _tm.set_gauge("serving_queue_depth", len(self._waiting))
             self._cond.notify_all()
         return req
 
@@ -369,12 +432,16 @@ class DecodeEngine:
             for i, s in enumerate(self._waiting):
                 if s.pending.req_id == req_id:
                     self._waiting.pop(i)
+                    _tm.set_gauge("serving_queue_depth", len(self._waiting))
                     self._finish(s, InferReply("aborted",
                                                error="aborted by client"))
+                    _tm.inc("serving_abort_total", phase="queued")
                     return True
             for s in self._active:
                 if s.pending.req_id == req_id and not s.aborted:
                     s.aborted = True   # freed at the next step boundary
+                    _tm.inc("serving_abort_total",
+                            phase="prefill" if s.in_prefill else "decode")
                     return True
         return False
 
@@ -447,6 +514,20 @@ class DecodeEngine:
         if reply.ok:
             reply.outputs = {"tokens": np.asarray(seq.out, np.int32)}
         r.complete(reply)
+        if reply.ok:
+            # the fleet-mergeable histograms and the goodput counters
+            _tm.observe("server_ms", reply.latency_ms, tier=_DEFAULT_TIER)
+            if "ttft_ms" in reply.phases:
+                _tm.observe("ttft_ms", reply.phases["ttft_ms"],
+                            model=r.model)
+            for g in reply.phases.get("itl_ms_samples") or ():
+                _tm.observe("itl_ms", g, model=r.model)
+            met = time.perf_counter() <= r.deadline
+            _tm.inc("serving_deadline_met_total" if met
+                    else "serving_deadline_missed_total", tier=_DEFAULT_TIER)
+            if met:
+                _tm.inc("serving_deadline_tokens_total", len(seq.out),
+                        tier=_DEFAULT_TIER)
         if seq.on_token is not None and not reply.ok:
             # terminal stream chunk so a streaming client unblocks
             try:
@@ -462,6 +543,7 @@ class DecodeEngine:
         keep = []
         for s in self._waiting:
             if now > s.pending.deadline:
+                _tm.inc("serving_timeout_total", model=s.pending.model)
                 self._finish(s, InferReply(
                     "timeout", error="deadline expired in queue"))
             else:
@@ -497,6 +579,17 @@ class DecodeEngine:
                     s.n_fed = cached
                     s.next_tok = s.feed_tok(cached)
             self._active.append(s)
+        _tm.set_gauge("serving_queue_depth", len(self._waiting))
+        for name, m in self._models.items():
+            alloc = m.cache.allocator
+            cap = float(alloc.capacity) or 1.0
+            _tm.set_gauge("kv_pool_occupancy", alloc.in_use / cap,
+                          model=name)
+            _tm.set_gauge("kv_pool_reclaimable_ratio",
+                          alloc.reclaimable / cap, model=name)
+            if m.prefix is not None:
+                _tm.set_gauge("prefix_cache_hit_rate", m.prefix.hit_rate(),
+                              model=name)
 
     def _ensure_block(self, seq):
         """Cover seq's next write position, preempting the youngest
@@ -519,6 +612,9 @@ class DecodeEngine:
             v.reset_for_recompute()
             self._waiting.insert(0, v)
             self.preemptions += 1
+            _tm.inc("kv_block_evictions_total", model=v.pending.model)
+            _tm.event("decode_preempt", victim=v.pending.req_id,
+                      for_req=seq.pending.req_id)
 
     def _publish_prefix_locked(self, m, s):
         """Publish every newly completed FULL prompt block of ``s``
@@ -567,6 +663,11 @@ class DecodeEngine:
                     self._cond.wait(0.05)
                     continue
                 step_ok = self._decode_step_locked()
+            if self.on_batch_boundary is not None:
+                try:
+                    self.on_batch_boundary()
+                except Exception:  # the hook never stops the loop
+                    _log.exception("on_batch_boundary failed")
             if not step_ok:
                 time.sleep(0.001)
 
@@ -590,6 +691,7 @@ class DecodeEngine:
             elif now > s.pending.deadline:
                 self._active.remove(s)
                 self._free_blocks(s)
+                _tm.inc("serving_timeout_total", model=s.pending.model)
                 self._finish(s, InferReply(
                     "timeout", error="deadline expired mid-decode"))
         if not self._active:
@@ -614,6 +716,7 @@ class DecodeEngine:
         self._step_no += 1
         t0 = time.perf_counter()
         err = None
+        self.in_batch = True
         self._cond.release()
         try:
             dev = self.device
@@ -628,6 +731,7 @@ class DecodeEngine:
             err = e
         finally:
             self._cond.acquire()
+            self.in_batch = False
         if not self._running:
             return True     # stopping: stop() finishes every sequence
         if err is not None:
@@ -636,11 +740,13 @@ class DecodeEngine:
                 self._free_blocks(s)
                 self._finish(s, InferReply(
                     "error", error="%s: %s" % (type(err).__name__, err)))
+            _tm.inc("serving_batch_errors_total", model=m.name)
             return False
         ms = (time.perf_counter() - t0) * 1e3
         m.step_ms = ms if m.step_ms <= 0 else 0.8 * m.step_ms + 0.2 * ms
         m.step_ms_samples.append(ms)
         t_tok = time.perf_counter()
+        n_generated = 0
         for i, s in enumerate(lanes):
             s.n_fed += 1
             # seal + publish any prompt block this write completed
@@ -654,6 +760,7 @@ class DecodeEngine:
             s.token_times.append(t_tok)
             if s.t_first is None:
                 s.t_first = t_tok
+            n_generated += 1
             done = len(s.out) >= s.max_new or token == s.eos_id
             if s.on_token is not None:
                 try:
@@ -665,6 +772,14 @@ class DecodeEngine:
                 self._active.remove(s)
                 self._free_blocks(s)   # same-step free: next admission
                 self._finish(s, InferReply("ok"))
+                _tm.observe("serving_latency_ms",
+                            s.pending.reply.latency_ms, model=m.name)
+        if n_generated:
+            _tm.inc("serving_tokens_generated_total", n_generated,
+                    model=m.name)
+        _tm.inc("serving_decode_steps_total", model=m.name)
+        _tm.observe("decode_batch_occupancy", len(lanes) / float(bucket),
+                    model=m.name)
         return True
 
 
@@ -691,9 +806,11 @@ class DecodeEngine:
 # - ``drain`` for graceful retirement and versioned routing
 #   (``set_route``) for canary rollouts.
 #
-# Telemetry, tracing spans and fault injection are left out, as in the
-# decode engine; ``batch_log`` keeps the last batches' bucket, rows and
-# execute time instead.
+# Its telemetry is the reference's (requests, sheds by reason and tier,
+# timeouts, batch errors, latency / execute / server_ms histograms, batch
+# fill, deadline goodput, qps, rollout_state); ``batch_log`` also keeps the
+# last batches' bucket, rows and execute time.  Tracing spans and fault
+# injection are left out, as in the decode engine.
 
 _DEFAULT_TIER_WEIGHTS = "paid:1.0,free:0.45,batch:0.15"
 
@@ -787,8 +904,18 @@ class ServingEngine:
         self._draining = False
         self._thread = None
         self.in_batch = False
+        # called outside the queue lock after every dispatched batch (the
+        # fleet's tick), so a membership change lands between batches
+        self.on_batch_boundary = None
+        self._done_times = []     # completion stamps of the qps gauge
         # {"model", "bucket", "rows", "requests", "execute_ms"} per batch
         self.batch_log = collections.deque(maxlen=4096)
+        self._batches_run = 0
+
+    @property
+    def batches(self):
+        """Batches run so far (each is one run_feed of a predictor)."""
+        return self._batches_run
 
     # -- registry ------------------------------------------------------------
 
@@ -839,6 +966,9 @@ class ServingEngine:
                 "active": active, "canary": canary,
                 "fraction": float(fraction) if canary is not None else 0.0,
                 "state": state}
+        _tm.set_gauge("rollout_state",
+                      {"stable": 0, "canary": 1, "flipped": 2,
+                       "rolled_back": 3}.get(state, 0), model=base)
 
     def clear_route(self, base):
         with self._cond:
@@ -847,6 +977,18 @@ class ServingEngine:
     def routes(self):
         with self._cond:
             return {b: dict(r) for b, r in self._routes.items()}
+
+    def apply_routes(self, routes):
+        """Adopt a broadcast route table; a route naming a version this
+        engine lacks is skipped, so it never routes into nothing."""
+        for base, r in (routes or {}).items():
+            try:
+                self.set_route(base, active=r.get("active"),
+                               canary=r.get("canary"),
+                               fraction=r.get("fraction", 0.0),
+                               state=r.get("state", "stable"))
+            except ValueError:
+                continue
 
     def resolve(self, model, req_id):
         r = self._routes.get(model)
@@ -873,6 +1015,11 @@ class ServingEngine:
                 got = pred.warmup(specs)
                 per[b] = {"source": got["source"],
                           "compile_ms": round(got["compile_ms"], 3)}
+                _tm.inc("serving_prewarm_total", model=name,
+                        source=got["source"])
+                _tm.event("serving_prewarm", model=name, bucket=b,
+                          source=got["source"],
+                          ms=round(got["compile_ms"], 3))
             manifest[name] = per
         return manifest
 
@@ -885,7 +1032,9 @@ class ServingEngine:
         return (depth // max(self.buckets) + 1) * entry.svc_ms
 
     @staticmethod
-    def _shed(req, error, retry_after_ms):
+    def _shed(req, reason, error, retry_after_ms):
+        _tm.inc("serving_shed_total", reason=reason)
+        _tm.inc("serving_tier_shed_total", tier=req.tier)
         req.complete(InferReply("shed", error=error,
                                 retry_after_ms=retry_after_ms,
                                 phases={"tier": req.tier,
@@ -913,9 +1062,10 @@ class ServingEngine:
         except ValueError as e:
             req.complete(InferReply("error", error=str(e)))
             return req
+        _tm.inc("serving_requests_total", model=model, tenant=tenant)
         with self._cond:
             if self._draining:
-                return self._shed(req, "replica draining",
+                return self._shed(req, "draining", "replica draining",
                                   max(entry.svc_ms, 1.0))
             depth = len(self._queue)
             if depth >= self.max_queue:
@@ -927,19 +1077,23 @@ class ServingEngine:
                     # a full queue sheds its lowest-weight member when the
                     # arrival outranks it
                     self._queue.remove(victim)
-                    self._shed(victim, "evicted by %s-tier arrival"
-                               % req.tier, max(wait_ms, entry.svc_ms, 1.0))
+                    self._shed(victim, "tier_evicted",
+                               "evicted by %s-tier arrival" % req.tier,
+                               max(wait_ms, entry.svc_ms, 1.0))
                 else:
-                    return self._shed(req, "queue full (%d)" % depth,
+                    return self._shed(req, "queue_full",
+                                      "queue full (%d)" % depth,
                                       max(wait_ms, entry.svc_ms, 1.0))
             wait_ms = self._projected_wait_ms(entry, len(self._queue))
             budget_ms = deadline_ms * req.weight
             if wait_ms > budget_ms:
                 return self._shed(
-                    req, "projected wait %.0fms exceeds %s-tier budget "
+                    req, "deadline_budget",
+                    "projected wait %.0fms exceeds %s-tier budget "
                     "%.0fms" % (wait_ms, req.tier, budget_ms),
                     wait_ms - budget_ms + entry.svc_ms)
             self._queue.append(req)
+            _tm.set_gauge("serving_queue_depth", len(self._queue))
             self._cond.notify_all()
         return req
 
@@ -1057,6 +1211,7 @@ class ServingEngine:
                 rows += r.rows
         taken = set(map(id, batch))
         self._queue[:] = [r for r in self._queue if id(r) not in taken]
+        _tm.set_gauge("serving_queue_depth", len(self._queue))
         # set under the lock, so drain() never sees an empty queue while
         # a collected batch has yet to run
         self.in_batch = bool(batch)
@@ -1075,6 +1230,7 @@ class ServingEngine:
                 live = []
                 for r in batch:
                     if now > r.deadline:
+                        _tm.inc("serving_timeout_total", model=r.model)
                         r.complete(InferReply(
                             "timeout", error="deadline expired in queue",
                             phases={"queue_wait_ms":
@@ -1088,6 +1244,11 @@ class ServingEngine:
             finally:
                 with self._cond:
                     self.in_batch = False
+            if self.on_batch_boundary is not None:
+                try:
+                    self.on_batch_boundary()
+                except Exception:  # the hook never stops the dispatcher
+                    _log.exception("on_batch_boundary failed")
 
     @staticmethod
     def _phases(r, execute_ms, bucket):
@@ -1109,6 +1270,7 @@ class ServingEngine:
             feed[name] = np.concatenate(parts, axis=0) \
                 if len(parts) > 1 else parts[0]
         t0 = time.perf_counter()
+        self._batches_run += 1
         try:
             outs = pred.run_feed(feed)
         except Exception as e:  # the engine keeps serving; the batch fails
@@ -1118,6 +1280,9 @@ class ServingEngine:
                 r.complete(InferReply("error", error="%s: %s"
                                       % (type(e).__name__, e),
                                       phases=self._phases(r, ms, bucket)))
+            _tm.inc("serving_batch_errors_total", model=entry.name)
+            _tm.inc("serving_request_errors_total", len(batch),
+                    model=entry.name)
             return
         ms = (time.perf_counter() - t0) * 1e3
         entry.svc_ms = ms if entry.svc_ms <= 0 else \
@@ -1135,3 +1300,27 @@ class ServingEngine:
             off += r.rows
             r.complete(InferReply("ok", outputs=sliced,
                                   phases=self._phases(r, ms, bucket)))
+            _tm.observe("serving_latency_ms", r.reply.latency_ms,
+                        model=entry.name)
+            # per-version execute time: the rollout gate's signal
+            _tm.observe("serving_execute_ms", ms, model=entry.name)
+            # per-tier server-side latency, a mergeable histogram that the
+            # fleet monitor's SLO rules window
+            _tm.observe("server_ms",
+                        r.reply.phases.get("queue_wait_ms", 0.0) + ms,
+                        tier=r.tier)
+            met = time.perf_counter() <= r.deadline
+            _tm.inc("serving_deadline_met_total" if met
+                    else "serving_deadline_missed_total", tier=r.tier)
+        _tm.inc("serving_batches_total", model=entry.name,
+                bucket=str(bucket))
+        _tm.observe("serving_batch_fill", rows / float(bucket),
+                    model=entry.name)
+        if _tm.enabled():
+            now = time.time()
+            self._done_times.extend([now] * len(batch))
+            cut = now - _QPS_WINDOW_S
+            while self._done_times and self._done_times[0] < cut:
+                self._done_times.pop(0)
+            _tm.set_gauge("serving_qps",
+                          len(self._done_times) / _QPS_WINDOW_S)

@@ -25,6 +25,7 @@ from collections import OrderedDict
 
 import torch
 
+from ..core import telemetry as _tm
 from ..device import resolve_device
 
 __all__ = ["KVCacheConfig", "BlockAllocator", "PagedKVCache", "PrefixCache",
@@ -230,6 +231,9 @@ class PrefixCache:
     def __init__(self, allocator, block_size, namespace=""):
         self.allocator = allocator
         self.block_size = int(block_size)
+        self.namespace = str(namespace)
+        self.lookup_tokens = 0           # prompt tokens looked up, and
+        self.hit_tokens = 0              # those served from the index
         self._seed = hashlib.sha256(
             ("kvprefix:%s" % namespace).encode()).digest()
         self._index = {}                 # hex digest -> physical block id
@@ -266,7 +270,27 @@ class PrefixCache:
                     self._index.pop(hashes[j], None)
                     break
                 blocks.append(b)
-        return blocks, len(blocks) * self.block_size, hashes
+        cached = len(blocks) * self.block_size
+        with self._lock:
+            self.lookup_tokens += len(prompt_ids)
+            self.hit_tokens += cached
+        # the reference's counters, and their namespace-labelled twins
+        # that the server's 1 s republish windows into a hit rate
+        _tm.inc("prefix_cache_lookup_tokens_total", len(prompt_ids))
+        _tm.inc("prefix_cache_ns_lookup_tokens_total", len(prompt_ids),
+                namespace=self.namespace)
+        if cached:
+            _tm.inc("prefix_cache_hit_tokens_total", cached)
+            _tm.inc("prefix_cache_ns_hit_tokens_total", cached,
+                    namespace=self.namespace)
+        return blocks, cached, hashes
+
+    def hit_rate(self):
+        """Hit tokens over looked-up tokens so far (0.0 before any)."""
+        with self._lock:
+            if self.lookup_tokens <= 0:
+                return 0.0
+            return self.hit_tokens / float(self.lookup_tokens)
 
     def publish(self, block, digest):
         """Index a freshly filled full-prompt ``block`` under ``digest``;

@@ -17,23 +17,32 @@ protocol (keys in ``codec.py``):
   ``__abort__:<id>``        inbound SEND: drop the sequence and free its KV
                             blocks (a client abandoning an attempt)
   ``__alive__``             [rank, epoch, is_coordinator]
+  ``__metrics__``           the telemetry snapshot, republished every
+                            second while ``FLAGS_telemetry`` is on
   ``__spec__:<model>``      each model's signature (both engines)
+  ``__fhb__<rank>``         a fleet replica's heartbeat, handed to the
+                            attached ``ServingFleet``
   ``__rollout__``           this replica's version routes (empty until a
                             ``__rollout_set__`` arrives)
   ``__rollout_set__``       adopt a route table (``apply_rollout``)
+  ``__rollout_ctl__:<id>``  an admin command for the ``RolloutController``
+                            (``self.rollout``); the reply lands on
+                            ``__reply__:<id>``
   ``__retire__``            drain both engines, then call ``on_retire``
 
 Replies and stream chunks join a FIFO ring of ``_REPLY_RING`` keys, the
 oldest deleted past it, so clients that never read cannot grow the store.
+With a fleet attached (``attach_fleet``), the fleet ticks after every
+inbound frame and at both engines' batch boundaries.
 
 Features of the reference the port lacks answer so that no client waits
-on them: ``__rollout_ctl__:<id>`` gets the reference's "replica has no
-rollout controller" error reply, and ``__resume__:<id>`` a refused
-``__resumeack__:<id>``.  Left out, compared with the reference: the
-prefill and decode roles (``serving/disagg.py``: ``role`` other than
-"serve" raises) and their ``__kvxfer__`` / ``__pair__`` frames, session
-migration, the fleet's heartbeats, telemetry (``__metrics__``), tracing
-spans and the ``serving.*`` fault points.
+on them: ``__rollout_ctl__:<id>`` on a server without a controller gets
+the reference's "replica has no rollout controller" error reply, and
+``__resume__:<id>`` a refused ``__resumeack__:<id>``.  Left out, compared
+with the reference: the prefill and decode roles (``serving/disagg.py``:
+``role`` other than "serve" raises) and their ``__kvxfer__`` /
+``__pair__`` frames, session migration, tracing spans and the
+``serving.*`` fault points.
 """
 
 import logging
@@ -41,6 +50,8 @@ import threading
 
 import numpy as np
 
+from .. import flags
+from ..core import telemetry as _tm
 from ..native.rpc import EV_SEND, RpcServer
 from . import codec
 from .engine import InferReply
@@ -70,6 +81,10 @@ class ServingServer:
         self.rpc = RpcServer(port=port)
         self.port = self.rpc.port
         self.on_retire = None          # called after a __retire__ drain
+        self.fleet = None              # ServingFleet (attach_fleet)
+        self.rollout = None            # RolloutController
+        self.fleetmon = None           # FleetMonitor (tools/torch_serve.py)
+        self._pub_stop = None          # the __metrics__ publisher
         self._retire_thread = None
         self._reply_keys = []
         self._reply_lock = threading.Lock()
@@ -94,10 +109,42 @@ class ServingServer:
                 self.rpc.set_var(codec.SPEC_KEY + name,
                                  codec.pack(self.decode_engine.spec(name)))
         self.rpc.serve(True)
+        if _tm.enabled():
+            self._pub_stop = _tm.start_publisher(
+                self.rpc, interval_s=1.0, on_publish=self._pre_publish)
         self._thread = threading.Thread(target=self._poll_loop,
                                         name="serving-rpc", daemon=True)
         self._thread.start()
         return self
+
+    def _pre_publish(self):
+        """Gauges derived on every 1 s republish, from the series ring:
+        each tier's windowed shed rate and each prefix-cache namespace's
+        windowed hit rate."""
+        window = float(flags.flag("serving_rate_window"))
+        for flat, labels in _tm.label_sets("serving_tier_shed_total"):
+            _tm.set_gauge("serving_tier_shed_rate",
+                          _tm.series_rate(flat, window),
+                          tier=labels.get("tier", "default"))
+        for flat, labels in _tm.label_sets(
+                "prefix_cache_ns_lookup_tokens_total"):
+            ns = labels.get("namespace", "default")
+            lookups = _tm.series_rate(flat, window)
+            hits = _tm.series_rate(
+                "prefix_cache_ns_hit_tokens_total{namespace=%s}" % ns,
+                window)
+            _tm.set_gauge("prefix_cache_ns_hit_rate",
+                          hits / lookups if lookups > 0 else 0.0,
+                          namespace=ns)
+
+    def attach_fleet(self, fleet):
+        """Wire a ``ServingFleet``: its heartbeats arrive on this
+        server's event stream, and both engines' batch boundaries tick
+        it, so a membership change publishes between batches."""
+        self.fleet = fleet
+        self.engine.on_batch_boundary = fleet.tick
+        if self.decode_engine is not None:
+            self.decode_engine.on_batch_boundary = fleet.tick
 
     def _poll_loop(self):
         while True:
@@ -111,6 +158,8 @@ class ServingServer:
                 continue
             try:
                 self._route(name, arr)
+                if self.fleet is not None:
+                    self.fleet.tick()
             except Exception:  # one bad frame never stops the replica
                 _log.exception("serving frame %r failed", name)
 
@@ -135,10 +184,11 @@ class ServingServer:
                 return
             self.apply_rollout(doc)
         elif name.startswith(codec.ROLLOUT_CTL_KEY):
-            self._publish(name[len(codec.ROLLOUT_CTL_KEY):], InferReply(
-                "error", error="replica has no rollout controller"))
+            self._on_rollout_ctl(name[len(codec.ROLLOUT_CTL_KEY):], arr)
         elif name == codec.RETIRE_KEY:
             self._on_retire()
+        elif self.fleet is not None:
+            self.fleet.on_event(name, arr)
 
     def _on_infer(self, req_id, arr):
         try:
@@ -172,7 +222,7 @@ class ServingServer:
             max_new_tokens=int(meta.get("max_new_tokens", 16)),
             deadline_ms=meta.get("deadline_ms"),
             eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
-            on_token=on_token,
+            on_token=on_token, tenant=meta.get("tenant", "default"),
             callback=lambda pending: self._publish(pending.req_id,
                                                    pending.reply))
 
@@ -211,18 +261,31 @@ class ServingServer:
 
     def apply_rollout(self, doc):
         """Adopt a route table ({"models": {base: {active, canary,
-        fraction, state}}}) through ``ServingEngine.set_route``, skipping
-        versions this replica lacks, and republish ``__rollout__``."""
-        for base, r in (doc.get("models") or {}).items():
-            try:
-                self.engine.set_route(
-                    base, active=r.get("active"), canary=r.get("canary"),
-                    fraction=r.get("fraction", 0.0),
-                    state=r.get("state", "stable"))
-            except ValueError:
-                continue
+        fraction, state}}}) through ``ServingEngine.apply_routes``,
+        skipping versions this replica lacks, and republish
+        ``__rollout__``."""
+        self.engine.apply_routes(doc.get("models") or {})
         self.rpc.set_var(codec.ROLLOUT_KEY,
                          codec.pack({"models": self.engine.routes()}))
+
+    def _on_rollout_ctl(self, req_id, arr):
+        """One admin command for the controller; its reply meta's keys
+        other than status and error ride in the reply's phases."""
+        try:
+            cmd, _ = codec.unpack(arr)
+        except (ValueError, KeyError, UnicodeDecodeError):
+            self._publish(req_id, None)
+            return
+        if self.rollout is None:
+            reply = InferReply("error",
+                               error="replica has no rollout controller")
+        else:
+            meta = self.rollout.handle(cmd)
+            reply = InferReply(meta.get("status", "error"),
+                               error=meta.get("error"),
+                               phases={k: v for k, v in meta.items()
+                                       if k not in ("status", "error")})
+        self._publish(req_id, reply)
 
     def _on_retire(self):
         """Drain both engines on a side thread (the poll loop keeps
@@ -246,11 +309,22 @@ class ServingServer:
             [self.rank, int(epoch), 1 if is_coordinator else 0], np.int64))
 
     def shutdown(self):
-        """Stop both engines (their queued requests get error replies),
-        then the transport, and join the poll thread.  Idempotent."""
+        """Stop the metrics publisher, the rollout controller and the
+        fleet (a publisher left running would republish into the next
+        server of the process), then both engines (their queued requests
+        get error replies), then the transport, and join the poll thread.
+        Idempotent."""
         if self._stopped.is_set():
             return
         self._stopped.set()
+        if self._pub_stop is not None:
+            self._pub_stop.stop()
+        if self.rollout is not None:
+            self.rollout.stop()
+        if self.fleetmon is not None:
+            self.fleetmon.stop()
+        if self.fleet is not None:
+            self.fleet.stop()
         self.engine.stop()
         if self.decode_engine is not None:
             self.decode_engine.stop()

@@ -1,7 +1,9 @@
-"""The port stands alone: every module of ``paddle_tpu_torch`` and
-``chip_smoke.py`` imports in a process where ``jax`` and ``paddle_tpu``
-cannot be imported, and the port's RPC transport is its own library,
-built under ``build/native/``, never the reference package's."""
+"""The port stands alone: every module of ``paddle_tpu_torch``,
+``chip_smoke.py`` and the port's replica and fleet tools
+(``tools/torch_serve.py``, ``tools/torch_fleet_top.py``) import in a
+process where ``jax`` and ``paddle_tpu`` cannot be imported, and the
+port's RPC transport is its own library, built under ``build/native/``,
+never the reference package's."""
 
 import os
 import subprocess
@@ -23,8 +25,9 @@ SCRIPT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Refuse())
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, ROOT + "/tools")
     import paddle_tpu_torch
-    names = ["chip_smoke"] + sorted(
+    names = ["chip_smoke", "torch_serve", "torch_fleet_top"] + sorted(
         m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                               "paddle_tpu_torch."))
     for name in names:
@@ -53,7 +56,10 @@ def test_port_modules_import_without_jax_or_the_reference():
     assert out[2].startswith(os.path.join(ROOT, "build", "native",
                                           "libtensor_rpc_"))
     for name in ("native/rpc.py", "serving/server.py", "serving/client.py",
-                 "serving/codec.py"):
+                 "serving/codec.py", "serving/fleet.py",
+                 "serving/rollout.py", "serving/fleetmon.py",
+                 "core/telemetry.py", "distributed/ps.py",
+                 "../tools/torch_serve.py", "../tools/torch_fleet_top.py"):
         with open(os.path.join(ROOT, "paddle_tpu_torch", name)) as f:
             src = f.read()
         assert "import jax" not in src and "paddle_tpu." not in src.replace(
