@@ -46,7 +46,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    directory run by the plain predictor on the CPU;
 5b. serving over the wire: the same decode and encoder engines behind one
    ServingServer, three client threads in process and then over the
-   port's RPC transport, an abandoned stream's KV blocks returned;
+   port's RPC transport (tracing off, a telemetry directory set and left
+   empty), an abandoned stream's KV blocks returned, then the wire mix
+   again with FLAGS_tracing on, its launches held and its rates printed
+   beside the untraced ones;
 5c. a serving fleet: two ``tools/torch_serve.py`` replicas on the card
    (GPT-2 small as a decoder bundle, BERT-base, and a BERT-base of another
    seed as ``bert@v2``), heartbeating over one endpoints file; the wire
@@ -58,7 +61,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (nothing dropped, the file shrunk within the heartbeat timeout + 5 s),
    rank 1 relaunched (rejoining, its routes converged), and both retired,
    the survivor's LAUNCHES holding rows 1, 2, 7 and 14 in whole steps and
-   batches;
+   batches; all of it traced: the killed replica's flight record must name
+   a request in flight at the kill, and a generate's and an infer's
+   trace ids must run from the client's root span to the replica's
+   decode step, or batch, execute and executor step;
+5d. faults and the autoscaler, two more replicas started together: one
+   under FLAGS_fault_spec (the first two encoder batches fail with the
+   reference's error, the client's injected RPC drops and reply losses
+   are retried with nothing dropped, and the decode loop's kill point
+   SIGKILLs it after step 20, its flight record naming the step and the
+   request); and rank 0 of a two-slot fleet with --autoscale, where a
+   burst of 16 client threads forks a standby into slot 1 on the card,
+   the standby serves (its LAUNCHES equal to its batches) and is
+   retired through a drain when the burst ends, nothing dropped;
 6. BERT-base pretraining (seeded random weights, seq 128, batch 32)
    built with the port's ``build_pretrain`` and trained 5 steps on one
    batch through ``Executor.run``, in three emissions, one after the
@@ -2074,7 +2089,29 @@ def drive_mix(allp, enc, gen, infer, clients, what):
     return replies, enc_replies, chunks, walls
 
 
-def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
+def trace_files(dirname):
+    """The tracing files under ``dirname`` (trace-<pid>.jsonl and
+    flightrec-<pid>.json); none when it does not exist."""
+    if not os.path.isdir(dirname):
+        return []
+    return sorted(n for n in os.listdir(dirname)
+                  if n.startswith(("trace-", "flightrec-")))
+
+
+def read_trace(path):
+    """The records of one trace-<pid>.jsonl (a torn last line of a killed
+    process skipped)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                continue
+    return out
+
+
+def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, tmp, cfg=None,
                clients=3):
     """decode_phase's GPT-2-small engine (its buckets, 16-token blocks,
     520 KV blocks; no prefix cache, so both passes below do the same
@@ -2083,8 +2120,13 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
     ``prompts`` (32 new tokens; a third each without the stream, with it,
     and through generate_stream), then ``encoder_requests`` through infer:
     first in process on the same engines (the yardstick), then over the
-    wire through a ServingClient each.  Then one streamed generate is
-    abandoned after its first token.  -> the wire path's launches."""
+    wire, through a ServingClient each, with tracing off and a telemetry
+    directory set (nothing may be written there).  Then one streamed
+    generate is abandoned after its first token, and the wire mix runs
+    again with ``FLAGS_tracing`` on (clients and server both in this
+    process), its launches held the same way and its rates printed beside
+    the untraced ones.  -> the untraced wire path's launches."""
+    from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.models.bert import BERT_BASE
     from paddle_tpu_torch.native.rpc import RpcClient
     from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
@@ -2128,12 +2170,24 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
         def wire_gen(k, i, p, mode, got):
             return client_gen(cli[k], p, mode, got)
 
+        def zero():
+            pa.paged_attention.launches = 0
+            fa.flash_attention.launches = 0
+            fl.fused_ln_fwd.launches = 0
+            ln.layer_norm_2d.launches = 0
+            return deng.steps, len(eeng.batch_log)
+
+        def counts():
+            return {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": fa.flash_attention.launches,
+                    "fused_ln": fl.fused_ln_fwd.launches,
+                    "layer_norm": ln.layer_norm_2d.launches}
+
+        untraced_dir = os.path.join(tmp, "wire-untraced")
+        traced_dir = os.path.join(tmp, "wire-traced")
+        set_flags({"FLAGS_telemetry_dir": untraced_dir})
         # the counts start at 0 just before the wire path runs
-        pa.paged_attention.launches = 0
-        fa.flash_attention.launches = 0
-        fl.fused_ln_fwd.launches = 0
-        ln.layer_norm_2d.launches = 0
-        steps0, batches0 = deng.steps, len(eeng.batch_log)
+        steps0, batches0 = zero()
         bytes0 = sum(srv.rpc.bytes_moved())
         wire = drive(wire_gen, lambda k, i, f: cli[k].infer("bert", f))
         wire_b = sum(srv.rpc.bytes_moved()) - bytes0
@@ -2163,13 +2217,22 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
             if after == before or time.perf_counter() > t_end:
                 break
             time.sleep(0.01)
-        launches = {"paged_attention": pa.paged_attention.launches,
-                    "flash_attention": fa.flash_attention.launches,
-                    "fused_ln": fl.fused_ln_fwd.launches,
-                    "layer_norm": ln.layer_norm_2d.launches}
+        launches = counts()
         steps = deng.steps - steps0
         batches = list(eeng.batch_log)[batches0:]
+        # the same mix traced: spans, notes and the flight recorder's
+        # write-through dump at every decode step and encoder batch
+        steps0, batches0 = zero()
+        set_flags({"FLAGS_tracing": True, "FLAGS_telemetry_dir": traced_dir})
+        try:
+            traced = drive(wire_gen, lambda k, i, f: cli[k].infer("bert", f))
+        finally:
+            set_flags({"FLAGS_tracing": False, "FLAGS_telemetry_dir": ""})
+        t_launches = counts()
+        t_steps = deng.steps - steps0
+        t_batches = len(eeng.batch_log) - batches0
     finally:
+        set_flags({"FLAGS_tracing": False, "FLAGS_telemetry_dir": ""})
         srv.shutdown()
 
     replies, enc_replies, chunks, walls = wire
@@ -2242,6 +2305,54 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, cfg=None,
           "(the server's sockets, both ways)"
           % (card, wire_b, len(allp) + len(enc),
              wire_b / (len(allp) + len(enc))), flush=True)
+
+    # tracing off left nothing behind; tracing on served the same mix
+    if trace_files(untraced_dir):
+        fail("wire: with tracing off %s were written" %
+             trace_files(untraced_dir))
+    t_replies, t_enc, t_chunks, t_walls = traced
+    for what, rs in (("wire traced", t_replies),
+                     ("wire traced encoder", t_enc)):
+        for i, r in enumerate(rs):
+            if r is None or r.status != "ok":
+                fail("%s request %d: %s" % (what, i, None if r is None
+                                             else (r.status, r.error)))
+    check_decode_tokens("wire traced", allp, t_replies, refs)
+    check_chunks("wire traced", t_replies, t_chunks, clients)
+    t_worst = check_encoder("wire traced encoder", t_enc, enc, cfg,
+                            plain_outs)
+    t_want = serving_launches(dcfg, cfg, t_steps, t_batches)
+    if t_launches != t_want or t_steps == 0 or t_batches == 0:
+        fail("wire traced launches %s, want %s" % (t_launches, t_want))
+    mine = "trace-%d.jsonl" % os.getpid()
+    files = trace_files(traced_dir)
+    recs = read_trace(os.path.join(traced_dir, mine)) \
+        if mine in files else []
+    names = {r.get("name") for r in recs if r.get("t") == "span"}
+    need = {"client.generate", "client.infer", "serving.admission",
+            "serving.request", "serving.decode_step", "serving.batch",
+            "serving.execute", "executor.step", "serving.reply_publish"}
+    notes = sum(r.get("t") == "note" for r in recs)
+    if not need <= names or "flightrec-%d.json" % os.getpid() not in files:
+        fail("wire traced: files %s, spans missing %s"
+             % (files, sorted(need - names)))
+    t_ntok = sum(len(r.outputs["tokens"]) for r in t_replies)
+    print("wire: tracing off wrote nothing under the telemetry dir; tracing "
+          "on: %d records (%d spans, %d notes, each note dumping the "
+          "flight ring), every reply ok, tokens equal the plain loop's, "
+          "encoder within %.3g, launches %s over %d decode steps and %d "
+          "encoder batches" % (len(recs), sum(r.get("t") == "span"
+                                              for r in recs), notes,
+                               t_worst, json.dumps(t_launches), t_steps,
+                               t_batches), flush=True)
+    print("wire: %s; tracing off: decode %.2f tokens/s, encoder %.2f "
+          "requests/s; tracing on: decode %.2f tokens/s, encoder %.2f "
+          "requests/s (%d client threads over the wire, same engines, "
+          "off first)" % (card, ntok / walls["decode"],
+                          len(enc) / walls["encoder"],
+                          t_ntok / t_walls["decode"],
+                          len(enc) / t_walls["encoder"], clients),
+          flush=True)
     return launches
 
 
@@ -2271,25 +2382,41 @@ def free_ports(n):
     return ports
 
 
+# every Replica started, so main() stops them all however a phase ends
+REPLICAS = []
+
+
 class Replica:
     """One ``tools/torch_serve.py`` child process; a reader thread keeps
     its output lines."""
 
     def __init__(self, argv, env):
+        self.t_launch = time.perf_counter()
         self.proc = subprocess.Popen(argv, cwd=HERE, env=env,
                                      stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
+        REPLICAS.append(self)
         self.lines = []
+        self.stamps = []                    # perf_counter at each line
         self._ready = threading.Event()
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
     def _read(self):
         for line in self.proc.stdout:
+            self.stamps.append(time.perf_counter())
             self.lines.append(line.rstrip("\n"))
             if line.startswith("READY"):
                 self._ready.set()
         self._ready.set()                   # the process ended
+
+    def all(self, prefix):
+        """[(perf_counter when read, the text after ``prefix``)] of every
+        line that starts with it, in order (a forked standby writes to
+        the same output)."""
+        return [(t, ln[len(prefix):]) for t, ln in
+                zip(list(self.stamps), list(self.lines))
+                if ln.startswith(prefix)]
 
     def tail(self, n=30):
         return "\n".join(self.lines[-n:])
@@ -2388,15 +2515,27 @@ def serving_launches(dcfg, cfg, steps, batches):
             "fused_ln": 2 * cfg.layers * batches, "layer_norm": batches}
 
 
-def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
+def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3,
+                start_next=None):
     """Two ``tools/torch_serve.py`` replicas on this card, as a fleet over
     one endpoints file: decode_phase's GPT-2-small weights saved as a
     decoder bundle, encoder_phase's BERT-base directory as "bert" and a
     BERT-base of another weight seed as "bert@v2".  wire_phase's mix
     through ServingClients of the endpoints file, then a canary rollout
     started and flipped, the mix again with rank 1 SIGKILLed once four
-    generates are done, rank 1 relaunched, and both retired; each check
-    fails the script.  The earlier phases' launch counts stay the rows'."""
+    generates are done and its flight recorder shows a decode step in
+    progress, rank 1 relaunched, and both retired; each check fails the
+    script.  The replicas and this process trace (FLAGS_tracing, one
+    telemetry directory): the killed replica's flightrec-<pid>.json must
+    name a request in flight at the kill, and one generate and one infer
+    must each carry one trace id from the client's root span through the
+    replica's admission and request spans to its decode step, or batch,
+    execute and executor step.  The earlier phases' launch counts stay the
+    rows'.  ``start_next(decoder bundle dir)``, when given, is called as
+    rank 1 is relaunched, so the next phase's replicas start beside it.
+    -> ({version: {request index: the plain CPU output}}, what
+    ``start_next`` returned)."""
+    from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.models.bert import BERT_BASE
     from paddle_tpu_torch.native.rpc import RpcClient
@@ -2425,7 +2564,10 @@ def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
                 ",".join(eps), "--endpoints-file", eps_file,
                 "--device", FLEET_DEVICE]
 
-    env = dict(os.environ, **FLEET_ENV)
+    tel = os.path.join(tmp, "fleet-trace")
+    env = dict(os.environ, FLAGS_tracing="1", FLAGS_telemetry_dir=tel,
+               **FLEET_ENV)
+    set_flags({"FLAGS_tracing": True, "FLAGS_telemetry_dir": tel})
     reps = {}
     first, late = prompts(dcfg.vocab)
     allp = first + [late]
@@ -2518,10 +2660,15 @@ def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
               flush=True)
         print("fleet: %s; decode %d tokens in %.3f s = %.2f tokens/s; "
               "encoder %d requests in %.3f s = %.2f requests/s (2 replicas "
-              "on one card, %d client threads)"
+              "on one card, %d client threads, all traced)"
               % (card, ntok, walls["decode"], ntok / walls["decode"],
                  len(enc), walls["encoder"], len(enc) / walls["encoder"],
                  clients), flush=True)
+        pids = {reps[r].proc.pid for r in (0, 1)}
+        for root, chain in trace_chains(tel, pids):
+            print("fleet: one trace %s: %s (replica %s)"
+                  % (root["tid"], " -> ".join(chain),
+                     root["attrs"].get("endpoint")), flush=True)
 
         # 2. a canary rollout, then the flip
         ctl = cli[0]
@@ -2607,20 +2754,39 @@ def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
             spans.append((t0, time.perf_counter()))
             return r
 
+        victim_rec = os.path.join(tel, "flightrec-%d.json"
+                                  % reps[1].proc.pid)
+
+        def killer():
+            # kill while rank 1 is mid-decode: its newest note a decode
+            # step dumped within the last 0.25 s (bounded wait)
+            t_end = time.perf_counter() + 10.0
+            while time.perf_counter() < t_end:
+                last = last_work_note(victim_rec)
+                if last is not None and last["kind"] == "decode_step" \
+                        and time.time() - last["ts"] / 1e6 < 0.25:
+                    break
+                time.sleep(0.005)
+            kill["wall"] = time.time()
+            kill["t"] = time.perf_counter()
+            reps[1].proc.kill()
+            watcher.start()
+
         def gen3(k, i, p, mode, got):
             r = timed(lambda: client_gen(cli[k], p, mode, got))
             with lock:
                 kill["done"] += 1
                 if kill["done"] == 4:
-                    kill["t"] = time.perf_counter()
-                    reps[1].proc.kill()
-                    watcher.start()
+                    kill["thread"] = threading.Thread(target=killer,
+                                                      daemon=True)
+                    kill["thread"].start()
             return r
 
         replies, enc_replies, chunks, walls = drive_mix(
             allp, enc, gen3,
             lambda k, i, f: timed(lambda: cli[k].infer("bert", f)),
             clients, "fleet kill")
+        kill["thread"].join(60.0)
         rc = reps[1].wait(30.0)
         if rc != -9:
             fail("fleet: the SIGKILLed replica's wait() gave %r" % rc)
@@ -2656,8 +2822,11 @@ def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
                       FLEET_HB_TIMEOUT, doc["epoch"], len(straddle),
                       float(np.percentile(straddle, 50)), max(straddle)),
               flush=True)
+        postmortem("fleet", victim_rec, in_flight(tel, kill["wall"]),
+                   kill["wall"], card)
 
         # 4. rank 1 relaunched
+        nxt = start_next(dec_dir) if start_next is not None else None
         t0 = time.perf_counter()
         reps[1] = Replica(argv(1), env)
         reps[1].ready("relaunched fleet replica 1")
@@ -2714,10 +2883,393 @@ def fleet_phase(params, refs, bert_dir, tmp, cfg=None, clients=3):
                 fail("fleet: rank %d launches %s, want %s"
                      % (r, launches[r], want))
     finally:
+        set_flags({"FLAGS_tracing": False, "FLAGS_telemetry_dir": ""})
         for rep in reps.values():
             rep.kill()
     print("fleet: %s; phase wall %.1f s" % (card, time.perf_counter()
                                             - t_phase), flush=True)
+    return plain_v, nxt
+
+
+def last_work_note(path):
+    """The newest ``batch_start`` or ``decode_step`` note of a flight
+    record, or None (no file yet, or one being replaced)."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    notes = [r for r in doc.get("records", [])
+             if r.get("kind") in ("batch_start", "decode_step")]
+    return notes[-1] if notes else None
+
+
+def in_flight(tel, wall):
+    """{req_id: root span name} of this process's client root spans (in
+    ``tel``'s trace-<pid>.jsonl) open at the wall-clock time ``wall``."""
+    us = wall * 1e6
+    recs = read_trace(os.path.join(tel, "trace-%d.jsonl" % os.getpid()))
+    return {r["attrs"]["req_id"]: r["name"] for r in recs
+            if r.get("t") == "span" and r["name"].startswith("client.")
+            and r["ts"] <= us <= r["ts"] + r["dur"]}
+
+
+def postmortem(what, path, flying, wall, card):
+    """The SIGKILLed replica's flight record: its newest batch_start or
+    decode_step note must name a request of ``flying`` (open at the
+    kill) -> that note."""
+    note = last_work_note(path)
+    if note is None:
+        fail("%s: the SIGKILLed replica left no flight record with work "
+             "(%s)" % (what, path))
+    with open(path) as f:
+        doc = json.load(f)
+    named = [rid for rid in note.get("req_ids", []) if rid in flying]
+    if not named:
+        fail("%s: the postmortem's last %s names %s; in flight at the kill "
+             "were %s" % (what, note["kind"], note.get("req_ids"),
+                          sorted(flying)))
+    where = "step %s" % note["step"] if "step" in note \
+        else "bucket %s" % note.get("bucket")
+    print("%s: %s; postmortem %s (reason %r, %d records, last dumped %.3f "
+          "s before the kill): last %s, %s of %s, naming %s; in flight at "
+          "the kill: %s" % (what, card, os.path.basename(path),
+                            doc["reason"], len(doc["records"]),
+                            wall - doc["dumped_at"] / 1e6, note["kind"],
+                            where, note.get("model"), note["req_ids"],
+                            ", ".join("%s %s" % (flying[r], r)
+                                      for r in named)), flush=True)
+    return note
+
+
+def trace_chains(tel, pids):
+    """One traced generate and one traced infer of this process's clients,
+    followed through the replicas' trace-<pid>.jsonl (``pids``): client
+    root -> serving.admission -> serving.request, which a
+    serving.decode_step links (generate), or a serving.batch links whose
+    serving.execute parents an executor.step (infer) -> [(root, chain of
+    span names)]; fails when either is missing."""
+    mine = read_trace(os.path.join(tel, "trace-%d.jsonl" % os.getpid()))
+    theirs = []
+    for pid in pids:
+        path = os.path.join(tel, "trace-%d.jsonl" % pid)
+        if os.path.exists(path):
+            theirs += [r for r in read_trace(path) if r.get("t") == "span"]
+    by_parent, linking = {}, {}
+    for r in theirs:
+        by_parent.setdefault((r["name"], r["parent"]), r)
+        for link in r.get("links") or ():
+            linking.setdefault((r["name"], tuple(link)), r)
+    out = []
+    for root_name, tail in (("client.generate", ("serving.decode_step",)),
+                            ("client.infer", ("serving.batch",
+                                              "serving.execute",
+                                              "executor.step"))):
+        found = None
+        for root in (r for r in mine if r.get("t") == "span"
+                     and r["name"] == root_name
+                     and r["attrs"].get("status") == "ok"):
+            adm = by_parent.get(("serving.admission", root["sid"]))
+            req = adm and by_parent.get(("serving.request", adm["sid"]))
+            if not req or not adm["tid"] == req["tid"] == root["tid"]:
+                continue
+            node = linking.get((tail[0], (req["tid"], req["sid"])))
+            for name in tail[1:]:
+                node = node and by_parent.get((name, node["sid"]))
+            if node is not None:
+                found = (root, [root_name, "serving.admission",
+                                "serving.request", "(linked by) "
+                                + " -> ".join(tail)])
+                break
+        if found is None:
+            fail("fleet: no %s carried one trace id through a replica's "
+                 "admission, request and %s spans" % (root_name,
+                                                      " -> ".join(tail)))
+        out.append(found)
+    return out
+
+
+# -- phase 5d: faults and the autoscaler ----------------------------------------
+
+# the faults replica's spec: the first two encoder batches fail; the decode
+# loop's 21st iteration with work SIGKILLs the replica, after 20 steps
+FAULT_KILL_SKIP = 20
+FAULT_SPEC = ("serving.execute.bert:error:1:2;"
+              "serving.decode_step:kill:1:1:%d" % FAULT_KILL_SKIP)
+# the client's RPC faults: three frames lost before the wire, three
+# replies lost after delivery; each failure costs the client one attempt
+CLIENT_FAULTS = "rpc.send:drop:1:3;rpc.get:error:1:3"
+FAULT_ATTEMPTS = 8
+# the autoscaler's flags: a 0.25 s poll, 2 ticks of pressure (queue depth
+# >= FLAGS_serving_scale_up_depth, default 4) to scale up, 8 idle ticks
+# to scale down, 4 ticks of cooldown after each event
+AUTOSCALE_ENV = {"FLAGS_serving_autoscale_interval": "0.25",
+                 "FLAGS_serving_scale_up_ticks": "2",
+                 "FLAGS_serving_scale_down_ticks": "8",
+                 "FLAGS_serving_autoscale_cooldown": "4",
+                 "FLAGS_serving_fleetmon_interval": "0.5"}
+BURST_CLIENTS = 16
+
+
+def start_leftovers(bert_dir, dec_dir, tmp):
+    """Start the next two ``tools/torch_serve.py`` processes on the card
+    together: a traced replica with FAULT_SPEC armed (``faults_phase``)
+    and rank 0 of a two-slot fleet with ``--autoscale`` and tracing off
+    (``autoscale_phase``) -> what ``leftovers_phase`` needs."""
+    got = {"t0": time.perf_counter(),
+           "ftel": os.path.join(tmp, "faults-trace"),
+           "atel": os.path.join(tmp, "autoscale-telemetry"),
+           "eps_file": os.path.join(tmp, "autoscale-endpoints.json")}
+    fport, *slots = free_ports(3)
+    got["fep"] = "127.0.0.1:%d" % fport
+    got["eps"] = ["127.0.0.1:%d" % p for p in slots]
+    serve = [sys.executable, "-u", os.path.join(HERE, "tools",
+                                                "torch_serve.py"),
+             "--device", FLEET_DEVICE, "--buckets", BUCKETS,
+             "--model", "bert=" + bert_dir]
+    got["faults"] = Replica(serve + [
+        "--port", str(fport), "--model", "gpt2-small=" + dec_dir,
+        "--decode-buckets", "4,8", "--kv-blocks", "520"],
+        dict(os.environ, FLAGS_tracing="1", FLAGS_telemetry_dir=got["ftel"],
+             FLAGS_fault_spec=FAULT_SPEC, **FLEET_ENV))
+    got["autoscale"] = Replica(serve + [
+        "--rank", "0", "--fleet", ",".join(got["eps"]), "--endpoints-file",
+        got["eps_file"], "--autoscale", "--min-replicas", "1",
+        "--max-replicas", "2"],
+        dict(os.environ, FLAGS_telemetry_dir=got["atel"], **FLEET_ENV,
+             **AUTOSCALE_ENV))
+    return got
+
+
+def leftovers_phase(started, plain_v, allp, cfg=None):
+    """``faults_phase`` and ``autoscale_phase`` on the replicas of
+    ``start_leftovers``, each stopped after."""
+    from paddle_tpu_torch.models.bert import BERT_BASE
+
+    cfg = cfg or BERT_BASE
+    standby = []
+    try:
+        faults_phase(started["faults"], started["fep"], started["ftel"],
+                     plain_v, allp, cfg)
+        autoscale_phase(started["autoscale"], started["eps"],
+                        started["eps_file"], started["atel"], standby,
+                        plain_v, cfg)
+    finally:
+        started["faults"].kill()
+        started["autoscale"].kill()
+        for pid in standby:
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+    print("faults and autoscale: %s; %.1f s from their replicas' launch "
+          "(beside the fleet's relaunch)"
+          % (card_line(), time.perf_counter() - started["t0"]), flush=True)
+
+
+def faults_phase(rep, ep, tel, plain_v, allp, cfg):
+    """One traced replica under FAULT_SPEC: six encoder requests one at a
+    time (exactly the first two fail, with the reference's error reply,
+    the rest equal the plain outputs); CLIENT_FAULTS armed in this
+    process, four encoder requests all ok through the retries; then one
+    generate, during which the decode loop's kill point SIGKILLs the
+    replica after FAULT_KILL_SKIP steps, its flight record naming the
+    request and that step."""
+    from paddle_tpu_torch.native.rpc import RpcClient
+    from paddle_tpu_torch.serving import ServingClient, codec
+    from paddle_tpu_torch.utils import fault_injection
+
+    card = card_line()
+    manifest = rep.ready("faults replica")
+    if manifest is None or manifest.get("device") != \
+            torch.cuda.get_device_name(0):
+        fail("faults replica prewarmed on %r" % (manifest,))
+    print("faults: replica READY %.1f s after its launch, armed %r"
+          % (rep.all("READY ")[0][0] - rep.t_launch, FAULT_SPEC),
+          flush=True)
+    cli = ServingClient(endpoints=[ep], deadline_ms=600000.0)
+    order = [0, 12, 23, 0, 12, 23]
+    enc = encoder_requests(cfg)
+    got = [cli.infer("bert", enc[i]) for i in order]
+    status = [r.status for r in got]
+    errors = [r.error for r in got[:2]]
+    if status != ["error", "error"] + ["ok"] * 4 or not all(
+            "injected execute fault (bert)" in (e or "") for e in errors):
+        fail("faults: serving.execute.bert:error:1:2 gave %s"
+             % [(r.status, r.error) for r in got])
+    check_encoder("faults encoder", got[2:], [enc[i] for i in order[2:]],
+                  cfg, {k: plain_v["bert"][i]
+                        for k, i in enumerate(order[2:])})
+    fault_injection.arm(CLIENT_FAULTS)
+    try:
+        got = [cli.infer("bert", enc[i], max_attempts=FAULT_ATTEMPTS)
+               for i in order[2:]]
+        stats = fault_injection.fault_stats()
+    finally:
+        fault_injection.disarm()
+    check_encoder("faults rpc", got, [enc[i] for i in order[2:]], cfg,
+                  {k: plain_v["bert"][i] for k, i in enumerate(order[2:])})
+    if stats["rpc.send"][1] != 3 or stats["rpc.get"][1] != 3:
+        fail("faults: the client's points fired %s" % stats)
+    print("faults: %s; serving.execute.bert:error:1:2 failed exactly the "
+          "first 2 of 6 encoder requests (%r), the other 4 within "
+          "ENCODER_ATOL of the plain CPU output; %s on the client: 4 "
+          "requests all ok after %d failovers (checks, firings %s)"
+          % (card, errors[0], CLIENT_FAULTS, cli.failovers,
+             json.dumps(stats)), flush=True)
+    # the kill: a generate under a known id, then the process must die
+    c = RpcClient(ep, connect_timeout=10.0, rpc_deadline=60.0,
+                  retry_times=0)
+    t_kill = time.perf_counter()
+    try:
+        c.send_var(codec.GEN_KEY + "fault-kill", codec.pack(
+            {"model": "gpt2-small", "max_new_tokens": 32,
+             "deadline_ms": 600000.0}, [np.asarray(allp[0], np.int32)]))
+    finally:
+        c.close()
+    rc = rep.wait(120.0)
+    wall = time.time()
+    if rc != -9:
+        fail("faults: serving.decode_step:kill left the replica with rc %r"
+             % rc)
+    path = os.path.join(tel, "flightrec-%d.json" % rep.proc.pid)
+    note = postmortem("faults", path, {"fault-kill": "generate"}, wall,
+                      card)
+    with open(path) as f:
+        last = json.load(f)["records"][-1]
+    if note["step"] != FAULT_KILL_SKIP or last.get("kind") != "fault" \
+            or last.get("point") != "serving.decode_step" \
+            or last.get("fault_kind") != "kill":
+        fail("faults: the flight record ends with %s after step %s, want "
+             "the kill after step %d" % (last, note["step"],
+                                         FAULT_KILL_SKIP))
+    print("faults: %s; serving.decode_step:kill:1:1:%d SIGKILLed the "
+          "replica %.3f s after the generate was sent (rc %d); its flight "
+          "record ends with the fault note (%s at %s) after decode step "
+          "%d of request fault-kill"
+          % (card, FAULT_KILL_SKIP, time.perf_counter() - t_kill, rc,
+             last["fault_kind"], last["point"], note["step"]), flush=True)
+
+
+def autoscale_phase(rep, eps, eps_file, tel, standby, plain_v, cfg):
+    """Rank 0 alone in a two-slot fleet with --autoscale (tracing off):
+    once slot 1 is evicted, BURST_CLIENTS threads send encoder requests
+    until a standby forked into slot 1 is in the endpoints file and has
+    served; then the traffic stops and the coordinator must retire it
+    through a drain (its SERVED and LAUNCHES printed, the file back to
+    rank 0).  Every reply ok and equal to the plain output; nothing under
+    the telemetry directory from tracing."""
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import ServingClient
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    manifest = rep.ready("autoscale rank 0")
+    if manifest is None or manifest.get("device") != kind:
+        fail("autoscale rank 0 prewarmed on %r" % (manifest,))
+    # the dead slot leaves the file by eviction or by a scale-down
+    evict_s = wait_for("slot 1 out of the file", lambda: endpoints_doc(
+        eps_file)["endpoints"] == eps[:1], 30.0)
+    enc = encoder_requests(cfg)
+    stop = threading.Event()
+    replies = []
+    lock = threading.Lock()
+
+    def client(k):
+        cli = ServingClient(endpoints_file=eps_file, deadline_ms=600000.0)
+        i = k
+        while not stop.is_set():
+            r = cli.infer("bert", enc[i % len(enc)])
+            with lock:
+                replies.append((i % len(enc), r, time.perf_counter()))
+            i += BURST_CLIENTS
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(BURST_CLIENTS)]
+    to_wall = time.time() - time.perf_counter()
+    t_burst = time.perf_counter()
+    for th in threads:
+        th.start()
+    try:
+        wait_for("the standby's READY", lambda: len(rep.all("READY ")) == 2,
+                 FLEET_READY_S)
+        t_ready, ready = rep.all("READY ")[1]
+        standby.append(int(ready.split("pid=")[1]))
+        if ready.split()[0] != "port=" + eps[1].rsplit(":", 1)[1]:
+            fail("autoscale: the standby came up as %r, not slot 1" % ready)
+        joined_s = wait_for("the file listing the standby", lambda:
+                            endpoints_doc(eps_file)["endpoints"] == eps, 60.0)
+
+        def standby_batches():
+            return sum(v for k, v in telemetry.scrape(
+                eps[1], timeout=10.0)["counters"].items()
+                if k.startswith("serving_batches_total{"))
+
+        wait_for("the standby serving 3 batches",
+                 lambda: standby_batches() >= 3, 60.0, step=0.2)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(900)
+    if any(th.is_alive() for th in threads):
+        fail("autoscale: a burst client did not finish")
+    t_last = max(t for _i, _r, t in replies)
+    marks = {}
+
+    def retired():
+        if "shrink" not in marks and \
+                endpoints_doc(eps_file)["endpoints"] == eps[:1]:
+            marks["shrink"] = time.perf_counter()
+        return "shrink" in marks and len(rep.all("LAUNCHES ")) == 1
+
+    wait_for("the standby retired and the file back to rank 0", retired,
+             120.0, step=0.005)
+    t_served, served = rep.all("SERVED ")[0]
+    served = json.loads(served)
+    launches = json.loads(rep.all("LAUNCHES ")[0][1])
+    # rank 0's scaling events, wall clock, from its steps.jsonl
+    events = [e for e in read_trace(os.path.join(tel, "steps.jsonl"))
+              if e.get("ev") == "autoscale"]
+    ups = [e["t"] - to_wall for e in events if e["dir"] == "up"]
+    downs = [e["t"] - to_wall for e in events if e["dir"] == "down"
+             and e["t"] - to_wall > t_last]
+    if len(ups) != 1 or len(downs) != 1:
+        fail("autoscale: rank 0's scaling events %s" % events)
+    bad = [(i, r.status, r.error) for i, r, _t in replies if r.status != "ok"]
+    if bad:
+        fail("autoscale: %d of %d burst requests failed: %s"
+             % (len(bad), len(replies), bad[:5]))
+    worst = 0.0
+    for i, r, _t in replies:
+        out, = r.outputs.values()
+        worst = max(worst, float(np.abs(out - plain_v["bert"][i]).max()))
+    if not worst <= ENCODER_ATOL:
+        fail("autoscale: burst outputs %.3g from the plain CPU output"
+             % worst)
+    devices = [json.loads(m)["device"] for _t, m in rep.all("PREWARM ")]
+    nb = served["encoder_batches"]
+    want = serving_launches(gpt2_small(), cfg, 0, nb)
+    if served["rank"] != 1 or nb == 0 or launches != want \
+            or devices != [kind, kind]:
+        fail("autoscale: the standby's SERVED %s, LAUNCHES %s (want %s), "
+             "devices %s" % (served, launches, want, devices))
+    if trace_files(tel):
+        fail("autoscale: tracing off wrote %s" % trace_files(tel))
+    snap = telemetry.scrape(eps[0], timeout=10.0)["counters"]
+    print("autoscale: %s; rank 0 alone in the file %.1f s after its READY; "
+          "%d client threads: scale-up %.3f s after the burst began, the "
+          "standby (pid %d, on %s) READY %.3f s after the scale-up, in "
+          "the file %.3f s after that; %d requests all ok, max_abs_err "
+          "%.3g from the plain CPU output (atol %g); after the last reply: "
+          "scale-down %.3f s, the file back to rank 0 %.3f s, the "
+          "standby's SERVED %.3f s (a drain: %d encoder batches, launches "
+          "%s); autoscale events %s"
+          % (card, evict_s, BURST_CLIENTS, ups[0] - t_burst, standby[0],
+             devices[1], t_ready - ups[0], joined_s, len(replies), worst,
+             ENCODER_ATOL, downs[0] - t_last, marks["shrink"] - t_last,
+             t_served - t_last, nb, json.dumps(launches), json.dumps(
+                 {k: v for k, v in snap.items()
+                  if k.startswith("autoscale_events_total")})), flush=True)
 
 
 # -- phase 6: BERT-base pretraining -----------------------------------------
@@ -4248,9 +4800,17 @@ def main():
         launches, plain_outs = encoder_phase((fa, fl, ln), bert_dir)
         launches["paged_attention"] = dec_launches
         launches.update(wire_phase(pa, (fa, fl, ln), params, refs,
-                                   bert_dir, plain_outs))
-        fleet_phase(params, refs, bert_dir, tmp)
-        del params, refs
+                                   bert_dir, plain_outs, tmp))
+        try:
+            plain_v, started = fleet_phase(
+                params, refs, bert_dir, tmp, start_next=lambda dec_dir:
+                start_leftovers(bert_dir, dec_dir, tmp))
+            leftovers_phase(started, plain_v,
+                            prompts(gpt2_small().vocab)[0])
+        finally:
+            for rep in REPLICAS:
+                rep.kill()
+        del params, refs, plain_v
     for name, dropout in ((DROPOUT0, 0.0), (COMPOSED, 0.1), (SMALL, 0.1)):
         with emission(name):
             counts = train_phase(BertConfig(dropout=dropout), name)

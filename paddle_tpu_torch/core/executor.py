@@ -10,6 +10,19 @@ kernels on the executor's device, and persistables the block writes (the
 startup program's initialisers; a training step's parameters, moments
 and beta pows, velocities, BN running statistics) are stored back.  No
 ``torch.compile``: each op's lowering runs as written.
+
+Each ``run`` is one ``executor.step`` span (``core/tracing.py``; under
+whatever span is active on the calling thread, such as the serving
+dispatcher's ``serving.execute``) followed by a ``step`` instant, and one
+``telemetry.record_step`` (``executor_steps_total``, the cache hit or miss,
+``executor_step_ms``, ``executor_compile_ms``, the feed and fetch bytes,
+and the ``step`` event).  The step time is the host's time to issue the
+ops and store the persistables back: the card runs them asynchronously
+and the step path adds no ``torch.cuda.synchronize``, so a step's kernels
+may still run after it (the fetch's copy to the host waits for them).  On
+a plan miss ``compile_ms`` is the plan's build time; nothing is compiled,
+so the reference's ``executor.compile`` and ``executor.cache_restore``
+spans have no counterpart.  ``warmup`` is an ``executor.warmup`` span.
 """
 
 import contextlib
@@ -22,6 +35,8 @@ import torch
 from .. import flags
 from ..device import resolve_device, set_f32_numerics
 from ..framework import Variable, default_main_program, dtype_to_torch
+from . import telemetry as _telemetry
+from . import tracing as _tracing
 from .lowering import MASTER_SUFFIX, BlockPlan, draws, op_seed, run_op
 from .scope import Scope
 
@@ -77,6 +92,12 @@ def _fetch_name(f):
     if isinstance(f, str):
         return f
     raise TypeError("bad fetch target %r" % (f,))
+
+
+def _nbytes(value):
+    if isinstance(value, torch.Tensor):
+        return value.element_size() * value.numel()
+    return int(getattr(value, "nbytes", 0))
 
 
 def _gather_carry(scope, plan, env):
@@ -184,7 +205,9 @@ class Executor:
         env = {n: self._to_device(n, v, block)
                for n, v in (feed or {}).items()}
         self._maybe_fuse_optimizers(program, list(env), fetch_names)
-        plan, _cached = self._plan(program, env, fetch_names)
+        t_plan = time.perf_counter()
+        plan, cached = self._plan(program, env, fetch_names)
+        build_ms = (time.perf_counter() - t_plan) * 1e3
         feeds = set(env)
         for n in plan.external:
             var = scope.find_var(n)
@@ -204,22 +227,31 @@ class Executor:
         with _RNG_LOCK:
             step = scope._rng_counter
             scope._rng_counter = step + 1
-        with torch.no_grad():
+        t_step = time.perf_counter()
+        with _tracing.span("executor.step", step=int(step),
+                           cache_hit=cached), torch.no_grad():
             for i, (op, opdef, attrs) in enumerate(plan.steps):
                 run_op(op, opdef, attrs, env, self.device,
                        op_seed(seed, step, i) if draws(opdef, attrs)
                        else None, carry, carry_written)
                 for n in plan.release[i]:
                     env.pop(n, None)
-        for n in plan.persist_written:
-            if n in env and n not in feeds:
-                scope.var(n).set(env[n])
-        if carry:
-            _store_carry(scope, env, carry, carry_written)
+            for n in plan.persist_written:
+                if n in env and n not in feeds:
+                    scope.var(n).set(env[n])
+            if carry:
+                _store_carry(scope, env, carry, carry_written)
+        step_ms = (time.perf_counter() - t_step) * 1e3
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError("fetch targets %s were never produced" % missing)
         fetches = [env[n] for n in fetch_names]
+        if _telemetry.enabled():
+            _telemetry.record_step(
+                step_ms, cached, compile_ms=None if cached else build_ms,
+                feed_bytes=sum(_nbytes(v) for v in (feed or {}).values()),
+                fetch_bytes=sum(_nbytes(f) for f in fetches))
+        _tracing.instant("step", step=int(step))
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]
         return fetches
@@ -242,13 +274,14 @@ class Executor:
             feed[name] = torch.zeros(tuple(shape), dtype=dtype,
                                      device=self.device)
         fetch_names = [_fetch_name(f) for f in fetch_list or []]
-        self._maybe_fuse_optimizers(program, list(feed), fetch_names)
-        _plan, cached = self._plan(program, feed, fetch_names)
-        t0 = time.perf_counter()
-        self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
-                 return_numpy=False)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with _tracing.span("executor.warmup"):
+            self._maybe_fuse_optimizers(program, list(feed), fetch_names)
+            _plan, cached = self._plan(program, feed, fetch_names)
+            t0 = time.perf_counter()
+            self.run(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                     return_numpy=False)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         return {"source": "memory" if cached else "compiled",
                 "compile_ms": (time.perf_counter() - t0) * 1e3, "key": None}
 

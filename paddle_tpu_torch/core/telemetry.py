@@ -23,7 +23,7 @@ snapshot of either package merges with, and is scraped by, the other:
   ``RpcServer`` of the port's transport under ``__metrics__``; ``scrape``
   GETs one from a server of either package.
 
-``record_step`` is here for the executor, which does not call it yet.
+``record_step`` is called by the executor once a ``run``.
 """
 
 import atexit

@@ -51,6 +51,12 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   monitor's interval and rate window, and the SLO burn-rate rules with
   their fast and slow windows, threshold and clear ratio.
   ``FLAGS_worker_hb_timeout`` (60 s) is ``HeartBeatMonitor``'s default.
+* Tracing and fault injection, the reference's defaults:
+  ``FLAGS_tracing`` (off; ``core/tracing.py``: spans, the
+  ``trace-<pid>.jsonl`` stream and the flight recorder under
+  ``FLAGS_telemetry_dir``) and ``FLAGS_fault_spec`` ("", disarmed;
+  ``utils/fault_injection.py``: ``point:kind:prob[:count[:skip]];...``
+  checked at the named fault points).
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -71,6 +77,8 @@ _DEFAULTS = {
     "FLAGS_telemetry_dir": "",
     "FLAGS_telemetry_max_bytes": 256 << 20,
     "FLAGS_telemetry_series_cap": 1024,
+    "FLAGS_tracing": False,
+    "FLAGS_fault_spec": "",
     "FLAGS_worker_hb_timeout": 60.0,
     "FLAGS_serving_hb_interval": 0.3,
     "FLAGS_serving_hb_timeout": 2.0,

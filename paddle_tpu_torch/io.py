@@ -18,6 +18,7 @@ import torch
 from .core.executor import global_scope, place_device
 from .framework import (OP_ROLE_KEY, OpRole, Program, Variable,
                         default_main_program)
+from .utils.fault_injection import maybe_fail
 
 __all__ = ["save_persistables", "load_persistables", "save_inference_model",
            "load_inference_model"]
@@ -29,11 +30,13 @@ def _is_persistable(var):
 
 def _atomic_save(path, arrays):
     """Write via a temp file and a rename, so ``path`` is complete or
-    absent."""
+    absent.  The ``ckpt.write`` fault point sits between the two: an
+    injected kill leaves only the temp file."""
     tmp = "%s._tmp.%d" % (path, os.getpid())
     try:
         with open(tmp, "wb") as f:
             np.savez(f, **arrays)
+        maybe_fail("ckpt.write")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

@@ -5,15 +5,21 @@ Counterpart of ``paddle_tpu/native/rpc.py`` (``RpcServer``, ``RpcClient``,
 format, so a client of either package talks to a server of either: the
 dtype codes (``_DTYPES``) are the reference's, in its order.
 
-A SEND frame's name may carry a trace context after ``\\x1f`` (the
-reference's ``tracing.stamp_wire_name``, when its tracing is on); ``poll``
-hands callers the bare name.  The client counts, under the reference's
-names (``core/telemetry.py``, inert unless ``FLAGS_telemetry``), each
-send and its bytes (``rpc_send_total``, ``rpc_send_bytes_total``), each
-get (``rpc_get_total``), and per op each retry, failed attempt and
-exhausted call (``rpc_retry_total``, ``rpc_failure_total``,
-``rpc_exhausted_total``).  Left out, compared with the reference: the
-trace instants and the ``rpc.send`` / ``rpc.get`` fault points.
+With ``FLAGS_tracing`` on, ``send_var`` stamps the active span's context
+onto a SEND frame's name after ``\\x1f`` (``tracing.stamp_wire_name``), and
+``poll`` records an ``rpc.recv`` instant on the sender's context for a
+stamped frame (``tracing.wire_received``) and hands callers the bare name.
+The client counts, under the reference's names (``core/telemetry.py``,
+inert unless ``FLAGS_telemetry``), each send and its bytes
+(``rpc_send_total``, ``rpc_send_bytes_total``), each get
+(``rpc_get_total``), and per op each retry, failed attempt and exhausted
+call (``rpc_retry_total``, ``rpc_failure_total``, ``rpc_exhausted_total``).
+The fault points ``rpc.send`` and ``rpc.get``
+(``utils/fault_injection.py``) map as the reference maps them: ``drop``
+loses the frame before it is sent, ``error`` fails the transport after
+delivery (a send's frame arrived, a get's reply is discarded); both close
+the connection and raise ``FaultInjected``, a ``ConnectionError`` that
+``_with_retry`` retries like a real transport failure.
 """
 
 import ctypes
@@ -23,6 +29,8 @@ import time
 import numpy as np
 
 from ..core import telemetry as _tm
+from ..core import tracing as _tr
+from ..utils.fault_injection import FaultInjected, maybe_fail
 from . import load
 
 __all__ = ["RpcServer", "RpcClient", "backoff_delay", "probe", "EV_SEND",
@@ -36,31 +44,6 @@ _DT_TO_CODE = {np.dtype(d): i for i, d in enumerate(_DTYPES)}
 EV_SEND = 1
 EV_BARRIER = 3
 EV_COMPLETE = 4
-
-_WIRE_SEP = "\x1f"
-
-
-def _parse_traceparent(tp):
-    """``00-<32 hex trace>-<16 hex span>-<flags>`` -> (trace id, span id),
-    None when malformed (the reference's ``tracing.parse_traceparent``)."""
-    parts = tp.split("-")
-    if len(parts) != 4 or len(parts[1]) != 32 or len(parts[2]) != 16:
-        return None
-    try:
-        int(parts[1], 16), int(parts[2], 16)
-    except ValueError:
-        return None
-    return parts[1], parts[2]
-
-
-def _strip_wire_name(name):
-    """A frame name -> (bare name, traceparent or None), as the
-    reference's ``tracing.strip_wire_name`` splits it."""
-    if _WIRE_SEP not in name:
-        return name, None
-    bare, _, tp = name.partition(_WIRE_SEP)
-    return bare, (tp if _parse_traceparent(tp) else None)
-
 
 def probe(endpoint, key="__alive__", timeout=3.0):
     """One bounded GET of ``key``; None on any failure: a dead, hung or
@@ -123,7 +106,10 @@ class RpcServer:
             buf = ctypes.string_at(data.value, dlen.value)
             arr = np.frombuffer(buf, dtype=np.dtype(_DTYPES[dtype.value])) \
                 .reshape(shape).copy()
-        return t, _strip_wire_name(name.value.decode())[0], arr
+        bare, tp = _tr.strip_wire_name(name.value.decode())
+        if tp is not None:
+            _tr.wire_received(bare, tp)
+        return t, bare, arr
 
     def _check(self):
         # after shutdown the native handle is gone: a late publisher must
@@ -239,17 +225,31 @@ class RpcClient:
         arr = np.ascontiguousarray(arr)
         dims = _dims(arr)
         what = "send_var(%s)" % name
+        # SEND names reach only the server's poll, which strips the
+        # context, so a stamped name never enters the var store
+        wire_name = _tr.stamp_wire_name(name).encode()
         if _tm.enabled():
             _tm.inc("rpc_send_total")
             _tm.inc("rpc_send_bytes_total", int(arr.nbytes))
 
         def attempt():
             self._check_open(what)
+            kind = maybe_fail("rpc.send")
+            if kind == "drop":
+                self.close()
+                raise FaultInjected("%s to %s: injected frame drop"
+                                    % (what, self.endpoint))
             rc = self._lib.rpcc_send_var(
-                self._h, name.encode(), _DT_TO_CODE[arr.dtype], dims,
+                self._h, wire_name, _DT_TO_CODE[arr.dtype], dims,
                 arr.ndim, arr.ctypes.data_as(ctypes.c_void_p), arr.nbytes)
             if rc != 0:
                 raise self._err(what)
+            if kind == "error":
+                # delivered, then the transport fails: the retry replays a
+                # frame the server already has
+                self.close()
+                raise FaultInjected("%s to %s: injected transport error "
+                                    "after delivery" % (what, self.endpoint))
 
         return self._with_retry(what, attempt)
 
@@ -260,6 +260,11 @@ class RpcClient:
 
         def attempt():
             self._check_open(what)
+            kind = maybe_fail("rpc.get")
+            if kind == "drop":
+                self.close()
+                raise FaultInjected("%s to %s: injected request drop"
+                                    % (what, self.endpoint))
             c = ctypes
             dtype = c.c_ubyte()
             dims = (c.c_longlong * 16)()
@@ -274,6 +279,12 @@ class RpcClient:
                 buf = ctypes.string_at(data.value, n)
             finally:
                 self._lib.rpc_free(data)
+            if kind == "error":
+                # the reply is lost on the way back; a GET is idempotent,
+                # so the retry asks again
+                self.close()
+                raise FaultInjected("%s to %s: injected reply loss"
+                                    % (what, self.endpoint))
             return np.frombuffer(buf, dtype=np.dtype(_DTYPES[dtype.value])) \
                 .reshape(shape).copy()
 

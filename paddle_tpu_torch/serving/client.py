@@ -18,9 +18,15 @@ delivered by index, each once, however many attempts a request takes
 an admin command to the fleet's coordinator and ``rollout_state`` reads a
 replica's applied routes.
 
+With ``FLAGS_tracing`` on, each ``infer`` and ``generate`` opens a root
+span (``client.infer``, ``client.generate``) whose ``traceparent`` rides
+the request meta; the root is active around the sends and GETs, so the
+RPC frames carry its context too, and it ends with the request's status,
+endpoint and attempts.
+
 Left out, compared with the reference: the disaggregated roles (the
 ``__pair__`` walk; ``roles=`` raises), crash-resume (``__resume__``) and
-following a migrated session, and tracing.
+following a migrated session.
 """
 
 import json
@@ -32,6 +38,7 @@ import numpy as np
 
 from .. import flags
 from ..core import telemetry as _tm
+from ..core import tracing as _tr
 from ..native import rpc as _rpc
 from ..native.rpc import RpcClient
 from . import codec
@@ -203,12 +210,18 @@ class ServingClient:
         the same version (a shed's retry takes a fresh id)."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         req_id = req_id or uuid.uuid4().hex
+        # the root of the request's trace; the server's admission span
+        # parents under the context the meta carries
+        root = _tr.start_span("client.infer", model=model,
+                              tenant=self.tenant, req_id=req_id)
         names = list(feeds)
         meta_req = {"model": model, "tenant": self.tenant,
                     "req_id": req_id, "deadline_ms": deadline_ms,
                     "feeds": names}
         if tier:
             meta_req[codec.TIER] = tier
+        if root.traceparent:
+            meta_req[codec.TRACEPARENT] = root.traceparent
         payload = codec.pack(meta_req, [feeds[n] for n in names])
         # the request may wait a whole deadline in the queue and still be
         # served: the GET waits that long and some
@@ -231,9 +244,10 @@ class ServingClient:
                 c = RpcClient(ep, connect_timeout=2.0,
                               rpc_deadline=get_timeout, retry_times=0)
                 try:
-                    c.send_var(codec.INFER_KEY + req_id, payload)
-                    meta, arrays = codec.unpack(
-                        c.get_var(codec.REPLY_KEY + req_id))
+                    with _tr.activate(root):
+                        c.send_var(codec.INFER_KEY + req_id, payload)
+                        meta, arrays = codec.unpack(
+                            c.get_var(codec.REPLY_KEY + req_id))
                 finally:
                     c.close()
             except ConnectionError as e:
@@ -256,9 +270,13 @@ class ServingClient:
                 meta_req["req_id"] = req_id
                 payload = codec.pack(meta_req, [feeds[n] for n in names])
                 continue
+            root.annotate(status=reply.status, endpoint=ep,
+                          attempts=i + 1).end()
             return reply
         if last_reply is not None:
+            root.annotate(status=last_reply.status, attempts=attempts).end()
             return last_reply
+        root.annotate(status="dropped", attempts=attempts).end()
         return InferReply(
             "dropped", error="all %d attempts failed: %s"
             % (attempts, last_err),
@@ -294,6 +312,8 @@ class ServingClient:
         timeout replies, aborting the abandoned attempt first."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         req_id = uuid.uuid4().hex
+        root = _tr.start_span("client.generate", model=model,
+                              tenant=self.tenant, req_id=req_id)
         prompt = np.ascontiguousarray(
             np.asarray(prompt_ids, np.int32).reshape(-1))
         meta_req = {"model": model, "tenant": self.tenant,
@@ -302,6 +322,8 @@ class ServingClient:
                     "eos_id": int(eos_id), "stream": bool(stream)}
         if tier:
             meta_req[codec.TIER] = tier
+        if root.traceparent:
+            meta_req[codec.TRACEPARENT] = root.traceparent
         get_timeout = deadline_ms / 1e3 + 30.0
         t0 = time.perf_counter()
         last_err, last_reply, sheds = None, None, 0
@@ -328,24 +350,25 @@ class ServingClient:
                 c = RpcClient(ep, connect_timeout=2.0,
                               rpc_deadline=get_timeout, retry_times=0)
                 try:
-                    c.send_var(codec.GEN_KEY + req_id,
-                               codec.pack(meta_req, [prompt]))
-                    k = 0
-                    while stream:
-                        cm, _ = codec.unpack(c.get_var(
-                            "%s%s:%d" % (codec.STREAM_KEY, req_id, k)))
-                        if cm.get("token") is not None:
-                            chunk_times.append(time.perf_counter())
-                            idx = int(cm["i"])
-                            if idx == len(received):
-                                received.append(int(cm["token"]))
-                                if on_token is not None:
-                                    on_token(idx, int(cm["token"]))
-                        if cm.get("done"):
-                            break
-                        k += 1
-                    meta, arrays = codec.unpack(
-                        c.get_var(codec.REPLY_KEY + req_id))
+                    with _tr.activate(root):
+                        c.send_var(codec.GEN_KEY + req_id,
+                                   codec.pack(meta_req, [prompt]))
+                        k = 0
+                        while stream:
+                            cm, _ = codec.unpack(c.get_var(
+                                "%s%s:%d" % (codec.STREAM_KEY, req_id, k)))
+                            if cm.get("token") is not None:
+                                chunk_times.append(time.perf_counter())
+                                idx = int(cm["i"])
+                                if idx == len(received):
+                                    received.append(int(cm["token"]))
+                                    if on_token is not None:
+                                        on_token(idx, int(cm["token"]))
+                            if cm.get("done"):
+                                break
+                            k += 1
+                        meta, arrays = codec.unpack(
+                            c.get_var(codec.REPLY_KEY + req_id))
                 finally:
                     c.close()
             except ConnectionError as e:
@@ -376,9 +399,13 @@ class ServingClient:
                 sheds += 1
                 req_id = fresh_id()
                 continue
+            root.annotate(status=reply.status, endpoint=ep,
+                          attempts=i + 1).end()
             return reply
         if last_reply is not None:
+            root.annotate(status=last_reply.status, attempts=attempts).end()
             return last_reply
+        root.annotate(status="dropped", attempts=attempts).end()
         return InferReply(
             "dropped", error="all %d attempts failed: %s"
             % (attempts, last_err),

@@ -5,9 +5,10 @@ bytes for the same meta and arrays, so the two packages' clients and
 servers read each other's frames.  The transport's other users keep their
 keys; the port's server answers only the monolith keys (its docstring
 lists which), and the kvxfer / pair / resume keys are kept so a frame of
-either package decodes the same.  Module paths below other than this
-one's, server.py's and client.py's are the reference package's (the port
-has no migrate.py, disagg.py, fleet.py or tracing yet).
+either package decodes the same.  migrate.py and disagg.py below are the
+reference package's; the port has neither yet.  The ``TRACEPARENT`` key
+carries the client root span's context (``core/tracing.py``), and a reply
+meta echoes it beside the engine's ``phases``.
 
 The native tensor-RPC transport (native/rpc.py) moves ONE named ndarray
 per frame; an inference request/reply carries several arrays of mixed

@@ -36,10 +36,26 @@ and call ``on_batch_boundary`` (the fleet's eviction hook) between
 batches and between decode steps, never while ``in_batch`` is true.
 ``DecodeEngine.prewarm`` runs one step per lane bucket.
 
+Both engines trace as the reference does (``core/tracing.py``, inert
+unless ``FLAGS_tracing``): an admitted request opens ``serving.request``
+(under the server's admission span when submitted inside it) with a
+``serving.queue_wait`` child ended at admission to a lane or dispatch; a
+decode step is a ``serving.decode_step`` span linking each lane's request
+span, an encoder batch a ``serving.batch`` span linking its requests, with
+``serving.pad_to_bucket`` and ``serving.execute`` (the Executor's
+``executor.step`` nests under it) as children.  Before the device work
+starts, a write-through ``note`` (``decode_step`` or ``batch_start``)
+names the request ids, so a SIGKILLed replica's
+``flightrec-<pid>.json`` holds its in-flight work.  Fault points
+(``utils/fault_injection.py``): ``serving.decode_step``, checked outside
+the lock before each decode iteration that has work, and
+``serving.execute.<model>``, checked before a batch runs ("error" fails
+the batch).
+
 Left out of the decode engine, compared with the reference: speculative
 decode, int8 KV, disaggregated handoff, session migration and history
-publication, tier weights and tier eviction (every decode request is tier
-"default"), tracing, and fault injection.
+publication, and tier weights and tier eviction (every decode request is
+tier "default").
 """
 
 import collections
@@ -53,7 +69,9 @@ import numpy as np
 import torch
 
 from ..core import telemetry as _tm
+from ..core import tracing as _tr
 from ..device import resolve_device, set_f32_numerics
+from ..utils.fault_injection import maybe_fail
 from . import decode_model as _dm
 from . import kv_cache as _kvc
 
@@ -113,9 +131,10 @@ class _Pending:
     """Handle returned by submit(): wait() blocks for the InferReply."""
 
     __slots__ = ("model", "deadline", "t_submit", "req_id", "callback",
-                 "_done", "reply")
+                 "_done", "reply", "traceparent", "span", "qspan")
 
-    def __init__(self, model, deadline_ms, req_id, callback):
+    def __init__(self, model, deadline_ms, req_id, callback,
+                 traceparent=None):
         self.model = model
         self.t_submit = time.perf_counter()
         self.deadline = self.t_submit + deadline_ms / 1e3
@@ -123,6 +142,9 @@ class _Pending:
         self.callback = callback
         self._done = threading.Event()
         self.reply = None
+        self.traceparent = traceparent  # wire context echoed in the reply
+        self.span = None    # serving.request (submit -> complete)
+        self.qspan = None   # serving.queue_wait (submit -> admission)
 
     def complete(self, reply):
         reply.latency_ms = (time.perf_counter() - self.t_submit) * 1e3
@@ -343,16 +365,17 @@ class DecodeEngine:
 
     def submit(self, model, prompt_ids, max_new_tokens=16, deadline_ms=None,
                eos_id=-1, callback=None, on_token=None, req_id=None,
-               tenant="default"):
+               tenant="default", traceparent=None):
         """Enqueue one request; returns a _Pending whose reply carries
         outputs={"tokens"} plus queue/TTFT/ITL phases.
         ``on_token(req_id, index, token, done, status)`` fires per
         generated token; on a non-ok end it fires once with token None.
-        ``tenant`` labels the request counter only."""
+        ``tenant`` labels the request counter only; ``traceparent`` (the
+        wire context) is echoed in the reply meta."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = _Pending(model, deadline_ms, req_id or uuid.uuid4().hex,
-                       callback)
+                       callback, traceparent=traceparent)
 
         def _early(reply):
             req.complete(reply)
@@ -410,6 +433,13 @@ class DecodeEngine:
                     "shed", error="KV pool exhausted (%d reclaimable "
                     "blocks)" % free_now,
                     retry_after_ms=self._retry_after_ms(m)))
+            req.span = _tr.start_span(
+                "serving.request", model=model, tenant=tenant,
+                decode=True, prompt_tokens=len(prompt_ids),
+                max_new=int(max_new_tokens), req_id=req.req_id)
+            req.qspan = _tr.start_span("serving.queue_wait",
+                                       parent=req.span,
+                                       depth=len(self._waiting))
             self._waiting.append(seq)
             _tm.set_gauge("serving_queue_depth", len(self._waiting))
             self._cond.notify_all()
@@ -528,6 +558,12 @@ class DecodeEngine:
             if met:
                 _tm.inc("serving_deadline_tokens_total", len(seq.out),
                         tier=_DEFAULT_TIER)
+        if r.qspan is not None:
+            r.qspan.end()
+            r.qspan = None
+        if r.span is not None:
+            r.span.annotate(status=reply.status, tokens=len(seq.out)).end()
+            r.span = None
         if seq.on_token is not None and not reply.ok:
             # terminal stream chunk so a streaming client unblocks
             try:
@@ -578,6 +614,11 @@ class DecodeEngine:
                     s.table[:len(shared)] = shared
                     s.n_fed = cached
                     s.next_tok = s.feed_tok(cached)
+            if s.pending.span is not None:
+                s.pending.span.annotate(cached_tokens=s.cached_tokens)
+            if s.pending.qspan is not None:
+                s.pending.qspan.end()
+                s.pending.qspan = None
             self._active.append(s)
         _tm.set_gauge("serving_queue_depth", len(self._waiting))
         for name, m in self._models.items():
@@ -655,6 +696,12 @@ class DecodeEngine:
 
     def _decode_loop(self):
         while True:
+            # outside the lock, so a "delay" slows the loop without
+            # holding submitters; checked once before every step and never
+            # on an idle poll, so a spec's skip counts decode steps
+            checked = bool(self._active or self._waiting)
+            if checked:
+                maybe_fail("serving.decode_step")
             with self._cond:
                 if not self._running:
                     return
@@ -662,6 +709,8 @@ class DecodeEngine:
                 if not self._active:
                     self._cond.wait(0.05)
                     continue
+                if not checked:
+                    continue    # work arrived after the check: check it
                 step_ok = self._decode_step_locked()
             if self.on_batch_boundary is not None:
                 try:
@@ -714,18 +763,29 @@ class DecodeEngine:
             tables[i] = s.table
             lens[i] = s.n_fed + 1    # counts this step's write
         self._step_no += 1
+        sspan = _tr.start_span(
+            "serving.decode_step", model=m.name, bucket=bucket,
+            lanes=len(lanes), step=self._step_no)
+        for s in lanes:
+            sspan.link(s.pending.span.context
+                       if s.pending.span is not None else None)
+        # write-through, before the device step: a SIGKILL mid-step
+        # leaves these request ids in flightrec-<pid>.json
+        _tr.note("decode_step", model=m.name, step=self._step_no,
+                 req_ids=[s.pending.req_id for s in lanes])
         t0 = time.perf_counter()
         err = None
         self.in_batch = True
         self._cond.release()
         try:
             dev = self.device
-            nxt, _logits = m.decoder.paged_step(
-                m.cache.k, m.cache.v, torch.from_numpy(tok).to(dev),
-                torch.from_numpy(pos).to(dev),
-                torch.from_numpy(tables).to(dev),
-                torch.from_numpy(lens).to(dev))
-            nxt = nxt.cpu().numpy()
+            with _tr.activate(sspan):
+                nxt, _logits = m.decoder.paged_step(
+                    m.cache.k, m.cache.v, torch.from_numpy(tok).to(dev),
+                    torch.from_numpy(pos).to(dev),
+                    torch.from_numpy(tables).to(dev),
+                    torch.from_numpy(lens).to(dev))
+                nxt = nxt.cpu().numpy()
         except Exception as e:  # the loop keeps serving; the lanes fail
             _log.exception("decode step failed on %d lanes", len(lanes))
             err = e
@@ -733,6 +793,7 @@ class DecodeEngine:
             self._cond.acquire()
             self.in_batch = False
         if not self._running:
+            sspan.annotate(stopped=True).end()
             return True     # stopping: stop() finishes every sequence
         if err is not None:
             for s in lanes:
@@ -741,6 +802,7 @@ class DecodeEngine:
                 self._finish(s, InferReply(
                     "error", error="%s: %s" % (type(err).__name__, err)))
             _tm.inc("serving_batch_errors_total", model=m.name)
+            sspan.annotate(error=str(err)[:200]).end()
             return False
         ms = (time.perf_counter() - t0) * 1e3
         m.step_ms = ms if m.step_ms <= 0 else 0.8 * m.step_ms + 0.2 * ms
@@ -780,6 +842,7 @@ class DecodeEngine:
         _tm.inc("serving_decode_steps_total", model=m.name)
         _tm.observe("decode_batch_occupancy", len(lanes) / float(bucket),
                     model=m.name)
+        sspan.annotate(generated=n_generated, ms=round(ms, 3)).end()
         return True
 
 
@@ -809,8 +872,9 @@ class DecodeEngine:
 # Its telemetry is the reference's (requests, sheds by reason and tier,
 # timeouts, batch errors, latency / execute / server_ms histograms, batch
 # fill, deadline goodput, qps, rollout_state); ``batch_log`` also keeps the
-# last batches' bucket, rows and execute time.  Tracing spans and fault
-# injection are left out, as in the decode engine.
+# last batches' bucket, rows and execute time.  Its spans, its
+# ``batch_start`` note and its ``serving.execute.<model>`` fault point are
+# in the module docstring.
 
 _DEFAULT_TIER_WEIGHTS = "paid:1.0,free:0.45,batch:0.15"
 
@@ -853,8 +917,9 @@ class _InferPending(_Pending):
     __slots__ = ("tenant", "feeds", "rows", "t_dispatch", "tier", "weight")
 
     def __init__(self, model, tenant, feeds, deadline_ms, req_id, callback,
-                 tier="default", weight=1.0):
-        super().__init__(model, deadline_ms, req_id, callback)
+                 tier="default", weight=1.0, traceparent=None):
+        super().__init__(model, deadline_ms, req_id, callback,
+                         traceparent=traceparent)
         self.tenant = tenant
         self.feeds = feeds
         self.rows = 0
@@ -1042,15 +1107,17 @@ class ServingEngine:
         return req
 
     def submit(self, model, feeds, tenant="default", deadline_ms=None,
-               callback=None, req_id=None, tier=None):
+               callback=None, req_id=None, tier=None, traceparent=None):
         """Enqueue one request; returns a handle whose ``wait()`` gives the
-        InferReply.  Shed and malformed requests complete at once."""
+        InferReply.  Shed and malformed requests complete at once.
+        ``traceparent`` (the wire context) is echoed in the reply meta."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         req_id = req_id or uuid.uuid4().hex
         tier, weight = tier_weight(self.tier_weights, tier)
         model = self.resolve(model, req_id)
         req = _InferPending(model, tenant, feeds, deadline_ms, req_id,
-                            callback, tier=tier, weight=weight)
+                            callback, tier=tier, weight=weight,
+                            traceparent=traceparent)
         entry = self._models.get(model)
         if entry is None or not self._running:
             req.complete(InferReply(
@@ -1077,6 +1144,10 @@ class ServingEngine:
                     # a full queue sheds its lowest-weight member when the
                     # arrival outranks it
                     self._queue.remove(victim)
+                    if victim.qspan is not None:
+                        victim.qspan.annotate(evicted=True).end()
+                    if victim.span is not None:
+                        victim.span.annotate(status="shed").end()
                     self._shed(victim, "tier_evicted",
                                "evicted by %s-tier arrival" % req.tier,
                                max(wait_ms, entry.svc_ms, 1.0))
@@ -1092,6 +1163,14 @@ class ServingEngine:
                     "projected wait %.0fms exceeds %s-tier budget "
                     "%.0fms" % (wait_ms, req.tier, budget_ms),
                     wait_ms - budget_ms + entry.svc_ms)
+            # admitted: the request span (under the server's admission
+            # span when submitted inside it) and its queue-wait child,
+            # ended at dispatch or expiry
+            req.span = _tr.start_span(
+                "serving.request", model=model, tenant=tenant,
+                rows=req.rows, req_id=req.req_id, tier=tier)
+            req.qspan = _tr.start_span("serving.queue_wait",
+                                       parent=req.span, depth=depth)
             self._queue.append(req)
             _tm.set_gauge("serving_queue_depth", len(self._queue))
             self._cond.notify_all()
@@ -1155,6 +1234,10 @@ class ServingEngine:
             left, self._queue = self._queue, []
         for req in left:
             req.complete(InferReply("error", error="engine stopped"))
+            if req.qspan is not None:
+                req.qspan.end()
+            if req.span is not None:
+                req.span.annotate(status="error").end()
 
     @property
     def draining(self):
@@ -1236,8 +1319,14 @@ class ServingEngine:
                             phases={"queue_wait_ms":
                                     round((now - r.t_submit) * 1e3, 3),
                                     "rows": r.rows}))
+                        if r.qspan is not None:
+                            r.qspan.annotate(expired=True).end()
+                        if r.span is not None:
+                            r.span.annotate(status="timeout").end()
                     else:
                         r.t_dispatch = now
+                        if r.qspan is not None:
+                            r.qspan.end()
                         live.append(r)
                 if live:
                     self._run_batch(self._models[model], live)
@@ -1261,29 +1350,53 @@ class ServingEngine:
         rows = sum(r.rows for r in batch)
         bucket = self._bucket_for(rows)
         pred = entry.predictor
-        feed = {}
-        for name in entry.feed_specs:
-            parts = [r.feeds[name] for r in batch]
-            if rows < bucket:
-                parts.append(np.zeros((bucket - rows,) + parts[0].shape[1:],
-                                      dtype=parts[0].dtype))
-            feed[name] = np.concatenate(parts, axis=0) \
-                if len(parts) > 1 else parts[0]
-        t0 = time.perf_counter()
-        self._batches_run += 1
-        try:
-            outs = pred.run_feed(feed)
-        except Exception as e:  # the engine keeps serving; the batch fails
-            _log.exception("batch of %d rows failed", rows)
-            ms = (time.perf_counter() - t0) * 1e3
-            for r in batch:
-                r.complete(InferReply("error", error="%s: %s"
-                                      % (type(e).__name__, e),
-                                      phases=self._phases(r, ms, bucket)))
-            _tm.inc("serving_batch_errors_total", model=entry.name)
-            _tm.inc("serving_request_errors_total", len(batch),
-                    model=entry.name)
-            return
+        # a batch serves requests of several traces: a root span that
+        # links their request spans
+        bspan = _tr.start_span("serving.batch", model=entry.name,
+                               bucket=bucket, rows=rows,
+                               requests=len(batch))
+        for r in batch:
+            bspan.link(r.span.context if r.span is not None else None)
+        with _tr.activate(bspan):
+            with _tr.span("serving.pad_to_bucket", rows=rows,
+                          bucket=bucket):
+                feed = {}
+                for name in entry.feed_specs:
+                    parts = [r.feeds[name] for r in batch]
+                    if rows < bucket:
+                        parts.append(np.zeros(
+                            (bucket - rows,) + parts[0].shape[1:],
+                            dtype=parts[0].dtype))
+                    feed[name] = np.concatenate(parts, axis=0) \
+                        if len(parts) > 1 else parts[0]
+            # write-through, before execute: a SIGKILL mid-batch leaves
+            # these request ids in flightrec-<pid>.json
+            _tr.note("batch_start", model=entry.name, bucket=bucket,
+                     req_ids=[r.req_id for r in batch])
+            t0 = time.perf_counter()
+            try:
+                # per model version, so a canary can be made to fail
+                if maybe_fail("serving.execute." + entry.name) == "error":
+                    raise RuntimeError("injected execute fault (%s)"
+                                       % entry.name)
+                self._batches_run += 1
+                with _tr.span("serving.execute", bucket=bucket):
+                    outs = pred.run_feed(feed)
+            except Exception as e:  # the engine serves on; the batch fails
+                _log.exception("batch of %d rows failed", rows)
+                ms = (time.perf_counter() - t0) * 1e3
+                for r in batch:
+                    r.complete(InferReply("error", error="%s: %s"
+                                          % (type(e).__name__, e),
+                                          phases=self._phases(r, ms,
+                                                              bucket)))
+                    if r.span is not None:
+                        r.span.annotate(status="error").end()
+                _tm.inc("serving_batch_errors_total", model=entry.name)
+                _tm.inc("serving_request_errors_total", len(batch),
+                        model=entry.name)
+                bspan.annotate(error=str(e)[:200]).end()
+                return
         ms = (time.perf_counter() - t0) * 1e3
         entry.svc_ms = ms if entry.svc_ms <= 0 else \
             0.7 * entry.svc_ms + 0.3 * ms
@@ -1300,6 +1413,8 @@ class ServingEngine:
             off += r.rows
             r.complete(InferReply("ok", outputs=sliced,
                                   phases=self._phases(r, ms, bucket)))
+            if r.span is not None:
+                r.span.annotate(status="ok", bucket=bucket).end()
             _tm.observe("serving_latency_ms", r.reply.latency_ms,
                         model=entry.name)
             # per-version execute time: the rollout gate's signal
@@ -1316,6 +1431,7 @@ class ServingEngine:
                 bucket=str(bucket))
         _tm.observe("serving_batch_fill", rows / float(bucket),
                     model=entry.name)
+        bspan.end()
         if _tm.enabled():
             now = time.time()
             self._done_times.extend([now] * len(batch))

@@ -347,10 +347,10 @@ class AutoScaler:
     Watches queue depth and shed rate (``metrics_fn``: a closure over the
     engine gauges and scraped peers, or ``FleetMonitor.autoscale_metrics``,
     or in tests any stub) and drives ``scale_up_fn`` / ``scale_down_fn``
-    (the reference's replica wires these to "fork a prewarmed standby into
-    the lowest dead rank slot" and "fleet.retire(highest non-coordinator
-    live rank)"; the port's ``tools/torch_serve.py`` does not fork
-    standbys yet).
+    (``tools/torch_serve.py --autoscale`` wires these to "fork a
+    prewarmed standby into the lowest dead rank slot" and
+    "fleet.retire(highest non-coordinator live rank)", as the reference's
+    replica does).
 
     Flap protection is layered: PRESSURE must persist for
     ``FLAGS_serving_scale_up_ticks`` consecutive observations (and idle

@@ -35,14 +35,24 @@ oldest deleted past it, so clients that never read cannot grow the store.
 With a fleet attached (``attach_fleet``), the fleet ticks after every
 inbound frame and at both engines' batch boundaries.
 
+Tracing (``core/tracing.py``, inert unless ``FLAGS_tracing``): an
+``__infer__`` or ``__generate__`` opens its ``serving.admission`` span
+under the request meta's ``traceparent`` (the client's root span), and the
+engine's ``serving.request`` span opens inside it; each reply is published
+inside a ``serving.reply_publish`` span under the request span, and its
+meta echoes the ``traceparent``.  The fault points ``serving.infer`` and
+``serving.generate`` (on arrival) and ``serving.reply`` (on publishing)
+map as the reference maps them: ``drop`` loses the frame or the reply (the
+client's GET times out and it replays), ``error`` answers with an
+"injected fault: <point>" error reply.
+
 Features of the reference the port lacks answer so that no client waits
 on them: ``__rollout_ctl__:<id>`` on a server without a controller gets
 the reference's "replica has no rollout controller" error reply, and
 ``__resume__:<id>`` a refused ``__resumeack__:<id>``.  Left out, compared
 with the reference: the prefill and decode roles (``serving/disagg.py``:
 ``role`` other than "serve" raises) and their ``__kvxfer__`` /
-``__pair__`` frames, session migration, tracing spans and the
-``serving.*`` fault points.
+``__pair__`` frames, and session migration.
 """
 
 import logging
@@ -52,7 +62,9 @@ import numpy as np
 
 from .. import flags
 from ..core import telemetry as _tm
+from ..core import tracing as _tr
 from ..native.rpc import EV_SEND, RpcServer
+from ..utils.fault_injection import maybe_fail
 from . import codec
 from .engine import InferReply
 
@@ -190,22 +202,38 @@ class ServingServer:
         elif self.fleet is not None:
             self.fleet.on_event(name, arr)
 
+    def _injected(self, point, req_id):
+        """Check an arrival fault point -> True when it took the request:
+        "drop" loses the frame, "error" answers it with an error reply."""
+        fault = maybe_fail(point)
+        if fault == "error":
+            self._publish(req_id, InferReply(
+                "error", error="injected fault: " + point))
+        return fault in ("drop", "error")
+
     def _on_infer(self, req_id, arr):
+        if self._injected("serving.infer", req_id):
+            return
         try:
             meta, arrays = codec.unpack(arr)
             feeds = dict(zip(meta["feeds"], arrays))
         except (ValueError, KeyError, TypeError, UnicodeDecodeError):
             self._publish(req_id, None)
             return
-        self.engine.submit(
-            meta.get("model", ""), feeds,
-            tenant=meta.get("tenant", "default"),
-            deadline_ms=meta.get("deadline_ms"), req_id=req_id,
-            tier=meta.get(codec.TIER),
-            callback=lambda pending: self._publish(pending.req_id,
-                                                   pending.reply))
+        tp = meta.get(codec.TRACEPARENT)
+        with _tr.remote_parent(tp):
+            with _tr.span("serving.admission", req_id=req_id,
+                          model=meta.get("model", ""), rank=self.rank):
+                self.engine.submit(
+                    meta.get("model", ""), feeds,
+                    tenant=meta.get("tenant", "default"),
+                    deadline_ms=meta.get("deadline_ms"), req_id=req_id,
+                    tier=meta.get(codec.TIER), traceparent=tp,
+                    callback=self._publish_pending)
 
     def _on_generate(self, req_id, arr):
+        if self._injected("serving.generate", req_id):
+            return
         try:
             meta, arrays = codec.unpack(arr)
             prompt = arrays[0]
@@ -217,14 +245,17 @@ class ServingServer:
                 "error", error="replica has no decode engine"))
             return
         on_token = self._stream_publisher() if meta.get("stream") else None
-        self.decode_engine.submit(
-            meta.get("model", ""), prompt,
-            max_new_tokens=int(meta.get("max_new_tokens", 16)),
-            deadline_ms=meta.get("deadline_ms"),
-            eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
-            on_token=on_token, tenant=meta.get("tenant", "default"),
-            callback=lambda pending: self._publish(pending.req_id,
-                                                   pending.reply))
+        tp = meta.get(codec.TRACEPARENT)
+        with _tr.remote_parent(tp):
+            with _tr.span("serving.admission", req_id=req_id, decode=True,
+                          model=meta.get("model", ""), rank=self.rank):
+                self.decode_engine.submit(
+                    meta.get("model", ""), prompt,
+                    max_new_tokens=int(meta.get("max_new_tokens", 16)),
+                    deadline_ms=meta.get("deadline_ms"),
+                    eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
+                    on_token=on_token, tenant=meta.get("tenant", "default"),
+                    traceparent=tp, callback=self._publish_pending)
 
     # -- publishing ----------------------------------------------------------
 
@@ -250,12 +281,29 @@ class ServingServer:
                             else int(token)}))
         return on_token
 
-    def _publish(self, req_id, reply):
+    def _publish_pending(self, pending):
+        """An engine's completion callback: publish its reply."""
+        self._publish(pending.req_id, pending.reply, pending)
+
+    def _publish(self, req_id, reply, pending=None):
+        fault = maybe_fail("serving.reply")
+        if fault == "drop":
+            return                     # the client's GET times out
         if reply is None:
             reply = InferReply("error", error="malformed request")
-        names = list(reply.outputs)
-        self._publish_keyed(codec.REPLY_KEY + req_id, codec.pack(
-            reply.to_meta(), [reply.outputs[n] for n in names]))
+        if fault == "error":
+            reply = InferReply("error", error="injected fault: serving.reply")
+        # runs on the completing thread: parent under the request span
+        with _tr.span("serving.reply_publish",
+                      parent=getattr(pending, "span", None),
+                      req_id=req_id, status=reply.status):
+            meta = reply.to_meta()
+            tp = getattr(pending, "traceparent", None)
+            if tp:
+                meta[codec.TRACEPARENT] = tp
+            names = list(reply.outputs)
+            self._publish_keyed(codec.REPLY_KEY + req_id, codec.pack(
+                meta, [reply.outputs[n] for n in names]))
 
     # -- control plane -------------------------------------------------------
 

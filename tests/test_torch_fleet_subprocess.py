@@ -1,8 +1,9 @@
 """Two ``tools/torch_serve.py --device cpu`` replicas as a fleet over one
 endpoints file, one SIGKILLed mid-traffic (tests/test_serving_fleet_
 subprocess.py:65 and tests/test_decode_fleet_subprocess.py:61 re-posed on
-the port, without their flight-recorder assertions, since the port has no
-tracing yet).
+the port, with their flight-recorder assertions: the replicas trace, and
+the SIGKILLed one must leave a ``flightrec-<pid>.json`` whose
+``batch_start`` or ``decode_step`` notes name request ids).
 
 The coordinator must notice the silent replica over the ``__fhb__``
 heartbeats, shrink the fleet at a batch boundary and rewrite the file at
@@ -31,11 +32,12 @@ sys.path.insert(0, os.path.dirname(_SERVE))
 from torch_serve import save_demo_decoder, save_demo_model  # noqa: E402
 
 
-def _env():
+def _env(tel_dir):
     env = dict(os.environ)
     env.update({"FLAGS_telemetry": "1",
                 "FLAGS_serving_hb_interval": "0.2",
-                "FLAGS_serving_hb_timeout": "3.0"})
+                "FLAGS_serving_hb_timeout": "3.0",
+                "FLAGS_tracing": "1", "FLAGS_telemetry_dir": tel_dir})
     return env
 
 
@@ -84,8 +86,9 @@ def _fleet(tmp_path, models, extra=()):
         for name, d in models:
             argv += ["--model", "%s=%s" % (name, d)]
         procs.append(("replica%d" % rank, subprocess.Popen(
-            argv, env=_env(), cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True)))
+            argv, env=_env(str(tmp_path / "tel")), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)))
     return procs, eps, eps_file
 
 
@@ -103,6 +106,18 @@ def _kill_and_shrink(victim, eps, eps_file):
     assert victim.wait(10) == -9
     doc = _wait_file(eps_file, lambda d: d["endpoints"] == [eps[0]], 15.0)
     assert doc["epoch"] >= 1
+
+
+def _postmortem(tmp_path, victim, kind):
+    """The SIGKILLed replica's flight record: ``note(kind)`` is written
+    through before the batch or step runs, so it names request ids."""
+    path = tmp_path / "tel" / ("flightrec-%d.json" % victim.pid)
+    assert path.exists(), "the SIGKILLed replica left no flight record"
+    doc = json.loads(path.read_text())
+    assert doc["proc"]["pid"] == victim.pid
+    assert doc["proc"]["name"] == "serving-replica-1"
+    notes = [r for r in doc["records"] if r.get("kind") == kind]
+    assert notes and all(n.get("req_ids") for n in notes), doc
 
 
 def _scrape_until(cli, ep, pred, timeout=10.0):
@@ -161,6 +176,7 @@ def test_sigkill_replica_drops_no_infer(tmp_path):
         stream(40, 0.05)
         killer.join(10.0)
         _kill_and_shrink(victim, eps, eps_file)
+        _postmortem(tmp_path, victim, "batch_start")
         stream(10, 0.02)
         assert [r.status for r in replies] == ["ok"] * 60
         cfg = AnalysisConfig(model_dir)
@@ -214,6 +230,7 @@ def test_sigkill_mid_decode_drops_nothing(tmp_path):
         stream(20, 0.05)
         killer.join(10.0)
         _kill_and_shrink(victim, eps, eps_file)
+        _postmortem(tmp_path, victim, "decode_step")
         stream(10, 0.02)
         assert [r.status for r in replies] == ["ok"] * 40
         for i, (r, got) in enumerate(zip(replies, chunks)):
@@ -231,11 +248,12 @@ def test_sigkill_mid_decode_drops_nothing(tmp_path):
 
 def test_the_replica_refuses_to_fall_back_to_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` the replica exits
-    nonzero; the options of later ROADMAP items are refused by name."""
+    nonzero; the options of later or parked ROADMAP items are refused by
+    name."""
     model_dir = save_demo_model(str(tmp_path / "model"))
     runs = {"cuda": ["--model", "fc=" + model_dir],
-            "autoscale": ["--device", "cpu", "--autoscale",
-                          "--model", "fc=" + model_dir],
+            "cache_dir": ["--device", "cpu", "--cache-dir",
+                          str(tmp_path / "cc"), "--model", "fc=" + model_dir],
             "role": ["--device", "cpu", "--role", "prefill",
                      "--model", "fc=" + model_dir],
             "int8": ["--device", "cpu", "--decode-mode", "int8",

@@ -1,9 +1,11 @@
-"""The port stands alone: every module of ``paddle_tpu_torch``,
-``chip_smoke.py`` and the port's replica and fleet tools
-(``tools/torch_serve.py``, ``tools/torch_fleet_top.py``) import in a
-process where ``jax`` and ``paddle_tpu`` cannot be imported, and the
-port's RPC transport is its own library, built under ``build/native/``,
-never the reference package's."""
+"""The port stands alone: every module of ``paddle_tpu_torch`` (its own
+copies of the host-only ``core/tracing.py`` and
+``utils/fault_injection.py`` among them), ``chip_smoke.py`` and the
+port's replica and fleet tools (``tools/torch_serve.py``,
+``tools/torch_fleet_top.py``) import in a process where ``jax`` and
+``paddle_tpu`` cannot be imported, and the port's RPC transport is its
+own library, built under ``build/native/``, never the reference
+package's."""
 
 import os
 import subprocess
@@ -32,6 +34,19 @@ SCRIPT = textwrap.dedent("""
                                               "paddle_tpu_torch."))
     for name in names:
         importlib.import_module(name)
+    for name in ("paddle_tpu_torch.core.tracing",
+                 "paddle_tpu_torch.utils.fault_injection"):
+        assert name in sys.modules, name
+    # the lazy imports run too: a span, a note, a fired fault point
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import tracing
+    from paddle_tpu_torch.utils import fault_injection
+    set_flags({"FLAGS_tracing": True, "FLAGS_telemetry": True})
+    with tracing.span("s"):
+        tracing.note("n")
+    fault_injection.arm("p:error:1")
+    assert fault_injection.maybe_fail("p") == "error"
+    set_flags({"FLAGS_tracing": False, "FLAGS_telemetry": False})
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in REFUSED)
     assert not loaded, loaded
     from paddle_tpu_torch import native
@@ -58,7 +73,9 @@ def test_port_modules_import_without_jax_or_the_reference():
     for name in ("native/rpc.py", "serving/server.py", "serving/client.py",
                  "serving/codec.py", "serving/fleet.py",
                  "serving/rollout.py", "serving/fleetmon.py",
-                 "core/telemetry.py", "distributed/ps.py",
+                 "core/telemetry.py", "core/tracing.py",
+                 "utils/fault_injection.py", "core/executor.py", "io.py",
+                 "distributed/ps.py",
                  "../tools/torch_serve.py", "../tools/torch_fleet_top.py"):
         with open(os.path.join(ROOT, "paddle_tpu_torch", name)) as f:
             src = f.read()

@@ -25,23 +25,42 @@ Usage:
     # on the CPU (the plain PyTorch path), as the tests run it
     python tools/torch_serve.py --device cpu --model fc=/path
 
+    # an autoscaling fleet: start rank 0 alone over a list with spare
+    # slots; on sustained queue pressure it forks a standby replica (this
+    # command line with --rank K) into the lowest dead slot, and on
+    # sustained idle it retires the highest live rank through a drain
+    python tools/torch_serve.py --model fc=/path --rank 0 \
+        --fleet 127.0.0.1:9000,127.0.0.1:9001 \
+        --endpoints-file /tmp/eps.json --autoscale \
+        --min-replicas 1 --max-replicas 2
+
+    # traced, with a fault armed (FLAGS_* from the environment); merge the
+    # trace-<pid>.jsonl files of every process with tools/trace_view.py
+    FLAGS_tracing=1 FLAGS_telemetry_dir=/tmp/tel \
+        FLAGS_fault_spec="serving.execute.fc:error:1:2" \
+        python tools/torch_serve.py --model fc=/path
+
 Every (model, bucket) is warmed before the replica takes traffic and
 before it joins a fleet; the manifest prints as one ``PREWARM {...}``
-line (the device's name under "device"), then ``READY port=N``.  The
-replica always runs a RolloutController behind ``__rollout_ctl__``, and a
-FleetMonitor (``__fleet__`` on the coordinator) when FLAGS_telemetry is
-on and a fleet or an endpoints file is given.  On SIGTERM or SIGINT, or
-after a ``__retire__`` drain, it prints one ``SERVED {...}`` line (the
-decode steps and encoder batches run since READY) and one ``LAUNCHES
-{...}`` line (the kernel wrappers' launch counts since READY) and exits
-0.  Without a card and without
-``--device cpu`` it exits nonzero.
+line (the device's name under "device"), then ``READY port=N pid=P``.
+The replica always runs a RolloutController behind ``__rollout_ctl__``,
+and a FleetMonitor (``__fleet__`` on the coordinator) when
+FLAGS_telemetry is on and a fleet or an endpoints file is given.  On
+SIGTERM or SIGINT, or after a ``__retire__`` drain, it prints one
+``SERVED {...}`` line (its rank, and the decode steps and encoder
+batches run since READY) and one ``LAUNCHES {...}`` line (the kernel
+wrappers' launch counts since READY) and exits 0.  A standby forked by
+``--autoscale`` writes to the same output.  With FLAGS_tracing on, the
+replica names its track ``serving-replica-<rank>`` and its flight
+recorder dumps ``flightrec-<pid>.json`` on SIGTERM too.  Without a card
+and without ``--device cpu`` it exits nonzero.
 """
 
 import argparse
 import json
 import os
 import signal
+import subprocess
 import sys
 import threading
 
@@ -55,9 +74,9 @@ _NOT_PORTED = {
     "decode_peers": "the prefill and decode roles (ROADMAP A3, "
                     "serving/disagg.py)",
     "speculative_k": "speculative decode (ROADMAP A2)",
-    "cache_dir": "the compile cache and --autoscale's standby forking "
-                 "(ROADMAP A1b)",
-    "autoscale": "--autoscale's standby forking (ROADMAP A1b)",
+    "cache_dir": "a compile cache (ROADMAP, parked beside CUDA graphs: "
+                 "the port runs eager PyTorch and has no executable to "
+                 "persist)",
 }
 
 
@@ -113,6 +132,83 @@ def kernel_launches():
     return {k: f.launches for k, f in kernel_wrappers().items()}
 
 
+def child_argv(rank, argv=None):
+    """This invocation re-exec'd for fleet slot ``rank``: without
+    --autoscale (a standby never scales), --rank, --min-replicas and
+    --max-replicas; every other option, --device among them, kept."""
+    out = [sys.executable, os.path.abspath(__file__)]
+    it = iter(sys.argv[1:] if argv is None else argv)
+    for a in it:
+        if a == "--autoscale":
+            continue
+        if a in ("--rank", "--min-replicas", "--max-replicas"):
+            next(it, None)
+            continue
+        if a.split("=", 1)[0] in ("--rank", "--min-replicas",
+                                  "--max-replicas"):
+            continue
+        out.append(a)
+    return out + ["--rank", str(rank)]
+
+
+def start_autoscaler(args, fleet, engine, decode_engine, monitor):
+    """The coordinator's AutoScaler over this fleet (the reference's
+    role-less branch of ``tools/serve.py``): scale-up forks a standby into
+    the lowest dead slot, scale-down retires the highest live rank other
+    than the coordinator.  A slot whose forked standby is still starting
+    counts as taken, and as a replica, so sustained pressure during its
+    prewarm forks nothing more."""
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import AutoScaler
+
+    children = {}                   # rank -> Popen of the forked standby
+
+    def starting():
+        return {r for r, p in children.items()
+                if p.poll() is None and r not in fleet.live}
+
+    def local_depth():
+        depth = len(engine._queue)
+        if decode_engine is not None:
+            depth += len(decode_engine._waiting)
+        return depth
+
+    def metrics():
+        # the monitor's fleet-windowed view once it has a document, the
+        # local queue and shed counter until then
+        if monitor is not None:
+            m = monitor.autoscale_metrics()
+            if m is not None and m.get("replicas_up"):
+                return m
+        return {"queue_depth": local_depth(),
+                "shed_total": telemetry.counter_total("serving_shed_total")}
+
+    def scale_up():
+        if not fleet.is_coordinator():
+            return
+        busy = fleet.live | starting()
+        dead = [r for r in range(len(fleet.endpoints)) if r not in busy]
+        if not dead:
+            return
+        rank = dead[0]
+        fleet.notice_relaunch(rank)
+        children[rank] = subprocess.Popen(child_argv(rank),
+                                          start_new_session=True)
+
+    def scale_down():
+        if not fleet.is_coordinator():
+            return
+        cands = [r for r in sorted(fleet.live) if r != fleet.rank]
+        if cands:
+            fleet.retire(cands[-1])
+
+    return AutoScaler(
+        metrics, scale_up, scale_down,
+        replicas_fn=lambda: len(fleet.live | starting()),
+        min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas).start()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", action="append", default=[],
@@ -152,7 +248,17 @@ def main(argv=None):
         ap.add_argument(flag, default=None, help="not ported")
     ap.add_argument("--speculative-k", type=int, default=None,
                     help="not ported")
-    ap.add_argument("--autoscale", action="store_true", help="not ported")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="coordinator only: fork a standby replica into "
+                    "the lowest dead --fleet slot on sustained queue "
+                    "pressure, drain and retire the highest live rank on "
+                    "sustained idle")
+    ap.add_argument("--min-replicas", type=int, default=None,
+                    help="autoscaler floor (default "
+                    "FLAGS_serving_min_replicas)")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="autoscaler ceiling (default "
+                    "FLAGS_serving_max_replicas)")
     args = ap.parse_args(argv)
 
     for name, what in _NOT_PORTED.items():
@@ -171,13 +277,25 @@ def main(argv=None):
         return 0
     if not args.model:
         ap.error("at least one --model NAME=DIR is required")
+    if args.autoscale and not args.fleet:
+        ap.error("--autoscale needs --fleet: it forks standbys into the "
+                 "list's dead slots")
 
     import torch
 
-    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.core import telemetry, tracing
     from paddle_tpu_torch.serving import (DecodeEngine, FleetMonitor,
                                           RolloutController, ServingEngine,
                                           ServingFleet, ServingServer)
+
+    done = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: done.set())
+    # names this replica's track in a merged trace; the first record comes
+    # from the main thread, so the flight recorder's SIGTERM hook is
+    # installed here and chains the handler above
+    tracing.set_process_name("serving-replica-%d" % args.rank)
+    tracing.instant("replica_start", rank=args.rank)
 
     engine = ServingEngine(buckets=args.buckets, device=args.device)
     decode_engine = None
@@ -227,15 +345,18 @@ def main(argv=None):
         server.fleetmon = FleetMonitor(
             server=server, fleet=fleet,
             endpoints_file=args.endpoints_file).start()
-
-    done = threading.Event()
     server.on_retire = done.set      # a drained __retire__ exits
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: done.set())
-    print("READY port=%d" % server.port, flush=True)
+    scaler = None
+    if args.autoscale:
+        scaler = start_autoscaler(args, fleet, engine, decode_engine,
+                                  server.fleetmon)
+    print("READY port=%d pid=%d" % (server.port, os.getpid()), flush=True)
     done.wait()
+    if scaler is not None:
+        scaler.stop()
     server.shutdown()                # the monitor, controller and fleet too
     print("SERVED " + json.dumps({
+        "rank": args.rank,
         "decode_steps": (decode_engine.steps - steps0
                          if decode_engine is not None else 0),
         "encoder_batches": engine.batches - batches0}), flush=True)
