@@ -37,6 +37,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ok, every decode step must have gone through the paged-attention
    kernel, and every request's tokens must equal the port's plain unpaged
    loop on the card up to near-ties of the logits;
+4b. speculative decode: the same requests through a DecodeEngine with a
+   one-layer ``truncate_decoder`` draft, k = 3: tokens held the same way,
+   the late request's prefix-cache hit, both pools empty after, row 1
+   launched exactly once a target layer a verify column and a draft layer
+   a rollout step and an ingest column; the acceptance and the rates
+   printed beside phase 4's; one streamed generate through a
+   ServingServer over it, every chunk once;
+4c. int8 KV: the same requests through an int8 engine: the int8 kernel
+   launched once a layer a step and row 1 never, the three shortest
+   prompts' tokens those of the port's int8 path on the CPU up to its
+   near-ties, the agreement with the f32 loop and the pool bytes
+   printed; then int8 with speculation on those three, held the same
+   way;
 5. encoder serving: BERT-base (seeded random weights, seq 128) built with
    the port's Program front end, initialised on the card, saved with
    save_inference_model and served by ServingEngine over three buckets to
@@ -374,11 +387,16 @@ def paged_case(rng, bb, h, d, bs, maxb, lens, dev):
 
 
 def paged_kernel_phase(pa, dev, flush):
-    """Row 1 against its plain version: the timed decode shape, lens on
-    each side of a chunk boundary of the split kernel, full tables, a
-    table of one block, and the head widths of each load path (float4 at
-    D = 40, 64, 128, 256; scalar at D = 30); two calls at the timed shape
-    give the same bits."""
+    """Row 1 and the int8 kernel against their plain versions: the timed
+    decode shape, lens on each side of a chunk boundary of the split
+    kernel, full tables, a table of one block, and the head widths of each
+    load path (row 1: float4 at D = 40, 64, 128, 256, scalar at D = 30;
+    int8: 16-byte loads at D = 64, 128, 256, bytes at D = 30, 40), the
+    int8 pools made by the port's ``quantize_kv`` from the same K/V; idle
+    lanes zero; two calls at the timed shape give the same bits.  -> the
+    two kernels' rows."""
+    from paddle_tpu_torch.serving.kv_cache import quantize_kv
+
     rng = np.random.RandomState(0)
     ck = pa.CHUNK
     cases = {
@@ -401,23 +419,39 @@ def paged_kernel_phase(pa, dev, flush):
     for n in (ck - 1, ck, ck + 1):
         cases["uniform lens %d (chunk %d), B=8 H=12 D=64 bs=16 MAXB=64"
               % (n, ck)] = paged_case(rng, 8, 12, 64, 16, 64, [n] * 8, dev)
-    worst = 0.0
+    def int8_args(c):
+        kq, ks = quantize_kv(c["k"])
+        vq, vs = quantize_kv(c["v"])
+        return (c["q"], kq, vq, ks, vs, c["tables"], c["lens"])
+
+    worst = worst8 = 0.0
     for name, c in cases.items():
         args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
-        out = pa.paged_attention(*args)
-        ref = pa.paged_attention_reference(*args)
         live = c["lens"] > 0
-        worst = max(worst, check("paged_attention", name, [out[live]],
-                                 [ref[live]]))
-        if (~live).any() and float(out[~live].abs().max()) != 0.0:
-            fail("paged_attention idle lane not zero at %s" % name)
+        for kname, kernel, plain, a in (
+                ("paged_attention", pa.paged_attention,
+                 pa.paged_attention_reference, args),
+                ("paged_attention_int8", pa.paged_attention_int8,
+                 pa.paged_attention_int8_reference, int8_args(c))):
+            out = kernel(*a)
+            err = check(kname, name, [out[live]], [plain(*a)[live]])
+            if kname == "paged_attention":
+                worst = max(worst, err)
+            else:
+                worst8 = max(worst8, err)
+            if (~live).any() and float(out[~live].abs().max()) != 0.0:
+                fail("%s idle lane not zero at %s" % (kname, name))
 
     c = cases["decode B=8 H=12 D=64 bs=16 MAXB=64"]
     args = (c["q"], c["k"], c["v"], c["tables"], c["lens"])
+    args8 = int8_args(c)
     if not torch.equal(pa.paged_attention(*args), pa.paged_attention(*args)):
         fail("paged_attention: two calls at the decode shape differ")
-    print("kernel paged_attention: two calls at the decode shape give the "
-          "same bits", flush=True)
+    if not torch.equal(pa.paged_attention_int8(*args8),
+                       pa.paged_attention_int8(*args8)):
+        fail("paged_attention_int8: two calls at the decode shape differ")
+    print("kernel paged_attention, paged_attention_int8: two calls at the "
+          "decode shape give the same bits", flush=True)
     bb, h, d = c["q"].shape
     bs = c["k"].shape[1]
     lens = c["lens"].cpu().numpy().astype(np.int64)
@@ -446,7 +480,28 @@ def paged_kernel_phase(pa, dev, flush):
         "decode shape (SDPA on pre-gathered K/V)")
     row.update(source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
                replaces="paddle_tpu/pallas_kernels/paged_attention.py:105")
-    return row
+
+    # int8: the yardstick is SDPA over the same K/V gathered and
+    # dequantized beforehand (not timed); the bound the int8 rows and
+    # their f32 scales read once
+    kq, vq, ks, vs = args8[1:5]
+    k8 = (kq[idx].float() * ks[idx][..., None]).reshape(bb, -1, h, d)
+    v8 = (vq[idx].float() * vs[idx][..., None]).reshape(bb, -1, h, d)
+    k8 = k8[:, :s].permute(0, 2, 1, 3).contiguous()
+    v8 = v8[:, :s].permute(0, 2, 1, 3).contiguous()
+    nbytes8 = (2 * tok * h * d               # live int8 K and V rows
+               + 2 * tok * h * 4             # their scales
+               + 2 * bb * h * d * 4 + 4 * bb
+               + 4 * int(sum(-(-n // bs) for n in lens)))
+    row8 = timed_row(
+        "paged_attention_int8", lambda: pa.paged_attention_int8(*args8),
+        lambda: pa.paged_attention_int8_reference(*args8),
+        lambda: sdpa(qg, k8, v8, attn_mask=mask), nbytes8,
+        tok * h * (4 * d + 7), flush, worst8,
+        "decode shape (SDPA on pre-gathered, dequantized K/V)")
+    row8.update(source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+                replaces="paddle_tpu/serving/decode_model.py:234")
+    return [row, row8]
 
 
 def _rand(rng, *shape):
@@ -1756,10 +1811,12 @@ def prompts(vocab):
     return out, late
 
 
-def check_decode_tokens(what, allp, replies, refs):
+def check_decode_tokens(what, allp, replies, refs,
+                        ref_name="the unpaged plain loop"):
     """Each reply's tokens against the plain unpaged loop's (``refs``:
-    (tokens, logits) per prompt); a divergence must sit at a near-tie of
-    the plain loop's logits.  -> the number of near-tie divergences."""
+    (tokens, logits) per prompt; another reference named ``ref_name``); a
+    divergence must sit at a near-tie of the reference's logits.  -> the
+    number of near-tie divergences."""
     ties = 0
     for i, (p, r, (want, logits)) in enumerate(zip(allp, replies, refs)):
         got = [int(t) for t in r.outputs["tokens"]]
@@ -1772,25 +1829,62 @@ def check_decode_tokens(what, allp, replies, refs):
                  % (what, i, len(got), len(want)))
         top2 = np.sort(logits[j])[-2:]
         gap = float(top2[1] - top2[0])
-        print("%s: request %d (prompt %d) diverges at token %d: paged %d, "
-              "unpaged %d, unpaged top-2 gap %.3g"
+        print("%s: request %d (prompt %d) diverges at token %d: got %d, "
+              "%s %d, its top-2 gap %.3g"
               % (what, i, len(p), j, got[j] if j < len(got) else -1,
-                 want[j], gap), flush=True)
+                 ref_name, want[j], gap), flush=True)
         if gap >= LOGIT_TIE_TOL:
-            fail("%s request %d diverges from the unpaged loop where the "
-                 "top-2 logit gap %.3g >= %g" % (what, i, gap,
-                                                 LOGIT_TIE_TOL))
+            fail("%s request %d diverges from %s where the top-2 logit gap "
+                 "%.3g >= %g" % (what, i, ref_name, gap, LOGIT_TIE_TOL))
         ties += 1
-    print("%s: tokens equal the unpaged plain loop for %d of %d requests; "
-          "%d near-tie divergences (gap < %g)"
-          % (what, len(replies) - ties, len(replies), ties, LOGIT_TIE_TOL),
-          flush=True)
+    print("%s: tokens equal %s for %d of %d requests; %d near-tie "
+          "divergences (gap < %g)"
+          % (what, ref_name, len(replies) - ties, len(replies), ties,
+             LOGIT_TIE_TOL), flush=True)
     return ties
+
+
+def run_mix(eng, first, late):
+    """The decode mix through a started ``eng``: the ``first`` prompts at
+    once, then the ``late`` shared-prefix request, 32 new tokens each ->
+    (replies, wall s), every reply ok."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit("gpt2-small", p, max_new_tokens=32) for p in first]
+    replies = [r.wait(timeout=900) for r in reqs]
+    replies.append(eng.submit("gpt2-small", late, max_new_tokens=32)
+                   .wait(timeout=900))
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(replies):
+        if r is None or r.status != "ok":
+            fail("decode request %d: %s" % (i, None if r is None
+                                            else (r.status, r.error)))
+    return replies, wall
+
+
+def mix_rates(what, m, replies, wall, steps, card, base=None):
+    """Print the mix's tokens/s, step ms p50 and TTFT p50 (beside
+    ``base``'s, decode_phase's) -> those three."""
+    ntok = sum(len(r.outputs["tokens"]) for r in replies)
+    rates = {"tokens_s": ntok / wall,
+             "step_ms_p50": float(np.percentile(
+                 list(m.step_ms_samples)[-steps:], 50)),
+             "ttft_ms_p50": float(np.percentile(
+                 [r.phases["ttft_ms"] for r in replies], 50))}
+    print("%s: %s; %d tokens in %.3f s = %.2f tokens/s; step_ms p50 %.3f; "
+          "ttft_ms p50 %.3f%s" % (
+              what, card, ntok, wall, rates["tokens_s"],
+              rates["step_ms_p50"], rates["ttft_ms_p50"],
+              "" if base is None else
+              " (decode phase, same card: %.2f tokens/s, step_ms p50 %.3f, "
+              "ttft_ms p50 %.3f)" % (base["tokens_s"], base["step_ms_p50"],
+                                     base["ttft_ms_p50"])), flush=True)
+    return rates
 
 
 def decode_phase(pa):
     """-> (paged_attention launches, the decoder's params, the plain
-    unpaged loop's (tokens, logits) per prompt of ``prompts``)."""
+    unpaged loop's (tokens, logits) per prompt of ``prompts``, the mix's
+    rates)."""
     from paddle_tpu_torch.serving import DecodeEngine, init_decoder_params
 
     cfg = gpt2_small()
@@ -1811,23 +1905,13 @@ def decode_phase(pa):
         # the count starts at 0 just before the main path runs
         pa.paged_attention.launches = 0
         steps0 = eng.steps
-        t0 = time.perf_counter()
-        reqs = [eng.submit("gpt2-small", p, max_new_tokens=32)
-                for p in first]
-        replies = [r.wait(timeout=900) for r in reqs]
-        late_reply = eng.submit("gpt2-small", late, max_new_tokens=32) \
-            .wait(timeout=900)
-        wall = time.perf_counter() - t0
+        replies, wall = run_mix(eng, first, late)
         launches = pa.paged_attention.launches
         steps = eng.steps - steps0
     finally:
         eng.stop()
-    replies.append(late_reply)
     allp = first + [late]
-    for i, r in enumerate(replies):
-        if r is None or r.status != "ok":
-            fail("decode request %d: %s" % (i, None if r is None
-                                            else (r.status, r.error)))
+    late_reply = replies[-1]
     if late_reply.phases["cached_tokens"] != 64:
         fail("shared-prefix request cached %d tokens, want 64"
              % late_reply.phases["cached_tokens"])
@@ -1838,20 +1922,332 @@ def decode_phase(pa):
     if launches != cfg.layers * steps or steps == 0:
         fail("paged_attention launched %d times over %d steps of %d layers"
              % (launches, steps, cfg.layers))
-
-    ntok = sum(len(r.outputs["tokens"]) for r in replies)
-    ttft = [r.phases["ttft_ms"] for r in replies]
-    step_ms = list(m.step_ms_samples)[-steps:]
-    print("decode: %d tokens in %.3f s = %.2f tokens/s; step_ms p50 %.3f; "
-          "ttft_ms p50 %.3f" % (ntok, wall, ntok / wall,
-                                float(np.percentile(step_ms, 50)),
-                                float(np.percentile(ttft, 50))), flush=True)
+    rates = mix_rates("decode", m, replies, wall, steps, card_line())
 
     refs = [m.decoder.unpaged_generate(
         p, 32, pad_len=m.maxb * m.kv_config.block_size, return_logits=True)
         for p in allp]
     check_decode_tokens("decode", allp, replies, refs)
-    return launches, params, refs
+    return launches, params, refs, rates
+
+
+# speculative decode: proposals a lane an iteration, and the draft's layers
+SPEC_K = 3
+DRAFT_LAYERS = 1
+
+
+def shortest(allp, n=3):
+    """The indices of the ``n`` shortest prompts of ``allp``."""
+    return sorted(range(len(allp)), key=lambda i: len(allp[i]))[:n]
+
+
+def spec_launches(cfg, k, dlayers, verifies, rollouts, ingests):
+    """Paged-attention launches of a speculative run: a target layer a
+    verify column, a draft layer a rollout step and an ingest column."""
+    return (cfg.layers * (k + 1) * verifies + dlayers * k * rollouts
+            + dlayers * (k + 1) * ingests)
+
+
+def spec_decode_phase(pa, params, refs, base):
+    """decode_phase's mix through a speculative DecodeEngine (k = SPEC_K,
+    the first DRAFT_LAYERS layers of the same weights as the draft,
+    ``truncate_decoder``; buckets 4, 8; 520 blocks): every reply ok, the
+    tokens the plain loop's up to near-ties, the late request's 64 cached
+    tokens, both pools empty after, and row 1 launched exactly once a
+    target layer a verify column and a draft layer a rollout step and an
+    ingest column.  Then one streamed generate through a ServingServer
+    over the same engine: ``__spec__`` names k and the draft, and the
+    chunks are 0..n-1 once each.  Last, the three shortest prompts with a
+    draft of every layer (the target's own weights), whose proposals the
+    target accepts but at near-ties: the full accept and its catch-up
+    ingest, which the one-layer draft of random weights rarely reaches,
+    held the same way."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
+                                          ServingEngine, ServingServer,
+                                          truncate_decoder)
+
+    cfg = gpt2_small()
+    eng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0)
+    m = eng.add_model("gpt2-small", (cfg, params), kv_blocks=520,
+                      draft=truncate_decoder(cfg, params,
+                                             layers=DRAFT_LAYERS),
+                      speculative_k=SPEC_K)
+    first, late = prompts(cfg.vocab)
+    allp = first + [late]
+    card = card_line()
+    telemetry.reset()
+    set_flags({"FLAGS_telemetry": True})
+    eng.start()
+    try:
+        # the counts start at 0 just before the main path runs
+        pa.paged_attention.launches = 0
+        pa.paged_attention_int8.launches = 0
+        steps0 = eng.steps
+        calls0 = (m.verifies, m.rollouts, m.ingests)
+        replies, wall = run_mix(eng, first, late)
+        launches = pa.paged_attention.launches
+        launches8 = pa.paged_attention_int8.launches
+        steps = eng.steps - steps0
+        verifies, rollouts, ingests = (
+            n - n0 for n, n0 in zip((m.verifies, m.rollouts, m.ingests),
+                                    calls0))
+        in_use = (m.cache.allocator.in_use, m.draft_cache.allocator.in_use)
+        proposed = telemetry.counter_total("spec_tokens_proposed_total")
+        accepted = telemetry.counter_total("spec_tokens_accepted_total")
+        rolled = telemetry.counter_total("spec_blocks_rolled_back_total")
+        srv = ServingServer(ServingEngine(), port=0, decode_engine=eng)
+        srv.start()
+        try:
+            cli = ServingClient(endpoints=["127.0.0.1:%d" % srv.port],
+                                deadline_ms=600000.0)
+            spec = cli.spec("gpt2-small")
+            chunks = []
+            wire = cli.generate("gpt2-small", allp[0], max_new_tokens=32,
+                                stream=True,
+                                on_token=lambda j, t: chunks.append((j, t)))
+        finally:
+            srv.shutdown()
+    finally:
+        eng.stop()
+        set_flags({"FLAGS_telemetry": False})
+        telemetry.reset()
+    if replies[-1].phases["cached_tokens"] != 64:
+        fail("spec: the shared-prefix request cached %d tokens, want 64"
+             % replies[-1].phases["cached_tokens"])
+    if in_use != (0, 0):
+        fail("spec: blocks in use after the mix, target and draft pools: "
+             "%s" % (in_use,))
+    want = spec_launches(cfg, SPEC_K, DRAFT_LAYERS, verifies, rollouts,
+                         ingests)
+    print("spec: k %d, a %d-layer draft; %d replies ok, %d iterations: %d "
+          "verifies, %d rollouts, %d ingests; paged_attention launches %d "
+          "(%d x %d x verifies + %d x %d x rollouts + %d x %d x ingests = "
+          "%d), paged_attention_int8 %d; prefix-cache hit %d tokens; both "
+          "pools empty after; %d blocks rolled back"
+          % (SPEC_K, DRAFT_LAYERS, len(replies), steps, verifies, rollouts,
+             ingests, launches, cfg.layers, SPEC_K + 1, DRAFT_LAYERS, SPEC_K,
+             DRAFT_LAYERS, SPEC_K + 1, want, launches8,
+             replies[-1].phases["cached_tokens"], rolled), flush=True)
+    if launches != want or verifies != steps or steps == 0 or rollouts == 0 \
+            or launches8 != 0:
+        fail("spec: paged_attention launched %d times, want %d (%d "
+             "iterations, %d verifies), paged_attention_int8 %d"
+             % (launches, want, steps, verifies, launches8))
+    check_decode_tokens("spec", allp, replies, refs)
+    acceptance = accepted / proposed if proposed else float("nan")
+    print("spec: %s; acceptance %.4f (%d of %d proposed tokens accepted)"
+          % (card, acceptance, accepted, proposed), flush=True)
+    mix_rates("spec", m, replies, wall, steps, card, base)
+
+    toks = [int(t) for t in wire.outputs["tokens"]] if wire.ok else []
+    if spec.get("speculative_k") != SPEC_K \
+            or (spec.get("draft") or {}).get("layers") != DRAFT_LAYERS:
+        fail("spec wire: __spec__ %s" % json.dumps(spec))
+    if not wire.ok or chunks != list(enumerate(toks)):
+        fail("spec wire: reply %s, chunks %s" % (
+            wire.status, [j for j, _t in chunks][:40]))
+    same = toks == [int(t) for t in replies[0].outputs["tokens"]]
+    if not same:
+        check_decode_tokens("spec wire", allp[:1], [wire], refs[:1])
+    print("spec wire: __spec__ speculative_k %d, draft %s; a streamed "
+          "generate of %d tokens delivered chunks 0..%d once each, tokens "
+          "%s the in-process reply's" % (
+              spec["speculative_k"], json.dumps(spec["draft"]), len(toks),
+              len(toks) - 1, "equal to" if same else
+              "within the near-tie rule of"), flush=True)
+
+    short = shortest(allp)
+    feng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0)
+    fm = feng.add_model("gpt2-small", (cfg, params), kv_blocks=520,
+                        draft=truncate_decoder(cfg, params,
+                                               layers=cfg.layers),
+                        speculative_k=SPEC_K)
+    telemetry.reset()
+    set_flags({"FLAGS_telemetry": True})
+    feng.start()
+    try:
+        pa.paged_attention.launches = 0
+        calls0 = (fm.verifies, fm.rollouts, fm.ingests)
+        reqs = [feng.submit("gpt2-small", allp[i], max_new_tokens=32)
+                for i in short]
+        freplies = [r.wait(timeout=900) for r in reqs]
+        f_launches = pa.paged_attention.launches
+        calls = [n - n0 for n, n0 in zip(
+            (fm.verifies, fm.rollouts, fm.ingests), calls0)]
+        f_prop = telemetry.counter_total("spec_tokens_proposed_total")
+        f_acc = telemetry.counter_total("spec_tokens_accepted_total")
+    finally:
+        feng.stop()
+        set_flags({"FLAGS_telemetry": False})
+        telemetry.reset()
+    for i, r in enumerate(freplies):
+        if r is None or r.status != "ok":
+            fail("spec full draft request %d: %s" % (
+                i, None if r is None else (r.status, r.error)))
+    want = spec_launches(cfg, SPEC_K, cfg.layers, *calls)
+    if f_launches != want or f_acc == 0:
+        fail("spec full draft: paged_attention launched %d times, want %d "
+             "(verifies, rollouts, ingests %s); %d of %d proposals accepted"
+             % (f_launches, want, calls, f_acc, f_prop))
+    check_decode_tokens("spec full draft", [allp[i] for i in short],
+                        freplies, [refs[i] for i in short])
+    print("spec full draft: %s; a draft of all %d layers on prompts of %s "
+          "tokens: acceptance %.4f (%d of %d), paged_attention launches %d "
+          "(verifies, rollouts, ingests %s)"
+          % (card, cfg.layers, [len(allp[i]) for i in short],
+             f_acc / f_prop if f_prop else float("nan"), f_acc, f_prop,
+             f_launches, calls), flush=True)
+
+
+def int8_cpu_refs(cfg, params, allp):
+    """The port's int8 path on the CPU for ``allp``: the int8 engine's
+    tokens (one request at a time, bucket 1) and, for the near-tie rule,
+    the same steps' logits from ``Decoder.paged_step`` over int8 pools ->
+    (tokens, logits) per prompt; the two token lists must agree."""
+    from paddle_tpu_torch.serving import (DecodeEngine, KVCacheConfig,
+                                          PagedKVCache)
+
+    eng = DecodeEngine(buckets="1", block_size=16, deadline_ms=600000.0,
+                       kv_dtype="int8", device="cpu")
+    m = eng.add_model("gpt2-small", (cfg, params), kv_blocks=16)
+    eng.start()
+    try:
+        toks = [[int(t) for t in eng.generate(
+            "gpt2-small", p, max_new_tokens=32).outputs["tokens"]]
+            for p in allp]
+    finally:
+        eng.stop()
+    one = lambda x: torch.tensor([x], dtype=torch.int32)  # noqa: E731
+    out = []
+    for p, want in zip(allp, toks):
+        cache = PagedKVCache(KVCacheConfig(
+            cfg.layers, cfg.heads, cfg.head_dim, 16, m.maxb + 1,
+            dtype="int8"), device="cpu")
+        table = torch.arange(1, m.maxb + 1, dtype=torch.int32)[None]
+        got, logits = [], []
+        tok, pos = p[0], 0
+        while len(got) < 32:
+            nxt, lg = m.decoder.paged_step(cache.k, cache.v, one(tok),
+                                           one(pos), table, one(pos + 1),
+                                           cache.pools[2:])
+            pos += 1
+            if pos < len(p):
+                tok = p[pos]
+                continue
+            tok = int(nxt[0])
+            got.append(tok)
+            logits.append(lg[0].numpy())
+        if got != want:
+            fail("int8 on the CPU: the engine's tokens %s, the step loop's "
+                 "%s" % (want, got))
+        out.append((got, logits))
+    return out
+
+
+def int8_decode_phase(pa, params, refs, base):
+    """decode_phase's mix through an int8 DecodeEngine (kv_dtype "int8",
+    the same buckets and 520 blocks): every reply ok; the int8 kernel
+    launched once a layer a step and row 1 never; on the three shortest
+    prompts the tokens the port's int8 path on the CPU's, up to near-ties
+    of the CPU's logits; each request's agreement with the f32 plain loop
+    printed.  Then int8 with speculation (k = SPEC_K) on those three
+    prompts, its tokens held the same way and its launches as in
+    spec_decode_phase.  -> the int8 kernel's launches."""
+    from paddle_tpu_torch.serving import (DecodeEngine, KVCacheConfig,
+                                          block_bytes, truncate_decoder)
+
+    cfg = gpt2_small()
+    card = card_line()
+    first, late = prompts(cfg.vocab)
+    allp = first + [late]
+    eng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0,
+                       kv_dtype="int8")
+    m = eng.add_model("gpt2-small", (cfg, params), kv_blocks=520)
+    f32_bytes = block_bytes(KVCacheConfig(
+        cfg.layers, cfg.heads, cfg.head_dim, 16, 520)) * 520
+    print("int8: %d KV blocks of 16: %.1f MB int8 with scales against %.1f "
+          "MB f32 (block_bytes)" % (m.kv_config.num_blocks,
+                                    m.cache.nbytes / 1e6, f32_bytes / 1e6),
+          flush=True)
+    eng.start()
+    try:
+        # the counts start at 0 just before the main path runs
+        pa.paged_attention.launches = 0
+        pa.paged_attention_int8.launches = 0
+        steps0 = eng.steps
+        replies, wall = run_mix(eng, first, late)
+        launches8 = pa.paged_attention_int8.launches
+        launches = pa.paged_attention.launches
+        steps = eng.steps - steps0
+    finally:
+        eng.stop()
+    print("int8: %d replies ok, paged_attention_int8 launches %d, decode "
+          "steps %d, layers x steps %d, paged_attention launches %d"
+          % (len(replies), launches8, steps, cfg.layers * steps, launches),
+          flush=True)
+    if launches8 != cfg.layers * steps or steps == 0 or launches != 0:
+        fail("int8: paged_attention_int8 launched %d times over %d steps "
+             "of %d layers, row 1 %d times" % (launches8, steps, cfg.layers,
+                                              launches))
+    mix_rates("int8", m, replies, wall, steps, card, base)
+    prefix, match, total = [], 0, 0
+    for r, (want, _lg) in zip(replies, refs):
+        got = [int(t) for t in r.outputs["tokens"]]
+        prefix.append(next((j for j in range(min(len(got), len(want)))
+                            if got[j] != want[j]), min(len(got), len(want))))
+        match += sum(a == b for a, b in zip(got, want))
+        total += len(want)
+    print("int8: %s; against the f32 plain loop: common prefix %s tokens; "
+          "token-match rate %.4f (%d of %d positions)"
+          % (card, prefix, match / total, match, total), flush=True)
+
+    short = shortest(allp)
+    sp = [allp[i] for i in short]
+    cpu = int8_cpu_refs(cfg, params, sp)
+    on_cpu = "the port's int8 path on the CPU"
+    check_decode_tokens("int8", sp, [replies[i] for i in short], cpu,
+                        on_cpu)
+
+    seng = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0,
+                        kv_dtype="int8")
+    sm = seng.add_model("gpt2-small", (cfg, params), kv_blocks=520,
+                        draft=truncate_decoder(cfg, params,
+                                               layers=DRAFT_LAYERS),
+                        speculative_k=SPEC_K)
+    seng.start()
+    try:
+        pa.paged_attention.launches = 0
+        pa.paged_attention_int8.launches = 0
+        calls0 = (sm.verifies, sm.rollouts, sm.ingests)
+        reqs = [seng.submit("gpt2-small", p, max_new_tokens=32) for p in sp]
+        sreplies = [r.wait(timeout=900) for r in reqs]
+        s_launches8 = pa.paged_attention_int8.launches
+        s_launches = pa.paged_attention.launches
+        calls = [n - n0 for n, n0 in zip(
+            (sm.verifies, sm.rollouts, sm.ingests), calls0)]
+    finally:
+        seng.stop()
+    for i, r in enumerate(sreplies):
+        if r is None or r.status != "ok":
+            fail("int8 spec request %d: %s" % (i, None if r is None
+                                                else (r.status, r.error)))
+    want = spec_launches(cfg, SPEC_K, DRAFT_LAYERS, *calls)
+    if s_launches8 != want or s_launches != 0 or calls[1] == 0:
+        fail("int8 spec: paged_attention_int8 launched %d times, want %d "
+             "(verifies, rollouts, ingests %s), row 1 %d times"
+             % (s_launches8, want, calls, s_launches))
+    check_decode_tokens("int8 spec", sp, sreplies, cpu, on_cpu)
+    same = sum([int(t) for t in a.outputs["tokens"]]
+               == [int(t) for t in replies[i].outputs["tokens"]]
+               for a, i in zip(sreplies, short))
+    print("int8 spec: k %d on prompts of %s tokens: %d replies ok, "
+          "paged_attention_int8 launches %d (verifies, rollouts, ingests "
+          "%s); tokens equal int8 alone on the card for %d of %d"
+          % (SPEC_K, [len(p) for p in sp], len(sreplies), s_launches8,
+             calls, same, len(sp)), flush=True)
+    return launches8
 
 
 # -- phase 5: encoder serving ------------------------------------------------
@@ -2172,6 +2568,7 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, tmp, cfg=None,
 
         def zero():
             pa.paged_attention.launches = 0
+            pa.paged_attention_int8.launches = 0
             fa.flash_attention.launches = 0
             fl.fused_ln_fwd.launches = 0
             ln.layer_norm_2d.launches = 0
@@ -2179,6 +2576,7 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, tmp, cfg=None,
 
         def counts():
             return {"paged_attention": pa.paged_attention.launches,
+                    "paged_attention_int8": pa.paged_attention_int8.launches,
                     "flash_attention": fa.flash_attention.launches,
                     "fused_ln": fl.fused_ln_fwd.launches,
                     "layer_norm": ln.layer_norm_2d.launches}
@@ -2507,10 +2905,12 @@ def check_encoder(what, replies, reqs, cfg, *wants):
 
 def serving_launches(dcfg, cfg, steps, batches):
     """The kernel launches of ``steps`` decode steps of the decoder
-    ``dcfg`` and ``batches`` batches of the BERT encoder ``cfg``: one
-    paged attention a layer a step; a flash attention, two fused_ln and,
-    on the embeddings, one layer_norm a batch."""
+    ``dcfg`` (f32 pools) and ``batches`` batches of the BERT encoder
+    ``cfg``: one paged attention a layer a step and no int8 one; a flash
+    attention, two fused_ln and, on the embeddings, one layer_norm a
+    batch."""
     return {"paged_attention": dcfg.layers * steps,
+            "paged_attention_int8": 0,
             "flash_attention": cfg.layers * batches,
             "fused_ln": 2 * cfg.layers * batches, "layer_norm": batches}
 
@@ -4777,8 +5177,8 @@ def main():
     # BERT-base widths (Devlin et al. 2018) at its published dropout 0.1
     bert_cfg = BertConfig()
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
-    rows = [paged_kernel_phase(pa, dev, flush),
-            flash_kernel_phase(fa, dev, flush)]
+    rows = paged_kernel_phase(pa, dev, flush)
+    rows.append(flash_kernel_phase(fa, dev, flush))
     rows.append(flash_bwd_kernel_phase(fa, dev, flush))
     rows += small_attention_kernel_phase(fa, philox, dev, flush)
     rows += ln_kernel_phase(fl, ln, philox, dev, flush)
@@ -4796,11 +5196,15 @@ def main():
     # kernel's row carries the newest path that launches it
     with tempfile.TemporaryDirectory() as tmp:
         bert_dir = os.path.join(tmp, "bert")
-        dec_launches, params, refs = decode_phase(pa)
+        dec_launches, params, refs, dec_rates = decode_phase(pa)
+        spec_decode_phase(pa, params, refs, dec_rates)
+        int8_launches = int8_decode_phase(pa, params, refs, dec_rates)
         launches, plain_outs = encoder_phase((fa, fl, ln), bert_dir)
         launches["paged_attention"] = dec_launches
         launches.update(wire_phase(pa, (fa, fl, ln), params, refs,
                                    bert_dir, plain_outs, tmp))
+        # the int8 kernel's path is the int8 decode phase
+        launches["paged_attention_int8"] = int8_launches
         try:
             plain_v, started = fleet_phase(
                 params, refs, bert_dir, tmp, start_next=lambda dec_dir:

@@ -57,6 +57,12 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   ``FLAGS_telemetry_dir``) and ``FLAGS_fault_spec`` ("", disarmed;
   ``utils/fault_injection.py``: ``point:kind:prob[:count[:skip]];...``
   checked at the named fault points).
+* Decode serving, the reference's defaults: ``FLAGS_speculative_k`` (0,
+  off): with a bundled draft decoder, ``DecodeEngine`` proposes k tokens
+  a lane through the draft's own paged pool and verifies all k + 1
+  positions in one target step; ``FLAGS_kv_cache_dtype`` ("f32"): the
+  KV pools' residency, ``f32`` or ``int8`` (per-(block, position, head)
+  max-abs scales, ``serving/kv_cache.py``).
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -79,6 +85,8 @@ _DEFAULTS = {
     "FLAGS_telemetry_series_cap": 1024,
     "FLAGS_tracing": False,
     "FLAGS_fault_spec": "",
+    "FLAGS_speculative_k": 0,
+    "FLAGS_kv_cache_dtype": "f32",
     "FLAGS_worker_hb_timeout": 60.0,
     "FLAGS_serving_hb_interval": 0.3,
     "FLAGS_serving_hb_timeout": 2.0,

@@ -53,6 +53,37 @@
 //
 // Entry point: plain C, returns the launch's cudaError_t.  Block ids are
 // clamped to [0, num_blocks) so a bad table can never read outside the pool.
+//
+// paged_attention_int8, the same attention over int8 pools.
+//
+// Replaces: no Pallas kernel.  The int8 branch of make_paged_step
+// (paddle_tpu/serving/decode_model.py:227-242) gathers the lane's whole
+// table of int8 blocks and their f32 scales, dequantizes them and calls the
+// jnp masked_attention:
+//
+//   out[b, h] = softmax_s(q . (Kq[s] ks[s]) * scale) @ (Vq[s] vs[s])
+//
+// with Kq, Vq int8 [NB, bs, H, D] and ks, vs f32 [NB, bs, H], one scale a
+// (block, position, head).  On the card that gather would write
+// [B, MAXB * bs, H, D] f32 a layer a step, four times the pools' bytes.
+// Bound: bytes, as row 1, but a (position, head) costs D bytes of K and of
+// V and 4 of each scale: 136 bytes at D = 64 against row 1's 512.
+// Design: row 1's grid, chunks and merge (the code after the loop is the
+// one `cta_finish`), its loop reading int8 rows in place:
+//   * where D % 16 == 0 and the pools are 16-byte aligned, a lane reads 16
+//     int8 values of a row with one 16-byte load, LP lanes a row; SLOTS
+//     is chosen so that a CTA's 8 warps take 128 positions a step, one
+//     chunk.  Otherwise (D = 30, 40: rows not 16-byte aligned) a warp
+//     reads a position's row a byte a lane;
+//   * each lane of a position's group loads the position's two scales
+//     (one address for the group);
+//   * the dot product sums q times the int8 values converted to f32, and
+//     the position's K scale multiplies the sum once: (q . Kq[s]) ks[s];
+//     the V scale multiplies the position's probability, p vs[s], before
+//     it weighs the int8 row.  That reassociates the reference's
+//     dequantize-then-dot, so the kernel agrees with it to rounding, not
+//     bitwise; the merge order is row 1's, so two runs give the same bits.
+// No dp4a and no tensor cores: the products are f32 FMAs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,6 +134,78 @@ __device__ __forceinline__ float zero<float>() {
 template <>
 __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The end of both kernels' CTA: the 8 warps' states (s_m, s_l and kRow
+// accumulator floats each in sa) weighed into the CTA's (M, L, acc); a
+// lane whose context fits one chunk writes its output, otherwise the CTA
+// writes its split's partial and the CTA of the lane that arrives last
+// merges the live splits in split order and sets the counter back to 0.
+template <int kRow>
+__device__ __forceinline__ void cta_finish(
+    const float* s_m, const float* s_l, const float* sa, float* s_pm,
+    float* s_pl, int* s_last, float* o, float* part, int* count, size_t bh,
+    int S, int split, int n_live, int D, int tid) {
+  float M = s_m[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, s_m[w]);
+  float wsc[kWarps], L = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    wsc[w] = expf(s_m[w] - M);
+    L += s_l[w] * wsc[w];
+  }
+  if (n_live == 1) {                  // the lane's only chunk
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
+      o[d] = a / L;
+    }
+    return;
+  }
+
+  // a partial of the lane's S: (m, l) then acc[D]
+  float* pp = part + (bh * S + split) * (size_t)(D + 2);
+  for (int d = tid; d < D; d += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
+    pp[2 + d] = a;
+  }
+  if (tid == 0) {
+    pp[0] = M;
+    pp[1] = L;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *s_last = atomicAdd(&count[bh], 1) == n_live - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  // the last CTA of the lane's live chunks merges them in split order
+  const float* pb = part + bh * S * (size_t)(D + 2);
+  for (int j = tid; j < n_live; j += kThreads) {
+    s_pm[j] = __ldcg(pb + (size_t)j * (D + 2));
+    s_pl[j] = __ldcg(pb + (size_t)j * (D + 2) + 1);
+  }
+  __syncthreads();
+  float Mg = kMask;
+  for (int j = 0; j < n_live; ++j) Mg = fmaxf(Mg, s_pm[j]);
+  __syncthreads();
+  for (int j = tid; j < n_live; j += kThreads)
+    s_pm[j] = expf(s_pm[j] - Mg);     // split j's weight
+  __syncthreads();
+  float Lg = 0.f;
+  for (int j = 0; j < n_live; ++j) Lg += s_pl[j] * s_pm[j];
+  for (int d = tid; d < D; d += kThreads) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n_live; ++j)
+      a += __ldcg(pb + (size_t)j * (D + 2) + 2 + d) * s_pm[j];
+    o[d] = a / Lg;
+  }
+  if (tid == 0) count[bh] = 0;        // ready for the next launch
 }
 
 // V: float4 or float; W = the floats in a V.  LP lanes read one position's
@@ -256,68 +359,9 @@ paged_attention_kernel(const V* __restrict__ q, const V* __restrict__ k_cache,
     for (int i = 0; i < VPL; ++i) s_acc[warp][gl + LP * i] = acc[i];
   }
   __syncthreads();
-  float M = s_m[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) M = fmaxf(M, s_m[w]);
-  float wsc[kWarps], L = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wsc[w] = expf(s_m[w] - M);
-    L += s_l[w] * wsc[w];
-  }
-  const float* sa = reinterpret_cast<const float*>(&s_acc[0][0]);
-  constexpr int kRow = LP * VPL * W;  // floats of one warp's accumulator
-  if (n_live == 1) {                  // the lane's only chunk
-    for (int d = tid; d < D; d += kThreads) {
-      float a = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
-      o[d] = a / L;
-    }
-    return;
-  }
-
-  // a partial of the lane's S: (m, l) then acc[D]
-  float* pp = part + (bh * S + split) * (size_t)(D + 2);
-  for (int d = tid; d < D; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += sa[w * kRow + d] * wsc[w];
-    pp[2 + d] = a;
-  }
-  if (tid == 0) {
-    pp[0] = M;
-    pp[1] = L;
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&count[bh], 1) == n_live - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // the last CTA of the lane's live chunks merges them in split order
-  const float* pb = part + bh * S * (size_t)(D + 2);
-  for (int j = tid; j < n_live; j += kThreads) {
-    s_pm[j] = __ldcg(pb + (size_t)j * (D + 2));
-    s_pl[j] = __ldcg(pb + (size_t)j * (D + 2) + 1);
-  }
-  __syncthreads();
-  float Mg = kMask;
-  for (int j = 0; j < n_live; ++j) Mg = fmaxf(Mg, s_pm[j]);
-  __syncthreads();
-  for (int j = tid; j < n_live; j += kThreads)
-    s_pm[j] = expf(s_pm[j] - Mg);     // split j's weight
-  __syncthreads();
-  float Lg = 0.f;
-  for (int j = 0; j < n_live; ++j) Lg += s_pl[j] * s_pm[j];
-  for (int d = tid; d < D; d += kThreads) {
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < n_live; ++j)
-      a += __ldcg(pb + (size_t)j * (D + 2) + 2 + d) * s_pm[j];
-    o[d] = a / Lg;
-  }
-  if (tid == 0) count[bh] = 0;        // ready for the next launch
+  cta_finish<LP * VPL * W>(s_m, s_l, reinterpret_cast<const float*>(
+                               &s_acc[0][0]), s_pm, s_pl, &s_last, o, part,
+                           count, bh, S, split, n_live, D, tid);
 }
 
 template <typename V, int LP, int VPL, int SLOTS>
@@ -333,6 +377,227 @@ cudaError_t launch(const float* q, const float* k, const float* v,
       reinterpret_cast<const V*>(q), reinterpret_cast<const V*>(k),
       reinterpret_cast<const V*>(v), tables, lens, out, part, count, H, D,
       NB, BS, MAXB, chunk, scale);
+  return cudaGetLastError();
+}
+
+// -- int8 residency ----------------------------------------------------------
+
+// W int8 values a lane reads at once: 16 (one 16-byte load) or 1
+template <int W>
+struct I8;
+template <>
+struct I8<16> {
+  using T = int4;
+};
+template <>
+struct I8<1> {
+  using T = signed char;
+};
+
+__device__ __forceinline__ void to_f32(const int4& r, float (&f)[16]) {
+  const int w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[4 * j + b] =
+          static_cast<float>(static_cast<signed char>((w[j] >> (8 * b)) & 0xff));
+}
+__device__ __forceinline__ void to_f32(signed char r, float (&f)[1]) {
+  f[0] = static_cast<float>(r);
+}
+
+// LP lanes read one position's row, VPL chunks of W int8 values a lane
+// (Dv = D / W <= LP * VPL); SLOTS positions a group holds before it
+// reduces.  The grid, the chunk's table, the idle and empty CTAs and the
+// end are row 1's.
+template <int W, int LP, int VPL, int SLOTS>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_int8_kernel(const float* __restrict__ q,
+                            const typename I8<W>::T* __restrict__ k_cache,
+                            const typename I8<W>::T* __restrict__ v_cache,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale,
+                            const int* __restrict__ block_tables,
+                            const int* __restrict__ context_lens,
+                            float* __restrict__ out, float* __restrict__ part,
+                            int* __restrict__ count, int H, int D, int NB,
+                            int BS, int MAXB, int chunk, float scale) {
+  using T = typename I8<W>::T;
+  constexpr int G = 32 / LP;          // groups (positions at once) a warp
+  constexpr int PW = G * SLOTS;       // positions a warp per step
+  constexpr int kRow = LP * VPL * W;  // floats of one warp's accumulator
+  extern __shared__ int s_table[];    // the chunk's block ids
+  __shared__ float s_m[kWarps];
+  __shared__ float s_l[kWarps];
+  __shared__ float s_acc[kWarps][kRow];
+  __shared__ float s_pm[kMaxSplits];  // the merge: each split's m, l
+  __shared__ float s_pl[kMaxSplits];
+  __shared__ int s_last;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int S = gridDim.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane / LP;
+  const int gl = lane % LP;
+  const int Dv = D / W;
+  const size_t bh = (size_t)b * H + h;
+  float* o = out + bh * D;
+
+  const int start = split * chunk;
+  const int blk0 = start / BS;
+  const int nblk = min(MAXB, (start + chunk - 1) / BS + 1) - blk0;
+  for (int j = tid; j < nblk; j += kThreads) {
+    int t = block_tables[(size_t)b * MAXB + blk0 + j];
+    t = t < 0 ? 0 : (t >= NB ? NB - 1 : t);
+    s_table[j] = t;
+  }
+  float qr[VPL][W];
+  const float* qp = q + bh * D;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = gl + LP * i;
+#pragma unroll
+    for (int e = 0; e < W; ++e) qr[i][e] = c < Dv ? qp[c * W + e] : 0.f;
+  }
+  int n = context_lens[b];
+  if (n > MAXB * BS) n = MAXB * BS;
+  if (n <= 0) {
+    if (split == 0)
+      for (int d = tid; d < D; d += kThreads) o[d] = 0.f;
+    return;
+  }
+  if (start >= n) return;             // an empty chunk: weighs nothing
+  const int end = min(n, start + chunk);
+  const int n_live = (n + chunk - 1) / chunk;
+  __syncthreads();
+
+  const size_t row = (size_t)H * Dv;  // T's between positions of a block
+  float m = kMask, l = 0.f;
+  float acc[VPL][W];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int e = 0; e < W; ++e) acc[i][e] = 0.f;
+
+  for (int t0 = start + warp * PW; t0 < end; t0 += kWarps * PW) {
+    T kr[SLOTS][VPL], vr[SLOTS][VPL];
+    float ks[SLOTS], vs[SLOTS];
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) {
+      const int t = t0 + u * G + grp;
+      if (t < end) {
+        const size_t at = (size_t)s_table[t / BS - blk0] * BS + t % BS;
+        const size_t base = at * row + (size_t)h * Dv;
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) {
+          const int c = gl + LP * i;
+          kr[u][i] = c < Dv ? k_cache[base + c] : T{};
+          vr[u][i] = c < Dv ? v_cache[base + c] : T{};
+        }
+        ks[u] = k_scale[at * H + h];
+        vs[u] = v_scale[at * H + h];
+      } else {
+#pragma unroll
+        for (int i = 0; i < VPL; ++i) kr[u][i] = vr[u][i] = T{};
+        ks[u] = vs[u] = 0.f;
+      }
+    }
+    float s[SLOTS];
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) {
+      float dt = 0.f;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        float f[W];
+        to_f32(kr[u][i], f);
+#pragma unroll
+        for (int e = 0; e < W; ++e) dt += qr[i][e] * f[e];
+      }
+#pragma unroll
+      for (int off = LP / 2; off > 0; off >>= 1)
+        dt += __shfl_xor_sync(0xffffffffu, dt, off);
+      // the K scale once on the sum, then the softmax scale
+      s[u] = (t0 + u * G + grp < end) ? dt * ks[u] * scale : -INFINITY;
+    }
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) mx = fmaxf(mx, s[u]);
+    const float alpha = expf(m - mx);
+    float p[SLOTS], psum = 0.f;
+#pragma unroll
+    for (int u = 0; u < SLOTS; ++u) {
+      p[u] = expf(s[u] - mx);
+      psum += p[u];
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[i][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < SLOTS; ++u) {
+        float f[W];
+        to_f32(vr[u][i], f);
+        const float pv = p[u] * vs[u];  // the V scale on the weight
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[i][e] += pv * f[e];
+      }
+    }
+    m = mx;
+  }
+
+  // the warp's groups, then the CTA's warps, as row 1
+#pragma unroll
+  for (int off = LP; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mx = fmaxf(m, mo);
+    const float a = expf(m - mx), c = expf(mo - mx);
+    l = l * a + lo * c;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float other = __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+        acc[i][e] = acc[i][e] * a + c * other;
+      }
+    m = mx;
+  }
+  if (lane == 0) {
+    s_m[warp] = m;
+    s_l[warp] = l;
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+#pragma unroll
+      for (int e = 0; e < W; ++e) s_acc[warp][(gl + LP * i) * W + e] = acc[i][e];
+  }
+  __syncthreads();
+  cta_finish<kRow>(s_m, s_l, &s_acc[0][0], s_pm, s_pl, &s_last, o, part,
+                   count, bh, S, split, n_live, D, tid);
+}
+
+template <int W, int LP, int VPL, int SLOTS>
+cudaError_t launch_int8(const float* q, const signed char* k,
+                        const signed char* v, const float* ks,
+                        const float* vs, const int* tables, const int* lens,
+                        float* out, float* part, int* count, int B, int H,
+                        int D, int NB, int BS, int MAXB, int chunk,
+                        int splits, float scale, cudaStream_t stream) {
+  using T = typename I8<W>::T;
+  const dim3 grid(H, B, splits);
+  const size_t smem = (size_t)(chunk / BS + 2) * sizeof(int);
+  paged_attention_int8_kernel<W, LP, VPL, SLOTS>
+      <<<grid, kThreads, smem, stream>>>(
+          q, reinterpret_cast<const T*>(k), reinterpret_cast<const T*>(v),
+          ks, vs, tables, lens, out, part, count, H, D, NB, BS, MAXB, chunk,
+          scale);
   return cudaGetLastError();
 }
 
@@ -376,4 +641,41 @@ extern "C" cudaError_t paged_attention_f32(
   if (ni <= 4) return launch<float, 32, 4, 4>(PAGED_ARGS);
   return launch<float, 32, 8, 4>(PAGED_ARGS);
 #undef PAGED_ARGS
+}
+
+// The int8 pools' attention: k_cache / v_cache int8 [NB, BS, H, D],
+// k_scale / v_scale f32 [NB, BS, H]; every other argument as
+// paged_attention_f32's.
+extern "C" cudaError_t paged_attention_int8(
+    const float* q, const signed char* k_cache, const signed char* v_cache,
+    const float* k_scale, const float* v_scale, const int* block_tables,
+    const int* context_lens, float* out, float* part, int* count, int B,
+    int H, int D, int NB, int BS, int MAXB, int chunk, int splits,
+    float scale, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || D <= 0 || D > kMaxD || NB <= 0 || BS <= 0 ||
+      MAXB <= 0 || MAXB > kMaxTable || B > 65535 || H > 65535 ||
+      chunk <= 0 || splits <= 0 || splits > kMaxSplits ||
+      (long long)chunk * splits < (long long)MAXB * BS ||
+      (long long)chunk * (splits - 1) >= (long long)MAXB * BS ||
+      (splits > 1 && (part == nullptr || count == nullptr)))
+    return cudaErrorInvalidValue;
+  const bool vec = D % 16 == 0 && aligned16(k_cache) && aligned16(v_cache);
+#define INT8_ARGS                                                          \
+  q, k_cache, v_cache, k_scale, v_scale, block_tables, context_lens, out, \
+      part, count, B, H, D, NB, BS, MAXB, chunk, splits, scale, stream
+  if (vec) {  // LP lanes a position, 16 int8 values each; 128 positions a
+              // CTA step
+    const int dv = D / 16;
+    if (dv <= 2) return launch_int8<16, 2, 1, 1>(INT8_ARGS);
+    if (dv <= 4) return launch_int8<16, 4, 1, 2>(INT8_ARGS);
+    if (dv <= 8) return launch_int8<16, 8, 1, 4>(INT8_ARGS);
+    return launch_int8<16, 16, 1, 8>(INT8_ARGS);
+  }
+  // a warp a position, byte lane + 32 i of its row
+  const int ni = (D + 31) / 32;
+  if (ni <= 1) return launch_int8<1, 32, 1, 4>(INT8_ARGS);
+  if (ni <= 2) return launch_int8<1, 32, 2, 4>(INT8_ARGS);
+  if (ni <= 4) return launch_int8<1, 32, 4, 4>(INT8_ARGS);
+  return launch_int8<1, 32, 8, 4>(INT8_ARGS);
+#undef INT8_ARGS
 }

@@ -1,4 +1,5 @@
-"""Serving on the port: decode (paged KV cache, decoder, DecodeEngine),
+"""Serving on the port: decode (paged KV cache in f32 or int8, decoder
+and its draft, DecodeEngine with speculative decode),
 batched inference (ServingEngine over AnalysisPredictor), the wire
 (ServingServer and ServingClient over the port's RPC transport, frames
 packed by ``codec``), and the fleet's control plane (ServingFleet and
@@ -6,23 +7,28 @@ AutoScaler, RolloutController and its gate, FleetMonitor)."""
 
 from .client import ServingClient, read_endpoints_doc, read_endpoints_file
 from .decode_model import (Decoder, DecoderConfig, from_jax_params,
-                           init_decoder_params, load_decoder, save_decoder)
+                           has_draft, init_decoder_params, is_decoder_dir,
+                           load_decoder, load_draft, save_decoder,
+                           truncate_decoder)
 from .engine import (DecodeEngine, InferReply, ServingEngine, parse_buckets,
                      parse_tier_weights, tier_weight)
 from .fleet import AutoScaler, ServingFleet
 from .fleetmon import FleetMonitor
 from .kv_cache import (BlockAllocator, KVCacheConfig, PagedKVCache,
-                       PrefixCache, block_bytes, plan_num_blocks)
+                       PrefixCache, block_bytes, dequantize_kv,
+                       plan_num_blocks, quantize_kv)
 from .rollout import (RolloutController, evaluate_gate, merge_stats,
                       stats_from_snapshot)
 from .server import ServingServer
 
 __all__ = ["Decoder", "DecoderConfig", "from_jax_params",
            "init_decoder_params", "load_decoder", "save_decoder",
+           "is_decoder_dir", "has_draft", "load_draft", "truncate_decoder",
            "DecodeEngine", "InferReply", "ServingEngine",
            "parse_tier_weights", "tier_weight",
            "parse_buckets", "BlockAllocator", "KVCacheConfig",
            "PagedKVCache", "PrefixCache", "block_bytes", "plan_num_blocks",
+           "quantize_kv", "dequantize_kv",
            "ServingServer", "ServingClient", "read_endpoints_file",
            "read_endpoints_doc", "ServingFleet", "AutoScaler",
            "RolloutController", "FleetMonitor", "evaluate_gate",

@@ -12,10 +12,18 @@ by either package loads into the other.
 
 * ``paged_step`` writes this token's K/V into the paged pool (block ids
   from the lane's block table) and attends through ``paged_attention``,
-  the CUDA kernel on the card and the plain gather on the CPU;
+  the CUDA kernel on the card and the plain gather on the CPU; over int8
+  pools it quantizes the token's K/V (``kv_cache.quantize_kv``), writes
+  payload and scales, and attends through ``paged_attention_int8``;
 * ``unpaged_step`` is the reference: contiguous per-lane K/V
   ``[L, B, S, H, D]`` written at ``pos`` and attended by the same
   ``masked_attention`` core.
+
+Speculative decode composes ``paged_step``: ``paged_step_multi`` scores
+W tokens a lane (the target's verify, the draft's catch-up ingest) and
+``draft_rollout`` chains k greedy draft steps.  ``save_decoder(draft=)``
+bundles a draft under ``<dir>/draft`` and ``truncate_decoder`` cuts one
+from a target.
 
 Where the JAX steps take a donated carry and return new arrays, these
 write the pools in place (``index_put_``) and return only tokens and
@@ -31,10 +39,13 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels import _build
-from ..kernels.paged_attention import masked_attention, paged_attention
+from ..kernels.paged_attention import (masked_attention, paged_attention,
+                                       paged_attention_int8)
+from .kv_cache import quantize_kv
 
 __all__ = ["DecoderConfig", "init_decoder_params", "save_decoder",
-           "load_decoder", "Decoder", "from_jax_params"]
+           "load_decoder", "is_decoder_dir", "has_draft", "load_draft",
+           "truncate_decoder", "Decoder", "from_jax_params"]
 
 
 class DecoderConfig:
@@ -84,14 +95,20 @@ def init_decoder_params(cfg, seed=0):
     return p
 
 
-def save_decoder(dirname, cfg, params):
+def save_decoder(dirname, cfg, params, draft=None):
     """params.npz + decoder.json under ``dirname`` (the reference's
-    format)."""
+    format).  ``draft``, a (DecoderConfig, params) pair, lands as a nested
+    bundle under ``<dirname>/draft``; its vocab must be the target's."""
+    if draft is not None and draft[0].vocab != cfg.vocab:
+        raise ValueError("draft vocab %d != target vocab %d"
+                         % (draft[0].vocab, cfg.vocab))
     os.makedirs(dirname, exist_ok=True)
     np.savez(os.path.join(dirname, "params.npz"),
              **{k: np.asarray(v, np.float32) for k, v in params.items()})
     with open(os.path.join(dirname, "decoder.json"), "w") as fp:
         json.dump(cfg.to_dict(), fp, indent=1, sort_keys=True)
+    if draft is not None:
+        save_decoder(os.path.join(dirname, "draft"), *draft)
     return dirname
 
 
@@ -103,6 +120,35 @@ def load_decoder(dirname):
     with np.load(os.path.join(dirname, "params.npz")) as z:
         params = {k: z[k] for k in z.files}
     return cfg, params
+
+
+def is_decoder_dir(dirname):
+    return os.path.exists(os.path.join(dirname, "decoder.json"))
+
+
+def has_draft(dirname):
+    return is_decoder_dir(os.path.join(dirname, "draft"))
+
+
+def load_draft(dirname):
+    """The bundled draft decoder, or None when the target ships alone."""
+    return load_decoder(os.path.join(dirname, "draft")) \
+        if has_draft(dirname) else None
+
+
+def truncate_decoder(cfg, params, layers=1):
+    """A draft cut from a target: its first ``layers`` transformer layers
+    with the embeddings, final LayerNorm and head as they are (the
+    reference's distillation-free draft for demos and smokes)."""
+    layers = min(int(layers), cfg.layers)
+    dcfg = DecoderConfig(vocab=cfg.vocab, layers=layers, heads=cfg.heads,
+                         head_dim=cfg.head_dim, ffn=cfg.ffn,
+                         max_seq=cfg.max_seq)
+    keep = {"embed", "pos_embed", "lnf_g", "lnf_b", "head"}
+    dparams = {k: np.asarray(v) for k, v in params.items()
+               if k in keep or (k.startswith("l")
+                                and int(k[1:k.index("_")]) < layers)}
+    return dcfg, dparams
 
 
 def _ln(x, g, b):
@@ -159,9 +205,11 @@ class Decoder(torch.nn.Module):
 
     @torch.no_grad()
     def paged_step(self, k_pool, v_pool, tok, pos, block_tables,
-                   context_lens):
+                   context_lens, scales=None):
         """One token per lane through the paged pools -> (next_tokens
-        int32 [B], logits [B, vocab]).
+        int32 [B], logits [B, vocab]).  ``scales`` (k_scale, v_scale)
+        marks int8 pools (``PagedKVCache.pools`` gives the four tensors in
+        this order).
 
         tok/pos/context_lens are [B], block_tables [B, MAXB], all int32
         tensors on the decoder's device.  ``context_lens[b]`` counts the
@@ -182,14 +230,73 @@ class Decoder(torch.nn.Module):
         offs = pos % bs
 
         def attend(l, q, k, v):
-            k_pool[l].index_put_((slot, offs), k)
-            v_pool[l].index_put_((slot, offs), v)
-            return paged_attention(q, k_pool[l], v_pool[l], block_tables,
-                                   context_lens)
+            if scales is None:
+                k_pool[l].index_put_((slot, offs), k)
+                v_pool[l].index_put_((slot, offs), v)
+                return paged_attention(q, k_pool[l], v_pool[l],
+                                       block_tables, context_lens)
+            # the quantize stays plain torch ops, as the reference's jnp
+            k_scale, v_scale = scales
+            qk, sk = quantize_kv(k)
+            qv, sv = quantize_kv(v)
+            k_pool[l].index_put_((slot, offs), qk)
+            v_pool[l].index_put_((slot, offs), qv)
+            k_scale[l].index_put_((slot, offs), sk)
+            v_scale[l].index_put_((slot, offs), sv)
+            return paged_attention_int8(q, k_pool[l], v_pool[l], k_scale[l],
+                                        v_scale[l], block_tables,
+                                        context_lens)
 
         logits = self._token_logits(tok, pos, attend)
         # torch.argmax, like jnp.argmax, returns the first maximum
         return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    def _pools_step(self, pools, tok, pos, block_tables, context_lens):
+        return self.paged_step(pools[0], pools[1], tok, pos, block_tables,
+                               context_lens,
+                               scales=tuple(pools[2:]) or None)
+
+    @torch.no_grad()
+    def paged_step_multi(self, pools, tok, pos, block_tables, context_lens):
+        """W query tokens a lane -> (next_tokens int32 [B, W], logits [B,
+        W, vocab]): tok/pos/context_lens [B, W], block_tables [B, MAXB];
+        ``pools`` as ``PagedKVCache.pools``.  Column j is one
+        ``paged_step`` at the [B] shapes of a plain decode step, in column
+        order: the same write-then-attend sequence is what makes a
+        speculative verify's tokens the non-speculative ones.  A lane
+        feeding fewer than W tokens puts them last and fills the leading
+        columns with lens 0 writes at its first valid position, which the
+        first real column overwrites before anything attends it."""
+        nxts, logits = [], []
+        for j in range(tok.shape[1]):
+            nxt, lg = self._pools_step(pools, tok[:, j], pos[:, j],
+                                       block_tables,
+                                       context_lens[:, j].contiguous())
+            nxts.append(nxt)
+            logits.append(lg)
+        return torch.stack(nxts, dim=1), torch.stack(logits, dim=1)
+
+    @torch.no_grad()
+    def draft_rollout(self, pools, tok, pos, block_tables, context_lens,
+                      max_pos, k):
+        """``k`` chained greedy proposals a lane -> int32 [B, k]: feed
+        tok[b] at pos[b], its argmax at pos[b] + 1, and so on, writing K/V
+        through the lane's table.  All [B] tensors on the device, the
+        chain stays there.  The write position is clamped to ``max_pos``
+        (the lane's last reserved position), so a lane near its budget
+        re-writes that position instead of a block it does not hold; an
+        idle lane (context_lens 0) keeps lens 0 throughout."""
+        live = context_lens > 0
+        props = []
+        for j in range(k):
+            nxt, _lg = self._pools_step(
+                pools, tok, torch.minimum(pos + j, max_pos), block_tables,
+                torch.where(live, torch.minimum(context_lens + j,
+                                                max_pos + 1),
+                            torch.zeros_like(context_lens)))
+            props.append(nxt)
+            tok = nxt
+        return torch.stack(props, dim=1)
 
     @torch.no_grad()
     def unpaged_step(self, k_c, v_c, tok, pos, context_lens):

@@ -2,9 +2,8 @@
 paged KV cache + token-level batching) and ``ServingEngine`` (batched
 inference over AnalysisPredictor, at the end of this module).
 
-``DecodeEngine`` is the counterpart of the non-speculative f32 path of
-``DecodeEngine`` in ``paddle_tpu/serving/engine.py``.  Every iteration of
-the decode loop:
+``DecodeEngine`` is the counterpart of ``DecodeEngine`` in
+``paddle_tpu/serving/engine.py``.  Every iteration of the decode loop:
 
 1. times out queued sequences whose deadline passed, then admits waiting
    sequences into free lanes while the pool can hold their prompts (in
@@ -29,19 +28,38 @@ cover sheds with ``retry_after_ms``.  Prefix caching (on by default)
 seeds a new sequence's table with shared, refcounted blocks of an
 earlier identical prompt prefix and jumps its feed pointer past them.
 
+Int8 KV residency (``kv_dtype="int8"``, default ``FLAGS_kv_cache_dtype``)
+keeps the pools in int8 with a max-abs scale a (block, position, head);
+the step quantizes each token's K/V and attends through
+``paged_attention_int8``.  Speculative decode (``speculative_k`` > 0,
+default ``FLAGS_speculative_k``, with a bundled draft decoder) replaces
+step 3 by one iteration of ``_spec_step_locked``: the draft proposes k
+tokens a generating lane through its own paged pool (one
+``draft_rollout``), ONE (k+1)-column target ``paged_step_multi``
+verifies them, the longest prefix matching the target's greedy chain is
+accepted, both pools roll back to the accepted frontier in the same
+iteration (``trim_table``), and the draft catches up on what it missed
+(one ``paged_step_multi`` ingest).  Prefill lanes ride the verify as
+chunks of up to k+1 prompt tokens.  Greedy accept keeps the tokens those
+of the non-speculative engine; the draft only moves the speed.
+
 Both engines emit the reference's serving metrics into the port's
 telemetry registry (``core/telemetry.py``, inert unless
 ``FLAGS_telemetry``), under the reference's names, labels and buckets,
 and call ``on_batch_boundary`` (the fleet's eviction hook) between
 batches and between decode steps, never while ``in_batch`` is true.
-``DecodeEngine.prewarm`` runs one step per lane bucket.
+``DecodeEngine.prewarm`` runs one step per lane bucket (speculative:
+the verify, rollout and ingest once each).
 
 Both engines trace as the reference does (``core/tracing.py``, inert
 unless ``FLAGS_tracing``): an admitted request opens ``serving.request``
 (under the server's admission span when submitted inside it) with a
 ``serving.queue_wait`` child ended at admission to a lane or dispatch; a
 decode step is a ``serving.decode_step`` span linking each lane's request
-span, an encoder batch a ``serving.batch`` span linking its requests, with
+span (speculative: with ``serving.draft``, ``serving.verify`` and
+``serving.draft_ingest`` children, ``k_proposed`` and ``k_accepted``
+attrs, and a ``decode_step`` note a phase), an encoder batch a
+``serving.batch`` span linking its requests, with
 ``serving.pad_to_bucket`` and ``serving.execute`` (the Executor's
 ``executor.step`` nests under it) as children.  Before the device work
 starts, a write-through ``note`` (``decode_step`` or ``batch_start``)
@@ -52,10 +70,10 @@ the lock before each decode iteration that has work, and
 ``serving.execute.<model>``, checked before a batch runs ("error" fails
 the batch).
 
-Left out of the decode engine, compared with the reference: speculative
-decode, int8 KV, disaggregated handoff, session migration and history
-publication, and tier weights and tier eviction (every decode request is
-tier "default").
+Left out of the decode engine, compared with the reference:
+disaggregated handoff, session migration and history publication, and
+tier weights and tier eviction (every decode request is tier
+"default").
 """
 
 import collections
@@ -71,6 +89,7 @@ import torch
 from ..core import telemetry as _tm
 from ..core import tracing as _tr
 from ..device import resolve_device, set_f32_numerics
+from ..flags import flag as _flag
 from ..utils.fault_injection import maybe_fail
 from . import decode_model as _dm
 from . import kv_cache as _kvc
@@ -168,9 +187,10 @@ class _DecodeSeq:
     step's output discarded, so a preempted sequence never re-emits."""
 
     __slots__ = ("pending", "prompt", "max_new", "eos_id", "on_token",
-                 "blocks", "table", "n_fed", "next_tok", "out", "t_admit",
-                 "t_first", "token_times", "admit_seq", "aborted", "hashes",
-                 "published", "cached_tokens", "replay_upto")
+                 "blocks", "table", "draft_blocks", "draft_table", "n_fed",
+                 "next_tok", "out", "t_admit", "t_first", "token_times",
+                 "admit_seq", "aborted", "hashes", "published",
+                 "cached_tokens", "replay_upto")
 
     def __init__(self, pending, prompt, max_new, eos_id, on_token, maxb):
         self.pending = pending
@@ -180,6 +200,8 @@ class _DecodeSeq:
         self.on_token = on_token
         self.blocks = []                      # allocator block ids held
         self.table = np.full(maxb, -1, np.int32)
+        self.draft_blocks = []                # the draft pool's, speculating
+        self.draft_table = np.full(maxb, -1, np.int32)
         self.n_fed = 0
         self.next_tok = self.prompt[0]
         self.out = []
@@ -201,11 +223,20 @@ class _DecodeSeq:
         p = len(self.prompt)
         return self.prompt[i] if i < p else self.out[i - p]
 
+    def feed_slice(self, start, span):
+        return [self.feed_tok(i) for i in range(start, start + span)]
+
+    @property
+    def total(self):
+        return len(self.prompt) + self.max_new
+
     def reset_for_recompute(self):
         """Preempted: blocks were freed; replay prompt ++ out from the
         start (or from a prefix-cache hit) with outputs discarded."""
         self.blocks = []
         self.table.fill(-1)
+        self.draft_blocks = []
+        self.draft_table.fill(-1)
         self.n_fed = 0
         self.next_tok = self.prompt[0]
         self.replay_upto = len(self.prompt) + len(self.out)
@@ -218,7 +249,11 @@ class _DecodeSeq:
 
 class _DecodeModel:
     __slots__ = ("name", "cfg", "decoder", "kv_config", "cache", "maxb",
-                 "step_ms", "step_ms_samples", "prefix", "warmed")
+                 "step_ms", "step_ms_samples", "prefix", "warmed",
+                 # speculative decode (spec_k 0 = off): the draft decoder
+                 # and its own paged pool of the target's block count
+                 "spec_k", "draft", "draft_cache", "verifies", "rollouts",
+                 "ingests")
 
     def __init__(self, name, cfg, decoder, kv_config, cache, prefix):
         self.name = name
@@ -231,6 +266,10 @@ class _DecodeModel:
         self.step_ms_samples = collections.deque(maxlen=4096)
         self.prefix = prefix
         self.warmed = set()             # lane buckets prewarm has run
+        self.spec_k = 0
+        self.draft = self.draft_cache = None
+        # target verify, draft rollout and draft ingest calls so far
+        self.verifies = self.rollouts = self.ingests = 0
 
 
 class DecodeEngine:
@@ -239,12 +278,18 @@ class DecodeEngine:
 
     The defaults are the reference's decode flag defaults: lane buckets
     "4,8", block size 16, "token" mode, prefix cache on, no prefill
-    token budget, a queue of 256 and a 2000 ms deadline."""
+    token budget, a queue of 256 and a 2000 ms deadline; ``kv_dtype``
+    None reads ``FLAGS_kv_cache_dtype`` ("f32" or "int8")."""
 
     def __init__(self, buckets="4,8", max_queue=256, deadline_ms=2000.0,
                  mode="token", block_size=16, prefix_cache=True,
-                 prefill_token_budget=0, device=None):
+                 prefill_token_budget=0, kv_dtype=None, device=None):
         self.device = resolve_device(device)
+        self.kv_dtype = str(kv_dtype if kv_dtype is not None
+                            else _flag("kv_cache_dtype"))
+        if self.kv_dtype not in ("f32", "int8"):
+            raise ValueError("kv_cache dtype must be f32|int8: %r"
+                             % self.kv_dtype)
         set_f32_numerics()
         self.buckets = parse_buckets(buckets)
         self.max_queue = int(max_queue)
@@ -276,47 +321,86 @@ class DecodeEngine:
 
     @property
     def steps(self):
-        """Decode steps run so far (each is one paged_step call)."""
+        """Decode steps run so far (each is one paged_step call, or one
+        speculative iteration)."""
         return self._step_no
 
     # -- registry ------------------------------------------------------------
 
-    def add_model(self, name, source, kv_blocks=None):
+    def add_model(self, name, source, kv_blocks=None, draft=None,
+                  speculative_k=None):
         """Register a decode model: ``source`` is a save_decoder()
         directory of either package or a (DecoderConfig, numpy params)
-        pair.  ``kv_blocks`` sizes the KV pool (default 64)."""
+        pair.  ``kv_blocks`` sizes the KV pool (default 64).
+
+        ``draft`` is an optional (DecoderConfig, params) draft decoder (a
+        directory source loads its bundled ``<dir>/draft``);
+        ``speculative_k`` (None = ``FLAGS_speculative_k``) > 0 with a draft
+        turns speculative decode on.  The draft's vocab and max_seq must
+        be the target's; its pool gets the target's block count and
+        dtype, so any sequence the target pool holds, the draft's can
+        shadow."""
         if isinstance(source, str):
             cfg, params = _dm.load_decoder(source)
+            if draft is None:
+                draft = _dm.load_draft(source)
         else:
             cfg, params = source
+        k = int(speculative_k if speculative_k is not None
+                else _flag("speculative_k") or 0)
+        if draft is None:
+            k = 0   # no draft: non-speculative whatever k asks
+        if k > 0:
+            dcfg, dparams = draft
+            if dcfg.vocab != cfg.vocab:
+                raise ValueError("draft vocab %d != target vocab %d"
+                                 % (dcfg.vocab, cfg.vocab))
+            if dcfg.max_seq != cfg.max_seq:
+                raise ValueError("draft max_seq %d != target max_seq %d "
+                                 "(block tables must line up)"
+                                 % (dcfg.max_seq, cfg.max_seq))
         kv_config = _kvc.KVCacheConfig(
             layers=cfg.layers, heads=cfg.heads, head_dim=cfg.head_dim,
-            block_size=self.block_size, num_blocks=2)
+            block_size=self.block_size, num_blocks=2, dtype=self.kv_dtype)
         kv_config.num_blocks = _kvc.plan_num_blocks(
             kv_config, requested=kv_blocks)[0]
         cache = _kvc.PagedKVCache(kv_config, device=self.device)
+        # the draft pool is never indexed: its blocks only steer
+        # acceptance, and verify guards every emitted token
         prefix = _kvc.PrefixCache(cache.allocator, self.block_size,
                                   namespace=name) \
             if self.prefix_cache else None
         decoder = _dm.Decoder(cfg, params, device=self.device)
-        self._models[name] = _DecodeModel(name, cfg, decoder, kv_config,
-                                          cache, prefix)
-        return self._models[name]
+        m = _DecodeModel(name, cfg, decoder, kv_config, cache, prefix)
+        if k > 0:
+            m.spec_k = k
+            m.draft = _dm.Decoder(dcfg, dparams, device=self.device)
+            m.draft_cache = _kvc.PagedKVCache(_kvc.KVCacheConfig(
+                layers=dcfg.layers, heads=dcfg.heads,
+                head_dim=dcfg.head_dim, block_size=self.block_size,
+                num_blocks=kv_config.num_blocks, dtype=self.kv_dtype),
+                device=self.device)
+        self._models[name] = m
+        return m
 
     def models(self):
         return list(self._models)
 
     def spec(self, model):
-        """JSON-able description of ``model`` (the reference's keys; the
-        port's KV pool is f32 and it has no speculative decode)."""
+        """JSON-able description of ``model`` (the reference's keys)."""
         m = self._models[model]
-        return {"model": model, "type": "decode",
-                "vocab": m.cfg.vocab, "max_seq": m.cfg.max_seq,
-                "buckets": list(self.buckets), "mode": self.mode,
-                "block_size": m.kv_config.block_size,
-                "num_blocks": m.kv_config.num_blocks,
-                "kv_dtype": "f32", "speculative_k": 0,
-                "prefix_cache": m.prefix is not None}
+        out = {"model": model, "type": "decode",
+               "vocab": m.cfg.vocab, "max_seq": m.cfg.max_seq,
+               "buckets": list(self.buckets), "mode": self.mode,
+               "block_size": m.kv_config.block_size,
+               "num_blocks": m.kv_config.num_blocks,
+               "kv_dtype": m.kv_config.dtype, "speculative_k": m.spec_k,
+               "prefix_cache": m.prefix is not None}
+        if m.spec_k > 0:
+            out["draft"] = {"layers": m.draft.cfg.layers,
+                            "num_blocks": m.draft_cache.config.num_blocks,
+                            "kv_bytes": m.draft_cache.nbytes}
+        return out
 
     # -- prewarm -------------------------------------------------------------
 
@@ -324,30 +408,57 @@ class DecodeEngine:
         """One decode step per (model, lane bucket) before any request:
         every lane feeds token 0 at position 0 through the scratch block 0
         (context length 1), so the step's kernels and libraries are loaded
-        and run at each bucket's shape.  Returns the manifest {model:
-        {bucket: {"source", "compile_ms"}}}: "compiled" the first time a
-        (model, bucket) runs, "memory" after, and the step's wall ms."""
+        and run at each bucket's shape; a speculative model runs its
+        verify, rollout and ingest once each instead.  Returns the
+        manifest {model: {bucket: {"source", "compile_ms"}}} (speculative:
+        {bucket: {"verify" | "draft_rollout" | "draft_ingest": {...}}}):
+        "compiled" the first time a (model, bucket) runs, "memory" after,
+        and the call's wall ms."""
         manifest = {}
+        dev = self.device
         for name, m in self._models.items():
             per = {}
             for b in self.buckets:
                 source = "memory" if b in m.warmed else "compiled"
-                dev = self.device
-                t0 = time.perf_counter()
-                nxt, _logits = m.decoder.paged_step(
-                    m.cache.k, m.cache.v,
-                    torch.zeros(b, dtype=torch.int32, device=dev),
-                    torch.zeros(b, dtype=torch.int32, device=dev),
-                    torch.full((b, m.maxb), -1, dtype=torch.int32,
-                               device=dev),
-                    torch.ones(b, dtype=torch.int32, device=dev))
-                nxt.cpu()                   # waits for the device
-                ms = (time.perf_counter() - t0) * 1e3
+                w = m.spec_k + 1
+                zeros = lambda *shape: torch.zeros(  # noqa: E731
+                    shape, dtype=torch.int32, device=dev)
+                ones = lambda *shape: torch.ones(  # noqa: E731
+                    shape, dtype=torch.int32, device=dev)
+                tables = torch.full((b, m.maxb), -1, dtype=torch.int32,
+                                    device=dev)
+                if m.spec_k > 0:
+                    calls = {
+                        "verify": lambda: m.decoder.paged_step_multi(
+                            m.cache.pools, zeros(b, w), zeros(b, w),
+                            tables, ones(b, w))[0],
+                        "draft_rollout": lambda: m.draft.draft_rollout(
+                            m.draft_cache.pools, zeros(b), zeros(b), tables,
+                            ones(b), zeros(b), m.spec_k),
+                        "draft_ingest": lambda: m.draft.paged_step_multi(
+                            m.draft_cache.pools, zeros(b, w), zeros(b, w),
+                            tables, ones(b, w))[0]}
+                else:
+                    calls = {None: lambda: m.decoder.paged_step(
+                        *m.cache.pools[:2], zeros(b), zeros(b), tables,
+                        ones(b), scales=m.cache.pools[2:] or None)[0]}
+                per[b] = {}
+                for kind, call in calls.items():
+                    t0 = time.perf_counter()
+                    call().cpu()                # waits for the device
+                    ms = (time.perf_counter() - t0) * 1e3
+                    got = {"source": source, "compile_ms": round(ms, 3)}
+                    if kind is None:
+                        per[b] = got
+                    else:
+                        per[b][kind] = got
+                    _tm.inc("serving_prewarm_total", model=name,
+                            source=source)
+                    _tm.event("serving_prewarm", model=name, bucket=b,
+                              source=source, decode=True, ms=round(ms, 3),
+                              **({"fn": kind, "k": m.spec_k} if kind
+                                 else {}))
                 m.warmed.add(b)
-                per[b] = {"source": source, "compile_ms": round(ms, 3)}
-                _tm.inc("serving_prewarm_total", model=name, source=source)
-                _tm.event("serving_prewarm", model=name, bucket=b,
-                          source=source, decode=True, ms=round(ms, 3))
             manifest[name] = per
         return manifest
 
@@ -405,6 +516,12 @@ class DecodeEngine:
             return _early(InferReply(
                 "error", error="sequence needs %d KV blocks, pool holds %d"
                 % (need_cap, m.cache.allocator.capacity)))
+        if m.spec_k > 0 and m.draft_cache.blocks_for_tokens(total) > \
+                m.draft_cache.allocator.capacity:
+            return _early(InferReply(
+                "error", error="sequence needs %d draft KV blocks, pool "
+                "holds %d" % (m.draft_cache.blocks_for_tokens(total),
+                              m.draft_cache.allocator.capacity)))
         _tm.inc("serving_decode_requests_total", model=model, tenant=tenant)
         seq = _DecodeSeq(req, prompt_ids, max_new_tokens, eos_id, on_token,
                          m.maxb)
@@ -421,12 +538,13 @@ class DecodeEngine:
                     retry_after_ms=self._retry_after_ms(m)))
             # KV pressure: blocks promised to the queue ahead plus this
             # prompt must fit the reclaimable pool (free + zero-ref
-            # cached blocks), else shed with a drain-time hint
+            # cached blocks; speculating, the smaller of both pools'),
+            # else shed with a drain-time hint
             promised = sum(m.cache.blocks_for_tokens(s.replay_upto)
                            for s in self._waiting
                            if s.pending.model == model)
             need_now = promised + m.cache.blocks_for_tokens(seq.replay_upto)
-            free_now = m.cache.allocator.reclaimable
+            free_now = self._reclaimable(m)
             if need_now > free_now:
                 self._count_shed("kv_oom")
                 return _early(InferReply(
@@ -519,11 +637,26 @@ class DecodeEngine:
     def _model_of(self, seq):
         return self._models[seq.pending.model]
 
+    @staticmethod
+    def _reclaimable(m):
+        """Blocks admission may count on: the target pool's reclaimable
+        ones, and when speculating no more than the draft pool's (which
+        never seals, so its reclaimable blocks are its free ones)."""
+        free = m.cache.allocator.reclaimable
+        if m.spec_k > 0:
+            free = min(free, m.draft_cache.allocator.reclaimable)
+        return free
+
     def _free_blocks(self, seq):
+        m = self._model_of(seq)
         if seq.blocks:
-            self._model_of(seq).cache.allocator.free(seq.blocks)
+            m.cache.allocator.free(seq.blocks)
             seq.blocks = []
             seq.table.fill(-1)
+        if seq.draft_blocks:
+            m.draft_cache.allocator.free(seq.draft_blocks)
+            seq.draft_blocks = []
+            seq.draft_table.fill(-1)
 
     def _finish(self, seq, reply):
         r = seq.pending
@@ -595,7 +728,7 @@ class DecodeEngine:
                     self._active[0].pending.model != s.pending.model:
                 break  # one model per step batch
             if m.cache.blocks_for_tokens(s.replay_upto) > \
-                    m.cache.allocator.reclaimable:
+                    self._reclaimable(m):
                 break  # head of line waits for blocks to free
             self._waiting.pop(0)
             self._admit_seq += 1
@@ -633,12 +766,22 @@ class DecodeEngine:
                               model=name)
 
     def _ensure_block(self, seq):
-        """Cover seq's next write position, preempting the youngest
-        other active sequence on pool exhaustion.  False means seq
-        itself was completed with an error (no victim was left)."""
+        """Single-token path: cover seq's next write position."""
+        return self._ensure_capacity(seq, seq.n_fed + 1)
+
+    def _ensure_capacity(self, seq, upto, draft_upto=0):
+        """Grow seq's table to cover ``upto`` tokens (and its draft table
+        to ``draft_upto`` when speculating), all or nothing, preempting
+        the youngest other active sequence on pool exhaustion.  False
+        means seq itself was completed with an error (no victim was
+        left)."""
         m = self._model_of(seq)
         while True:
-            if m.cache.ensure_table(seq.table, seq.blocks, seq.n_fed + 1):
+            ok = m.cache.ensure_table(seq.table, seq.blocks, upto)
+            if ok and draft_upto > 0:
+                ok = m.draft_cache.ensure_table(
+                    seq.draft_table, seq.draft_blocks, draft_upto)
+            if ok:
                 return True
             victims = [s for s in self._active if s is not seq]
             if not victims:
@@ -670,23 +813,32 @@ class DecodeEngine:
             m.prefix.publish(s.blocks[j], s.hashes[j])
             s.published = j + 1
 
-    def _plan_lanes_locked(self):
-        """Lanes that run this step.  Without a prefill token budget,
-        every active lane (up to the largest bucket).  With a budget B,
-        decode lanes always run and prefilling lanes join round-robin
-        until B prefill tokens (one each per step) are spent."""
+    def _plan_lanes_locked(self, chunk):
+        """Lanes that run this step -> (participants, span_caps).  Without
+        a prefill token budget, every active lane (up to the largest
+        bucket) and no caps.  With a budget B, decode lanes always run and
+        prefilling lanes join round-robin until their prefill spans (up to
+        ``chunk`` tokens each: 1 plain, k+1 speculating) sum to B;
+        ``span_caps`` maps id(seq) to its span this iteration."""
         max_lanes = max(self.buckets)
         budget = self.prefill_token_budget
         if budget <= 0:
-            return self._active[:max_lanes]
+            return self._active[:max_lanes], {}
         decode = [s for s in self._active if not s.in_prefill]
         prefill = [s for s in self._active if s.in_prefill]
         if prefill:
             r = self._rr_prefill % len(prefill)
             prefill = prefill[r:] + prefill[:r]
-        chosen = prefill[:max(0, min(budget, max_lanes - len(decode)))]
+        chosen, caps, left = [], {}, budget
+        for s in prefill:
+            if left <= 0 or len(decode) + len(chosen) >= max_lanes:
+                break
+            span = min(chunk, s.replay_upto - s.n_fed, left)
+            caps[id(s)] = span
+            left -= span
+            chosen.append(s)
         self._rr_prefill += max(len(chosen), 1)
-        return (decode + chosen)[:max_lanes]
+        return (decode + chosen)[:max_lanes], caps
 
     def _bucket_for(self, lanes):
         for b in self.buckets:
@@ -745,7 +897,9 @@ class DecodeEngine:
                     "timeout", error="deadline expired mid-decode"))
         if not self._active:
             return True
-        participants = self._plan_lanes_locked()
+        if m.spec_k > 0:
+            return self._spec_step_locked(m)
+        participants, _caps = self._plan_lanes_locked(1)
         for s in participants:
             if s in self._active:
                 self._ensure_block(s)  # may preempt or complete a lane
@@ -784,7 +938,8 @@ class DecodeEngine:
                     m.cache.k, m.cache.v, torch.from_numpy(tok).to(dev),
                     torch.from_numpy(pos).to(dev),
                     torch.from_numpy(tables).to(dev),
-                    torch.from_numpy(lens).to(dev))
+                    torch.from_numpy(lens).to(dev),
+                    m.cache.pools[2:] or None)     # int8: the scales
                 nxt = nxt.cpu().numpy()
         except Exception as e:  # the loop keeps serving; the lanes fail
             _log.exception("decode step failed on %d lanes", len(lanes))
@@ -845,6 +1000,264 @@ class DecodeEngine:
         sspan.annotate(generated=n_generated, ms=round(ms, 3)).end()
         return True
 
+
+    def _spec_step_locked(self, m):
+        """One speculative iteration (self._cond held; released around the
+        device work, as in ``_decode_step_locked``).  The draft proposes k
+        tokens a generating lane through its own pool (one rollout), ONE
+        bucketed (k+1)-column target step verifies them, the longest
+        draft prefix matching the target's greedy chain is accepted, and
+        the blocks reserved past the accepted frontier go back to both
+        pools in the same iteration.  Prefill lanes ride the verify as a
+        chunk of up to k+1 prompt tokens, auto-accepted and mirrored into
+        the draft pool (tail only: positions a prefix-cache hit skipped
+        stay unwritten there, which can only lower acceptance).  The
+        draft then catches up (one ingest step): on those prompt chunks,
+        and at position p + k after a full accept, which the rollout
+        never wrote.
+
+        Column layout is junk first: a lane with span < k+1 tokens puts
+        them in the last columns and fills the leading ones with lens 0
+        writes at its first position p, which the first real column
+        overwrites before anything attends it, so a short lane writes
+        nothing past its reservation."""
+        k = m.spec_k
+        width = k + 1
+        participants, caps = self._plan_lanes_locked(width)
+        plans = {}
+        for s in participants:
+            if s not in self._active:
+                continue   # preempted by an earlier lane's allocation
+            p = s.n_fed
+            if s.in_prefill:
+                span = caps.get(id(s), min(width, s.replay_upto - p))
+                spec = False
+                draft_upto = p + span
+            else:
+                span = min(width, s.max_new - len(s.out))
+                spec = span > 1         # the last token needs no proposal
+                # the rollout writes up to p + k - 1 (clamped to the
+                # sequence's end); a full accept ingests d_k at p + k
+                draft_upto = min(p + k + 1, s.total) if spec else 0
+            if self._ensure_capacity(s, p + span, draft_upto):
+                plans[id(s)] = (span, spec)
+        lanes = [s for s in participants
+                 if s in self._active and id(s) in plans]
+        if not lanes:
+            return True
+        bucket = self._bucket_for(len(lanes))
+        tok = np.zeros((bucket, width), np.int32)
+        pos = np.zeros((bucket, width), np.int32)
+        lens = np.zeros((bucket, width), np.int32)
+        tables = np.full((bucket, m.maxb), -1, np.int32)
+        rtok = np.zeros(bucket, np.int32)
+        rpos = np.zeros(bucket, np.int32)
+        rlens = np.zeros(bucket, np.int32)
+        rmax = np.zeros(bucket, np.int32)
+        rtables = np.full((bucket, m.maxb), -1, np.int32)
+        n_spec = 0
+        for i, s in enumerate(lanes):
+            span, spec = plans[id(s)]
+            p = s.n_fed
+            pad = width - span
+            tables[i] = s.table
+            pos[i, :pad] = p
+            feed = s.feed_slice(p, span) if s.in_prefill else [s.next_tok]
+            for j in range(span):
+                pos[i, pad + j] = p + j
+                lens[i, pad + j] = p + j + 1
+            for j, t in enumerate(feed):
+                tok[i, pad + j] = t
+            if spec:
+                n_spec += 1
+                rtok[i] = s.next_tok
+                rpos[i] = p
+                rlens[i] = p + 1
+                rmax[i] = s.total - 1
+                rtables[i] = s.draft_table
+        self._step_no += 1
+        sspan = _tr.start_span(
+            "serving.decode_step", model=m.name, bucket=bucket,
+            lanes=len(lanes), step=self._step_no, speculative=True, k=k)
+        for s in lanes:
+            sspan.link(s.pending.span.context
+                       if s.pending.span is not None else None)
+        req_ids = [s.pending.req_id for s in lanes]
+        dev = self.device
+
+        def on_dev(a):
+            return torch.from_numpy(a).to(dev)
+
+        t0 = time.perf_counter()
+        err = None
+        props = None
+        self.in_batch = True
+        self._cond.release()
+        try:
+            with _tr.activate(sspan):
+                if n_spec:
+                    _tr.note("decode_step", model=m.name,
+                             step=self._step_no, phase="draft",
+                             req_ids=req_ids)
+                    with _tr.span("serving.draft", lanes=n_spec, k=k):
+                        m.rollouts += 1
+                        props = m.draft.draft_rollout(
+                            m.draft_cache.pools, on_dev(rtok), on_dev(rpos),
+                            on_dev(rtables), on_dev(rlens), on_dev(rmax),
+                            k).cpu().numpy()
+                    for i, s in enumerate(lanes):
+                        span, spec = plans[id(s)]
+                        if spec:
+                            tok[i, width - span + 1:] = props[i, :span - 1]
+                _tr.note("decode_step", model=m.name, step=self._step_no,
+                         phase="verify", req_ids=req_ids)
+                with _tr.span("serving.verify", lanes=len(lanes),
+                              width=width):
+                    m.verifies += 1
+                    nxt, _logits = m.decoder.paged_step_multi(
+                        m.cache.pools, on_dev(tok), on_dev(pos),
+                        on_dev(tables), on_dev(lens))
+                    nxt = nxt.cpu().numpy()
+        except Exception as e:  # the loop keeps serving; the lanes fail
+            _log.exception("speculative step failed on %d lanes", len(lanes))
+            err = e
+        finally:
+            self._cond.acquire()
+            self.in_batch = False
+        if not self._running:
+            sspan.annotate(stopped=True).end()
+            return True     # stopping: stop() finishes every sequence
+        if err is not None:
+            for s in lanes:
+                self._active.remove(s)
+                self._free_blocks(s)
+                self._finish(s, InferReply(
+                    "error", error="%s: %s" % (type(err).__name__, err)))
+            _tm.inc("serving_batch_errors_total", model=m.name)
+            sspan.annotate(error=str(err)[:200]).end()
+            return False
+        ms = (time.perf_counter() - t0) * 1e3
+        m.step_ms = ms if m.step_ms <= 0 else 0.8 * m.step_ms + 0.2 * ms
+        m.step_ms_samples.append(ms)
+        t_tok = time.perf_counter()
+        n_generated = k_proposed = k_accepted = 0
+        ingest = []    # (seq, start position, tokens): the draft's catch-up
+        for i, s in enumerate(lanes):
+            span, spec = plans[id(s)]
+            p = s.n_fed
+            pad = width - span
+            accepted = 0
+            if s.in_prefill:
+                s.n_fed += span
+                self._publish_prefix_locked(m, s)
+                ingest.append((s, p, s.feed_slice(p, span)))
+                if s.in_prefill:
+                    s.next_tok = s.feed_tok(s.n_fed)
+                    continue
+                # the chunk reached the end of the known history: its last
+                # column's argmax is the first new token
+                emitted = [int(nxt[i, pad + span - 1])]
+            else:
+                # column j's argmax continues the chain only while
+                # proposal j matched the argmax before it
+                emitted = [int(nxt[i, pad])]
+                while accepted < span - 1 and \
+                        int(props[i, accepted]) == emitted[-1]:
+                    emitted.append(int(nxt[i, pad + accepted + 1]))
+                    accepted += 1
+                if spec:
+                    k_proposed += span - 1
+                    k_accepted += accepted
+                    _tm.observe("spec_acceptance",
+                                accepted / float(span - 1), model=m.name)
+                s.n_fed += len(emitted)
+            done = False
+            for t in emitted:
+                s.out.append(t)
+                s.token_times.append(t_tok)
+                if s.t_first is None:
+                    s.t_first = t_tok
+                n_generated += 1
+                done = len(s.out) >= s.max_new or t == s.eos_id
+                if s.on_token is not None:
+                    try:
+                        s.on_token(s.pending.req_id, len(s.out) - 1, t,
+                                   done, "ok")
+                    except Exception:  # a client callback never stops it
+                        _log.exception("on_token callback failed")
+                if done:
+                    break     # an EOS inside an accepted run ends it there
+            if done:
+                self._active.remove(s)
+                self._free_blocks(s)   # same-step free, both pools
+                self._finish(s, InferReply("ok"))
+                _tm.observe("serving_latency_ms",
+                            s.pending.reply.latency_ms, model=m.name)
+                continue
+            s.next_tok = emitted[-1]
+            if accepted == k:
+                # a full accept: the rollout never wrote position p + k,
+                # whose token is d_k (the target's g_k)
+                ingest.append((s, p + k, [int(props[i, k - 1])]))
+        # rollback: every block past the accepted frontier returns to its
+        # pool now; the context lengths mask what it held
+        rolled = 0
+        for s in lanes:
+            if s not in self._active:
+                continue
+            rolled += m.cache.trim_table(s.table, s.blocks, s.n_fed)
+            rolled += m.draft_cache.trim_table(s.draft_table, s.draft_blocks,
+                                               s.n_fed)
+        if rolled:
+            _tm.inc("spec_blocks_rolled_back_total", rolled, model=m.name)
+        ingest = [(s, q, t) for (s, q, t) in ingest if s in self._active]
+        if ingest:
+            itok = np.zeros((bucket, width), np.int32)
+            ipos = np.zeros((bucket, width), np.int32)
+            ilens = np.zeros((bucket, width), np.int32)
+            itables = np.full((bucket, m.maxb), -1, np.int32)
+            for r, (s, q, toks) in enumerate(ingest):
+                ipad = width - len(toks)
+                itables[r] = s.draft_table
+                ipos[r, :ipad] = q
+                for j, t in enumerate(toks):
+                    ipos[r, ipad + j] = q + j
+                    ilens[r, ipad + j] = q + j + 1
+                    itok[r, ipad + j] = t
+            self.in_batch = True
+            self._cond.release()
+            try:
+                with _tr.activate(sspan):
+                    _tr.note("decode_step", model=m.name,
+                             step=self._step_no, phase="draft",
+                             ingest=len(ingest))
+                    with _tr.span("serving.draft_ingest",
+                                  lanes=len(ingest)):
+                        m.ingests += 1
+                        m.draft.paged_step_multi(
+                            m.draft_cache.pools, on_dev(itok), on_dev(ipos),
+                            on_dev(itables), on_dev(ilens))
+            except Exception:
+                # a stale draft pool only costs acceptance: the verify
+                # guards every token
+                _log.exception("draft ingest failed on %d lanes",
+                               len(ingest))
+                _tm.inc("spec_ingest_errors_total", model=m.name)
+            finally:
+                self._cond.acquire()
+                self.in_batch = False
+        if n_spec:
+            _tm.inc("spec_tokens_proposed_total", k_proposed, model=m.name)
+            _tm.inc("spec_tokens_accepted_total", k_accepted, model=m.name)
+        if n_generated:
+            _tm.inc("serving_tokens_generated_total", n_generated,
+                    model=m.name)
+        _tm.inc("serving_decode_steps_total", model=m.name)
+        _tm.observe("decode_batch_occupancy", len(lanes) / float(bucket),
+                    model=m.name)
+        sspan.annotate(generated=n_generated, ms=round(ms, 3),
+                       k_proposed=k_proposed, k_accepted=k_accepted).end()
+        return True
 
 # ===========================================================================
 # Batch inference serving over AnalysisPredictor

@@ -1,22 +1,26 @@
 """Paged KV cache for autoregressive decode serving.
 
-Counterpart of ``paddle_tpu/serving/kv_cache.py`` for f32 residency.  The
-engine owns a pool of fixed-size KV blocks (``[layers, num_blocks,
-block_size, heads, head_dim]`` tensors on the device) and hands each
-admitted sequence a *block table*: the physical blocks holding its
-history, grown one block per ``block_size`` tokens.  Sequences of any
-length present the decode step with the same shapes (token ids, tables
-padded to ``max_seq // block_size`` slots, context lengths), and a
-finished sequence returns its blocks the same step it finishes.
+Counterpart of ``paddle_tpu/serving/kv_cache.py``.  The engine owns a
+pool of fixed-size KV blocks (``[layers, num_blocks, block_size, heads,
+head_dim]`` tensors on the device) and hands each admitted sequence a
+*block table*: the physical blocks holding its history, grown one block
+per ``block_size`` tokens.  Sequences of any length present the decode
+step with the same shapes (token ids, tables padded to ``max_seq //
+block_size`` slots, context lengths), and a finished sequence returns its
+blocks the same step it finishes.
 
 ``BlockAllocator`` is the refcounted host-side free list (LIFO reuse,
 all-or-nothing ``alloc``); a sealed block whose refcount reaches zero
 parks in an LRU *evictable* pool, still revivable until ``alloc``
 reclaims it.  ``PrefixCache`` is the content-addressed index over sealed
 full prompt blocks (hash chain ``h_i = sha(h_{i-1}, block_token_ids)``).
-``PagedKVCache`` owns the K and V pools.  The JAX reference donates the
-pools through its jitted step and gets new arrays back; here the decode
-step writes into them in place with ``index_put_``.
+``PagedKVCache`` owns the K and V pools: f32, or int8 with f32 max-abs
+scales per (block, position, head) (``KVCacheConfig(dtype="int8")``,
+``quantize_kv``).  The JAX reference donates the pools through its
+jitted step and gets new arrays back; here the decode step writes into
+them in place with ``index_put_``.  ``ensure_table`` and ``trim_table``
+grow a table by several blocks at once and roll it back, which is what
+speculative decode reserves and returns every iteration.
 """
 
 import hashlib
@@ -29,18 +33,24 @@ from ..core import telemetry as _tm
 from ..device import resolve_device
 
 __all__ = ["KVCacheConfig", "BlockAllocator", "PagedKVCache", "PrefixCache",
-           "plan_num_blocks", "block_bytes", "DEFAULT_BLOCKS"]
+           "plan_num_blocks", "block_bytes", "quantize_kv", "dequantize_kv",
+           "DEFAULT_BLOCKS"]
 
 # pool size when neither a request nor a budget pins one
 DEFAULT_BLOCKS = 64
 
 
 class KVCacheConfig:
-    """Static cache geometry (f32); hidden = heads * head_dim per layer."""
+    """Static cache geometry; hidden = heads * head_dim per layer.
+    ``dtype`` is the pools' residency, "f32" or "int8"."""
 
-    __slots__ = ("layers", "heads", "head_dim", "block_size", "num_blocks")
+    __slots__ = ("layers", "heads", "head_dim", "block_size", "num_blocks",
+                 "dtype")
 
-    def __init__(self, layers, heads, head_dim, block_size, num_blocks):
+    def __init__(self, layers, heads, head_dim, block_size, num_blocks,
+                 dtype="f32"):
+        if dtype not in ("f32", "int8"):
+            raise ValueError("kv_cache dtype must be f32|int8: %r" % dtype)
         if block_size <= 0 or num_blocks <= 1:
             raise ValueError("need block_size > 0 and num_blocks > 1 "
                              "(block 0 is the idle-lane scratch)")
@@ -49,12 +59,18 @@ class KVCacheConfig:
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
+        self.dtype = dtype
 
 
 def block_bytes(config):
-    """Device bytes ONE block costs across all layers (K + V, f32)."""
-    return 2 * config.layers * config.block_size * config.heads \
-        * config.head_dim * 4
+    """Device bytes ONE block costs across all layers: K + V, and for int8
+    the payload plus the f32 scale of each (position, head)."""
+    per_tok = config.heads * config.head_dim
+    if config.dtype == "int8":
+        tok = per_tok + config.heads * 4
+    else:
+        tok = per_tok * 4
+    return 2 * config.layers * config.block_size * tok
 
 
 def plan_num_blocks(config, model_resident_bytes=0, requested=None,
@@ -73,8 +89,9 @@ def plan_num_blocks(config, model_resident_bytes=0, requested=None,
             raise ValueError(
                 "a budget of %d bytes leaves room for %d KV block(s) of %d "
                 "bytes beside %d model-resident bytes; the decode cache "
-                "needs >= 2" % (budget, max(fit, 0), per,
-                                model_resident_bytes))
+                "needs >= 2 (shrink the model, raise the budget, or set "
+                "FLAGS_kv_cache_dtype=int8)" % (budget, max(fit, 0), per,
+                                                 model_resident_bytes))
         if requested > 0:
             return min(requested, fit), fit < requested
         return fit, False
@@ -312,12 +329,29 @@ class PrefixCache:
             return len(self._index)
 
 
+def quantize_kv(x):
+    """f32 [..., H, D] -> (int8 payload, f32 per-[..., H] max-abs scale):
+    symmetric, round half to even (``torch.round``, as ``jnp.round``),
+    clipped to [-127, 127]; an all-zero row takes the scale 1.0 for the
+    division and stores 0."""
+    scale = x.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(x / safe[..., None]), -127, 127) \
+        .to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def dequantize_kv(q, scale):
+    return q.to(torch.float32) * scale[..., None]
+
+
 class PagedKVCache:
     """The K and V pools, ``[layers, num_blocks, block_size, heads,
-    head_dim]`` f32 on ``device``.  Block 0 is reserved: idle lanes of a
-    partly full bucket point their table at it, so their (masked,
-    discarded) writes never touch a sequence's history.  The decode step
-    updates ``k`` and ``v`` in place."""
+    head_dim]`` on ``device``: f32, or int8 beside f32 ``k_scale`` and
+    ``v_scale`` ``[layers, num_blocks, block_size, heads]``.  Block 0 is
+    reserved: idle lanes of a partly full bucket point their table at it,
+    so their (masked, discarded) writes never touch a sequence's history.
+    The decode step updates the pools in place."""
 
     def __init__(self, config, device=None):
         self.config = config
@@ -325,8 +359,24 @@ class PagedKVCache:
         self.allocator = BlockAllocator(config.num_blocks, reserve=1)
         shape = (config.layers, config.num_blocks, config.block_size,
                  config.heads, config.head_dim)
-        self.k = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self.v = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        int8 = config.dtype == "int8"
+        dt = torch.int8 if int8 else torch.float32
+        self.k = torch.zeros(shape, dtype=dt, device=self.device)
+        self.v = torch.zeros(shape, dtype=dt, device=self.device)
+        self.k_scale = self.v_scale = None
+        if int8:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+
+    @property
+    def pools(self):
+        """The step's pool tensors in the reference's carry order: (k, v),
+        or (k, v, k_scale, v_scale) for int8."""
+        if self.k_scale is None:
+            return self.k, self.v
+        return self.k, self.v, self.k_scale, self.v_scale
 
     @property
     def nbytes(self):
@@ -351,3 +401,16 @@ class PagedKVCache:
         table[have:have + len(got)] = got
         blocks.extend(got)
         return True
+
+    def trim_table(self, table, blocks, upto_tokens):
+        """Rollback: free every block past the one holding position
+        ``upto_tokens - 1`` and clear its table slot; the context length
+        masks what the freed blocks held.  Returns the blocks freed."""
+        keep = self.blocks_for_tokens(upto_tokens) if upto_tokens > 0 else 0
+        if len(blocks) <= keep:
+            return 0
+        extra = blocks[keep:]
+        del blocks[keep:]
+        table[keep:keep + len(extra)] = -1
+        self.allocator.free(extra)
+        return len(extra)

@@ -135,8 +135,8 @@ def test_autoscale_forks_a_standby_and_retires_it(tmp_path):
         served, = prefixed("SERVED ")
         assert served["rank"] == 1 and served["encoder_batches"] > 0
         assert prefixed("LAUNCHES ")[0] == {
-            "paged_attention": 0, "flash_attention": 0, "fused_ln": 0,
-            "layer_norm": 0}
+            "paged_attention": 0, "paged_attention_int8": 0,
+            "flash_attention": 0, "fused_ln": 0, "layer_norm": 0}
         snap = telemetry.scrape(eps[0])
         assert snap["counters"]["autoscale_events_total{dir=up}"] == 1.0
         assert snap["counters"]["autoscale_events_total{dir=down}"] >= 1.0

@@ -10,8 +10,10 @@ heartbeats, shrink the fleet at a batch boundary and rewrite the file at
 a bumped epoch, and the client must fail over so that every request is
 answered: the fc outputs equal the JAX predictor's, the decode tokens the
 JAX package's ``unpaged_generate`` on the same bundle.  The survivor
-prints its ``SERVED`` and ``LAUNCHES`` lines and exits 0 on SIGTERM.  Every wait is
-bounded and every process is killed in ``finally``.
+prints its ``SERVED`` and ``LAUNCHES`` lines and exits 0 on SIGTERM.  One
+replica alone serves the demo bundle with ``--speculative-k 3``, or with
+int8 pools from ``FLAGS_kv_cache_dtype``, with the JAX package's tokens.
+Every wait is bounded and every process is killed in ``finally``.
 """
 
 import json
@@ -23,6 +25,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 
 from dist_utils import free_ports, gather_tails
 
@@ -146,8 +149,10 @@ def _terminate_survivor(proc):
             lines[key] = json.loads(doc)
     assert sorted(lines) == ["LAUNCHES", "SERVED"], out[-2000:]
     # the CPU takes every kernel's plain version: nothing launched
-    assert lines["LAUNCHES"] == {"paged_attention": 0, "flash_attention": 0,
-                                 "fused_ln": 0, "layer_norm": 0}
+    assert lines["LAUNCHES"] == {"paged_attention": 0,
+                                 "paged_attention_int8": 0,
+                                 "flash_attention": 0, "fused_ln": 0,
+                                 "layer_norm": 0}
     return lines["SERVED"]
 
 
@@ -249,7 +254,9 @@ def test_sigkill_mid_decode_drops_nothing(tmp_path):
 def test_the_replica_refuses_to_fall_back_to_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` the replica exits
     nonzero; the options of later or parked ROADMAP items are refused by
-    name."""
+    name; ``--decode-mode int8``, which the reference's replica does not
+    have either (int8 KV comes from FLAGS_kv_cache_dtype), is argparse's
+    invalid choice, as there."""
     model_dir = save_demo_model(str(tmp_path / "model"))
     runs = {"cuda": ["--model", "fc=" + model_dir],
             "cache_dir": ["--device", "cpu", "--cache-dir",
@@ -263,5 +270,78 @@ def test_the_replica_refuses_to_fall_back_to_the_cpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0, what
         assert "READY" not in proc.stdout, what
-        want = "CUDA" if what == "cuda" else "ROADMAP"
+        want = {"cuda": "CUDA", "int8": "invalid choice"}.get(what,
+                                                              "ROADMAP")
         assert want in proc.stderr, (what, proc.stderr[-2000:])
+
+
+def _serve_one(tmp_path, model, extra=(), env=None):
+    """One ``--device cpu`` replica of ``model`` (NAME, DIR) -> (proc, its
+    endpoint) once READY."""
+    port, = free_ports(1)
+    argv = [sys.executable, "-u", _SERVE, "--device", "cpu", "--port",
+            str(port), "--model", "%s=%s" % model] + list(extra)
+    proc = subprocess.Popen(argv, env=dict(os.environ, **(env or {})),
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    _wait_ready(proc)
+    return proc, "127.0.0.1:%d" % port
+
+
+@pytest.mark.parametrize("what", ["speculative-k 3",
+                                  "FLAGS_kv_cache_dtype=int8"])
+def test_replica_serves_speculative_and_int8_with_the_references_tokens(
+        tmp_path, what):
+    """``--speculative-k 3`` over the demo bundle's draft, and int8 pools
+    from ``FLAGS_kv_cache_dtype`` (the reference replica's way to them):
+    ``__spec__`` reports them, and the generated tokens are the JAX
+    package's (``unpaged_generate`` for the speculative replica; the
+    reference's int8 engine for the int8 one).  SIGTERM exits 0."""
+    from paddle_tpu import flags as jflags
+    from paddle_tpu.serving import DecodeEngine as JDecodeEngine
+    from paddle_tpu.serving import decode_model as jdm
+    from paddle_tpu_torch.serving import ServingClient
+
+    dec_dir = save_demo_decoder(str(tmp_path / "dec"))
+    cfg, params = jdm.load_decoder(dec_dir)
+    prompt, max_new = [1, 2, 3], 6
+    spec = what.startswith("speculative")
+    if spec:
+        pad = -(-cfg.max_seq // 16) * 16
+        want = np.asarray(jdm.unpaged_generate(cfg, params, prompt, max_new,
+                                               pad_len=pad), np.int32)
+        extra, env = ["--speculative-k", "3"], None
+    else:
+        old = jflags.get_flags(["FLAGS_kv_cache_dtype"])
+        jflags.set_flags({"FLAGS_kv_cache_dtype": "int8"})
+        try:
+            ref = JDecodeEngine(buckets="4", deadline_ms=30000.0)
+            ref.add_model("toy", (cfg, params), kv_blocks=64)
+        finally:
+            jflags.set_flags(old)
+        ref.start()
+        try:
+            want = ref.generate("toy", prompt, max_new_tokens=max_new,
+                                deadline_ms=30000.0).outputs["tokens"]
+        finally:
+            ref.stop()
+        extra, env = [], {"FLAGS_kv_cache_dtype": "int8"}
+    proc, ep = _serve_one(tmp_path, ("toy", dec_dir),
+                          ["--decode-buckets", "4"] + extra, env)
+    try:
+        cli = ServingClient(endpoints=[ep], deadline_ms=15000.0)
+        got = cli.spec("toy")
+        assert got["speculative_k"] == (3 if spec else 0)
+        assert got["kv_dtype"] == ("f32" if spec else "int8")
+        assert ("draft" in got) is spec
+        chunks = []
+        r = cli.generate("toy", prompt, max_new_tokens=max_new, stream=True,
+                         on_token=lambda j, t: chunks.append((j, t)))
+        assert r.status == "ok", r.error
+        np.testing.assert_array_equal(r.outputs["tokens"], want)
+        assert chunks == list(enumerate(np.asarray(want).tolist()))
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=30)
+    assert proc.returncode == 0, out[-2000:]

@@ -433,6 +433,56 @@ def test_generate_over_the_wire_stream_and_not():
         assert cli.generate("zzz", [1], deadline_ms=4000.0).status == "error"
 
 
+def test_speculative_engine_over_the_wire_to_both_clients():
+    """A port server over a speculative (k = 3, one-layer draft) and an
+    int8 decode engine: ``__spec__`` carries the new keys, and both
+    packages' clients get the reference's plain greedy tokens, a
+    multi-token accept streaming chunks 0..n-1 once each."""
+    from paddle_tpu_torch.serving import truncate_decoder
+
+    spec_e = DecodeEngine(buckets="2", block_size=BS, device="cpu",
+                          deadline_ms=LONG)
+    spec_e.add_model("toy", (CFG, PARAMS), kv_blocks=64,
+                     draft=truncate_decoder(CFG, PARAMS, layers=1),
+                     speculative_k=3)
+    int8_e = DecodeEngine(buckets="2", block_size=BS, device="cpu",
+                          deadline_ms=LONG, kv_dtype="int8")
+    int8_e.add_model("toy", (CFG, PARAMS), kv_blocks=64)
+    for e in (spec_e, int8_e):
+        e.start()
+    try:
+        with _serving(ServingServer(ServingEngine(device="cpu"), port=0,
+                                    decode_engine=spec_e),
+                      ServingServer(ServingEngine(device="cpu"), port=0,
+                                    decode_engine=int8_e)) as (srv, srv8):
+            for cli in (ServingClient(endpoints=[_ep(srv)]),
+                        JClient(endpoints=[_ep(srv)])):
+                spec = cli.spec("toy")
+                assert spec["speculative_k"] == 3 and spec["kv_dtype"] == \
+                    "f32"
+                assert spec["draft"] == {
+                    "layers": 1, "num_blocks": 64,
+                    "kv_bytes": spec_e._models["toy"].draft_cache.nbytes}
+                want = _ref_tokens((2, 3), 9)
+                r = cli.generate("toy", [2, 3], max_new_tokens=9,
+                                 deadline_ms=LONG, stream=False)
+                assert r.status == "ok"
+                np.testing.assert_array_equal(r.outputs["tokens"], want)
+                seen = []
+                r = cli.generate("toy", [2, 3], max_new_tokens=9,
+                                 deadline_ms=LONG, stream=True,
+                                 on_token=lambda i, t: seen.append((i, t)))
+                assert r.status == "ok"
+                assert seen == list(enumerate(want.tolist()))
+            spec8 = ServingClient(endpoints=[_ep(srv8)]).spec("toy")
+            assert spec8["kv_dtype"] == "int8" and \
+                spec8["speculative_k"] == 0 and "draft" not in spec8
+        assert spec_e._models["toy"].rollouts > 0
+    finally:
+        for e in (spec_e, int8_e):
+            e.stop()
+
+
 def test_client_replays_on_server_timeout():
     """tests/test_decode_serving.py:319: replica A (request mode) is busy
     with a long generation admitted before the client sends, so the

@@ -18,9 +18,16 @@ Usage:
 
     # decode serving: a --model DIR holding a save_decoder() bundle
     # (decoder.json + params.npz, of either package) goes to the
-    # DecodeEngine; a tiny one for smoke tests:
+    # DecodeEngine; a tiny one for smoke tests, bundled with a one-layer
+    # draft:
     python tools/torch_serve.py --save-demo-decoder /tmp/dec
     python tools/torch_serve.py --model toy=/tmp/dec --decode-buckets 4,8
+
+    # speculative decode over the bundled draft, k tokens ahead (default
+    # FLAGS_speculative_k); int8 KV pools through the flag, as in the
+    # reference
+    python tools/torch_serve.py --model toy=/tmp/dec --speculative-k 3
+    FLAGS_kv_cache_dtype=int8 python tools/torch_serve.py --model toy=/tmp/dec
 
     # on the CPU (the plain PyTorch path), as the tests run it
     python tools/torch_serve.py --device cpu --model fc=/path
@@ -73,7 +80,6 @@ _NOT_PORTED = {
     "roles": "the prefill and decode roles (ROADMAP A3, serving/disagg.py)",
     "decode_peers": "the prefill and decode roles (ROADMAP A3, "
                     "serving/disagg.py)",
-    "speculative_k": "speculative decode (ROADMAP A2)",
     "cache_dir": "a compile cache (ROADMAP, parked beside CUDA graphs: "
                  "the port runs eager PyTorch and has no executable to "
                  "persist)",
@@ -101,17 +107,17 @@ def save_demo_model(dirname, in_dim=8, out_dim=4):
 
 def save_demo_decoder(dirname, vocab=31, layers=2, heads=2, head_dim=8,
                       max_seq=48, seed=7):
-    """A tiny decoder bundle (the reference's demo widths and seed)."""
+    """A tiny decoder bundle (the reference's demo widths and seed) with a
+    first-layer ``truncate_decoder`` draft, so --speculative-k can
+    speculate on it."""
     from paddle_tpu_torch.serving import (DecoderConfig, init_decoder_params,
-                                          save_decoder)
+                                          save_decoder, truncate_decoder)
 
     cfg = DecoderConfig(vocab=vocab, layers=layers, heads=heads,
                         head_dim=head_dim, max_seq=max_seq)
-    return save_decoder(dirname, cfg, init_decoder_params(cfg, seed=seed))
-
-
-def is_decoder_dir(dirname):
-    return os.path.exists(os.path.join(dirname, "decoder.json"))
+    params = init_decoder_params(cfg, seed=seed)
+    return save_decoder(dirname, cfg, params,
+                        draft=truncate_decoder(cfg, params, layers=1))
 
 
 def kernel_wrappers():
@@ -122,6 +128,7 @@ def kernel_wrappers():
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     return {"paged_attention": pa.paged_attention,
+            "paged_attention_int8": pa.paged_attention_int8,
             "flash_attention": fa.flash_attention,
             "fused_ln": fl.fused_ln_fwd,
             "layer_norm": ln.layer_norm_2d}
@@ -227,9 +234,10 @@ def main(argv=None):
     ap.add_argument("--decode-buckets", default="4,8",
                     help="lane buckets of the DecodeEngine")
     ap.add_argument("--decode-mode", default="token",
-                    choices=("token", "request", "int8"),
+                    choices=("token", "request"),
                     help="token-level continuous batching or the "
-                    "request-level baseline (int8 KV is not ported)")
+                    "request-level baseline (int8 KV pools come from "
+                    "FLAGS_kv_cache_dtype)")
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="paged KV pool size in blocks")
     ap.add_argument("--rank", type=int, default=0,
@@ -247,7 +255,9 @@ def main(argv=None):
     for flag in ("--role", "--roles", "--decode-peers", "--cache-dir"):
         ap.add_argument(flag, default=None, help="not ported")
     ap.add_argument("--speculative-k", type=int, default=None,
-                    help="not ported")
+                    help="draft-model speculation depth for decode models "
+                    "with a bundled draft (default FLAGS_speculative_k; 0 "
+                    "= off)")
     ap.add_argument("--autoscale", action="store_true",
                     help="coordinator only: fork a standby replica into "
                     "the lowest dead --fleet slot on sustained queue "
@@ -265,9 +275,6 @@ def main(argv=None):
         if getattr(args, name):
             ap.error("--%s: %s is not ported yet"
                      % (name.replace("_", "-"), what))
-    if args.decode_mode == "int8":
-        ap.error("--decode-mode int8: int8 KV (ROADMAP A2) is not ported "
-                 "yet")
     if args.save_demo_model:
         print("saved demo model:", save_demo_model(args.save_demo_model))
         return 0
@@ -286,7 +293,8 @@ def main(argv=None):
     from paddle_tpu_torch.core import telemetry, tracing
     from paddle_tpu_torch.serving import (DecodeEngine, FleetMonitor,
                                           RolloutController, ServingEngine,
-                                          ServingFleet, ServingServer)
+                                          ServingFleet, ServingServer,
+                                          is_decoder_dir)
 
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -308,7 +316,8 @@ def main(argv=None):
                 decode_engine = DecodeEngine(buckets=args.decode_buckets,
                                              mode=args.decode_mode,
                                              device=args.device)
-            decode_engine.add_model(name, dirname, kv_blocks=args.kv_blocks)
+            decode_engine.add_model(name, dirname, kv_blocks=args.kv_blocks,
+                                    speculative_k=args.speculative_k)
         else:
             engine.add_model(name, dirname)
 
