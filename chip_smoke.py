@@ -50,6 +50,23 @@ Phases, each fatal on failure (nonzero exit, no result line):
    near-ties, the agreement with the f32 loop and the pool bytes
    printed; then int8 with speculation on those three, held the same
    way;
+4d. (after 5b) a disaggregated pair in process: a prefill-role and a
+   decode-role ServingServer over two DecodeEngines on the card, the
+   decode mix from three client threads through ``ServingClient(roles=)``:
+   every reply ok, each chunk once, tokens held as in 4, the decode half's
+   adopted and cached blocks plus the sender's skipped ones adding up to
+   ``(len - 1) // 16`` a prompt (102; the late request's 4 shared blocks
+   shipped once), both pools empty after, row 1 launched 12 times a step
+   of either half; one fresh prompt alone at bucket 4, its adopted blocks
+   bitwise a monolith's under the same digests; then an int8 pair: the
+   int8 kernel 12 times a step, row 1 never, its frame bytes at most
+   0.55x the f32 pair's, the shortest prompts' tokens held as in 4c; the
+   bytes, export ms, client TTFT and tokens/s printed beside 5b's;
+4e. live session migration in process: the 200-token prompt's session
+   moved between two engines on the card after 12 tokens, f32 and int8:
+   tokens held (f32 as in 4, int8 equal to an uninterrupted int8 run),
+   each index once at the client (which follows ``migrated_to``), fewer
+   than 16 positions re-fed, the source's blocks held until the ack;
 5. encoder serving: BERT-base (seeded random weights, seq 128) built with
    the port's Program front end, initialised on the card, saved with
    save_inference_model and served by ServingEngine over three buckets to
@@ -87,6 +104,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
    burst of 16 client threads forks a standby into slot 1 on the card,
    the standby serves (its LAUNCHES equal to its batches) and is
    retired through a drain when the burst ends, nothing dropped;
+5e. a disaggregated fleet: three ``tools/torch_serve.py`` replicas
+   (``--roles decode,decode,prefill``, FLAGS_migrate_on_drain=1): traffic
+   through the pair across processes; the prefill replica SIGKILLed
+   mid-transfer (the decode half's janitor frees its adoptions, the
+   client's replay completes); a decode replica retired with live
+   sessions (they move to the other through ``migrated_to``); a decode
+   replica SIGKILLed mid-stream (the client's ``__resume__`` completes on
+   the relaunched prefill replica); nothing dropped, every index once;
 6. BERT-base pretraining (seeded random weights, seq 128, batch 32)
    built with the port's ``build_pretrain`` and trained 5 steps on one
    batch through ``Executor.run``, in three emissions, one after the
@@ -2154,7 +2179,8 @@ def int8_decode_phase(pa, params, refs, base):
     of the CPU's logits; each request's agreement with the f32 plain loop
     printed.  Then int8 with speculation (k = SPEC_K) on those three
     prompts, its tokens held the same way and its launches as in
-    spec_decode_phase.  -> the int8 kernel's launches."""
+    spec_decode_phase.  -> (the int8 kernel's launches, (the replies, the
+    CPU's refs of the three shortest prompts, their indices))."""
     from paddle_tpu_torch.serving import (DecodeEngine, KVCacheConfig,
                                           block_bytes, truncate_decoder)
 
@@ -2247,7 +2273,7 @@ def int8_decode_phase(pa, params, refs, base):
           "%s); tokens equal int8 alone on the card for %d of %d"
           % (SPEC_K, [len(p) for p in sp], len(sreplies), s_launches8,
              calls, same, len(sp)), flush=True)
-    return launches8
+    return launches8, (replies, cpu, short)
 
 
 # -- phase 5: encoder serving ------------------------------------------------
@@ -2507,6 +2533,11 @@ def read_trace(path):
     return out
 
 
+# the monolith's rates over the wire (wire_phase), printed beside the
+# disaggregated pair's
+WIRE_RATES = {}
+
+
 def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, tmp, cfg=None,
                clients=3):
     """decode_phase's GPT-2-small engine (its buckets, 16-token blocks,
@@ -2681,6 +2712,9 @@ def wire_phase(pa, kmods, params, refs, bert_dir, plain_outs, tmp, cfg=None,
     streamed = [r for i, r in enumerate(replies)
                 if wire_mode(i, clients) != "no stream"]
     p50 = lambda xs: float(np.percentile(xs, 50))  # noqa: E731
+    WIRE_RATES.update(
+        tokens_s=ntok / walls["decode"], client_ttft_ms_p50=p50(
+            [r.phases["client_ttft_ms"] for r in streamed]))
     print("wire: %s; %d client threads; decode %d tokens: over the wire "
           "%.3f s = %.2f tokens/s, in process %.3f s = %.2f tokens/s; "
           "encoder %d requests: over the wire %.3f s = %.2f requests/s, in "
@@ -3389,7 +3423,7 @@ def trace_chains(tel, pids):
     return out
 
 
-# -- phase 5d: faults and the autoscaler ----------------------------------------
+# -- phase 5d: faults and the autoscaler --------------------------------------
 
 # the faults replica's spec: the first two encoder batches fail; the decode
 # loop's 21st iteration with work SIGKILLs the replica, after 20 steps
@@ -3698,6 +3732,730 @@ STEP_LAUNCHES = {
     SMALL: dict(_COMMON, small_attention_fwd=12, small_attention_bwd=12,
                 dropout=1),
 }
+
+
+
+# -- phase 4d: a disaggregated prefill and decode pair ------------------------
+
+# the int8 pair's frame bytes may be at most this share of the f32 pair's
+# (the reference's budget, tests/test_disagg_serving.py)
+INT8_WIRE_BUDGET = 0.55
+
+
+def sum_of(counters, name, **labels):
+    """``counters`` ({flat name: value}) of ``name`` summed over the label
+    sets that hold ``labels``."""
+    return sum(v for k, v in counters.items() if k.split("{")[0] == name
+               and all("%s=%s" % kv in k for kv in labels.items()))
+
+
+def counter(name, **labels):
+    """``sum_of`` this process's telemetry counters."""
+    from paddle_tpu_torch.core import telemetry
+
+    return sum_of(telemetry.snapshot()["counters"], name, **labels)
+
+
+def transfer_blocks(allp, bs=16):
+    """Full blocks below each prompt's tail: what a prefill half streams,
+    ``(len - 1) // bs`` a prompt, as the reference counts them."""
+    return sum((len(p) - 1) // bs for p in allp)
+
+
+def timed_exports(cache, samples):
+    """Make ``cache.export_block`` append its host ms to ``samples``."""
+    export = cache.export_block
+
+    def timed(block):
+        t0 = time.perf_counter()
+        out = export(block)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    cache.export_block = timed
+
+
+@contextlib.contextmanager
+def pair_servers(params, kv_dtype, kv_blocks=520):
+    """A prefill-role and a decode-role ServingServer in this process, over
+    two DecodeEngines on the card (decode_phase's buckets and blocks),
+    paired by ``decode_peers`` -> (prefill engine, decode engine, a client
+    factory, the prefill half's export ms samples)."""
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
+                                          ServingEngine, ServingServer)
+
+    cfg = gpt2_small()
+    engs = []
+    for _ in range(2):
+        e = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0,
+                         kv_dtype=kv_dtype)
+        e.add_model("gpt2-small", (cfg, params), kv_blocks=kv_blocks)
+        engs.append(e)
+    samples = []
+    timed_exports(engs[0]._models["gpt2-small"].cache, samples)
+    sd = ServingServer(ServingEngine(), port=0, decode_engine=engs[1],
+                       role="decode").start()
+    sp = ServingServer(ServingEngine(), port=0, decode_engine=engs[0],
+                       role="prefill",
+                       decode_peers=["127.0.0.1:%d" % sd.port]).start()
+    eps = ["127.0.0.1:%d" % s.port for s in (sp, sd)]
+    try:
+        yield engs[0], engs[1], lambda: ServingClient(
+            endpoints=eps, roles=["prefill", "decode"],
+            deadline_ms=600000.0), samples
+    finally:
+        sp.shutdown()
+        sd.shutdown()
+
+
+def pair_mix(pa_kernel, params, kv_dtype, allp, clients, what):
+    """decode_phase's mix through a pair, ``clients`` threads over the wire
+    (WIRE_MODES) -> (replies, chunks, wall s, kernel launches, steps of
+    each half, export ms samples, {block counts})."""
+    with pair_servers(params, kv_dtype) as (pe, de, client, samples):
+        cli = [client() for _ in range(clients)]
+        base = {k: counter("kv_xfer_adopt_total", result=k)
+                for k in ("adopted", "cached")}
+        base["skipped"] = counter("kv_xfer_skipped_total")
+        base["shipped"] = counter("kv_xfer_blocks_total")
+        steps0 = (pe.steps, de.steps)
+        pa_kernel.launches = 0      # just before the pair's main path
+        t0 = time.perf_counter()
+        replies, _e, chunks, _w = drive_mix(
+            allp, [], lambda k, i, p, mode, got: client_gen(cli[k], p, mode,
+                                                            got),
+            None, clients, what)
+        wall = time.perf_counter() - t0
+        launches = pa_kernel.launches
+        steps = (pe.steps - steps0[0], de.steps - steps0[1])
+        blocks = {k: counter("kv_xfer_adopt_total", result=k) - base[k]
+                  for k in ("adopted", "cached")}
+        blocks["skipped"] = counter("kv_xfer_skipped_total") - \
+            base["skipped"]
+        blocks["shipped"] = counter("kv_xfer_blocks_total") - \
+            base["shipped"]
+        step_ms = [float(np.percentile(list(
+            e._models["gpt2-small"].step_ms_samples)[-n:], 50))
+            for e, n in zip((pe, de), steps)]
+        in_use = [e._models["gpt2-small"].cache.allocator.in_use
+                  for e in (pe, de)]
+        if in_use != [0, 0]:
+            fail("%s: KV blocks in use after the mix: prefill %d, decode %d"
+                 % (what, *in_use))
+    for i, r in enumerate(replies):
+        if r is None or r.status != "ok":
+            fail("%s request %d: %s" % (what, i, None if r is None
+                                         else (r.status, r.error)))
+    check_chunks(what, replies, chunks, clients)
+    return replies, wall, launches, steps, list(samples), blocks, step_ms
+
+
+def pair_phases(replies):
+    """p50 of the pair's reply phases, ms: the prefill half's queue wait
+    and prefill, the commit's transfer, the decode half's queue wait and
+    its TTFT (from the commit's submit)."""
+    return {k: round(float(np.percentile([r.phases[k] for r in replies
+                                          if k in r.phases], 50)), 3)
+            for k in ("prefill_queue_wait_ms", "prefill_ms", "xfer_ms",
+                      "queue_wait_ms", "ttft_ms")}
+
+
+def disagg_phase(pa, params, refs, base, int8_refs, clients=3):
+    """decode_phase's mix (11 prompts and the late one, 32 new tokens each)
+    through a prefill-role and a decode-role ServingServer over two
+    DecodeEngines on the card (buckets 4, 8; 16-token blocks; 520 blocks
+    each), ``clients`` threads over the wire: every reply ok, each
+    streamed chunk once, the tokens the plain loop's up to near-ties; the
+    decode half's adopted and cached blocks plus the blocks the sender
+    skipped as shipped add up to ``(len - 1) // 16`` a prompt (the late
+    request's 4 blocks shared with request 4 shipped once); both pools
+    empty after; row 1 launched 12 times a step of either half.  Then one
+    fresh prompt alone through a pair at bucket 4: its adopted blocks
+    bitwise those a monolith engine on the card holds under the same
+    digests.  Then the mix through an int8 pair: the int8 kernel 12 times
+    a step, row 1 never, the frame bytes at most INT8_WIRE_BUDGET of the
+    f32 pair's, the three shortest prompts' tokens the port's int8 path on
+    the CPU's up to its near-ties.  ``int8_refs`` is int8_decode_phase's
+    (replies, CPU refs of the shortest, their indices).  -> (row 1's
+    launches, the int8 kernel's launches)."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt2_small()
+    card = card_line()
+    first, late = prompts(cfg.vocab)
+    allp = first + [late]
+    want_blocks = transfer_blocks(allp)
+    telemetry.reset()
+    set_flags({"FLAGS_telemetry": True})
+    try:
+        replies, wall, launches, steps, samples, blocks, step_ms = \
+            pair_mix(pa.paged_attention, params, "f32", allp, clients,
+                     "disagg")
+        check_decode_tokens("disagg", allp, replies, refs)
+        if blocks["adopted"] + blocks["cached"] + blocks["skipped"] \
+                != want_blocks or blocks["shipped"] != want_blocks - 4 \
+                or blocks["skipped"] != 4:
+            fail("disagg: blocks %s, want %d adopted + cached + skipped and "
+                 "the late request's 4 shared blocks shipped once"
+                 % (blocks, want_blocks))
+        if launches != cfg.layers * sum(steps) or 0 in steps:
+            fail("disagg: paged_attention launched %d times over %s steps "
+                 "(prefill, decode) of %d layers"
+                 % (launches, steps, cfg.layers))
+        f32_bytes = counter("kv_xfer_bytes_total", dtype="f32")
+        streamed = [r for i, r in enumerate(replies)
+                    if wire_mode(i, clients) != "no stream"]
+        ntok = sum(len(r.outputs["tokens"]) for r in replies)
+        ttft = float(np.percentile([r.phases["client_ttft_ms"]
+                                    for r in streamed], 50))
+        print("disagg: %d replies ok through the pair; blocks %s (%d = "
+              "(len - 1) // 16 summed over the prompts); paged_attention "
+              "launches %d = %d layers x (%d prefill + %d decode steps); "
+              "both pools empty after" % (len(replies), json.dumps(blocks),
+                                          want_blocks, launches, cfg.layers,
+                                          steps[0], steps[1]), flush=True)
+        print("disagg: %s; f32 kv_xfer_bytes_total %d for %d blocks (%.1f a "
+              "block); export host ms p50 %.4f (%d exports); the %d "
+              "streamed generates: client TTFT p50 %.3f ms (the monolith "
+              "over the wire, same mix: %.3f ms); %d tokens in %.3f s = "
+              "%.2f tokens/s (the monolith over the wire: %.2f); step ms p50 "
+              "prefill half %.3f, decode half %.3f; reply phases p50 %s"
+              % (card, f32_bytes, blocks["shipped"],
+                 f32_bytes / max(blocks["shipped"], 1),
+                 float(np.percentile(samples, 50)), len(samples),
+                 len(streamed), ttft, WIRE_RATES.get("client_ttft_ms_p50",
+                                                     float("nan")),
+                 ntok, wall, ntok / wall,
+                 WIRE_RATES.get("tokens_s", float("nan")), step_ms[0],
+                 step_ms[1], json.dumps(pair_phases(replies))), flush=True)
+
+        # one fresh prompt alone: both halves and the monolith at bucket 4
+        probe = np.random.RandomState(5).randint(0, cfg.vocab, 200).tolist()
+        mono = DecodeEngine(buckets="4,8", block_size=16,
+                            deadline_ms=600000.0)
+        mm = mono.add_model("gpt2-small", (cfg, params), kv_blocks=64)
+        mono.start()
+        try:
+            mr = mono.generate("gpt2-small", probe, max_new_tokens=8)
+        finally:
+            mono.stop()
+        with pair_servers(params, "f32", kv_blocks=64) as (pe, de, client,
+                                                          _s):
+            pr = client().generate("gpt2-small", probe, max_new_tokens=8)
+            if mr.status != "ok" or pr.status != "ok":
+                fail("disagg probe: monolith %s, pair %s"
+                     % ((mr.status, mr.error), (pr.status, pr.error)))
+            dm = de._models["gpt2-small"]
+            digests = mm.prefix.chain(probe)[:(len(probe) - 1) // 16]
+            worst, n = 0.0, 0
+            for d in digests:
+                got = dm.cache.export_block(dm.prefix.lookup(d))
+                want = mm.cache.export_block(mm.prefix.lookup(d))
+                for a, b in zip(got, want):
+                    worst = max(worst, float(np.abs(a - b).max()))
+                    n += int(not np.array_equal(a, b))
+        same = [int(t) for t in pr.outputs["tokens"]] == \
+            [int(t) for t in mr.outputs["tokens"]]
+        print("disagg probe: %s; a 200-token prompt alone through a pair "
+              "(both halves at bucket 4): its %d adopted blocks against a "
+              "monolith's under the same digests: %d arrays differ, "
+              "max_abs_err %.3g; tokens equal the monolith's: %s; "
+              "cached_tokens %d" % (card, len(digests), n, worst, same,
+                                    pr.phases["cached_tokens"]), flush=True)
+        if n or pr.phases["cached_tokens"] != 16 * len(digests):
+            fail("disagg probe: the adopted blocks are not the monolith's "
+                 "bitwise (%d arrays differ) or were not matched" % n)
+        torch.cuda.empty_cache()
+
+        # the int8 pair
+        i8_replies, _i8_cpu, short = int8_refs
+        pa.paged_attention.launches = 0
+        replies8, wall8, launches8, steps8, samples8, blocks8, step8 = \
+            pair_mix(pa.paged_attention_int8, params, "int8", allp, clients,
+                     "disagg int8")
+        row1 = pa.paged_attention.launches
+        if launches8 != cfg.layers * sum(steps8) or row1 != 0:
+            fail("disagg int8: paged_attention_int8 launched %d times over "
+                 "%s steps, row 1 %d times" % (launches8, steps8, row1))
+        int8_bytes = counter("kv_xfer_bytes_total", dtype="int8")
+        if not 0 < int8_bytes <= INT8_WIRE_BUDGET * f32_bytes:
+            fail("disagg int8: %d frame bytes against the f32 pair's %d "
+                 "(budget %.2fx)" % (int8_bytes, f32_bytes,
+                                     INT8_WIRE_BUDGET))
+        check_decode_tokens("disagg int8", [allp[i] for i in short],
+                            [replies8[i] for i in short], _i8_cpu,
+                            "the port's int8 path on the CPU")
+        same8 = sum([int(t) for t in a.outputs["tokens"]]
+                    == [int(t) for t in b.outputs["tokens"]]
+                    for a, b in zip(replies8, i8_replies))
+        ntok8 = sum(len(r.outputs["tokens"]) for r in replies8)
+        print("disagg int8: %s; paged_attention_int8 launches %d = %d "
+              "layers x (%d + %d steps), row 1 0; blocks %s; kv_xfer_bytes_"
+              "total int8 %d = %.4fx the f32 pair's %d (budget %.2fx); "
+              "export host ms p50 %.4f; tokens equal the int8 engine's (int8 "
+              "phase) for %d of %d requests; %d tokens in %.3f s = %.2f "
+              "tokens/s; step ms p50 prefill half %.3f, decode half %.3f; "
+              "reply phases p50 %s"
+              % (card, launches8, cfg.layers, steps8[0], steps8[1],
+                 json.dumps(blocks8), int8_bytes, int8_bytes / f32_bytes,
+                 f32_bytes, INT8_WIRE_BUDGET,
+                 float(np.percentile(samples8, 50)), same8, len(replies8),
+                 ntok8, wall8, ntok8 / wall8, step8[0], step8[1],
+                 json.dumps(pair_phases(replies8))), flush=True)
+    finally:
+        set_flags({"FLAGS_telemetry": False})
+        telemetry.reset()
+    del base
+    torch.cuda.empty_cache()
+    return launches, launches8
+
+
+# -- phase 4e: live session migration ----------------------------------------
+
+MIGRATE_AFTER = 12      # tokens the session has emitted when it moves
+
+
+def migrate_once(params, kv_dtype, prompt, what):
+    """Two serve-role ServingServers over DecodeEngines on the card; a
+    streamed generate of ``prompt`` (32 new tokens) on the first, moved to
+    the second by the first's SessionMigrator once it has emitted
+    MIGRATE_AFTER tokens -> (reply, chunks, manifest position and tokens
+    at the export, in-use blocks of the source at the commit, seconds
+    from the export to the first resumed token, bytes moved)."""
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
+                                          ServingEngine, ServingServer)
+
+    cfg = gpt2_small()
+    engs = []
+    for _ in range(2):
+        e = DecodeEngine(buckets="4,8", block_size=16, deadline_ms=600000.0,
+                         kv_dtype=kv_dtype)
+        e.add_model("gpt2-small", (cfg, params), kv_blocks=64)
+        engs.append(e)
+    src, dst = engs
+    sd = ServingServer(ServingEngine(), port=0, decode_engine=dst).start()
+    dst_ep = "127.0.0.1:%d" % sd.port
+    ss = ServingServer(ServingEngine(), port=0, decode_engine=src,
+                       decode_peers=[dst_ep]).start()
+    seen = {}
+    export, commit = src.export_session, src.commit_migration
+
+    def export_hook(req_id):
+        seen["t_export"] = time.perf_counter()
+        manifest, payloads = export(req_id)
+        seen["pos"] = manifest["pos"]
+        seen["held"] = len(manifest["_out_arr"])
+        return manifest, payloads
+
+    def commit_hook(req_id, peer):
+        seen["in_use_at_commit"] = \
+            src._models["gpt2-small"].cache.allocator.in_use
+        return commit(req_id, peer)
+
+    src.export_session, src.commit_migration = export_hook, commit_hook
+    chunks, stamps, res = [], [], {}
+    bytes0 = counter("kv_migrate_bytes_total")
+    try:
+        cli = ServingClient(endpoints=["127.0.0.1:%d" % ss.port],
+                            deadline_ms=600000.0)
+
+        def on_token(i, t):
+            chunks.append((i, t))
+            stamps.append(time.perf_counter())
+
+        th = threading.Thread(target=lambda: res.setdefault(
+            "r", cli.generate("gpt2-small", prompt, max_new_tokens=32,
+                              on_token=on_token)), daemon=True)
+        th.start()
+        rid = [None]
+
+        def emitted():
+            with src._cond:
+                for s in src._active:
+                    if len(s.out) >= MIGRATE_AFTER:
+                        rid[0] = s.pending.req_id
+                        return True
+            return False
+
+        wait_for("%s: %d tokens emitted" % (what, MIGRATE_AFTER), emitted,
+                 120.0, step=0.0005)
+        if not ss.migrator.migrate(rid[0], peer=dst_ep, trigger="drain"):
+            fail("%s: the push to %s was not acked" % (what, dst_ep))
+        seen["commit_s"] = time.perf_counter() - seen["t_export"]
+        th.join(120.0)
+        if th.is_alive():
+            fail("%s: the client never finished" % what)
+        in_use = [e._models["gpt2-small"].cache.allocator.in_use
+                  for e in engs]
+    finally:
+        ss.shutdown()
+        sd.shutdown()
+    r = res["r"]
+    if r.status != "ok":
+        fail("%s: %s" % (what, (r.status, r.error)))
+    toks = [int(t) for t in r.outputs["tokens"]]
+    if chunks != list(enumerate(toks)):
+        fail("%s: the client saw indices %s" % (what,
+                                                 [i for i, _t in chunks]))
+    if in_use != [0, 0] or not seen.get("in_use_at_commit"):
+        fail("%s: blocks in use after %s, at the commit %s"
+             % (what, in_use, seen.get("in_use_at_commit")))
+    # positions fed before the first new token: the last emitted token's
+    # and whatever below it neither matched nor came with the tail
+    refed = seen["pos"] + 1 - r.phases["cached_tokens"]
+    if r.phases.get("resumed_tokens") != seen["held"] or not refed <= 16:
+        fail("%s: the destination re-fed %d positions (resumed %s of %d)"
+             % (what, refed, r.phases.get("resumed_tokens"), seen["held"]))
+    k = seen["held"]
+    first_new = stamps[k] - seen["t_export"]
+    return r, seen, refed, first_new, counter("kv_migrate_bytes_total") - \
+        bytes0
+
+
+def migration_phase(params, refs):
+    """The 200-token prompt's session (32 new tokens) moved between two
+    serve-role engines on the card once it has emitted MIGRATE_AFTER
+    tokens: its tokens the plain loop's up to near-ties, each index seen
+    once by the client (which follows ``migrated_to``), the destination
+    re-feeding fewer than 16 positions before its first new token, the
+    source's blocks held until the destination's ack.  Then the same with
+    int8 pools, its tokens those of an uninterrupted int8 run of the
+    prompt alone (the same bucket on both engines)."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt2_small()
+    card = card_line()
+    first, _late = prompts(cfg.vocab)
+    prompt = first[3]
+    telemetry.reset()
+    set_flags({"FLAGS_telemetry": True})
+    try:
+        for kv_dtype in ("f32", "int8"):
+            what = "migration %s" % kv_dtype
+            r, seen, refed, first_new, nbytes = migrate_once(
+                params, kv_dtype, prompt, what)
+            if kv_dtype == "f32":
+                check_decode_tokens(what, [prompt], [r], refs[3:4])
+            else:
+                solo = DecodeEngine(buckets="4,8", block_size=16,
+                                    deadline_ms=600000.0, kv_dtype="int8")
+                solo.add_model("gpt2-small", (cfg, params), kv_blocks=64)
+                solo.start()
+                try:
+                    want = solo.generate("gpt2-small", prompt,
+                                         max_new_tokens=32)
+                finally:
+                    solo.stop()
+                if [int(t) for t in r.outputs["tokens"]] != \
+                        [int(t) for t in want.outputs["tokens"]]:
+                    fail("%s: tokens %s, the uninterrupted int8 run's %s"
+                         % (what, r.outputs["tokens"].tolist(),
+                            want.outputs["tokens"].tolist()))
+            nfull = seen["pos"] // 16
+            print("%s: %s; exported at position %d (%d sealed blocks and a "
+                  "%d-position tail) after %d tokens; %d bytes moved; the "
+                  "destination fed %d position(s) before its first new "
+                  "token (cached_tokens %d); "
+                  "%.4f s from the export to the source's commit (the ack "
+                  "in), %.4f s to the first resumed token at the client; the "
+                  "source held %d blocks until the ack; every index seen "
+                  "once" % (what, card, seen["pos"], nfull,
+                            seen["pos"] - 16 * nfull, seen["held"], nbytes,
+                            refed, r.phases["cached_tokens"],
+                            seen["commit_s"], first_new,
+                            seen["in_use_at_commit"]), flush=True)
+    finally:
+        set_flags({"FLAGS_telemetry": False})
+        telemetry.reset()
+    torch.cuda.empty_cache()
+
+
+# -- phase 5e: a disaggregated fleet of replicas ------------------------------
+
+# the pair replicas' slots: two decode replicas (rank 0 coordinates) and a
+# prefill replica; a fault point slows the prefill replica's steps (its
+# transfer is long enough to be killed mid-way) and the drained decode
+# replica's (its sessions are still live when it retires)
+PAIR_ROLES = ("decode", "decode", "prefill")
+SLOW_STEPS = "serving.decode_step:delay:0.3"
+
+
+def pair_replica(dec_dir, eps, eps_file, rank, slow):
+    env = dict(os.environ, FLAGS_migrate_on_drain="1", **FLEET_ENV)
+    if slow:
+        env["FLAGS_fault_spec"] = SLOW_STEPS
+    return Replica([sys.executable, "-u", os.path.join(HERE, "tools",
+                                                       "torch_serve.py"),
+                    "--model", "gpt2-small=" + dec_dir, "--decode-buckets",
+                    "4,8", "--kv-blocks", "520", "--rank", str(rank),
+                    "--fleet", ",".join(eps), "--roles",
+                    ",".join(PAIR_ROLES), "--endpoints-file", eps_file,
+                    "--device", FLEET_DEVICE], env)
+
+
+def scrape_counters(ep):
+    from paddle_tpu_torch.core import telemetry
+
+    snap = telemetry.scrape(ep, timeout=10.0)
+    return snap["counters"], snap["gauges"]
+
+
+def check_served(what, rep, dcfg):
+    """A replica that exited 0 printed SERVED and LAUNCHES: row 1 launched
+    12 times a decode step it ran, the int8 kernel never."""
+    served, launches = rep.line("SERVED "), rep.line("LAUNCHES ")
+    if served is None or launches is None:
+        fail("%s: no SERVED / LAUNCHES; output ends:\n%s" % (what,
+                                                            rep.tail()))
+    steps = served["decode_steps"]
+    if launches["paged_attention"] != dcfg.layers * steps or steps == 0 \
+            or launches["paged_attention_int8"]:
+        fail("%s: launches %s over %d decode steps" % (what, launches,
+                                                        steps))
+    return steps, launches["paged_attention"]
+
+
+def pair_fleet_phase(dec_dir, refs, tmp):
+    """Three ``tools/torch_serve.py`` replicas on the card, one fleet over
+    an endpoints file with the role column PAIR_ROLES and
+    FLAGS_migrate_on_drain=1: (1) the three shortest prompts through the
+    pair across processes; (2) the prefill replica SIGKILLed while it
+    streams the 384-token prompt's blocks: the decode half's janitor
+    frees what it adopted (its ``__metrics__``: an orphan reaped, the
+    blocks forgotten, none in use) and the client's replay completes;
+    (3) the prefill replica relaunched while rank 1, holding live
+    sessions, is retired by ``__retire__``: they finish on rank 0 through
+    ``migrated_to``, resumed, not replayed whole; (4) rank 0 SIGKILLed
+    mid-stream: the client's ``__resume__`` completes on the relaunched
+    prefill replica.  Every reply ok, every index once, tokens the plain
+    loop's up to near-ties; a replica that exits 0 launched row 1 12
+    times a decode step it served."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.native.rpc import RpcClient
+    from paddle_tpu_torch.serving import ServingClient, codec
+
+    dcfg = gpt2_small()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    first, _late = prompts(dcfg.vocab)
+    eps_file = os.path.join(tmp, "pair-endpoints.json")
+    eps = ["127.0.0.1:%d" % p for p in free_ports(3)]
+    reps = {r: pair_replica(dec_dir, eps, eps_file, r, slow=r != 0)
+            for r in range(3)}
+    set_flags({"FLAGS_telemetry": True})
+    try:
+        for r, rep in reps.items():
+            manifest = rep.ready("pair replica %d" % r)
+            if manifest is None or manifest.get("device") != kind:
+                fail("pair replica %d prewarmed on %r" % (r, manifest))
+        wait_for("the endpoints file listing the three with their roles",
+                 lambda: endpoints_doc(eps_file).get("roles")
+                 == list(PAIR_ROLES)
+                 and endpoints_doc(eps_file)["endpoints"] == eps, 60.0)
+        print("pair fleet: 3 replicas (%s) ready and published in %.1f s"
+              % (",".join(PAIR_ROLES), time.perf_counter() - t_phase),
+              flush=True)
+
+        # 1. through the pair
+        short = shortest(first)
+        cli = ServingClient(endpoints_file=eps_file, deadline_ms=600000.0)
+        replies, chunks = [], []
+        for i in short:
+            got = []
+            replies.append(cli.generate("gpt2-small", first[i],
+                                        max_new_tokens=32,
+                                        on_token=lambda j, t, g=got:
+                                        g.append((j, t))))
+            chunks.append(got)
+        for r, got in zip(replies, chunks):
+            if r.status != "ok" or r.phases.get("role") != "disagg" or \
+                    got != list(enumerate(int(t) for t in
+                                          r.outputs["tokens"])):
+                fail("pair fleet: a generate through the pair: %s, role %s"
+                     % ((r.status, r.error), r.phases.get("role")))
+        check_decode_tokens("pair fleet", [first[i] for i in short],
+                            replies, [refs[i] for i in short])
+
+        # 2. the prefill replica SIGKILLed mid-transfer
+        base = {ep: sum_of(scrape_counters(ep)[0], "kv_xfer_adopt_total",
+                           result="adopted") for ep in eps[:2]}
+        long_i = max(range(len(first)), key=lambda i: len(first[i]))
+        res = {}
+        th = threading.Thread(target=lambda: res.setdefault(
+            "r", cli.generate("gpt2-small", first[long_i],
+                              max_new_tokens=32, max_attempts=40)),
+            daemon=True)
+        th.start()
+        adopting = [None]
+
+        def adopted_some():
+            for ep in eps[:2]:
+                if sum_of(scrape_counters(ep)[0], "kv_xfer_adopt_total",
+                          result="adopted") > base[ep]:
+                    adopting[0] = ep
+                    return True
+            return False
+
+        wait_for("a decode replica adopting the long prompt's blocks",
+                 adopted_some, 60.0, step=0.05)
+        t_kill = time.perf_counter()
+        reps[2].proc.kill()
+        if reps[2].wait(30.0) != -9:
+            fail("pair fleet: the prefill replica did not die by SIGKILL")
+        th.join(300.0)
+        r = res.get("r")
+        if r is None or r.status != "ok":
+            fail("pair fleet: the replay after the prefill kill: %s"
+                 % (None if r is None else (r.status, r.error)))
+        check_decode_tokens("pair fleet replay", [first[long_i]], [r],
+                            [refs[long_i]])
+        t_replay = time.perf_counter() - t_kill
+        snap = [None]
+
+        def reaped():
+            c, g = scrape_counters(adopting[0])
+            snap[0] = (c, g)
+            return sum_of(c, "kv_xfer_orphans_total") >= 1 and \
+                sum_of(c, "kv_xfer_forget_total") >= 1 and \
+                g.get("kv_blocks_in_use") == 0.0
+        wait_for("the decode half's janitor freeing the adopted blocks",
+                 reaped, 30.0, step=0.2)
+        c, g = snap[0]
+        print("pair fleet: %s; the prefill replica SIGKILLed while %s "
+              "adopted the 384-token prompt's blocks; its janitor: orphans "
+              "%s, forgotten %d, kv_blocks_in_use %d, kv_blocks_evictable "
+              "%d; the client's replay ok %.3f s after the kill (%d "
+              "failovers), its tokens the plain loop's"
+              % (card, adopting[0], json.dumps(
+                  {k: v for k, v in c.items()
+                   if k.startswith("kv_xfer_orphans_total")}),
+                 sum_of(c, "kv_xfer_forget_total"),
+                 g.get("kv_blocks_in_use", -1),
+                 g.get("kv_blocks_evictable", -1), t_replay, cli.failovers),
+              flush=True)
+
+        # 3. the prefill replica relaunched; rank 1 drained by migration
+        reps[2] = pair_replica(dec_dir, eps, eps_file, 2, slow=False)
+        live, started, mthreads = {}, [], []
+        for i in short:
+            def run(i=i, ev=threading.Event()):
+                # rank 1 first, rank 0 to fail over to
+                mig = ServingClient(endpoints=[eps[1], eps[0]],
+                                    deadline_ms=600000.0)
+                got = []
+
+                def on_token(j, t):
+                    got.append((j, t))
+                    ev.set()
+
+                live[i] = (mig.generate("gpt2-small", first[i],
+                                        max_new_tokens=32,
+                                        on_token=on_token), got)
+            started.append(run.__defaults__[1])
+            mthreads.append(threading.Thread(target=run, daemon=True))
+            mthreads[-1].start()
+        wait_for("every session on rank 1 past its prefill", lambda: all(
+            ev.is_set() for ev in started), 120.0)
+        follow0 = counter("client_migrate_follow_total")
+        t_retire = time.perf_counter()
+        rc_ = RpcClient(eps[1], connect_timeout=10.0, rpc_deadline=30.0,
+                        retry_times=0)
+        try:
+            rc_.send_var(codec.RETIRE_KEY, codec.pack({}))
+        finally:
+            rc_.close()
+        for t in mthreads:
+            t.join(300.0)
+        if reps[1].wait(120.0) != 0:
+            fail("pair fleet: rank 1 after __retire__; output ends:\n%s"
+                 % reps[1].tail())
+        t_drained = time.perf_counter() - t_retire
+        moved = [i for i in short if "resumed_tokens" in
+                 live[i][0].phases]
+        for i in short:
+            r, got = live[i]
+            if r.status != "ok" or got != list(enumerate(
+                    int(t) for t in r.outputs["tokens"])):
+                fail("pair fleet drain: request %d %s, chunks %s"
+                     % (i, (r.status, r.error), [j for j, _t in got]))
+        check_decode_tokens("pair fleet drain", [first[i] for i in short],
+                            [live[i][0] for i in short],
+                            [refs[i] for i in short])
+        follows = counter("client_migrate_follow_total") - follow0
+        if not moved or follows < len(moved):
+            fail("pair fleet drain: no session moved by migration (follows "
+                 "%d)" % follows)
+        steps1, l1 = check_served("pair fleet rank 1", reps[1], dcfg)
+        print("pair fleet: %s; rank 1 retired with %d live sessions and "
+              "FLAGS_migrate_on_drain: %d followed migrated_to to rank 0 "
+              "and resumed there (feeding %s positions before their first "
+              "new token, resumed_tokens %s), "
+              "none replayed whole; rank 1 exited 0 %.3f s after the "
+              "__retire__, its paged_attention launches %d = %d layers x "
+              "%d decode steps" % (card, len(short), len(moved),
+                                [len(first[i]) + live[i][0].phases[
+                                    "resumed_tokens"]
+                                 - live[i][0].phases["cached_tokens"]
+                                 for i in moved],
+                                [live[i][0].phases["resumed_tokens"]
+                                 for i in moved], t_drained, l1,
+                                dcfg.layers, steps1),
+              flush=True)
+
+        # 4. rank 0 SIGKILLed mid-stream; resumed on the relaunched replica
+        reps[2].ready("relaunched prefill replica")
+        kc = ServingClient(endpoints=[eps[0], eps[2]], deadline_ms=600000.0)
+        got, first_tok = [], threading.Event()
+
+        def on_token(j, t):
+            got.append((j, t))
+            first_tok.set()
+
+        killer = threading.Thread(target=lambda: (
+            first_tok.wait(120.0), reps[0].proc.kill()), daemon=True)
+        killer.start()
+        i = short[-1]
+        r = kc.generate("gpt2-small", first[i], max_new_tokens=32,
+                        on_token=on_token)
+        killer.join(60.0)
+        if reps[0].wait(30.0) != -9:
+            fail("pair fleet: rank 0 did not die by SIGKILL")
+        if r.status != "ok" or got != list(enumerate(
+                int(t) for t in r.outputs["tokens"])) \
+                or not r.phases.get("resumed_tokens"):
+            fail("pair fleet: the resume after rank 0's kill: %s, chunks "
+                 "%s, resumed_tokens %s" % ((r.status, r.error),
+                                            [j for j, _t in got],
+                                            r.phases.get("resumed_tokens")))
+        check_decode_tokens("pair fleet resume", [first[i]], [r],
+                            [refs[i]])
+        print("pair fleet: %s; rank 0 SIGKILLed after its first streamed "
+              "token; the client's __resume__ went on at the relaunched "
+              "replica from index %d (resumed_tokens %d, cached_tokens "
+              "%d), every index once, %d failover(s)"
+              % (card, r.phases["resumed_tokens"],
+                 r.phases["resumed_tokens"], r.phases["cached_tokens"],
+                 kc.failovers), flush=True)
+        reps[2].proc.send_signal(15)
+        if reps[2].wait(120.0) != 0:
+            fail("pair fleet: the relaunched replica after SIGTERM; output "
+                 "ends:\n%s" % reps[2].tail())
+        steps2, l2 = check_served("pair fleet relaunched rank 2", reps[2],
+                                  dcfg)
+        print("pair fleet: the relaunched replica exited 0 on SIGTERM, its "
+              "paged_attention launches %d = %d layers x %d decode steps; "
+              "%s; phase wall %.1f s" % (l2, dcfg.layers, steps2, card,
+                                         time.perf_counter() - t_phase),
+              flush=True)
+    finally:
+        set_flags({"FLAGS_telemetry": False})
+        for rep in reps.values():
+            rep.kill()
 
 
 def check_steps(main_p, loss, init, feed, place):
@@ -5198,19 +5956,25 @@ def main():
         bert_dir = os.path.join(tmp, "bert")
         dec_launches, params, refs, dec_rates = decode_phase(pa)
         spec_decode_phase(pa, params, refs, dec_rates)
-        int8_launches = int8_decode_phase(pa, params, refs, dec_rates)
+        int8_launches, int8_refs = int8_decode_phase(pa, params, refs,
+                                                     dec_rates)
         launches, plain_outs = encoder_phase((fa, fl, ln), bert_dir)
         launches["paged_attention"] = dec_launches
         launches.update(wire_phase(pa, (fa, fl, ln), params, refs,
                                    bert_dir, plain_outs, tmp))
-        # the int8 kernel's path is the int8 decode phase
         launches["paged_attention_int8"] = int8_launches
+        # rows 1 and the int8 kernel take the disaggregated pair's paths
+        (launches["paged_attention"],
+         launches["paged_attention_int8"]) = disagg_phase(
+            pa, params, refs, dec_rates, int8_refs)
+        migration_phase(params, refs)
         try:
             plain_v, started = fleet_phase(
                 params, refs, bert_dir, tmp, start_next=lambda dec_dir:
                 start_leftovers(bert_dir, dec_dir, tmp))
             leftovers_phase(started, plain_v,
                             prompts(gpt2_small().vocab)[0])
+            pair_fleet_phase(os.path.join(tmp, "gpt2-small"), refs, tmp)
         finally:
             for rep in REPLICAS:
                 rep.kill()

@@ -63,6 +63,16 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   positions in one target step; ``FLAGS_kv_cache_dtype`` ("f32"): the
   KV pools' residency, ``f32`` or ``int8`` (per-(block, position, head)
   max-abs scales, ``serving/kv_cache.py``).
+* Live session migration (``serving/migrate.py``), the reference's
+  defaults: ``FLAGS_session_migration`` (True): the decode engine
+  publishes each completed history block (prompt ++ emitted tokens)
+  into its prefix index, and the server takes ``kind=session``
+  ``__kvxfer__`` frames and ``__resume__`` requests;
+  ``FLAGS_migrate_on_drain`` (False): a ``__retire__`` drain pushes live
+  sessions to peers instead of waiting them out;
+  ``FLAGS_migrate_on_pressure`` (False): a preempted sequence is pushed
+  to the least-loaded peer; ``FLAGS_migrate_ack_timeout`` (10.0 s): how
+  long a source waits for the destination's ``__resumeack__``.
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -87,6 +97,10 @@ _DEFAULTS = {
     "FLAGS_fault_spec": "",
     "FLAGS_speculative_k": 0,
     "FLAGS_kv_cache_dtype": "f32",
+    "FLAGS_session_migration": True,
+    "FLAGS_migrate_on_drain": False,
+    "FLAGS_migrate_on_pressure": False,
+    "FLAGS_migrate_ack_timeout": 10.0,
     "FLAGS_worker_hb_timeout": 60.0,
     "FLAGS_serving_hb_interval": 0.3,
     "FLAGS_serving_hb_timeout": 2.0,

@@ -24,9 +24,27 @@ the request meta; the root is active around the sends and GETs, so the
 RPC frames carry its context too, and it ends with the request's status,
 endpoint and attempts.
 
-Left out, compared with the reference: the disaggregated roles (the
-``__pair__`` walk; ``roles=`` raises), crash-resume (``__resume__``) and
-following a migrated session.
+A disaggregated fleet publishes a ``roles`` column beside its endpoints
+(``serving/fleet.py``; or ``roles=`` parallel to static endpoints):
+``generate`` then sends ``__generate__`` to a prefill-role replica,
+reads its ``__pair__:<req_id>`` hint and walks the ``__stream__`` and
+``__reply__`` vars on the named decode replica (on the same connection
+when the hint is None).  On failover it aborts both halves, the decode
+half first, so a dead pair strands no adopted blocks.
+
+Session migration (``serving/migrate.py``), as in the reference:
+
+- **follow**: a replica that migrated a session away ends its stream with
+  status "migrated" and a reply whose phases name ``migrated_to``; the
+  client moves there and keeps walking the same stream indices;
+- **resume**: on a ConnectionError mid-stream, with tokens in hand and
+  ``FLAGS_session_migration`` on, the next attempt sends
+  ``__resume__:<req_id>`` (the prompt and the tokens received) under the
+  same id, and reads the stream from index ``len(received)``; a refused
+  resume falls back to a full replay under a fresh id.
+
+``client_resume_total{result}``, ``client_migrate_follow_total`` and
+``client_stream_dup_total`` count them.
 """
 
 import json
@@ -87,12 +105,14 @@ def _reply_of(meta, arrays, t0):
 class ServingClient:
     def __init__(self, endpoints=None, endpoints_file=None,
                  tenant="default", deadline_ms=None, roles=None):
-        if roles:
-            raise NotImplementedError(
-                "disaggregated roles (serving/disagg.py) are not ported")
         self.endpoints_file = endpoints_file or \
             flags.flag("serving_endpoints_file") or None
         self._static = list(endpoints or [])
+        # a static role column parallel to ``endpoints``; an endpoints
+        # file's own column wins
+        self._roles = list(roles) if roles else None
+        if self._roles and len(self._roles) != len(self._static):
+            raise ValueError("client roles must parallel endpoints")
         self.tenant = tenant
         self.default_deadline_ms = float(
             deadline_ms if deadline_ms is not None
@@ -115,6 +135,19 @@ class ServingClient:
             except (OSError, ValueError):
                 pass
         return list(self._static)
+
+    def endpoints_with_roles(self):
+        """[(endpoint, role)]; the role is "serve" where no column is
+        published."""
+        if self.endpoints_file:
+            try:
+                eps, roles = read_endpoints_doc(self.endpoints_file)
+                if eps:
+                    return list(zip(eps, roles or ["serve"] * len(eps)))
+            except (OSError, ValueError):
+                pass
+        return list(zip(self._static,
+                        self._roles or ["serve"] * len(self._static)))
 
     # -- one-shot GETs -------------------------------------------------------
 
@@ -300,6 +333,28 @@ class ServingClient:
         finally:
             c.close()
 
+    def _abort_pair(self, endpoint, decode_ep, req_id):
+        """Abandon a disaggregated attempt: the decode half holds the
+        adopted blocks, so it is aborted first; the prefill half relays a
+        cancel too."""
+        if decode_ep and decode_ep != endpoint:
+            self._abort(decode_ep, req_id)
+        self._abort(endpoint, req_id)
+
+    def _gen_candidates(self):
+        """(endpoint, role) pairs ``generate`` may send to: the prefill
+        replicas when a role column names any, else every non-decode
+        endpoint, decode replicas as the last resort."""
+        cand = self.endpoints_with_roles()
+        pf = [(e, r) for e, r in cand if r == "prefill"]
+        if pf:
+            return pf
+        return [(e, r) for e, r in cand if r != "decode"] or cand
+
+    def _connect(self, endpoint, timeout):
+        return RpcClient(endpoint, connect_timeout=2.0, rpc_deadline=timeout,
+                         retry_times=0)
+
     def generate(self, model, prompt_ids, max_new_tokens=16,
                  deadline_ms=None, eos_id=-1, stream=True, on_token=None,
                  max_attempts=None, tier=None):
@@ -308,8 +363,9 @@ class ServingClient:
         client walks the ``__stream__`` chunks: ``on_token(i, token)``
         fires once per index, and the reply's phases gain the client's
         ``client_ttft_ms`` and ``client_itl_ms_samples`` (what a user
-        sees, the wire included).  Fails over on ConnectionError and on
-        timeout replies, aborting the abandoned attempt first."""
+        sees, the wire included).  Fails over on ConnectionError (a
+        resume when it holds tokens) and on timeout replies, aborting the
+        abandoned attempt first; follows a migrated session."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         req_id = uuid.uuid4().hex
         root = _tr.start_span("client.generate", model=model,
@@ -328,8 +384,9 @@ class ServingClient:
         t0 = time.perf_counter()
         last_err, last_reply, sheds = None, None, 0
         received = []          # tokens delivered to the caller, by index
-        eps = self.endpoints()
-        shed_cap, attempts = self._attempts(len(eps), max_attempts)
+        resume_allowed = bool(flags.flag("session_migration"))
+        cand = self._gen_candidates()
+        shed_cap, attempts = self._attempts(len(cand), max_attempts)
 
         def fresh_id():
             meta_req["req_id"] = uuid.uuid4().hex
@@ -339,23 +396,57 @@ class ServingClient:
             if i:
                 self.failovers += 1
                 time.sleep(min(0.05 * i, 0.5))
-                eps = self.endpoints()
-            if not eps:
+                cand = self._gen_candidates()
+            if not cand:
                 last_err = "endpoints file empty"
                 continue
-            ep = eps[self._rr % len(eps)]
+            ep, ep_role = cand[self._rr % len(cand)]
             self._rr += 1
+            resuming = bool(stream and received and resume_allowed and i)
             chunk_times = []
+            decode_ep = None
+            conns = []
             try:
-                c = RpcClient(ep, connect_timeout=2.0,
-                              rpc_deadline=get_timeout, retry_times=0)
+                c = self._connect(ep, get_timeout)
+                conns.append(c)
                 try:
                     with _tr.activate(root):
-                        c.send_var(codec.GEN_KEY + req_id,
-                                   codec.pack(meta_req, [prompt]))
-                        k = 0
+                        reader = c
+                        if resuming:
+                            # the same id, the prompt and the tokens held;
+                            # the replica emits from len(received) on
+                            c.send_var(codec.RESUME_KEY + req_id,
+                                       codec.pack(meta_req, [
+                                           prompt, np.asarray(
+                                               received, np.int32)]))
+                            am, _ = codec.unpack(c.get_var(
+                                codec.RESUME_ACK_KEY + req_id))
+                            if am.get("status") != "resumed":
+                                _tm.inc("client_resume_total",
+                                        result="refused")
+                                last_err = "resume refused: %s" \
+                                    % am.get("error")
+                                # a full replay under a fresh id, for good
+                                resume_allowed = False
+                                req_id = fresh_id()
+                                continue
+                            _tm.inc("client_resume_total", result="resumed")
+                        else:
+                            c.send_var(codec.GEN_KEY + req_id,
+                                       codec.pack(meta_req, [prompt]))
+                            if ep_role == "prefill":
+                                # the stream and reply come from the decode
+                                # half, or from here when the hint is None
+                                pm, _ = codec.unpack(c.get_var(
+                                    codec.PAIR_KEY + req_id))
+                                decode_ep = pm.get("decode")
+                                if decode_ep:
+                                    reader = self._connect(decode_ep,
+                                                           get_timeout)
+                                    conns.append(reader)
+                        k = len(received) if resuming else 0
                         while stream:
-                            cm, _ = codec.unpack(c.get_var(
+                            cm, _ = codec.unpack(reader.get_var(
                                 "%s%s:%d" % (codec.STREAM_KEY, req_id, k)))
                             if cm.get("token") is not None:
                                 chunk_times.append(time.perf_counter())
@@ -364,19 +455,50 @@ class ServingClient:
                                     received.append(int(cm["token"]))
                                     if on_token is not None:
                                         on_token(idx, int(cm["token"]))
+                                else:
+                                    # a replayed prefix: delivered already
+                                    _tm.inc("client_stream_dup_total")
                             if cm.get("done"):
-                                break
+                                if cm.get("status") != "migrated":
+                                    break
+                                # follow the session: the reply names the
+                                # replica that goes on at this same index
+                                mm, _ = codec.unpack(reader.get_var(
+                                    codec.REPLY_KEY + req_id))
+                                dest = (mm.get("phases") or {}
+                                        ).get("migrated_to")
+                                if not dest:
+                                    break
+                                reader = self._connect(dest, get_timeout)
+                                conns.append(reader)
+                                _tm.inc("client_migrate_follow_total")
+                                continue
                             k += 1
                         meta, arrays = codec.unpack(
-                            c.get_var(codec.REPLY_KEY + req_id))
+                            reader.get_var(codec.REPLY_KEY + req_id))
+                        while meta.get("status") == "migrated":
+                            # unstreamed: the destination has the reply
+                            dest = (meta.get("phases") or {}
+                                    ).get("migrated_to")
+                            if not dest:
+                                break
+                            reader = self._connect(dest, get_timeout)
+                            conns.append(reader)
+                            _tm.inc("client_migrate_follow_total")
+                            meta, arrays = codec.unpack(
+                                reader.get_var(codec.REPLY_KEY + req_id))
                 finally:
-                    c.close()
+                    for conn in conns:
+                        conn.close()
             except ConnectionError as e:
-                # free the abandoned attempt, then replay under a fresh id:
-                # the abort publishes a terminal reply under the old one
+                # free the abandoned attempt on both halves; with tokens in
+                # hand the next attempt resumes under the same id, else it
+                # replays under a fresh one (the abort publishes a terminal
+                # reply under the old id)
                 last_err = str(e)
-                self._abort(ep, req_id)
-                req_id = fresh_id()
+                self._abort_pair(ep, decode_ep, req_id)
+                if not (stream and received and resume_allowed):
+                    req_id = fresh_id()
                 continue
             reply = _reply_of(meta, arrays, t0)
             if chunk_times:
@@ -388,7 +510,7 @@ class ServingClient:
             if reply.status == "timeout" and i + 1 < attempts:
                 last_err = "server timeout: %s" % reply.error
                 last_reply = reply
-                self._abort(ep, req_id)
+                self._abort_pair(ep, decode_ep, req_id)
                 req_id = fresh_id()
                 continue
             if reply.status == "shed" and sheds < shed_cap \

@@ -2,13 +2,11 @@
 
 A copy of ``paddle_tpu/serving/codec.py``: the same keys and the same
 bytes for the same meta and arrays, so the two packages' clients and
-servers read each other's frames.  The transport's other users keep their
-keys; the port's server answers only the monolith keys (its docstring
-lists which), and the kvxfer / pair / resume keys are kept so a frame of
-either package decodes the same.  migrate.py and disagg.py below are the
-reference package's; the port has neither yet.  The ``TRACEPARENT`` key
-carries the client root span's context (``core/tracing.py``), and a reply
-meta echoes it beside the engine's ``phases``.
+servers read each other's frames, the kvxfer, pair and resume frames of
+``serving/disagg.py`` and ``serving/migrate.py`` (either package's, as
+named below) among them.  The ``TRACEPARENT`` key carries the client
+root span's context (``core/tracing.py``), and a reply meta echoes it
+beside the engine's ``phases``.
 
 The native tensor-RPC transport (native/rpc.py) moves ONE named ndarray
 per frame; an inference request/reply carries several arrays of mixed

@@ -70,10 +70,43 @@ the lock before each decode iteration that has work, and
 ``serving.execute.<model>``, checked before a batch runs ("error" fails
 the batch).
 
-Left out of the decode engine, compared with the reference:
-disaggregated handoff, session migration and history publication, and
-tier weights and tier eviction (every decode request is tier
-"default").
+Moving decode state between replicas (``serving/disagg.py``,
+``serving/migrate.py``), as the reference does:
+
+- **handoff** (``submit(handoff=True)``, the prefill role): the sequence
+  is fed up to ``handoff_prefill_upto`` (its last full-block boundary),
+  ``on_block_sealed(m, seq, j, digest)`` fires for each sealed prompt
+  block (prefix hits at admission included) and ``on_handoff(m, seq)``
+  once at the boundary, both on the decode thread between steps; it then
+  finishes with status "handoff" and never generates.
+  ``adopt_kv_block`` installs a transferred block on the decode role
+  (allocate, ``import_block``, publish under its digest, park it
+  evictable), so the commit's ordinary submit prefix-matches it;
+  ``forget_adopted`` frees the blocks of a request that died.
+- **history publication** (``FLAGS_session_migration``): each completed
+  block of prompt ++ emitted tokens is published under that history's
+  chain digest, after the appends, in the plain and speculative steps.
+- **migration**: ``export_session`` detaches a live sequence between
+  steps and snapshots a manifest, its sealed history blocks and a tail
+  block (``migrate.tail_digest``); the sequence stays parked until
+  ``commit_migration`` (finish "migrated", ``migrated_to`` in the phases)
+  or ``abort_migration`` (re-queue at the front; its tokens are kept and
+  replayed, never re-emitted).  ``submit(resume_from=, resume_tail=)``
+  admits a resumed session: it matches the full history chain, installs
+  the tail into a private block when every full block below it matched
+  and its digest agrees, and emits from index ``len(resume_from)``.
+  ``drain(migrate=)`` pushes live sessions instead of waiting them out;
+  ``on_preempt`` (fired with the lock released) names the sequences a
+  preemption re-queued, for the pressure trigger.
+
+The decode step runs with the lock released (``_decode_step_locked``),
+so whatever reads or writes the pools from another thread
+(``export_session``, ``adopt_kv_block``) runs between two steps
+(``_between_steps``): inline when no step is on the device, else queued
+for the decode thread, which runs it at the top of its next iteration.
+
+Left out of the decode engine, compared with the reference: tier weights
+and tier eviction (every decode request is tier "default").
 """
 
 import collections
@@ -190,7 +223,8 @@ class _DecodeSeq:
                  "blocks", "table", "draft_blocks", "draft_table", "n_fed",
                  "next_tok", "out", "t_admit", "t_first", "token_times",
                  "admit_seq", "aborted", "hashes", "published",
-                 "cached_tokens", "replay_upto")
+                 "cached_tokens", "replay_upto", "handoff", "prefill_upto",
+                 "resume_tail", "hist_hashes", "hist_published")
 
     def __init__(self, pending, prompt, max_new, eos_id, on_token, maxb):
         self.pending = pending
@@ -214,6 +248,14 @@ class _DecodeSeq:
         self.published = 0                    # leading blocks indexed
         self.cached_tokens = 0
         self.replay_upto = len(self.prompt)
+        # the prefill role: feed up to prefill_upto, never generate
+        self.handoff = False
+        self.prefill_upto = 0
+        # a migrated tail block, consumed once at admission; the chain over
+        # prompt ++ out and how many of its blocks are published
+        self.resume_tail = None
+        self.hist_hashes = []
+        self.hist_published = 0
 
     @property
     def in_prefill(self):
@@ -231,8 +273,9 @@ class _DecodeSeq:
         return len(self.prompt) + self.max_new
 
     def reset_for_recompute(self):
-        """Preempted: blocks were freed; replay prompt ++ out from the
-        start (or from a prefix-cache hit) with outputs discarded."""
+        """Preempted, or a migration aborted: blocks were freed; replay
+        prompt ++ out from the start (or from a prefix-cache hit, the
+        published history included) with outputs discarded."""
         self.blocks = []
         self.table.fill(-1)
         self.draft_blocks = []
@@ -245,6 +288,8 @@ class _DecodeSeq:
         self.hashes = None
         self.published = 0
         self.cached_tokens = 0
+        self.hist_hashes = []
+        self.hist_published = 0
 
 
 class _DecodeModel:
@@ -318,6 +363,23 @@ class DecodeEngine:
         # called with the lock released after every decode step (the
         # fleet's tick), so a view change lands between steps
         self.on_batch_boundary = None
+        # the prefill role's hooks (serving/server.py wires them), fired on
+        # the decode thread between steps: on_block_sealed(m, seq, j,
+        # digest) per sealed prompt block of a handoff sequence,
+        # on_handoff(m, seq) once it reaches its boundary
+        self.on_block_sealed = None
+        self.on_handoff = None
+        # migration: sequences parked mid-hand-off, a ring of req_ids
+        # committed away (the double-migration refusal), and the
+        # preemption victims on_preempt(list of (req_id, model)) gets at
+        # the next boundary, with the lock released
+        self._migrating = {}
+        self._migrated = []
+        self._preempted = []
+        self.on_preempt = None
+        # (fn, result box, done event) queued for the decode thread while
+        # a step is on the device (_between_steps)
+        self._boundary_calls = []
 
     @property
     def steps(self):
@@ -474,15 +536,38 @@ class DecodeEngine:
         _tm.inc("serving_shed_total", reason=reason)
         _tm.inc("serving_tier_shed_total", tier=_DEFAULT_TIER)
 
+    def handoff_prefill_upto(self, model, prompt_len):
+        """Tokens a prefill-role replica feeds for a prompt of
+        ``prompt_len``: its last full-block boundary below the prompt's
+        end (only full blocks have a digest, and the decode half computes
+        at least one tail token).  0: nothing transfers; forward the
+        request whole."""
+        m = self._models.get(model)
+        if m is None or m.prefix is None:
+            return 0
+        bs = m.kv_config.block_size
+        return max(0, ((int(prompt_len) - 1) // bs) * bs)
+
     def submit(self, model, prompt_ids, max_new_tokens=16, deadline_ms=None,
                eos_id=-1, callback=None, on_token=None, req_id=None,
-               tenant="default", traceparent=None):
+               tenant="default", traceparent=None, handoff=False,
+               resume_from=None, resume_tail=None):
         """Enqueue one request; returns a _Pending whose reply carries
         outputs={"tokens"} plus queue/TTFT/ITL phases.
         ``on_token(req_id, index, token, done, status)`` fires per
         generated token; on a non-ok end it fires once with token None.
         ``tenant`` labels the request counter only; ``traceparent`` (the
-        wire context) is echoed in the reply meta."""
+        wire context) is echoed in the reply meta.
+
+        ``handoff=True`` is the prefill role: feed up to
+        ``handoff_prefill_upto``, fire the hooks, finish "handoff".
+        ``resume_from`` (the tokens a client already holds, or a migrated
+        session's) seeds the output: admission matches the history chain
+        prompt ++ tokens and emission resumes at the next new index;
+        ``resume_tail`` ({"digest", "valid", "arrays"}) is a migrated
+        tail block, installed when it checks out and else dropped (the
+        replay recomputes it).  A resume of a req_id live here is refused
+        (double migration)."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = _Pending(model, deadline_ms, req_id or uuid.uuid4().hex,
@@ -522,10 +607,55 @@ class DecodeEngine:
                 "error", error="sequence needs %d draft KV blocks, pool "
                 "holds %d" % (m.draft_cache.blocks_for_tokens(total),
                               m.draft_cache.allocator.capacity)))
+        if handoff:
+            upto = self.handoff_prefill_upto(model, len(prompt_ids))
+            if upto <= 0:
+                return _early(InferReply(
+                    "error", error="nothing to hand off: prompt of %d has "
+                    "no full %d-token block below its tail"
+                    % (len(prompt_ids), m.kv_config.block_size)))
+        resume_out = None
+        if resume_from is not None:
+            toks = [int(t) for t in np.asarray(resume_from).reshape(-1)]
+            err = None
+            if handoff:
+                err = "resume_from resumes decode; handoff is prefill-role"
+            elif not toks:
+                err = "resume_from carries no tokens"
+            elif len(toks) >= int(max_new_tokens):
+                err = "resume_from already holds all %d requested " \
+                      "tokens" % int(max_new_tokens)
+            elif int(eos_id) >= 0 and int(eos_id) in toks:
+                err = "resume_from already contains eos"
+            elif any(t < 0 or t >= m.cfg.vocab for t in toks):
+                err = "resume token out of vocab"
+            if err is not None:
+                _tm.inc("kv_migrate_resume_total", result="refused",
+                        model=model)
+                _tm.inc("kv_migrate_refused_total", reason="bad_resume")
+                return _early(InferReply("error", error=err))
+            resume_out = toks
         _tm.inc("serving_decode_requests_total", model=model, tenant=tenant)
         seq = _DecodeSeq(req, prompt_ids, max_new_tokens, eos_id, on_token,
                          m.maxb)
+        if handoff:
+            seq.handoff = True
+            seq.prefill_upto = upto
+        if resume_out is not None:
+            seq.out = resume_out
+            seq.replay_upto = len(prompt_ids) + len(resume_out)
+            seq.resume_tail = resume_tail
         with self._cond:
+            if resume_out is not None and (
+                    req.req_id in self._migrating or any(
+                        s.pending.req_id == req.req_id
+                        for s in self._active + self._waiting)):
+                _tm.inc("kv_migrate_resume_total", result="refused",
+                        model=model)
+                _tm.inc("kv_migrate_refused_total", reason="duplicate")
+                return _early(InferReply(
+                    "error", error="req_id %s is already live here "
+                    "(double migration refused)" % req.req_id))
             if self._draining:
                 self._count_shed("draining")
                 return _early(InferReply(
@@ -559,6 +689,9 @@ class DecodeEngine:
                                        parent=req.span,
                                        depth=len(self._waiting))
             self._waiting.append(seq)
+            if resume_out is not None:
+                _tm.inc("kv_migrate_resume_total", result="accepted",
+                        model=model)
             _tm.set_gauge("serving_queue_depth", len(self._waiting))
             self._cond.notify_all()
         return req
@@ -593,6 +726,223 @@ class DecodeEngine:
                     return True
         return False
 
+    def _between_steps(self, fn):
+        """``fn()`` with the lock held and no decode step on the device ->
+        its result (or its exception).  Inline when no step runs (the
+        lock's holder knows: ``in_batch`` changes only under the lock),
+        else queued for the decode thread's next iteration, which cannot
+        starve the way a waiter on the lock can."""
+        with self._cond:
+            if not self.in_batch:
+                return fn()
+            box = {}
+            done = threading.Event()
+            self._boundary_calls.append((fn, box, done))
+        done.wait()
+        if "error" in box:
+            raise box["error"]
+        return box.get("value")
+
+    def _run_boundary_calls_locked(self):
+        calls, self._boundary_calls = self._boundary_calls, []
+        for fn, box, done in calls:
+            try:
+                box["value"] = fn()
+            except Exception as e:  # handed back to the caller
+                box["error"] = e
+            done.set()
+
+    # -- sealed-block adoption (the decode half of a disaggregated pair) -----
+
+    def adopt_kv_block(self, model, digest, arrays):
+        """Adopt one transferred sealed block into ``model``'s pool:
+        allocate a block, install the payload, publish it under
+        ``digest`` and park it evictable, so the commit's ordinary submit
+        prefix-matches it like a locally computed hit -> "adopted",
+        "cached" (the digest is indexed already) or "rejected:<reason>";
+        a rejection only costs the decode half a recompute, since the
+        commit carries the whole prompt."""
+        m = self._models.get(model)
+        if m is None:
+            return "rejected:unknown model %r" % (model,)
+        if m.prefix is None:
+            return "rejected:prefix cache disabled"
+
+        def adopt():
+            if m.prefix.lookup(digest) is not None:
+                _tm.inc("kv_xfer_adopt_total", result="cached", model=model)
+                return "cached"
+            got = m.cache.allocator.alloc(1)
+            if got is None:
+                _tm.inc("kv_xfer_adopt_total", result="nopool", model=model)
+                return "rejected:kv pool exhausted"
+            b = got[0]
+            try:
+                m.cache.import_block(b, arrays)
+            except (ValueError, RuntimeError) as e:
+                m.cache.allocator.free([b])
+                _tm.inc("kv_xfer_adopt_total", result="geometry",
+                        model=model)
+                return "rejected:%s" % e
+            if not m.prefix.publish(b, digest):
+                m.cache.allocator.free([b])
+                _tm.inc("kv_xfer_adopt_total", result="cached", model=model)
+                return "cached"
+            # drop our reference: the sealed block parks evictable
+            m.cache.allocator.free([b])
+            _tm.inc("kv_xfer_adopt_total", result="adopted", model=model)
+            return "adopted"
+
+        return self._between_steps(adopt)
+
+    def forget_adopted(self, model, digests):
+        """Un-index and truly free the still-evictable adopted blocks of a
+        request that died (a block a live sequence revived is left to it)
+        -> how many index entries existed."""
+        m = self._models.get(model)
+        if m is None or m.prefix is None:
+            return 0
+        with self._cond:
+            n = sum(1 for d in digests if m.prefix.forget(d))
+        if n:
+            _tm.inc("kv_xfer_forget_total", n, model=model)
+        return n
+
+    # -- live session migration (serving/migrate.py drives these) ------------
+
+    def _refuse_export(self, req_id, reason):
+        _tm.inc("kv_migrate_refused_total", reason=reason)
+        raise ValueError("cannot migrate %s: %s" % (req_id, reason))
+
+    def export_session(self, req_id):
+        """Detach a live sequence between two steps and snapshot what a
+        peer needs to continue it -> ``(manifest, payloads)``.  The
+        manifest is the session's descriptor (its tokens ride as
+        ``_prompt_arr`` / ``_out_arr`` int32 arrays, which the migrator
+        moves onto the frame's payload); ``payloads`` is one ``(block
+        index, digest, arrays, is_tail)`` per block to ship: each fully
+        fed history block under its chain digest, and the partial tail
+        block under ``tail_digest``.  The sequence stays parked until
+        ``commit_migration`` or ``abort_migration``.
+
+        Refusals raise ValueError and leave the engine as it was:
+        unknown or finished ids, a sequence parked or recently committed
+        away, an aborted or handoff sequence, one still in prefill or
+        replay, and an engine without a prefix cache or with
+        ``FLAGS_session_migration`` off."""
+        return self._between_steps(lambda: self._export_locked(req_id))
+
+    def _export_locked(self, req_id):
+        from .migrate import tail_digest
+
+        seq, waiting = None, False
+        for s in self._active:
+            if s.pending.req_id == req_id:
+                seq = s
+                break
+        if seq is None:
+            for s in self._waiting:
+                if s.pending.req_id == req_id:
+                    seq, waiting = s, True
+                    break
+        if seq is None:
+            if req_id in self._migrating:
+                self._refuse_export(req_id, "already_migrating")
+            if req_id in self._migrated:
+                self._refuse_export(req_id, "already_migrated")
+            self._refuse_export(req_id, "unknown")
+        if seq.aborted:
+            self._refuse_export(req_id, "aborted")
+        if seq.handoff:
+            self._refuse_export(req_id, "handoff")
+        if not seq.out or (not waiting and seq.in_prefill):
+            self._refuse_export(req_id, "in_prefill")
+        m = self._model_of(seq)
+        if m.prefix is None or not _flag("session_migration"):
+            self._refuse_export(req_id, "disabled")
+        bs = m.kv_config.block_size
+        # steady decode keeps n_fed == len(prompt ++ out) - 1 (the last
+        # emitted token is fed by the next step); a preempted waiting
+        # victim resumes at the same position
+        pos = len(seq.prompt) + len(seq.out) - 1 if waiting else seq.n_fed
+        nfull = pos // bs
+        digests = [self._hist_digest_locked(m, seq, j) for j in range(nfull)]
+        payloads = []
+        if waiting:
+            # a preempted victim freed its blocks; ship the published
+            # history that is still evictable, the peer replays the rest
+            borrowed = m.prefix.match_digests(digests)
+            for j, b in enumerate(borrowed):
+                payloads.append((j, digests[j], m.cache.export_block(b),
+                                 False))
+            if borrowed:
+                m.cache.allocator.free(borrowed)
+        else:
+            for j in range(nfull):
+                payloads.append((j, digests[j],
+                                 m.cache.export_block(seq.blocks[j]), False))
+            if pos > nfull * bs:
+                td = tail_digest(digests[-1] if digests else None,
+                                 seq.feed_slice(nfull * bs, pos - nfull * bs))
+                payloads.append((nfull, td,
+                                 m.cache.export_block(seq.blocks[nfull]),
+                                 True))
+        now = time.perf_counter()
+        manifest = {
+            "req_id": req_id, "model": seq.pending.model, "pos": int(pos),
+            "block_size": int(bs), "dtype": str(m.kv_config.dtype),
+            "digests": digests, "max_new_tokens": int(seq.max_new),
+            "eos_id": int(seq.eos_id), "tier": _DEFAULT_TIER,
+            "tenant": "default",
+            "deadline_ms": max(round((seq.pending.deadline - now) * 1e3, 3),
+                               1.0),
+            "stream": seq.on_token is not None, "spec_k": int(m.spec_k),
+            "_prompt_arr": np.asarray(seq.prompt, np.int32),
+            "_out_arr": np.asarray(seq.out, np.int32)}
+        if waiting:
+            self._waiting.remove(seq)
+            _tm.set_gauge("serving_queue_depth", len(self._waiting))
+        else:
+            self._active.remove(seq)
+        self._migrating[req_id] = seq
+        _tm.event("session_export", req_id=req_id, pos=int(pos),
+                  model=seq.pending.model, blocks=len(payloads),
+                  waiting=waiting)
+        return manifest, payloads
+
+    def commit_migration(self, req_id, peer):
+        """The destination acked "resumed": free the parked sequence's
+        blocks and finish it "migrated", ``migrated_to`` in its phases so
+        a waiting client follows it."""
+        with self._cond:
+            seq = self._migrating.pop(req_id, None)
+            if seq is None:
+                return False
+            self._migrated.append(req_id)
+            del self._migrated[:-256]
+            self._free_blocks(seq)
+            self._finish(seq, InferReply(
+                "migrated", error="session migrated to %s" % peer,
+                phases={"migrated_to": peer}))
+            self._cond.notify_all()
+        _tm.event("session_migrated", req_id=req_id, peer=peer)
+        return True
+
+    def abort_migration(self, req_id):
+        """The push failed or was refused: re-queue the parked sequence at
+        the front for a local replay (its tokens kept, never re-emitted),
+        so at most one replica runs it and nothing is dropped."""
+        with self._cond:
+            seq = self._migrating.pop(req_id, None)
+            if seq is None:
+                return False
+            self._free_blocks(seq)
+            seq.reset_for_recompute()
+            self._waiting.insert(0, seq)
+            _tm.set_gauge("serving_queue_depth", len(self._waiting))
+            self._cond.notify_all()
+        return True
+
     # -- lifecycle -----------------------------------------------------------
 
     def start(self):
@@ -612,23 +962,53 @@ class DecodeEngine:
             self._thread.join(drain_s)
             self._thread = None
         with self._cond:
-            leftovers = self._active + self._waiting
+            self._run_boundary_calls_locked()
+            leftovers = self._active + self._waiting + \
+                list(self._migrating.values())
             self._active, self._waiting = [], []
+            self._migrating = {}
         for s in leftovers:
             self._free_blocks(s)
             self._finish(s, InferReply("error", error="engine stopped"))
 
-    def drain(self, timeout_s=30.0):
+    def drain(self, timeout_s=30.0, migrate=None):
         """Shed new arrivals and wait for every waiting and active
-        sequence to finish; True when the engine emptied in time."""
+        sequence to finish; True when the engine emptied in time.
+
+        ``migrate(req_id, model)`` (``SessionMigrator.drain_push()``)
+        pushes each live mid-decode session to a peer instead, one at a
+        time, outside the lock; a session whose push fails is waited out
+        as before."""
         with self._cond:
             self._draining = True
             self._cond.notify_all()
         deadline = time.perf_counter() + timeout_s
+        failed = set()
         while time.perf_counter() < deadline:
+            cand = None
             with self._cond:
-                if not self._waiting and not self._active:
+                if not self._waiting and not self._active \
+                        and not self._migrating:
                     return True
+                if migrate is not None:
+                    for s in self._active + self._waiting:
+                        rid = s.pending.req_id
+                        if rid in failed or s.handoff or s.aborted \
+                                or not s.out:
+                            continue
+                        if s in self._active and s.in_prefill:
+                            continue
+                        cand = (rid, s.pending.model)
+                        break
+            if cand is not None:
+                try:
+                    ok = bool(migrate(*cand))
+                except Exception:  # a failed push is waited out
+                    _log.exception("drain: migrating %s failed", cand[0])
+                    ok = False
+                if not ok:
+                    failed.add(cand[0])
+                continue
             time.sleep(0.01)
         return False
 
@@ -660,19 +1040,24 @@ class DecodeEngine:
 
     def _finish(self, seq, reply):
         r = seq.pending
-        if reply.ok or reply.status == "timeout":
+        if reply.ok or reply.status in ("timeout", "migrated"):
             now = time.perf_counter()
             phases = {"queue_wait_ms": round(
                 ((seq.t_admit or now) - r.t_submit) * 1e3, 3),
                 "tokens": len(seq.out),
                 "prompt_tokens": len(seq.prompt),
                 "cached_tokens": seq.cached_tokens, "model": r.model}
+            if seq.replay_upto > len(seq.prompt):
+                # tokens re-fed, never re-emitted: a resume's or a
+                # replay's; beside cached_tokens, its re-prefill cost
+                phases["resumed_tokens"] = seq.replay_upto - len(seq.prompt)
             if seq.t_first is not None:
                 phases["ttft_ms"] = round((seq.t_first - r.t_submit) * 1e3, 3)
             if len(seq.token_times) > 1:
                 phases["itl_ms_samples"] = [
                     round((b - a) * 1e3, 3) for a, b in
                     zip(seq.token_times, seq.token_times[1:])]
+            phases.update(reply.phases)
             reply.phases = phases
         if reply.ok:
             reply.outputs = {"tokens": np.asarray(seq.out, np.int32)}
@@ -734,7 +1119,11 @@ class DecodeEngine:
             self._admit_seq += 1
             s.admit_seq = self._admit_seq
             s.t_admit = now
-            if m.prefix is not None:
+            if m.prefix is not None and s.replay_upto > len(s.prompt):
+                # a resumed session or a preempted replay: match the
+                # history chain, not the prompt alone
+                self._admit_resume_locked(m, s)
+            elif m.prefix is not None:
                 # longest-prefix match, capped at len(prompt) - 1 tokens:
                 # shared blocks seed the table and the feed pointer jumps
                 # past them, so every write lands in a private tail block
@@ -747,6 +1136,13 @@ class DecodeEngine:
                     s.table[:len(shared)] = shared
                     s.n_fed = cached
                     s.next_tok = s.feed_tok(cached)
+                if s.handoff and self.on_block_sealed is not None:
+                    # a warm prefill replica still announces its hits: the
+                    # decode peer may be cold (the sender skips digests
+                    # it already shipped there)
+                    want = s.prefill_upto // m.kv_config.block_size
+                    for j in range(min(len(shared), want)):
+                        self.on_block_sealed(m, s, j, hashes[j])
             if s.pending.span is not None:
                 s.pending.span.annotate(cached_tokens=s.cached_tokens)
             if s.pending.qspan is not None:
@@ -795,6 +1191,10 @@ class DecodeEngine:
             self._free_blocks(v)
             v.reset_for_recompute()
             self._waiting.insert(0, v)
+            if v.out:
+                # a pressure-migration candidate, named to on_preempt at
+                # the next boundary
+                self._preempted.append((v.pending.req_id, v.pending.model))
             self.preemptions += 1
             _tm.inc("kv_block_evictions_total", model=v.pending.model)
             _tm.event("decode_preempt", victim=v.pending.req_id,
@@ -807,11 +1207,115 @@ class DecodeEngine:
         publish a partial block."""
         if m.prefix is None or s.hashes is None:
             return
-        done = min(s.n_fed, len(s.prompt)) // m.kv_config.block_size
+        bs = m.kv_config.block_size
+        done = min(s.n_fed, len(s.prompt)) // bs
         while s.published < min(done, len(s.hashes)):
             j = s.published
             m.prefix.publish(s.blocks[j], s.hashes[j])
             s.published = j + 1
+            if s.handoff and self.on_block_sealed is not None \
+                    and j < s.prefill_upto // bs:
+                self.on_block_sealed(m, s, j, s.hashes[j])
+
+    def _hist_digest_locked(self, m, s, j):
+        """The ``j``-th full-block digest of the prompt ++ out chain,
+        memoized in ``s.hist_hashes`` (its prompt-only blocks are
+        ``s.hashes``)."""
+        bs = m.kv_config.block_size
+        while len(s.hist_hashes) <= j:
+            i = len(s.hist_hashes)
+            if s.hashes is not None and i < len(s.hashes):
+                s.hist_hashes.append(s.hashes[i])
+                continue
+            prev = s.hist_hashes[i - 1] if i else None
+            s.hist_hashes.append(m.prefix.extend_chain(
+                prev, s.feed_slice(i * bs, bs)))
+        return s.hist_hashes[j]
+
+    def _publish_history_locked(self, m, s):
+        """Publish each newly completed history block (a full block past
+        the prompt's) under its prompt ++ out chain digest
+        (``FLAGS_session_migration``).  A block publishes once all its
+        positions are fed, so its content is final; a replica that ran a
+        generation then holds its whole history chain, and a crash resume
+        there re-feeds less than one block."""
+        if m.prefix is None or s.handoff or not _flag("session_migration"):
+            return
+        bs = m.kv_config.block_size
+        first = len(s.prompt) // bs        # prompt-only blocks: above
+        done = s.n_fed // bs
+        s.hist_published = max(s.hist_published, first)
+        while s.hist_published < done:
+            j = s.hist_published
+            m.prefix.publish(s.blocks[j], self._hist_digest_locked(m, s, j))
+            s.hist_published = j + 1
+
+    def _admit_resume_locked(self, m, s):
+        """Admission when ``replay_upto > len(prompt)`` (a resumed session
+        or a preempted replay): match the history chain prompt ++ emitted
+        tokens, then install the migrated tail block when every full block
+        below it matched and its digest agrees.  Whatever is not matched
+        is replayed; the tokens are the same either way."""
+        from .migrate import tail_digest
+
+        bs = m.kv_config.block_size
+        pos = s.replay_upto - 1          # the last emitted token is re-fed
+        nfull = pos // bs
+        s.hashes = m.prefix.chain(s.prompt)
+        digests = [self._hist_digest_locked(m, s, j) for j in range(nfull)]
+        blocks = m.prefix.match_digests(digests)
+        if blocks:
+            s.blocks = list(blocks)
+            s.table[:len(blocks)] = blocks
+            s.n_fed = len(blocks) * bs
+        s.published = min(len(blocks), len(s.hashes))
+        s.hist_published = len(blocks)
+        tail, s.resume_tail = s.resume_tail, None
+        if tail is not None and len(blocks) == nfull and nfull * bs < pos:
+            want = tail_digest(digests[-1] if digests else None,
+                               s.feed_slice(nfull * bs, pos - nfull * bs))
+            if tail.get("digest") != want \
+                    or int(tail.get("valid", -1)) != pos - nfull * bs:
+                # a stale or foreign tail is not trusted: replayed
+                _tm.inc("kv_migrate_refused_total", reason="tail_mismatch")
+            else:
+                got = m.cache.allocator.alloc(1)
+                if got is not None:
+                    b = got[0]
+                    try:
+                        m.cache.import_block(b, tail["arrays"])
+                    except (ValueError, RuntimeError):
+                        m.cache.allocator.free([b])
+                    else:
+                        # private to the resumed sequence, never indexed
+                        s.blocks.append(b)
+                        s.table[nfull] = b
+                        s.n_fed = pos
+        s.cached_tokens = s.n_fed
+        s.next_tok = s.feed_tok(s.n_fed)
+
+    def _prefill_limit(self, s):
+        """The last position this replica feeds from known history: the
+        handoff boundary for a prefill-role sequence, else replay_upto."""
+        return s.prefill_upto if s.handoff else s.replay_upto
+
+    def _sweep_handoff_locked(self):
+        """Finish the handoff sequences that reached their boundary: fire
+        ``on_handoff`` while their blocks are still held, then free them
+        and finish "handoff" (the decode half owns the client's reply)."""
+        for s in list(self._active):
+            if not s.handoff or s.n_fed < s.prefill_upto:
+                continue
+            m = self._model_of(s)
+            self._active.remove(s)
+            if self.on_handoff is not None:
+                try:
+                    self.on_handoff(m, s)
+                except Exception:  # the hook never stops the loop
+                    _log.exception("on_handoff failed")
+            self._free_blocks(s)
+            self._finish(s, InferReply("handoff"))
+            _tm.inc("serving_handoff_total", model=m.name)
 
     def _plan_lanes_locked(self, chunk):
         """Lanes that run this step -> (participants, span_caps).  Without
@@ -833,7 +1337,7 @@ class DecodeEngine:
         for s in prefill:
             if left <= 0 or len(decode) + len(chosen) >= max_lanes:
                 break
-            span = min(chunk, s.replay_upto - s.n_fed, left)
+            span = min(chunk, self._prefill_limit(s) - s.n_fed, left)
             caps[id(s)] = span
             left -= span
             chosen.append(s)
@@ -855,6 +1359,7 @@ class DecodeEngine:
             if checked:
                 maybe_fail("serving.decode_step")
             with self._cond:
+                self._run_boundary_calls_locked()
                 if not self._running:
                     return
                 self._expire_and_admit()
@@ -864,6 +1369,12 @@ class DecodeEngine:
                 if not checked:
                     continue    # work arrived after the check: check it
                 step_ok = self._decode_step_locked()
+                preempted, self._preempted = self._preempted, []
+            if preempted and self.on_preempt is not None:
+                try:
+                    self.on_preempt(preempted)
+                except Exception:  # the hook never stops the loop
+                    _log.exception("on_preempt failed")
             if self.on_batch_boundary is not None:
                 try:
                     self.on_batch_boundary()
@@ -895,6 +1406,9 @@ class DecodeEngine:
                 _tm.inc("serving_timeout_total", model=s.pending.model)
                 self._finish(s, InferReply(
                     "timeout", error="deadline expired mid-decode"))
+        # prefill-role sequences that reached their boundary (in the last
+        # step, or at admission through a prefix hit)
+        self._sweep_handoff_locked()
         if not self._active:
             return True
         if m.spec_k > 0:
@@ -966,8 +1480,10 @@ class DecodeEngine:
         n_generated = 0
         for i, s in enumerate(lanes):
             s.n_fed += 1
-            # seal + publish any prompt block this write completed
+            # seal + publish any prompt block this write completed, then
+            # any history block
             self._publish_prefix_locked(m, s)
+            self._publish_history_locked(m, s)
             if s.in_prefill:
                 s.next_tok = s.feed_tok(s.n_fed)
                 continue
@@ -1030,7 +1546,8 @@ class DecodeEngine:
                 continue   # preempted by an earlier lane's allocation
             p = s.n_fed
             if s.in_prefill:
-                span = caps.get(id(s), min(width, s.replay_upto - p))
+                span = caps.get(id(s),
+                                min(width, self._prefill_limit(s) - p))
                 spec = False
                 draft_upto = p + span
             else:
@@ -1150,6 +1667,7 @@ class DecodeEngine:
             if s.in_prefill:
                 s.n_fed += span
                 self._publish_prefix_locked(m, s)
+                self._publish_history_locked(m, s)
                 ingest.append((s, p, s.feed_slice(p, span)))
                 if s.in_prefill:
                     s.next_tok = s.feed_tok(s.n_fed)
@@ -1187,6 +1705,10 @@ class DecodeEngine:
                         _log.exception("on_token callback failed")
                 if done:
                     break     # an EOS inside an accepted run ends it there
+            # after the appends: an accept advances n_fed past tokens that
+            # were only in ``emitted``, and the chain digest reads them
+            # from prompt ++ out
+            self._publish_history_locked(m, s)
             if done:
                 self._active.remove(s)
                 self._free_blocks(s)   # same-step free, both pools

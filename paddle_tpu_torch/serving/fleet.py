@@ -19,8 +19,12 @@ and telemetry, so a fleet may mix replicas of both packages:
   and promotes itself; a relaunched rank re-announces itself by its
   heartbeats and rejoins.
 
-Only the monolith role is ported: ``roles`` must be None or all "serve"
-(the prefill and decode roles of ``serving/disagg.py`` are not).
+A ``roles`` column (serve|prefill|decode a rank, ``serving/disagg.py``)
+rides the endpoints file and the ``__fview__`` / ``__fleet__`` views;
+``live_role_endpoints`` is where a prefill replica picks its decode peer.
+The per-role ``AutoScaler(pressure_fn=)`` wiring of the reference's
+replica is not ported: ``tools/torch_serve.py --autoscale`` scales a
+role-less fleet.
 """
 
 import json
@@ -74,11 +78,6 @@ class ServingFleet:
         self.endpoints = list(endpoints)
         # the role column, parallel to endpoints; None keeps every rank a
         # monolith and the published file without a roles key
-        if roles is not None and any(r != "serve" for r in roles):
-            raise ValueError(
-                "fleet roles %r: the prefill and decode roles "
-                "(serving/disagg.py) are not ported; the port's fleet "
-                "serves the monolith role \"serve\" only" % (list(roles),))
         if roles is not None and len(roles) != len(self.endpoints):
             raise ValueError("fleet roles column must parallel endpoints:"
                              " %d roles for %d endpoints"
@@ -107,6 +106,15 @@ class ServingFleet:
         if self.roles is None:
             return "serve"
         return self.roles[rank]
+
+    def live_role_endpoints(self, role):
+        """The live endpoints of ``role`` (a prefill replica's decode-peer
+        pick)."""
+        return [self.endpoints[r] for r in sorted(self.live)
+                if self.role_of(r) == role]
+
+    def live_role_ranks(self, role):
+        return [r for r in sorted(self.live) if self.role_of(r) == role]
 
     # -- lifecycle -----------------------------------------------------------
 

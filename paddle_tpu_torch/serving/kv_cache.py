@@ -13,7 +13,10 @@ blocks the same step it finishes.
 all-or-nothing ``alloc``); a sealed block whose refcount reaches zero
 parks in an LRU *evictable* pool, still revivable until ``alloc``
 reclaims it.  ``PrefixCache`` is the content-addressed index over sealed
-full prompt blocks (hash chain ``h_i = sha(h_{i-1}, block_token_ids)``).
+full blocks (hash chain ``h_i = sha(h_{i-1}, block_token_ids)``), over a
+prompt or, extended block by block (``extend_chain``), over a decode
+history; ``match_digests`` revives a precomputed chain (a resumed
+session's) and ``forget`` un-indexes and truly frees an adopted block.
 ``PagedKVCache`` owns the K and V pools: f32, or int8 with f32 max-abs
 scales per (block, position, head) (``KVCacheConfig(dtype="int8")``,
 ``quantize_kv``).  The JAX reference donates the pools through its
@@ -21,12 +24,17 @@ jitted step and gets new arrays back; here the decode step writes into
 them in place with ``index_put_``.  ``ensure_table`` and ``trim_table``
 grow a table by several blocks at once and roll it back, which is what
 speculative decode reserves and returns every iteration.
+``export_block`` and ``import_block`` copy one block of every pool off
+the device and back, in the reference's carry order and host format (the
+unit that ``serving/disagg.py`` and ``serving/migrate.py`` move between
+replicas of either package).
 """
 
 import hashlib
 import threading
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ..core import telemetry as _tm
@@ -172,6 +180,7 @@ class BlockAllocator:
             for b in got:
                 self._ref[b] = 1
             self._note_high_water_locked()
+            self._gauges_locked()
             cb = self.on_evict
         # outside the allocator lock: the index callback takes its own lock
         if cb is not None:
@@ -192,6 +201,7 @@ class BlockAllocator:
             self._ref[block] = 1
             self._sealed[block] = tag
             self._note_high_water_locked()
+            self._gauges_locked()
             return True
 
     def seal(self, block, tag):
@@ -220,6 +230,27 @@ class BlockAllocator:
                     self._evictable[b] = tag
                 else:
                     self._free.append(b)
+            self._gauges_locked()
+
+    def discard_evictable(self, block):
+        """Truly free a zero-ref evictable block (back to the free list,
+        its content dropped): how a decode replica returns the blocks it
+        adopted for a request that died on the prefill half.  False when
+        the block is not evictable (reclaimed already, or revived by a
+        sequence that frees it at its finish)."""
+        with self._lock:
+            if block not in self._evictable:
+                return False
+            del self._evictable[block]
+            self._free.append(block)
+            self._gauges_locked()
+        _tm.inc("kv_block_discard_total")
+        return True
+
+    def _gauges_locked(self):
+        # the reference's pool gauges, republished with __metrics__
+        _tm.set_gauge("kv_blocks_in_use", len(self._ref))
+        _tm.set_gauge("kv_blocks_evictable", len(self._evictable))
 
     def _note_high_water_locked(self):
         # evictable blocks still occupy pool slots
@@ -271,6 +302,32 @@ class PrefixCache:
             out.append(h.hex())
         return out
 
+    def extend_chain(self, prev_hex, block_tokens):
+        """One chain step past ``prev_hex`` (None: the chain's seed) over
+        the next block's token ids -> its hex digest; a decoding sequence
+        extends its prompt's chain over generated tokens this way."""
+        h = self._seed if prev_hex is None else bytes.fromhex(prev_hex)
+        d = hashlib.sha256(h)
+        d.update(b"".join(int(t).to_bytes(8, "little", signed=True)
+                          for t in block_tokens))
+        return d.hexdigest()
+
+    def match_digests(self, digests):
+        """Longest indexed prefix of a precomputed chain -> its blocks,
+        one reference taken per block.  A resume knows its whole history
+        chain and needs no one-token cap: its next fed token is decided."""
+        blocks = []
+        with self._lock:
+            for d in digests:
+                b = self._index.get(d)
+                if b is None:
+                    break
+                if not self.allocator.incref(b):
+                    self._index.pop(d, None)
+                    break
+                blocks.append(b)
+        return blocks
+
     def match(self, prompt_ids):
         """Longest cached prefix -> ``(blocks, cached_tokens, hashes)``;
         ``blocks`` arrive with one reference taken per block."""
@@ -309,6 +366,12 @@ class PrefixCache:
                 return 0.0
             return self.hit_tokens / float(self.lookup_tokens)
 
+    def lookup(self, digest):
+        """The block indexed under ``digest``, or None; takes no
+        reference."""
+        with self._lock:
+            return self._index.get(digest)
+
     def publish(self, block, digest):
         """Index a freshly filled full-prompt ``block`` under ``digest``;
         a duplicate digest leaves the block private and returns False."""
@@ -318,6 +381,18 @@ class PrefixCache:
             self.allocator.seal(block, digest)
             self._index[digest] = block
             return True
+
+    def forget(self, digest):
+        """Un-index ``digest`` and truly free its block when it sits
+        zero-ref evictable (a block a live sequence revived only loses
+        its entry; its owner frees it).  True when the entry existed."""
+        with self._lock:
+            b = self._index.pop(digest, None)
+        if b is None:
+            return False
+        # outside this lock: index before allocator, as on_evict
+        self.allocator.discard_evictable(b)
+        return True
 
     def _on_evict(self, block, tag):
         with self._lock:
@@ -386,6 +461,41 @@ class PagedKVCache:
         """How many blocks a sequence of n_tokens needs."""
         bs = self.config.block_size
         return max(1, -(-int(n_tokens) // bs))
+
+    def export_block(self, block):
+        """Host copies (numpy) of one block of every pool, in the
+        reference's carry order: ``[k, v]`` ``[L, bs, H, D]`` f32, or
+        ``[k, v, k_scale, v_scale]`` for int8 (scales ``[L, bs, H]``).
+        On the card the copy waits for the step that wrote the block."""
+        return [np.ascontiguousarray(
+            p[:, block].to("cpu", copy=True).numpy()) for p in self.pools]
+
+    def import_block(self, block, arrays):
+        """Write transferred ``arrays`` (``export_block``'s format, from
+        either package) into physical ``block``.  The caller holds the
+        engine between steps and owns the block.  A wrong arity, shape or
+        dtype raises: a block cut for another geometry would corrupt every
+        sequence that later matches its digest."""
+        pools = self.pools
+        if len(arrays) != len(pools):
+            raise ValueError(
+                "kv import arity mismatch: %d arrays for a %s-dtype "
+                "carry of %d" % (len(arrays), self.config.dtype, len(pools)))
+        host = []
+        for p, a in zip(pools, arrays):
+            a = np.asarray(a)
+            want_shape = tuple(p.shape[:1] + p.shape[2:])
+            want_dtype = np.dtype(str(p.dtype).replace("torch.", ""))
+            if tuple(a.shape) != want_shape or a.dtype != want_dtype:
+                raise ValueError(
+                    "kv import geometry mismatch: got %s%s, carry wants "
+                    "%s%s (block_size/heads/head_dim/dtype must agree "
+                    "across the disaggregated pair)"
+                    % (a.dtype, tuple(a.shape), want_dtype, want_shape))
+            host.append(torch.from_numpy(np.require(a, requirements="CW")))
+        # payload and scales together, or nothing
+        for p, t in zip(pools, host):
+            p[:, block].copy_(t)
 
     def ensure_table(self, table, blocks, upto_tokens):
         """Grow a sequence's block table to cover positions

@@ -322,7 +322,9 @@ def test_prefix_cache_hit_equal_outputs():
         r1 = e.generate("toy", prompt, max_new_tokens=8)
         assert r1.status == "ok" and r1.phases["cached_tokens"] == 0
         assert np.array_equal(r1.outputs["tokens"], want)
-        assert len(e._models["toy"].prefix) == 2         # (11 - 1) // 4
+        # 2 prompt blocks ((11 - 1) // 4) and 2 history blocks: session
+        # migration publishes the prompt ++ out chain too (18 fed // 4)
+        assert len(e._models["toy"].prefix) == 4
         # the repeat skips both cached full prompt blocks
         r2 = e.generate("toy", prompt, max_new_tokens=8)
         assert r2.status == "ok" and r2.phases["cached_tokens"] == 8
@@ -333,7 +335,10 @@ def test_prefix_cache_hit_equal_outputs():
         assert r3.status == "ok" and r3.phases["cached_tokens"] == 8
         assert np.array_equal(r3.outputs["tokens"], _ref_of(p3, 8))
         assert _wait_free(e) == 0
-        assert e._models["toy"].cache.allocator.num_evictable == 2
+        # the 4 above, and p3's 2 history blocks (its own chain past the
+        # shared 8 tokens); the repeat's history duplicated r1's and stayed
+        # private
+        assert e._models["toy"].cache.allocator.num_evictable == 6
     finally:
         e.stop()
 

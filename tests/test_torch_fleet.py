@@ -336,14 +336,23 @@ def test_write_endpoints_file_matches_the_reference(tmp_path):
 
 
 def test_the_disaggregated_roles_raise(fc_dir):
+    """A role column that does not parallel the endpoints raises; the
+    prefill and decode roles are accepted, and the live endpoints of a
+    role are where a prefill replica picks its decode peer."""
     srv = ServingServer(ServingEngine(device="cpu"), port=0)
     try:
-        with pytest.raises(ValueError, match="disagg"):
-            ServingFleet(0, ["a:1", "b:2"], srv, roles=["prefill", "decode"])
         with pytest.raises(ValueError, match="parallel"):
             ServingFleet(0, ["a:1", "b:2"], srv, roles=["serve"])
         fl = ServingFleet(0, ["a:1", "b:2"], srv, roles=["serve", "serve"])
         assert fl.role_of(1) == "serve"
+        fl = ServingFleet(0, ["a:1", "b:2", "c:3"], srv,
+                          roles=["prefill", "decode", "decode"])
+        assert [fl.role_of(r) for r in range(3)] == \
+            ["prefill", "decode", "decode"]
+        assert fl.live_role_endpoints("decode") == ["b:2", "c:3"]
+        assert fl.live_role_ranks("prefill") == [0]
+        fl.live.discard(1)
+        assert fl.live_role_endpoints("decode") == ["c:3"]
     finally:
         srv.rpc.shutdown()
 

@@ -253,15 +253,16 @@ def test_sigkill_mid_decode_drops_nothing(tmp_path):
 
 def test_the_replica_refuses_to_fall_back_to_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` the replica exits
-    nonzero; the options of later or parked ROADMAP items are refused by
-    name; ``--decode-mode int8``, which the reference's replica does not
-    have either (int8 KV comes from FLAGS_kv_cache_dtype), is argparse's
-    invalid choice, as there."""
+    nonzero; ``--cache-dir`` (a parked ROADMAP item) is refused by name;
+    ``--decode-mode int8``, which the reference's replica does not have
+    either (int8 KV comes from FLAGS_kv_cache_dtype), and a ``--role``
+    other than serve, prefill or decode are argparse's invalid choices,
+    as there."""
     model_dir = save_demo_model(str(tmp_path / "model"))
     runs = {"cuda": ["--model", "fc=" + model_dir],
             "cache_dir": ["--device", "cpu", "--cache-dir",
                           str(tmp_path / "cc"), "--model", "fc=" + model_dir],
-            "role": ["--device", "cpu", "--role", "prefill",
+            "role": ["--device", "cpu", "--role", "router",
                      "--model", "fc=" + model_dir],
             "int8": ["--device", "cpu", "--decode-mode", "int8",
                      "--model", "fc=" + model_dir]}
@@ -270,8 +271,8 @@ def test_the_replica_refuses_to_fall_back_to_the_cpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0, what
         assert "READY" not in proc.stdout, what
-        want = {"cuda": "CUDA", "int8": "invalid choice"}.get(what,
-                                                              "ROADMAP")
+        want = {"cuda": "CUDA", "int8": "invalid choice",
+                "role": "invalid choice"}.get(what, "ROADMAP")
         assert want in proc.stderr, (what, proc.stderr[-2000:])
 
 

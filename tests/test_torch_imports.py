@@ -35,7 +35,9 @@ SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("paddle_tpu_torch.core.tracing",
-                 "paddle_tpu_torch.utils.fault_injection"):
+                 "paddle_tpu_torch.utils.fault_injection",
+                 "paddle_tpu_torch.serving.disagg",
+                 "paddle_tpu_torch.serving.migrate"):
         assert name in sys.modules, name
     # the lazy imports run too: a span, a note, a fired fault point
     from paddle_tpu_torch import set_flags
@@ -72,6 +74,7 @@ def test_port_modules_import_without_jax_or_the_reference():
                                           "libtensor_rpc_"))
     for name in ("native/rpc.py", "serving/server.py", "serving/client.py",
                  "serving/codec.py", "serving/fleet.py",
+                 "serving/disagg.py", "serving/migrate.py",
                  "serving/rollout.py", "serving/fleetmon.py",
                  "core/telemetry.py", "core/tracing.py",
                  "utils/fault_injection.py", "core/executor.py", "io.py",

@@ -448,6 +448,8 @@ def test_plan_caps_prefill_spans_to_the_budget():
                 speculative_k=3)
 
     class _S:
+        handoff = False         # not a prefill-role sequence
+
         def __init__(self, n_fed, upto):
             self.n_fed, self.replay_upto = n_fed, upto
 

@@ -38,7 +38,7 @@ from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu.serving import ServingServer as JServer
 from paddle_tpu.serving import codec as jcodec
 from paddle_tpu.serving import decode_model as jdm
-from paddle_tpu_torch import native
+from paddle_tpu_torch import get_flags, native, set_flags
 from paddle_tpu_torch.native import rpc as trpc
 from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                       ServingClient, ServingEngine,
@@ -626,9 +626,16 @@ def test_retire_drains_and_fires_on_retire(fc_dir):
 
 
 def test_rollout_frames_and_the_refused_resume(fc_dir):
+    """The rollout frames, and a ``__resume__`` refused (with migration
+    off, on a server without a decode engine)."""
     eng = _fc_engine(fc_dir)
     eng.add_model("fc_v2", fc_dir)
-    with _serving(ServingServer(eng, port=0)) as (srv,):
+    old = get_flags("FLAGS_session_migration")
+    set_flags({"FLAGS_session_migration": False})
+    with contextlib.ExitStack() as stack:
+        stack.callback(set_flags, old)
+        srv, = stack.enter_context(_serving(ServingServer(eng, port=0)))
+        assert srv.migrator is None
         ep = _ep(srv)
         c = trpc.RpcClient(ep, connect_timeout=5.0, rpc_deadline=10.0,
                            retry_times=0)
@@ -660,9 +667,20 @@ def test_rollout_frames_and_the_refused_resume(fc_dir):
 
 
 def test_the_left_out_roles_raise(fc_dir):
-    with pytest.raises(ValueError, match="disagg"):
-        ServingServer(_fc_engine(fc_dir), role="prefill")
-    with pytest.raises(NotImplementedError, match="disagg"):
-        ServingClient(endpoints=["127.0.0.1:1"], roles=["prefill"])
+    """The prefill and decode roles construct (serving/disagg.py); an
+    unknown role raises as in the reference, and so do a client's roles
+    that do not parallel its endpoints."""
+    for role in ("serve", "prefill", "decode"):
+        srv = ServingServer(_fc_engine(fc_dir), role=role)
+        assert srv.role == role
+        srv.rpc.shutdown()
+    with pytest.raises(ValueError, match="serve\\|prefill\\|decode"):
+        ServingServer(_fc_engine(fc_dir), role="router")
+    cli = ServingClient(endpoints=["127.0.0.1:1", "127.0.0.1:2"],
+                        roles=["prefill", "decode"])
+    assert cli.endpoints_with_roles() == [("127.0.0.1:1", "prefill"),
+                                          ("127.0.0.1:2", "decode")]
+    with pytest.raises(ValueError, match="parallel"):
+        ServingClient(endpoints=["127.0.0.1:1"], roles=["prefill", "decode"])
     with pytest.raises(ValueError, match="endpoints"):
         ServingClient()

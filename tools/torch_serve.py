@@ -32,6 +32,21 @@ Usage:
     # on the CPU (the plain PyTorch path), as the tests run it
     python tools/torch_serve.py --device cpu --model fc=/path
 
+    # a disaggregated pair: a prefill replica streams each sealed prompt
+    # block to a decode replica, which generates; the coordinator puts the
+    # role column into the endpoints file, and clients send __generate__
+    # to the prefill replicas (FLAGS_migrate_on_drain=1: a retired decode
+    # replica moves its live sessions to the other instead of finishing
+    # them)
+    python tools/torch_serve.py --model toy=/tmp/dec --rank 0 \
+        --fleet 127.0.0.1:9000,127.0.0.1:9001 --roles prefill,decode \
+        --endpoints-file /tmp/eps.json     # and --rank 1 likewise
+    # a static pair without a fleet
+    python tools/torch_serve.py --model toy=/tmp/dec --port 9001 \
+        --role decode
+    python tools/torch_serve.py --model toy=/tmp/dec --port 9000 \
+        --role prefill --decode-peers 127.0.0.1:9001
+
     # an autoscaling fleet: start rank 0 alone over a list with spare
     # slots; on sustained queue pressure it forks a standby replica (this
     # command line with --rank K) into the lowest dead slot, and on
@@ -76,10 +91,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # options of the reference's replica that the port does not have yet, and
 # the ROADMAP item that brings each
 _NOT_PORTED = {
-    "role": "the prefill and decode roles (ROADMAP A3, serving/disagg.py)",
-    "roles": "the prefill and decode roles (ROADMAP A3, serving/disagg.py)",
-    "decode_peers": "the prefill and decode roles (ROADMAP A3, "
-                    "serving/disagg.py)",
     "cache_dir": "a compile cache (ROADMAP, parked beside CUDA graphs: "
                  "the port runs eager PyTorch and has no executable to "
                  "persist)",
@@ -141,18 +152,19 @@ def kernel_launches():
 
 def child_argv(rank, argv=None):
     """This invocation re-exec'd for fleet slot ``rank``: without
-    --autoscale (a standby never scales), --rank, --min-replicas and
-    --max-replicas; every other option, --device among them, kept."""
+    --autoscale (a standby never scales), --rank, --min-replicas,
+    --max-replicas and --role (a standby takes its slot's --roles entry);
+    every other option, --device among them, kept."""
+    dropped = ("--rank", "--min-replicas", "--max-replicas", "--role")
     out = [sys.executable, os.path.abspath(__file__)]
     it = iter(sys.argv[1:] if argv is None else argv)
     for a in it:
         if a == "--autoscale":
             continue
-        if a in ("--rank", "--min-replicas", "--max-replicas"):
+        if a in dropped:
             next(it, None)
             continue
-        if a.split("=", 1)[0] in ("--rank", "--min-replicas",
-                                  "--max-replicas"):
+        if a.split("=", 1)[0] in dropped:
             continue
         out.append(a)
     return out + ["--rank", str(rank)]
@@ -252,8 +264,20 @@ def main(argv=None):
                     help="write a tiny fc inference model to DIR and exit")
     ap.add_argument("--save-demo-decoder", metavar="DIR", default=None,
                     help="write a tiny decoder bundle to DIR and exit")
-    for flag in ("--role", "--roles", "--decode-peers", "--cache-dir"):
-        ap.add_argument(flag, default=None, help="not ported")
+    ap.add_argument("--role", default=None,
+                    choices=("serve", "prefill", "decode"),
+                    help="this replica's serving role (default: its "
+                    "--roles entry, else the monolith \"serve\")")
+    ap.add_argument("--roles", default=None,
+                    help="comma role column parallel to --fleet "
+                    "(serve|prefill|decode a slot); the coordinator puts "
+                    "it in the endpoints file, so clients send __generate__ "
+                    "to the prefill replicas")
+    ap.add_argument("--decode-peers", default=None,
+                    help="comma list of decode-role endpoints a prefill "
+                    "replica streams to when no fleet role column names "
+                    "any")
+    ap.add_argument("--cache-dir", default=None, help="not ported")
     ap.add_argument("--speculative-k", type=int, default=None,
                     help="draft-model speculation depth for decode models "
                     "with a bundled draft (default FLAGS_speculative_k; 0 "
@@ -341,12 +365,22 @@ def main(argv=None):
         port = args.port or int(endpoints[args.rank].rsplit(":", 1)[1])
     else:
         endpoints, port = None, args.port
+    roles = None
+    if args.roles:
+        roles = [r.strip() for r in args.roles.split(",") if r.strip()]
+        if endpoints is None or len(roles) != len(endpoints):
+            ap.error("--roles must parallel --fleet")
+    role = args.role or (roles[args.rank] if roles else None)
+    decode_peers = [e.strip() for e in (args.decode_peers or "").split(",")
+                    if e.strip()]
     server = ServingServer(engine, port=port, rank=args.rank,
-                           decode_engine=decode_engine).start()
+                           decode_engine=decode_engine, role=role,
+                           decode_peers=decode_peers).start()
     fleet = None
     if endpoints:
         fleet = ServingFleet(args.rank, endpoints, server,
-                             endpoints_file=args.endpoints_file).start()
+                             endpoints_file=args.endpoints_file,
+                             roles=roles).start()
     # serves __rollout_ctl__ and runs the canary gate; with a fleet, a
     # change is broadcast to the peers and rides the endpoints file
     server.rollout = RolloutController(server, fleet).start()
