@@ -176,8 +176,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
 10. the channel statistics' microbenchmark
     (``tools/torch_bench_reduce.py``) once at a few passes, launching
     rows 16 and 17's kernels;
-11. the script's own wall time, a JSON line of the kernels, then the
-    result line.
+11. Transformer NMT (``bench.py``'s nmt configuration: transformer-base,
+    a 30000 vocabulary each side, seeded random weights) built with the
+    port's ``build_train`` and trained 10 steps at batch 128 of 64 + 64
+    tokens (dropout 0.1, label smoothing 0.1, noam warmup 400): the
+    parameter count from the configuration's shapes, row 14 30 times,
+    row 9 once and the dropout kernel 30 times a step, each step's
+    learning rate noam's, the last loss below the first, step ms, tokens/s
+    and peak memory printed; 3 steps at batch 16 (padded rows) from one
+    state on the card and on the CPU's plain path, twice on the CPU (with
+    its own relu decisions, and with the card's), with the same losses,
+    learning rates, Adam moments and parameters, and two planted faults
+    that the comparison must see; then ``build_beam_infer`` (batch 8,
+    beam 4, 16 unrolled steps) from the trained weights, row 14 launched
+    12 + 18 x 16 times a batch, ids and scores held against the CPU's up
+    to each row's first near-tie; row 14 timed at the path's [8192, 512]
+    rows, the dropout kernel held bitwise at the path's FFN and attention
+    shapes and row 9 over the path's parameter group, and the
+    assign_value ops' host cost printed;
+12. the script's own wall time, a JSON line of the kernels (rows 9 and
+    14 and the dropout kernel counting the NMT path's launches besides
+    their earlier paths'), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -4492,20 +4511,22 @@ def card_vs_cpu(main_p, loss, init, feed):
     return (loss_gap,) + moment_gap(m_card, m_cpu)
 
 
-def moment_gap(got, want):
-    """(largest of max|got - want| / scale over the moment tensors, the
-    tensor where it is).  A tensor's scale is its largest |want|, but at
-    least MOMENT_FLOOR of the largest first moment (MOMENT_FLOOR squared
-    of the largest second moment): a gradient that is zero but for rounding, as
-    the key projection's bias has (softmax ignores a shift shared by a
-    row's scores), leaves moments of rounding noise alone, which only
-    the floor holds."""
+def moment_gap(got, want, only=None):
+    """(largest of max|got - want| / scale over the moment tensors, or over
+    those named in ``only``, the tensor where it is).  A tensor's scale is
+    its largest |want|, but at least MOMENT_FLOOR of the largest first
+    moment (MOMENT_FLOOR squared of the largest second moment): a gradient
+    that is zero but for rounding, as the key projection's bias has
+    (softmax ignores a shift shared by a row's scores), leaves moments of
+    rounding noise alone, which only the floor holds."""
     top = {k: max(float(np.abs(w).max()) for n, w in want.items() if k in n)
            for k in ("_moment1_", "_moment2_")}
     floor = {"_moment1_": MOMENT_FLOOR * top["_moment1_"],
              "_moment2_": MOMENT_FLOOR ** 2 * top["_moment2_"]}
     gap, worst = 0.0, None
     for n, w in want.items():
+        if only is not None and n not in only:
+            continue
         kind = "_moment1_" if "_moment1_" in n else "_moment2_"
         scale = max(float(np.abs(w).max()), floor[kind])
         rel = float(np.abs(got[n] - w).max()) / scale
@@ -5889,6 +5910,655 @@ def reduce_tool_phase():
     return {k: v for k, v in launches.items() if v}
 
 
+# -- phase 11: Transformer NMT ------------------------------------------------
+
+# bench.py's nmt configuration: transformer-base (Vaswani et al. 2017, a
+# 30000 vocabulary each side), batch 128 of 64 source and 64 target tokens,
+# dropout 0.1, label smoothing 0.1, noam warmup 400
+NMT_BATCH = 128
+NMT_LEN = 64
+NMT_WARMUP = 400
+NMT_STEPS = 10
+# card vs CPU: 3 steps from the initial state at batch 16 (rows padded to
+# lengths of 32-64 tokens, so the masks and weights take part)
+NMT_CHECK_BATCH = 16
+# beam decode at full width from the trained weights: batch 8, beam 4, the
+# decode loop unrolled 16 steps (cut from max_len 64, which keeps the
+# program at ~5.6k ops)
+NMT_BEAM_BATCH = 8
+NMT_BEAM = 4
+NMT_BEAM_LEN = 16
+NMT_BEAM_RUNS = 3
+# card vs CPU, both f32 with TF32 off, so they differ by summation order
+# only: losses (~10.3 = ln 30000 plus the smoothing's share) absolutely;
+# the noam learning rate of each step (the same [1] f32 ops on both)
+# relatively; the Adam moments as ``moment_gap`` reads them, after the
+# first step and after the last; the parameters after the last step as
+# ``param_gap`` reads them.  Every FFN passes relu, which keeps or zeroes
+# a hidden unit by the sign of its pre-activation: one within rounding of
+# 0 may take the other sign on the other device and move that token's
+# whole term in or out of every gradient upstream of it.  So the CPU runs
+# the steps twice.  Once with the card's relu decisions (each relu keeps,
+# and passes the gradient, where the card's input was > 0): every moment
+# at BERT's TRAIN_MOMENT_RTOL, the parameters at NMT_PARAM_RTOL.  Once
+# with its own: every input whose sign differs from the card's in the
+# first step lies within NMT_RELU_TIE of 0; the moments of parameters
+# upstream of no relu that took another sign (in any step) at
+# TRAIN_MOMENT_RTOL, the others at NMT_MOMENT_RTOL, 5x that; the
+# parameters at NMT_PARAM_RTOL.  Two faults planted on the card must
+# each miss one limit of that comparison: the step counter one step late
+# (an increment run twice) and the fused Adam at Adam's default beta2
+# 0.999 in place of the program's 0.997.
+# Beam decode: the card's beam_search steps are walked beside the CPU's,
+# row by row; a step whose ids and parents differ ends the row's walk if
+# the CPU's best beam_size + 1 candidates there lie closer than NMT_TIE
+# (``beam_margins``: a near-tie either run may break either way) and
+# fails it otherwise; selected scores agree to NMT_SCORE_ATOL; a row
+# never parted has the CPU's final sequences and scores.
+NMT_LOSS_ATOL = 1e-4
+NMT_MOMENT_RTOL = 5e-2
+NMT_PARAM_RTOL = 1e-2
+NMT_RELU_TIE = 1e-4
+NMT_LR_RTOL = 1e-6
+NMT_TIE = 1e-3
+NMT_SCORE_ATOL = 1e-3
+# kernel launches a training step: row 14 on every LayerNorm (2 an encoder
+# layer, 3 a decoder layer: 12 + 18), row 9 once over all parameters, the
+# dropout kernel on every attention's probabilities (6 + 12) and every
+# FFN's hidden layer (6 + 6); layer_norm_grad and dropout_grad are plain
+# torch.  A beam batch runs no dropout, and row 14 on the encoder's 12
+# LayerNorms and the decoder's 18 at each unrolled step.
+NMT_STEP_LAUNCHES = {"layer_norm": 30, "fused_adam": 1, "dropout": 30}
+
+
+def nmt_config():
+    from paddle_tpu_torch.models.transformer import TRANSFORMER_BASE
+
+    return TRANSFORMER_BASE
+
+
+def nmt_param_shapes(cfg):
+    """{name: shape} of build_train(cfg)'s parameters: the two embeddings,
+    per encoder layer self-attention (q, k, v, o), the FFN and two
+    LayerNorms, per decoder layer self- and cross-attention, the FFN and
+    three LayerNorms, and the output projection."""
+    d, f = cfg.d_model, cfg.ffn
+    shapes = {"src_emb": (cfg.src_vocab, d), "trg_emb": (cfg.trg_vocab, d),
+              "out_proj_w": (d, cfg.trg_vocab), "out_proj_b": (cfg.trg_vocab,)}
+    layers = [("enc%d" % i, ("_self",), ("att", "ffn"))
+              for i in range(cfg.enc_layers)]
+    layers += [("dec%d" % i, ("_self", "_cross"), ("att", "cross", "ffn"))
+               for i in range(cfg.dec_layers)]
+    for p, attns, norms in layers:
+        for a in attns:
+            for nm in ("_q", "_k", "_v", "_o"):
+                shapes[p + a + nm + "_w"] = (d, d)
+                shapes[p + a + nm + "_b"] = (d,)
+        for nm in norms:
+            shapes["%s_%s_ln_s" % (p, nm)] = (d,)
+            shapes["%s_%s_ln_b" % (p, nm)] = (d,)
+        shapes.update({p + "_fc1_w": (d, f), p + "_fc1_b": (f,),
+                       p + "_fc2_w": (f, d), p + "_fc2_b": (d,)})
+    return shapes
+
+
+def nmt_feed(rng, cfg, batch, pad=False):
+    """bench.py's nmt feed (ids drawn from [2, vocab), every token real);
+    with ``pad`` each row keeps 32-64 tokens, the rest EOS with weight 0."""
+    from paddle_tpu_torch.models.transformer import EOS
+
+    shape = (batch, NMT_LEN)
+    f = {"src_ids": rng.randint(2, cfg.src_vocab, shape).astype("int64"),
+         "trg_ids": rng.randint(2, cfg.trg_vocab, shape).astype("int64"),
+         "trg_next": rng.randint(2, cfg.trg_vocab, shape).astype("int64"),
+         "trg_weight": np.ones(shape, "float32")}
+    if pad:
+        for name in ("src_ids", "trg_ids"):
+            lens = rng.randint(NMT_LEN // 2, NMT_LEN + 1, batch)
+            tail = np.arange(NMT_LEN)[None, :] >= lens[:, None]
+            f[name][tail] = EOS
+            if name == "trg_ids":
+                f["trg_next"][tail] = EOS
+                f["trg_weight"][tail] = 0.0
+    return f
+
+
+def noam(step, cfg):
+    """noam_decay's learning rate at ``step`` (from 1), in float64."""
+    return cfg.d_model ** -0.5 * min(step ** -0.5,
+                                     step * NMT_WARMUP ** -1.5)
+
+
+def nmt_lr_gap(lrs, cfg):
+    return max(abs(lr - noam(i + 1, cfg)) / noam(i + 1, cfg)
+               for i, lr in enumerate(lrs))
+
+
+def nmt_check_steps(main_p, loss, lr_name, init, feed, place, pin=None):
+    """CHECK_STEPS steps from the persistables ``init`` on ``place`` (None:
+    the card) -> (losses, learning rates, [{name: Adam moment} after the
+    first step, after the last], {name: parameter} after the last, per
+    step the relus' inputs).  ``pin``: per step another run's relu inputs,
+    whose signs decide this run's relus (``pinned_relus``)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    ex = Executor(place)
+    sc = scope_from_numpy(Scope(), init, ex.device, program=main_p)
+    relu_in = [op.input("X")[0] for op in main_p.global_block().ops
+               if op.type == "relu"]
+    names = [n for n in init if "_moment1_" in n or "_moment2_" in n]
+    t0 = time.perf_counter()
+    losses, lrs, moments, relus = [], [], [], []
+    for i in range(CHECK_STEPS):
+        with pinned_relus(dict(zip(relu_in, pin[i])) if pin else None):
+            out = ex.run(main_p, feed=feed, scope=sc,
+                         fetch_list=[loss, lr_name] + relu_in)
+        losses.append(float(out[0].reshape(-1)[0]))
+        lrs.append(float(out[1].reshape(-1)[0]))
+        relus.append(out[2:])
+        if i in (0, CHECK_STEPS - 1):
+            moments.append({n: sc.find_var(n).get_tensor().numpy()
+                            for n in names})
+    params = {v.name: sc.find_var(v.name).get_tensor().numpy()
+              for v in main_p.list_vars()
+              if isinstance(v, framework.Parameter)}
+    print("nmt: %d steps at batch %d on the %s%s: losses %s, lr %s (%.1f s)"
+          % (CHECK_STEPS, len(feed["src_ids"]),
+             "card" if place is None else "CPU",
+             " with the card's relu decisions" if pin else "",
+             json.dumps(losses), json.dumps(lrs), time.perf_counter() - t0),
+          flush=True)
+    return losses, lrs, moments, params, relus
+
+
+@contextlib.contextmanager
+def pinned_relus(signs):
+    """While active, a relu whose input is named in ``signs`` keeps its
+    input, and passes its gradient, where signs[name] > 0, in place of
+    where its own input is > 0 (None: no change)."""
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    if signs is None:
+        yield
+        return
+    fwd, bwd = get_op_def("relu"), get_op_def("relu_grad")
+    real = fwd.lower, bwd.lower
+
+    def keep(ctx, t):
+        return torch.from_numpy(signs[ctx.op.input("X")[0]] > 0).to(t.device)
+
+    def zero(t):
+        return torch.zeros((), dtype=t.dtype, device=t.device)
+
+    def relu(ctx, x):
+        return torch.where(keep(ctx, x), x, zero(x))
+
+    def relu_grad(ctx, x, out, dout):
+        if dout is None:
+            return (None,)
+        dout = dout.to(out.dtype)
+        return (torch.where(keep(ctx, dout), dout, zero(dout)),)
+
+    fwd.lower, bwd.lower = relu, relu_grad
+    try:
+        yield
+    finally:
+        fwd.lower, bwd.lower = real
+
+
+def upstream_params(program, names):
+    """The parameters from which the forward ops reach a var in
+    ``names``: those whose gradients a change at those vars moves."""
+    from paddle_tpu_torch import framework
+
+    ops = program.global_block().ops
+    n_fwd = next(i for i, op in enumerate(ops)
+                 if any(n.endswith("@GRAD") for n in op.output_arg_names))
+    need = set(names)
+    for op in reversed(ops[:n_fwd]):
+        if need.intersection(op.output_arg_names):
+            need.update(op.input_arg_names)
+    return {v.name for v in program.list_vars()
+            if isinstance(v, framework.Parameter) and v.name in need}
+
+
+def param_gap(got, want, init, skip=()):
+    """(largest mean|got - want| / mean|want - init| over the parameters
+    but ``skip``, the tensor where it is).  The mean reads every element's
+    step: Adam divides each gradient by its own RMS, so an element whose
+    gradient is zero but for rounding steps ~lr either way on either
+    device, which a largest-element measure would read as a full step,
+    and the mean reads as its share of the tensor."""
+    gap, worst = 0.0, None
+    for n, w in want.items():
+        if n in skip:
+            continue
+        moved = float(np.abs(w - init[n]).mean())
+        diff = float(np.abs(got[n] - w).mean())
+        rel = diff / moved if moved > 0 else (0.0 if diff == 0 else np.inf)
+        if worst is None or rel > gap:
+            gap, worst = rel, n
+    return gap, worst
+
+
+def nmt_gaps(card, cpu, init, loose, cfg):
+    """A card run against a CPU run (each ``nmt_check_steps``'s) -> {what:
+    (gap, where, limit)}: losses, learning rates, the moments after the
+    first and after the last step (those of the parameters in ``loose`` at
+    NMT_MOMENT_RTOL, the others at TRAIN_MOMENT_RTOL) and the parameters
+    after the last (the attention's key biases aside: softmax ignores a
+    shift shared by a row's scores, so their gradient is zero but for
+    rounding, which Adam turns into ~lr steps either way on either
+    device; ``moment_gap``'s floor holds their moments)."""
+    loss = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+    gaps = {"losses": (loss, None, NMT_LOSS_ATOL),
+            "noam lr": (max(nmt_lr_gap(card[1], cfg), nmt_lr_gap(cpu[1], cfg)),
+                        None, NMT_LR_RTOL)}
+    names = set(cpu[2][0])
+    wide = {n for n in names if n.rsplit("_moment", 1)[0] in loose}
+    for i, when in enumerate(("first", "last")):
+        for only, limit, what in ((names - wide, TRAIN_MOMENT_RTOL, ""),
+                                  (wide, NMT_MOMENT_RTOL, ", upstream of a "
+                                   "flipped relu")):
+            if only:
+                gaps["moments after the %s step%s" % (when, what)] = \
+                    moment_gap(card[2][i], cpu[2][i], only) + (limit,)
+    keys = {n for n in cpu[3] if n.endswith("_k_b")}
+    gaps["parameters"] = param_gap(card[3], cpu[3], init, keys) \
+        + (NMT_PARAM_RTOL,)
+    return gaps
+
+
+def gaps_line(gaps):
+    return "; ".join("%s %.3g%s (limit %.3g)" % (
+        what, g, " at %s" % where if where else "", limit)
+        for what, (g, where, limit) in gaps.items())
+
+
+def missed(gaps):
+    return [what for what, (g, _w, limit) in gaps.items() if not g <= limit]
+
+
+def beam_probe(beam_p):
+    """Names of each beam_search op's inputs (pre_ids, pre_scores, scores)
+    and outputs (selected_ids, selected_scores, parent_idx), in order."""
+    names = []
+    for op in beam_p.global_block().ops:
+        if op.type == "beam_search":
+            names += [op.input(s)[0] for s in ("pre_ids", "pre_scores",
+                                               "scores")]
+            names += [op.output(s)[0] for s in (
+                "selected_ids", "selected_scores", "parent_idx")]
+    return names
+
+
+def beam_margins(pre_ids, pre_scores, scores, beam_size, end_id):
+    """Per batch row, the smallest gap between neighbours among the
+    ``beam_size + 1`` best candidates of one ``beam_search`` step, from
+    its inputs as numpy (pre_ids and pre_scores [B, K], the accumulated
+    scores [B, K, V]), a finished beam offering only ``end_id`` at its
+    own score as the op has it.  Where the gap is small, two runs that
+    round differently may pick or order the beams differently."""
+    b, k, v = scores.shape
+    cand = np.array(scores, dtype=np.float64)
+    done = np.asarray(pre_ids) == end_id
+    cand[done] = -1e9
+    cand[done, end_id] = np.asarray(pre_scores, np.float64)[done]
+    top = -np.sort(-cand.reshape(b, k * v), axis=1)[:, :beam_size + 1]
+    return (top[:, :-1] - top[:, 1:]).min(axis=1)
+
+
+def beam_agreement(card, cpu, k):
+    """Walk the card's beam run beside the CPU's (each [seq_ids,
+    seq_scores] + the ``beam_probe`` fetches) row by row, as NMT_TIE's
+    comment says -> (rows held whole, row-steps held, rows parted at a
+    near-tie)."""
+    from paddle_tpu_torch.models.transformer import EOS
+
+    steps = (len(cpu) - 2) // 6
+    at = lambda run, t, i: run[2 + 6 * t + i]  # noqa: E731
+    margins = [beam_margins(at(cpu, t, 0), at(cpu, t, 1), at(cpu, t, 2), k,
+                            EOS) for t in range(steps)]
+    whole = held = parted = 0
+    for b in range(cpu[0].shape[0]):
+        for t in range(steps):
+            if not all(np.array_equal(at(card, t, i)[b], at(cpu, t, i)[b])
+                       for i in (3, 5)):
+                if margins[t][b] > NMT_TIE:
+                    fail("beam decode row %d step %d: card ids %s parents "
+                         "%s, CPU %s %s, %.3g apart" % (
+                             b, t, at(card, t, 3)[b], at(card, t, 5)[b],
+                             at(cpu, t, 3)[b], at(cpu, t, 5)[b],
+                             margins[t][b]))
+                parted += 1
+                break
+            gap = float(np.abs(at(card, t, 4)[b] - at(cpu, t, 4)[b]).max())
+            if not gap <= NMT_SCORE_ATOL:
+                fail("beam decode row %d step %d: scores %s, CPU %s"
+                     % (b, t, at(card, t, 4)[b], at(cpu, t, 4)[b]))
+            held += 1
+        else:
+            if not np.array_equal(card[0][b], cpu[0][b]) or not float(
+                    np.abs(card[1][b] - cpu[1][b]).max()) <= NMT_SCORE_ATOL:
+                fail("beam decode row %d: card sequences %s scores %s, CPU "
+                     "%s %s" % (b, card[0][b], card[1][b], cpu[0][b],
+                                cpu[1][b]))
+            whole += 1
+    return whole, held, parted
+
+
+def nmt_adam_hold(fad, dev, shapes, hyper, lr):
+    """Row 9 over the path's parameter group (its shapes, its beta1, beta2
+    and epsilon, noam's first learning rate), each member with its own
+    beta pows, bitwise equal to its plain version, as its own phase holds
+    it over BERT-base's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def rand(s, scale=1.0, normal=True):
+        f = torch.randn if normal else torch.rand
+        return f(s, generator=gen, device=dev) * scale
+
+    def full(v):
+        return torch.full((1,), v, dtype=torch.float32, device=dev)
+
+    grp = ([rand(s) for s in shapes], [rand(s, 1e-3) for s in shapes],
+           [rand(s, 1e-3) for s in shapes],
+           [rand(s, 1e-6, normal=False) for s in shapes], full(lr),
+           [full(hyper["beta1"] ** (1 + i % 3)) for i in range(len(shapes))],
+           [full(hyper["beta2"] ** (1 + i % 5)) for i in range(len(shapes))])
+    p, g, m1, m2, lr_t, b1, b2 = grp
+    want = fad.fused_adam_reference(*grp, **hyper)
+    c = lambda ts: [x.clone() for x in ts]  # noqa: E731
+    got = fad.fused_adam_step(c(p), g, c(m1), c(m2), lr_t, c(b1), c(b2),
+                              **hyper)
+    torch.cuda.synchronize()
+    for name, gs, ws in zip(("param", "moment1", "moment2", "beta1_pow",
+                             "beta2_pow"), got, want):
+        if not all(torch.equal(a, b) for a, b in zip(gs, ws)):
+            fail("fused_adam %s not bitwise equal to the plain version over "
+                 "the NMT group" % name)
+    print("kernel fused_adam NMT group, %d members, %d elements, beta1 %g "
+          "beta2 %g epsilon %g: bitwise equal to the plain version"
+          % (len(shapes), sum(x.numel() for x in p), hyper["beta1"],
+             hyper["beta2"], hyper["epsilon"]), flush=True)
+    del grp, p, g, m1, m2, want, got
+    torch.cuda.empty_cache()
+
+
+def nmt_phase(ln, dev):
+    """Transformer NMT through the port's Program front end: training at
+    bench.py's nmt configuration (parameter count, launches, the noam
+    learning rates, 3 steps against the CPU's plain path), then beam
+    decode from the weights the steps left (launches, ids and scores
+    against the CPU's) -> the path's launch counts."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
+                                       scope_guard, scope_to_numpy)
+    from paddle_tpu_torch.core.lowering import LowerCtx
+    from paddle_tpu_torch.core.registry import get_op_def, lower_attrs
+    from paddle_tpu_torch.kernels import dropout as dk
+    from paddle_tpu_torch.kernels import fused_adam as fad
+    from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.ops.common import (byte_threshold,
+                                             realized_keep_prob,
+                                             realized_prob)
+
+    cfg = nmt_config()
+    card = card_line()
+    rows, d = NMT_BATCH * NMT_LEN, cfg.d_model
+    rng = np.random.RandomState(8)
+    x, g, b = (torch.from_numpy(_rand(rng, *s)).to(dev)
+               for s in ((rows, d), (d,), (d,)))
+    worst = check("layer_norm", "NMT rows [%d, %d]" % (rows, d),
+                  ln.layer_norm_2d(x, g, b, 1e-5),
+                  ln.layer_norm_2d_reference(x, g, b, 1e-5))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    timed_row("layer_norm", lambda: ln.layer_norm_2d(x, g, b, 1e-5),
+              lambda: ln.layer_norm_2d_reference(x, g, b, 1e-5),
+              lambda: torch.nn.functional.layer_norm(x, (d,), g, b, 1e-5),
+              4 * (2 * rows * d + 2 * d + 2 * rows), 8 * rows * d, flush,
+              worst, "NMT rows [%d, %d] (F.layer_norm), %s"
+              % (rows, d, card))
+    del flush, x, g, b
+    # the dropout kernel at the path's shapes, bitwise, as its own phase
+    # holds it at BERT's: every FFN's hidden layer, every attention's
+    # probabilities
+    thr = byte_threshold(1 - cfg.dropout)
+    q = realized_keep_prob(1 - cfg.dropout)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    for what, shape in (
+            ("FFN hidden", (NMT_BATCH, NMT_LEN, cfg.ffn)),
+            ("attention probs", (NMT_BATCH, cfg.heads, NMT_LEN, NMT_LEN))):
+        x = torch.randn(shape, generator=gen, device=dev)
+        out, mask = dk.dropout(x, WORDS, thr, q, True)
+        wout, wmask = dk.dropout_reference(x, WORDS, thr, q, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(mask, wmask) and torch.equal(out, wout)):
+            fail("dropout not bitwise its plain version at the NMT %s %s"
+                 % (what, list(shape)))
+        frac, qr = float(mask.float().mean()), realized_prob(1 - cfg.dropout)
+        sigma = (qr * (1 - qr) / x.numel()) ** 0.5
+        print("kernel dropout NMT %s %s: mask and out bitwise equal to the "
+              "plain version; keep fraction %.6f (%.2f sigma)"
+              % (what, list(shape), frac, abs(frac - qr) / sigma),
+              flush=True)
+        if abs(frac - qr) > KEEP_SIGMAS * sigma:
+            fail("dropout keep fraction %.6f at the NMT %s" % (frac, what))
+    del x, out, mask, wout, wmask
+
+    t0 = time.perf_counter()
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 13
+    with framework.program_guard(main_p, startup):
+        _feeds, loss = tr.build_train(cfg, NMT_LEN, NMT_LEN,
+                                      warmup=NMT_WARMUP)
+    lr_name = next(op.input("LearningRate")[0]
+                   for op in main_p.global_block().ops if op.type == "adam")
+    params = {v.name: tuple(v.shape) for v in main_p.list_vars()
+              if isinstance(v, framework.Parameter)}
+    n_params = sum(int(np.prod(s)) for s in params.values())
+    if params != nmt_param_shapes(cfg):
+        fail("build_train made parameters %s, want %s"
+             % (sorted(params.items()), sorted(nmt_param_shapes(cfg).items())))
+    adam = next(op for op in main_p.global_block().ops if op.type == "adam")
+    hyper = {k: adam.attrs[k] for k in ("beta1", "beta2", "epsilon")}
+    nmt_adam_hold(fad, dev, list(params.values()), hyper, noam(1, cfg))
+    print("nmt: transformer (vocab %d/%d, d_model %d, %d heads, %d+%d "
+          "layers, ffn %d, dropout %g, label smoothing %g, noam warmup %d), "
+          "batch %d of %d + %d tokens; %d parameters in %d tensors (%.1f MB "
+          "f32), %d ops in the main program; built in %.1f s"
+          % (cfg.src_vocab, cfg.trg_vocab, d, cfg.heads, cfg.enc_layers,
+             cfg.dec_layers, cfg.ffn, cfg.dropout, cfg.label_smooth,
+             NMT_WARMUP, NMT_BATCH, NMT_LEN, NMT_LEN, n_params, len(params),
+             n_params * 4 / 1e6, len(main_p.global_block().ops),
+             time.perf_counter() - t0), flush=True)
+    exe = Executor()                  # the card
+    scope = Scope()
+    with scope_guard(scope):
+        exe.run(startup)
+        init = scope_to_numpy(scope, main_p)
+        feed = nmt_feed(np.random.RandomState(0), cfg, NMT_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()   # just before the main path runs
+        losses, lrs, step_ms = [], [], []
+        for _ in range(NMT_STEPS):
+            t0 = time.perf_counter()
+            lo, lr = exe.run(main_p, feed=feed, fetch_list=[loss, lr_name])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(lo.reshape(-1)[0]))
+            lrs.append(float(lr.reshape(-1)[0]))
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trained = scope_to_numpy(scope, main_p)
+    del scope, exe
+    torch.cuda.empty_cache()
+    p50 = float(np.percentile(step_ms[1:], 50))
+    tokens = NMT_BATCH * 2 * NMT_LEN
+    print("nmt: %d steps, losses %s; lr %s; step_ms %s, p50 %.3f over "
+          "steps 2-%d (the first fuses the optimizer ops and plans); %.1f "
+          "tokens/s (%d tokens a step, bench.py's count); peak memory %.2f "
+          "GB; launches %s; %s" % (
+              NMT_STEPS, json.dumps(losses), json.dumps(lrs),
+              json.dumps([round(t, 3) for t in step_ms]), p50, NMT_STEPS,
+              tokens / p50 * 1e3, tokens, peak / 1e9, json.dumps(launches),
+              card), flush=True)
+    want = {k: NMT_STEP_LAUNCHES.get(k, 0) * NMT_STEPS for k in launches}
+    if launches != want:
+        fail("nmt training launches %s over %d steps, want %s"
+             % (launches, NMT_STEPS, want))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("nmt losses %s: not finite, or the last is not below the "
+             "first" % losses)
+    if not nmt_lr_gap(lrs, cfg) <= NMT_LR_RTOL:
+        fail("nmt learning rates %s are not noam's" % lrs)
+
+    # the assign_value ops' host cost: each run turns an attr list into a
+    # tensor and copies it to the card
+    ops = [op for op in main_p.global_block().ops
+           if op.type == "assign_value"]
+    big = max(ops, key=lambda op: np.prod(op.attrs["shape"]))
+    lower, attrs = get_op_def("assign_value").lower, lower_attrs(big.attrs)
+    ctx = LowerCtx(dev, big)
+    lower(ctx, **attrs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lower(ctx, **attrs)
+    torch.cuda.synchronize()
+    print("nmt: assign_value %s: %.3f host ms a run (%d such ops a "
+          "training step: %s)" % (
+              big.attrs["shape"], (time.perf_counter() - t0) / 20 * 1e3,
+              len(ops), json.dumps([op.attrs["shape"] for op in ops])),
+          flush=True)
+
+    # the same initial state and feeds on the card and on the CPU's plain
+    # path, at a batch the CPU runs in seconds: the CPU with the card's
+    # relu decisions, then with its own (NMT_MOMENT_RTOL's comment)
+    feed2 = nmt_feed(np.random.RandomState(1), cfg, NMT_CHECK_BATCH,
+                     pad=True)
+    cpu = framework.CPUPlace()
+    on_card = nmt_check_steps(main_p, loss, lr_name, init, feed2, None)
+    pinned = nmt_check_steps(main_p, loss, lr_name, init, feed2, cpu,
+                             pin=on_card[4])
+    on_cpu = nmt_check_steps(main_p, loss, lr_name, init, feed2, cpu)
+    relu_in = [op.input("X")[0] for op in main_p.global_block().ops
+               if op.type == "relu"]
+    flips, flipped, tie = [], set(), 0.0
+    for step, (card_x, cpu_x) in enumerate(zip(on_card[4], on_cpu[4])):
+        n = 0
+        for name, a, b in zip(relu_in, card_x, cpu_x):
+            other = (a > 0) != (b > 0)
+            if other.any():
+                flipped.add(name)
+                n += int(other.sum())
+                if step == 0:
+                    tie = max(tie, float(np.abs(b[other]).max()))
+        flips.append(n)
+    reach = upstream_params(main_p, flipped)
+    print("nmt: relu inputs of another sign on the CPU than on the card: %s "
+          "a step of %d; in the first step all within %.3g of 0 (limit "
+          "%.3g); %d of %d relus flipped, upstream of %d of %d parameters"
+          % (json.dumps(flips), sum(a.size for a in on_cpu[4][0]), tie,
+             NMT_RELU_TIE, len(flipped), len(relu_in), len(reach),
+             len(on_cpu[3])), flush=True)
+    if not tie <= NMT_RELU_TIE:
+        fail("nmt: a relu input %.3g from 0 takes another sign on the card"
+             % tie)
+    checks = {"the CPU with the card's relu decisions":
+              nmt_gaps(on_card, pinned, init, set(), cfg),
+              "the CPU with its own":
+              nmt_gaps(on_card, on_cpu, init, reach, cfg)}
+    del pinned
+    for what, gaps in checks.items():
+        print("nmt: card vs %s: %s" % (what, gaps_line(gaps)), flush=True)
+        if missed(gaps):
+            fail("nmt training on the card disagrees with %s: %s"
+                 % (what, missed(gaps)))
+    # planted on the card, each must miss a limit of the comparison
+    late = dict(init)
+    late["@LR_DECAY_COUNTER@"] = init["@LR_DECAY_COUNTER@"] + 1
+    real = fad._fused_adam_cuda
+    planted = {"the step counter one step late": (late, None),
+               "the fused Adam at beta2 0.999": (init, lambda *a: real(
+                   *a[:8], 0.999, *a[9:]))}
+    for what, (state, adam_fault) in planted.items():
+        fad._fused_adam_cuda = adam_fault or real
+        try:
+            run = nmt_check_steps(main_p, loss, lr_name, state, feed2, None)
+        finally:
+            fad._fused_adam_cuda = real
+        gaps = nmt_gaps(run, on_cpu, init, reach, cfg)
+        print("nmt: planted fault, %s: %s; misses %s" % (
+            what, gaps_line(gaps), missed(gaps)), flush=True)
+        if not missed(gaps):
+            fail("nmt: the card-vs-CPU check does not see %s" % what)
+    del init, on_card, on_cpu, late, run
+
+    t0 = time.perf_counter()
+    beam_p, beam_start = framework.Program(), framework.Program()
+    with framework.program_guard(beam_p, beam_start):
+        _src, seq_ids, seq_scores = tr.build_beam_infer(
+            cfg, NMT_LEN, beam_size=NMT_BEAM, max_out_len=NMT_BEAM_LEN)
+    n_assign = sum(op.type == "assign_value"
+                   for op in beam_p.global_block().ops)
+    print("nmt: beam program, beam %d, %d unrolled steps (cut from %d): %d "
+          "ops (%d assign_value); built in %.1f s" % (
+              NMT_BEAM, NMT_BEAM_LEN, cfg.max_len,
+              len(beam_p.global_block().ops), n_assign,
+              time.perf_counter() - t0), flush=True)
+    weights = {v.name: trained[v.name] for v in beam_p.list_vars()
+               if v.persistable and not v.is_data}
+    del trained
+    src = {"src_ids": nmt_feed(np.random.RandomState(2), cfg,
+                               NMT_BEAM_BATCH, pad=True)["src_ids"]}
+    fetch = [seq_ids, seq_scores]
+    exe = Executor()
+    sc = scope_from_numpy(Scope(), weights, exe.device, program=beam_p)
+    torch.cuda.synchronize()
+    zero_counts()   # just before the main path runs
+    batch_ms = []
+    for _ in range(NMT_BEAM_RUNS):
+        t0 = time.perf_counter()
+        exe.run(beam_p, feed=src, fetch_list=fetch, scope=sc)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    beam_launches = launch_counts()
+    per_batch = 2 * cfg.enc_layers + 3 * cfg.dec_layers * NMT_BEAM_LEN
+    want = {k: 0 for k in beam_launches}
+    want["layer_norm"] = per_batch * NMT_BEAM_RUNS
+    if beam_launches != want:
+        fail("nmt beam launches %s over %d batches, want %s"
+             % (beam_launches, NMT_BEAM_RUNS, want))
+    probe = beam_probe(beam_p)
+    on_card = exe.run(beam_p, feed=src, fetch_list=fetch + probe, scope=sc)
+    del sc, exe
+    cpu_exe = Executor(framework.CPUPlace())
+    on_cpu = cpu_exe.run(beam_p, feed=src, fetch_list=fetch + probe,
+                         scope=scope_from_numpy(Scope(), weights, "cpu",
+                                                program=beam_p))
+    ids, scores = on_card[:2]
+    want_shape = (NMT_BEAM_BATCH, NMT_BEAM, NMT_BEAM_LEN)
+    if ids.shape != want_shape or not np.isfinite(scores).all() \
+            or not (scores[:, :-1] >= scores[:, 1:]).all():
+        fail("beam decode gave ids %s (want %s), scores %s: not finite or "
+             "not sorted" % (ids.shape, want_shape, scores))
+    whole, held, parted = beam_agreement(on_card, on_cpu, NMT_BEAM)
+    print("nmt: beam decode, batch %d, beam %d, %d steps: batch_ms %s, p50 "
+          "%.3f over batches 2-%d; row 14 %d launches a batch; card vs CPU: "
+          "%d of %d rows equal to the end, %d row-steps equal, %d rows "
+          "parted at a near-tie (gap <= %g), scores to %g; %s" % (
+              NMT_BEAM_BATCH, NMT_BEAM, NMT_BEAM_LEN,
+              json.dumps([round(t, 3) for t in batch_ms]),
+              float(np.percentile(batch_ms[1:], 50)), NMT_BEAM_RUNS,
+              per_batch, whole, NMT_BEAM_BATCH, held, parted, NMT_TIE,
+              NMT_SCORE_ATOL, card), flush=True)
+    total = {k: launches[k] + beam_launches[k] for k in launches}
+    return {k: v for k, v in total.items() if v}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5995,6 +6665,10 @@ def main():
     launches.update({k: v for k, v in amp.items() if k in sub_counted()})
     launches.update(dlrm_phase())
     launches.update(reduce_tool_phase())
+    # rows 9 and 14 and the dropout kernel: the NMT path's launches are
+    # added to those of the paths before it
+    for name, n in nmt_phase(ln, dev).items():
+        launches[name] = launches.get(name, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

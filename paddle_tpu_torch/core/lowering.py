@@ -87,7 +87,8 @@ def _runtime_ops(block):
 
 def analyze_block(block, feed_names):
     """Liveness: names the block must read from the scope (not fed, not
-    produced by an earlier op), and persistable names it writes."""
+    produced by an earlier op, not a tensor array), and persistable names
+    it writes."""
     feed = set(feed_names)
     written = set()
     external = []
@@ -96,7 +97,8 @@ def analyze_block(block, feed_names):
             # a gradient no op produced is an implicit zero for the grad
             # op that reads it, never a scope read
             if name and name not in feed and name not in written \
-                    and name not in external and not _is_grad_name(name):
+                    and name not in external and not _is_grad_name(name) \
+                    and not _is_array(block, name):
                 external.append(name)
         written.update(n for n in op.output_arg_names if n)
     persist_written = []
@@ -213,6 +215,13 @@ def analyze_param_carry(block, feed_names, fetch_names, ro_names, rw_names):
         if ok:
             out.append(n)
     return out
+
+
+def _is_array(block, name):
+    """A tensor array lives in the step's env only (a Python list that
+    its first ``write_to_array`` makes), never in the scope."""
+    v = block._find_var_recursive(name)
+    return v is not None and v.type == "LOD_TENSOR_ARRAY"
 
 
 def _is_grad_name(name):

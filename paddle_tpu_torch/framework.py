@@ -391,6 +391,12 @@ class Program:
         finally:
             self._op_role = old
 
+    def _lr_schedule_guard(self):
+        """Ops appended inside are learning-rate schedule ops
+        (``OpRole.LRSched``, the reference's ``_lr_schedule_guard``):
+        backward and the optimizer fusion leave them as they are."""
+        return self._role_guard(OpRole.LRSched)
+
     def clone(self, for_test=False):
         """Deep copy; ``for_test`` sets every op's ``is_test`` attr."""
         p = Program.from_dict(self.to_dict())

@@ -8,7 +8,10 @@
 ``sigmoid_cross_entropy_with_logits:257``, ``accuracy:368``,
 ``mean:502``, ``softmax:587``, ``concat:1292``, ``gather:1385``,
 ``relu:583``, ``conv2d:748``,
-``conv2d_bn_relu:805``, ``pool2d:956``, ``batch_norm:1002``).  Each
+``conv2d_bn_relu:805``, ``pool2d:956``, ``batch_norm:1002``; for the
+Transformer ``reduce_sum:493``, ``log_softmax:599``, ``pow:651``,
+``label_smooth:729``, ``expand:1349``, ``slice:1359``,
+``one_hot:1420``).  Each
 appends ops to the current block and names its variables and parameters
 exactly as the reference does."""
 
@@ -26,7 +29,9 @@ __all__ = ["fc", "embedding", "matmul", "elementwise_add",
            "unsqueeze", "flash_attention", "concat", "gather",
            "softmax_with_cross_entropy", "sigmoid_cross_entropy_with_logits",
            "mean", "softmax", "accuracy",
-           "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm"]
+           "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm",
+           "reduce_sum", "log_softmax", "pow", "label_smooth", "expand",
+           "slice", "one_hot"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -118,6 +123,75 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Sum over ``dim`` (an int or a list), or over every dim when it is
+    None."""
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    if dim is None:
+        dim_attr, reduce_all = [0], True
+    else:
+        dim_attr = dim if isinstance(dim, (list, tuple)) else [dim]
+        reduce_all = False
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": list(dim_attr), "keep_dim": keep_dim,
+                            "reduce_all": reduce_all})
+    return out
+
+
+def _unary_layer(op_type, x, attrs, name=None, dtype=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype or x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _unary_layer("log_softmax", input, {"axis": axis}, name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary_layer("pow", x, {"factor": factor}, name)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    return _unary_layer("expand", x, {"expand_times": list(expand_times)},
+                        name)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """f32 one-hot rows of ``depth`` (see the op for the shape rule)."""
+    return _unary_layer("one_hot", input,
+                        {"depth": depth,
+                         "allow_out_of_range": allow_out_of_range},
+                        dtype="float32")
 
 
 def _norm_size(x, begin_norm_axis):

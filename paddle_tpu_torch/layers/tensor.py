@@ -1,15 +1,20 @@
 """Input declaration, constants and casts: ``data``,
-``create_global_var``, ``fill_constant``, ``cast``.  Counterpart of
+``create_global_var``, ``assign``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``zeros``, ``cast``.  Counterpart of
 ``paddle_tpu/layers/tensor.py`` (``data:43``, ``create_global_var:83``,
-``cast:96``, ``fill_constant:154``)."""
+``cast:96``, ``assign:121``, ``fill_constant:154``,
+``fill_constant_batch_size_like:169``, ``zeros:191``)."""
 
-from ..framework import convert_np_dtype_to_dtype_
+import numpy as np
+
+from ..framework import Variable, convert_np_dtype_to_dtype_
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 from ..ops.common import dtype_enum
 from ..utils import unique_name
 
-__all__ = ["data", "create_global_var", "fill_constant", "cast"]
+__all__ = ["data", "create_global_var", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "zeros", "cast"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -36,6 +41,32 @@ def create_global_var(shape, value, dtype, persistable=False,
     return var
 
 
+def assign(input, output=None):
+    """A copy of a Variable (``assign``), or a numpy array as a constant
+    of the program (``assign_value``, its values in the op's attrs)."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+        return output
+    arr = np.asarray(input)
+    dtype = convert_np_dtype_to_dtype_(arr.dtype)
+    if output is None:
+        output = helper.create_variable_for_type_inference(dtype=dtype)
+    key = {"float32": "fp32_values", "int32": "int32_values",
+           "int64": "int64_values",
+           "bool": "bool_values"}.get(dtype, "fp32_values")
+    helper.append_op(
+        type="assign_value", outputs={"Out": [output]},
+        attrs={"shape": list(arr.shape), "dtype": dtype_enum(dtype),
+               key: [float(v) if key == "fp32_values" else int(v)
+                     for v in arr.flatten()]})
+    return output
+
+
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     helper = LayerHelper("fill_constant")
     dtype = convert_np_dtype_to_dtype_(dtype)
@@ -46,6 +77,26 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
                             "value": float(value), "force_cpu": force_cpu})
     out.stop_gradient = True
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  force_cpu=False):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype_enum(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def zeros(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 0.0, force_cpu)
 
 
 def cast(x, dtype):

@@ -1,4 +1,4 @@
 """Op lowerings of the port; importing the package registers them all."""
 
-from . import (activations, creation, loss, manip, math,  # noqa: F401
-               metrics, nn, optimizer_ops)
+from . import (activations, beam_search, control_flow,  # noqa: F401
+               creation, loss, manip, math, metrics, nn, optimizer_ops)

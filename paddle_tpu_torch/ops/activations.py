@@ -1,9 +1,10 @@
-"""Activations: gelu, relu, softmax.  Counterpart of
+"""Activations: gelu, relu, pow, softmax, log_softmax.  Counterpart of
 ``paddle_tpu/ops/activations.py`` (``gelu:136``, ``relu:20``,
-``softmax:152``); a bf16 input (the AMP policy's activations) is
-computed in f32 and returned in bf16 by gelu and softmax, as there.  relu's gradient is written out (ResNet runs ~50 a
-step, and a vjp replay costs ~0.6 ms of host each on the card); the
-others' are the synthesized vjp replays."""
+``pow:146``, ``softmax:152``, ``log_softmax:163``); a bf16 input (the
+AMP policy's activations) is computed in f32 and returned in bf16 by
+gelu and softmax, as there.  relu's gradient is written out (ResNet runs
+~50 a step, and a vjp replay costs ~0.6 ms of host each on the card);
+the others' are the synthesized vjp replays."""
 
 import math
 
@@ -54,3 +55,14 @@ def softmax(ctx, x, axis=-1, **_):
     if x.dtype == torch.bfloat16:  # f32 exp and sum, the carry dtype out
         return torch.softmax(x.float(), dim=axis).to(x.dtype)
     return torch.softmax(x, dim=axis)
+
+
+@register_op("pow", inputs=("X",), outputs=("Out",), attrs={"factor": 1.0})
+def pow_op(ctx, x, factor=1.0):
+    return torch.pow(x, factor)
+
+
+@register_op("log_softmax", inputs=("X",), outputs=("Out",),
+             attrs={"axis": -1})
+def log_softmax(ctx, x, axis=-1):
+    return torch.log_softmax(x, dim=axis)

@@ -1,7 +1,9 @@
 """Tensor creation: fill_constant, uniform_random and gaussian_random, the
-ops the startup program's initialisers emit, assign and cast.
+ops the startup program's initialisers emit, fill_constant_batch_size_like,
+assign, assign_value and cast.
 Counterpart of ``paddle_tpu/ops/creation.py`` (``fill_constant:18``,
-``uniform_random:76``, ``gaussian_random:96``, ``assign:143``,
+``fill_constant_batch_size_like:59``, ``uniform_random:76``,
+``gaussian_random:96``, ``assign:143``, ``assign_value:149``,
 ``cast:163``)."""
 
 import torch
@@ -28,6 +30,23 @@ def fill_constant(ctx, shape_tensor, shape_tensor_list, value_tensor,
         value = value_tensor.reshape(()).item()
     return torch.full(tuple(int(s) for s in shape), value,
                       dtype=attr_dtype(dtype), device=ctx.device)
+
+
+@register_op("fill_constant_batch_size_like", inputs=("Input",),
+             outputs=("Out",),
+             attrs={"shape": [], "value": 0.0, "dtype": 5, "input_dim_idx": 0,
+                    "output_dim_idx": 0, "force_cpu": False},
+             grad_maker=None)
+def fill_constant_batch_size_like(ctx, input, shape=(), value=0.0, dtype=5,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  force_cpu=False):
+    """A constant of ``shape`` whose ``output_dim_idx`` dim is the input's
+    ``input_dim_idx`` dim (the batch the beam decoder seeds its state
+    with)."""
+    out_shape = [int(s) for s in shape]
+    out_shape[output_dim_idx] = input.shape[input_dim_idx]
+    return torch.full(tuple(out_shape), value, dtype=attr_dtype(dtype),
+                      device=ctx.device)
 
 
 @register_op("uniform_random", inputs=("ShapeTensor", "ShapeTensorList"),
@@ -78,6 +97,24 @@ def assign(ctx, x):
     """The identity (what ``delete_dropout_pass`` leaves of an inference
     dropout)."""
     return x
+
+
+@register_op("assign_value", outputs=("Out",),
+             attrs={"shape": [], "dtype": 5, "fp32_values": [],
+                    "int32_values": [], "int64_values": [],
+                    "bool_values": []},
+             grad_maker=None)
+def assign_value(ctx, shape=(), dtype=5, fp32_values=(), int32_values=(),
+                 int64_values=(), bool_values=()):
+    """The constant the attrs carry (a numpy array the program was built
+    with), in ``dtype`` and ``shape``.  The values are an attr list, so
+    every run turns them into a tensor on the host and copies it over."""
+    dt = attr_dtype(dtype)
+    shape = tuple(int(s) for s in shape)
+    if ctx.abstract:
+        return torch.empty(shape, dtype=dt, device=ctx.device)
+    vals = fp32_values or int32_values or int64_values or bool_values
+    return torch.tensor(vals, dtype=dt).reshape(shape).to(ctx.device)
 
 
 @register_op("cast", inputs=("X",), outputs=("Out",),

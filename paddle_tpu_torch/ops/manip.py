@@ -1,9 +1,11 @@
-"""Shape ops, gather and the embedding lookups: reshape2, transpose2,
-unsqueeze2, concat, gather, lookup_table, embedding_bag.
+"""Shape ops, gather, one_hot and the embedding lookups: reshape2,
+transpose2, unsqueeze2, concat, slice, expand, gather, lookup_table,
+embedding_bag, one_hot.
 
 Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
-``transpose2:101``, ``concat:113``, ``unsqueeze2:214``, ``gather:284``,
-``lookup_table:322``, ``embedding_bag:345``).  Most gradients are the
+``transpose2:101``, ``concat:113``, ``slice:156``, ``unsqueeze2:214``,
+``expand:265``, ``gather:284``, ``lookup_table:322``,
+``embedding_bag:345``, ``one_hot:370``).  Most gradients are the
 synthesized vjp replays: gather's and lookup_table's accumulate repeated
 indices (in a varying order where the card adds them with atomics).
 ``concat_grad`` (a split of the output gradient) and
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from .. import flags
 from ..core.registry import register_grad_lowering, register_op, wants_grad
 from ..kernels.embedding_bag import bag_checks, embedding_bag as bag_kernel
+from .common import attr_dtype
 
 
 def _resolve_shape(x, shape):
@@ -115,6 +118,44 @@ def concat_grad(ctx, xs, axis_tensor, out, dout, axis=0):
                             dim=axis)), None
 
 
+@register_op("slice", inputs=("Input", "StartsTensor", "EndsTensor"),
+             outputs=("Out",),
+             attrs={"axes": [], "starts": [], "ends": [],
+                    "decrease_axis": [], "infer_flags": []},
+             optional_inputs=("StartsTensor", "EndsTensor"))
+def slice_op(ctx, input, starts_t, ends_t, axes=(), starts=(), ends=(),
+             decrease_axis=(), infer_flags=()):
+    """input[starts:ends] along ``axes`` (negative bounds count from the
+    end, both clamped into the dim), ``decrease_axis`` squeezed.  The
+    bounds are attrs; bounds given as tensors are not ported."""
+    if starts_t is not None or ends_t is not None:
+        raise NotImplementedError(
+            "slice with StartsTensor / EndsTensor is not ported yet")
+    idx = [slice(None)] * input.dim()
+    for ax, st, en in zip(axes, starts, ends):
+        d = input.shape[ax]
+        st, en = int(st), int(en)
+        if st < 0:
+            st += d
+        if en < 0:
+            en += d
+        idx[ax] = slice(min(max(st, 0), d), min(en, d))
+    out = input[tuple(idx)]
+    if decrease_axis:
+        out = out.squeeze(tuple(decrease_axis))
+        if out.dim() == 0:
+            out = out.reshape(1)
+    return out
+
+
+@register_op("expand", inputs=("X", "ExpandTimes"), outputs=("Out",),
+             attrs={"expand_times": []}, optional_inputs=("ExpandTimes",))
+def expand(ctx, x, expand_times_t, expand_times=()):
+    """x tiled ``expand_times[i]`` times along dim i (``jnp.tile``)."""
+    reps = [int(t) for t in expand_times]
+    return x.repeat(*([1] * (x.dim() - len(reps)) + reps))
+
+
 @register_op("gather", inputs=("X", "Index"), outputs=("Out",),
              attrs={"overwrite": True}, no_grad_inputs=("Index",))
 def gather(ctx, x, index, overwrite=True):
@@ -181,3 +222,18 @@ def embedding_bag_grad(ctx, w, ids, out, dout, mode="sum"):
             ids.shape[0], ids.shape[1], d).reshape(-1, d)
         grad.index_add_(0, idx, src)
     return grad[:u], None
+
+
+@register_op("one_hot", inputs=("X", "depth_tensor"), outputs=("Out",),
+             attrs={"depth": 1, "dtype": 5, "allow_out_of_range": False},
+             optional_inputs=("depth_tensor",), grad_maker=None)
+def one_hot(ctx, x, depth_t, depth=1, dtype=5, allow_out_of_range=False):
+    """Fluid v1's one_hot as the reference lowers it: a trailing dim of 1
+    is squeezed ([B, T, 1] -> [B, T, depth]), any other shape gets
+    ``depth`` appended ([B, K] -> [B, K, depth]); an id outside
+    [0, depth) gives a row of zeros."""
+    idx = x
+    if idx.dim() >= 2 and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    classes = torch.arange(depth, device=idx.device)
+    return (idx.long().unsqueeze(-1) == classes).to(attr_dtype(dtype))

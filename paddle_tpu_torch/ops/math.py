@@ -1,10 +1,13 @@
 """Dense math ops: mul, matmul, the elementwise family, scale, sum,
-mean, the explicit grads of mul and elementwise_add, and the two ops the
-predictor's passes emit, fc and fused_elemwise_activation.
+mean, reduce_sum, increment, the explicit grads of mul, elementwise_add
+and reduce_sum, and the two ops the predictor's passes emit, fc and
+fused_elemwise_activation.
 
 Counterpart of ``paddle_tpu/ops/math.py`` (``_amp_dot:25``, ``mul:48``,
 ``matmul:66``, the elementwise ops ``:120-148``, ``scale:151``,
-``sum:163``, ``mean:172``) and of ``paddle_tpu/ops/coverage_tail.py``
+``sum:163``, ``mean:172``, ``reduce_sum`` of ``_register_reduce:183``,
+``increment:231``)
+and of ``paddle_tpu/ops/coverage_tail.py``
 (``fc:92``, ``fused_elemwise_activation:469``).  The products are plain
 ``torch.matmul`` calls (cuBLAS on the card, in full f32: TF32 is off), as
 the reference leaves them to XLA.  The reference differentiates mul and
@@ -135,6 +138,43 @@ def sum_op(ctx, xs):
 @register_op("mean", inputs=("X",), outputs=("Out",))
 def mean(ctx, x):
     return x.mean().reshape(1)
+
+
+def _reduce_dims(x, dim, reduce_all):
+    """The dims a reduce op sums over: all of them under ``reduce_all`` or
+    an empty ``dim``, else ``dim`` with negatives counted from the end."""
+    if reduce_all or dim is None or len(dim) == 0:
+        return tuple(range(x.dim()))
+    return tuple(d if d >= 0 else d + x.dim() for d in dim)
+
+
+@register_op("reduce_sum", inputs=("X",), outputs=("Out",),
+             attrs={"dim": [0], "keep_dim": False, "reduce_all": False})
+def reduce_sum(ctx, x, dim=(0,), keep_dim=False, reduce_all=False):
+    """Sum over ``dim`` (or every dim), the reduced dims kept as 1 under
+    ``keep_dim``; a full reduction without it is [1]."""
+    out = x.sum(dim=_reduce_dims(x, dim, reduce_all), keepdim=keep_dim)
+    return out.reshape(1) if out.dim() == 0 else out
+
+
+@register_grad_lowering("reduce_sum")
+def reduce_sum_grad(ctx, x, out, dout, dim=(0,), keep_dim=False,
+                    reduce_all=False):
+    """dX: the output grad broadcast back over the summed dims."""
+    if dout is None:
+        return (None,)
+    axes = _reduce_dims(x, dim, reduce_all)
+    kept = [1 if i in axes else n for i, n in enumerate(x.shape)]
+    g = dout.to(out.dtype).reshape(kept).expand(x.shape)
+    return (g.to(x.dtype).contiguous(),)
+
+
+@register_op("increment", inputs=("X",), outputs=("Out",),
+             attrs={"step": 1.0}, grad_maker=None)
+def increment(ctx, x, step=1.0):
+    """x + step in x's dtype (a counter: the LR schedule's step, the
+    beam decoder's array index)."""
+    return x + (step if x.is_floating_point() else int(step))
 
 
 @register_grad_lowering("mul")

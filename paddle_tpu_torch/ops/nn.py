@@ -1,11 +1,12 @@
 """Conv, pooling, normalisation, dropout and attention ops and their
 gradients: conv2d, pool2d, batch_norm, conv2d_bn_relu, layer_norm,
-dropout, flash_attention, fused_dropout_add_ln.
+dropout, label_smooth, flash_attention, fused_dropout_add_ln.
 
 Counterpart of ``paddle_tpu/ops/nn.py`` (``conv2d:42``, ``pool2d:175``,
 ``batch_norm:332`` with ``_bn_impl:254`` and its grad op ``:357``,
 ``conv2d_bn_relu:406``, ``layer_norm:460``, ``dropout:602`` and its grad
-op ``:634``, ``flash_attention:863`` and its grad op ``:941``,
+op ``:634``, ``label_smooth:649``, ``flash_attention:863`` and its grad
+op ``:941``,
 ``fused_dropout_add_ln:1018`` and its grad op ``:1063``).
 
 Conv and pooling are plain PyTorch (``F.conv2d``, cuDNN on the card with
@@ -622,6 +623,21 @@ def dropout_grad(ctx, mask, dy, dropout_prob=0.5, is_test=False,
     if dropout_implementation == "upscale_in_train":
         return true_divide(dy * m, realized_keep_prob(1.0 - dropout_prob))
     return dy * m
+
+
+# -- label_smooth ------------------------------------------------------------
+
+
+@register_op("label_smooth", inputs=("X", "PriorDist"), outputs=("Out",),
+             attrs={"epsilon": 0.1}, optional_inputs=("PriorDist",))
+def label_smooth(ctx, x, prior, epsilon=0.1):
+    """(1 - epsilon) x + epsilon u, u the PriorDist over the last dim, or
+    uniform 1 / depth without one."""
+    k = x.shape[-1]
+    if prior is not None:
+        return (1.0 - epsilon) * x + epsilon * prior.reshape(
+            (1,) * (x.dim() - 1) + (k,))
+    return (1.0 - epsilon) * x + epsilon / k
 
 
 # -- flash_attention ---------------------------------------------------------

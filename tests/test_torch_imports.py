@@ -1,7 +1,8 @@
 """The port stands alone: every module of ``paddle_tpu_torch`` (its own
 copies of the host-only ``core/tracing.py`` and
-``utils/fault_injection.py`` among them), ``chip_smoke.py`` and the
-port's replica and fleet tools (``tools/torch_serve.py``,
+``utils/fault_injection.py`` and the Transformer's modules among them),
+``chip_smoke.py`` and the port's replica and fleet tools
+(``tools/torch_serve.py``,
 ``tools/torch_fleet_top.py``) import in a process where ``jax`` and
 ``paddle_tpu`` cannot be imported, and the port's RPC transport is its
 own library, built under ``build/native/``, never the reference
@@ -37,7 +38,12 @@ SCRIPT = textwrap.dedent("""
     for name in ("paddle_tpu_torch.core.tracing",
                  "paddle_tpu_torch.utils.fault_injection",
                  "paddle_tpu_torch.serving.disagg",
-                 "paddle_tpu_torch.serving.migrate"):
+                 "paddle_tpu_torch.serving.migrate",
+                 "paddle_tpu_torch.models.transformer",
+                 "paddle_tpu_torch.ops.beam_search",
+                 "paddle_tpu_torch.ops.control_flow",
+                 "paddle_tpu_torch.layers.learning_rate_scheduler",
+                 "paddle_tpu_torch.layers.rnn"):
         assert name in sys.modules, name
     # the lazy imports run too: a span, a note, a fired fault point
     from paddle_tpu_torch import set_flags
@@ -78,7 +84,9 @@ def test_port_modules_import_without_jax_or_the_reference():
                  "serving/rollout.py", "serving/fleetmon.py",
                  "core/telemetry.py", "core/tracing.py",
                  "utils/fault_injection.py", "core/executor.py", "io.py",
-                 "distributed/ps.py",
+                 "distributed/ps.py", "models/transformer.py",
+                 "ops/beam_search.py", "ops/control_flow.py",
+                 "layers/learning_rate_scheduler.py", "layers/rnn.py",
                  "../tools/torch_serve.py", "../tools/torch_fleet_top.py"):
         with open(os.path.join(ROOT, "paddle_tpu_torch", name)) as f:
             src = f.read()

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Where a BERT-base pretraining step of the PyTorch port spends its time
-on the card.
+"""Where a BERT-base pretraining step, or a Transformer NMT training step,
+of the PyTorch port spends its time on the card.
 
     python3 tools/torch_train_profile.py [--steps 5] [--batch 32]
-        [--emission dropout0|composed|small]
+        [--emission dropout0|composed|small] [--model bert|nmt]
 
-Builds BERT-base pretraining (seq 128, Adam at lr 1e-4, seeded random
-weights) with the port's ``build_pretrain`` in one of three emissions:
+``--model nmt`` builds transformer-base with the port's
+``models.transformer.build_train`` at ``bench.py``'s nmt configuration
+(batch 128 by default, 64 source and 64 target tokens, dropout 0.1,
+label smoothing 0.1, the noam schedule; seeded random weights and ids).
+The default builds BERT-base pretraining (seq 128, Adam at lr 1e-4, seeded
+random weights) with the port's ``build_pretrain`` in one of three
+emissions:
 ``dropout0`` (dropout 0, one flash_attention op a layer; the default),
 ``composed`` (BERT's dropout 0.1: the embeddings dropout and, a layer,
 matmul, bias add, softmax, dropout, matmul) or ``small`` (dropout 0.1
@@ -39,6 +44,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ = 128
+NMT_LEN = 64
 
 # kernel name fragments of the ported kernels (csrc/*.cu)
 # (first match wins: the small forward and backward are the flash
@@ -72,11 +78,15 @@ def _group(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="32 for bert, 128 for nmt")
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--emission", choices=("dropout0", "composed", "small"),
                     default="dropout0")
+    ap.add_argument("--model", choices=("bert", "nmt"), default="bert")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 128 if args.model == "nmt" else 32
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this profiles the port on the card")
     sys.path.insert(0, ROOT)
@@ -92,18 +102,37 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print("card: %s" % card, flush=True)
-    cfg = BertConfig(dropout=0.0 if args.emission == "dropout0" else 0.1)
-    if args.emission == "small":
-        os.environ["BERT_FUSED_ATTN"] = "1"   # read at build time
-        set_flags({"FLAGS_fused_small_attention": True})
     main_prog, startup = framework.Program(), framework.Program()
     startup.random_seed = 11
-    with framework.program_guard(main_prog, startup):
-        _inputs, loss = build_pretrain(cfg, SEQ, lr=1e-4)
+    rng = np.random.RandomState(3)
+    if args.model == "nmt":
+        from paddle_tpu_torch.models.transformer import (TRANSFORMER_BASE,
+                                                         build_train)
+
+        cfg = TRANSFORMER_BASE
+        with framework.program_guard(main_prog, startup):
+            _feeds, loss = build_train(cfg, NMT_LEN, NMT_LEN)
+        shape = (args.batch, NMT_LEN)
+        feed = {n: rng.randint(2, cfg.trg_vocab, shape).astype("int64")
+                for n in ("src_ids", "trg_ids", "trg_next")}
+        feed["trg_weight"] = np.ones(shape, "float32")
+        what = ("Transformer NMT (transformer-base, dropout %g), batch %d, "
+                "%d + %d tokens" % (cfg.dropout, args.batch, NMT_LEN,
+                                    NMT_LEN))
+    else:
+        cfg = BertConfig(dropout=0.0 if args.emission == "dropout0"
+                         else 0.1)
+        if args.emission == "small":
+            os.environ["BERT_FUSED_ATTN"] = "1"   # read at build time
+            set_flags({"FLAGS_fused_small_attention": True})
+        with framework.program_guard(main_prog, startup):
+            _inputs, loss = build_pretrain(cfg, SEQ, lr=1e-4)
+        feed = pretrain_feed(rng, cfg, args.batch, SEQ)
+        what = ("BERT-base pretraining, emission %s (dropout %g), batch %d, "
+                "seq %d" % (args.emission, cfg.dropout, args.batch, SEQ))
     exe = Executor()                   # the card; TF32 off
     scope = Scope()
     exe.run(startup, scope=scope)
-    feed = pretrain_feed(np.random.RandomState(3), cfg, args.batch, SEQ)
 
     def step():
         return exe.run(main_prog, feed=feed, fetch_list=[loss],
@@ -132,12 +161,11 @@ def main():
     span_us = max(e.time_range.end for e in kernels) \
         - min(e.time_range.start for e in kernels)
     ops = len(main_prog.global_block().ops)
-    print("BERT-base pretraining, emission %s (dropout %g), batch %d, seq "
-          "%d: %d ops a step; %d "
+    print("%s: %d ops a step; %d "
           "steps: host %.3f ms/step unprofiled (p50 %.3f); device busy "
           "%.3f ms/step; device idle share %.3f over the kernels' span; "
           "peak device memory %.2f GB"
-          % (args.emission, cfg.dropout, args.batch, SEQ, ops, n,
+          % (what, ops, n,
              float(np.mean(host)),
              float(np.percentile(host, 50)), busy_us / 1e3 / n,
              1.0 - busy_us / span_us, peak_gb), flush=True)
