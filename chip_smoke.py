@@ -112,6 +112,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
    sessions (they move to the other through ``migrated_to``); a decode
    replica SIGKILLed mid-stream (the client's ``__resume__`` completes on
    the relaunched prefill replica); nothing dropped, every index once;
+5f. SLO tiers over the wire: a ServingServer over a DecodeEngine whose
+   lane bucket, queue cap and tier weights come from the flags alone; four
+   requests hold the lanes (a ``serving.decode_step`` delay) while twelve
+   paid, free, batch, unknown-tier and untiered generates arrive one by
+   one: the shed requests and reasons equal the host replay of the
+   reference's victim rule, no paid request is shed while a lighter one
+   waits, ``serving_tier_shed_total`` in ``__metrics__`` equals the
+   clients' sheds by tier, the completed tokens are the plain loop's, row
+   1 launched 12 times a step; a session of tenant ``acme`` at tier
+   ``free`` migrated mid-decode keeps both in its manifest and its resumed
+   reply;
+5g. one autoscaler a role: three ``tools/torch_serve.py`` slots with
+   ``--roles decode,decode,prefill``, slot 1 dead, rank 0 ``--autoscale``,
+   every pool small through ``FLAGS_kv_cache_blocks``: eight clients'
+   long generates fill rank 0's pool (>= 0.85), the decode controller
+   forks a standby into slot 1, which serves; once the traffic stops it
+   retires a decode rank through a drain; the prefill replica is in every
+   version of the endpoints file, every reply ok, every index once, and
+   each replica's LAUNCHES equal to its SERVED decode steps;
 6. BERT-base pretraining (seeded random weights, seq 128, batch 32)
    built with the port's ``build_pretrain`` and trained 5 steps on one
    batch through ``Executor.run``, in three emissions, one after the
@@ -196,7 +215,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     assign_value ops' host cost printed;
 12. the script's own wall time, a JSON line of the kernels (rows 9 and
     14 and the dropout kernel counting the NMT path's launches besides
-    their earlier paths'), then the result line.
+    their earlier paths', row 1 the tiers and role-fleet phases' besides
+    the pair's), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -4036,13 +4056,16 @@ def disagg_phase(pa, params, refs, base, int8_refs, clients=3):
 MIGRATE_AFTER = 12      # tokens the session has emitted when it moves
 
 
-def migrate_once(params, kv_dtype, prompt, what):
+def migrate_once(params, kv_dtype, prompt, what, tenant="default",
+                 tier=None):
     """Two serve-role ServingServers over DecodeEngines on the card; a
-    streamed generate of ``prompt`` (32 new tokens) on the first, moved to
-    the second by the first's SessionMigrator once it has emitted
-    MIGRATE_AFTER tokens -> (reply, chunks, manifest position and tokens
-    at the export, in-use blocks of the source at the commit, seconds
-    from the export to the first resumed token, bytes moved)."""
+    streamed generate of ``prompt`` (32 new tokens, from a client of
+    ``tenant`` at ``tier``) on the first, moved to the second by the
+    first's SessionMigrator once it has emitted MIGRATE_AFTER tokens ->
+    (reply, what the hooks saw: the manifest's position, tokens, tier and
+    tenant, the source's in-use blocks at the commit, the seconds to the
+    commit and both engines' decode steps; positions re-fed, seconds from
+    the export to the first resumed token, bytes moved)."""
     from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
                                           ServingEngine, ServingServer)
 
@@ -4066,6 +4089,7 @@ def migrate_once(params, kv_dtype, prompt, what):
         manifest, payloads = export(req_id)
         seen["pos"] = manifest["pos"]
         seen["held"] = len(manifest["_out_arr"])
+        seen["tier"], seen["tenant"] = manifest["tier"], manifest["tenant"]
         return manifest, payloads
 
     def commit_hook(req_id, peer):
@@ -4078,7 +4102,7 @@ def migrate_once(params, kv_dtype, prompt, what):
     bytes0 = counter("kv_migrate_bytes_total")
     try:
         cli = ServingClient(endpoints=["127.0.0.1:%d" % ss.port],
-                            deadline_ms=600000.0)
+                            deadline_ms=600000.0, tenant=tenant)
 
         def on_token(i, t):
             chunks.append((i, t))
@@ -4086,7 +4110,7 @@ def migrate_once(params, kv_dtype, prompt, what):
 
         th = threading.Thread(target=lambda: res.setdefault(
             "r", cli.generate("gpt2-small", prompt, max_new_tokens=32,
-                              on_token=on_token)), daemon=True)
+                              on_token=on_token, tier=tier)), daemon=True)
         th.start()
         rid = [None]
 
@@ -4108,6 +4132,7 @@ def migrate_once(params, kv_dtype, prompt, what):
             fail("%s: the client never finished" % what)
         in_use = [e._models["gpt2-small"].cache.allocator.in_use
                   for e in engs]
+        seen["steps"] = sum(e.steps for e in engs)
     finally:
         ss.shutdown()
         sd.shutdown()
@@ -4223,19 +4248,26 @@ def scrape_counters(ep):
     return snap["counters"], snap["gauges"]
 
 
-def check_served(what, rep, dcfg):
-    """A replica that exited 0 printed SERVED and LAUNCHES: row 1 launched
-    12 times a decode step it ran, the int8 kernel never."""
-    served, launches = rep.line("SERVED "), rep.line("LAUNCHES ")
-    if served is None or launches is None:
-        fail("%s: no SERVED / LAUNCHES; output ends:\n%s" % (what,
-                                                            rep.tail()))
+def served_launches(what, served, launches, dcfg):
+    """A replica's SERVED and LAUNCHES documents: row 1 launched 12 times
+    a decode step it ran, the int8 kernel never -> its row 1 launches."""
     steps = served["decode_steps"]
     if launches["paged_attention"] != dcfg.layers * steps or steps == 0 \
             or launches["paged_attention_int8"]:
         fail("%s: launches %s over %d decode steps" % (what, launches,
                                                         steps))
-    return steps, launches["paged_attention"]
+    return launches["paged_attention"]
+
+
+def check_served(what, rep, dcfg):
+    """A replica that exited 0 printed SERVED and LAUNCHES, which
+    ``served_launches`` holds -> (its decode steps, its row 1 launches)."""
+    served, launches = rep.line("SERVED "), rep.line("LAUNCHES ")
+    if served is None or launches is None:
+        fail("%s: no SERVED / LAUNCHES; output ends:\n%s" % (what,
+                                                            rep.tail()))
+    return served["decode_steps"], served_launches(what, served, launches,
+                                                   dcfg)
 
 
 def pair_fleet_phase(dec_dir, refs, tmp):
@@ -4475,6 +4507,427 @@ def pair_fleet_phase(dec_dir, refs, tmp):
         set_flags({"FLAGS_telemetry": False})
         for rep in reps.values():
             rep.kill()
+
+
+# -- phase 5f: SLO tiers on the decode engine, over the wire ------------------
+
+# the waiting queue's cap and the tier weights, set through the flags only
+TIERS_FLAGS = {"FLAGS_serving_decode_buckets": "4",
+               "FLAGS_serving_max_queue": 4,
+               "FLAGS_serving_tier_weights": "paid:1.0,free:0.5,batch:0.2"}
+TIER_WEIGHTS = {"paid": 1.0, "free": 0.5, "batch": 0.2}
+# the lanes' requests (the four shortest prompts, untiered), then the
+# tiered sequence: (tier or None, prompt index); "gold" is a tier the
+# weights do not name, so it weighs as the lowest
+TIER_FILLERS = (0, 6, 2, 9)
+TIER_SEQUENCE = (("batch", 1), ("free", 3), ("gold", 5), ("free", 8),
+                 ("paid", 4), ("batch", 1), (None, 7), ("free", 3),
+                 ("paid", 11), ("gold", 5), ("paid", 10), ("paid", 8))
+HOLD_STEPS = "serving.decode_step:delay:1"
+
+
+def tier_replay(tiers, weights, max_queue):
+    """The reference's queue-full rule replayed on the host over arrivals
+    into a queue that nothing leaves -> ({arrival: (reason, the arriving
+    tier that caused it)} of the shed ones, the weights queued at each
+    arrival)."""
+    def weight(t):
+        return 1.0 if not t else weights.get(t, min(weights.values()))
+
+    queue, shed, seen = [], {}, []
+    for i, t in enumerate(tiers):
+        seen.append([weight(tiers[j]) for j in queue])
+        if len(queue) >= max_queue:
+            victim = min(queue, key=lambda j: (weight(tiers[j]), -j))
+            if weight(tiers[victim]) < weight(t):
+                queue.remove(victim)
+                shed[victim] = ("tier_evicted", t or "default")
+            else:
+                shed[i] = ("queue_full", t or "default")
+                continue
+        queue.append(i)
+    return shed, seen
+
+
+def tiers_phase(pa, params, refs):
+    """A ServingServer over a DecodeEngine on the card whose lane bucket,
+    queue cap and tier weights come from the flags alone (TIERS_FLAGS):
+    four untiered requests hold the four lanes (the ``serving.decode_step``
+    delay slowing their steps), then ``ServingClient.generate(tier=)``
+    sends TIER_SEQUENCE one request at a time, each admitted or shed
+    before the next goes.  The shed requests and their reasons must be
+    ``tier_replay``'s, no paid request shed while a lighter one waits,
+    the ``serving_tier_shed_total`` of the server's ``__metrics__`` the
+    sheds the clients saw, tier by tier, every completed request's tokens
+    the plain loop's up to near-ties, row 1 launched 12 times a decode
+    step.  Then one session of tenant ``acme`` at tier ``free`` moves
+    between two engines mid-decode (``migrate_once``): the manifest and
+    the resumed reply keep both.  -> row 1's launches."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingClient,
+                                          ServingEngine, ServingServer)
+    from paddle_tpu_torch.utils import fault_injection
+
+    cfg = gpt2_small()
+    card = card_line()
+    first, late = prompts(cfg.vocab)
+    allp = first + [late]
+    t_phase = time.perf_counter()
+    telemetry.reset()
+    set_flags(dict(TIERS_FLAGS, FLAGS_telemetry=True))
+    try:
+        eng = DecodeEngine(block_size=16, deadline_ms=600000.0)
+        if eng.buckets != (4,) or eng.max_queue != 4 or \
+                eng.tier_weights != TIER_WEIGHTS:
+            fail("tiers: the flags set lanes %s, queue %d, weights %s"
+                 % (eng.buckets, eng.max_queue, eng.tier_weights))
+        eng.add_model("gpt2-small", (cfg, params), kv_blocks=520)
+        submitted = []
+        submit = eng.submit
+
+        def recorded(*a, **kw):
+            p = submit(*a, **kw)
+            submitted.append(p)
+            return p
+
+        eng.submit = recorded
+        srv = ServingServer(ServingEngine(), port=0,
+                            decode_engine=eng).start()
+        ep = "127.0.0.1:%d" % srv.port
+        replies = {}
+
+        def send(key, i, tier):
+            cli = ServingClient(endpoints=[ep], deadline_ms=600000.0)
+            got = []
+            r = cli.generate("gpt2-small", allp[i], max_new_tokens=32,
+                             tier=tier, max_attempts=1,
+                             on_token=lambda j, t: got.append(j))
+            replies[key] = (r, got)
+
+        threads = []
+        pa.paged_attention.launches = 0
+        steps0 = eng.steps
+        fault_injection.arm(HOLD_STEPS)
+        try:
+            for k, i in enumerate(TIER_FILLERS):
+                threads.append(threading.Thread(
+                    target=send, args=(("fill", k), i, None), daemon=True))
+                threads[-1].start()
+            wait_for("tiers: the four lanes busy", lambda: len(
+                eng._active) == 4 and not eng._waiting, 120.0)
+            for k, (tier, i) in enumerate(TIER_SEQUENCE):
+                threads.append(threading.Thread(
+                    target=send, args=(k, i, tier), daemon=True))
+                threads[-1].start()
+                wait_for("tiers: arrival %d admitted or shed" % k,
+                         lambda: len(submitted) == len(TIER_FILLERS) + k + 1,
+                         60.0, step=0.001)
+            held = len(eng._active)
+        finally:
+            fault_injection.disarm()
+        if held != 4:
+            fail("tiers: a lane freed while the sequence arrived")
+        for th in threads:
+            th.join(600.0)
+        if any(th.is_alive() for th in threads):
+            fail("tiers: a client never finished")
+        launches, steps = pa.paged_attention.launches, eng.steps - steps0
+        snap = telemetry.scrape(ep, timeout=10.0)["counters"]
+        srv.shutdown()
+    finally:
+        set_flags({"FLAGS_serving_decode_buckets": "4,8",
+                   "FLAGS_serving_max_queue": 256,
+                   "FLAGS_serving_tier_weights":
+                       "paid:1.0,free:0.45,batch:0.15"})
+    tiers = [t for t, _i in TIER_SEQUENCE]
+    want, queued = tier_replay(tiers, TIER_WEIGHTS, 4)
+    got = {k: (r.status, r.error) for k, (r, _g) in replies.items()
+           if k not in [("fill", j) for j in range(len(TIER_FILLERS))]
+           and r.status != "ok"}
+    want_err = {k: ("shed", "evicted by %s-tier arrival" % by
+                    if reason == "tier_evicted" else "queue full (4)")
+                for k, (reason, by) in want.items()}
+    if got != want_err:
+        fail("tiers: shed %s, the host replay %s" % (got, want_err))
+    for k, (reason, _by) in want.items():
+        if tiers[k] == "paid" and reason == "queue_full" and \
+                min(queued[k]) < 1.0:
+            fail("tiers: paid arrival %d shed while weights %s waited"
+                 % (k, queued[k]))
+    by_tier = {}
+    for k in want:
+        t = tiers[k] or "default"
+        by_tier[t] = by_tier.get(t, 0) + 1
+    metric = {t: sum_of(snap, "serving_tier_shed_total", tier=t)
+              for t in by_tier}
+    if metric != by_tier or sum_of(snap, "serving_tier_shed_total") != \
+            len(want):
+        fail("tiers: __metrics__ tier sheds %s, the clients saw %s"
+             % (metric, by_tier))
+    done = [k for k in replies if k not in want]
+    bad = [(k, r.status, r.error) for k in done for r, g in [replies[k]]
+           if r.status != "ok" or g != list(range(32))
+           or r.phases.get("tier") != (
+               "default" if isinstance(k, tuple) else tiers[k] or "default")]
+    if bad:
+        fail("tiers: completed requests %s" % bad)
+    idx = [TIER_FILLERS[k[1]] if isinstance(k, tuple)
+           else TIER_SEQUENCE[k][1] for k in done]
+    check_decode_tokens("tiers", [allp[i] for i in idx],
+                        [replies[k][0] for k in done], [refs[i] for i in idx])
+    if launches != cfg.layers * steps or steps == 0:
+        fail("tiers: paged_attention launched %d times over %d steps"
+             % (launches, steps))
+    print("tiers: %s; lanes %s, queue cap %d, weights %s from the flags; "
+          "%d requests held 4 lanes, then %d tiered arrivals: shed %s "
+          "(the host replay's), __metrics__ serving_tier_shed_total %s; "
+          "%d completed with the plain loop's tokens; paged_attention "
+          "launches %d = %d layers x %d decode steps"
+          % (card, list(eng.buckets), eng.max_queue, json.dumps(
+              TIER_WEIGHTS), len(TIER_FILLERS), len(TIER_SEQUENCE),
+             json.dumps({str(k): v for k, v in sorted(want.items())}),
+             json.dumps(metric), len(done), launches, cfg.layers, steps),
+          flush=True)
+
+    # a session keeps its tenant and tier across a migration
+    acme0 = counter("serving_decode_requests_total", tenant="acme")
+    pa.paged_attention.launches = 0
+    r, seen, refed, first_new, _nbytes = migrate_once(
+        params, "f32", first[3], "tiers migration", tenant="acme",
+        tier="free")
+    mig_launches = pa.paged_attention.launches
+    admitted = counter("serving_decode_requests_total", tenant="acme") - \
+        acme0
+    if (seen["tier"], seen["tenant"]) != ("free", "acme") or \
+            r.phases.get("tier") != "free" or admitted != 2:
+        fail("tiers migration: manifest tier %r tenant %r, the resumed "
+             "reply's tier %r, acme admissions %s"
+             % (seen["tier"], seen["tenant"], r.phases.get("tier"),
+                admitted))
+    check_decode_tokens("tiers migration", [first[3]], [r], refs[3:4])
+    if mig_launches != cfg.layers * seen["steps"]:
+        fail("tiers migration: paged_attention launched %d times over %d "
+             "steps" % (mig_launches, seen["steps"]))
+    set_flags({"FLAGS_telemetry": False})
+    telemetry.reset()
+    torch.cuda.empty_cache()
+    print("tiers migration: %s; tenant acme at tier free exported at "
+          "position %d, the manifest's tier %r and tenant %r, resumed on the "
+          "peer (its reply's tier %r, admitted under tenant acme on both "
+          "sides) after re-feeding %d positions; paged_attention launches "
+          "%d = %d layers x %d decode steps; phase wall %.1f s"
+          % (card, seen["pos"], seen["tier"], seen["tenant"],
+             r.phases["tier"], refed, mig_launches, cfg.layers,
+             seen["steps"], time.perf_counter() - t_phase), flush=True)
+    return launches + mig_launches
+
+
+# -- phase 5g: one autoscaler a role -----------------------------------------
+
+# the decode pools' blocks in the replicas' environment: eight clients'
+# sequences of 33 + 96..208 tokens want about 100 blocks of 16 at their
+# ends, so rank 0's pool stays full (>= 0.85) under the burst
+ROLE_POOL_BLOCKS = 64
+ROLE_CLIENTS = 8
+ROLE_PROMPT = 33            # two full blocks handed off a request
+ROLE_NEW = 96               # client k asks for ROLE_NEW + 16 k tokens
+
+
+def start_role_fleet(dec_dir, tmp):
+    """Start rank 0 (decode, ``--autoscale``) and rank 2 (prefill) of a
+    ``--roles decode,decode,prefill`` fleet on the card, slot 1 left
+    dead, every pool sized by FLAGS_kv_cache_blocks -> what
+    ``role_autoscale_phase`` needs."""
+    got = {"t0": time.perf_counter(),
+           "eps_file": os.path.join(tmp, "role-endpoints.json")}
+    got["eps"] = ["127.0.0.1:%d" % p for p in free_ports(3)]
+    env = dict(os.environ, FLAGS_kv_cache_blocks=str(ROLE_POOL_BLOCKS),
+               **FLEET_ENV, **AUTOSCALE_ENV)
+    base = [sys.executable, "-u", os.path.join(HERE, "tools",
+                                               "torch_serve.py"),
+            "--model", "gpt2-small=" + dec_dir, "--fleet",
+            ",".join(got["eps"]), "--roles", ",".join(PAIR_ROLES),
+            "--endpoints-file", got["eps_file"], "--device", FLEET_DEVICE]
+    got[0] = Replica(base + ["--rank", "0", "--autoscale", "--min-replicas",
+                             "1", "--max-replicas", "2"], env)
+    got[2] = Replica(base + ["--rank", "2"], env)
+    return got
+
+
+def role_autoscale_phase(started):
+    """``role_fleet_holds`` on the fleet of ``start_role_fleet``, its
+    replicas and every standby they forked stopped after -> row 1's
+    launches in the replicas."""
+    try:
+        return role_fleet_holds(started)
+    finally:
+        for _t, ready in started[0].all("READY ")[1:]:
+            try:
+                os.kill(int(ready.split("pid=")[1]), 9)
+            except OSError:
+                pass
+        started[0].kill()
+        started[2].kill()
+
+
+def role_fleet_holds(started):
+    """The fleet of ``start_role_fleet``: once slot 1 is out of the
+    endpoints file, ROLE_CLIENTS threads send long generates through the
+    prefill replica until the decode controller (KV-pool occupancy >=
+    0.85) has forked a standby into slot 1, the standby is in the file
+    and has served; then the traffic stops and the decode controller
+    (occupancy <= 0.30) retires a decode rank through a drain.  The
+    prefill replica is in every version of the file, every reply is ok
+    with every index once, and each replica that exits 0 launched row 1
+    12 times a decode step it ran.  -> row 1's launches in the replicas."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import ServingClient
+
+    dcfg = gpt2_small()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    eps, eps_file = started["eps"], started["eps_file"]
+    rep0, rep2 = started[0], started[2]
+    for r, rep in ((0, rep0), (2, rep2)):
+        manifest = rep.ready("role fleet rank %d" % r)
+        if manifest is None or manifest.get("device") != kind:
+            fail("role fleet rank %d prewarmed on %r" % (r, manifest))
+    versions, watching = [], threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            d = endpoints_doc(eps_file)
+            if d.get("epoch", -1) >= 0 and (not versions
+                                            or d != versions[-1]):
+                versions.append(d)
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    evict_s = wait_for("role fleet: slot 1 out of the file", lambda:
+                       endpoints_doc(eps_file)["endpoints"]
+                       == [eps[0], eps[2]], 30.0)
+    stop = threading.Event()
+    replies, lock = [], threading.Lock()
+
+    def client(k):
+        rng = np.random.RandomState(100 + k)
+        cli = ServingClient(endpoints_file=eps_file, deadline_ms=600000.0)
+        while not stop.is_set():
+            got = []
+            r = cli.generate("gpt2-small", rng.randint(
+                0, dcfg.vocab, ROLE_PROMPT).tolist(),
+                max_new_tokens=ROLE_NEW + 16 * k, max_attempts=400,
+                on_token=lambda j, t: got.append(j))
+            with lock:
+                replies.append((r, got, ROLE_NEW + 16 * k,
+                                time.perf_counter()))
+
+    # a shed under a full pool is retried after its hint
+    set_flags({"FLAGS_serving_client_shed_retries": 200})
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(ROLE_CLIENTS)]
+    t_burst = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        wait_for("role fleet: the standby's READY", lambda: len(
+            rep0.all("READY ")) >= 2, FLEET_READY_S)
+        t_ready, ready = rep0.all("READY ")[1]
+        if ready.split()[0] != "port=" + eps[1].rsplit(":", 1)[1]:
+            fail("role fleet: the standby came up as %r, not slot 1" % ready)
+        joined_s = wait_for("role fleet: the file listing the standby",
+                            lambda: endpoints_doc(eps_file)["endpoints"]
+                            == eps, 60.0)
+
+        def standby_served():
+            if any(json.loads(s)["decode_steps"] > 0
+                   for _t, s in rep0.all("SERVED ")):
+                return True
+            try:
+                return sum_of(telemetry.scrape(eps[1], timeout=10.0)[
+                    "counters"], "serving_decode_requests_total") > 0
+            except Exception:  # between a retire and a new fork
+                return False
+
+        wait_for("role fleet: the standby serving", standby_served, 120.0,
+                 step=0.2)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(600.0)
+        set_flags({"FLAGS_serving_client_shed_retries": 2})
+    if any(th.is_alive() for th in threads):
+        fail("role fleet: a client did not finish")
+    t_last = max(t for _r, _g, _n, t in replies)
+    wait_for("role fleet: the standby retired", lambda: len(rep0.all(
+        "SERVED ")) == len(rep0.all("READY ")) - 1, 120.0, step=0.005)
+    wait_for("role fleet: the file back to ranks 0 and 2", lambda:
+             endpoints_doc(eps_file)["endpoints"] == [eps[0], eps[2]], 30.0)
+    counters = {}
+
+    def scaled_down():
+        # __metrics__ republishes on its own tick
+        counters.update(telemetry.scrape(eps[0], timeout=10.0)["counters"])
+        return sum_of(counters, "autoscale_events_total", dir="down") >= 1
+
+    wait_for("role fleet: the scale-down in rank 0's __metrics__",
+             scaled_down, 30.0, step=0.2)
+    ups = [t for t, _l in rep0.all("WARNING:root:[autoscale] scale up")]
+    t_served = rep0.all("SERVED ")[-1][0]
+    bad = [(r.status, r.error, len(g), n) for r, g, n, _t in replies
+           if r.status != "ok" or g != list(range(n))]
+    if not replies or bad:
+        fail("role fleet: %d of %d replies failed: %s"
+             % (len(bad), len(replies), bad[:5]))
+    total = 0
+    standbys = [json.loads(s) for _t, s in rep0.all("SERVED ")]
+    for doc, (_t, lau) in zip(standbys, rep0.all("LAUNCHES ")):
+        if doc["rank"] != 1:
+            fail("role fleet: a retire took rank %d" % doc["rank"])
+        if doc["decode_steps"]:
+            total += served_launches("role fleet standby", doc,
+                                     json.loads(lau), dcfg)
+    if not any(doc["decode_steps"] for doc in standbys):
+        fail("role fleet: no standby served (%s)" % standbys)
+    if rep2.proc.poll() is not None:
+        fail("role fleet: the prefill replica left (rc %s)"
+             % rep2.proc.poll())
+    for r, rep in ((0, rep0), (2, rep2)):
+        rep.proc.send_signal(15)
+        if rep.wait(120.0) != 0:
+            fail("role fleet: rank %d after SIGTERM; output ends:\n%s"
+                 % (r, rep.tail()))
+        doc = json.loads(rep.all("SERVED ")[-1][1])
+        if doc["rank"] != r:
+            fail("role fleet: rank %d printed SERVED %s" % (r, doc))
+        total += served_launches("role fleet rank %d" % r, doc, json.loads(
+            rep.all("LAUNCHES ")[-1][1]), dcfg)
+    watching.set()
+    watcher.join(5.0)
+    if len(versions) < 3 or not all(
+            eps[2] in d["endpoints"] and d["roles"][d["endpoints"].index(
+                eps[2])] == "prefill" for d in versions):
+        fail("role fleet: the prefill replica missing from a version of "
+             "the file: %s" % versions)
+    print("role fleet: %s; --roles %s, rank 0 --autoscale, slot 1 dead "
+          "(out of the file %.1f s after the wait began), pools of %d "
+          "blocks; %d client threads: scale-up %.3f s after the burst "
+          "began, the standby READY in slot 1 %.3f s after the scale-up, in "
+          "the file %.3f s after that; %d replies ok, every index once; "
+          "after the last reply the retire's SERVED %.3f s (standbys %s); "
+          "the prefill replica in all %d versions of the file; autoscale "
+          "events %s; paged_attention launches %d over the replicas, 12 a "
+          "decode step; phase wall %.1f s from the replicas' launch"
+          % (card, ",".join(PAIR_ROLES), evict_s, ROLE_POOL_BLOCKS,
+             ROLE_CLIENTS, ups[0] - t_burst, t_ready - ups[0], joined_s,
+             len(replies), t_served - t_last, json.dumps(standbys),
+             len(versions), json.dumps({k: v for k, v in counters.items()
+                                        if k.startswith("autoscale_")}),
+             total, time.perf_counter() - started["t0"]), flush=True)
+    return total
 
 
 def check_steps(main_p, loss, init, feed, place):
@@ -6644,7 +7097,13 @@ def main():
                 start_leftovers(bert_dir, dec_dir, tmp))
             leftovers_phase(started, plain_v,
                             prompts(gpt2_small().vocab)[0])
-            pair_fleet_phase(os.path.join(tmp, "gpt2-small"), refs, tmp)
+            dec_dir = os.path.join(tmp, "gpt2-small")
+            pair_fleet_phase(dec_dir, refs, tmp)
+            # the role fleet's replicas prewarm while the tiers phase runs;
+            # row 1 adds both phases' launches
+            role_fleet = start_role_fleet(dec_dir, tmp)
+            launches["paged_attention"] += tiers_phase(pa, params, refs)
+            launches["paged_attention"] += role_autoscale_phase(role_fleet)
         finally:
             for rep in REPLICAS:
                 rep.kill()

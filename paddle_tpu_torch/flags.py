@@ -73,6 +73,31 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   ``FLAGS_migrate_on_pressure`` (False): a preempted sequence is pushed
   to the least-loaded peer; ``FLAGS_migrate_ack_timeout`` (10.0 s): how
   long a source waits for the destination's ``__resumeack__``.
+* The serving engines' own settings, the reference's defaults, read by
+  ``ServingEngine`` and ``DecodeEngine`` where a constructor argument is
+  None (an argument always wins): ``FLAGS_serving_buckets`` ("1,4,16,64",
+  the encoder engine's batch buckets, each warmed before traffic),
+  ``FLAGS_serving_max_queue`` (256: the admission queue's cap; beyond it
+  a request is shed with a retry-after, or, with tiers, evicts a queued
+  request of lower weight), ``FLAGS_serving_batch_window_ms`` (2.0: how
+  long the batcher waits to fill the next larger bucket),
+  ``FLAGS_serving_tier_weights`` ("paid:1.0,free:0.45,batch:0.15": a
+  tier's weight scales its deadline budget and orders batch assembly and
+  queue-full eviction, so under overload the lowest weight sheds first;
+  no tier weighs 1.0, an unknown tier the lowest configured weight),
+  ``FLAGS_serving_decode_buckets`` ("4,8": the decode lanes' buckets, one
+  warmed step each), ``FLAGS_serving_decode_mode`` ("token": continuous
+  batching at token granularity; "request": the static-batching
+  baseline), ``FLAGS_kv_block_size`` (16 tokens a KV block),
+  ``FLAGS_kv_cache_blocks`` (0: the KV pool's blocks a model; 0 sizes it
+  from ``FLAGS_hbm_budget_bytes``, else 64), ``FLAGS_hbm_budget_bytes``
+  (0, no gate: on the card, a budget in device bytes that caps the KV
+  pool at what fits beside the model's weights, and refuses a pool of
+  fewer than 2 blocks; ``serving/kv_cache.py`` ``plan_num_blocks``),
+  ``FLAGS_prefix_cache`` (True: admission reuses the sealed blocks of an
+  identical prompt prefix) and ``FLAGS_decode_prefill_token_budget`` (0,
+  unlimited: the prefill tokens one decode iteration mixes in; decode
+  lanes always run).
 
 Each flag starts from the environment variable of its name when set.
 """
@@ -101,6 +126,17 @@ _DEFAULTS = {
     "FLAGS_migrate_on_drain": False,
     "FLAGS_migrate_on_pressure": False,
     "FLAGS_migrate_ack_timeout": 10.0,
+    "FLAGS_serving_buckets": "1,4,16,64",
+    "FLAGS_serving_max_queue": 256,
+    "FLAGS_serving_batch_window_ms": 2.0,
+    "FLAGS_serving_tier_weights": "paid:1.0,free:0.45,batch:0.15",
+    "FLAGS_serving_decode_buckets": "4,8",
+    "FLAGS_serving_decode_mode": "token",
+    "FLAGS_kv_block_size": 16,
+    "FLAGS_kv_cache_blocks": 0,
+    "FLAGS_hbm_budget_bytes": 0,
+    "FLAGS_prefix_cache": True,
+    "FLAGS_decode_prefill_token_budget": 0,
     "FLAGS_worker_hb_timeout": 60.0,
     "FLAGS_serving_hb_interval": 0.3,
     "FLAGS_serving_hb_timeout": 2.0,

@@ -105,8 +105,14 @@ so whatever reads or writes the pools from another thread
 (``_between_steps``): inline when no step is on the device, else queued
 for the decode thread, which runs it at the top of its next iteration.
 
-Left out of the decode engine, compared with the reference: tier weights
-and tier eviction (every decode request is tier "default").
+SLO tiers, as the reference's: ``submit(tier=)`` resolves the request's
+weight through ``tier_weight`` (no tier weighs 1.0, an unknown tier the
+lowest configured weight); a full waiting queue evicts its lowest-weight
+member, the newest among equals, when the arrival outranks it, and sheds
+the arrival otherwise.  The tier and the tenant ride the session
+manifest, the reply phases and the per-tier counters and histograms.
+Where a constructor argument is None, both engines read the serving
+flags (``flags.py``) as the reference's do.
 """
 
 import collections
@@ -133,11 +139,18 @@ __all__ = ["DecodeEngine", "ServingEngine", "InferReply", "parse_buckets",
 _log = logging.getLogger(__name__)
 
 _QPS_WINDOW_S = 5.0         # trailing window of the serving_qps gauge
-_DEFAULT_TIER = "default"   # the tier label of every decode request
 
 
-def parse_buckets(spec):
-    """\"1,4,16\" (or an int sequence) -> sorted unique bucket tuple."""
+def _or_flag(value, name):
+    """A constructor argument, or its flag when it is None."""
+    return value if value is not None else _flag(name)
+
+
+def parse_buckets(spec=None):
+    """\"1,4,16\" (or an int sequence; None reads
+    ``FLAGS_serving_buckets``) -> sorted unique bucket tuple."""
+    if spec is None:
+        spec = _flag("serving_buckets")
     if isinstance(spec, str):
         sizes = [int(s) for s in spec.replace(" ", "").split(",") if s]
     else:
@@ -182,12 +195,17 @@ class InferReply:
 class _Pending:
     """Handle returned by submit(): wait() blocks for the InferReply."""
 
-    __slots__ = ("model", "deadline", "t_submit", "req_id", "callback",
-                 "_done", "reply", "traceparent", "span", "qspan")
+    __slots__ = ("model", "tenant", "tier", "weight", "deadline", "t_submit",
+                 "req_id", "callback", "_done", "reply", "traceparent",
+                 "span", "qspan")
 
     def __init__(self, model, deadline_ms, req_id, callback,
-                 traceparent=None):
+                 traceparent=None, tenant="default", tier="default",
+                 weight=1.0):
         self.model = model
+        self.tenant = tenant
+        self.tier = tier
+        self.weight = float(weight)
         self.t_submit = time.perf_counter()
         self.deadline = self.t_submit + deadline_ms / 1e3
         self.req_id = req_id
@@ -321,31 +339,40 @@ class DecodeEngine:
     """Token-level continuous batching over an engine-owned paged KV
     cache, on ``device`` (default ``cuda``; the CPU only when asked).
 
-    The defaults are the reference's decode flag defaults: lane buckets
-    "4,8", block size 16, "token" mode, prefix cache on, no prefill
-    token budget, a queue of 256 and a 2000 ms deadline; ``kv_dtype``
-    None reads ``FLAGS_kv_cache_dtype`` ("f32" or "int8")."""
+    An argument left None reads its flag, as the reference's engine does:
+    ``buckets`` ``FLAGS_serving_decode_buckets`` ("4,8"), ``max_queue``
+    ``FLAGS_serving_max_queue`` (256), ``deadline_ms``
+    ``FLAGS_serving_deadline_ms`` (2000), ``mode``
+    ``FLAGS_serving_decode_mode`` ("token"), ``block_size``
+    ``FLAGS_kv_block_size`` (16), ``prefix_cache`` ``FLAGS_prefix_cache``
+    (on), ``prefill_token_budget`` ``FLAGS_decode_prefill_token_budget``
+    (0, none) and ``kv_dtype`` ``FLAGS_kv_cache_dtype`` ("f32" or
+    "int8"); the tier weights are ``FLAGS_serving_tier_weights``'s."""
 
-    def __init__(self, buckets="4,8", max_queue=256, deadline_ms=2000.0,
-                 mode="token", block_size=16, prefix_cache=True,
-                 prefill_token_budget=0, kv_dtype=None, device=None):
+    def __init__(self, buckets=None, max_queue=None, deadline_ms=None,
+                 mode=None, block_size=None, prefix_cache=None,
+                 prefill_token_budget=None, kv_dtype=None, device=None):
         self.device = resolve_device(device)
-        self.kv_dtype = str(kv_dtype if kv_dtype is not None
-                            else _flag("kv_cache_dtype"))
+        self.kv_dtype = str(_or_flag(kv_dtype, "kv_cache_dtype"))
         if self.kv_dtype not in ("f32", "int8"):
             raise ValueError("kv_cache dtype must be f32|int8: %r"
                              % self.kv_dtype)
         set_f32_numerics()
-        self.buckets = parse_buckets(buckets)
-        self.max_queue = int(max_queue)
-        self.default_deadline_ms = float(deadline_ms)
+        self.buckets = parse_buckets(_or_flag(buckets,
+                                              "serving_decode_buckets"))
+        self.max_queue = int(_or_flag(max_queue, "serving_max_queue"))
+        self.default_deadline_ms = float(_or_flag(deadline_ms,
+                                                  "serving_deadline_ms"))
+        mode = _or_flag(mode, "serving_decode_mode")
         if mode not in ("token", "request"):
-            raise ValueError("decode mode must be token|request, got %r"
-                             % (mode,))
+            raise ValueError("serving_decode_mode must be token|request, "
+                             "got %r" % (mode,))
         self.mode = mode
-        self.block_size = int(block_size)
-        self.prefix_cache = bool(prefix_cache)
-        self.prefill_token_budget = int(prefill_token_budget)
+        self.block_size = int(_or_flag(block_size, "kv_block_size"))
+        self.prefix_cache = bool(_or_flag(prefix_cache, "prefix_cache"))
+        self.prefill_token_budget = int(_or_flag(
+            prefill_token_budget, "decode_prefill_token_budget") or 0)
+        self.tier_weights = parse_tier_weights()
         self._draining = False
         self._models = {}
         self._waiting = []          # FIFO of _DecodeSeq
@@ -393,7 +420,9 @@ class DecodeEngine:
                   speculative_k=None):
         """Register a decode model: ``source`` is a save_decoder()
         directory of either package or a (DecoderConfig, numpy params)
-        pair.  ``kv_blocks`` sizes the KV pool (default 64).
+        pair.  The KV pool's size is ``kv_blocks`` (None reads
+        ``FLAGS_kv_cache_blocks``; 0 = auto, 64), capped by
+        ``FLAGS_hbm_budget_bytes`` (device bytes) net of the weights'.
 
         ``draft`` is an optional (DecoderConfig, params) draft decoder (a
         directory source loads its bundled ``<dir>/draft``);
@@ -412,8 +441,11 @@ class DecodeEngine:
                 else _flag("speculative_k") or 0)
         if draft is None:
             k = 0   # no draft: non-speculative whatever k asks
+        resident = sum(int(np.asarray(v).nbytes) for v in params.values())
         if k > 0:
             dcfg, dparams = draft
+            resident += sum(int(np.asarray(v).nbytes)
+                            for v in dparams.values())
             if dcfg.vocab != cfg.vocab:
                 raise ValueError("draft vocab %d != target vocab %d"
                                  % (dcfg.vocab, cfg.vocab))
@@ -425,7 +457,7 @@ class DecodeEngine:
             layers=cfg.layers, heads=cfg.heads, head_dim=cfg.head_dim,
             block_size=self.block_size, num_blocks=2, dtype=self.kv_dtype)
         kv_config.num_blocks = _kvc.plan_num_blocks(
-            kv_config, requested=kv_blocks)[0]
+            kv_config, model_resident_bytes=resident, requested=kv_blocks)[0]
         cache = _kvc.PagedKVCache(kv_config, device=self.device)
         # the draft pool is never indexed: its blocks only steer
         # acceptance, and verify guards every emitted token
@@ -532,9 +564,9 @@ class DecodeEngine:
         return max(per * m.kv_config.block_size, 1.0)
 
     @staticmethod
-    def _count_shed(reason):
+    def _count_shed(reason, tier):
         _tm.inc("serving_shed_total", reason=reason)
-        _tm.inc("serving_tier_shed_total", tier=_DEFAULT_TIER)
+        _tm.inc("serving_tier_shed_total", tier=tier)
 
     def handoff_prefill_upto(self, model, prompt_len):
         """Tokens a prefill-role replica feeds for a prompt of
@@ -550,14 +582,16 @@ class DecodeEngine:
 
     def submit(self, model, prompt_ids, max_new_tokens=16, deadline_ms=None,
                eos_id=-1, callback=None, on_token=None, req_id=None,
-               tenant="default", traceparent=None, handoff=False,
+               tenant="default", traceparent=None, tier=None, handoff=False,
                resume_from=None, resume_tail=None):
         """Enqueue one request; returns a _Pending whose reply carries
         outputs={"tokens"} plus queue/TTFT/ITL phases.
         ``on_token(req_id, index, token, done, status)`` fires per
         generated token; on a non-ok end it fires once with token None.
-        ``tenant`` labels the request counter only; ``traceparent`` (the
-        wire context) is echoed in the reply meta.
+        ``tenant`` labels the request counter and rides the session
+        manifest; ``tier`` sets the request's weight for queue-full
+        eviction (``tier_weight``); ``traceparent`` (the wire context) is
+        echoed in the reply meta.
 
         ``handoff=True`` is the prefill role: feed up to
         ``handoff_prefill_upto``, fire the hooks, finish "handoff".
@@ -570,8 +604,10 @@ class DecodeEngine:
         (double migration)."""
         deadline_ms = float(deadline_ms or self.default_deadline_ms)
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        tier, weight = tier_weight(self.tier_weights, tier)
         req = _Pending(model, deadline_ms, req_id or uuid.uuid4().hex,
-                       callback, traceparent=traceparent)
+                       callback, traceparent=traceparent, tenant=tenant,
+                       tier=tier, weight=weight)
 
         def _early(reply):
             req.complete(reply)
@@ -657,15 +693,28 @@ class DecodeEngine:
                     "error", error="req_id %s is already live here "
                     "(double migration refused)" % req.req_id))
             if self._draining:
-                self._count_shed("draining")
+                self._count_shed("draining", tier)
                 return _early(InferReply(
                     "shed", error="replica draining",
                     retry_after_ms=self._retry_after_ms(m)))
             if len(self._waiting) >= self.max_queue:
-                self._count_shed("queue_full")
-                return _early(InferReply(
-                    "shed", error="queue full (%d)" % len(self._waiting),
-                    retry_after_ms=self._retry_after_ms(m)))
+                # a full waiting queue sheds its lowest-weight member, the
+                # newest among equals, when the arrival outranks it
+                victim = min(self._waiting,
+                             key=lambda s: (s.pending.weight,
+                                            -s.pending.t_submit)) \
+                    if self._waiting else None
+                if victim is not None and victim.pending.weight < weight:
+                    self._waiting.remove(victim)
+                    self._count_shed("tier_evicted", victim.pending.tier)
+                    self._finish(victim, InferReply(
+                        "shed", error="evicted by %s-tier arrival" % tier,
+                        retry_after_ms=self._retry_after_ms(m)))
+                else:
+                    self._count_shed("queue_full", tier)
+                    return _early(InferReply(
+                        "shed", error="queue full (%d)" % len(self._waiting),
+                        retry_after_ms=self._retry_after_ms(m)))
             # KV pressure: blocks promised to the queue ahead plus this
             # prompt must fit the reclaimable pool (free + zero-ref
             # cached blocks; speculating, the smaller of both pools'),
@@ -676,7 +725,7 @@ class DecodeEngine:
             need_now = promised + m.cache.blocks_for_tokens(seq.replay_upto)
             free_now = self._reclaimable(m)
             if need_now > free_now:
-                self._count_shed("kv_oom")
+                self._count_shed("kv_oom", tier)
                 return _early(InferReply(
                     "shed", error="KV pool exhausted (%d reclaimable "
                     "blocks)" % free_now,
@@ -892,8 +941,8 @@ class DecodeEngine:
             "req_id": req_id, "model": seq.pending.model, "pos": int(pos),
             "block_size": int(bs), "dtype": str(m.kv_config.dtype),
             "digests": digests, "max_new_tokens": int(seq.max_new),
-            "eos_id": int(seq.eos_id), "tier": _DEFAULT_TIER,
-            "tenant": "default",
+            "eos_id": int(seq.eos_id), "tier": seq.pending.tier,
+            "tenant": seq.pending.tenant,
             "deadline_ms": max(round((seq.pending.deadline - now) * 1e3, 3),
                                1.0),
             "stream": seq.on_token is not None, "spec_k": int(m.spec_k),
@@ -1046,7 +1095,8 @@ class DecodeEngine:
                 ((seq.t_admit or now) - r.t_submit) * 1e3, 3),
                 "tokens": len(seq.out),
                 "prompt_tokens": len(seq.prompt),
-                "cached_tokens": seq.cached_tokens, "model": r.model}
+                "cached_tokens": seq.cached_tokens, "tier": r.tier,
+                "model": r.model}
             if seq.replay_upto > len(seq.prompt):
                 # tokens re-fed, never re-emitted: a resume's or a
                 # replay's; beside cached_tokens, its re-prefill cost
@@ -1064,7 +1114,7 @@ class DecodeEngine:
         r.complete(reply)
         if reply.ok:
             # the fleet-mergeable histograms and the goodput counters
-            _tm.observe("server_ms", reply.latency_ms, tier=_DEFAULT_TIER)
+            _tm.observe("server_ms", reply.latency_ms, tier=r.tier)
             if "ttft_ms" in reply.phases:
                 _tm.observe("ttft_ms", reply.phases["ttft_ms"],
                             model=r.model)
@@ -1072,10 +1122,10 @@ class DecodeEngine:
                 _tm.observe("itl_ms", g, model=r.model)
             met = time.perf_counter() <= r.deadline
             _tm.inc("serving_deadline_met_total" if met
-                    else "serving_deadline_missed_total", tier=_DEFAULT_TIER)
+                    else "serving_deadline_missed_total", tier=r.tier)
             if met:
                 _tm.inc("serving_deadline_tokens_total", len(seq.out),
-                        tier=_DEFAULT_TIER)
+                        tier=r.tier)
         if r.qspan is not None:
             r.qspan.end()
             r.qspan = None
@@ -1811,11 +1861,11 @@ class DecodeEngine:
 # ``batch_start`` note and its ``serving.execute.<model>`` fault point are
 # in the module docstring.
 
-_DEFAULT_TIER_WEIGHTS = "paid:1.0,free:0.45,batch:0.15"
-
-
-def parse_tier_weights(spec=_DEFAULT_TIER_WEIGHTS):
-    """\"paid:1.0,free:0.45\" -> {tier: weight}; weights in (0, 1]."""
+def parse_tier_weights(spec=None):
+    """\"paid:1.0,free:0.45\" (None reads ``FLAGS_serving_tier_weights``)
+    -> {tier: weight}; weights in (0, 1]."""
+    if spec is None:
+        spec = _flag("serving_tier_weights")
     if isinstance(spec, dict):
         out = {str(k): float(v) for k, v in spec.items()}
     else:
@@ -1849,18 +1899,16 @@ def _route_hash(req_id):
 
 
 class _InferPending(_Pending):
-    __slots__ = ("tenant", "feeds", "rows", "t_dispatch", "tier", "weight")
+    __slots__ = ("feeds", "rows", "t_dispatch")
 
     def __init__(self, model, tenant, feeds, deadline_ms, req_id, callback,
                  tier="default", weight=1.0, traceparent=None):
         super().__init__(model, deadline_ms, req_id, callback,
-                         traceparent=traceparent)
-        self.tenant = tenant
+                         traceparent=traceparent, tenant=tenant, tier=tier,
+                         weight=weight)
         self.feeds = feeds
         self.rows = 0
         self.t_dispatch = None
-        self.tier = tier
-        self.weight = float(weight)
 
 
 class _ModelEntry:
@@ -1881,20 +1929,24 @@ class _ModelEntry:
 
 class ServingEngine:
     """Batched inference over ``save_inference_model`` directories, on
-    ``device`` (default ``cuda``; the CPU only when asked).  The defaults
-    are the reference's flag defaults: buckets "1,4,16,64", a queue of
-    256, a 2000 ms deadline, a 2 ms batch window."""
+    ``device`` (default ``cuda``; the CPU only when asked).  An argument
+    left None reads its flag, as the reference's engine does:
+    ``FLAGS_serving_buckets`` ("1,4,16,64"), ``FLAGS_serving_max_queue``
+    (256), ``FLAGS_serving_deadline_ms`` (2000),
+    ``FLAGS_serving_batch_window_ms`` (2) and
+    ``FLAGS_serving_tier_weights``."""
 
-    def __init__(self, buckets="1,4,16,64", max_queue=256,
-                 deadline_ms=2000.0, batch_window_ms=2.0,
-                 tier_weights=_DEFAULT_TIER_WEIGHTS, device=None):
+    def __init__(self, buckets=None, max_queue=None, deadline_ms=None,
+                 batch_window_ms=None, tier_weights=None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_numerics()
         self.buckets = parse_buckets(buckets)
-        self.max_queue = int(max_queue)
-        self.default_deadline_ms = float(deadline_ms)
-        self.batch_window_ms = float(batch_window_ms)
+        self.max_queue = int(_or_flag(max_queue, "serving_max_queue"))
+        self.default_deadline_ms = float(_or_flag(deadline_ms,
+                                                  "serving_deadline_ms"))
+        self.batch_window_ms = float(_or_flag(batch_window_ms,
+                                              "serving_batch_window_ms"))
         self.tier_weights = parse_tier_weights(tier_weights)
         self._models = {}
         self._queue = []

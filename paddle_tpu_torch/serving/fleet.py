@@ -17,14 +17,19 @@ and telemetry, so a fleet may mix replicas of both packages:
 - when the coordinator dies, the next-lowest live rank notices its
   heartbeats failing ``_PROMOTE_AFTER`` times, probes every lower rank,
   and promotes itself; a relaunched rank re-announces itself by its
-  heartbeats and rejoins.
+  heartbeats and rejoins;
+- after each heartbeat a follower reads the coordinator's ``__fview__``
+  and takes its live set (``_adopt_view``), which the reference's
+  followers do not: a prefill replica then picks its decode peers among
+  the live ones, not among every slot of the list.
 
 A ``roles`` column (serve|prefill|decode a rank, ``serving/disagg.py``)
 rides the endpoints file and the ``__fview__`` / ``__fleet__`` views;
 ``live_role_endpoints`` is where a prefill replica picks its decode peer.
-The per-role ``AutoScaler(pressure_fn=)`` wiring of the reference's
-replica is not ported: ``tools/torch_serve.py --autoscale`` scales a
-role-less fleet.
+``tools/torch_serve.py --autoscale`` runs one ``AutoScaler`` a role of
+that column, as the reference's replica does; ``standby_slot`` and
+``retire_candidate`` pick the slots a controller may touch, its role's
+alone.
 """
 
 import json
@@ -39,7 +44,8 @@ from ..distributed.ps import HeartBeatMonitor
 from ..native import rpc as _rpc
 from . import codec
 
-__all__ = ["ServingFleet", "AutoScaler", "FLEET_HB", "FLEET_VIEW"]
+__all__ = ["ServingFleet", "AutoScaler", "FLEET_HB", "FLEET_VIEW",
+           "standby_slot", "retire_candidate"]
 
 FLEET_HB = "__fhb__"
 FLEET_VIEW = "__fview__"
@@ -69,6 +75,25 @@ def write_endpoints_file(path, epoch, endpoints, rollout=None, roles=None):
     with open(tmp, "w") as f:
         json.dump(doc, f)
     os.replace(tmp, path)
+
+
+def standby_slot(fleet, taken=(), role=None):
+    """The slot a scale-up forks a standby into: the lowest rank that is
+    neither live nor ``taken`` (a standby still starting there), of
+    ``role`` when given -> a rank, or None."""
+    busy = set(fleet.live) | set(taken)
+    dead = [r for r in range(len(fleet.endpoints)) if r not in busy
+            and (role is None or fleet.role_of(r) == role)]
+    return dead[0] if dead else None
+
+
+def retire_candidate(fleet, role=None):
+    """The rank a scale-down retires: the highest live rank other than
+    this replica (the coordinator), of ``role`` when given -> a rank, or
+    None."""
+    cands = [r for r in sorted(fleet.live) if r != fleet.rank
+             and (role is None or fleet.role_of(r) == role)]
+    return cands[-1] if cands else None
 
 
 class ServingFleet:
@@ -192,10 +217,25 @@ class ServingFleet:
                     if self._hb_failures >= _PROMOTE_AFTER:
                         self._hb_failures = 0
                         self._coordinator_lost()
+                    continue
+                try:
+                    self._adopt_view(client.get_var(FLEET_VIEW))
+                except Exception:  # read again on the next beat
+                    client = None
 
         self._hb_thread = threading.Thread(target=loop, name="fleet-hb",
                                            daemon=True)
         self._hb_thread.start()
+
+    def _adopt_view(self, view):
+        """A follower takes the coordinator's published ``[epoch] +
+        ranks`` (newer epochs only, itself always live), so its role
+        picks (a prefill replica's decode peer) skip evicted and retired
+        ranks and count a joined standby."""
+        epoch = int(view[0])
+        if epoch >= self.epoch and not self.is_coordinator():
+            self.epoch = epoch
+            self.live = {int(r) for r in view[1:]} | {self.rank}
 
     def _coordinator_lost(self):
         """The coordinator stopped answering: lowest live rank takes over."""

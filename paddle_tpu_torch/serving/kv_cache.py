@@ -39,6 +39,7 @@ import torch
 
 from ..core import telemetry as _tm
 from ..device import resolve_device
+from ..flags import flag as _flag
 
 __all__ = ["KVCacheConfig", "BlockAllocator", "PagedKVCache", "PrefixCache",
            "plan_num_blocks", "block_bytes", "quantize_kv", "dequantize_kv",
@@ -82,12 +83,18 @@ def block_bytes(config):
 
 
 def plan_num_blocks(config, model_resident_bytes=0, requested=None,
-                    budget=0):
+                    budget=None):
     """Budget-gated pool sizing -> (num_blocks, capped).
 
-    ``requested`` (None or <= 0 = auto) asks for a pool size; ``budget``
-    (device bytes, 0 = no gate) caps it at what fits beside the model's
-    resident bytes.  A budget too small for a 2-block pool raises."""
+    ``requested`` (None reads ``FLAGS_kv_cache_blocks``; <= 0 = auto) asks
+    for a pool size; ``budget`` (None reads ``FLAGS_hbm_budget_bytes``;
+    device bytes, 0 = no gate) caps it at what fits beside the model's
+    resident bytes.  A budget too small for a 2-block pool raises, naming
+    the flag."""
+    if requested is None:
+        requested = _flag("kv_cache_blocks")
+    if budget is None:
+        budget = _flag("hbm_budget_bytes")
     requested = int(requested or 0)
     budget = int(budget or 0)
     per = block_bytes(config)
@@ -95,11 +102,11 @@ def plan_num_blocks(config, model_resident_bytes=0, requested=None,
         fit = int((budget - int(model_resident_bytes)) // per)
         if fit < 2:
             raise ValueError(
-                "a budget of %d bytes leaves room for %d KV block(s) of %d "
-                "bytes beside %d model-resident bytes; the decode cache "
-                "needs >= 2 (shrink the model, raise the budget, or set "
-                "FLAGS_kv_cache_dtype=int8)" % (budget, max(fit, 0), per,
-                                                 model_resident_bytes))
+                "FLAGS_hbm_budget_bytes=%d leaves room for %d KV block(s) "
+                "of %d bytes beside %d model-resident bytes; the decode "
+                "cache needs >= 2 (shrink the model, raise the budget, or "
+                "set FLAGS_kv_cache_dtype=int8)"
+                % (budget, max(fit, 0), per, model_resident_bytes))
         if requested > 0:
             return min(requested, fit), fit < requested
         return fit, False

@@ -316,7 +316,8 @@ class ServingServer:
                     deadline_ms=meta.get("deadline_ms"),
                     eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
                     on_token=on_token, tenant=meta.get("tenant", "default"),
-                    traceparent=tp, callback=self._publish_pending)
+                    tier=meta.get(codec.TIER), traceparent=tp,
+                    callback=self._publish_pending)
 
     # -- disaggregated prefill and decode ------------------------------------
 
@@ -413,7 +414,8 @@ class ServingServer:
                     max_new_tokens=int(meta.get("max_new_tokens", 16)),
                     deadline_ms=meta.get("deadline_ms"),
                     eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
-                    tenant=meta.get("tenant", "default"), traceparent=tp,
+                    tenant=meta.get("tenant", "default"),
+                    tier=meta.get(codec.TIER), traceparent=tp,
                     handoff=True, callback=self._handoff_done)
         return True
 
@@ -560,7 +562,8 @@ class ServingServer:
                     max_new_tokens=int(meta.get("max_new", 16)),
                     deadline_ms=meta.get("deadline_ms"),
                     eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
-                    tenant=meta.get("tenant", "default"), traceparent=tp,
+                    tenant=meta.get("tenant", "default"),
+                    tier=meta.get("tier"), traceparent=tp,
                     on_token=on_token, callback=cb)
 
     def _on_orphan(self, rid, entry):
@@ -680,7 +683,8 @@ class ServingServer:
                     max_new_tokens=int(meta.get("max_new_tokens", 16)),
                     deadline_ms=meta.get("deadline_ms"),
                     eos_id=int(meta.get("eos_id", -1)), req_id=req_id,
-                    tenant=meta.get("tenant", "default"), traceparent=tp,
+                    tenant=meta.get("tenant", "default"),
+                    tier=meta.get("tier"), traceparent=tp,
                     on_token=on_token, resume_from=resume_out,
                     resume_tail=resume_tail,
                     callback=self._publish_pending)

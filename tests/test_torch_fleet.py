@@ -84,6 +84,9 @@ class _Rig:
         self.ports = free_ports(len(kinds))
         self.eps = ["127.0.0.1:%d" % p for p in self.ports]
         self.servers = [None] * len(kinds)
+        # each rank's routes as it launched, before its server could take
+        # a rollout broadcast
+        self.launch_routes = [None] * len(kinds)
 
     def start(self, r, rollout=False, decode=False):
         dec = None
@@ -101,6 +104,7 @@ class _Rig:
         eng.add_model("fc", self.fc_dir)
         eng.add_model("fc@v2", self.fc_dir)
         eng.prewarm()
+        self.launch_routes[r] = eng.routes()
         deadline = time.time() + 10.0
         while True:             # a just-freed port may take a moment
             try:
@@ -261,7 +265,9 @@ def test_a_relaunched_rank_rejoins_and_converges_on_the_rollout(
         shrunk = rig.wait_doc(lambda d: d["endpoints"] == [rig.eps[0]])
         assert shrunk["epoch"] > doc["epoch"]
         rig.start(1, rollout=True)
-        assert rig.servers[1].engine.routes() == {}
+        # it launches with no route; reading its engine now would race
+        # the coordinator's re-broadcast
+        assert rig.launch_routes[1] == {}
         back = rig.wait_doc(lambda d: d["endpoints"] == rig.eps)
         assert back["epoch"] > shrunk["epoch"]
         _wait_state(cli, rig.eps[1], want)

@@ -56,6 +56,16 @@ Usage:
         --endpoints-file /tmp/eps.json --autoscale \
         --min-replicas 1 --max-replicas 2
 
+    # with --roles, one autoscaler a role, each forking into and retiring
+    # from its own role's slots: decode on KV-pool occupancy (>= 0.85 up,
+    # <= 0.30 idle), prefill on queue depth; the serving flags
+    # (FLAGS_kv_cache_blocks, FLAGS_serving_max_queue, ...) come from the
+    # environment
+    FLAGS_kv_cache_blocks=64 python tools/torch_serve.py \
+        --model toy=/tmp/dec --rank 0 --autoscale --max-replicas 2 \
+        --fleet 127.0.0.1:9000,127.0.0.1:9001,127.0.0.1:9002 \
+        --roles decode,decode,prefill --endpoints-file /tmp/eps.json
+
     # traced, with a fault armed (FLAGS_* from the environment); merge the
     # trace-<pid>.jsonl files of every process with tools/trace_view.py
     FLAGS_tracing=1 FLAGS_telemetry_dir=/tmp/tel \
@@ -170,21 +180,30 @@ def child_argv(rank, argv=None):
     return out + ["--rank", str(rank)]
 
 
-def start_autoscaler(args, fleet, engine, decode_engine, monitor):
-    """The coordinator's AutoScaler over this fleet (the reference's
-    role-less branch of ``tools/serve.py``): scale-up forks a standby into
-    the lowest dead slot, scale-down retires the highest live rank other
-    than the coordinator.  A slot whose forked standby is still starting
-    counts as taken, and as a replica, so sustained pressure during its
-    prewarm forks nothing more."""
+def start_autoscaler(args, fleet, engine, decode_engine, monitor,
+                     roles=None):
+    """The coordinator's AutoScalers over this fleet, as the reference's
+    ``tools/serve.py`` runs them -> their list.  Without a role column,
+    one: scale-up forks a standby into the lowest dead slot on queue
+    depth or sheds, scale-down retires the highest live rank other than
+    the coordinator.  With ``roles``, one a role present, each touching
+    only its role's slots: prefill on queue depth (>=
+    ``FLAGS_serving_scale_up_depth`` up, 0 idle), decode on KV-pool
+    occupancy (>= 0.85 up, <= 0.30 idle).  A slot whose forked standby
+    is still starting counts as taken, and as a replica of its role, so
+    sustained pressure during its prewarm forks nothing more."""
+    from paddle_tpu_torch import flags
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.serving import AutoScaler
+    from paddle_tpu_torch.serving.fleet import (retire_candidate,
+                                                standby_slot)
 
     children = {}                   # rank -> Popen of the forked standby
 
-    def starting():
+    def starting(role=None):
         return {r for r, p in children.items()
-                if p.poll() is None and r not in fleet.live}
+                if p.poll() is None and r not in fleet.live
+                and (role is None or fleet.role_of(r) == role)}
 
     def local_depth():
         depth = len(engine._queue)
@@ -192,40 +211,107 @@ def start_autoscaler(args, fleet, engine, decode_engine, monitor):
             depth += len(decode_engine._waiting)
         return depth
 
-    def metrics():
-        # the monitor's fleet-windowed view once it has a document, the
-        # local queue and shed counter until then
-        if monitor is not None:
-            m = monitor.autoscale_metrics()
-            if m is not None and m.get("replicas_up"):
-                return m
-        return {"queue_depth": local_depth(),
-                "shed_total": telemetry.counter_total("serving_shed_total")}
+    def local_occupancy():
+        occ = 0.0
+        if decode_engine is not None:
+            for m in decode_engine._models.values():
+                alloc = m.cache.allocator
+                occ = max(occ, alloc.in_use / (float(alloc.capacity) or 1.0))
+        return occ
 
-    def scale_up():
-        if not fleet.is_coordinator():
-            return
-        busy = fleet.live | starting()
-        dead = [r for r in range(len(fleet.endpoints)) if r not in busy]
-        if not dead:
-            return
-        rank = dead[0]
-        fleet.notice_relaunch(rank)
-        children[rank] = subprocess.Popen(child_argv(rank),
-                                          start_new_session=True)
+    def scale_up(role):
+        def fn():
+            if not fleet.is_coordinator():
+                return
+            rank = standby_slot(fleet, starting(), role)
+            if rank is None:
+                return
+            fleet.notice_relaunch(rank)
+            children[rank] = subprocess.Popen(child_argv(rank),
+                                              start_new_session=True)
+        return fn
 
-    def scale_down():
-        if not fleet.is_coordinator():
-            return
-        cands = [r for r in sorted(fleet.live) if r != fleet.rank]
-        if cands:
-            fleet.retire(cands[-1])
+    def scale_down(role):
+        def fn():
+            if not fleet.is_coordinator():
+                return
+            rank = retire_candidate(fleet, role)
+            if rank is not None:
+                fleet.retire(rank)
+        return fn
 
-    return AutoScaler(
-        metrics, scale_up, scale_down,
-        replicas_fn=lambda: len(fleet.live | starting()),
-        min_replicas=args.min_replicas,
-        max_replicas=args.max_replicas).start()
+    def replicas(role):
+        return lambda: len(set(fleet.live_role_ranks(role)
+                               if role is not None else fleet.live)
+                           | starting(role))
+
+    if roles is None:
+        def metrics():
+            # the monitor's fleet-windowed view once it has a document,
+            # the local queue and shed counter until then
+            if monitor is not None:
+                m = monitor.autoscale_metrics()
+                if m is not None and m.get("replicas_up"):
+                    return m
+            return {"queue_depth": local_depth(),
+                    "shed_total": telemetry.counter_total(
+                        "serving_shed_total")}
+
+        return [AutoScaler(
+            metrics, scale_up(None), scale_down(None),
+            replicas_fn=replicas(None), min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas).start()]
+
+    def role_metrics(role):
+        def fn():
+            # the monitor's view of the role once it has a document; until
+            # then a scrape of the role's live peers over __metrics__,
+            # this replica adding its own instants
+            if monitor is not None:
+                m = monitor.autoscale_metrics(role)
+                if m is not None and m.get("replicas_up"):
+                    return m
+            depth = occ = shed = 0.0
+            for ep in fleet.live_role_endpoints(role):
+                if ep == fleet.endpoints[fleet.rank]:
+                    continue
+                try:
+                    snap = telemetry.scrape(ep, timeout=2.0)
+                except Exception:  # a peer leaving: skip it this tick
+                    continue
+                g = snap.get("gauges", {})
+                depth += max((v for k, v in g.items()
+                              if k.startswith("serving_queue_depth")),
+                             default=0.0)
+                occ = max(occ, max((v for k, v in g.items()
+                                    if k.startswith("kv_pool_occupancy")),
+                                   default=0.0))
+                shed += sum(v for k, v in snap.get("counters", {}).items()
+                            if k.startswith("serving_shed_total"))
+            if fleet.role_of(fleet.rank) == role:
+                depth += local_depth()
+                shed += telemetry.counter_total("serving_shed_total")
+                occ = max(occ, local_occupancy())
+            return {"queue_depth": depth, "shed_total": shed,
+                    "kv_occupancy": occ}
+        return fn
+
+    up_depth = float(flags.flag("serving_scale_up_depth"))
+
+    def prefill_pressure(m):
+        d = float(m.get("queue_depth", 0.0))
+        return d >= up_depth, d <= 0.0
+
+    def decode_pressure(m):
+        occ = float(m.get("kv_occupancy", 0.0))
+        return occ >= 0.85, occ <= 0.30
+
+    return [AutoScaler(
+        role_metrics(role), scale_up(role), scale_down(role),
+        replicas_fn=replicas(role), min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas, pressure_fn=pfn).start()
+        for role, pfn in (("prefill", prefill_pressure),
+                          ("decode", decode_pressure)) if role in roles]
 
 
 def main(argv=None):
@@ -241,17 +327,22 @@ def main(argv=None):
                     "cpu runs the plain PyTorch path)")
     ap.add_argument("--port", type=int, default=0,
                     help="RPC port (0 = any free one; printed on READY)")
-    ap.add_argument("--buckets", default="1,4,16,64",
-                    help="batch buckets of the ServingEngine")
-    ap.add_argument("--decode-buckets", default="4,8",
-                    help="lane buckets of the DecodeEngine")
-    ap.add_argument("--decode-mode", default="token",
+    ap.add_argument("--buckets", default=None,
+                    help="batch buckets of the ServingEngine, e.g. "
+                    "1,4,16,64 (default FLAGS_serving_buckets)")
+    ap.add_argument("--decode-buckets", default=None,
+                    help="lane buckets of the DecodeEngine, e.g. 4,8 "
+                    "(default FLAGS_serving_decode_buckets)")
+    ap.add_argument("--decode-mode", default=None,
                     choices=("token", "request"),
                     help="token-level continuous batching or the "
-                    "request-level baseline (int8 KV pools come from "
+                    "request-level baseline (default "
+                    "FLAGS_serving_decode_mode; int8 KV pools come from "
                     "FLAGS_kv_cache_dtype)")
     ap.add_argument("--kv-blocks", type=int, default=None,
-                    help="paged KV pool size in blocks")
+                    help="paged KV pool size in blocks (default "
+                    "FLAGS_kv_cache_blocks, capped by "
+                    "FLAGS_hbm_budget_bytes)")
     ap.add_argument("--rank", type=int, default=0,
                     help="this replica's rank in --fleet")
     ap.add_argument("--fleet", default=None,
@@ -286,7 +377,9 @@ def main(argv=None):
                     help="coordinator only: fork a standby replica into "
                     "the lowest dead --fleet slot on sustained queue "
                     "pressure, drain and retire the highest live rank on "
-                    "sustained idle")
+                    "sustained idle; with --roles, one controller a role "
+                    "(prefill on queue depth, decode on KV-pool "
+                    "occupancy), each touching its role's slots alone")
     ap.add_argument("--min-replicas", type=int, default=None,
                     help="autoscaler floor (default "
                     "FLAGS_serving_min_replicas)")
@@ -389,13 +482,13 @@ def main(argv=None):
             server=server, fleet=fleet,
             endpoints_file=args.endpoints_file).start()
     server.on_retire = done.set      # a drained __retire__ exits
-    scaler = None
+    scalers = []
     if args.autoscale:
-        scaler = start_autoscaler(args, fleet, engine, decode_engine,
-                                  server.fleetmon)
+        scalers = start_autoscaler(args, fleet, engine, decode_engine,
+                                   server.fleetmon, roles=roles)
     print("READY port=%d pid=%d" % (server.port, os.getpid()), flush=True)
     done.wait()
-    if scaler is not None:
+    for scaler in scalers:
         scaler.stop()
     server.shutdown()                # the monitor, controller and fleet too
     print("SERVED " + json.dumps({
