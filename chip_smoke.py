@@ -213,10 +213,42 @@ Phases, each fatal on failure (nonzero exit, no result line):
     rows, the dropout kernel held bitwise at the path's FFN and attention
     shapes and row 9 over the path's parameter group, and the
     assign_value ops' host cost printed;
-12. the script's own wall time, a JSON line of the kernels (rows 9 and
+12. BERT-base under LAMB's recipe (the small-attention emission,
+    dropout 0.1, seq 128, batch 32): ``Lamb`` with weight decay 0.01 off
+    the LayerNorm parameters and biases, ``GradientClipByGlobalNorm(1.0)``
+    and ``linear_lr_warmup`` over ``polynomial_decay``, 10 steps: rows 5,
+    6, 7, 8, 14 and the dropout kernel as phase 6's emission launches
+    them, no fused Adam, each step's learning rate the schedule's, the
+    last loss below the first, step p50 and sequences/s beside phase
+    6's Adam, the lamb ops' aten ops and host ms a step; 3 chained steps
+    at batch 2 from one state on the card and on the CPU's plain path
+    (losses, learning rates, global norms, moments), and two faults
+    planted on the card (the warmup skipped, the clip's scale dropped)
+    that must miss those limits; then Adam behind the same clip, row 9
+    once a step over the clipped gradients;
+13. ResNet-50 under LARS (the ``conv2d_bn_relu`` trunk, batch 32):
+    ``LarsMomentum(0.9)`` with a warmup into a polynomial decay of power
+    2, 5 steps, rows 12, 13 and the fold 53 times a step, the learning
+    rates the schedule's; each of 3 steps at batch 2 from one state on
+    the card and the CPU (the trunk phase's limits), the LARS update ops
+    of a card step against the plain op on the CPU fed the card's own
+    inputs, and ``lars_weight_decay`` dropped on the card missing that
+    limit;
+14. the optimizer sweep over the MNIST MLP (BASELINE config 1) at batch
+    64: 5 steps, each from one state on the card and on the CPU, of
+    Adagrad, Adamax, DecayedAdagrad, Adadelta, RMSProp (plain, centered,
+    with momentum), Ftrl, Lamb, LarsMomentum, Momentum with Nesterov,
+    SGD with L1Decay and with a per-parameter learning rate, the value
+    and norm clips, EMA and ModelAverage (their averages applied and the
+    parameters restored), Lookahead and five schedules under SGD: every
+    persistable held, row 10 once a step of the three momentum cases, and
+    two planted faults (LARS's weight decay, ClipByNorm's scale dropped)
+    missing the limit;
+15. the script's own wall time, a JSON line of the kernels (rows 9 and
     14 and the dropout kernel counting the NMT path's launches besides
     their earlier paths', row 1 the tiers and role-fleet phases' besides
-    the pair's), then the result line.
+    the pair's, and rows 5-10, 12-14, the fold and the dropout kernel
+    the update-rule phases' besides), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -5122,6 +5154,7 @@ def train_phase(cfg, name):
         launches = launch_counts()
     del scope
     n_fused = sum(op.type == "fused_adam" for op in main_p.global_block().ops)
+    TRAIN_P50[name] = float(np.percentile(step_ms, 50))
     print("train [%s]: %d steps, losses %s; step_ms %s, p50 %.3f (the "
           "first fuses the optimizer ops and plans); %d fused_adam op(s) "
           "over %d params; launches %s" % (
@@ -5611,11 +5644,12 @@ def resnet_trunk(layers, img, depth=RESNET_DEPTH, class_dim=CLASSES,
     return layers.fc(x, class_dim)
 
 
-def resnet_program(which, is_test):
+def resnet_program(which, is_test, optimizer=None):
     """(main, startup, img, label, output): ``which`` is "bundled" (the
     port's models.resnet) or "trunk"; the output is the logits at
     is_test, else the loss, Momentum(0.1, 0.9, L2Decay(1e-4)) appended as
-    ``build_train`` appends it."""
+    ``build_train`` appends it, or for the trunk ``optimizer()`` where a
+    callable is given."""
     from paddle_tpu_torch import framework, layers
     from paddle_tpu_torch.models import resnet
 
@@ -5638,8 +5672,10 @@ def resnet_program(which, is_test):
             from paddle_tpu_torch.regularizer import L2Decay
 
             out = layers.mean(layers.softmax_with_cross_entropy(out, label))
-            Momentum(learning_rate=RESNET_LR, momentum=0.9,
-                     regularization=L2Decay(1e-4)).minimize(out)
+            opt = optimizer() if optimizer is not None else Momentum(
+                learning_rate=RESNET_LR, momentum=0.9,
+                regularization=L2Decay(1e-4))
+            opt.minimize(out)
     return main_p, startup, img, label, out
 
 
@@ -7012,6 +7048,713 @@ def nmt_phase(ln, dev):
     return {k: v for k, v in total.items() if v}
 
 
+# -- phases 12-14: the update rules -------------------------------------------
+
+# phase 12, BERT-base under LAMB's recipe (You et al. 2019): LAMB with
+# weight decay 0.01 off the LayerNorm parameters and the biases
+# (``models.bert.no_weight_decay``), a global-norm clip of 1.0, and a
+# linear warmup into a polynomial decay of power 1, cut to the run: a
+# warmup of 2 steps to 1e-3, then down to 0 at step 10
+LAMB_STEPS = 10
+LAMB_PEAK_LR = 1e-3
+LAMB_WARMUP = 2
+LAMB_DECAY_STEPS = 10
+LAMB_CLIP = 1.0
+# card vs CPU, CHECK_STEPS chained steps at batch 2 from one state: the
+# losses absolutely, each step's learning rate and the global norm the
+# clip divides by relatively, the moments after the last step as
+# ``moment_gap`` reads them.  Two faults planted on the card must miss
+# them: the warmup skipped (the step counter starting past it) and the
+# clip's scale dropped (its clip_norm made 1e30).  The readings (NVIDIA
+# H100 80GB HBM3, 700 W; sound / the smaller fault): losses 9.54e-7 /
+# 2.07e-3 (the clip dropped); learning rates 0 / 8e26 (the warmup
+# skipped: the CPU's first rate is 0); global norms 4.84e-7 / 1.43e-3;
+# moments 7.0e-5 / 1.34
+LAMB_LOSS_ATOL = 1e-5
+LAMB_LR_RTOL = 1e-6
+LAMB_NORM_RTOL = 1e-4
+LAMB_MOMENT_RTOL = 1e-2
+# phase 13, ResNet-50 under LARS (You et al. 2017; MLPerf Training's
+# ResNet-50 LARS rules): LarsMomentum 0.9 (coefficient 0.001, weight
+# decay 5e-4) with a linear warmup into a polynomial decay of power 2,
+# cut to the run: 2 steps to 2.0, then down to 0 at step 5
+LARS_STEPS = 5
+LARS_PEAK_LR = 2.0
+LARS_WARMUP = 2
+LARS_DECAY_STEPS = 5
+# the LARS update ops of one card step held against the plain op on the
+# CPU fed the card's own inputs (its parameters, velocities and learning
+# rate before the step, the step's gradients): each parameter and
+# velocity within LARS_UPDATE_RTOL of its largest value; the fault
+# planted on the card (lars_weight_decay 0) must miss it.  Read on the
+# H100: sound 1.63e-7 (the norms' summation order), the fault 0.101
+LARS_UPDATE_RTOL = 1e-5
+# phase 14, the sweep: the MNIST MLP (BASELINE config 1) at batch 64, 5
+# steps, each from one state on the card and on the CPU: every
+# persistable within SWEEP_RTOL of its largest value but for at most
+# SWEEP_FLIP_SHARE of its elements (Adam-like first steps divide by |g|:
+# a gradient that cancels to rounding noise moves its weight by a whole
+# step on the noise's sign; tests/test_torch_optimizers.py); the
+# learning rate of each step to LAMB_LR_RTOL.  Two faults planted on the
+# card must miss: LARS's weight decay dropped and ClipByNorm's scale
+# dropped.  Read on the H100: every case within 1.66e-5 (Lamb) but
+# DecayedAdagrad's and Ftrl's first-step flips (3.4e-4 on a share of
+# 5e-5, 1.05e-4 on 6.4e-6), learning rates 1.01e-7; the faults 1.95e-3
+# (LARS: 0.779 of a tensor beyond 1e-4, 0.571 beyond 2e-4) and 2.41 on
+# all of one (the clip)
+SWEEP_BATCH = 64
+SWEEP_STEPS = 5
+SWEEP_RTOL = 2e-4
+SWEEP_FLIP_SHARE = 1e-3
+# step p50 of phase 6's emissions, for the LAMB phase to print beside
+TRAIN_P50 = {}
+
+
+def lamb_optimizer():
+    """LAMB's recipe above, built inside the program being made."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.clip import GradientClipByGlobalNorm
+    from paddle_tpu_torch.models.bert import no_weight_decay
+    from paddle_tpu_torch.optimizer import Lamb
+
+    lr = layers.linear_lr_warmup(
+        layers.polynomial_decay(LAMB_PEAK_LR, LAMB_DECAY_STEPS, 0.0,
+                                power=1.0),
+        LAMB_WARMUP, 0.0, LAMB_PEAK_LR)
+    return Lamb(lr, lamb_weight_decay=0.01,
+                exclude_from_weight_decay_fn=no_weight_decay,
+                grad_clip=GradientClipByGlobalNorm(LAMB_CLIP))
+
+
+def warmup_poly(step, peak, warmup, decay_steps, power):
+    """The schedule's learning rate at ``step`` (from 0), in float64."""
+    if step < warmup:
+        return peak * step / warmup
+    return peak * (1 - min(step, decay_steps) / decay_steps) ** power
+
+
+def lr_and_norm(main_p):
+    """Names of the learning rate the update ops read and of the global
+    norm the clip divides by (None without a global-norm clip)."""
+    ops = main_p.global_block().ops
+    lr, = {op.input("LearningRate")[0] for op in ops
+           if op.type in ("lamb", "lars_momentum", "adam")}
+    norms = [op.output("Out")[0] for op in ops if op.type == "sqrt"]
+    return lr, (norms[0] if norms else None)
+
+
+def with_attr(main_p, op_type, attr, value, where=lambda op: True):
+    """A clone of ``main_p`` with ``attr`` of its ``op_type`` ops (those
+    ``where`` holds for) set to ``value``: a fault planted on the card."""
+    bad = main_p.clone()
+    n = 0
+    for op in bad.global_block().ops:
+        if op.type == op_type and where(op):
+            op.attrs[attr] = value
+            n += 1
+    if not n:
+        fail("no %s op to plant a fault in" % op_type)
+    bad._bump_version()
+    return bad
+
+
+def lamb_check_steps(main_p, loss, init, feed, place):
+    """CHECK_STEPS chained steps of the LAMB program from ``init`` on
+    ``place`` (None: the card) -> (losses, learning rates, global norms,
+    {name: Adam moment after the steps})."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    lr, norm = lr_and_norm(main_p)
+    ex = Executor(place)
+    sc = scope_from_numpy(Scope(), init, ex.device, program=main_p)
+    rows = [[float(v.reshape(-1)[0]) for v in ex.run(
+        main_p, feed=feed, fetch_list=[loss, lr, norm], scope=sc)]
+        for _ in range(CHECK_STEPS)]
+    moments = {n: sc.find_var(n).get_tensor().numpy() for n in init
+               if "_moment1_" in n or "_moment2_" in n}
+    return [r[0] for r in rows], [r[1] for r in rows], \
+        [r[2] for r in rows], moments
+
+
+def lamb_gaps(card, cpu):
+    """{what: (gap, where, limit)} of a card run against the CPU's."""
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    return {"losses": (max(abs(a - b) for a, b in zip(card[0], cpu[0])),
+                       None, LAMB_LOSS_ATOL),
+            "learning rates": (rel(card[1], cpu[1]), None, LAMB_LR_RTOL),
+            "global norms": (rel(card[2], cpu[2]), None, LAMB_NORM_RTOL),
+            "moments": moment_gap(card[3], cpu[3]) + (LAMB_MOMENT_RTOL,)}
+
+
+class UpdateOpCounter:
+    """While active, counts the calls of the ``op_type`` lowering and its
+    host seconds, and with ``aten`` the aten ops it dispatches (each a
+    kernel launch on the card, but for views; counting them slows the
+    host, so time a step without it)."""
+
+    def __init__(self, op_type, aten=False):
+        from paddle_tpu_torch.core.registry import get_op_def
+
+        self.opdef = get_op_def(op_type)
+        self.count_aten = aten
+        self.calls = self.aten = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter, lower = self, self.opdef.lower
+        self.saved = lower
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not getattr(func, "is_view", False):
+                    counter.aten += 1
+                return func(*args, **(kwargs or {}))
+
+        def counted_lower(*a, **k):
+            self.calls += 1
+            t0 = time.perf_counter()
+            with Count() if self.count_aten else contextlib.nullcontext():
+                out = lower(*a, **k)
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        self.opdef.lower = counted_lower
+        return self
+
+    def __exit__(self, *exc):
+        self.opdef.lower = self.saved
+
+
+def count_update_ops(exe, main_p, feed, scope, op_type):
+    """Two more steps: one counting the ``op_type`` ops' aten ops, one
+    timing their host ms -> (calls a step, aten ops a step, host ms)."""
+    with UpdateOpCounter(op_type, aten=True) as counted_ops:
+        exe.run(main_p, feed=feed, fetch_list=[], scope=scope)
+        torch.cuda.synchronize()
+    with UpdateOpCounter(op_type) as timed:
+        exe.run(main_p, feed=feed, fetch_list=[], scope=scope)
+        torch.cuda.synchronize()
+    return counted_ops.calls, counted_ops.aten, timed.seconds * 1e3
+
+
+def lamb_bert_phase(cfg):
+    """Phase 12 -> the launch counts of its LAMB steps and of the Adam +
+    clip probe."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.clip import GradientClipByGlobalNorm
+    from paddle_tpu_torch.core import (Executor, Scope, scope_guard,
+                                       scope_to_numpy)
+    from paddle_tpu_torch.models.bert import build_pretrain, pretrain_feed
+    from paddle_tpu_torch.optimizer import Adam
+
+    t_phase = time.perf_counter()
+    with emission(SMALL):
+        main_p, startup = framework.Program(), framework.Program()
+        startup.random_seed = 11           # phase 6's initial weights
+        with framework.program_guard(main_p, startup):
+            _inputs, loss = build_pretrain(cfg, SEQ, optimizer=lamb_optimizer)
+        ops = main_p.global_block().ops
+        n_params = len(main_p.global_block().all_parameters())
+        counts = {t: sum(op.type == t for op in ops)
+                  for t in ("lamb", "squared_l2_norm", "adam")}
+        if counts != {"lamb": n_params, "squared_l2_norm": n_params,
+                      "adam": 0}:
+            fail("lamb bert: update ops %s for %d parameters"
+                 % (counts, n_params))
+        lr, norm = lr_and_norm(main_p)
+        exe, scope = Executor(), Scope()
+        with scope_guard(scope):
+            exe.run(startup)
+            init = scope_to_numpy(scope, main_p)
+            feed = pretrain_feed(np.random.RandomState(3), cfg, TRAIN_BATCH,
+                                 SEQ)
+            torch.cuda.synchronize()
+            zero_counts()   # just before the main path runs
+            rows, step_ms = [], []
+            for _ in range(LAMB_STEPS):
+                t0 = time.perf_counter()
+                out = exe.run(main_p, feed=feed, fetch_list=[loss, lr, norm])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append([float(v.reshape(-1)[0]) for v in out])
+            launches = launch_counts()
+            calls, aten, lamb_ms = count_update_ops(exe, main_p, feed, scope,
+                                                    "lamb")
+        del scope
+        losses, lrs, norms = ([r[i] for r in rows] for i in range(3))
+        p50 = float(np.percentile(step_ms, 50))
+        adam_p50 = TRAIN_P50.get(SMALL)
+        print("lamb bert: BERT-base, seq %d, batch %d, dropout %g, small "
+              "attention; Lamb(warmup %d to %g, poly to 0 at %d, weight "
+              "decay 0.01 on %d of %d parameters), clip by global norm %g; "
+              "losses %s; learning rates %s; global norms %s; step_ms %s, "
+              "p50 %.3f (%.1f sequences/s; phase 6's Adam, same emission: "
+              "p50 %s ms, %s sequences/s); launches %s" % (
+                  SEQ, TRAIN_BATCH, cfg.dropout, LAMB_WARMUP, LAMB_PEAK_LR,
+                  LAMB_DECAY_STEPS,
+                  sum(op.attr("weight_decay") > 0 for op in ops
+                      if op.type == "lamb"), n_params, LAMB_CLIP,
+                  json.dumps(losses), json.dumps(lrs), json.dumps(norms),
+                  json.dumps([round(x, 3) for x in step_ms]), p50,
+                  TRAIN_BATCH / p50 * 1e3,
+                  "%.3f" % adam_p50 if adam_p50 else "not run",
+                  "%.1f" % (TRAIN_BATCH / adam_p50 * 1e3) if adam_p50
+                  else "not run",
+                  json.dumps({k: v for k, v in launches.items() if v})),
+              flush=True)
+        print("lamb bert: the update ops a step: %d lamb ops dispatching %d "
+              "aten ops (%.1f each; a kernel launch each on the card but "
+              "for views), %.1f host ms a step (of p50 %.1f)"
+              % (calls, aten, aten / max(calls, 1), lamb_ms, p50),
+              flush=True)
+        want = {k: STEP_LAUNCHES[SMALL].get(k, 0) * LAMB_STEPS
+                for k in launches}
+        want["fused_adam"] = 0
+        if launches != want:
+            fail("lamb bert launches %s over %d steps, want %s"
+                 % (launches, LAMB_STEPS, want))
+        if not all(np.isfinite(losses + norms)) \
+                or not losses[-1] < losses[0]:
+            fail("lamb bert losses %s: not finite, or the last is not below "
+                 "the first" % losses)
+        sched = [warmup_poly(s, LAMB_PEAK_LR, LAMB_WARMUP, LAMB_DECAY_STEPS,
+                             1.0) for s in range(LAMB_STEPS)]
+        if not np.allclose(lrs, sched, rtol=LAMB_LR_RTOL, atol=1e-12):
+            fail("lamb bert learning rates %s are not the schedule's %s"
+                 % (lrs, sched))
+
+        # card vs CPU from one state, and the planted faults on the card
+        feed2 = pretrain_feed(np.random.RandomState(4), cfg, CHECK_BATCH, SEQ)
+        card = lamb_check_steps(main_p, loss, init, feed2, None)
+        cpu = lamb_check_steps(main_p, loss, init, feed2,
+                               framework.CPUPlace())
+        gaps = lamb_gaps(card, cpu)
+        print("lamb bert: card vs CPU plain path, %d steps at batch %d: %s; "
+              "card losses %s, global norms %s" % (
+                  CHECK_STEPS, CHECK_BATCH, gaps_line(gaps),
+                  json.dumps(card[0]), json.dumps(card[2])), flush=True)
+        if missed(gaps):
+            fail("lamb bert on the card disagrees with the CPU plain path: "
+                 "%s" % missed(gaps))
+        late = dict(init, **{"@LR_DECAY_COUNTER@": np.full(
+            (1,), LAMB_WARMUP - 1, np.float32)})
+        clip_var, = [op.input("X")[0] for op in ops
+                     if op.type == "elementwise_max"]
+        no_clip = with_attr(main_p, "fill_constant", "value", 1e30,
+                            lambda op: op.output("Out") == [clip_var])
+        seen = set()
+        for what, (prog, state) in {
+                "the warmup skipped": (main_p, late),
+                "the clip's scale dropped": (no_clip, init)}.items():
+            bad = lamb_gaps(lamb_check_steps(prog, loss, state, feed2, None),
+                            cpu)
+            print("lamb bert: planted fault, %s: %s; misses %s" % (
+                what, gaps_line(bad), missed(bad)), flush=True)
+            if not missed(bad):
+                fail("lamb bert: the planted fault (%s) passed every limit"
+                     % what)
+            seen.update(missed(bad))
+        if seen != set(gaps):
+            fail("lamb bert: no planted fault missed %s"
+                 % sorted(set(gaps) - seen))
+
+        # Adam behind the global-norm clip: row 9 still one launch a step
+        probe_p, probe_s = framework.Program(), framework.Program()
+        probe_s.random_seed = 11
+        with framework.program_guard(probe_p, probe_s):
+            _inputs, probe_loss = build_pretrain(
+                cfg, SEQ, optimizer=lambda: Adam(
+                    1e-4, grad_clip=GradientClipByGlobalNorm(LAMB_CLIP)))
+        exe, scope = Executor(), Scope()
+        with scope_guard(scope):
+            exe.run(probe_s)
+            torch.cuda.synchronize()
+            zero_counts()
+            probe = [float(exe.run(probe_p, feed=feed,
+                                   fetch_list=[probe_loss])[0].reshape(-1)[0])
+                     for _ in range(CHECK_STEPS)]
+            probe_launches = launch_counts()
+        del scope
+    fused, = [op for op in probe_p.global_block().ops
+              if op.type == "fused_adam"]
+    clipped = sum(not g.endswith("@GRAD") for g in fused.input("Grad"))
+    print("lamb bert: Adam behind the global-norm clip, %d steps: losses "
+          "%s; one fused_adam over %d parameters, %d of them reading a "
+          "clipped gradient; launches %s; the phase %.1f s" % (
+              CHECK_STEPS, json.dumps(probe), len(fused.input("Param")),
+              clipped, json.dumps({k: v for k, v in probe_launches.items()
+                                   if v}),
+              time.perf_counter() - t_phase), flush=True)
+    want = {k: STEP_LAUNCHES[SMALL].get(k, 0) * CHECK_STEPS
+            for k in probe_launches}
+    if probe_launches != want or clipped != len(fused.input("Param")) \
+            or not all(np.isfinite(probe)):
+        fail("lamb bert: the Adam + clip probe launched %s, want %s; %d of "
+             "%d fused members clipped; losses %s" % (
+                 probe_launches, want, clipped, len(fused.input("Param")),
+                 probe))
+    return {k: launches[k] + probe_launches[k] for k in launches}
+
+
+def lars_optimizer():
+    """The LARS recipe above, built inside the program being made."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.optimizer import LarsMomentum
+
+    lr = layers.linear_lr_warmup(
+        layers.polynomial_decay(LARS_PEAK_LR, LARS_DECAY_STEPS, 0.0,
+                                power=2.0),
+        LARS_WARMUP, 0.0, LARS_PEAK_LR)
+    return LarsMomentum(lr, momentum=0.9)
+
+
+def lars_update_gap(main_p, before, grads, lr, after):
+    """The card's LARS update ops against the plain op on the CPU fed the
+    card's inputs -> (largest gap over the parameters and velocities,
+    relative to each tensor's largest value, the tensor where it is)."""
+    from paddle_tpu_torch.core.lowering import LowerCtx
+    from paddle_tpu_torch.core.registry import get_op_def, lower_attrs
+
+    lower = get_op_def("lars_momentum").lower
+    ctx = LowerCtx(torch.device("cpu"))
+    worst, where = 0.0, None
+    for op in main_p.global_block().ops:
+        if op.type != "lars_momentum":
+            continue
+        p, v = op.input("Param")[0], op.input("Velocity")[0]
+        got = lower(ctx, torch.from_numpy(before[p].copy()),
+                    torch.from_numpy(grads[op.input("Grad")[0]]),
+                    torch.from_numpy(before[v].copy()),
+                    torch.tensor([lr], dtype=torch.float32),
+                    **lower_attrs(op.attrs))
+        for name, want in ((p, got[0]), (v, got[1])):
+            want = want.numpy()
+            gap = float(np.abs(after[name] - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            if gap > worst:
+                worst, where = gap, name
+    return worst, where
+
+
+def lars_card_step(main_p, loss, state, feed):
+    """One card step of ``main_p`` from ``state`` -> (loss, {grad: value},
+    the learning rate, the persistables after)."""
+    from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
+                                       scope_to_numpy)
+
+    lr, _norm = lr_and_norm(main_p)
+    grads = [op.input("Grad")[0] for op in main_p.global_block().ops
+             if op.type == "lars_momentum"]
+    ex = Executor()
+    sc = scope_from_numpy(Scope(), state, ex.device, program=main_p)
+    out = ex.run(main_p, feed=feed, fetch_list=[loss, lr] + grads, scope=sc)
+    return (float(out[0].reshape(-1)[0]), dict(zip(grads, out[2:])),
+            float(out[1].reshape(-1)[0]), scope_to_numpy(sc, main_p))
+
+
+def lars_resnet_phase():
+    """Phase 13 -> the launch counts of its LARS steps."""
+    from paddle_tpu_torch.core import (Executor, Scope, scope_guard,
+                                       scope_to_numpy)
+
+    t_phase = time.perf_counter()
+    with flag_set("FLAGS_use_pallas_conv_block", True):
+        main_p, startup, _img, _label, loss = resnet_program(
+            "trunk", False, optimizer=lars_optimizer)
+        ops = main_p.global_block().ops
+        n_params = len(main_p.global_block().all_parameters())
+        if sum(op.type == "lars_momentum" for op in ops) != n_params:
+            fail("lars resnet: not one lars_momentum op a parameter")
+        lr, _norm = lr_and_norm(main_p)
+        exe, scope = Executor(), Scope()
+        with scope_guard(scope):
+            exe.run(startup)
+            init = scope_to_numpy(scope, main_p)
+            feed = resnet_feed(np.random.RandomState(3), TRAIN_BATCH)
+            torch.cuda.synchronize()
+            zero_counts()   # just before the main path runs
+            rows, step_ms = [], []
+            for _ in range(LARS_STEPS):
+                t0 = time.perf_counter()
+                out = exe.run(main_p, feed=feed, fetch_list=[loss, lr])
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append([float(v.reshape(-1)[0]) for v in out])
+            launches = launch_counts()
+            calls, aten, lars_ms = count_update_ops(exe, main_p, feed, scope,
+                                                    "lars_momentum")
+        del scope
+        losses, lrs = [r[0] for r in rows], [r[1] for r in rows]
+        p50 = float(np.percentile(step_ms, 50))
+        print("lars resnet: ResNet-50 trunk, %dx%d, batch %d, LarsMomentum "
+              "0.9 (warmup %d to %g, poly power 2 to 0 at %d), %d "
+              "parameters; losses %s; learning rates %s; step_ms %s, p50 "
+              "%.3f (%.1f images/s); launches %s" % (
+                  IMAGE, IMAGE, TRAIN_BATCH, LARS_WARMUP, LARS_PEAK_LR,
+                  LARS_DECAY_STEPS, n_params, json.dumps(losses),
+                  json.dumps(lrs), json.dumps([round(x, 3) for x in step_ms]),
+                  p50, TRAIN_BATCH / p50 * 1e3,
+                  json.dumps({k: v for k, v in launches.items() if v})),
+              flush=True)
+        print("lars resnet: the update ops a step: %d lars_momentum ops "
+              "dispatching %d aten ops (%.1f each), %.1f host ms a step (of "
+              "p50 %.1f)" % (calls, aten, aten / max(calls, 1), lars_ms,
+                             p50), flush=True)
+        want = {k: 0 for k in launches}
+        want["conv_stats"] = want["bn_fold"] = want["affine_act"] = \
+            CONV_BN_PAIRS * LARS_STEPS
+        if launches != want:
+            fail("lars resnet launches %s over %d steps, want %s"
+                 % (launches, LARS_STEPS, want))
+        sched = [warmup_poly(s, LARS_PEAK_LR, LARS_WARMUP, LARS_DECAY_STEPS,
+                             2.0) for s in range(LARS_STEPS)]
+        if not all(np.isfinite(losses)) or not np.allclose(
+                lrs, sched, rtol=LAMB_LR_RTOL, atol=1e-12):
+            fail("lars resnet: losses %s not finite, or learning rates %s "
+                 "not the schedule's %s" % (losses, lrs, sched))
+
+        # card vs CPU, each step from one state (the trunk phase's limits)
+        feed2 = resnet_feed(np.random.RandomState(4), CHECK_BATCH)
+        pairs, vels, _twin, state = resnet_card_vs_cpu(main_p, loss, init,
+                                                       feed2)
+        loss_gap = max(abs(a - b) for a, b in pairs)
+        worst = max(vels, key=vels.get)
+        # the update ops alone: the card's step from the state before the
+        # last, against the plain op on the CPU fed the card's inputs
+        _l, grads, step_lr, after = lars_card_step(main_p, loss, state, feed2)
+        upd_gap = lars_update_gap(main_p, state, grads, step_lr, after)
+        print("lars resnet: card vs CPU plain path, each step from one "
+              "state: max loss difference %.3g (limit %.3g); velocities' "
+              "norm-wise gap %.3g (limit %.3g, worst %s); the update ops "
+              "against the plain op on the card's inputs %.3g at %s (limit "
+              "%.3g)" % (loss_gap, RESNET_LOSS_ATOL, vels[worst],
+                         RESNET_VELOCITY_RTOL, worst, upd_gap[0], upd_gap[1],
+                         LARS_UPDATE_RTOL), flush=True)
+        if not (loss_gap <= RESNET_LOSS_ATOL
+                and vels[worst] <= RESNET_VELOCITY_RTOL
+                and upd_gap[0] <= LARS_UPDATE_RTOL):
+            fail("lars resnet on the card disagrees with the CPU plain path")
+        no_wd = with_attr(main_p, "lars_momentum", "lars_weight_decay", 0.0)
+        _l, grads, step_lr, after = lars_card_step(no_wd, loss, state, feed2)
+        bad = lars_update_gap(main_p, state, grads, step_lr, after)
+        print("lars resnet: planted fault, lars_weight_decay dropped: the "
+              "update ops %.3g at %s (limit %.3g); the phase %.1f s" % (
+                  bad[0], bad[1], LARS_UPDATE_RTOL,
+                  time.perf_counter() - t_phase), flush=True)
+        if not bad[0] > LARS_UPDATE_RTOL:
+            fail("lars resnet: the planted fault passed the update limit")
+    return {k: v for k, v in launches.items() if v}
+
+
+def _sweep_cases():
+    """name -> a builder of the case's optimizer (called inside the
+    program) and what else it needs: a per-parameter LR, an averaging
+    wrapper, a clip."""
+    from paddle_tpu_torch import clip, layers
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.regularizer import L1Decay
+
+    def sched(make):
+        return lambda: opt.SGD(make(layers))
+
+    return {
+        "adagrad": lambda: opt.Adagrad(0.1, initial_accumulator_value=0.1),
+        "adamax": lambda: opt.Adamax(0.002),
+        "decayed_adagrad": lambda: opt.DecayedAdagrad(0.005),
+        "adadelta": lambda: opt.Adadelta(1.0, rho=0.9),
+        "rmsprop": lambda: opt.RMSProp(0.001),
+        "rmsprop centered": lambda: opt.RMSProp(0.001, centered=True),
+        "rmsprop momentum": lambda: opt.RMSProp(0.001, momentum=0.9),
+        "ftrl": lambda: opt.Ftrl(0.01, l1=1e-4, l2=1e-3),
+        "lamb": lambda: opt.Lamb(0.01, exclude_from_weight_decay_fn=lambda p:
+                                 p.name.endswith(".b_0")),
+        "lars": lambda: opt.LarsMomentum(2.0, momentum=0.9),
+        "momentum nesterov": lambda: opt.Momentum(0.01, 0.9,
+                                                  use_nesterov=True),
+        "sgd l1": lambda: opt.SGD(0.05, regularization=L1Decay(1e-3)),
+        "sgd lr 0.5 on fc_1.w_0": lambda: opt.SGD(0.05),
+        "clip by value": lambda: opt.SGD(
+            0.05, grad_clip=clip.GradientClipByValue(0.01)),
+        "clip by norm": lambda: opt.SGD(
+            0.05, grad_clip=clip.GradientClipByNorm(0.1)),
+        "ema": lambda: opt.Momentum(0.01, 0.9),
+        "model average": lambda: opt.SGD(0.05),
+        # an inner rule that updates in place: the startup's slow copy
+        # must not alias the parameter
+        "lookahead": lambda: opt.LookaheadOptimizer(opt.Momentum(0.01, 0.9)),
+        "piecewise": sched(lambda L: L.piecewise_decay([2, 4],
+                                                       [0.1, 0.05, 0.01])),
+        "cosine": sched(lambda L: L.cosine_decay(0.1, 2, 5)),
+        "exponential": sched(lambda L: L.exponential_decay(0.1, 2, 0.5)),
+        "natural_exp": sched(lambda L: L.natural_exp_decay(0.1, 2, 0.5)),
+        "inverse_time": sched(lambda L: L.inverse_time_decay(0.1, 2, 0.5)),
+    }
+
+
+def sweep_program(name, make):
+    """(main, startup, loss, lr name, wrapper or None) of the MLP under
+    the sweep case ``name``."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.models.mnist import build_mlp
+    from paddle_tpu_torch.utils import unique_name
+
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 5
+    wrapper = None
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        loss = build_mlp()[3]
+        if name.startswith("sgd lr 0.5"):
+            main_p.global_block().var("fc_1.w_0").optimize_attr[
+                "learning_rate"] = 0.5
+        make().minimize(loss)
+        if name == "ema":
+            wrapper = opt.ExponentialMovingAverage(0.9)
+            wrapper.update()
+        elif name == "model average":
+            wrapper = opt.ModelAverage(0.15)
+    lrs = [op.input("LearningRate")[0] for op in main_p.global_block().ops
+           if "LearningRate" in op.inputs]
+    return main_p, startup, loss, (lrs[0] if lrs else None), wrapper
+
+
+def sweep_feeds():
+    rng = np.random.RandomState(0)
+    centres = rng.randn(10, 784).astype(np.float32)
+    out = []
+    for _ in range(SWEEP_STEPS):
+        label = rng.randint(0, 10, (SWEEP_BATCH, 1)).astype(np.int64)
+        out.append({"img": (centres[label.ravel()]
+                            + rng.randn(SWEEP_BATCH, 784)).astype(np.float32),
+                    "label": label})
+    return out
+
+
+def state_gap(got, want):
+    """(largest |got - want| over a tensor's largest |want|, where, the
+    largest share of a tensor's elements beyond SWEEP_RTOL, the tensors
+    not finite)."""
+    worst, where, share, bad = 0.0, None, 0.0, []
+    for n, w in want.items():
+        if not np.isfinite(got[n]).all():
+            bad.append(n)
+        d = np.abs(got[n] - w) / max(float(np.abs(w).max()), 1e-30)
+        if float(d.max()) > worst:
+            worst, where = float(d.max()), n
+        share = max(share, float((d > SWEEP_RTOL).mean()))
+    return worst, where, share, bad
+
+
+def sweep_case(main_p, loss, lr, wrapper, init, card_prog=None):
+    """SWEEP_STEPS steps on the card (of ``card_prog``, a planted fault,
+    where given), each replayed on the CPU from the card's state before
+    it -> (each step's ``state_gap``, the learning rates' largest relative
+    gap, the card's losses, the averages ``apply`` swaps in, card against
+    CPU, or None)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import (Executor, Scope, scope_from_numpy,
+                                       scope_guard, scope_to_numpy)
+
+    card, cpu = Executor(), Executor(framework.CPUPlace())
+    fetch = [loss] + ([lr] if lr else [])
+    gaps, lr_gap, losses, state = [], 0.0, [], init
+    for f in sweep_feeds():
+        card_sc = scope_from_numpy(Scope(), state, card.device,
+                                   program=main_p)
+        cpu_sc = scope_from_numpy(Scope(), state, "cpu", program=main_p)
+        got = card.run(card_prog or main_p, feed=f, fetch_list=fetch,
+                       scope=card_sc)
+        want = cpu.run(main_p, feed=f, fetch_list=fetch, scope=cpu_sc)
+        losses.append(float(got[0].reshape(-1)[0]))
+        if lr:
+            lr_gap = max(lr_gap, abs(float(got[1][0]) - float(want[1][0]))
+                         / max(abs(float(want[1][0])), 1e-30))
+        state = scope_to_numpy(card_sc, main_p)
+        gaps.append(state_gap(state, scope_to_numpy(cpu_sc, main_p)))
+    wrap_gap = None
+    if wrapper is not None:
+        applied = []
+        for sc in (card_sc, cpu_sc):
+            with scope_guard(sc):
+                before = scope_to_numpy(sc, main_p)
+                with wrapper.apply(None):
+                    applied.append(scope_to_numpy(sc, main_p))
+                if state_gap(scope_to_numpy(sc, main_p), before)[0] != 0:
+                    fail("sweep: apply did not restore the parameters")
+        wrap_gap = state_gap(applied[0], applied[1])[0]
+    return gaps, lr_gap, losses, wrap_gap
+
+
+def worst_of(gaps):
+    """(worst gap, where, worst share, the tensors not finite) over the
+    steps' ``state_gap``s."""
+    top = max(gaps, key=lambda g: g[0])
+    return (top[0], top[1], max(g[2] for g in gaps),
+            sorted({n for g in gaps for n in g[3]}))
+
+
+def optimizer_sweep_phase():
+    """Phase 14 -> the launch counts of the sweep's card steps."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+
+    t_phase = time.perf_counter()
+    built = {}
+    for name, make in _sweep_cases().items():
+        main_p, startup, loss, lr, wrapper = sweep_program(name, make)
+        sc = Scope()
+        Executor().run(startup, scope=sc)
+        built[name] = (main_p, loss, lr, wrapper, scope_to_numpy(sc, main_p))
+    torch.cuda.synchronize()
+    zero_counts()   # just before the sweep's steps run
+    failures = []
+    for name, (main_p, loss, lr, wrapper, init) in built.items():
+        gaps, lr_gap, losses, wrap_gap = sweep_case(main_p, loss, lr,
+                                                    wrapper, init)
+        worst, where, share, bad = worst_of(gaps)
+        ok = not bad and (worst <= SWEEP_RTOL or share <= SWEEP_FLIP_SHARE) \
+            and lr_gap <= LAMB_LR_RTOL and losses[-1] < losses[0] \
+            and (wrap_gap is None or wrap_gap <= SWEEP_RTOL)
+        print("sweep %s: losses %s; state gap %.3g at %s, share beyond %.3g "
+              "%.3g (limit %.3g); learning rates %.3g; %s%s" % (
+                  name, json.dumps([round(x, 5) for x in losses]), worst,
+                  where, SWEEP_RTOL, share, SWEEP_FLIP_SHARE, lr_gap,
+                  "applied averages %.3g; " % wrap_gap
+                  if wrap_gap is not None else "",
+                  "ok" if ok else "FAILED (%s)" % bad), flush=True)
+        if not ok:
+            failures.append(name)
+    launches = launch_counts()
+    planted = {"lars": ("lars_momentum", "lars_weight_decay", 0.0),
+               "clip by norm": ("clip_by_norm", "max_norm", 1e30)}
+    passed = []
+    for name, (op_type, attr, value) in planted.items():
+        main_p, loss, lr, _wrapper, init = built[name]
+        gaps = sweep_case(main_p, loss, lr, None, init, card_prog=with_attr(
+            main_p, op_type, attr, value))[0]
+        worst, where, share, _bad = worst_of(gaps)
+        hit = worst > SWEEP_RTOL and share > SWEEP_FLIP_SHARE
+        print("sweep: planted fault, %s with %s %g: state gap %.3g at %s, "
+              "share %.3g: %s" % (name, attr, value, worst, where, share,
+                                  "misses the limit" if hit
+                                  else "PASSES the limit"), flush=True)
+        if not hit:
+            passed.append(name)
+    # the three momentum cases (Nesterov, EMA's and Lookahead's inner) run
+    # row 10 once a step; nothing else launches
+    want = {k: 0 for k in launches}
+    want["fused_momentum"] = 3 * SWEEP_STEPS
+    print("sweep: %d cases, launches %s (want %s); the phase %.1f s" % (
+        len(built), json.dumps({k: v for k, v in launches.items() if v}),
+        json.dumps({k: v for k, v in want.items() if v}),
+        time.perf_counter() - t_phase), flush=True)
+    if failures or passed or launches != want:
+        fail("sweep: cases %s disagree with the CPU plain path, planted "
+             "faults %s passed, or the launches are off" % (failures, passed))
+    return {k: v for k, v in launches.items() if v}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7125,9 +7868,15 @@ def main():
     launches.update(dlrm_phase())
     launches.update(reduce_tool_phase())
     # rows 9 and 14 and the dropout kernel: the NMT path's launches are
-    # added to those of the paths before it
-    for name, n in nmt_phase(ln, dev).items():
-        launches[name] = launches.get(name, 0) + n
+    # added to those of the paths before it, and so are the update-rule
+    # phases' (rows 5-9, 14 and the dropout kernel in LAMB-BERT and its
+    # Adam probe, rows 12, 13 and the fold in LARS-ResNet-50, row 10 in
+    # the sweep)
+    for phase in (lambda: nmt_phase(ln, dev),
+                  lambda: lamb_bert_phase(BertConfig(dropout=0.1)),
+                  lars_resnet_phase, optimizer_sweep_phase):
+        for name, n in phase().items():
+            launches[name] = launches.get(name, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

@@ -191,7 +191,11 @@ class Executor:
         dtype = dtype_to_torch(v.dtype) if v is not None and v.dtype \
             else None
         if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(value))
+            # on the CPU a copy, never a view of the caller's array: the
+            # update ops write the scope's tensors in place
+            value = torch.from_numpy(np.array(value)
+                                     if self.device.type == "cpu"
+                                     else np.ascontiguousarray(value))
         return value.to(device=self.device, dtype=dtype)
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,

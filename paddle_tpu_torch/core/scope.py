@@ -28,7 +28,10 @@ class Tensor:
         if isinstance(v, torch.Tensor):
             if v.dtype == torch.bfloat16:
                 v = v.float()
-            return v.detach().cpu().numpy()
+            # a copy on the CPU too: the update ops write their state in
+            # place, which would change an array that shared its memory
+            out = v.detach().cpu().numpy()
+            return out.copy() if v.device.type == "cpu" else out
         return np.asarray(v)
 
     def _is_initialized(self):
@@ -85,7 +88,10 @@ def scope_from_numpy(scope, arrays, device, program=None):
     velocities, learning rate; a batch norm's running mean and variance;
     conv filters like any parameter), each must be given and each is set
     in the dtype its variable declares; this is how a JAX scope's
-    training state is carried into the port."""
+    training state (the optimizers' accumulators, the EMA, ModelAverage
+    and Lookahead buffers and the LR schedules' step counter included)
+    is carried into the port.  The tensors are copies: the arrays stay
+    as they are whatever the steps do."""
     from ..framework import dtype_to_torch
 
     dev = torch.device(device)
@@ -98,7 +104,8 @@ def scope_from_numpy(scope, arrays, device, program=None):
             raise KeyError("no array for persistables %s" % missing[:8])
         arrays = {n: arrays[n] for n in dtypes}
     for name, arr in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # a copy: the update ops write the scope's tensors in place
+        t = torch.from_numpy(np.array(arr))
         scope.var(name).set(t.to(device=dev, dtype=dtypes.get(name,
                                                               t.dtype)))
     return scope

@@ -1,5 +1,5 @@
-"""Comparison layers, ``increment`` and the tensor-array layers, which
-the reference keeps in its control-flow module.  Counterpart of
+"""Comparison layers, ``logical_and``, ``increment`` and the tensor-array
+layers, which the reference keeps in its control-flow module.  Counterpart of
 ``paddle_tpu/layers/control_flow.py`` (``increment:74``,
 ``create_array:87``, ``array_write:95``, ``_make_compare:145``).  The
 reference's loops (``While``, ``cond``) wait for the port's control
@@ -9,8 +9,8 @@ from ..layer_helper import LayerHelper
 from ..utils import unique_name
 
 __all__ = ["less_than", "less_equal", "greater_than", "greater_equal",
-           "equal", "not_equal", "increment", "create_array", "array_write",
-           "While", "cond"]
+           "equal", "not_equal", "logical_and", "increment", "create_array",
+           "array_write", "While", "cond"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -65,6 +65,16 @@ def _make_compare(op_type):
 
     layer.__name__ = op_type
     return layer
+
+
+def logical_and(x, y, out=None):
+    """Elementwise and of two bool variables (the reference's
+    ``layers/__init__.py:86``)."""
+    helper = LayerHelper("logical_and")
+    out = out or helper.create_variable_for_type_inference(dtype="bool")
+    helper.append_op(type="logical_and", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 less_than = _make_compare("less_than")

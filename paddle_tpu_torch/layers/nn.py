@@ -11,7 +11,9 @@
 ``conv2d_bn_relu:805``, ``pool2d:956``, ``batch_norm:1002``; for the
 Transformer ``reduce_sum:493``, ``log_softmax:599``, ``pow:651``,
 ``label_smooth:729``, ``expand:1349``, ``slice:1359``,
-``one_hot:1420``).  Each
+``one_hot:1420``; for the LR schedules and the clips ``clip:534``,
+``clip_by_norm:546`` and the activations of ``layers/__init__.py:30``).
+Each
 appends ops to the current block and names its variables and parameters
 exactly as the reference does."""
 
@@ -31,7 +33,8 @@ __all__ = ["fc", "embedding", "matmul", "elementwise_add",
            "mean", "softmax", "accuracy",
            "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm",
            "reduce_sum", "log_softmax", "pow", "label_smooth", "expand",
-           "slice", "one_hot"]
+           "slice", "one_hot", "sqrt", "exp", "floor", "ceil", "cos",
+           "sign", "clip", "clip_by_norm"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -147,6 +150,41 @@ def _unary_layer(op_type, x, attrs, name=None, dtype=None):
     out = helper.create_variable_for_type_inference(dtype=dtype or x.dtype)
     helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs=attrs)
+    return out
+
+
+def _act_layer(op_type):
+    """The reference's generated activation layer (``layers/__init__.py``
+    ``_make_act_layer``): one op, X -> Out."""
+    def layer(x, name=None):
+        return _unary_layer(op_type, x, {}, name)
+
+    layer.__name__ = op_type
+    return layer
+
+
+sqrt = _act_layer("sqrt")
+exp = _act_layer("exp")
+floor = _act_layer("floor")
+ceil = _act_layer("ceil")
+cos = _act_layer("cos")
+sign = _act_layer("sign")
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
     return out
 
 

@@ -37,7 +37,7 @@ from ..param_attr import ParamAttr
 
 __all__ = ["BertConfig", "BERT_BASE", "BERT_TINY", "multi_head_attention",
            "encoder_layer", "embeddings", "bert_encoder", "build_pretrain",
-           "MASK_FRAC", "pretrain_feed"]
+           "MASK_FRAC", "no_weight_decay", "pretrain_feed"]
 
 
 class BertConfig:
@@ -153,14 +153,16 @@ def bert_encoder(cfg, seq_len, is_test=False):
 
 
 def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False,
-                   amp=False):
+                   amp=False, optimizer=None):
     """Masked-LM pretraining: the encoder, a gather of the mask positions
     (flat indices into [batch * seq_len]), fc + gelu, layer_norm, fc to
     the vocabulary, softmax_with_cross_entropy and mean; with
     ``is_test=False`` Adam(lr).minimize(loss), the Adam decorated by
     ``mixed_precision.decorate`` under ``amp`` (the program the
-    reference's ``bench.py`` trains, ``_bench_bert_at``).  Returns (inputs
-    + (mask_pos, mask_label), loss)."""
+    reference's ``bench.py`` trains, ``_bench_bert_at``), or
+    ``optimizer().minimize(loss)`` where a callable is given (LAMB's
+    recipe: ``Lamb(..., exclude_from_weight_decay_fn=no_weight_decay)``).
+    Returns (inputs + (mask_pos, mask_label), loss)."""
     inputs, seq_out = bert_encoder(cfg, seq_len, is_test)
     mask_pos = layers.data("mask_pos", shape=[1], dtype="int64")
     mask_label = layers.data("mask_label", shape=[1], dtype="int64")
@@ -171,11 +173,19 @@ def build_pretrain(cfg=BERT_BASE, seq_len=128, lr=1e-4, is_test=False,
     logits = layers.fc(trans, cfg.vocab_size)
     loss = layers.mean(layers.softmax_with_cross_entropy(logits, mask_label))
     if not is_test:
-        opt = Adam(learning_rate=lr)
+        opt = Adam(learning_rate=lr) if optimizer is None else optimizer()
         if amp:
             opt = mixed_precision.decorate(opt)
         opt.minimize(loss)
     return inputs + (mask_pos, mask_label), loss
+
+
+def no_weight_decay(param):
+    """LAMB's BERT recipe (You et al. 2019): no weight decay on the
+    LayerNorm scales and shifts (``layer_norm_*``,
+    ``fused_dropout_add_ln_*``) or on any bias (``*.b_0``)."""
+    return param.name.endswith(".b_0") or param.name.startswith(
+        ("layer_norm", "fused_dropout_add_ln"))
 
 
 # share of a batch's tokens that the masked-LM head predicts

@@ -1,6 +1,8 @@
-"""Activations: gelu, relu, pow, softmax, log_softmax.  Counterpart of
-``paddle_tpu/ops/activations.py`` (``gelu:136``, ``relu:20``,
-``pow:146``, ``softmax:152``, ``log_softmax:163``); a bf16 input (the
+"""Activations: gelu, relu, pow, softmax, log_softmax, and the unary ops
+the LR schedules, the clips and L1 decay build from (exp, sqrt, cos,
+ceil, floor, sign).  Counterpart of ``paddle_tpu/ops/activations.py``
+(``gelu:136``, ``relu:20``, ``pow:146``, ``softmax:152``,
+``log_softmax:163``, the unary table ``:23-51``); a bf16 input (the
 AMP policy's activations) is computed in f32 and returned in bf16 by
 gelu and softmax, as there.  relu's gradient is written out (ResNet runs
 ~50 a step, and a vjp replay costs ~0.6 ms of host each on the card);
@@ -66,3 +68,18 @@ def pow_op(ctx, x, factor=1.0):
              attrs={"axis": -1})
 def log_softmax(ctx, x, axis=-1):
     return torch.log_softmax(x, dim=axis)
+
+
+_UNARY = {"exp": torch.exp, "sqrt": torch.sqrt, "cos": torch.cos,
+          "ceil": torch.ceil, "floor": torch.floor, "sign": torch.sign}
+
+
+def _unary(fn):
+    def lower(ctx, x):
+        return fn(x)
+
+    return lower
+
+
+for _name, _fn in _UNARY.items():
+    register_op(_name, inputs=("X",), outputs=("Out",))(_unary(_fn))

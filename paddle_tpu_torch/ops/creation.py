@@ -1,10 +1,13 @@
-"""Tensor creation: fill_constant, uniform_random and gaussian_random, the
-ops the startup program's initialisers emit, fill_constant_batch_size_like,
-assign, assign_value and cast.
+"""Tensor creation: fill_constant, uniform_random, gaussian_random and
+truncated_gaussian_random, the ops the startup program's initialisers
+emit, fill_constant_batch_size_like, assign, assign_value and cast.
 Counterpart of ``paddle_tpu/ops/creation.py`` (``fill_constant:18``,
 ``fill_constant_batch_size_like:59``, ``uniform_random:76``,
-``gaussian_random:96``, ``assign:143``, ``assign_value:149``,
+``gaussian_random:96``, ``truncated_gaussian_random:121``,
+``assign:143``, ``assign_value:149``,
 ``cast:163``)."""
+
+import math
 
 import torch
 
@@ -92,10 +95,38 @@ def gaussian_random(ctx, shape_tensor, shape_tensor_list, shape=(),
     return out.normal_(mean, std, generator=gen)
 
 
+@register_op("truncated_gaussian_random", outputs=("Out",),
+             attrs={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                    "dtype": 5},
+             grad_maker=None, n_rng=1)
+def truncated_gaussian_random(ctx, shape=(), mean=0.0, std=1.0, seed=0,
+                              dtype=5):
+    """mean + std x, x a standard normal truncated to [-2, 2] (the
+    reference's ``jax.random.truncated_normal(key, -2, 2)``), drawn by the
+    inverse CDF of a uniform over [Phi(-2), Phi(2)]; the generator as
+    ``uniform_random``'s.  The values differ from the reference's JAX
+    draw; the distribution is the same."""
+    out = torch.empty(tuple(int(s) for s in shape), dtype=attr_dtype(dtype),
+                      device=ctx.device)
+    if ctx.abstract:
+        return out
+    gen = new_generator(ctx.device, seed) if seed else ctx.generator
+    edge = math.erf(2.0 / math.sqrt(2.0))    # 2 Phi(2) - 1
+    x = out.uniform_(-edge, edge, generator=gen).erfinv_()
+    return x.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std).add_(mean)
+
+
 @register_op("assign", inputs=("X",), outputs=("Out",))
 def assign(ctx, x):
     """The identity (what ``delete_dropout_pass`` leaves of an inference
-    dropout)."""
+    dropout), but a copy where Out is persistable (Lookahead's startup
+    ``slow = param``): the two then outlive the step, and an optimizer
+    updates the first in place."""
+    op = ctx.op
+    var = op.block._find_var_recursive(op.output("Out")[0]) \
+        if op is not None else None
+    if var is not None and var.persistable and not ctx.abstract:
+        return x.clone()
     return x
 
 

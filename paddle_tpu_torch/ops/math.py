@@ -1,11 +1,13 @@
 """Dense math ops: mul, matmul, the elementwise family, scale, sum,
-mean, reduce_sum, increment, the explicit grads of mul, elementwise_add
+mean, reduce_sum, clip, clip_by_norm, squared_l2_norm, increment, the
+explicit grads of mul, elementwise_add
 and reduce_sum, and the two ops the predictor's passes emit, fc and
 fused_elemwise_activation.
 
 Counterpart of ``paddle_tpu/ops/math.py`` (``_amp_dot:25``, ``mul:48``,
 ``matmul:66``, the elementwise ops ``:120-148``, ``scale:151``,
 ``sum:163``, ``mean:172``, ``reduce_sum`` of ``_register_reduce:183``,
+``clip:212``, ``clip_by_norm:220``, ``squared_l2_norm:226``,
 ``increment:231``)
 and of ``paddle_tpu/ops/coverage_tail.py``
 (``fc:92``, ``fused_elemwise_activation:469``).  The products are plain
@@ -167,6 +169,32 @@ def reduce_sum_grad(ctx, x, out, dout, dim=(0,), keep_dim=False,
     kept = [1 if i in axes else n for i, n in enumerate(x.shape)]
     g = dout.to(out.dtype).reshape(kept).expand(x.shape)
     return (g.to(x.dtype).contiguous(),)
+
+
+@register_op("clip", inputs=("X", "Min", "Max"), outputs=("Out",),
+             attrs={"min": 0.0, "max": 0.0}, optional_inputs=("Min", "Max"))
+def clip(ctx, x, min_t, max_t, min=0.0, max=0.0):
+    """x clamped to [min, max], the bounds from the tensors where given
+    (GradientClipByValue)."""
+    lo = min_t.reshape(()) if min_t is not None else min
+    hi = max_t.reshape(()) if max_t is not None else max
+    return torch.clamp(x, lo, hi)
+
+
+@register_op("clip_by_norm", inputs=("X",), outputs=("Out",),
+             attrs={"max_norm": 1.0})
+def clip_by_norm(ctx, x, max_norm=1.0):
+    """x scaled by min(max_norm / max(||x||, 1e-12), 1) (GradientClipByNorm),
+    the scale a device scalar: no sync."""
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return x * scale
+
+
+@register_op("squared_l2_norm", inputs=("X",), outputs=("Out",))
+def squared_l2_norm(ctx, x):
+    """sum(x^2) as [1] (GradientClipByGlobalNorm's per-gradient term)."""
+    return torch.sum(x * x).reshape(1)
 
 
 @register_op("increment", inputs=("X",), outputs=("Out",),

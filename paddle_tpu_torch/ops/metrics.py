@@ -1,6 +1,7 @@
-"""Metric and comparison ops: top_k, accuracy, the six comparisons and
-isfinite.  Counterpart of ``paddle_tpu/ops/metrics.py`` (``top_k:13``,
-``accuracy:38``, the comparisons ``:79-93``, ``isfinite:114``, which
+"""Metric and comparison ops: top_k, accuracy, the six comparisons,
+logical_and and isfinite.  Counterpart of ``paddle_tpu/ops/metrics.py``
+(``top_k:13``, ``accuracy:38``, the comparisons ``:79-93``,
+``logical_and:108``, ``isfinite:114``, which
 the dynamic loss scaling of ``contrib.mixed_precision`` runs over every
 gradient at once)."""
 
@@ -44,6 +45,13 @@ for _name, _fn in _COMPARE.items():
     register_op(_name, inputs=("X", "Y"), outputs=("Out",),
                 attrs={"axis": -1, "force_cpu": False},
                 grad_maker=None)(_compare(_fn))
+
+
+@register_op("logical_and", inputs=("X", "Y"), outputs=("Out",),
+             grad_maker=None)
+def logical_and(ctx, x, y):
+    """Elementwise and (piecewise_decay's interval masks)."""
+    return torch.logical_and(x, y)
 
 
 @register_op("isfinite", inputs=("X",), outputs=("Out",), grad_maker=None,

@@ -1,8 +1,12 @@
-"""Optimizer update ops: sgd, momentum, adam and their fused forms.
+"""Optimizer update ops: sgd, momentum, adam and their fused forms, and
+adamax, adagrad, decayed_adagrad, adadelta, rmsprop, lars_momentum,
+lamb and ftrl.
 
 Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``sgd:22``,
-``momentum:36``, ``adam:50``, ``fused_sgd:307``, ``fused_momentum:332``,
-``fused_adam:367``).  Scalars enter
+``momentum:36``, ``adam:50``, ``adamax:86``, ``adagrad:103``,
+``decayed_adagrad:116``, ``adadelta:129``, ``rmsprop:146``,
+``lars_momentum:168``, ``lamb:189``, ``ftrl:214``, ``fused_sgd:307``,
+``fused_momentum:332``, ``fused_adam:367``).  Scalars enter
 the arithmetic as f32 tensors, as the reference's
 ``jnp.asarray(beta1, dt)`` does, so each update is the same sequence of
 f32 operations.  ``adam`` returns new tensors;
@@ -183,3 +187,172 @@ def fused_adam(ctx, params, grads, m1s, m2s, lr, b1pows, b2pows, beta1=0.9,
         beta1, beta2, epsilon, bufs)
     _hand_carry(ctx, bufs, copies)
     return p, m1, m2, b1o, b2o
+
+
+# -- the other update rules ---------------------------------------------------
+#
+# Plain PyTorch, as the reference's are jnp (no pallas_call, no fusion
+# group).  Each computes every new value from the old state first, then
+# writes it into the state tensors in place, so the outputs are the
+# scope's own tensors (ParamOut names equal Param names).
+
+
+def _in_place(ctx, *pairs):
+    """(state tensor, its new value) pairs -> the state tensors, each
+    overwritten by its new value; the new values themselves during shape
+    inference."""
+    if ctx.abstract:
+        return tuple(new for _old, new in pairs)
+    return tuple(old.copy_(new) for old, new in pairs)
+
+
+def _norm(x):
+    """sqrt(sum(x^2)) as a device scalar (LARS's and Lamb's whole-tensor
+    norms)."""
+    return torch.sqrt(torch.sum(x * x))
+
+
+@register_op("adamax",
+             inputs=("Param", "Grad", "Moment", "InfNorm", "LearningRate",
+                     "Beta1Pow"),
+             outputs=("ParamOut", "MomentOut", "InfNormOut"),
+             attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+             grad_maker=None)
+def adamax(ctx, param, grad, moment, inf_norm, lr, b1pow, beta1=0.9,
+           beta2=0.999, epsilon=1e-8):
+    """The beta1 pow is not advanced here: the optimizer's
+    ``_finish_update`` appends a scale op for it."""
+    m = beta1 * moment + (1.0 - beta1) * grad
+    inf = torch.maximum(beta2 * inf_norm, torch.abs(grad) + epsilon)
+    lr_t = lr.reshape(()) / (1.0 - b1pow.reshape(()))
+    return _in_place(ctx, (param, param - lr_t * m / inf), (moment, m),
+                     (inf_norm, inf))
+
+
+@register_op("adagrad", inputs=("Param", "Grad", "Moment", "LearningRate"),
+             outputs=("ParamOut", "MomentOut"), attrs={"epsilon": 1e-6},
+             grad_maker=None)
+def adagrad(ctx, param, grad, moment, lr, epsilon=1e-6):
+    m = moment + grad * grad
+    p = param - lr.reshape(()) * grad / (torch.sqrt(m) + epsilon)
+    return _in_place(ctx, (param, p), (moment, m))
+
+
+@register_op("decayed_adagrad",
+             inputs=("Param", "Grad", "Moment", "LearningRate"),
+             outputs=("ParamOut", "MomentOut"),
+             attrs={"decay": 0.95, "epsilon": 1e-6}, grad_maker=None)
+def decayed_adagrad(ctx, param, grad, moment, lr, decay=0.95, epsilon=1e-6):
+    m = decay * moment + (1.0 - decay) * grad * grad
+    p = param - lr.reshape(()) * grad / (torch.sqrt(m) + epsilon)
+    return _in_place(ctx, (param, p), (moment, m))
+
+
+@register_op("adadelta",
+             inputs=("Param", "Grad", "AvgSquaredGrad", "AvgSquaredUpdate"),
+             outputs=("ParamOut", "AvgSquaredGradOut", "AvgSquaredUpdateOut"),
+             attrs={"rho": 0.95, "epsilon": 1e-6}, grad_maker=None)
+def adadelta(ctx, param, grad, avg_sq_grad, avg_sq_update, rho=0.95,
+             epsilon=1e-6):
+    """No learning rate: the step is sqrt(E[dx^2] / E[g^2]) g."""
+    g2 = rho * avg_sq_grad + (1.0 - rho) * grad * grad
+    update = -torch.sqrt((avg_sq_update + epsilon) / (g2 + epsilon)) * grad
+    u2 = rho * avg_sq_update + (1.0 - rho) * update * update
+    return _in_place(ctx, (param, param + update), (avg_sq_grad, g2),
+                     (avg_sq_update, u2))
+
+
+@register_op("rmsprop",
+             inputs=("Param", "Grad", "MeanSquare", "MeanGrad", "Moment",
+                     "LearningRate"),
+             outputs=("ParamOut", "MomentOut", "MeanSquareOut",
+                      "MeanGradOut"),
+             attrs={"decay": 0.9, "momentum": 0.0, "epsilon": 1e-10,
+                    "centered": False},
+             optional_inputs=("MeanGrad",), grad_maker=None)
+def rmsprop(ctx, param, grad, mean_square, mean_grad, moment, lr, decay=0.9,
+            momentum=0.0, epsilon=1e-10, centered=False):
+    """Centered: the mean gradient's square comes off the mean square;
+    MeanGrad is left as it is otherwise."""
+    lr = lr.reshape(())
+    ms = decay * mean_square + (1.0 - decay) * grad * grad
+    if centered:
+        mg = decay * mean_grad + (1.0 - decay) * grad
+        mom = momentum * moment + lr * grad / torch.sqrt(ms - mg * mg
+                                                         + epsilon)
+    else:
+        mom = momentum * moment + lr * grad / torch.sqrt(ms + epsilon)
+    p, mom, ms = _in_place(ctx, (param, param - mom), (moment, mom),
+                           (mean_square, ms))
+    if centered:
+        mean_grad, = _in_place(ctx, (mean_grad, mg))
+    return p, mom, ms, mean_grad
+
+
+@register_op("lars_momentum",
+             inputs=("Param", "Grad", "Velocity", "LearningRate"),
+             outputs=("ParamOut", "VelocityOut"),
+             attrs={"mu": 0.0, "lars_coeff": 0.001, "lars_weight_decay": 0.0005,
+                    "epsilon": 0.0},
+             grad_maker=None)
+def lars_momentum(ctx, param, grad, velocity, lr, mu=0.0, lars_coeff=0.001,
+                  lars_weight_decay=0.0005, epsilon=0.0):
+    """You et al. 2017: the layer's rate lr lars_coeff ||p|| / (||g|| +
+    wd ||p||), the + 1e-20 keeping a zero layer finite, as the
+    reference's."""
+    p_norm, g_norm = _norm(param), _norm(grad)
+    local_lr = lr.reshape(()) * lars_coeff * p_norm / (
+        g_norm + lars_weight_decay * p_norm + epsilon + 1e-20)
+    v = mu * velocity + local_lr * (grad + lars_weight_decay * param)
+    return _in_place(ctx, (param, param - v), (velocity, v))
+
+
+@register_op("lamb",
+             inputs=("Param", "Grad", "Moment1", "Moment2", "LearningRate",
+                     "Beta1Pow", "Beta2Pow"),
+             outputs=("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+                      "Beta2PowOut"),
+             attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+                    "weight_decay": 0.01},
+             grad_maker=None)
+def lamb(ctx, param, grad, m1, m2, lr, b1pow, b2pow, beta1=0.9, beta2=0.999,
+         epsilon=1e-6, weight_decay=0.01):
+    """You et al. 2019: Adam's bias-corrected step plus the weight decay,
+    scaled by the trust ratio ||p|| / ||r|| (1 where either is 0); the
+    beta pows advance here, unlike Adamax's."""
+    m1n = beta1 * m1 + (1.0 - beta1) * grad
+    m2n = beta2 * m2 + (1.0 - beta2) * grad * grad
+    m1h = m1n / (1.0 - b1pow.reshape(()))
+    m2h = m2n / (1.0 - b2pow.reshape(()))
+    r = m1h / (torch.sqrt(m2h) + epsilon) + weight_decay * param
+    w_norm, r_norm = _norm(param), _norm(r)
+    ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                        torch.ones_like(w_norm))
+    p = param - lr.reshape(()) * ratio * r
+    return _in_place(ctx, (param, p), (m1, m1n), (m2, m2n),
+                     (b1pow, b1pow * beta1), (b2pow, b2pow * beta2))
+
+
+@register_op("ftrl",
+             inputs=("Param", "SquaredAccumulator", "LinearAccumulator",
+                     "Grad", "LearningRate"),
+             outputs=("ParamOut", "SquaredAccumOut", "LinearAccumOut"),
+             attrs={"l1": 0.0, "l2": 0.0, "lr_power": -0.5}, grad_maker=None)
+def ftrl(ctx, param, sq_accum, lin_accum, grad, lr, l1=0.0, l2=0.0,
+         lr_power=-0.5):
+    """McMahan et al. 2013, the reference's form: sqrt for the default
+    lr_power -0.5, pow otherwise."""
+    lr = lr.reshape(())
+    new_accum = sq_accum + grad * grad
+    if lr_power == -0.5:
+        new_root, old_root = torch.sqrt(new_accum), torch.sqrt(sq_accum)
+    else:
+        new_root = torch.pow(new_accum, -lr_power)
+        old_root = torch.pow(sq_accum, -lr_power)
+    sigma = (new_root - old_root) / lr
+    lin = lin_accum + grad - sigma * param
+    denom = new_root / lr + 2 * l2
+    pre = torch.clamp(lin, -l1, l1) - lin
+    p = torch.where(torch.abs(lin) > l1, pre / denom, torch.zeros_like(param))
+    return _in_place(ctx, (param, p), (sq_accum, new_accum),
+                     (lin_accum, lin))

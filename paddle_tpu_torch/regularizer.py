@@ -1,11 +1,13 @@
 """Weight-decay regularizers.  Counterpart of ``paddle_tpu/regularizer.py``
-(``L2DecayRegularizer:14``, ``append_regularization_ops:36``): the L2
-decay, which ResNet's ``Momentum(regularization=L2Decay(1e-4))`` uses;
-L1 comes with a model that uses it."""
+(``L2DecayRegularizer:14``, ``L1DecayRegularizer:25``,
+``append_regularization_ops:36``): the L2 decay, which ResNet's
+``Momentum(regularization=L2Decay(1e-4))`` uses, and the L1 decay,
+coeff * sign(param)."""
 
 from .framework import OpRole, default_main_program
 
-__all__ = ["L2Decay", "L2DecayRegularizer", "append_regularization_ops"]
+__all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
+           "append_regularization_ops"]
 
 
 class L2DecayRegularizer:
@@ -18,6 +20,18 @@ class L2DecayRegularizer:
         from . import layers
 
         return layers.scale(param, scale=self._coeff)
+
+
+class L1DecayRegularizer:
+    """decay = coeff * sign(param): a ``sign`` op, then a ``scale``."""
+
+    def __init__(self, regularization_coeff=0.0):
+        self._coeff = regularization_coeff
+
+    def __call__(self, param, grad, block):
+        from . import layers
+
+        return layers.scale(layers.sign(param), scale=self._coeff)
 
 
 def append_regularization_ops(parameters_and_grads, regularization=None):
@@ -39,4 +53,5 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
     return list(parameters_and_grads)
 
 
+L1Decay = L1DecayRegularizer
 L2Decay = L2DecayRegularizer
