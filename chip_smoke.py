@@ -244,11 +244,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     persistable held, row 10 once a step of the three momentum cases, and
     two planted faults (LARS's weight decay, ClipByNorm's scale dropped)
     missing the limit;
-15. the script's own wall time, a JSON line of the kernels (rows 9 and
+15. gradient merge and the control flow: BERT-base (the small-attention
+    emission, dropout 0.1, seq 128) under
+    ``GradientMergeOptimizer(Adam(1e-4), k_steps=8)`` at micro-batch 32,
+    16 micro-steps (two updates of 256 sequences): rows 5-8, 14 and the
+    dropout kernel as phase 6's emission launches them, no fused Adam
+    (the branch's adam ops stay unfused, as the reference's), one host
+    sync a step, step p50 between and at boundaries beside phase 6's
+    Adam, ops a step and peak memory; (b) bitwise on the card, every
+    parameter unchanged between boundaries, every merged buffer zero
+    after one, the counter at 16; (c) the first window at batch 2 on the
+    card and on the CPU's plain path from one state (losses, moments);
+    (d) at dropout 0, one window of 8 micro-batches of 32 against one
+    Adam step on the same 256 sequences (the averaged merged gradient,
+    parameters and moments); faults planted on the card (an update at
+    every micro-step, the buffers left unzeroed, the counter stepped by
+    2) that must break each of those; (e) the reference's While, Switch,
+    IfElse, cond and data-dependent greedy-decode programs and a
+    StaticRNN (hidden 512, T 64) trained 5 steps, card against CPU, each
+    beside a planted fault;
+16. the script's own wall time, a JSON line of the kernels (rows 9 and
     14 and the dropout kernel counting the NMT path's launches besides
     their earlier paths', row 1 the tiers and role-fleet phases' besides
-    the pair's, and rows 5-10, 12-14, the fold and the dropout kernel
-    the update-rule phases' besides), then the result line.
+    the pair's, rows 5-10, 12-14, the fold and the dropout kernel the
+    update-rule phases' besides, and rows 2-8, 14 and the dropout kernel
+    the gradient-merge phase's), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -5003,8 +5023,9 @@ def moment_gap(got, want, only=None):
     moment (MOMENT_FLOOR squared of the largest second moment): a gradient
     that is zero but for rounding, as the key projection's bias has
     (softmax ignores a shift shared by a row's scores), leaves moments of
-    rounding noise alone, which only the floor holds."""
-    top = {k: max(float(np.abs(w).max()) for n, w in want.items() if k in n)
+    rounding noise alone, which only the floor holds.  numpy arrays or
+    tensors on one device."""
+    top = {k: max(float(abs(w).max()) for n, w in want.items() if k in n)
            for k in ("_moment1_", "_moment2_")}
     floor = {"_moment1_": MOMENT_FLOOR * top["_moment1_"],
              "_moment2_": MOMENT_FLOOR ** 2 * top["_moment2_"]}
@@ -5013,8 +5034,8 @@ def moment_gap(got, want, only=None):
         if only is not None and n not in only:
             continue
         kind = "_moment1_" if "_moment1_" in n else "_moment2_"
-        scale = max(float(np.abs(w).max()), floor[kind])
-        rel = float(np.abs(got[n] - w).max()) / scale
+        scale = max(float(abs(w).max()), floor[kind])
+        rel = float(abs(got[n] - w).max()) / scale
         if worst is None or rel > gap:
             gap, worst = rel, n
     return gap, worst
@@ -6618,13 +6639,14 @@ def param_gap(got, want, init, skip=()):
     step: Adam divides each gradient by its own RMS, so an element whose
     gradient is zero but for rounding steps ~lr either way on either
     device, which a largest-element measure would read as a full step,
-    and the mean reads as its share of the tensor."""
+    and the mean reads as its share of the tensor.  numpy arrays or
+    tensors on one device."""
     gap, worst = 0.0, None
     for n, w in want.items():
         if n in skip:
             continue
-        moved = float(np.abs(w - init[n]).mean())
-        diff = float(np.abs(got[n] - w).mean())
+        moved = float(abs(w - init[n]).mean())
+        diff = float(abs(got[n] - w).mean())
         rel = diff / moved if moved > 0 else (0.0 if diff == 0 else np.inf)
         if worst is None or rel > gap:
             gap, worst = rel, n
@@ -7145,10 +7167,11 @@ def lr_and_norm(main_p):
 
 def with_attr(main_p, op_type, attr, value, where=lambda op: True):
     """A clone of ``main_p`` with ``attr`` of its ``op_type`` ops (those
-    ``where`` holds for) set to ``value``: a fault planted on the card."""
+    ``where`` holds for, in any block) set to ``value``: a fault planted on
+    the card."""
     bad = main_p.clone()
     n = 0
-    for op in bad.global_block().ops:
+    for op in (op for blk in bad.blocks for op in blk.ops):
         if op.type == op_type and where(op):
             op.attrs[attr] = value
             n += 1
@@ -7755,6 +7778,643 @@ def optimizer_sweep_phase():
     return {k: v for k, v in launches.items() if v}
 
 
+# -- phase 15: gradient merge and the control flow ----------------------------
+
+# BERT-base pretraining under GradientMergeOptimizer(Adam(1e-4)): one update
+# every MERGE_K micro-steps of TRAIN_BATCH, Devlin et al.'s batch of 256
+MERGE_K = 8
+MERGE_STEPS = 16          # two windows
+# (c) the first window on the card against the CPU's plain path from one
+# state, at CHECK_BATCH: PERF.md's BERT training limits (the losses and
+# the Adam moments after the window, ``moment_gap``)
+MERGE_LOSS_ATOL = TRAIN_LOSS_ATOL
+MERGE_MOMENT_RTOL = TRAIN_MOMENT_RTOL
+# (d) one window of MERGE_K micro-batches against one Adam step on the same
+# MERGE_K * TRAIN_BATCH sequences, dropout 0, on the card from one state:
+# the averaged merged gradient against the batch's (each tensor's largest
+# difference over its largest value, floored at MOMENT_FLOOR of the largest
+# of all, as ``moment_gap`` floors the moments), the parameters after the
+# update (``param_gap``, the key biases aside) and the moments
+# (``moment_gap``).  The two sum the same terms in another order: f32
+# rounding apart, the gradients are equal
+MERGE_GRAD_RTOL = 1e-3
+MERGE_PARAM_RTOL = 1e-2
+MERGE_DMOMENT_RTOL = TRAIN_MOMENT_RTOL
+# (e) the control-flow programs on the card against the CPU's plain path:
+# the fetches to CF_RTOL of their largest value (integers exactly); a
+# StaticRNN (hidden RNN_HIDDEN over RNN_T steps, batch RNN_BATCH) trained
+# RNN_STEPS SGD steps from one state, its losses to RNN_LOSS_RTOL
+CF_RTOL = 1e-5
+RNN_HIDDEN, RNN_T, RNN_BATCH, RNN_STEPS = 512, 64, 32, 5
+RNN_LOSS_RTOL = 1e-4
+
+
+def merge_program(cfg, plain=False):
+    """(main, startup, loss) of BERT pretraining under gradient merge (or,
+    ``plain``, Adam itself), built under a fresh name guard so the two
+    programs name their parameters and moments alike."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models.bert import build_pretrain
+    from paddle_tpu_torch.optimizer import Adam, GradientMergeOptimizer
+    from paddle_tpu_torch.utils import unique_name
+
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 11
+    opt = (lambda: Adam(1e-4)) if plain else (
+        lambda: GradientMergeOptimizer(Adam(1e-4), k_steps=MERGE_K))
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        _inputs, loss = build_pretrain(cfg, SEQ, optimizer=opt)
+    return main_p, startup, loss
+
+
+def merge_names(main_p):
+    """{params, moments, buffers, counter, avg ({param: its averaged merged
+    gradient, the branch's 1/k scale}), key_biases} of a merge program."""
+    g = main_p.global_block()
+    params = [p.name for p in g.all_parameters()]
+    cond = next(op for op in g.ops if op.type == "conditional_block")
+    branch = main_p.block(cond.attr("sub_block"))
+    avg = {op.input("X")[0]: op.output("Out")[0] for op in branch.ops
+           if op.type == "scale" and op.attr("scale") == 1.0 / MERGE_K}
+    bufs = {n.split(".merged_grad")[0]: n for n in g.vars
+            if ".merged_grad" in n}
+    # softmax ignores a shift shared by a row's scores: the key
+    # projections' biases get a gradient that is zero but for rounding
+    k_out = {op.output("Out")[0] for op in g.ops
+             if op.type == "mul" and op.input("Y")[0].endswith("_k_w")}
+    keys = {op.input("Y")[0] for op in g.ops
+            if op.type == "elementwise_add" and op.input("X")[0] in k_out}
+    return {"params": params,
+            "moments": [n for n in g.vars if "_moment1_" in n
+                        or "_moment2_" in n],
+            "buffers": [bufs[p] for p in params],
+            "avg": {p: avg[bufs[p]] for p in params},
+            "counter": next(n for n in g.vars
+                            if n.startswith("gradient_merge_step")),
+            "key_biases": keys}
+
+
+def merge_faults(main_p, names):
+    """{what: program} of the faults planted on the card: the update at
+    every micro-step (k's constant 1), the buffers left unzeroed (the
+    zeroing scale by 1) and the counter stepped by 2."""
+    mod = next(op for op in main_p.global_block().ops
+               if op.type == "elementwise_mod")
+    k_var, counter = mod.input("Y")[0], names["counter"]
+    return {
+        "an update at every micro-step": with_attr(
+            main_p, "fill_constant", "value", 1.0,
+            lambda op: op.output("Out") == [k_var]),
+        "the buffers left unzeroed": with_attr(
+            main_p, "scale", "scale", 1.0,
+            lambda op: op.attr("scale") == 0.0),
+        "the counter stepped by 2": with_attr(
+            main_p, "increment", "step", 2.0,
+            lambda op: op.input("X") == [counter])}
+
+
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def window_violations(scope, names, snap, steps, boundary):
+    """The (b) invariants after micro-step ``steps`` (from 1): between
+    boundaries every parameter bitwise the window's start ``snap``; at a
+    boundary every merged buffer zero; the counter equal to ``steps``.
+    Returns the names of the invariants broken."""
+    def get(n):
+        return scope.find_var(n).get_tensor().get()
+
+    bad = []
+    if boundary:
+        if any(int(torch.count_nonzero(get(n))) for n in names["buffers"]):
+            bad.append("merged buffers zero after a boundary")
+    elif not all(torch.equal(bits(get(n)), bits(snap[n]))
+                 for n in names["params"]):
+        bad.append("parameters unchanged between boundaries")
+    if int(get(names["counter"]).reshape(-1)[0]) != steps:
+        bad.append("the counter")
+    return bad
+
+
+def merge_window(main_p, loss, init, feeds, place, fetch_last=()):
+    """The micro-steps of ``feeds`` from the persistables ``init`` on
+    ``place`` (None: the card) -> (losses, the last step's ``fetch_last``
+    values, the scope)."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    ex = Executor(place)
+    sc = scope_from_numpy(Scope(), init, ex.device, program=main_p)
+    losses, last = [], None
+    for i, f in enumerate(feeds):
+        extra = list(fetch_last) if i == len(feeds) - 1 else []
+        out = ex.run(main_p, feed=f, fetch_list=[loss] + extra, scope=sc,
+                     return_numpy=False)
+        losses.append(float(out[0].reshape(-1)[0]))
+        last = out[1:]
+    return losses, last, sc
+
+
+def scope_values(sc, names):
+    return {n: sc.find_var(n).get_tensor().get() for n in names}
+
+
+def floored_gap(got, want, floor=MOMENT_FLOOR, skip=()):
+    """(largest max|got - want| / scale over the tensors but ``skip``, the
+    tensor): a tensor's scale is its largest |want|, at least ``floor`` of
+    the largest |want| of all (``moment_gap``'s rule), on the device."""
+    top = max(float(w.abs().max()) for w in want.values())
+    gap, worst = 0.0, None
+    for n, w in want.items():
+        if n in skip:
+            continue
+        scale = max(float(w.abs().max()), floor * top)
+        rel = float((got[n].float() - w.float()).abs().max()) / scale
+        if worst is None or rel > gap:
+            gap, worst = rel, n
+    return gap, worst
+
+
+def merged_feeds(cfg, seed, k, batch):
+    """k micro-batch feeds and the one feed of all k * batch sequences,
+    its mask positions offset into the whole batch, so the mean loss over
+    the batch is the mean of the micro-batches' means."""
+    from paddle_tpu_torch.models.bert import pretrain_feed
+
+    micro = [pretrain_feed(np.random.RandomState(seed + i), cfg, batch, SEQ)
+             for i in range(k)]
+    whole = {n: np.concatenate([f[n] for f in micro]) for n in micro[0]}
+    whole["mask_pos"] = np.concatenate(
+        [f["mask_pos"] + i * batch * SEQ for i, f in enumerate(micro)])
+    return micro, whole
+
+
+def cf_programs():
+    """{name: (main, startup, feeds, fetch)}: the control-flow programs of
+    the reference's tests (tests/test_control_flow.py, While, Switch,
+    IfElse and cond; tests/test_dynamic_array_while.py, the greedy decode
+    whose length the data decides), built in the port."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import layers as L
+
+    def build(make):
+        main_p, startup = framework.Program(), framework.Program()
+        with framework.program_guard(main_p, startup):
+            feeds, fetch = make()
+        return main_p, startup, feeds, fetch
+
+    def while_counter():
+        i = L.fill_constant([1], "int64", 0)
+        limit = L.fill_constant([1], "int64", 10)
+        total = L.fill_constant([1], "float32", 0.0)
+        x = L.data("x", shape=[10], append_batch_size=False)
+        cond = L.less_than(i, limit)
+        with L.While(cond).block():
+            L.assign(L.elementwise_add(total, L.gather(x, i)), total)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, limit, cond=cond)
+        return [{"x": np.arange(10).astype("float32")}], [total, i]
+
+    def while_traced():
+        n = L.data("n", shape=[1], dtype="int64", append_batch_size=False)
+        i = L.elementwise_add(L.zeros([1], "int64"), L.zeros([1], "int64"))
+        acc = L.data("acc0", shape=[1], append_batch_size=False)
+        cond = L.less_than(i, n)
+        with L.While(cond).block():
+            L.assign(L.elementwise_add(acc, acc), acc)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(i, n, cond=cond)
+        return [{"n": np.array([k], "int64"),
+                 "acc0": np.array([1.0], "float32")} for k in (5, 0)], [acc]
+
+    def switch():
+        x = L.data("x", shape=[4], append_batch_size=False)
+        flag = L.data("flag", shape=[1], append_batch_size=False)
+        out = L.elementwise_add(L.fill_constant([4], "float32", -1.0),
+                                L.zeros([4], "float32"))
+        lr = L.fill_constant([1], "float32", 0.0)
+        sw = L.Switch()
+        with sw.case(L.greater_than(flag, L.zeros([1], "float32"))):
+            L.assign(L.elementwise_mul(x, x), out)
+            L.assign(L.fill_constant([1], "float32", 0.1), lr)
+        with sw.default():
+            L.assign(L.fill_constant([1], "float32", 0.01), lr)
+        xs = np.arange(1, 5).astype("float32")
+        return [{"x": xs, "flag": np.array([f], "float32")}
+                for f in (1.0, -1.0)], [out, lr]
+
+    def ifelse():
+        a = L.data("a", shape=[1], append_batch_size=False)
+        b = L.data("b", shape=[1], append_batch_size=False)
+        ie = L.IfElse(L.less_than(a, b))
+        with ie.true_block():
+            ie.output(L.elementwise_add(a, b))
+        with ie.false_block():
+            ie.output(L.elementwise_sub(a, b))
+        return [{"a": np.array([v], "float32"),
+                 "b": np.array([2.0], "float32")} for v in (1.0, 5.0)], ie()
+
+    def cond():
+        a = L.data("a", shape=[2], append_batch_size=False)
+        pred = L.less_than(L.reduce_sum(a), L.fill_constant([1], "float32",
+                                                            0.0))
+        out = L.cond(pred, lambda: L.scale(a, scale=-1.0),
+                     lambda: L.elementwise_mul(a, a))
+        return [{"a": np.array(v, "float32")}
+                for v in ([1.0, 2.0], [-3.0, 1.0])], [out]
+
+    def greedy_decode():
+        V, eos, max_len = 12, 0, 10
+        tr = L.data("tr", shape=[V, V], append_batch_size=False)
+        tok = L.assign(np.array([3], "int64"))
+        i = L.fill_constant([1], "int64", 0)
+        going = L.assign(np.array([True]))
+        arr = L.array_write(tok, i, array=L.create_array("int64"))
+        with L.While(cond=going).block():
+            L.increment(i, value=1, in_place=True)
+            nxt = L.cast(L.reshape(L.argmax(L.gather(tr, tok), axis=-1),
+                                   [1]), "int64")
+            L.assign(nxt, output=tok)
+            L.array_write(nxt, i, array=arr)
+            L.assign(L.logical_and(
+                L.not_equal(nxt, L.fill_constant([1], "int64", eos)),
+                L.less_than(i, L.fill_constant([1], "int64", max_len - 1))),
+                output=going)
+        trans = np.random.RandomState(0).rand(V, V).astype("float32")
+        for a, b in ((3, 7), (7, 5), (5, eos)):
+            trans[a] = 0
+            trans[a, b] = 1
+        return [{"tr": trans}], [L.array_length(arr)] + [
+            L.array_read(arr, L.fill_constant([1], "int64", k))
+            for k in range(max_len)]
+
+    return {f.__name__: build(f) for f in (
+        while_counter, while_traced, switch, ifelse, cond, greedy_decode)}
+
+
+def cf_run(main_p, startup, feeds, fetch, place):
+    """-> ([fetches of each feed as numpy], host syncs of each run)."""
+    from paddle_tpu_torch.core import Executor, Scope
+
+    ex, sc = Executor(place), Scope()
+    ex.run(startup, scope=sc)
+    outs, syncs = [], []
+    for f in feeds:
+        outs.append(ex.run(main_p, feed=f, fetch_list=fetch, scope=sc))
+        syncs.append(ex.last_host_syncs)
+    return outs, syncs
+
+
+def cf_gap(card, cpu):
+    """The largest difference of the fetches over their largest value
+    (integers and masks: 0 or inf)."""
+    gap = 0.0
+    for a_run, b_run in zip(card, cpu):
+        for a, b in zip(a_run, b_run):
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape:
+                return np.inf
+            if b.dtype.kind != "f":
+                gap = max(gap, 0.0 if np.array_equal(a, b) else np.inf)
+            elif b.size:
+                gap = max(gap, float(np.abs(a - b).max())
+                          / max(float(np.abs(b).max()), 1e-30))
+    return gap
+
+
+def rnn_program(reverse=False):
+    """(main, startup, loss) of a StaticRNN regressor: tanh(fc(x_t) + h)
+    over RNN_T steps of hidden RNN_HIDDEN, the last state through an fc,
+    SGD(0.01) on the squared error (``reverse`` runs the recurrence last
+    step first: the planted fault)."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.utils import unique_name
+
+    main_p, startup = framework.Program(), framework.Program()
+    startup.random_seed = 13
+    T, B, H = RNN_T, RNN_BATCH, RNN_HIDDEN
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        x = L.data("x", shape=[T, B, H], append_batch_size=False)
+        y = L.data("y", shape=[B, 1], append_batch_size=False)
+        h0 = L.fill_constant([B, H], "float32", 0.0)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            h_prev = rnn.memory(init=h0)
+            h = L.tanh(L.elementwise_add(
+                L.fc(rnn.step_input(x), H, name="rnn_fc"), h_prev))
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        last = L.reshape(L.slice(rnn(), axes=[0], starts=[T - 1], ends=[T]),
+                         [B, H])
+        loss = L.reduce_mean(L.square(L.fc(last, 1) - y))
+        SGD(0.01).minimize(loss)
+    if reverse:
+        for op in main_p.global_block().ops:
+            if op.type in ("recurrent", "recurrent_grad"):
+                op.attrs["reverse"] = True
+        main_p._bump_version()
+    return main_p, startup, loss
+
+
+def rnn_steps(main_p, loss, init, feed, place):
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    ex = Executor(place)
+    sc = scope_from_numpy(Scope(), init, ex.device, program=main_p)
+    t0 = time.perf_counter()
+    losses = [float(ex.run(main_p, feed=feed, fetch_list=[loss],
+                           scope=sc)[0].reshape(-1)[0])
+              for _ in range(RNN_STEPS)]
+    return losses, (time.perf_counter() - t0) * 1e3 / RNN_STEPS
+
+
+def control_flow_checks(card):
+    """(e): the programs and the StaticRNN on the card (``card``: its
+    name and power limit) against the CPU, and a fault planted on the
+    card in each."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+
+    cpu = framework.CPUPlace()
+    for name, (main_p, startup, feeds, fetch) in cf_programs().items():
+        outs, syncs = cf_run(main_p, startup, feeds, fetch, None)
+        want, cpu_syncs = cf_run(main_p, startup, feeds, fetch, cpu)
+        gap = cf_gap(outs, want)
+        print("merge (e): %s on the card vs CPU, gap %.3g (limit %g); host "
+              "syncs a run %s (CPU %s); fetches %s" % (
+                  name, gap, CF_RTOL, syncs, cpu_syncs,
+                  json.dumps([[np.asarray(v).ravel().tolist()[:4]
+                               for v in run] for run in outs])), flush=True)
+        if not gap <= CF_RTOL or syncs != cpu_syncs:
+            fail("control flow: %s on the card disagrees with the CPU" % name)
+    main_p, startup, feeds, fetch = cf_programs()["while_counter"]
+    bad = with_attr(main_p, "increment", "step", 2.0)
+    gap = cf_gap(cf_run(bad, startup, feeds, fetch, None)[0],
+                 cf_run(main_p, startup, feeds, fetch, cpu)[0])
+    print("merge (e): planted fault, the loop's counter stepped by 2: gap "
+          "%.3g" % gap, flush=True)
+    if gap <= CF_RTOL:
+        fail("control flow: the planted fault passed the limit")
+
+    main_p, startup, loss = rnn_program()
+    rng = np.random.RandomState(9)
+    feed = {"x": rng.randn(RNN_T, RNN_BATCH, RNN_HIDDEN).astype("float32"),
+            "y": rng.randn(RNN_BATCH, 1).astype("float32")}
+    ex, sc = Executor(), Scope()
+    ex.run(startup, scope=sc)
+    init = scope_to_numpy(sc, main_p)
+    got, card_ms = rnn_steps(main_p, loss, init, feed, None)
+    cpu_l, cpu_ms = rnn_steps(main_p, loss, init, feed, cpu)
+    rev, _ms = rnn_steps(rnn_program(reverse=True)[0], loss, init, feed,
+                         None)
+
+    def rel(a):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, cpu_l))
+
+    print("merge (e): StaticRNN, hidden %d, T %d, batch %d, %d SGD steps: "
+          "card losses %s (%.1f ms a step), CPU %s (%.1f ms); gap %.3g "
+          "(limit %g); planted fault, the recurrence reversed: gap %.3g; %s"
+          % (RNN_HIDDEN, RNN_T, RNN_BATCH, RNN_STEPS, json.dumps(got),
+             card_ms, json.dumps(cpu_l), cpu_ms, rel(got), RNN_LOSS_RTOL,
+             rel(rev), card), flush=True)
+    if not (rel(got) <= RNN_LOSS_RTOL and got[-1] < got[0]):
+        fail("StaticRNN on the card disagrees with the CPU or does not learn")
+    if rel(rev) <= RNN_LOSS_RTOL:
+        fail("StaticRNN: the planted fault passed the limit")
+
+
+def merge_phase(cfg):
+    """Phase 15 -> the launch counts of its merged BERT-base windows."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+    from paddle_tpu_torch.models.bert import BertConfig, pretrain_feed
+
+    t_phase = time.perf_counter()
+    cpu = framework.CPUPlace()
+    card = card_line()
+    # (a) two windows at the small emission, dropout 0.1
+    with emission(SMALL):
+        main_p, startup, loss = merge_program(cfg)
+        names = merge_names(main_p)
+        g = main_p.global_block()
+        branch = main_p.block(next(op for op in g.ops
+                                   if op.type == "conditional_block")
+                              .attr("sub_block"))
+        n_adam = sum(op.type == "adam" for op in branch.ops)
+        if n_adam != len(names["params"]) or any(
+                op.type == "adam" for op in g.ops):
+            fail("merge: %d adam ops in the branch for %d parameters"
+                 % (n_adam, len(names["params"])))
+        exe, scope = Executor(), Scope()
+        exe.run(startup, scope=scope)
+        init = scope_to_numpy(scope, main_p)
+        feeds = [pretrain_feed(np.random.RandomState(30 + s), cfg,
+                               TRAIN_BATCH, SEQ) for s in range(MERGE_STEPS)]
+        snap = {n: t.clone() for n, t in scope_values(
+            scope, names["params"]).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()   # just before the main path runs
+        losses, step_ms, syncs, broken = [], [], [], []
+        for s, feed in enumerate(feeds):
+            t0 = time.perf_counter()
+            out, = exe.run(main_p, feed=feed, fetch_list=[loss], scope=scope)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(-1)[0]))
+            syncs.append(exe.last_host_syncs)
+            boundary = (s + 1) % MERGE_K == 0
+            broken += ["%s (step %d)" % (b, s + 1) for b in window_violations(
+                scope, names, snap, s + 1, boundary)]
+            if boundary:
+                moved = sum(not torch.equal(bits(t), bits(snap[n])) for n, t
+                            in scope_values(scope, names["params"]).items())
+                if moved < len(names["params"]) - len(names["key_biases"]):
+                    broken.append("an update at step %d (%d of %d moved)"
+                                  % (s + 1, moved, len(names["params"])))
+                snap = {n: t.clone() for n, t in scope_values(
+                    scope, names["params"]).items()}
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del snap
+        bnd = [m for s, m in enumerate(step_ms) if (s + 1) % MERGE_K == 0]
+        mid = [m for s, m in enumerate(step_ms) if (s + 1) % MERGE_K]
+        adam_p50 = TRAIN_P50.get(SMALL)
+        print("merge (a): BERT (hidden %d, %d layers), seq %d, dropout %g, "
+              "small attention; "
+              "GradientMergeOptimizer(Adam(1e-4), k_steps=%d), micro-batch "
+              "%d (an update every %d sequences), %d micro-steps; losses %s; "
+              "step_ms %s; p50 non-boundary %.3f, boundary %.3f (phase 6's "
+              "Adam, same emission and batch: p50 %s); host syncs a step %s; "
+              "ops a step %d, a boundary step %d (%d in the branch); peak "
+              "memory %.2f GB (a copy of the parameters for (b) included); "
+              "launches %s; %s" % (
+                  cfg.hidden, cfg.layers, SEQ, cfg.dropout, MERGE_K,
+                  TRAIN_BATCH, MERGE_K * TRAIN_BATCH, MERGE_STEPS,
+                  json.dumps(losses),
+                  json.dumps([round(x, 3) for x in step_ms]),
+                  float(np.percentile(mid, 50)), float(np.percentile(bnd, 50)),
+                  "%.3f ms" % adam_p50 if adam_p50 else "not run",
+                  json.dumps(syncs), len(g.ops), len(g.ops) + len(branch.ops),
+                  len(branch.ops), peak,
+                  json.dumps({k: v for k, v in launches.items() if v}), card),
+              flush=True)
+        want = {k: STEP_LAUNCHES[SMALL].get(k, 0) * MERGE_STEPS
+                for k in launches}
+        want["fused_adam"] = 0
+        if launches != want:
+            fail("merge launches %s over %d micro-steps, want %s"
+                 % (launches, MERGE_STEPS, want))
+        if syncs != [1] * MERGE_STEPS:
+            fail("merge: host syncs a step %s, want one each" % syncs)
+        if not all(np.isfinite(losses)):
+            fail("merge losses %s not finite" % losses)
+        # (b) bitwise on the card, and the faults planted in it
+        print("merge (b): parameters bitwise unchanged over the 7 "
+              "non-boundary micro-steps of each window, the merged buffers "
+              "zero after each boundary, the counter %d after %d steps: %s"
+              % (int(scope_values(scope, [names["counter"]])[
+                  names["counter"]].reshape(-1)[0]), MERGE_STEPS,
+                 "held" if not broken else "broken: %s" % broken),
+              flush=True)
+        if broken:
+            fail("merge invariants broken: %s" % broken)
+        del scope
+        faults = merge_faults(main_p, names)
+        before_boundary = dict(init, **{names["counter"]: np.full(
+            (1,), MERGE_K - 1, np.int64)})
+        seen = set()
+        for what, bad in faults.items():
+            state = before_boundary if what == "the buffers left unzeroed" \
+                else init
+            _l, _v, sc = merge_window(bad, loss, state, feeds[:1], None)
+            start = int(state[names["counter"]][0])
+            miss = window_violations(
+                sc, names, {n: torch.from_numpy(init[n]).to(exe.device)
+                            for n in names["params"]},
+                start + 1, (start + 1) % MERGE_K == 0)
+            print("merge (b): planted fault, %s: breaks %s" % (what, miss),
+                  flush=True)
+            seen.update(miss)
+            del sc
+        if len(seen) != 3:
+            fail("merge (b): the planted faults broke only %s" % sorted(seen))
+
+        # (c) the first window on the card and on the CPU from one state
+        small = [pretrain_feed(np.random.RandomState(60 + s), cfg,
+                               CHECK_BATCH, SEQ) for s in range(MERGE_K)]
+        t0 = time.perf_counter()
+        cpu_l, _v, cpu_sc = merge_window(main_p, loss, init, small, cpu)
+        cpu_m = {n: t.numpy() for n, t in scope_values(
+            cpu_sc, names["moments"]).items()}
+        cpu_s = time.perf_counter() - t0
+        del cpu_sc
+        for what, prog in (("sound", main_p), (
+                "planted fault, an update at every micro-step",
+                faults["an update at every micro-step"])):
+            card_l, _v, sc = merge_window(prog, loss, init, small, None)
+            card_m = {n: t.cpu().numpy() for n, t in scope_values(
+                sc, names["moments"]).items()}
+            del sc
+            gaps = {"losses": (max(abs(a - b) for a, b in zip(card_l, cpu_l)),
+                               None, MERGE_LOSS_ATOL),
+                    "moments": moment_gap(card_m, cpu_m)
+                    + (MERGE_MOMENT_RTOL,)}
+            print("merge (c): %s, the first window (%d micro-steps at batch "
+                  "%d) on the card vs the CPU's plain path (%.1f s): %s; card "
+                  "losses %s" % (what, MERGE_K, CHECK_BATCH, cpu_s,
+                                 gaps_line(gaps), json.dumps(card_l)),
+                  flush=True)
+            if set(missed(gaps)) != (set() if what == "sound"
+                                     else set(gaps)):
+                fail("merge (c): %s: %s" % (what, gaps_line(gaps)))
+
+    # (d) k merged micro-batches against one batch, dropout 0, on the card
+    cfg0 = BertConfig(**dict(cfg.__dict__, dropout=0.0))
+    with emission(DROPOUT0):
+        main0, start0, loss0 = merge_program(cfg0)
+        names0 = merge_names(main0)
+        plain, _ps, ploss = merge_program(cfg0, plain=True)
+        ex, sc = Executor(), Scope()
+        ex.run(start0, scope=sc)
+        init0 = scope_to_numpy(sc, main0)
+        del sc
+        micro, whole = merged_feeds(cfg0, 90, MERGE_K, TRAIN_BATCH)
+        params, moments = names0["params"], names0["moments"]
+        avg = [names0["avg"][p] for p in params]
+        torch.cuda.synchronize()
+        zero_counts()
+        _l, got_avg, msc = merge_window(main0, loss0, init0, micro, None,
+                                        fetch_last=avg)
+        launches_d = launch_counts()
+        got = scope_values(msc, params + moments)
+        got_avg = dict(zip(params, got_avg))
+        want_l = {k: STEP_LAUNCHES[DROPOUT0].get(k, 0) * MERGE_K
+                  for k in launches_d}
+        want_l["fused_adam"] = 0
+        if launches_d != want_l:
+            fail("merge (d) launches %s, want %s" % (launches_d, want_l))
+        pinit = {v.name: init0[v.name] for v in plain.list_vars()
+                 if v.persistable and not v.is_data}
+        batch = len(whole["src_ids"])
+        try:
+            pl, grads, psc = merge_window(
+                plain, ploss, pinit, [whole], None,
+                fetch_last=[p + "@GRAD" for p in params])
+        except torch.cuda.OutOfMemoryError:
+            fail("merge (d): a step of %d sequences does not fit" % batch)
+        want = scope_values(psc, params + moments)
+        grads = dict(zip(params, grads))
+        init_t = {p: torch.from_numpy(init0[p]).to(ex.device)
+                  for p in params}
+        keys = names0["key_biases"]
+
+        def d_gaps(avg_g, state):
+            return {
+                "averaged merged gradient": floored_gap(avg_g, grads)
+                + (MERGE_GRAD_RTOL,),
+                "parameters": param_gap(
+                    {p: state[p] for p in params},
+                    {p: want[p] for p in params}, init_t, keys)
+                + (MERGE_PARAM_RTOL,),
+                "moments": moment_gap({n: state[n] for n in moments},
+                                      {n: want[n] for n in moments})
+                + (MERGE_DMOMENT_RTOL,)}
+
+        gaps = d_gaps(got_avg, got)
+        del msc
+        print("merge (d): %d micro-batches of %d against one Adam step on "
+              "the same %d sequences, dropout 0, from one state: %s; losses "
+              "%.6f (the window's mean) vs %.6f; launches %s" % (
+                  MERGE_K, TRAIN_BATCH, batch, gaps_line(gaps),
+                  float(np.mean(_l)), pl[0],
+                  json.dumps({k: v for k, v in launches_d.items() if v})),
+              flush=True)
+        if missed(gaps):
+            fail("merge (d): the merged window is not the batch: %s"
+                 % missed(gaps))
+        bad = merge_faults(main0, names0)["an update at every micro-step"]
+        _l, bad_avg, bsc = merge_window(bad, loss0, init0, micro, None,
+                                        fetch_last=avg)
+        bad_gaps = d_gaps(dict(zip(params, bad_avg)),
+                          scope_values(bsc, params + moments))
+        del bsc, psc, init_t
+        print("merge (d): planted fault, an update at every micro-step: %s; "
+              "misses %s" % (gaps_line(bad_gaps), missed(bad_gaps)),
+              flush=True)
+        if set(missed(bad_gaps)) != set(gaps):
+            fail("merge (d): the planted fault passed %s"
+                 % sorted(set(gaps) - set(missed(bad_gaps))))
+    torch.cuda.empty_cache()
+
+    # (e) the control-flow programs and a StaticRNN
+    control_flow_checks(card)
+    print("merge: the phase %.1f s; %s" % (time.perf_counter() - t_phase,
+                                           card), flush=True)
+    return {k: launches[k] + launches_d[k] for k in launches}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7871,10 +8531,12 @@ def main():
     # added to those of the paths before it, and so are the update-rule
     # phases' (rows 5-9, 14 and the dropout kernel in LAMB-BERT and its
     # Adam probe, rows 12, 13 and the fold in LARS-ResNet-50, row 10 in
-    # the sweep)
+    # the sweep) and the gradient-merge phase's (rows 2-8, 14 and the
+    # dropout kernel)
     for phase in (lambda: nmt_phase(ln, dev),
                   lambda: lamb_bert_phase(BertConfig(dropout=0.1)),
-                  lars_resnet_phase, optimizer_sweep_phase):
+                  lars_resnet_phase, optimizer_sweep_phase,
+                  lambda: merge_phase(BertConfig(dropout=0.1))):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for row in rows:

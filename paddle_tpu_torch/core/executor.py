@@ -6,9 +6,11 @@ Counterpart of ``paddle_tpu/core/executor.py`` (``global_scope:52``,
 program's optimizer ops (once per program version), then builds a
 ``BlockPlan`` per (program, version, feed shapes and dtypes, fetch list)
 and caches it; parameters come from the Scope, the ops launch their
-kernels on the executor's device, and persistables the block writes (the
-startup program's initialisers; a training step's parameters, moments
-and beta pows, velocities, BN running statistics) are stored back.  No
+kernels on the executor's device (a control-flow op runs its sub-block
+through the step's ``lowering.StepRunner``), and persistables the block
+writes (the startup program's initialisers; a training step's
+parameters, moments and beta pows, velocities, BN running statistics)
+are stored back.  No
 ``torch.compile``: each op's lowering runs as written.
 
 Each ``run`` is one ``executor.step`` span (``core/tracing.py``; under
@@ -37,7 +39,7 @@ from ..device import resolve_device, set_f32_numerics
 from ..framework import Variable, default_main_program, dtype_to_torch
 from . import telemetry as _telemetry
 from . import tracing as _tracing
-from .lowering import MASTER_SUFFIX, BlockPlan, draws, op_seed, run_op
+from .lowering import MASTER_SUFFIX, BlockPlan, StepRunner, run_op
 from .scope import Scope
 
 __all__ = ["Executor", "global_scope", "scope_guard", "place_device"]
@@ -150,6 +152,9 @@ class Executor:
             set_f32_numerics()
         self._cache = {}
         self._fuse_attempted = set()
+        # the last step's host reads of device values by control-flow ops
+        # (predicates, loop conditions, list-array indices, prints)
+        self.last_host_syncs = 0
 
     def _maybe_fuse_optimizers(self, program, feed_names, fetch_names):
         """Horizontal optimizer fusion before planning, tried once per
@@ -231,21 +236,21 @@ class Executor:
         with _RNG_LOCK:
             step = scope._rng_counter
             scope._rng_counter = step + 1
+        # the feeds and the scope's values are data-dependent
+        runner = StepRunner(plan, self.device, seed, step, carry,
+                            carry_written,
+                            set(env) if plan.track_dyn else None, run_op)
         t_step = time.perf_counter()
         with _tracing.span("executor.step", step=int(step),
                            cache_hit=cached), torch.no_grad():
-            for i, (op, opdef, attrs) in enumerate(plan.steps):
-                run_op(op, opdef, attrs, env, self.device,
-                       op_seed(seed, step, i) if draws(opdef, attrs)
-                       else None, carry, carry_written)
-                for n in plan.release[i]:
-                    env.pop(n, None)
+            runner.run(plan, env)
             for n in plan.persist_written:
                 if n in env and n not in feeds:
                     scope.var(n).set(env[n])
             if carry:
                 _store_carry(scope, env, carry, carry_written)
         step_ms = (time.perf_counter() - t_step) * 1e3
+        self.last_host_syncs = runner.host_syncs
         missing = [n for n in fetch_names if n not in env]
         if missing:
             raise KeyError("fetch targets %s were never produced" % missing)
@@ -254,7 +259,8 @@ class Executor:
             _telemetry.record_step(
                 step_ms, cached, compile_ms=None if cached else build_ms,
                 feed_bytes=sum(_nbytes(v) for v in (feed or {}).values()),
-                fetch_bytes=sum(_nbytes(f) for f in fetches))
+                fetch_bytes=sum(_nbytes(f) for f in fetches),
+                host_syncs=runner.host_syncs)
         _tracing.instant("step", step=int(step))
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]

@@ -13,6 +13,28 @@ are one product, its grad and its optimizer.  The executor puts a bf16
 copy of each under the weight's name and the f32 master under
 ``<name>@MASTER``, which only an optimizer's ``Param`` slot reads
 (``_gather``).
+
+Sub-blocks (the reference's ``LowerCtx.env`` and ``run_sub_block``,
+``paddle_tpu/core/lowering.py:42-55``).  A step runs under one
+``StepRunner``: it runs a block's plan op by op against an env, and an op
+with a sub-block (``while``, ``conditional_block``, ``recurrent``) gets
+it through its ``LowerCtx`` with the live env of the block that encloses
+it (``ctx.env``), so ``ctx.run_sub_block`` runs the sub-block against
+that env in place.  Each sub-block is planned once per step plan
+(``StepRunner.sub_plan``), a ``BlockPlan`` with its own ``release``
+list, so its temporaries die inside it.  The runner also counts the
+host reads of device values the control-flow ops make (a predicate, a
+loop condition, a list array's index, a print: on the card each waits
+for the work queued before it) and, where the program has control flow,
+which names hold data-dependent values (``StepRunner.dyn``: see
+``ops/control_flow.py`` for what that decides).
+
+Seeds: op ``i`` of the global block at step ``s`` draws from
+``op_seed(program_seed, s, i)``; op ``j`` of a sub-block draws from
+``np.random.SeedSequence([program_seed, s, i, it, j])``, ``i`` the index
+of the enclosing op in its block and ``it`` the loop's iteration (the time
+step of a ``recurrent``, 0 for a ``conditional_block``), one more
+(index, iteration) pair for each level of nesting (``path_seed``).
 """
 
 import numpy as np
@@ -20,8 +42,9 @@ import torch
 
 from .registry import get_op_def, lower_attrs
 
-__all__ = ["LowerCtx", "BlockPlan", "analyze_block", "analyze_param_carry",
-           "draws", "op_seed", "run_op", "MASTER_SUFFIX"]
+__all__ = ["LowerCtx", "BlockPlan", "StepRunner", "analyze_block",
+           "analyze_param_carry", "draws", "op_seed", "path_seed", "run_op",
+           "MASTER_SUFFIX"]
 
 
 class LowerCtx:
@@ -42,12 +65,38 @@ class LowerCtx:
     card) stores it there and adds the name to ``carry_written``."""
 
     def __init__(self, device, op=None, seed=None, carry=None,
-                 carry_written=None):
+                 carry_written=None, runner=None, env=None, path=()):
         self.device = device
         self.op = op
         self.seed = seed
         self.carry = carry
         self.carry_written = carry_written
+        # the step's StepRunner, the live env of the enclosing block and
+        # the op's place in the step (its index, under each enclosing
+        # op's (index, iteration)); None / () outside an executor step
+        self.runner = runner
+        self.env = env
+        self.path = path
+
+    def run_sub_block(self, env, iteration=0):
+        """Run the op's sub-block against ``env`` in place; ``iteration``
+        (the loop's count) enters the seeds of its random ops."""
+        runner = self.runner
+        runner.run(runner.sub_plan(self.op), env, self.path + (iteration,))
+
+    def is_dyn(self, slot):
+        """Whether the op's ``slot`` holds a data-dependent value (see
+        ``ops/control_flow.py``): False outside a step that tracks it."""
+        dyn = self.runner.dyn if self.runner is not None else None
+        return dyn is not None and any(n in dyn for n in self.op.input(slot))
+
+    def host_item(self, t):
+        """A one-element tensor's value on the host, counted as a host
+        sync of the step (on the card the read waits for the queued
+        work)."""
+        if self.runner is not None:
+            self.runner.host_syncs += 1
+        return t.reshape(-1)[0].item()
 
     def amp_bf16(self):
         """True when the op's program runs under the bf16 AMP policy
@@ -115,9 +164,12 @@ class BlockPlan:
     """Execution plan of one block for one feed/fetch signature: the ops
     with their definitions and attrs resolved once, so a run only gathers,
     calls and scatters.  With ``allow_carry``, ``carry_names`` lists the
-    params the step reads as bf16 copies (``analyze_param_carry``)."""
+    params the step reads as bf16 copies (``analyze_param_carry``).
+    ``keep`` adds names no release may drop (a sub-block's: what its
+    enclosing op and the rest of the step read)."""
 
-    def __init__(self, block, feed_names, fetch_names, allow_carry=False):
+    def __init__(self, block, feed_names, fetch_names, allow_carry=False,
+                 keep=()):
         self.block = block
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
@@ -134,7 +186,8 @@ class BlockPlan:
         # release[i]: intermediates dead after step i (last read there, or
         # never read), dropped so the device allocator can reuse them
         keep = set(self.fetch_names) | set(self.persist_written) \
-            | set(self.external) | set(self.feed_names)
+            | set(self.external) | set(self.feed_names) | set(keep)
+        self.keep = keep
         last = {}
         for i, op in enumerate(ops):
             for n in op.output_arg_names:
@@ -145,6 +198,15 @@ class BlockPlan:
         for n, i in last.items():
             if n and n not in keep:
                 self.release[i].append(n)
+        # per step, the names it reads and writes (the data-dependence
+        # bookkeeping), and the plans of the sub-blocks under it
+        self.io = [(tuple(n for n in op.input_arg_names if n),
+                    tuple(n for n in op.output_arg_names if n))
+                   for op in ops]
+        self.sub_plans = {}
+        # whether a step keeps StepRunner.dyn: some op of the program asks
+        self.track_dyn = any(op.type in _DYN_OPS for blk in
+                             block.program.blocks for op in blk.ops)
 
 
 # forward op types whose lowerings take their weight operand in bf16 under
@@ -255,8 +317,15 @@ def _gather(opdef, op, slot, env):
 def op_seed(program_seed, step, index):
     """Seed of op ``index`` at executor step ``step``: a deterministic
     function of the three, independent across ops (63 bits)."""
+    return path_seed(program_seed, step, (index,))
+
+
+def path_seed(program_seed, step, path):
+    """Seed of the op at ``path`` (its index in the global block, or the
+    enclosing op's index, the iteration and its own index in a sub-block,
+    and so on down) at executor step ``step`` (63 bits)."""
     return int(np.random.SeedSequence(
-        [program_seed & 0xFFFFFFFF, step & 0xFFFFFFFF, index]
+        [program_seed & 0xFFFFFFFF, step & 0xFFFFFFFF] + list(path)
     ).generate_state(1, np.uint64)[0] >> 1)
 
 
@@ -269,11 +338,12 @@ def draws(opdef, attrs):
 
 
 def run_op(op, opdef, attrs, env, device, seed=None, carry=None,
-           carry_written=None):
+           carry_written=None, runner=None, path=()):
     """Run one op: gather its inputs from ``env``, call the lowering,
     scatter its outputs back."""
     args = [_gather(opdef, op, s, env) for s in opdef.input_slots]
-    out = opdef.lower(LowerCtx(device, op, seed, carry, carry_written),
+    out = opdef.lower(LowerCtx(device, op, seed, carry, carry_written,
+                               runner, env, path),
                       *args, **attrs)
     if len(opdef.output_slots) == 1 and not isinstance(out, tuple):
         out = (out,)
@@ -283,6 +353,90 @@ def run_op(op, opdef, attrs, env, device, seed=None, carry=None,
         for n, v in zip(names, items or ()):
             if n and v is not None:
                 env[n] = v
+
+
+# ops that run a sub-block against the env of the block enclosing them and
+# write that env themselves: the data dependence of what they write is
+# theirs to set
+_ENV_OPS = frozenset(("while", "conditional_block"))
+
+# op types whose lowerings ask whether a value is data-dependent
+_DYN_OPS = frozenset(("while", "conditional_block", "write_to_array",
+                      "read_from_array"))
+
+
+def _outside_reads(program, idx):
+    """Names read by the ops of every block of ``program`` but ``idx``."""
+    return {n for blk in program.blocks if blk.idx != idx
+            for op in blk.ops for n in op.input_arg_names if n}
+
+
+class StepRunner:
+    """One executor step: runs block plans op by op against an env.
+
+    ``dyn`` (None where the program has no op that asks): the names of
+    the env holding data-dependent values.  The feeds and the scope's
+    values start it; an op's outputs join it when an input is in it or
+    the op draws random numbers, and leave it otherwise; ``while`` and
+    ``conditional_block`` set their writes' status themselves.
+    ``host_syncs`` counts the host reads of device values the lowerings
+    make through ``LowerCtx.host_item``.  ``run_op`` is the function each
+    op runs through (the profilers swap the executor's)."""
+
+    def __init__(self, plan, device, seed, step, carry=None,
+                 carry_written=None, dyn=None, run_op=run_op):
+        self.root = plan
+        self.device = device
+        self.seed = seed
+        self.step = step
+        self.carry = carry
+        self.carry_written = carry_written
+        self.dyn = dyn
+        self.run_op = run_op
+        self.host_syncs = 0
+
+    def run(self, plan, env, path=()):
+        """Run ``plan``'s ops against ``env``; ``path`` is the place of
+        its block in the step (() for the global block)."""
+        dyn = self.dyn
+        for i, (op, opdef, attrs) in enumerate(plan.steps):
+            p = path + (i,)
+            seed = path_seed(self.seed, self.step, p) \
+                if draws(opdef, attrs) else None
+            mark = None
+            if dyn is not None and op.type not in _ENV_OPS:
+                ins, outs = plan.io[i]
+                mark = seed is not None or any(n in dyn for n in ins)
+            self.run_op(op, opdef, attrs, env, self.device, seed, self.carry,
+                        self.carry_written, self, p)
+            if mark is not None:
+                if mark:
+                    dyn.update(outs)
+                else:
+                    dyn.difference_update(outs)
+            for n in plan.release[i]:
+                env.pop(n, None)
+
+    def is_dyn(self, name):
+        return self.dyn is not None and name in self.dyn
+
+    def sub_plan(self, op):
+        """The plan of ``op``'s sub-block, made at its first run under
+        this step plan.  Its releases keep what the enclosing op reads and
+        writes, the names its attrs list (a ``recurrent``'s states and
+        outputs), the step's fetches and whatever another block reads."""
+        idx = op.attr("sub_block")
+        plan = self.root.sub_plans.get(idx)
+        if plan is None:
+            program = op.block.program
+            keep = set(op.input_arg_names) | set(op.output_arg_names) \
+                | set(self.root.fetch_names) | _outside_reads(program, idx)
+            for k, v in op.attrs.items():
+                if k.endswith("_names") and isinstance(v, list):
+                    keep.update(v)
+            plan = BlockPlan(program.block(idx), (), (), keep=keep)
+            self.root.sub_plans[idx] = plan
+        return plan
 
 
 def new_generator(device, seed):

@@ -371,7 +371,8 @@ def _event_fh(d):
 
 
 def record_step(wall_ms, cache_hit, compile_ms=None, donated=0,
-                feed_bytes=0, fetch_bytes=0, carry_hits=0, carry_converts=0):
+                feed_bytes=0, fetch_bytes=0, carry_hits=0, carry_converts=0,
+                host_syncs=0):
     """One executor step: bundle the counter/histogram updates plus the
     step event so the hot path pays a single enabled() check."""
     if not enabled():
@@ -399,6 +400,10 @@ def record_step(wall_ms, cache_hit, compile_ms=None, donated=0,
     if carry_converts:
         inc("executor_carry_convert_total", carry_converts)
         fields["carry_converts"] = carry_converts
+    if host_syncs:
+        # host reads of device values by the step's control-flow ops
+        inc("executor_host_syncs_total", host_syncs)
+        fields["host_syncs"] = host_syncs
     event("step", **fields)
 
 

@@ -31,6 +31,10 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   refreshed from the new f32 master after each step; the products read
   the copy and the optimizer the master.  The copy is bitwise the
   per-step cast, so the flag moves no value.
+* ``FLAGS_tensor_array_max_len`` (default 256, as in the reference):
+  the capacity of a bounded tensor array, the form a list array takes
+  when a data-dependent ``while`` carries it or a data-dependent index
+  writes it (``ops/control_flow.py``).
 * ``FLAGS_serving_deadline_ms`` (default 2000.0),
   ``FLAGS_serving_endpoints_file`` (default "", none) and
   ``FLAGS_serving_client_shed_retries`` (default 2), the reference's: a
@@ -111,6 +115,7 @@ _DEFAULTS = {
     "FLAGS_use_pallas_conv_block": False,
     "FLAGS_use_pallas_embedding_bag": False,
     "FLAGS_layout_match_params": True,
+    "FLAGS_tensor_array_max_len": 256,
     "FLAGS_serving_deadline_ms": 2000.0,
     "FLAGS_serving_endpoints_file": "",
     "FLAGS_serving_client_shed_retries": 2,

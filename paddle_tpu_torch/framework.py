@@ -375,6 +375,20 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None):
+        """A new block, a child of the current one (or of ``parent_idx``),
+        made current: the sub-block of a control-flow op."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        self._bump_version()
+        return blk
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def list_vars(self):
         for blk in self.blocks:
             yield from blk.vars.values()

@@ -1,36 +1,41 @@
 """Layer API of the port (the subset BERT pretraining, ResNet, DLRM, the
 MNIST MLP, the Transformer's training and beam decode, the AMP
-decorator's loss scaling call, the LR schedules and the gradient
-clips), and the operators on Variable (``math_op_patch``)."""
+decorator's loss scaling call, the LR schedules, the gradient clips and
+the control flow), and the operators on Variable (``math_op_patch``)."""
 
 from . import learning_rate_scheduler  # noqa: F401
 from . import math_op_patch  # noqa: F401  (operators on Variable)
 from . import tensor  # noqa: F401
-from .control_flow import (While, array_write, cond,  # noqa: F401
-                           create_array, equal, greater_equal, greater_than,
-                           increment, less_equal, less_than, logical_and,
-                           not_equal)
+from .control_flow import (IfElse, Print, StaticRNN,  # noqa: F401
+                           Switch, While, array_length, array_read,
+                           array_write, cond, create_array, equal,
+                           greater_equal, greater_than, increment, is_empty,
+                           less_equal, less_than, logical_and, logical_not,
+                           logical_or, logical_xor, not_equal)
 from .learning_rate_scheduler import (cosine_decay,  # noqa: F401
                                       exponential_decay, inverse_time_decay,
                                       linear_lr_warmup, natural_exp_decay,
                                       noam_decay, piecewise_decay,
                                       polynomial_decay)
-from .nn import (accuracy, batch_norm, ceil, clip,  # noqa: F401
+from .nn import (accuracy, argmax, argmin, batch_norm,  # noqa: F401
+                 ceil, clip,
                  clip_by_norm, concat, conv2d, conv2d_bn_relu, cos, dropout,
                  elementwise_add, elementwise_div, elementwise_floordiv,
                  elementwise_max, elementwise_min, elementwise_mod,
                  elementwise_mul, elementwise_pow, elementwise_sub, embedding,
                  exp, expand, fc, flash_attention, floor,
                  fused_dropout_add_ln, gather, label_smooth, layer_norm,
-                 log_softmax, matmul, mean, one_hot, pool2d, pow, reduce_sum,
-                 relu, reshape, scale, sigmoid_cross_entropy_with_logits,
-                 sign, slice, softmax, softmax_with_cross_entropy, sqrt,
-                 transpose, unsqueeze)
+                 log_softmax, matmul, mean, one_hot, pool2d, pow,
+                 reduce_mean, reduce_sum, relu, reshape, scale, sigmoid,
+                 sigmoid_cross_entropy_with_logits, sign, slice, softmax,
+                 softmax_with_cross_entropy, sqrt, square, tanh, transpose,
+                 unsqueeze)
 from .rnn import beam_search, beam_search_decode  # noqa: F401
 from .tensor import (assign, cast, create_global_var, data,  # noqa: F401
                      fill_constant, fill_constant_batch_size_like, zeros)
 
-__all__ = ["accuracy", "array_write", "assign", "batch_norm", "beam_search",
+__all__ = ["accuracy", "argmax", "argmin", "array_length", "array_read",
+           "array_write", "assign", "batch_norm", "beam_search",
            "beam_search_decode", "cast", "ceil", "clip", "clip_by_norm",
            "concat", "cond", "conv2d", "conv2d_bn_relu", "cos",
            "cosine_decay", "create_array", "create_global_var", "data",
@@ -41,11 +46,14 @@ __all__ = ["accuracy", "array_write", "assign", "batch_norm", "beam_search",
            "exponential_decay", "expand", "fc", "fill_constant",
            "fill_constant_batch_size_like", "flash_attention", "floor",
            "fused_dropout_add_ln", "gather", "greater_equal", "greater_than",
-           "increment", "inverse_time_decay", "label_smooth", "layer_norm",
-           "less_equal", "less_than", "linear_lr_warmup", "log_softmax",
-           "logical_and", "matmul", "mean", "natural_exp_decay",
-           "noam_decay", "not_equal", "one_hot", "piecewise_decay",
-           "polynomial_decay", "pool2d", "pow", "reduce_sum", "relu",
-           "reshape", "scale", "sigmoid_cross_entropy_with_logits", "sign",
-           "slice", "softmax", "softmax_with_cross_entropy", "sqrt",
-           "transpose", "unsqueeze", "While", "zeros"]
+           "IfElse", "increment", "inverse_time_decay", "is_empty",
+           "label_smooth", "layer_norm", "less_equal", "less_than",
+           "linear_lr_warmup", "log_softmax", "logical_and", "logical_not",
+           "logical_or", "logical_xor", "matmul", "mean",
+           "natural_exp_decay", "noam_decay", "not_equal", "one_hot",
+           "piecewise_decay", "polynomial_decay", "pool2d", "pow", "Print",
+           "reduce_mean", "reduce_sum", "relu", "reshape", "scale",
+           "sigmoid", "sigmoid_cross_entropy_with_logits", "sign", "slice",
+           "softmax", "softmax_with_cross_entropy", "sqrt", "square",
+           "StaticRNN", "Switch", "tanh", "transpose", "unsqueeze", "While",
+           "zeros"]

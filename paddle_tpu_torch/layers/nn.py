@@ -12,7 +12,9 @@
 Transformer ``reduce_sum:493``, ``log_softmax:599``, ``pow:651``,
 ``label_smooth:729``, ``expand:1349``, ``slice:1359``,
 ``one_hot:1420``; for the LR schedules and the clips ``clip:534``,
-``clip_by_norm:546`` and the activations of ``layers/__init__.py:30``).
+``clip_by_norm:546`` and the activations of ``layers/__init__.py:30``;
+for the control-flow programs and recurrent nets ``reduce_mean:494``,
+``argmax:1472``, ``argmin:1482``, tanh, sigmoid and square).
 Each
 appends ops to the current block and names its variables and parameters
 exactly as the reference does."""
@@ -34,7 +36,8 @@ __all__ = ["fc", "embedding", "matmul", "elementwise_add",
            "relu", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm",
            "reduce_sum", "log_softmax", "pow", "label_smooth", "expand",
            "slice", "one_hot", "sqrt", "exp", "floor", "ceil", "cos",
-           "sign", "clip", "clip_by_norm"]
+           "sign", "clip", "clip_by_norm", "reduce_mean", "argmax",
+           "argmin", "tanh", "sigmoid", "square"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -128,21 +131,45 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
     return helper.append_activation(out)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """Sum over ``dim`` (an int or a list), or over every dim when it is
-    None."""
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(dtype=input.dtype)
-    if dim is None:
-        dim_attr, reduce_all = [0], True
-    else:
-        dim_attr = dim if isinstance(dim, (list, tuple)) else [dim]
-        reduce_all = False
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]},
-                     attrs={"dim": list(dim_attr), "keep_dim": keep_dim,
-                            "reduce_all": reduce_all})
-    return out
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        """Reduce over ``dim`` (an int or a list), or over every dim when
+        it is None."""
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=input.dtype)
+        if dim is None:
+            dim_attr, reduce_all = [0], True
+        else:
+            dim_attr = dim if isinstance(dim, (list, tuple)) else [dim]
+            reduce_all = False
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]},
+                         attrs={"dim": list(dim_attr), "keep_dim": keep_dim,
+                                "reduce_all": reduce_all})
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+
+
+def _arg_layer(op_type):
+    def layer(x, axis=0):
+        """The int64 index of the extreme along ``axis``."""
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(dtype="int64")
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return out
+
+    return layer
+
+
+argmax = _arg_layer("arg_max")
+argmin = _arg_layer("arg_min")
 
 
 def _unary_layer(op_type, x, attrs, name=None, dtype=None):
@@ -169,6 +196,9 @@ floor = _act_layer("floor")
 ceil = _act_layer("ceil")
 cos = _act_layer("cos")
 sign = _act_layer("sign")
+tanh = _act_layer("tanh")
+sigmoid = _act_layer("sigmoid")
+square = _act_layer("square")
 
 
 def clip(x, min, max, name=None):

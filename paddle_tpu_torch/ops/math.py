@@ -159,6 +159,14 @@ def reduce_sum(ctx, x, dim=(0,), keep_dim=False, reduce_all=False):
     return out.reshape(1) if out.dim() == 0 else out
 
 
+@register_op("reduce_mean", inputs=("X",), outputs=("Out",),
+             attrs={"dim": [0], "keep_dim": False, "reduce_all": False})
+def reduce_mean(ctx, x, dim=(0,), keep_dim=False, reduce_all=False):
+    """Mean over ``dim`` (or every dim), as ``reduce_sum``."""
+    out = x.mean(dim=_reduce_dims(x, dim, reduce_all), keepdim=keep_dim)
+    return out.reshape(1) if out.dim() == 0 else out
+
+
 @register_grad_lowering("reduce_sum")
 def reduce_sum_grad(ctx, x, out, dout, dim=(0,), keep_dim=False,
                     reduce_all=False):

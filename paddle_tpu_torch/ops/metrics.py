@@ -1,7 +1,8 @@
-"""Metric and comparison ops: top_k, accuracy, the six comparisons,
-logical_and and isfinite.  Counterpart of ``paddle_tpu/ops/metrics.py``
-(``top_k:13``, ``accuracy:38``, the comparisons ``:79-93``,
-``logical_and:108``, ``isfinite:114``, which
+"""Metric and comparison ops: top_k, accuracy, arg_max and arg_min, the
+six comparisons, the four logical ops and isfinite.  Counterpart of
+``paddle_tpu/ops/metrics.py`` (``top_k:13``, ``accuracy:38``,
+``arg_max:51``, ``arg_min:61``, the comparisons ``:79-93``, the logical
+ops of ``_register_logical:96-111``, ``isfinite:114``, which
 the dynamic loss scaling of ``contrib.mixed_precision`` runs over every
 gradient at once)."""
 
@@ -47,11 +48,40 @@ for _name, _fn in _COMPARE.items():
                 grad_maker=None)(_compare(_fn))
 
 
-@register_op("logical_and", inputs=("X", "Y"), outputs=("Out",),
-             grad_maker=None)
-def logical_and(ctx, x, y):
-    """Elementwise and (piecewise_decay's interval masks)."""
-    return torch.logical_and(x, y)
+def _logical(fn, binary=True):
+    if binary:
+        def lower(ctx, x, y):
+            return fn(x, y)
+    else:
+        def lower(ctx, x):
+            return fn(x)
+    return lower
+
+
+# logical_and: piecewise_decay's interval masks; the others the predicates
+# of Switch (logical_not) and of the loops
+for _name, _fn in (("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    register_op(_name, inputs=("X", "Y"), outputs=("Out",),
+                grad_maker=None)(_logical(_fn))
+register_op("logical_not", inputs=("X",), outputs=("Out",),
+            grad_maker=None)(_logical(torch.logical_not, binary=False))
+
+
+def _arg(fn):
+    def lower(ctx, x, axis=-1, keepdims=False, dtype=3, flatten=False):
+        if flatten:
+            x, axis = x.reshape(-1), 0
+        return fn(x, dim=axis, keepdim=keepdims).long()
+
+    return lower
+
+
+for _name, _fn in (("arg_max", torch.argmax), ("arg_min", torch.argmin)):
+    register_op(_name, inputs=("X",), outputs=("Out",),
+                attrs={"axis": -1, "keepdims": False, "dtype": 3,
+                       "flatten": False}, grad_maker=None)(_arg(_fn))
 
 
 @register_op("isfinite", inputs=("X",), outputs=("Out",), grad_maker=None,

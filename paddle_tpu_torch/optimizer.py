@@ -1,6 +1,6 @@
 """Optimizers: the ``Optimizer`` base, the eleven update rules, the
-averaging wrappers (EMA, ModelAverage, Lookahead) and the four wrappers
-still to come.
+averaging wrappers (EMA, ModelAverage, Lookahead), gradient merge and the
+three wrappers still to come.
 
 Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer:75``:
 ``_create_global_learning_rate:88``, ``_create_param_lr:125``,
@@ -11,9 +11,10 @@ Counterpart of ``paddle_tpu/optimizer.py`` (``Optimizer:75``:
 ``DecayedAdagradOptimizer:465``, ``AdadeltaOptimizer:490``,
 ``RMSPropOptimizer:516``, ``FtrlOptimizer:550``, ``LambOptimizer:579``,
 ``ExponentialMovingAverage:614``, ``ModelAverage:677``,
-``LookaheadOptimizer:837``).  ``minimize`` is ``append_backward``, then
-the clip pass (the optimizer's ``grad_clip``, else ``clip.py``'s) and
-the regularization pass (``regularizer.py``: a decay op and an in-place
+``GradientMergeOptimizer:754``, ``LookaheadOptimizer:837``).
+``minimize`` is ``append_backward``, then the clip pass (the
+optimizer's ``grad_clip``, else ``clip.py``'s) and the regularization
+pass (``regularizer.py``: a decay op and an in-place
 ``sum`` into each regularized gradient), then one update op per
 parameter under the Optimize role, each reading its parameter's
 learning rate (the global one, or a ``scale`` of it under the LRSched
@@ -625,6 +626,78 @@ class LookaheadOptimizer:
         return ops, pgs
 
 
+class GradientMergeOptimizer:
+    """Gradient accumulation (the reference's ``GradientMergeOptimizer``,
+    ``paddle_tpu/optimizer.py:754``): every step adds each gradient into a
+    persistable ``<param>.merged_grad_<n>`` buffer and steps an int64
+    counter; a ``Switch`` on ``counter % k_steps == 0`` applies the inner
+    optimizer to the merged gradients (divided by ``k_steps`` under
+    ``avg``) and zeroes the buffers, so k micro-batches update as one
+    k-times-larger batch.  The inner optimizer's accumulators and learning
+    rate land in the global block; its update ops, and any clip or
+    regularization ops it appends, in the branch, whose ``Out`` slot
+    lists every persistable they write.  ``k_steps == 1`` is the inner
+    optimizer.  The update ops stay unfused, as the reference fuses only
+    the global block's."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        if k_steps < 1:
+            raise ValueError("k_steps must be >= 1")
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, grad_clip=None):
+        """``grad_clip`` is taken and unused, as in the reference."""
+        from . import layers
+
+        if self.k_steps == 1:
+            return self.inner_optimizer.minimize(
+                loss, startup_program, parameter_list, no_grad_set)
+        params_grads = self.inner_optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set)
+        block = loss.block.program.global_block()
+        counter = layers.create_global_var(
+            shape=[1], value=0, dtype="int64", persistable=True,
+            name=unique_name.generate("gradient_merge_step"))
+        layers.increment(counter, value=1, in_place=True)
+        merged = []
+        for p, g in params_grads:
+            if g is None:
+                continue
+            # no "@GRAD" in the name: a buffer that lives across steps,
+            # never the implicit zero of a missing gradient
+            m = block.create_var(
+                name=unique_name.generate(p.name + ".merged_grad"),
+                shape=p.shape, dtype=p.dtype, persistable=True)
+            m.stop_gradient = True
+            Constant(0.0)(m)
+            block.append_op(type="elementwise_add",
+                            inputs={"X": [m.name], "Y": [g.name]},
+                            outputs={"Out": [m.name]}, attrs={})
+            merged.append((p, m))
+        k_var = layers.fill_constant(shape=[1], dtype="int64",
+                                     value=self.k_steps)
+        zero = layers.fill_constant(shape=[1], dtype="int64", value=0)
+        is_boundary = layers.equal(layers.elementwise_mod(counter, k_var),
+                                   zero)
+        ops = None
+        sw = layers.Switch()
+        with sw.case(is_boundary):
+            ops = self.inner_optimizer.apply_gradients(
+                [(p, layers.scale(m, scale=1.0 / self.k_steps)
+                  if self.avg else m) for p, m in merged])
+            for _p, m in merged:
+                layers.assign(layers.scale(m, scale=0.0), m)
+        with sw.default():
+            pass
+        return ops, params_grads
+
+
 # -- wrappers that wait for other items -------------------------------------
 
 
@@ -637,10 +710,6 @@ def _waits_for(name, what):
                            "__doc__": "Not ported yet: waits for %s." % what})
 
 
-# the reference's k-step boundary is a Switch (optimizer.py:779, :820)
-GradientMergeOptimizer = _waits_for(
-    "GradientMergeOptimizer",
-    "the port's control flow, conditional_block (ROADMAP A5)")
 RecomputeOptimizer = _waits_for(
     "RecomputeOptimizer", "recompute segments (ROADMAP A7)")
 PipelineOptimizer = _waits_for(

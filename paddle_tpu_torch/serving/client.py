@@ -36,7 +36,11 @@ Session migration (``serving/migrate.py``), as in the reference:
 
 - **follow**: a replica that migrated a session away ends its stream with
   status "migrated" and a reply whose phases name ``migrated_to``; the
-  client moves there and keeps walking the same stream indices;
+  client moves there and keeps walking the same stream indices.  The
+  port's server also names the destination in that last chunk, and the
+  client then follows without reading the reply: a replica retired by a
+  drain exits once its sessions have moved, and a read after the chunk
+  could find it gone;
 - **resume**: on a ConnectionError mid-stream, with tokens in hand and
   ``FLAGS_session_migration`` on, the next attempt sends
   ``__resume__:<req_id>`` (the prompt and the tokens received) under the
@@ -461,12 +465,15 @@ class ServingClient:
                             if cm.get("done"):
                                 if cm.get("status") != "migrated":
                                     break
-                                # follow the session: the reply names the
-                                # replica that goes on at this same index
-                                mm, _ = codec.unpack(reader.get_var(
-                                    codec.REPLY_KEY + req_id))
-                                dest = (mm.get("phases") or {}
-                                        ).get("migrated_to")
+                                # follow the session to the replica that
+                                # goes on at this same index: the chunk
+                                # names it, else the reply does
+                                dest = cm.get("migrated_to")
+                                if not dest:
+                                    mm, _ = codec.unpack(reader.get_var(
+                                        codec.REPLY_KEY + req_id))
+                                    dest = (mm.get("phases") or {}
+                                            ).get("migrated_to")
                                 if not dest:
                                     break
                                 reader = self._connect(dest, get_timeout)

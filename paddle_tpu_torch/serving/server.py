@@ -13,7 +13,12 @@ protocol (keys in ``codec.py``):
   ``__generate__:<id>``     inbound SEND: a prompt for the
                             ``DecodeEngine``; with ``stream`` each token is
                             published as ``__stream__:<id>:<k>``, and the
-                            final reply lands on ``__reply__:<id>``
+                            final reply lands on ``__reply__:<id>``; a
+                            stream that ends "migrated" names the
+                            destination in its last chunk
+                            (``migrated_to``), so the client follows
+                            without another read here: a retiring
+                            replica may be gone by then
   ``__abort__:<id>``        inbound SEND: drop the sequence and free its KV
                             blocks (a client abandoning an attempt)
   ``__alive__``             [rank, epoch, is_coordinator]
@@ -90,6 +95,7 @@ pushes preempted sequences to the least-loaded peer.  Spans
 import logging
 import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 
@@ -134,6 +140,9 @@ class ServingServer:
         self._retire_thread = None
         self._reply_keys = []
         self._reply_lock = threading.Lock()
+        # req_id -> the peer a migrated session went to, from its reply,
+        # for the stream's last chunk (at most _REPLY_RING kept)
+        self._migrated_to = OrderedDict()
         self._thread = None
         self._stopped = threading.Event()
         # disaggregation: the prefill side's sender and pair registry, the
@@ -732,12 +741,17 @@ class ServingServer:
         done."""
 
         def on_token(rid, index, token, done, status):
+            chunk = {"i": int(index), "done": bool(done), "status": status,
+                     "token": None if token is None else int(token)}
+            if done and status == "migrated":
+                # the engine published the reply first (its _finish)
+                with self._reply_lock:
+                    dest = self._migrated_to.pop(rid, None)
+                if dest:
+                    chunk["migrated_to"] = dest
             self._publish_keyed(
                 "%s%s:%d" % (codec.STREAM_KEY, rid, index),
-                codec.pack({"i": int(index), "done": bool(done),
-                            "status": status,
-                            "token": None if token is None
-                            else int(token)}))
+                codec.pack(chunk))
         return on_token
 
     def _publish_pending(self, pending):
@@ -757,6 +771,12 @@ class ServingServer:
                       parent=getattr(pending, "span", None),
                       req_id=req_id, status=reply.status):
             meta = reply.to_meta()
+            if reply.status == "migrated":
+                with self._reply_lock:
+                    self._migrated_to[req_id] = reply.phases.get(
+                        "migrated_to")
+                    while len(self._migrated_to) > _REPLY_RING:
+                        self._migrated_to.popitem(last=False)
             tp = getattr(pending, "traceparent", None)
             if tp:
                 meta[codec.TRACEPARENT] = tp

@@ -42,6 +42,8 @@ SCRIPT = textwrap.dedent("""
                  "paddle_tpu_torch.models.transformer",
                  "paddle_tpu_torch.ops.beam_search",
                  "paddle_tpu_torch.ops.control_flow",
+                 "paddle_tpu_torch.ops.metrics",
+                 "paddle_tpu_torch.layers.control_flow",
                  "paddle_tpu_torch.layers.learning_rate_scheduler",
                  "paddle_tpu_torch.layers.rnn"):
         assert name in sys.modules, name

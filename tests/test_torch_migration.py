@@ -40,6 +40,7 @@ from paddle_tpu_torch.serving import (DecodeEngine, DecoderConfig,
                                       ServingClient, ServingEngine,
                                       ServingServer, init_decoder_params,
                                       truncate_decoder)
+from paddle_tpu_torch.serving import codec
 from paddle_tpu_torch.serving import kv_cache as tkv
 from paddle_tpu_torch.serving.migrate import tail_digest
 
@@ -466,6 +467,64 @@ def test_drain_migrate_empties_without_drops(telemetry_on):
         with ea._cond:
             assert not (ea._active or ea._waiting or ea._migrating)
         assert _in_use(ea) == 0
+    finally:
+        sa.shutdown()
+        sb.shutdown()
+
+
+def test_a_source_shut_down_after_its_drain_is_followed(telemetry_on):
+    """A replica retired with migration exits as soon as its drain ends
+    (``tools/torch_serve.py``: ``on_retire`` stops the server), which
+    may be before its client reads anything more there: the source here
+    withholds the migrated reply and shuts down.  The stream's last chunk
+    names the destination, so the client follows it there without that
+    read, and does not fall back to a crash resume."""
+    ea, eb = _mkeng(), _mkeng()
+    sb = ServingServer(ServingEngine(device="cpu"), port=0,
+                       decode_engine=eb).start()
+    sa = ServingServer(ServingEngine(device="cpu"), port=0,
+                       decode_engine=ea,
+                       decode_peers=["127.0.0.1:%d" % sb.port]).start()
+    chunks = []
+    publish = sa._publish_keyed
+
+    def recording(key, buf):
+        if key.startswith(codec.STREAM_KEY):
+            chunks.append(codec.unpack(buf)[0])
+        elif key.startswith(codec.REPLY_KEY) and \
+                codec.unpack(buf)[0].get("status") == "migrated":
+            return
+        publish(key, buf)
+
+    sa._publish_keyed = recording
+    try:
+        cli = ServingClient(endpoints=["127.0.0.1:%d" % sa.port])
+        want = _unpaged(tuple(PROMPT), 32)
+        got, res = [], {}
+
+        def run():
+            res["r"] = cli.generate(
+                "toy", PROMPT, max_new_tokens=32, deadline_ms=LONG,
+                on_token=lambda j, t: got.append((j, t)))
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        assert _wait_live_decode(ea)
+        assert ea.drain(timeout_s=60.0,
+                        migrate=sa.migrator.drain_push(trigger="drain"))
+        sa.shutdown()
+        th.join(60.0)
+        assert not th.is_alive(), "the client never finished"
+        last = chunks[-1]
+        assert last["done"] and last["status"] == "migrated"
+        assert last["migrated_to"] == "127.0.0.1:%d" % sb.port
+        r = res["r"]
+        assert r.status == "ok", (r.status, r.error)
+        np.testing.assert_array_equal(r.outputs["tokens"], want)
+        assert got == list(enumerate(want.tolist()))
+        assert _ctr("client_migrate_follow_total") == 1
+        assert _ctr("client_resume_total") == 0
+        assert r.phases["resumed_tokens"] >= 1
     finally:
         sa.shutdown()
         sb.shutdown()

@@ -316,12 +316,29 @@ def test_programs_equal_reference(build):
 
 
 def test_unported_loops_raise_by_name():
+    """The loops the beam decoder once had to unroll are ported: ``While``
+    and ``cond`` build the reference's ``while`` and ``conditional_block``
+    programs (``tests/test_torch_control_flow.py`` runs them)."""
     from paddle_tpu_torch import layers
 
-    with pytest.raises(NotImplementedError, match="while"):
-        layers.While()
-    with pytest.raises(NotImplementedError, match="conditional_block"):
-        layers.cond()
+    def build(pkg, L, un):
+        main, startup = pkg.Program(), pkg.Program()
+        with un.guard(), pkg.program_guard(main, startup):
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", 3)
+            c = L.less_than(i, n)
+            with L.While(c).block():
+                L.increment(i, value=1, in_place=True)
+                L.less_than(i, n, cond=c)
+            L.cond(c, lambda: L.scale(i, scale=2.0),
+                   lambda: L.scale(i, scale=3.0))
+        return main.to_dict()
+
+    got = build(tfw, layers, tun)
+    assert got == build(fluid, fluid.layers, jun)
+    assert [op["type"] for op in got["blocks"][0]["ops"]].count(
+        "conditional_block") == 2
+    assert "while" in [op["type"] for op in got["blocks"][0]["ops"]]
 
 
 # -- training ----------------------------------------------------------------
