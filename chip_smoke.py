@@ -263,12 +263,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     IfElse, cond and data-dependent greedy-decode programs and a
     StaticRNN (hidden 512, T 64) trained 5 steps, card against CPU, each
     beside a planted fault;
-16. the script's own wall time, a JSON line of the kernels (rows 9 and
+16. the recurrent networks: (a) the LSTM language model of Zaremba et
+    al. 2014 at its large setting (vocab 10000, 2 layers, hidden 1500,
+    35 steps, batch 20, dropout 0.65, SGD(1.0) under a global-norm clip
+    of 10, seeded Markov tokens) through ``models/ptb_lm.py``, 20 steps
+    of each emission (contrib's ``basic_lstm``, its states carried; and
+    ``layers.lstm``'s StaticRNNs): the dropout kernel 3 times a step,
+    finite losses, step p50, tokens/s, host ms, device
+    busy and idle, ops a step and peak memory printed; (b) 3 steps of
+    each emission at dropout 0 and 0.65 (the same Philox masks) and (c)
+    of the ``basic_gru`` and ``dynamic_gru`` + ``rnn(GRUCell)`` emissions
+    from one state on the card and on the CPU's plain path at batch 2
+    (losses, carried states, parameters); (d) a BeamSearchDecoder under
+    dynamic_decode over an LSTMCell(1500) with a 10000-way output, beam
+    4, batch 8, 20 steps, held up to near-ties, and contrib's decoders;
+    (e) the op-level recurrences and dynamic_lstmp at 2048 cells, card
+    vs CPU; each beside a planted fault (the forget bias, two gates
+    swapped, the GRU's dropout upscaled, the backward direction not
+    reversed); the rnn ops' one mask draw timed and held bitwise;
+17. the script's own wall time, a JSON line of the kernels (rows 9 and
     14 and the dropout kernel counting the NMT path's launches besides
     their earlier paths', row 1 the tiers and role-fleet phases' besides
     the pair's, rows 5-10, 12-14, the fold and the dropout kernel the
-    update-rule phases' besides, and rows 2-8, 14 and the dropout kernel
-    the gradient-merge phase's), then the result line.
+    update-rule phases' besides, rows 2-8, 14 and the dropout kernel
+    the gradient-merge phase's, and the dropout kernel the recurrent
+    phase's), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
 the repository.
@@ -6724,7 +6743,7 @@ def beam_agreement(card, cpu, k):
     """Walk the card's beam run beside the CPU's (each [seq_ids,
     seq_scores] + the ``beam_probe`` fetches) row by row, as NMT_TIE's
     comment says -> (rows held whole, row-steps held, rows parted at a
-    near-tie)."""
+    near-tie, what broke the walk: one line a row)."""
     from paddle_tpu_torch.models.transformer import EOS
 
     steps = (len(cpu) - 2) // 6
@@ -6732,31 +6751,37 @@ def beam_agreement(card, cpu, k):
     margins = [beam_margins(at(cpu, t, 0), at(cpu, t, 1), at(cpu, t, 2), k,
                             EOS) for t in range(steps)]
     whole = held = parted = 0
+    problems = []
     for b in range(cpu[0].shape[0]):
         for t in range(steps):
             if not all(np.array_equal(at(card, t, i)[b], at(cpu, t, i)[b])
                        for i in (3, 5)):
                 if margins[t][b] > NMT_TIE:
-                    fail("beam decode row %d step %d: card ids %s parents "
-                         "%s, CPU %s %s, %.3g apart" % (
-                             b, t, at(card, t, 3)[b], at(card, t, 5)[b],
-                             at(cpu, t, 3)[b], at(cpu, t, 5)[b],
-                             margins[t][b]))
-                parted += 1
+                    problems.append(
+                        "beam decode row %d step %d: card ids %s parents %s, "
+                        "CPU %s %s, %.3g apart" % (
+                            b, t, at(card, t, 3)[b], at(card, t, 5)[b],
+                            at(cpu, t, 3)[b], at(cpu, t, 5)[b],
+                            margins[t][b]))
+                else:
+                    parted += 1
                 break
             gap = float(np.abs(at(card, t, 4)[b] - at(cpu, t, 4)[b]).max())
             if not gap <= NMT_SCORE_ATOL:
-                fail("beam decode row %d step %d: scores %s, CPU %s"
-                     % (b, t, at(card, t, 4)[b], at(cpu, t, 4)[b]))
+                problems.append("beam decode row %d step %d: scores %s, CPU "
+                                "%s" % (b, t, at(card, t, 4)[b],
+                                        at(cpu, t, 4)[b]))
+                break
             held += 1
         else:
             if not np.array_equal(card[0][b], cpu[0][b]) or not float(
                     np.abs(card[1][b] - cpu[1][b]).max()) <= NMT_SCORE_ATOL:
-                fail("beam decode row %d: card sequences %s scores %s, CPU "
-                     "%s %s" % (b, card[0][b], card[1][b], cpu[0][b],
-                                cpu[1][b]))
-            whole += 1
-    return whole, held, parted
+                problems.append(
+                    "beam decode row %d: card sequences %s scores %s, CPU %s "
+                    "%s" % (b, card[0][b], card[1][b], cpu[0][b], cpu[1][b]))
+            else:
+                whole += 1
+    return whole, held, parted, problems
 
 
 def nmt_adam_hold(fad, dev, shapes, hyper, lr):
@@ -7056,7 +7081,10 @@ def nmt_phase(ln, dev):
             or not (scores[:, :-1] >= scores[:, 1:]).all():
         fail("beam decode gave ids %s (want %s), scores %s: not finite or "
              "not sorted" % (ids.shape, want_shape, scores))
-    whole, held, parted = beam_agreement(on_card, on_cpu, NMT_BEAM)
+    whole, held, parted, problems = beam_agreement(on_card, on_cpu,
+                                                   NMT_BEAM)
+    if problems:
+        fail(problems[0])
     print("nmt: beam decode, batch %d, beam %d, %d steps: batch_ms %s, p50 "
           "%.3f over batches 2-%d; row 14 %d launches a batch; card vs CPU: "
           "%d of %d rows equal to the end, %d row-steps equal, %d rows "
@@ -8415,6 +8443,669 @@ def merge_phase(cfg):
     return {k: launches[k] + launches_d[k] for k in launches}
 
 
+# -- phase 16: the recurrent networks -----------------------------------------
+
+# PTB-LM large (Zaremba et al. 2014; PaddleNLP language_model's ``large``):
+# RNN_LM_STEPS steps of each emission at full width and batch 20, the
+# dropout kernel 3 times a step (the embedding's dropout, basic_lstm_rnn's
+# one draw and its grad op's draw of the same masks; or the embedding's,
+# the one between the layers and the output's).  Card vs the
+# CPU's plain path: RNN_CHECK_STEPS steps at full width from one state,
+# the batch cut to RNN_CHECK_BATCH for the CPU's time (3 steps at batch 4
+# took 3.7-14.1 s an emission on an H100 machine's host), at dropout 0 and
+# 0.65 with the same Philox masks on both: losses relative LM_LOSS_RTOL
+# (~322, sums over 35 steps of 10000-way cross entropies), the carried
+# states to LM_STATE_ATOL of their largest value (at least 1), the
+# parameters to LM_PARAM_RTOL of their mean step (``param_gap``); both
+# f32 with TF32 off, so they differ by summation order only.  The op-level
+# recurrences (hidden 512, T 32, batch 16; lstmp at 2048 cells and a
+# 512-wide projection): each output and input gradient to RNN_OP_RTOL of
+# its largest value.  The LSTMCell beam decode: ids held up to near-ties
+# (``beam_agreement``, NMT_TIE), scores to NMT_SCORE_ATOL; contrib's
+# decoders to KERNEL_ATOL.  A planted fault on the card must miss each.
+RNN_LM_STEPS = 20
+RNN_CHECK_STEPS = 3
+RNN_CHECK_BATCH = 2
+LM_LOSS_RTOL = 1e-5
+LM_STATE_ATOL = 1e-4
+LM_PARAM_RTOL = 1e-3
+RNN_OP_RTOL = 1e-4
+RNN_OP_D, RNN_OP_T, RNN_OP_B = 512, 32, 16
+RNN_LSTMP_CELLS, RNN_LSTMP_PROJ = 2048, 512
+RNN_DECODE = dict(hidden=1500, vocab=10000, beam=4, batch=8, steps=20)
+# the dropout kernel's launches a training step, in either emission
+LM_DROPOUT_LAUNCHES = 3
+# (a) holds finite losses, the first (at the initial weights) within
+# LM_FIRST_RTOL of T ln V: SGD(1.0) under the clip swings over its first
+# steps on the seeded stream, and the reference swings the same way from
+# the same weights and feeds (``tests/torch_ptb_lm_reference.py``: each
+# clipped step of norm 10 can raise the loss of its own batch).
+LM_FIRST_RTOL = 1e-3
+# (b) at dropout 0 also holds the card's losses to LM_LOSS_RTOL of the
+# reference's: the JAX package on the CPU from the same initial weights
+# (their float64 sum ``init_sum``) and feeds, ``python
+# tests/torch_ptb_lm_reference.py --rnn-model M --batch 2 --steps 3
+# --feed-seed 5``.
+LM_REFERENCE = {
+    "basic_lstm": {"init_sum": 34.17151133436219,
+                   "losses": [322.37738037109375, 272.3048400878906,
+                              572.1105346679688]},
+    "cudnn": {"init_sum": 75.87375662511752,
+              "losses": [322.37823486328125, 273.0965576171875,
+                         497.52044677734375]},
+}
+
+
+def lm_program(cfg, rnn_model, seed=21):
+    """(main, startup, [loss, last_hidden, (last_cell)]) of
+    ``ptb_lm.build_train``."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ptb_lm
+    from paddle_tpu_torch.utils import unique_name
+
+    main_p, startup = framework.Program(), framework.Program()
+    main_p.random_seed = startup.random_seed = seed
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        fetch = [v for v in ptb_lm.build_train(cfg, rnn_model)
+                 if v is not None]
+    return main_p, startup, fetch
+
+
+def lm_init(startup, main_p):
+    """The persistables of ``startup`` run on the CPU: the same draws on
+    any machine, the reference run of LM_REFERENCE's too."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_to_numpy
+
+    exe, sc = Executor(framework.CPUPlace()), Scope()
+    exe.run(startup, scope=sc)
+    init = scope_to_numpy(sc, main_p)
+    del sc
+    return init
+
+
+def lm_steps(main_p, fetch, init, feeds, place, carry, cfg):
+    """The steps of ``feeds`` on ``place`` (None: the card) from ``init``,
+    the final states carried into the next init where ``carry`` -> (losses,
+    last states, step ms, scope, executor)."""
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    exe = Executor(place)
+    sc = scope_from_numpy(Scope(), init, exe.device, program=main_p)
+    z = np.zeros((cfg.num_layers, cfg.batch_size, cfg.hidden_size),
+                 np.float32)
+    h = c = z
+    losses, states, ms = [], [], []
+    for f in feeds:
+        t0 = time.perf_counter()
+        out = exe.run(main_p, feed=dict(f, init_hidden=h, init_cell=c),
+                      fetch_list=fetch, scope=sc)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        states = [np.asarray(o) for o in out[1:]]
+        if carry:
+            h = states[0]
+            c = states[1] if len(states) > 1 else z
+    return losses, states, ms, sc, exe
+
+
+def ops_a_step(main_p, n_steps):
+    """(ops of the global block, ops run a step: each recurrent op's and
+    its grad's sub-block once a time step)."""
+    g = main_p.global_block()
+    run = 0
+    for op in g.ops:
+        if op.type in ("recurrent", "recurrent_grad"):
+            run += n_steps * len(main_p.block(op.attr("sub_block")).ops)
+        else:
+            run += 1
+    return len(g.ops), run
+
+
+def lm_gaps(got, want, params, init):
+    """Card run vs CPU run (each ``lm_steps``'s) -> gaps."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got[0], want[0]))
+    state = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                for a, b in zip(got[1], want[1]))
+    gp = {n: scope_values(got[3], [n])[n].cpu().numpy() for n in params}
+    wp = {n: scope_values(want[3], [n])[n].numpy() for n in params}
+    pgap, where = param_gap(gp, wp, init)
+    return {"losses": (loss, None, LM_LOSS_RTOL),
+            "states": (state, None, LM_STATE_ATOL),
+            "parameters": (pgap, where, LM_PARAM_RTOL)}
+
+
+def with_split_swapped(main_p, n_out, i, j):
+    """A clone of ``main_p`` with outputs ``i`` and ``j`` of every
+    ``n_out``-way split (in any block) swapped: two gates swapped, a fault
+    planted on the card."""
+    bad = main_p.clone()
+    n = 0
+    for op in (op for blk in bad.blocks for op in blk.ops):
+        outs = op.outputs.get("Out", []) if op.type == "split" else []
+        if len(outs) == n_out:
+            outs[i], outs[j] = outs[j], outs[i]
+            n += 1
+    if not n:
+        fail("no %d-way split to plant a fault in" % n_out)
+    bad._bump_version()
+    return bad
+
+
+@contextlib.contextmanager
+def gru_dropout_upscaled(main_p):
+    """``main_p`` with basic_gru_rnn dividing its kept values by 1 - p
+    (the LSTM's rule, at the phase's p = 0.65): a fault planted on the
+    card."""
+    from paddle_tpu_torch.ops import rnn as trnn
+
+    saved = trnn.dropped
+    trnn.dropped = lambda v, keep, q: saved(
+        v, keep, q if q is not None else 1.0 - 0.65)
+    try:
+        yield main_p
+    finally:
+        trnn.dropped = saved
+
+
+def lm_check(rnn_model, dropout, faults, card):
+    """(b), (c): RNN_CHECK_STEPS steps of the emission at batch
+    RNN_CHECK_BATCH from one state on the card and on the CPU, and each
+    fault planted on the card against the same CPU run."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ptb_lm
+
+    cfg = ptb_lm.PTB_LARGE.replace(batch_size=RNN_CHECK_BATCH,
+                                   dropout=dropout)
+    main_p, startup, fetch = lm_program(cfg, rnn_model)
+    init = lm_init(startup, main_p)
+    feeds = list(ptb_lm.batches(cfg, RNN_CHECK_STEPS, seed=5))
+    carry = rnn_model != "cudnn"
+    params = [p.name for p in main_p.global_block().all_parameters()]
+    t0 = time.perf_counter()
+    want = lm_steps(main_p, fetch, init, feeds, framework.CPUPlace(), carry,
+                    cfg)
+    cpu_s = time.perf_counter() - t0
+    got = lm_steps(main_p, fetch, init, feeds, None, carry, cfg)
+    gaps = lm_gaps(got, want, params, init)
+    print("rnn (%s): %s, dropout %g, %d steps at batch %d from one state, "
+          "card vs the CPU's plain path (%.1f s): %s; card losses %s; %s" % (
+              "c" if "gru" in rnn_model else "b",
+              rnn_model, dropout, RNN_CHECK_STEPS, RNN_CHECK_BATCH, cpu_s,
+              gaps_line(gaps), json.dumps(got[0]), card), flush=True)
+    if missed(gaps):
+        fail("rnn: %s at dropout %g on the card disagrees with the CPU: %s"
+             % (rnn_model, dropout, missed(gaps)))
+    ref = LM_REFERENCE.get(rnn_model) if not dropout else None
+
+    def ref_gap(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       ref["losses"]))
+
+    if ref is not None:
+        isum = float(sum(init[n].astype(np.float64).sum() for n in params))
+        if abs(isum - ref["init_sum"]) > 1e-9 * abs(ref["init_sum"]):
+            fail("rnn (b): %s's initial weights sum to %r, the reference "
+                 "run's to %r" % (rnn_model, isum, ref["init_sum"]))
+        rgap = ref_gap(got[0])
+        print("rnn (b): %s, dropout 0, card vs the reference (the JAX "
+              "package on the CPU, the same weights and feeds): losses %.3g "
+              "(limit %g); reference %s; %s" % (
+                  rnn_model, rgap, LM_LOSS_RTOL, json.dumps(ref["losses"]),
+                  card), flush=True)
+        if rgap > LM_LOSS_RTOL:
+            fail("rnn (b): %s's card losses %s, the reference's %s"
+                 % (rnn_model, got[0], ref["losses"]))
+    del got
+    for what, make in faults.items():
+        bad = make(main_p)    # a planted program, or a context giving one
+        if not hasattr(bad, "__enter__"):
+            bad = contextlib.nullcontext(bad)
+        with bad as bad:
+            res = lm_steps(bad, fetch, init, feeds, None, carry, cfg)
+        bad_gaps = lm_gaps(res, want, params, init)
+        if ref is not None:
+            bad_gaps["reference"] = (ref_gap(res[0]), None, LM_LOSS_RTOL)
+        print("rnn: planted fault in %s, %s: %s; misses %s; %s" % (
+            rnn_model, what, gaps_line(bad_gaps), missed(bad_gaps), card),
+            flush=True)
+        if not missed(bad_gaps) or (ref is not None
+                                    and "reference" not in missed(bad_gaps)):
+            fail("rnn: the planted fault (%s) passed the limits" % what)
+
+
+def lm_phase(card):
+    """(a): PTB-LM large, both emissions, RNN_LM_STEPS steps each ->
+    their launch counts."""
+    from paddle_tpu_torch.models import ptb_lm
+
+    cfg = ptb_lm.PTB_LARGE
+    total = {}
+    for rnn_model in ("basic_lstm", "cudnn"):
+        main_p, startup, fetch = lm_program(cfg, rnn_model)
+        init = lm_init(startup, main_p)
+        feeds = list(ptb_lm.batches(cfg, RNN_LM_STEPS + 3, seed=7))
+        carry = rnn_model != "cudnn"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()   # just before the main path runs
+        losses, states, ms, sc, exe = lm_steps(
+            main_p, fetch, init, feeds[:RNN_LM_STEPS], None, carry, cfg)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.synchronize()
+        feed = dict(feeds[RNN_LM_STEPS], init_hidden=np.zeros(
+            (cfg.num_layers, cfg.batch_size, cfg.hidden_size), np.float32))
+        feed["init_cell"] = feed["init_hidden"]
+        t0 = time.perf_counter()
+        exe.run(main_p, feed=feed, fetch_list=[], scope=sc)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        busy, idle = busy_ms(lambda: exe.run(main_p, feed=feed,
+                                             fetch_list=[fetch[0]],
+                                             scope=sc))
+        del sc, exe
+        p50 = float(np.percentile(ms[1:], 50))
+        tokens = cfg.batch_size * cfg.num_steps
+        n_ops, n_run = ops_a_step(main_p, cfg.num_steps)
+        print("rnn (a): PTB-LM large (vocab %d, %d layers, hidden %d, %d "
+              "steps, batch %d, dropout %g), %s emission, SGD(%g) under "
+              "GradientClipByGlobalNorm(%g), %d steps%s: losses first %.4f "
+              "last %.4f (%s); step_ms %s; p50 %.3f ms, %.1f tokens/s; host "
+              "%.3f ms a step (a run's issue, no fetch); busy %.3f ms a "
+              "step, idle %.3f; ops a step %d (%d run, each sub-block once "
+              "a time step); peak memory %.2f GB; launches %s; %s" % (
+                  cfg.vocab_size, cfg.num_layers, cfg.hidden_size,
+                  cfg.num_steps, cfg.batch_size, cfg.dropout, rnn_model,
+                  cfg.lr, cfg.max_grad_norm, RNN_LM_STEPS,
+                  ", states carried" if carry else "", losses[0],
+                  losses[-1], json.dumps([round(x, 4) for x in losses]),
+                  json.dumps([round(x, 3) for x in ms]), p50,
+                  tokens / p50 * 1e3, host, busy, idle, n_ops, n_run, peak,
+                  json.dumps({k: v for k, v in launches.items() if v}),
+                  card), flush=True)
+        want = {k: 0 for k in launches}
+        want["dropout"] = LM_DROPOUT_LAUNCHES * RNN_LM_STEPS
+        if launches != want:
+            fail("rnn (a): %s launches %s over %d steps, want %s"
+                 % (rnn_model, launches, RNN_LM_STEPS, want))
+        at_init = cfg.num_steps * np.log(cfg.vocab_size)
+        if not all(np.isfinite(losses)) \
+                or abs(losses[0] - at_init) > LM_FIRST_RTOL * at_init:
+            fail("rnn (a): %s losses %s (the first within %g of %.4f)"
+                 % (rnn_model, losses, LM_FIRST_RTOL, at_init))
+        if rnn_model == "basic_lstm":
+            bad = with_attr(with_attr(main_p, "reduce_mean", "dim", [1]),
+                            "reduce_mean_grad", "dim", [1])
+            first = lm_steps(bad, fetch, init, feeds[:1], None, carry,
+                             cfg)[0][0]
+            gap = abs(first - at_init) / at_init
+            print("rnn (a): planted fault, the loss's mean over the steps "
+                  "where the batch's: the first loss %.4f, %.3g from %.4f "
+                  "(limit %g); %s" % (first, gap, at_init, LM_FIRST_RTOL,
+                                      card), flush=True)
+            if gap <= LM_FIRST_RTOL:
+                fail("rnn (a): the planted fault (the loss's mean over the "
+                     "steps) passed the first-loss limit")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def decode_program():
+    """(main, startup, [sequences [T, B, K], final log-probs [B K, 1]])
+    of a BeamSearchDecoder under dynamic_decode over an LSTMCell with an
+    embedding and an output fc, RNN_DECODE's widths."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.param_attr import ParamAttr
+    from paddle_tpu_torch.utils import unique_name
+
+    d = RNN_DECODE
+    main_p, startup = framework.Program(), framework.Program()
+    main_p.random_seed = startup.random_seed = 31
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        h0 = L.data("h0", shape=[d["hidden"]])
+        c0 = L.data("c0", shape=[d["hidden"]])
+        bsd = L.BeamSearchDecoder(
+            L.LSTMCell(d["hidden"]), start_token=0, end_token=1,
+            beam_size=d["beam"],
+            embedding_fn=lambda ids: L.embedding(
+                ids, (d["vocab"], d["hidden"]),
+                param_attr=ParamAttr(name="dec_emb")),
+            output_fn=lambda o: L.fc(o, d["vocab"],
+                                     param_attr=ParamAttr(name="dec_out_w")))
+        outs, st = L.dynamic_decode(bsd, inits=[h0, c0],
+                                    max_step_num=d["steps"])
+        fetch = [bsd.finalize(outs), st[-2]]
+    return main_p, startup, fetch
+
+
+def contrib_decoder_programs():
+    """{name: (main, startup, feed, fetch)}: contrib's TrainingDecoder and
+    BeamSearchDecoder over a StateCell h' = tanh(fc([h, x]))."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.contrib import decoder as D
+    from paddle_tpu_torch.param_attr import ParamAttr
+    from paddle_tpu_torch.utils import unique_name
+
+    b, t, d, v, k = 4, 6, 32, 50, 3
+    rng = np.random.RandomState(17)
+
+    def cell():
+        ctx = L.data("ctx0", shape=[b, d], append_batch_size=False)
+        sc = D.StateCell(inputs={"x": None},
+                         states={"h": D.InitState(init=ctx)}, out_state="h")
+
+        @sc.state_updater
+        def updater(sc):
+            sc.set_state("h", L.fc(
+                [sc.get_state("h"), sc.get_input("x")], d, act="tanh",
+                param_attr=[ParamAttr(name="dec_wh"),
+                            ParamAttr(name="dec_wx")],
+                bias_attr=ParamAttr(name="dec_b")))
+
+        return sc
+
+    out = {}
+    for name in ("training", "beam"):
+        main_p, startup = framework.Program(), framework.Program()
+        main_p.random_seed = startup.random_seed = 23
+        feed = {"ctx0": rng.randn(b, d).astype("float32")}
+        with unique_name.guard(), framework.program_guard(main_p, startup):
+            if name == "training":
+                trg = L.data("trg", shape=[t, b, d], append_batch_size=False)
+                dec = D.TrainingDecoder(cell())
+                with dec.block():
+                    dec.state_cell.compute_state(
+                        inputs={"x": dec.step_input(trg)})
+                    h = dec.state_cell.get_state("h")
+                    dec.state_cell.update_states()
+                    dec.output(h)
+                fetch = [dec()]
+                feed["trg"] = rng.randn(t, b, d).astype("float32")
+            else:
+                ids = L.data("init_ids", shape=[b, k], dtype="int64",
+                             append_batch_size=False)
+                scores = L.data("init_scores", shape=[b, k],
+                                append_batch_size=False)
+                dec = D.BeamSearchDecoder(
+                    state_cell=cell(), init_ids=ids, init_scores=scores,
+                    target_dict_dim=v, word_dim=d, topk_size=10, max_len=t,
+                    beam_size=k, end_id=1)
+                dec.decode()
+                fetch = list(dec())
+                feed["init_ids"] = np.zeros((b, k), np.int64)
+                feed["init_scores"] = np.zeros((b, k), np.float32)
+        out[name] = (main_p, startup, feed, fetch)
+    return out
+
+
+def decode_check(card):
+    """(d): the LSTMCell beam decode and contrib's decoders, card vs
+    CPU."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+
+    d = RNN_DECODE
+    main_p, startup, fetch = decode_program()
+    init = lm_init(startup, main_p)
+    rng = np.random.RandomState(41)
+    feed = {"h0": rng.randn(d["batch"], d["hidden"]).astype("float32"),
+            "c0": rng.randn(d["batch"], d["hidden"]).astype("float32")}
+    probe = beam_probe(main_p)
+
+    def run(prog, place, times=1):
+        exe = Executor(place)
+        sc = scope_from_numpy(Scope(), init, exe.device, program=prog)
+        ms = []
+        for _ in range(times):
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, fetch_list=fetch + probe,
+                          scope=sc)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        seqs, logp = out[:2]
+        # beam_agreement's layout: sequences [B, K, T], scores [B, K]
+        return [np.transpose(seqs, (1, 2, 0)),
+                logp.reshape(d["batch"], d["beam"])] + list(out[2:]), ms
+
+    on_card, ms = run(main_p, None, times=4)
+    on_cpu, _ = run(main_p, framework.CPUPlace())
+    whole, held, parted, problems = beam_agreement(on_card, on_cpu,
+                                                   d["beam"])
+    print("rnn (d): BeamSearchDecoder under dynamic_decode over an "
+          "LSTMCell(%d), vocab %d, beam %d, batch %d, %d steps: batch_ms "
+          "%s, p50 %.3f over batches 2-4; card vs CPU: %d of %d rows equal "
+          "to the end, %d row-steps equal, %d rows parted at a near-tie "
+          "(gap <= %g), scores to %g; %s" % (
+              d["hidden"], d["vocab"], d["beam"], d["batch"], d["steps"],
+              json.dumps([round(x, 3) for x in ms]),
+              float(np.percentile(ms[1:], 50)), whole, d["batch"], held,
+              parted, NMT_TIE, NMT_SCORE_ATOL, card), flush=True)
+    if problems:
+        fail("rnn (d): " + problems[0])
+    if parted > d["batch"] // 2:
+        fail("rnn (d): %d of %d rows parted at near-ties" % (parted,
+                                                             d["batch"]))
+    # the LSTMCell's forget bias (f + 1.0, a scale op) dropped on the card
+    bad = with_attr(main_p, "scale", "bias", 0.0,
+                    where=lambda op: op.attr("bias") == 1.0
+                    and op.attr("scale") == 1.0)
+    bad_card, _ = run(bad, None)
+    _w, _h, _p, bad_problems = beam_agreement(bad_card, on_cpu, d["beam"])
+    print("rnn (d): planted fault, the LSTMCell's forget bias dropped: %d "
+          "violations (%s); %s" % (len(bad_problems), bad_problems[:1], card),
+          flush=True)
+    if not bad_problems:
+        fail("rnn (d): the planted fault passed the beam checks")
+
+    for name, (prog, start, f, fe) in contrib_decoder_programs().items():
+        w = lm_init(start, prog)
+        outs = []
+        for place in (None, framework.CPUPlace()):
+            exe = Executor(place)
+            sc = scope_from_numpy(Scope(), w, exe.device, program=prog)
+            outs.append([np.asarray(o) for o in exe.run(
+                prog, feed=f, fetch_list=fe, scope=sc)])
+        gap = max(float(np.abs(a.astype(np.float64) - b).max())
+                  for a, b in zip(*outs))
+        print("rnn (d): contrib %s decoder, card vs CPU: gap %.3g (limit "
+              "%g); shapes %s; %s" % (name, gap, KERNEL_ATOL,
+                                      [o.shape for o in outs[0]], card),
+              flush=True)
+        if not gap <= KERNEL_ATOL:
+            fail("rnn (d): contrib's %s decoder on the card disagrees"
+                 % name)
+
+
+def rnn_op_cases():
+    """(op type, inputs as numpy, attrs) of the op-level recurrences at
+    hidden RNN_OP_D, T RNN_OP_T, batch RNN_OP_B; lstmp at RNN_LSTMP_CELLS
+    cells and a RNN_LSTMP_PROJ projection."""
+    rng = np.random.RandomState(51)
+    d, t, b = RNN_OP_D, RNN_OP_T, RNN_OP_B
+    c, p = RNN_LSTMP_CELLS, RNN_LSTMP_PROJ
+
+    def r(*shape, s=None):
+        s = s if s is not None else 1.0 / np.sqrt(shape[0])
+        return (rng.randn(*shape) * s).astype(np.float32)
+
+    blob = (d * 4 * d + d * 4 * d + 8 * d) * 2 \
+        + (2 * d * 4 * d + d * 4 * d + 8 * d) * 2
+    return [
+        ("gru", [r(b, t, 3 * d, s=1.0), r(b, d, s=0.5), r(d, 3 * d),
+                 r(1, 3 * d, s=0.1)], {"origin_mode": True}),
+        ("gru_unit", [r(b, 3 * d, s=1.0), r(b, d, s=0.5), r(d, 3 * d),
+                      r(1, 3 * d, s=0.1)], {}),
+        ("lstm", [r(b, t, 4 * d, s=1.0), r(b, d, s=0.5), r(b, d, s=0.5),
+                  r(d, 4 * d), r(1, 7 * d, s=0.1)], {"is_reverse": True}),
+        ("lstmp", [r(b, t, 4 * c, s=1.0), r(b, p, s=0.5), r(b, c, s=0.5),
+                   r(p, 4 * c), r(c, p), r(1, 7 * c, s=0.1)],
+         {"cell_clip": 3.0, "proj_clip": 2.0}),
+        ("lstm_unit", [r(b, 4 * d, s=1.0), r(b, d, s=0.5)],
+         {"forget_bias": 1.0}),
+        ("cudnn_lstm", [r(b, t, d, s=1.0), r(4, b, d, s=0.5),
+                        r(4, b, d, s=0.5),
+                        (rng.randn(blob) * 0.04).astype(np.float32)],
+         {"hidden_size": d, "num_layers": 2, "is_bidirec": True,
+          "max_len": t}),
+        ("fusion_gru", [r(b, t, d, s=1.0), None, r(d, 3 * d), r(d, 3 * d),
+                        r(1, 3 * d, s=0.1)], {"is_reverse": True}),
+        ("fusion_lstm", [r(b, t, d, s=1.0), r(b, d, s=0.5), r(b, d, s=0.5),
+                         r(d, 4 * d), r(d, 4 * d), r(1, 4 * d, s=0.1)], {}),
+    ]
+
+
+def rnn_op_run(op_type, args, attrs, device, cots=None):
+    """Outputs and, under the cotangents ``cots``, input gradients (the
+    grad op's lowering) of one op on ``device``, as numpy."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lowering import LowerCtx
+
+    dev = torch.device(device)
+    t = [None if a is None else torch.from_numpy(a).to(dev) for a in args]
+    opdef = registry.get_op_def(op_type)
+    attrs = dict(opdef.default_attrs, **attrs)
+    outs = opdef.lower(LowerCtx(dev), *t, **attrs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if cots is None:
+        return [o.cpu().numpy() for o in outs]
+    gargs = list(t)
+    for o, c in zip(outs, cots):
+        gargs += [o, None if c is None else torch.from_numpy(c).to(dev)]
+    grads = registry.get_op_def(op_type + "_grad").lower(
+        LowerCtx(dev), *gargs, **attrs)
+    return [o.cpu().numpy() for o in outs] + [
+        g.cpu().numpy() for g in grads if g is not None]
+
+
+def rnn_ops_check(card):
+    """(e): each op-level recurrence card vs CPU, dynamic_lstmp at 2048
+    cells, and the backward direction not reversed on the card."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.core import Executor, Scope, scope_from_numpy
+    from paddle_tpu_torch.utils import unique_name
+
+    def gap(got, want):
+        return max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                    1e-30)
+                   for a, b in zip(got, want))
+
+    rng = np.random.RandomState(61)
+    rows = []
+    for op_type, args, attrs in rnn_op_cases():
+        cpu = rnn_op_run(op_type, args, attrs, "cpu")
+        cots = [rng.randn(*o.shape).astype(np.float32)
+                if o.shape != (1,) else None for o in cpu]
+        cpu = rnn_op_run(op_type, args, attrs, "cpu", cots)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rnn_op_run(op_type, args, attrs, "cuda", cots)
+        ms = (time.perf_counter() - t0) * 1e3
+        g = gap(got, cpu)
+        rows.append("%s %.3g (%.1f ms)" % (op_type, g, ms))
+        if not g <= RNN_OP_RTOL:
+            fail("rnn (e): %s on the card disagrees with the CPU: %.3g"
+                 % (op_type, g))
+        if op_type == "lstm":
+            bad = rnn_op_run(op_type, args, dict(attrs, is_reverse=False),
+                             "cuda", cots)
+            bad_gap = gap(bad, cpu)
+    print("rnn (e): the op-level recurrences (hidden %d, T %d, batch %d; "
+          "lstmp %d cells, a %d projection), outputs and input gradients "
+          "card vs CPU (limit %g of each one's largest): %s; planted fault, "
+          "lstm's backward direction not reversed: %.3g; %s" % (
+              RNN_OP_D, RNN_OP_T, RNN_OP_B, RNN_LSTMP_CELLS, RNN_LSTMP_PROJ,
+              RNN_OP_RTOL, "; ".join(rows), bad_gap, card), flush=True)
+    if bad_gap <= RNN_OP_RTOL:
+        fail("rnn (e): the planted fault passed the limit")
+
+    main_p, startup = framework.Program(), framework.Program()
+    main_p.random_seed = startup.random_seed = 71
+    with unique_name.guard(), framework.program_guard(main_p, startup):
+        x = L.data("x", shape=[RNN_OP_T, RNN_OP_D])
+        proj, cells = L.dynamic_lstmp(
+            L.fc(x, 4 * RNN_LSTMP_CELLS, num_flatten_dims=2),
+            4 * RNN_LSTMP_CELLS, proj_size=RNN_LSTMP_PROJ)
+    init = lm_init(startup, main_p)
+    feed = {"x": rng.randn(RNN_OP_B, RNN_OP_T, RNN_OP_D).astype("float32")}
+    outs = []
+    for place in (None, framework.CPUPlace()):
+        exe = Executor(place)
+        sc = scope_from_numpy(Scope(), init, exe.device, program=main_p)
+        outs.append([np.asarray(o) for o in exe.run(
+            main_p, feed=feed, fetch_list=[proj, cells], scope=sc)])
+    g = gap(*outs)
+    print("rnn (e): dynamic_lstmp, %d cells, a %d projection, T %d, batch "
+          "%d, card vs CPU: %.3g (limit %g); %s" % (
+              RNN_LSTMP_CELLS, RNN_LSTMP_PROJ, RNN_OP_T, RNN_OP_B, g,
+              RNN_OP_RTOL, card), flush=True)
+    if not g <= RNN_OP_RTOL:
+        fail("rnn (e): dynamic_lstmp on the card disagrees with the CPU")
+
+
+def rnn_mask_timing(dk, card):
+    """The dropout kernel over one basic_lstm_rnn call's [T, L, B, H]
+    block at PTB-LM large's widths, beside its plain version and
+    F.dropout."""
+    from paddle_tpu_torch.ops import rnn as trnn
+    from paddle_tpu_torch.ops.common import byte_threshold
+
+    shape = (35, 2, 20, 1500)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    ones = torch.ones(shape, device="cuda")
+    thr = byte_threshold(1 - 0.65)
+    got = trnn.rnn_keep_masks(WORDS, shape, 0.65, torch.device("cuda"))
+    want = dk.dropout_reference(ones, WORDS, thr, 1.0, False)[1].bool()
+    if not torch.equal(got, want):
+        fail("rnn: the kernel's masks over the rnn block are not its plain "
+             "version's")
+    n = ones.numel()
+    row = timed_row(
+        "dropout", lambda: dk.dropout(ones, WORDS, thr, 1.0, False),
+        lambda: dk.dropout_reference(ones, WORDS, thr, 1.0, False),
+        lambda: torch.nn.functional.dropout(ones, 0.65), n * 4 + n * 5, 0,
+        flush, 0.0, "over basic_lstm_rnn's [35, 2, 20, 1500] mask block "
+        "(%s)" % card)
+    del flush, ones
+    print("rnn: the masks of one basic_lstm_rnn call, %d keep flags, "
+          "bitwise the plain version's; kernel %.6f ms; %s"
+          % (n, row["ms"], card), flush=True)
+
+
+def rnn_phase(dk):
+    """Phase 16 -> the launch counts of its PTB-LM training steps."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    launches = lm_phase(card)
+    torch.cuda.empty_cache()
+    # (b) the LSTM emissions, (c) the GRU ones, card vs CPU
+    forget_bias = {"the forget bias 1 where the program has 0":
+                   lambda p: with_attr(p, "basic_lstm_rnn", "forget_bias",
+                                       1.0)}
+    f_c_swap = {"the forget and candidate gates swapped":
+                lambda p: with_split_swapped(p, 4, 1, 2)}
+    lm_check("basic_lstm", 0.0, forget_bias, card)
+    lm_check("basic_lstm", 0.65, forget_bias, card)
+    lm_check("cudnn", 0.0, f_c_swap, card)
+    lm_check("cudnn", 0.65, f_c_swap, card)
+    lm_check("basic_gru", 0.65, {
+        "the GRU's dropout upscaled": gru_dropout_upscaled},
+        card)
+    lm_check("dynamic_gru", 0.65, {
+        "the update and reset gates swapped":
+            lambda p: with_split_swapped(p, 3, 0, 1)}, card)
+    torch.cuda.empty_cache()
+    decode_check(card)
+    rnn_ops_check(card)
+    rnn_mask_timing(dk, card)
+    print("rnn: the phase %.1f s; %s" % (time.perf_counter() - t_phase,
+                                         card), flush=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -8531,12 +9222,13 @@ def main():
     # added to those of the paths before it, and so are the update-rule
     # phases' (rows 5-9, 14 and the dropout kernel in LAMB-BERT and its
     # Adam probe, rows 12, 13 and the fold in LARS-ResNet-50, row 10 in
-    # the sweep) and the gradient-merge phase's (rows 2-8, 14 and the
-    # dropout kernel)
+    # the sweep), the gradient-merge phase's (rows 2-8, 14 and the
+    # dropout kernel) and the recurrent phase's (the dropout kernel)
     for phase in (lambda: nmt_phase(ln, dev),
                   lambda: lamb_bert_phase(BertConfig(dropout=0.1)),
                   lars_resnet_phase, optimizer_sweep_phase,
-                  lambda: merge_phase(BertConfig(dropout=0.1))):
+                  lambda: merge_phase(BertConfig(dropout=0.1)),
+                  lambda: rnn_phase(dk)):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
     for row in rows:

@@ -1,7 +1,8 @@
-"""contrib: the mixed-precision decorator.  Counterpart of
-``paddle_tpu/contrib/__init__.py``, of which the port carries
-``mixed_precision``."""
+"""contrib: the mixed-precision decorator, the composite RNN layers and
+the decoders.  Counterpart of ``paddle_tpu/contrib/__init__.py``, of
+which the port carries ``mixed_precision``, ``layers`` (``rnn_impl``)
+and ``decoder``."""
 
-from . import mixed_precision  # noqa: F401
+from . import decoder, layers, mixed_precision  # noqa: F401
 
-__all__ = ["mixed_precision"]
+__all__ = ["decoder", "layers", "mixed_precision"]

@@ -10,7 +10,8 @@ Gradients.  An op's grad maker is "auto" (the default: one
 ``<type>_grad`` op over the forward inputs, outputs and output grads),
 None (no gradient) or a callable returning GradOpDescs.  The auto grad
 op's lowering is synthesized: it replays the forward lowering under
-``torch.func.vjp``.  A lowering registered explicitly for
+``torch.func.vjp`` (``vjp_replay``, which an explicit grad lowering
+calls with a forward of its own).  A lowering registered explicitly for
 ``<type>_grad`` (``register_grad_lowering``) keeps the synthesized op's
 slots, so programs stay the reference's, and takes precedence: the port
 registers one wherever the replay would recompute a matrix product or
@@ -27,8 +28,8 @@ becomes -1.
 import torch
 
 __all__ = ["OpDef", "GradOpDesc", "register_op", "register_grad_lowering",
-           "get_op_def", "all_op_types", "lower_attrs", "wants_grad",
-           "default_infer_shape"]
+           "vjp_replay", "get_op_def", "all_op_types", "lower_attrs",
+           "wants_grad", "default_infer_shape"]
 
 _OP_REGISTRY = {}
 
@@ -189,54 +190,60 @@ def _wanted_grads(base, op, fwd_ins):
     return want
 
 
+def vjp_replay(ctx, base, fwd_ins, fn, out_grads):
+    """Input grads of ``fn(*fwd_ins)``, a replay of ``base``'s forward, by
+    ``torch.func.vjp`` (which differentiates inside the executor's
+    ``torch.no_grad``): over the float inputs whose grads the grad op
+    writes (every float input outside a ``<type>_grad`` op), the output
+    grads as cotangents (zeros for an output no consumer differentiated).
+    -> one grad or None per forward input."""
+    op = ctx.op if ctx.op is not None \
+        and ctx.op.type == base.type + "_grad" else None
+    diff_idx = [i for i, w in enumerate(_wanted_grads(base, op, fwd_ins))
+                if w]
+    if not diff_idx:
+        return tuple(None for _ in fwd_ins)
+
+    keep = []  # the float outputs, the ones vjp differentiates
+
+    def fwd(*diff_vals):
+        full = list(fwd_ins)
+        for j, i in enumerate(diff_idx):
+            full[i] = diff_vals[j]
+        out = fn(*full)
+        out = out if isinstance(out, tuple) else (out,)
+        keep.extend(i for i, o in enumerate(out) if _is_float(o))
+        return tuple(out[i] for i in keep)
+
+    outs, vjp_fn = torch.func.vjp(fwd, *[fwd_ins[i] for i in diff_idx])
+    cots = []
+    for o, i in zip(outs, keep):
+        g = out_grads[i]
+        if isinstance(o, (list, tuple)):
+            g = g or [None] * len(o)
+            cots.append(type(o)(
+                torch.zeros_like(oi) if gi is None else gi.to(oi.dtype)
+                for oi, gi in zip(o, g)))
+        else:
+            cots.append(torch.zeros_like(o) if g is None else g.to(o.dtype))
+    grads = vjp_fn(tuple(cots))
+    result = [None] * len(fwd_ins)
+    for j, i in enumerate(diff_idx):
+        result[i] = grads[j]
+    return tuple(result)
+
+
 def _synthesize_grad_opdef(base):
     """The ``<type>_grad`` op of an auto maker: the forward lowering
-    replayed under ``torch.func.vjp`` (which differentiates inside the
-    executor's ``torch.no_grad``), the output grads as cotangents (zeros
-    for an output no consumer differentiated)."""
+    replayed under ``vjp_replay``."""
     in_slots, out_slots, opt_in, dup_in, dup_out = _grad_slots(base)
     n_in, n_out = len(base.input_slots), len(base.output_slots)
 
     def grad_lower(ctx, *args, **attrs):
-        fwd_ins = list(args[:n_in])
         rest = args[n_in:]
-        out_grads = [rest[2 * i + 1] for i in range(n_out)]
-        op = ctx.op if ctx.op is not None \
-            and ctx.op.type == base.type + "_grad" else None
-        diff_idx = [i for i, w in enumerate(_wanted_grads(base, op,
-                                                          fwd_ins)) if w]
-        if not diff_idx:
-            return tuple(None for _ in out_slots)
-
-        keep = []  # the float outputs, the ones vjp differentiates
-
-        def fwd(*diff_vals):
-            full = list(fwd_ins)
-            for j, i in enumerate(diff_idx):
-                full[i] = diff_vals[j]
-            out = base.lower(ctx, *full, **attrs)
-            out = out if isinstance(out, tuple) else (out,)
-            keep.extend(i for i, o in enumerate(out) if _is_float(o))
-            return tuple(out[i] for i in keep)
-
-        outs, vjp_fn = torch.func.vjp(fwd,
-                                      *[fwd_ins[i] for i in diff_idx])
-        cots = []
-        for o, i in zip(outs, keep):
-            g = out_grads[i]
-            if isinstance(o, (list, tuple)):
-                g = g or [None] * len(o)
-                cots.append(type(o)(
-                    torch.zeros_like(oi) if gi is None else gi.to(oi.dtype)
-                    for oi, gi in zip(o, g)))
-            else:
-                cots.append(torch.zeros_like(o) if g is None
-                            else g.to(o.dtype))
-        grads = vjp_fn(tuple(cots))
-        result = [None] * n_in
-        for j, i in enumerate(diff_idx):
-            result[i] = grads[j]
-        return tuple(result)
+        return vjp_replay(ctx, base, list(args[:n_in]),
+                          lambda *full: base.lower(ctx, *full, **attrs),
+                          [rest[2 * i + 1] for i in range(n_out)])
 
     return OpDef(base.type + "_grad", inputs=in_slots, outputs=out_slots,
                  lower=grad_lower, infer_shape=_grad_infer_shape(base),

@@ -14,7 +14,9 @@ Transformer ``reduce_sum:493``, ``log_softmax:599``, ``pow:651``,
 ``one_hot:1420``; for the LR schedules and the clips ``clip:534``,
 ``clip_by_norm:546`` and the activations of ``layers/__init__.py:30``;
 for the control-flow programs and recurrent nets ``reduce_mean:494``,
-``argmax:1472``, ``argmin:1482``, tanh, sigmoid and square).
+``argmax:1472``, ``argmin:1482``, tanh, sigmoid and square; for the
+recurrent layers and decoders ``topk:421``, ``squeeze:1247``,
+``split:1304``, ``stack:1323`` and log).
 Each
 appends ops to the current block and names its variables and parameters
 exactly as the reference does."""
@@ -37,7 +39,8 @@ __all__ = ["fc", "embedding", "matmul", "elementwise_add",
            "reduce_sum", "log_softmax", "pow", "label_smooth", "expand",
            "slice", "one_hot", "sqrt", "exp", "floor", "ceil", "cos",
            "sign", "clip", "clip_by_norm", "reduce_mean", "argmax",
-           "argmin", "tanh", "sigmoid", "square"]
+           "argmin", "tanh", "sigmoid", "square", "log", "topk", "squeeze",
+           "split", "stack"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -62,11 +65,13 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs needs the sum "
-                                  "op, which is not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -199,6 +204,63 @@ sign = _act_layer("sign")
 tanh = _act_layer("tanh")
 sigmoid = _act_layer("sigmoid")
 square = _act_layer("square")
+log = _act_layer("log")
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the ``k`` largest along the last dim;
+    ``k`` an int or a Variable."""
+    from ..framework import Variable
+
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    inputs, attrs = {"X": [input]}, {}
+    if isinstance(k, Variable):
+        inputs["K"] = [k]
+    else:
+        attrs = {"k": k}
+    helper.append_op(type="top_k", inputs=inputs,
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs=attrs)
+    return values, indices
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``num_or_sections`` equal pieces along ``dim`` (an int), or pieces
+    of the listed sizes."""
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        attrs = {"num": num_or_sections, "axis": dim, "sections": []}
+        n_out = num_or_sections
+    else:
+        attrs = {"num": 0, "axis": dim, "sections": list(num_or_sections)}
+        n_out = len(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(n_out)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": x}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
 
 
 def clip(x, min, max, name=None):

@@ -1,9 +1,11 @@
 """Input declaration, constants and casts: ``data``,
 ``create_global_var``, ``assign``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``zeros``, ``cast``.  Counterpart of
-``paddle_tpu/layers/tensor.py`` (``data:43``, ``create_global_var:83``,
-``cast:96``, ``assign:121``, ``fill_constant:154``,
-``fill_constant_batch_size_like:169``, ``zeros:191``)."""
+``fill_constant_batch_size_like``, ``zeros``, ``cast``, and
+``create_parameter`` and ``reverse``.  Counterpart of
+``paddle_tpu/layers/tensor.py`` (``data:43``, ``create_parameter:71``,
+``create_global_var:83``, ``cast:96``, ``assign:121``,
+``fill_constant:154``, ``fill_constant_batch_size_like:169``,
+``zeros:191``, ``reverse:218``)."""
 
 import numpy as np
 
@@ -13,8 +15,9 @@ from ..layer_helper import LayerHelper
 from ..ops.common import dtype_enum
 from ..utils import unique_name
 
-__all__ = ["data", "create_global_var", "assign", "fill_constant",
-           "fill_constant_batch_size_like", "zeros", "cast"]
+__all__ = ["data", "create_parameter", "create_global_var", "assign",
+           "fill_constant", "fill_constant_batch_size_like", "zeros", "cast",
+           "reverse"]
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -28,6 +31,20 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
     return helper.block.program.global_block().create_var(
         name=name, shape=shape, dtype=dtype, lod_level=lod_level,
         is_data=True, need_check_feed=True, stop_gradient=stop_gradient)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape``; ``name`` names it where ``attr`` does
+    not."""
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr._to_attr(attr)
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
 
 
 def create_global_var(shape, value, dtype, persistable=False,
@@ -106,4 +123,15 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": dtype_enum(x.dtype),
                             "out_dtype": dtype_enum(dtype)})
+    return out
+
+
+def reverse(x, axis):
+    """x flipped along ``axis`` (an int or a list)."""
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="reverse", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": [axis] if isinstance(axis, int)
+                            else list(axis)})
     return out

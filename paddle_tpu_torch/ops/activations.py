@@ -1,7 +1,8 @@
 """Activations: gelu, relu, pow, softmax, log_softmax, and the unary ops
 the LR schedules, the clips and L1 decay build from (exp, sqrt, cos,
 ceil, floor, sign), and tanh, sigmoid and square, which the recurrent
-nets and the MLPs of the control-flow programs use.  Counterpart of ``paddle_tpu/ops/activations.py``
+nets and the MLPs of the control-flow programs use, and log, which the
+contrib beam decoder takes of its softmax.  Counterpart of ``paddle_tpu/ops/activations.py``
 (``gelu:136``, ``relu:20``, ``pow:146``, ``softmax:152``,
 ``log_softmax:163``, the unary table ``:23-51``); a bf16 input (the
 AMP policy's activations) is computed in f32 and returned in bf16 by
@@ -74,7 +75,7 @@ def log_softmax(ctx, x, axis=-1):
 _UNARY = {"exp": torch.exp, "sqrt": torch.sqrt, "cos": torch.cos,
           "ceil": torch.ceil, "floor": torch.floor, "sign": torch.sign,
           "tanh": torch.tanh, "sigmoid": torch.sigmoid,
-          "square": torch.square}
+          "square": torch.square, "log": torch.log}
 
 
 def _unary(fn):

@@ -1,8 +1,11 @@
-"""Beam-search decode ops: ``beam_search`` and ``beam_search_decode``.
+"""Beam-search decode ops: ``beam_search``, ``beam_search_decode`` and
+``gather_tree``.
 
 Counterpart of ``paddle_tpu/ops/beam_search.py`` (``beam_search:28``,
-``beam_search_decode:86``), plain torch as the reference's are jnp:
-``topk`` over the flattened [B, K * V] candidates, then a gather walk
+``beam_search_decode:86``) and of ``paddle_tpu/ops/misc2.py``
+(``gather_tree:122``), plain torch as the reference's are jnp:
+the best K of the flattened [B, K * V] candidates (ties to the lower
+index, as ``lax.top_k`` breaks them), then a gather walk
 back along the parent pointers.  The reference's dense layout is kept: a
 fixed [batch, beam] state, a pruned or finished beam carried by a masked
 (-1e9) score instead of the LoD-ragged lists of Fluid's ops.
@@ -37,6 +40,24 @@ def _beam_search_infer(op, block):
                 ov.dtype = dt or sv.dtype
 
 
+def top_k_lower_index(flat, k):
+    """The ``k`` largest of each row of ``flat`` [B, N], best first, equal
+    values to the lower index as ``lax.top_k`` breaks ties (``torch.topk``
+    leaves their order open).  One ``topk`` over distinct int64 keys: the
+    value's order-preserving 32 bits (-0.0 read as 0.0) above the index's
+    complement; f64, or N past 2^32, by a stable sort."""
+    if flat.dtype == torch.float64 or flat.shape[1] >= 1 << 32:
+        vals, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
+    bits = (flat.float() + 0.0).view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    low = 0xFFFFFFFF - torch.arange(flat.shape[1], dtype=torch.int64,
+                                    device=flat.device)
+    top = torch.topk((ordered << 32) | low, k, dim=1).values
+    idx = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    return torch.gather(flat, 1, idx), idx
+
+
 @register_op("beam_search",
              inputs=("pre_ids", "pre_scores", "ids", "scores"),
              outputs=("selected_ids", "selected_scores", "parent_idx"),
@@ -60,7 +81,7 @@ def beam_search(ctx, pre_ids, pre_scores, ids, scores, beam_size=4,
                           device=scores.device)
     only_end[..., end_id] = pre_scores
     cand = torch.where((pre_ids == end_id).unsqueeze(-1), only_end, scores)
-    sel_scores, flat = torch.topk(cand.reshape(b, k * v), beam_size, dim=1)
+    sel_scores, flat = top_k_lower_index(cand.reshape(b, k * v), beam_size)
     return ((flat % v).to(pre_ids.dtype), sel_scores,
             torch.div(flat, v, rounding_mode="floor").to(pre_ids.dtype))
 
@@ -88,3 +109,17 @@ def beam_search_decode(ctx, ids, parents, scores, beam_size=4, end_id=1):
                              device=sent.device)
     hit = torch.cumsum((sent == end_id).to(torch.int32), dim=-1)
     return torch.where(hit > 1, torch.full_like(sent, end_id), sent), scores
+
+
+@register_op("gather_tree", inputs=("Ids", "Parents"), outputs=("Out",),
+             grad_maker=None)
+def gather_tree(ctx, ids, parents):
+    """Backtrack parent pointers: ids and parents [T, B, K] -> the full
+    sequence ending in each beam slot of the last step, [T, B, K]."""
+    n_steps, b, k = ids.shape
+    beams = torch.arange(k, device=ids.device).unsqueeze(0).expand(b, k)
+    out = []
+    for t in range(n_steps - 1, -1, -1):
+        out.append(torch.gather(ids[t], 1, beams))
+        beams = torch.gather(parents[t], 1, beams).long()
+    return torch.stack(out[::-1])

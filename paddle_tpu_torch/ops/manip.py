@@ -1,11 +1,12 @@
 """Shape ops, gather, one_hot and the embedding lookups: reshape2,
-transpose2, unsqueeze2, concat, slice, expand, gather, lookup_table,
-embedding_bag, one_hot.
+transpose2, unsqueeze2, squeeze2, concat, split, stack, reverse, slice,
+expand, gather, lookup_table, embedding_bag, one_hot.
 
 Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
-``transpose2:101``, ``concat:113``, ``slice:156``, ``unsqueeze2:214``,
-``expand:265``, ``gather:284``, ``lookup_table:322``,
-``embedding_bag:345``, ``one_hot:370``).  Most gradients are the
+``transpose2:101``, ``concat:113``, ``split:142``, ``slice:156``,
+``squeeze2:203``, ``unsqueeze2:214``, ``stack:252``, ``expand:265``,
+``gather:284``, ``lookup_table:322``, ``embedding_bag:345``,
+``one_hot:370``, ``reverse:410``).  Most gradients are the
 synthesized vjp replays: gather's and lookup_table's accumulate repeated
 indices (in a varying order where the card adds them with atomics).
 ``concat_grad`` (a split of the output gradient) and
@@ -100,6 +101,85 @@ def unsqueeze2(ctx, x, axes_t, axes=()):
     for a in sorted(a if a >= 0 else a + out_ndim for a in axes):
         x = x.unsqueeze(a)
     return x, None
+
+
+def _squeeze_axes(x, axes):
+    """The dims squeeze2 drops: those of ``axes`` (negative ones from the
+    end) that have size 1, or every size-1 dim without ``axes``."""
+    if axes:
+        axes = [a if a >= 0 else a + x.dim() for a in axes]
+        return tuple(a for a in axes if x.shape[a] == 1)
+    return tuple(i for i, d in enumerate(x.shape) if d == 1)
+
+
+@register_op("squeeze2", inputs=("X",), outputs=("Out", "XShape"),
+             attrs={"axes": []})
+def squeeze2(ctx, x, axes=()):
+    """x without the size-1 dims of ``axes`` (a listed dim of another size
+    stays, as ``jnp.squeeze`` over the filtered axes)."""
+    dims = _squeeze_axes(x, axes)
+    return (x.squeeze(dims) if dims else x), None
+
+
+@register_op("reverse", inputs=("X",), outputs=("Out",), attrs={"axis": []})
+def reverse(ctx, x, axis=()):
+    return torch.flip(x, dims=[int(a) for a in axis])
+
+
+@register_op("stack", inputs=("X",), outputs=("Y",), attrs={"axis": 0},
+             duplicable_inputs=("X",))
+def stack(ctx, xs, axis=0):
+    return torch.stack(xs, dim=axis)
+
+
+def _split_infer(op, block):
+    """Each piece's static shape: the split dim divided by ``num``, or the
+    ``sections``' sizes (the reference's ``_split_infer``)."""
+    x = block.var(op.input("X")[0])
+    outs = [block.var(n) for n in op.output("Out")]
+    axis = op.attr("axis") or 0
+    num = op.attr("num") or 0
+    sections = op.attr("sections") or []
+    if x.shape is None:
+        return
+    ax = axis if axis >= 0 else axis + len(x.shape)
+    dim = x.shape[ax]
+    if num:
+        sizes = [dim // num] * num if dim != -1 else [-1] * num
+    else:
+        sizes = list(sections)
+    for o, s in zip(outs, sizes):
+        shp = list(x.shape)
+        shp[ax] = s
+        o.shape = tuple(shp)
+        if o.dtype is None:
+            o.dtype = x.dtype
+
+
+@register_op("split", inputs=("X", "AxisTensor", "SectionsTensorList"),
+             outputs=("Out",),
+             attrs={"axis": 0, "num": 0, "sections": []},
+             optional_inputs=("AxisTensor", "SectionsTensorList"),
+             duplicable_inputs=("SectionsTensorList",),
+             duplicable_outputs=("Out",), infer_shape=_split_infer)
+def split(ctx, x, axis_tensor, sections_list, axis=0, num=0, sections=()):
+    """``num`` equal pieces along ``axis`` (the dim must divide), or
+    pieces cut at the running sums of ``sections`` (``jnp.split`` at
+    those indices: the last piece runs to the end of the dim).  As in the
+    reference, the axis and the sections are the attrs: ``AxisTensor``
+    and ``SectionsTensorList`` are accepted and not read."""
+    axis = int(axis)
+    if num:
+        d = x.shape[axis]
+        if d % int(num):
+            raise ValueError("split: dim %d of size %d does not divide into "
+                             "%d pieces" % (axis, d, num))
+        return list(torch.split(x, d // int(num), dim=axis))
+    cuts, total = [], 0
+    for s in list(sections)[:-1]:
+        total += int(s)
+        cuts.append(total)
+    return list(torch.tensor_split(x, cuts, dim=axis))
 
 
 @register_op("concat", inputs=("X", "AxisTensor"), outputs=("Out",),

@@ -3,7 +3,8 @@ copies of the host-only ``core/tracing.py`` and
 ``utils/fault_injection.py`` and the Transformer's modules among them),
 ``chip_smoke.py`` and the port's replica and fleet tools
 (``tools/torch_serve.py``,
-``tools/torch_fleet_top.py``) import in a process where ``jax`` and
+``tools/torch_fleet_top.py``), the recurrent nets' modules among them,
+import in a process where ``jax`` and
 ``paddle_tpu`` cannot be imported, and the port's RPC transport is its
 own library, built under ``build/native/``, never the reference
 package's."""
@@ -45,7 +46,16 @@ SCRIPT = textwrap.dedent("""
                  "paddle_tpu_torch.ops.metrics",
                  "paddle_tpu_torch.layers.control_flow",
                  "paddle_tpu_torch.layers.learning_rate_scheduler",
-                 "paddle_tpu_torch.layers.rnn"):
+                 "paddle_tpu_torch.layers.rnn",
+                 "paddle_tpu_torch.layers.sequence_lod",
+                 "paddle_tpu_torch.layers.extra",
+                 "paddle_tpu_torch.ops.rnn",
+                 "paddle_tpu_torch.ops.sequence",
+                 "paddle_tpu_torch.contrib.layers",
+                 "paddle_tpu_torch.contrib.layers.rnn_impl",
+                 "paddle_tpu_torch.contrib.decoder",
+                 "paddle_tpu_torch.contrib.decoder.beam_search_decoder",
+                 "paddle_tpu_torch.models.ptb_lm"):
         assert name in sys.modules, name
     # the lazy imports run too: a span, a note, a fired fault point
     from paddle_tpu_torch import set_flags
@@ -90,8 +100,11 @@ def test_port_modules_import_without_jax_or_the_reference():
                  "ops/beam_search.py", "ops/control_flow.py",
                  "layers/learning_rate_scheduler.py", "layers/rnn.py",
                  "serving/engine.py", "serving/kv_cache.py", "flags.py",
+                 "ops/rnn.py", "ops/sequence.py", "models/ptb_lm.py",
+                 "contrib/layers/rnn_impl.py",
+                 "contrib/decoder/beam_search_decoder.py",
                  "../tools/torch_serve.py", "../tools/torch_fleet_top.py",
-                 "../chip_smoke.py"):
+                 "../tools/torch_rnn_phase.py", "../chip_smoke.py"):
         with open(os.path.join(ROOT, "paddle_tpu_torch", name)) as f:
             src = f.read()
         assert "import jax" not in src and "paddle_tpu." not in src.replace(
