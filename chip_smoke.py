@@ -281,12 +281,35 @@ Phases, each fatal on failure (nonzero exit, no result line):
     vs CPU; each beside a planted fault (the forget bias, two gates
     swapped, the GRU's dropout upscaled, the backward direction not
     reversed); the rnn ops' one mask draw timed and held bitwise;
-17. the script's own wall time, a JSON line of the kernels (rows 9 and
+17. the Fluid surface and the data path, through ``import
+    paddle_tpu_torch as fluid``: (a) BERT-base pretraining (seq 128,
+    batch 32, Adam) fed by a non-iterable PyReader through
+    CompiledProgram for 30 steps to EOFException, at dropout 0.1 (the
+    composed emission's launches a step) and 0; save_persistables after
+    step 15 and steps 16-30 again from the files in a fresh scope: at
+    dropout 0 against the uninterrupted run, at 0.1 two resumes against
+    each other (the step counter is not saved, so a resume redraws the
+    masks); the step p50, device busy and idle share beside the same
+    batches fed as numpy dicts; the iterable loader's double buffer with
+    each copy behind a side-stream sleep; (b) ResNet-50 at 224x224 from
+    an iterable DataLoader over fluid.batch on the card's places, top-1
+    and top-5, fluid.save / fluid.load after step 10 and the resumed
+    steps against the uninterrupted run (cuDNN deterministic), row 10
+    once a step, a clone(for_test=True) eval through fluid.metrics; (c)
+    BASELINE config 1's MNIST script through DataFeeder, test accuracy
+    above 0.97; (d) the verifier's error mode stopping a planted WF001
+    program before any launch, and no finding on the phase's programs;
+    (e) top_k's ties in the reference's order on the card; each hold
+    beside a planted fault;
+18. the verifier's findings over every plan miss of the smoke and its
+    ms a miss; the script's own wall time, a JSON line of the kernels
+    (rows 9 and
     14 and the dropout kernel counting the NMT path's launches besides
     their earlier paths', row 1 the tiers and role-fleet phases' besides
     the pair's, rows 5-10, 12-14, the fold and the dropout kernel the
     update-rule phases' besides, rows 2-8, 14 and the dropout kernel
-    the gradient-merge phase's, and the dropout kernel the recurrent
+    the gradient-merge phase's, the dropout kernel the recurrent
+    phase's, and rows 7-10, 14 and the dropout kernel the surface
     phase's), then the result line.
 
 Needs one CUDA card; exits nonzero without one, and outside a checkout of
@@ -9106,6 +9129,684 @@ def rnn_phase(dk):
     return launches
 
 
+# -- phase 17: the Fluid surface and the data path ----------------------------
+
+# (a) BERT-base pretraining (seq 128, batch 32, Adam 1e-4) fed by a
+# non-iterable PyReader through CompiledProgram: SURFACE_STEPS steps to
+# EOFException, save_persistables after step SURFACE_SAVE_AT, and steps
+# SURFACE_SAVE_AT + 1 .. SURFACE_STEPS again from the files in a fresh
+# scope.  At dropout 0 the resumed losses are the uninterrupted run's
+# within SURFACE_RESUME_ATOL; at dropout 0.1 two resumes from the same
+# files are within it of each other (neither package saves the step
+# counter that keys the dropout stream, so both draw steps 0, 1, ...
+# again).  Not bitwise: the embeddings' gradients add repeated ids with
+# atomics on the card (an H100 at 700 W: 9.54e-7 at dropout 0, one
+# loss 1 ulp apart at 0.1)
+SURFACE_STEPS = 30
+SURFACE_SAVE_AT = 15
+SURFACE_RESUME_ATOL = 1e-5
+SURFACE_NUMPY_STEPS = 8     # the same batches fed as numpy dicts
+SURFACE_PROFILE_STEPS = 3
+# (b) ResNet-50 (224x224, 1000 classes, batch 32, Momentum 0.9, L2 1e-4)
+# from an iterable DataLoader over fluid.batch with places on the card:
+# RESNET_SURFACE_STEPS steps, fluid.save after step RESNET_SURFACE_SAVE_AT,
+# fluid.load into a fresh scope: every persistable bitwise the saved one,
+# the first resumed loss bitwise (a forward of one state), the later ones
+# within RESNET_RESUME_ATOL of the uninterrupted run's.  (b) runs with
+# cuDNN's deterministic algorithms: its default weight-gradient
+# algorithms add with atomics, and ten steps of this randomly initialised
+# net grow that rounding to 0.0818 of loss (an H100 at 700 W)
+RESNET_SURFACE_STEPS = 20
+RESNET_SURFACE_SAVE_AT = 10
+RESNET_RESUME_ATOL = 1e-5
+SURFACE_EVAL_BATCHES = 4
+# (c) BASELINE config 1 on the card
+MNIST_STEPS = 40
+MNIST_MIN_ACCURACY = 0.97
+# the double buffer under a slow copy: each staged copy queued behind a
+# side-stream sleep of this many cycles (~10 ms), so a batch read without
+# the stream wait reads memory the copy has not filled yet
+SLOW_COPY_CYCLES = 20_000_000
+STAGE_BATCHES = 8
+
+
+def surface_bert_program(fluid, cfg):
+    """(main, startup, feed vars, loss) of BERT pretraining, through the
+    package surface; the model itself is the port's ``models.bert``."""
+    from paddle_tpu_torch.models.bert import build_pretrain
+
+    main_p, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 11
+    with fluid.unique_name.guard(), fluid.program_guard(main_p, startup):
+        inputs, loss = build_pretrain(cfg, SEQ, lr=1e-4)
+    return main_p, startup, list(inputs), loss
+
+
+def bert_batches(cfg, start, stop):
+    """Batches ``start`` .. ``stop`` - 1 of the seeded epoch, as dicts."""
+    from paddle_tpu_torch.models.bert import pretrain_feed
+
+    def gen():
+        for i in range(start, stop):
+            yield pretrain_feed(np.random.RandomState(1000 + i), cfg,
+                                TRAIN_BATCH, SEQ)
+    return gen
+
+
+def bert_epoch(fluid, exe, compiled, main_p, inputs, loss, cfg, start,
+               on_step=None):
+    """Steps ``start`` + 1 .. SURFACE_STEPS from a fresh non-iterable
+    PyReader (capacity 50) to EOFException, then ``reset()`` -> (losses,
+    step ms)."""
+    with fluid.program_guard(main_p):
+        reader = fluid.io.PyReader(feed_list=inputs, capacity=50,
+                                   iterable=False)
+    reader.decorate_batch_generator(bert_batches(cfg, start, SURFACE_STEPS))
+    losses, step_ms = [], []
+    reader.start()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            out, = exe.run(compiled, fetch_list=[loss.name])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out.reshape(-1)[0]))
+            if on_step is not None:
+                on_step(start + len(losses))
+    except fluid.core.EOFException:
+        reader.reset()
+    if len(losses) != SURFACE_STEPS - start:
+        fail("surface [bert]: the PyReader gave %d steps, want %d"
+             % (len(losses), SURFACE_STEPS - start))
+    return losses, step_ms
+
+
+def surface_resume(fluid, exe, compiled, main_p, startup, inputs, loss, cfg,
+                   dirname, skip_moments=False, counter=0):
+    """Steps SURFACE_SAVE_AT + 1 .. SURFACE_STEPS from ``dirname``'s
+    persistables in a fresh scope -> losses.  The planted faults:
+    ``skip_moments``, Adam's moments left at their initial values;
+    ``counter``, the scope's step counter set after the startup run, as if
+    it had been saved (the masks of other steps)."""
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        if counter:
+            scope._rng_counter = counter
+        if skip_moments:
+            fluid.io.load_vars(exe, dirname, main_p,
+                               predicate=lambda v: v.persistable
+                               and not v.is_data and "_moment" not in v.name)
+        else:
+            fluid.io.load_persistables(exe, dirname, main_p)
+        losses, _ms = bert_epoch(fluid, exe, compiled, main_p, inputs, loss,
+                                 cfg, SURFACE_SAVE_AT)
+    return losses
+
+
+def host_ms(step, args):
+    """The median host time of ``step(arg)`` over ``args``, the card
+    synchronised between the calls (outside the timing)."""
+    out = []
+    for a in args:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(a)
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def surface_bert(fluid, card, dropout, tmp, reported):
+    """(a) at ``dropout`` -> the launch counts of the uninterrupted run."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig(dropout=dropout)
+    main_p, startup, inputs, loss = surface_bert_program(fluid, cfg)
+    reported.update((main_p._uid, startup._uid))
+    compiled = fluid.CompiledProgram(main_p).with_data_parallel(
+        loss_name=loss.name)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    dirname = os.path.join(tmp, "bert-%g" % dropout)
+
+    def save(step):
+        if step == SURFACE_SAVE_AT:
+            fluid.io.save_persistables(exe, dirname, main_p)
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        torch.cuda.synchronize()
+        zero_counts()   # just before the main path runs
+        losses, step_ms = bert_epoch(fluid, exe, compiled, main_p, inputs,
+                                     loss, cfg, 0, on_step=save)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        if dropout:
+            # the same batches fed as numpy dicts, and both feeds' device
+            # time and idle share over a few steps
+            feeds = list(bert_batches(cfg, 0, SURFACE_NUMPY_STEPS)())
+            np_ms = []
+            for f in feeds:
+                t0 = time.perf_counter()
+                exe.run(main_p, feed=f, fetch_list=[loss])
+                np_ms.append((time.perf_counter() - t0) * 1e3)
+            np_host = host_ms(lambda f: exe.run(main_p, feed=f,
+                                                fetch_list=[loss],
+                                                return_numpy=False),
+                              feeds[:SURFACE_PROFILE_STEPS])
+            it = iter(feeds)
+            np_busy, np_idle = busy_ms(
+                lambda: exe.run(main_p, feed=next(it), fetch_list=[loss]),
+                SURFACE_PROFILE_STEPS)
+            with fluid.program_guard(main_p):
+                reader = fluid.io.PyReader(feed_list=inputs, capacity=50,
+                                           iterable=False)
+            reader.decorate_batch_generator(
+                bert_batches(cfg, 0, 2 * SURFACE_PROFILE_STEPS + 1))
+            reader.start()
+            exe.run(compiled, fetch_list=[loss.name])  # primes the buffer
+            rd_host = host_ms(lambda _: exe.run(compiled,
+                                                fetch_list=[loss.name],
+                                                return_numpy=False),
+                              range(SURFACE_PROFILE_STEPS))
+            rd_busy, rd_idle = busy_ms(
+                lambda: exe.run(compiled, fetch_list=[loss.name]),
+                SURFACE_PROFILE_STEPS)
+            reader.reset()
+    name = COMPOSED if dropout else DROPOUT0
+    want = {k: STEP_LAUNCHES[name].get(k, 0) * SURFACE_STEPS
+            for k in launches}
+    print("surface [bert, dropout %g]: %d steps through PyReader(capacity "
+          "50) and CompiledProgram, losses %s; step p50 %.3f ms (the first "
+          "plans); launches %s (want %s a step); %s"
+          % (dropout, SURFACE_STEPS, json.dumps(losses),
+             float(np.percentile(step_ms[1:], 50)),
+             json.dumps({k: v for k, v in launches.items() if v}),
+             json.dumps(STEP_LAUNCHES[name]), card), flush=True)
+    if launches != want:
+        fail("surface [bert]: launches %s over %d steps, want %s"
+             % (launches, SURFACE_STEPS, want))
+    if not all(np.isfinite(losses)):
+        fail("surface [bert]: losses not finite")
+    if dropout:
+        print("surface [bert]: fed by the PyReader p50 %.3f ms, host %.3f "
+              "ms, busy %.3f ms, idle %.4f; fed as numpy dicts p50 %.3f ms, "
+              "host %.3f ms, busy %.3f ms, idle %.4f (host: the run's issue "
+              "time, the median of %d steps; busy and idle over %d "
+              "profiled steps); %s"
+              % (float(np.percentile(step_ms[1:], 50)), rd_host, rd_busy,
+                 rd_idle, float(np.percentile(np_ms, 50)), np_host, np_busy,
+                 np_idle, SURFACE_PROFILE_STEPS, SURFACE_PROFILE_STEPS, card),
+              flush=True)
+        first = surface_resume(fluid, exe, compiled, main_p, startup,
+                               inputs, loss, cfg, dirname)
+        second = surface_resume(fluid, exe, compiled, main_p, startup,
+                                inputs, loss, cfg, dirname)
+        gap = max(abs(a - b) for a, b in zip(first, second))
+        fault = surface_resume(fluid, exe, compiled, main_p, startup,
+                               inputs, loss, cfg, dirname,
+                               counter=SURFACE_SAVE_AT + 1)
+        f_gap = max(abs(a - b) for a, b in zip(first, fault))
+        print("surface [bert, dropout 0.1]: two resumes from step %d's "
+              "files, steps %d-%d: %s, %s; max difference %.3g (limit %.3g), "
+              "bitwise equal: %s (the uninterrupted run's: %s; the counter "
+              "restarts, so its masks differ); planted fault, the step "
+              "counter carried over: %.3g (%s the limit); %s"
+              % (SURFACE_SAVE_AT, SURFACE_SAVE_AT + 1, SURFACE_STEPS,
+                 json.dumps(first), json.dumps(second), gap,
+                 SURFACE_RESUME_ATOL, first == second,
+                 json.dumps(losses[SURFACE_SAVE_AT:]), f_gap,
+                 "misses" if f_gap > SURFACE_RESUME_ATOL else "MEETS", card),
+              flush=True)
+        if not gap <= SURFACE_RESUME_ATOL:
+            fail("surface [bert]: two resumes at dropout 0.1 from the same "
+                 "files part")
+        return launches
+    resumed = surface_resume(fluid, exe, compiled, main_p, startup, inputs,
+                             loss, cfg, dirname)
+    gap = max(abs(a - b) for a, b in zip(resumed, losses[SURFACE_SAVE_AT:]))
+    fault = surface_resume(fluid, exe, compiled, main_p, startup, inputs,
+                           loss, cfg, dirname, skip_moments=True)
+    fault_gap = max(abs(a - b)
+                    for a, b in zip(fault, losses[SURFACE_SAVE_AT:]))
+    print("surface [bert, dropout 0]: resumed steps %d-%d %s against the "
+          "uninterrupted run's, max difference %.3g (limit %.3g); planted "
+          "fault, Adam's moments not loaded: %.3g (%s the limit); %s"
+          % (SURFACE_SAVE_AT + 1, SURFACE_STEPS, json.dumps(resumed), gap,
+             SURFACE_RESUME_ATOL, fault_gap,
+             "misses" if fault_gap > SURFACE_RESUME_ATOL else "MEETS", card),
+          flush=True)
+    if not gap <= SURFACE_RESUME_ATOL:
+        fail("surface [bert]: the resumed losses part from the "
+             "uninterrupted run's")
+    return launches
+
+
+def stage_check(fluid, card, wait=True):
+    """The iterable loader's double buffer on the card with every copy
+    queued behind a side-stream sleep -> batches whose card values are not
+    the host's (0 with the stream wait; ``wait`` False is the planted
+    fault, the batch read at once)."""
+    from paddle_tpu_torch import reader as rd
+
+    put, take = rd._Stager.put, rd._Stager.take
+
+    def slow_put(self, arrays):
+        with torch.cuda.stream(self.stream):
+            torch.cuda._sleep(SLOW_COPY_CYCLES)
+        return put(self, arrays)
+
+    main_p, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_p, startup):
+        x = fluid.layers.data("x", shape=[1024, 1024],
+                              append_batch_size=False)
+    loader = fluid.io.DataLoader.from_generator(feed_list=[x], capacity=4)
+    loader.set_batch_generator(
+        lambda: ([np.full((1024, 1024), i + 1, np.float32)]
+                 for i in range(STAGE_BATCHES)),
+        places=fluid.cuda_places())
+    rd._Stager.put = slow_put
+    if not wait:
+        rd._Stager.take = lambda self, pending: pending[0]
+    try:
+        bad = 0
+        for i, feed in enumerate(loader):
+            t = feed["x"]
+            if t.device.type != "cuda":
+                fail("surface [stage]: the loader gave a batch on %s"
+                     % t.device)
+            bad += int(not bool((t == i + 1).all()))
+    finally:
+        rd._Stager.put, rd._Stager.take = put, take
+    return bad
+
+
+def surface_resnet_program(fluid):
+    from paddle_tpu_torch.models import resnet
+
+    main_p, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 13
+    with fluid.unique_name.guard(), fluid.program_guard(main_p, startup):
+        img = fluid.layers.data("img", shape=[3, IMAGE, IMAGE])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet(img, CLASSES, RESNET_DEPTH)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        prob = fluid.layers.softmax(logits)
+        top1 = fluid.layers.accuracy(prob, label, k=1)
+        top5 = fluid.layers.accuracy(prob, label, k=5)
+        test_p = main_p.clone(for_test=True)
+        fluid.optimizer.Momentum(
+            learning_rate=RESNET_LR, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4)).minimize(loss)
+    return main_p, startup, test_p, img, label, loss, top1, top5
+
+
+def image_samples(n, seed):
+    """``n`` seeded (image, [label]) samples, PaddleCV's reader shape."""
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(n):
+            yield (rng.randn(3, IMAGE, IMAGE).astype(np.float32),
+                   np.array([rng.randint(CLASSES)], np.int64))
+    return reader
+
+
+def image_loader(fluid, img, label, seed, start, stop):
+    """An iterable DataLoader (capacity 16, double buffer, the card's
+    places) over batches ``start`` .. ``stop`` - 1 of ``fluid.batch``."""
+    batched = fluid.batch(image_samples(stop * TRAIN_BATCH, seed),
+                          TRAIN_BATCH, drop_last=True)
+
+    def tail():
+        for i, b in enumerate(batched()):
+            if i >= start:
+                yield b
+
+    loader = fluid.io.DataLoader.from_generator(
+        feed_list=[img, label], capacity=16, use_double_buffer=True)
+    loader.set_sample_list_generator(tail, places=fluid.cuda_places())
+    return loader
+
+
+def resnet_steps(fluid, exe, main_p, loader, fetch, on_step=None):
+    out, step_ms = [], []
+    for feed in loader:
+        t0 = time.perf_counter()
+        got = exe.run(main_p, feed=feed, fetch_list=fetch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append([float(np.asarray(g).reshape(-1)[0]) for g in got])
+        if on_step is not None:
+            on_step(len(out))
+    return out, step_ms
+
+
+def persistables(fluid, main_p):
+    sc = fluid.global_scope()
+    return {v.name: sc.find_var(v.name).get_tensor().numpy()
+            for v in main_p.list_vars() if v.persistable and not v.is_data}
+
+
+def resnet_resume(fluid, exe, main_p, startup, img, label, fetch, path,
+                  saved, skip_opt=False):
+    """fluid.load into a fresh scope -> (persistables that differ from the
+    saved ones, the resumed steps' fetches).  ``skip_opt``: the planted
+    fault, the .pdopt not loaded."""
+    import pickle
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        if skip_opt:
+            with open(path + ".pdparams", "rb") as f:
+                fluid.set_program_state(main_p, pickle.load(f))
+        else:
+            fluid.load(main_p, path)
+        now = persistables(fluid, main_p)
+        differ = sorted(n for n in saved
+                        if not np.array_equal(now[n], saved[n]))
+        out, _ms = resnet_steps(
+            fluid, exe, main_p,
+            image_loader(fluid, img, label, 5, RESNET_SURFACE_SAVE_AT,
+                         RESNET_SURFACE_STEPS), fetch)
+    return differ, out
+
+
+def surface_resnet(fluid, card, tmp, reported):
+    """(b) -> the launch counts of the uninterrupted run."""
+    (main_p, startup, test_p, img, label, loss, top1,
+     top5) = surface_resnet_program(fluid)
+    reported.update((main_p._uid, startup._uid, test_p._uid))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    fetch = [loss, top1, top5]
+    path = os.path.join(tmp, "resnet", "model")
+    saved = {}
+
+    def save(step):
+        if step == RESNET_SURFACE_SAVE_AT:
+            fluid.save(main_p, path)
+            saved.update(persistables(fluid, main_p))
+
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(startup)
+        loader = image_loader(fluid, img, label, 5, 0, RESNET_SURFACE_STEPS)
+        torch.cuda.synchronize()
+        zero_counts()   # just before the main path runs
+        out, step_ms = resnet_steps(fluid, exe, main_p, loader, fetch,
+                                    on_step=save)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        acc = fluid.metrics.Accuracy()
+        acc5 = fluid.metrics.Accuracy()
+        evals, _ms = resnet_steps(
+            fluid, exe, test_p,
+            image_loader(fluid, img, label, 6, 0, SURFACE_EVAL_BATCHES),
+            fetch)
+        for _loss, a1, a5 in evals:
+            acc.update(value=a1, weight=TRAIN_BATCH)
+            acc5.update(value=a5, weight=TRAIN_BATCH)
+    want = {k: 0 for k in launches}
+    want["fused_momentum"] = RESNET_SURFACE_STEPS
+    print("surface [resnet]: %d steps from DataLoader(capacity 16, double "
+          "buffer) over fluid.batch, (loss, top-1, top-5) %s; step p50 %.3f "
+          "ms (the first plans); launches %s; eval over %d batches "
+          "(clone(for_test=True), fluid.metrics.Accuracy): top-1 %.4f, "
+          "top-5 %.4f; %s"
+          % (len(out), json.dumps(out), float(np.percentile(step_ms[1:], 50)),
+             json.dumps({k: v for k, v in launches.items() if v}),
+             len(evals), acc.eval(), acc5.eval(), card), flush=True)
+    if len(out) != RESNET_SURFACE_STEPS or launches != want:
+        fail("surface [resnet]: %d steps, launches %s; want %d and %s"
+             % (len(out), launches, RESNET_SURFACE_STEPS, want))
+    flat = [x for row in out + evals for x in row]
+    if not all(np.isfinite(flat)) or any(
+            not 0 <= a1 <= a5 <= 1 for _l, a1, a5 in out) or len(evals) != \
+            SURFACE_EVAL_BATCHES:
+        fail("surface [resnet]: a loss not finite or top-1 > top-5")
+    differ, resumed = resnet_resume(fluid, exe, main_p, startup, img, label,
+                                    fetch, path, saved)
+    tail = out[RESNET_SURFACE_SAVE_AT:]
+    gap = max(abs(a[0] - b[0]) for a, b in zip(resumed, tail))
+    first_same = resumed[0] == tail[0]
+    f_differ, f_resumed = resnet_resume(fluid, exe, main_p, startup, img,
+                                        label, fetch, path, saved,
+                                        skip_opt=True)
+    f_gap = max(abs(a[0] - b[0]) for a, b in zip(f_resumed, tail))
+    print("surface [resnet]: fluid.load of step %d's files: %d of %d "
+          "persistables differ from the saved ones (limit 0); the first "
+          "resumed step bitwise: %s; steps %d-%d's losses within %.3g of the "
+          "uninterrupted run's (limit %.3g; %d bitwise); planted fault, the "
+          ".pdopt not loaded: %d persistables differ, losses within %.3g; %s"
+          % (RESNET_SURFACE_SAVE_AT, len(differ), len(saved), first_same,
+             RESNET_SURFACE_SAVE_AT + 1, RESNET_SURFACE_STEPS, gap,
+             RESNET_RESUME_ATOL, sum(a == b for a, b in zip(resumed, tail)),
+             len(f_differ), f_gap, card), flush=True)
+    if differ or not first_same or not gap <= RESNET_RESUME_ATOL:
+        fail("surface [resnet]: the resumed run parts from the "
+             "uninterrupted one")
+    if not f_differ:
+        fail("surface [resnet]: the planted fault went unseen")
+    return {k: v for k, v in launches.items() if v}
+
+
+MNIST_SCRIPT = '''
+main, startup = fluid.Program(), fluid.Program()
+startup.random_seed = 1
+with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+    img = fluid.layers.data(name="img", shape=[784], dtype="float32")
+    label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+    hidden = fluid.layers.fc(input=img, size=200, act="relu")
+    hidden = fluid.layers.fc(input=hidden, size=200, act="relu")
+    logits = fluid.layers.fc(input=hidden, size=10)
+    loss = fluid.layers.mean(
+        fluid.layers.softmax_with_cross_entropy(logits, label))
+    acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
+                                label=label)
+    test_program = main.clone(for_test=True)
+    fluid.optimizer.Adam(learning_rate=LR).minimize(loss)
+place = fluid.CUDAPlace(0)
+exe = fluid.Executor(place)
+feeder = fluid.DataFeeder(feed_list=[img, label], place=place)
+exe.run(startup)
+losses = []
+for data in fluid.batch(fluid.datasets.mnist.train(), batch_size=128)():
+    lo, _a = exe.run(main, feed=feeder.feed(data), fetch_list=[loss, acc])
+    losses.append(float(lo[0]))
+    if len(losses) == STEPS:
+        break
+test_acc = fluid.metrics.Accuracy()
+for data in fluid.batch(fluid.datasets.mnist.test(), 128)():
+    _l, a = exe.run(test_program, feed=feeder.feed(data),
+                    fetch_list=[loss, acc])
+    test_acc.update(value=a, weight=len(data))
+'''
+
+
+def surface_mnist(fluid, lr, reported):
+    """(c) BASELINE config 1's script on the card -> (losses, accuracy)."""
+    env = {"fluid": fluid, "LR": lr, "STEPS": MNIST_STEPS}
+    with fluid.scope_guard(fluid.Scope()):
+        exec(compile(MNIST_SCRIPT, "<mnist>", "exec"), env)
+    reported.update((env["main"]._uid, env["startup"]._uid,
+                     env["test_program"]._uid))
+    return env["losses"], env["test_acc"].eval()
+
+
+def planted_wf001(fluid):
+    """A program whose relu reads ``ghost``, which nothing produces."""
+    main_p, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_p, startup):
+        x = fluid.layers.data("x", shape=[768])
+        y = fluid.layers.layer_norm(x, begin_norm_axis=1)
+        blk = main_p.global_block()
+        ghost = blk.create_var(name="ghost", shape=[-1, 768],
+                               dtype="float32")
+        out = blk.create_var(name="planted_out", shape=[-1, 768],
+                             dtype="float32")
+        blk.append_op(type="relu", inputs={"X": [ghost]},
+                      outputs={"Out": [out]})
+    return main_p, startup, [y, out]
+
+
+def error_mode_check(fluid, mode):
+    """Run the planted WF001 program under FLAGS_static_check ``mode`` ->
+    (what it raised, launches)."""
+    from paddle_tpu_torch.core.analysis import ProgramVerificationError
+
+    main_p, startup, fetch = planted_wf001(fluid)
+    saved = fluid.get_flags("FLAGS_static_check")
+    fluid.set_flags({"FLAGS_static_check": mode})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    zero_counts()
+    raised = "nothing"
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            exe.run(main_p, feed={"x": np.ones((4, 768), np.float32)},
+                    fetch_list=fetch)
+    except ProgramVerificationError as e:
+        raised = "ProgramVerificationError (%s)" % (
+            "WF001" if e.report.by_rule("WF001") else "no WF001")
+    except RuntimeError as e:
+        raised = "RuntimeError: %s" % str(e).splitlines()[0][:80]
+    finally:
+        fluid.set_flags(saved)
+    torch.cuda.synchronize()
+    return raised, sum(launch_counts().values())
+
+
+def topk_check(fluid, card, planted=False):
+    """(e) top_k on the card: the tied rows' indices against the
+    reference's order (lower index first) -> [cases that differ]."""
+    from paddle_tpu_torch.core.lowering import LowerCtx
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.ops import metrics as om
+
+    rng = np.random.RandomState(7)
+    big = rng.randint(0, 3, (4, 4096)).astype(np.float32)
+    cases = [("zeros [2, 6], k 3", np.zeros((2, 6), np.float32), 3,
+              [[0, 1, 2], [0, 1, 2]]),
+             ("[1, 3, 3, 2, 3, 0, 1], k 3",
+              np.array([[1, 3, 3, 2, 3, 0, 1]], np.float32), 3, [[1, 2, 4]]),
+             ("randint(0, 3) [4, 4096], k 64", big, 64,
+              np.argsort(-big, axis=1, kind="stable")[:, :64].tolist())]
+    real = om.top_k_lower_index
+    if planted:
+        om.top_k_lower_index = lambda flat, k, signed_zero=False: \
+            torch.topk(flat, k, dim=1)
+    try:
+        ctx = LowerCtx(torch.device("cuda"))
+        bad = []
+        for what, x, k, want in cases:
+            _v, idx = get_op_def("top_k").lower(
+                ctx, torch.from_numpy(x).cuda(), None, k=k)
+            if idx.cpu().tolist() != want:
+                bad.append(what)
+        # through layers.topk and accuracy on a zero (tied) head
+        main_p, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_p, startup):
+            logits = fluid.layers.data("logits", shape=[6])
+            label = fluid.layers.data("label", shape=[1], dtype="int64")
+            _vals, idx = fluid.layers.topk(logits, k=3)
+            acc1 = fluid.layers.accuracy(logits, label, k=1)
+        got = fluid.Executor(fluid.CUDAPlace(0)).run(
+            main_p, feed={"logits": np.zeros((4, 6), np.float32),
+                          "label": np.zeros((4, 1), np.int64)},
+            fetch_list=[idx, acc1], scope=fluid.Scope())
+        if got[0].tolist() != [[0, 1, 2]] * 4 or float(got[1][0]) != 1.0:
+            bad.append("layers.topk / accuracy on a tied head")
+    finally:
+        om.top_k_lower_index = real
+    return bad
+
+
+def surface_phase():
+    """Phase 17 -> the launch counts of (a) and (b)'s main paths."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import analysis
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    reported = set()   # the uids of the phase's programs
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dropout in (0.1, 0.0):
+            for k, n in surface_bert(fluid, card, dropout, tmp,
+                                     reported).items():
+                if dropout:   # (a)'s main path: dropout 0.1
+                    launches[k] = n
+            torch.cuda.empty_cache()
+        bad, bad_fault = stage_check(fluid, card), stage_check(fluid, card,
+                                                               wait=False)
+        print("surface [double buffer]: %d batches staged behind a %d-cycle "
+              "side-stream sleep: %d read wrong with the stream wait (limit "
+              "0); planted fault, no wait: %d read wrong (%s); %s"
+              % (STAGE_BATCHES, SLOW_COPY_CYCLES, bad, bad_fault,
+                 "missed" if bad_fault else "NOT MISSED", card), flush=True)
+        if bad:
+            fail("surface: the double buffer gave batches before their copy")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for k, n in surface_resnet(fluid, card, tmp, reported).items():
+                launches[k] = launches.get(k, 0) + n
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+    losses, acc = surface_mnist(fluid, 1e-3, reported)
+    _fl, f_acc = surface_mnist(fluid, 0.0, set())
+    print("surface [mnist]: BASELINE config 1's script on the card, %d steps "
+          "of fluid.batch(mnist.train(), 128) through DataFeeder, losses "
+          "%.4f -> %.4f; test accuracy %.4f (limit > %.2f); planted fault, "
+          "learning rate 0: %.4f; %s" % (MNIST_STEPS, losses[0], losses[-1],
+                                        acc, MNIST_MIN_ACCURACY, f_acc,
+                                        card), flush=True)
+    if not acc > MNIST_MIN_ACCURACY:
+        fail("surface [mnist]: test accuracy %.4f" % acc)
+    raised, n_launched = error_mode_check(fluid, "error")
+    f_raised, _n = error_mode_check(fluid, "off")
+    print("surface [verifier]: the planted WF001 program in error mode "
+          "raised %s, %d kernel launches (limit 0); planted fault, the "
+          "verifier off: %s; %s" % (raised, n_launched, f_raised, card),
+          flush=True)
+    if not raised.startswith("ProgramVerificationError (WF001") \
+            or n_launched:
+        fail("surface [verifier]: error mode did not stop the planted "
+             "program")
+    ours = [r for r in analysis.checked_reports()
+            if int(r.label.split("#")[-1]) in reported]
+    flagged = [d for r in ours for d in r.errors + r.warnings]
+    print("surface [verifier]: %d plan misses of the phase's programs "
+          "verified in warn mode, %d errors and warnings (limit 0); %s"
+          % (len(ours), len(flagged), card), flush=True)
+    if flagged or not ours:
+        fail("surface [verifier]: %s" % [d.format() for d in flagged][:5])
+    bad, f_bad = topk_check(fluid, card), topk_check(fluid, card, True)
+    print("surface [top_k]: on the card, cases off the reference's order %s "
+          "(limit none); planted fault, torch.topk: %s; %s"
+          % (bad, f_bad, card), flush=True)
+    if bad:
+        fail("surface [top_k]: ties broken off the reference's order")
+    print("surface: the phase %.1f s; %s" % (time.perf_counter() - t_phase,
+                                             card), flush=True)
+    return launches
+
+
+def verifier_summary(card):
+    """(d) over the whole smoke: each plan miss's report in warn mode."""
+    from paddle_tpu_torch.core import analysis
+
+    reps = analysis.checked_reports()
+    rules = {}
+    for r in reps:
+        for d in r.errors + r.warnings:
+            rules[d.rule] = rules.get(d.rule, 0) + 1
+    ms = [r.ms for r in reps if r.ms is not None]
+    print("verifier: %d plan misses verified in warn mode over the smoke, "
+          "errors and warnings by rule %s; ms a plan miss: p50 %.3f, max "
+          "%.3f; %s" % (len(reps), json.dumps(rules),
+                        float(np.percentile(ms, 50)) if ms else 0.0,
+                        max(ms) if ms else 0.0, card), flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -9228,9 +9929,10 @@ def main():
                   lambda: lamb_bert_phase(BertConfig(dropout=0.1)),
                   lars_resnet_phase, optimizer_sweep_phase,
                   lambda: merge_phase(BertConfig(dropout=0.1)),
-                  lambda: rnn_phase(dk)):
+                  lambda: rnn_phase(dk), surface_phase):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
+    verifier_summary(card_line())
     for row in rows:
         row["launches"] = launches[row["name"]]
     print("smoke: %.1f s from start to the result, the build included"

@@ -42,13 +42,20 @@ from . import tracing as _tracing
 from .lowering import MASTER_SUFFIX, BlockPlan, StepRunner, run_op
 from .scope import Scope
 
-__all__ = ["Executor", "global_scope", "scope_guard", "place_device"]
+__all__ = ["Executor", "global_scope", "scope_guard", "place_device",
+           "EOFException"]
 
 _global_scope = Scope()
 # per-thread override: threads that never call scope_guard see the main
 # thread's current scope
 _scope_tls = threading.local()
 _RNG_LOCK = threading.Lock()
+
+
+class EOFException(Exception):
+    """Raised by ``Executor.run`` when the started non-iterable DataLoader
+    attached to the program has no batch left (Fluid's
+    ``core.EOFException``)."""
 
 
 def _is_main_thread():
@@ -175,7 +182,7 @@ class Executor:
                       protected=set(feed_names) | set(fetch_names))
         self._fuse_attempted.add((program._uid, program.version))
 
-    def _plan(self, program, feeds, fetch_names):
+    def _plan(self, program, feeds, fetch_names, scope=None):
         allow_carry = bool(flags.flag("FLAGS_layout_match_params"))
         key = (program._uid, program.version,
                tuple(sorted((n, tuple(t.shape), str(t.dtype))
@@ -184,6 +191,14 @@ class Executor:
         plan = self._cache.get(key)
         cached = plan is not None
         if not cached:
+            # the static verifier runs on a plan miss only, memoized per
+            # program signature: a steady step never pays for it
+            from .analysis import check_before_compile
+
+            check_before_compile(program, list(feeds), fetch_names,
+                                 scope=scope,
+                                 feed_shapes={n: tuple(t.shape)
+                                              for n, t in feeds.items()})
             plan = BlockPlan(program.global_block(), list(feeds),
                              fetch_names, allow_carry=allow_carry)
             self._cache[key] = plan
@@ -191,7 +206,9 @@ class Executor:
 
     def _to_device(self, name, value, block):
         """A feed or scope value as a tensor on this device, in the dtype
-        its variable declares."""
+        its variable declares.  A tensor already on the device (a
+        DataLoader's staged batch) stays there: a dtype change is a cast
+        on the device, never a trip through the host."""
         v = block._find_var_recursive(name)
         dtype = dtype_to_torch(v.dtype) if v is not None and v.dtype \
             else None
@@ -205,17 +222,31 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
-        """Run ``program``'s global block once; returns the fetches as
-        numpy arrays (or device tensors with ``return_numpy=False``)."""
+        """Run ``program``'s global block once (a ``CompiledProgram`` is
+        unwrapped); returns the fetches as numpy arrays (or device tensors
+        with ``return_numpy=False``).  With no feed, a started
+        non-iterable DataLoader attached to the program feeds the step."""
+        from ..compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            program = program._program  # one card: the program as given
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [_fetch_name(f) for f in fetch_list or []]
+        if not feed:
+            # program-driven input: the started non-iterable DataLoader
+            # attached to the program gives the batch (EOFException at the
+            # end of its epoch)
+            for loader in program._attached_loaders:
+                if loader._started:
+                    feed = loader._next_feed(self.device)
+                    break
         block = program.global_block()
         env = {n: self._to_device(n, v, block)
                for n, v in (feed or {}).items()}
         self._maybe_fuse_optimizers(program, list(env), fetch_names)
         t_plan = time.perf_counter()
-        plan, cached = self._plan(program, env, fetch_names)
+        plan, cached = self._plan(program, env, fetch_names, scope)
         build_ms = (time.perf_counter() - t_plan) * 1e3
         feeds = set(env)
         for n in plan.external:

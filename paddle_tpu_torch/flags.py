@@ -35,6 +35,11 @@ Counterpart of ``paddle_tpu/flags.py`` (``set_flags:407``,
   the capacity of a bounded tensor array, the form a list array takes
   when a data-dependent ``while`` carries it or a data-dependent index
   writes it (``ops/control_flow.py``).
+* ``FLAGS_static_check`` (default "warn", as in the reference): the
+  static verifier (``core/analysis.py``) the Executor runs on a plan
+  miss; ``off`` skips it, ``warn`` warns and counts
+  ``static_check_warnings``, ``error`` raises ProgramVerificationError
+  on an error-severity finding, before any op runs.
 * ``FLAGS_serving_deadline_ms`` (default 2000.0),
   ``FLAGS_serving_endpoints_file`` (default "", none) and
   ``FLAGS_serving_client_shed_retries`` (default 2), the reference's: a
@@ -116,6 +121,7 @@ _DEFAULTS = {
     "FLAGS_use_pallas_embedding_bag": False,
     "FLAGS_layout_match_params": True,
     "FLAGS_tensor_array_max_len": 256,
+    "FLAGS_static_check": "warn",
     "FLAGS_serving_deadline_ms": 2000.0,
     "FLAGS_serving_endpoints_file": "",
     "FLAGS_serving_client_shed_retries": 2,

@@ -22,7 +22,8 @@ from .utils import unique_name
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "VarTypes",
     "OpRole", "OP_ROLE_KEY", "OP_ROLE_VAR_KEY", "GRAD_SUFFIX",
-    "CPUPlace", "CUDAPlace",
+    "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "cpu_places", "cuda_places",
+    "in_dygraph_mode", "is_compiled_with_cuda",
     "default_main_program", "default_startup_program", "program_guard",
     "switch_main_program", "switch_startup_program",
     "convert_np_dtype_to_dtype_", "dtype_to_np",
@@ -125,6 +126,43 @@ class CPUPlace(Place):
 class CUDAPlace(Place):
     def torch_device(self):
         return "cuda:%d" % self.device_id
+
+
+class CUDAPinnedPlace(Place):
+    """Pinned host memory (the DataLoader stages batches through it); a
+    program run on it runs on the CPU."""
+
+    def __init__(self):
+        super().__init__(0)
+
+    def torch_device(self):
+        return "cpu"
+
+
+def cpu_places(device_count=None):
+    """``device_count`` CPUPlaces (1 by default)."""
+    return [CPUPlace() for _ in range(int(device_count or 1))]
+
+
+def cuda_places(device_ids=None):
+    """A CUDAPlace per visible card, or per id in ``device_ids``; raises
+    where there is no card, so no caller carries on without one."""
+    if device_ids is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("cuda_places(): no CUDA card is visible")
+        device_ids = range(n)
+    return [CUDAPlace(i) for i in device_ids]
+
+
+def in_dygraph_mode():
+    """Always False: the port runs static programs (dygraph is ROADMAP
+    A9's)."""
+    return False
+
+
+def is_compiled_with_cuda():
+    return torch.cuda.is_available()
 
 
 # -- Variable --------------------------------------------------------------
@@ -358,6 +396,9 @@ class Program:
         self._amp_bf16 = False
         # role stamped on ops appended now (backward / optimizer guards)
         self._op_role = OpRole.Forward
+        # non-iterable DataLoaders whose feed vars live here; a started one
+        # feeds Executor.run(program, feed=None)
+        self._attached_loaders = []
 
     def _bump_version(self):
         self._version += 1

@@ -40,16 +40,19 @@ def _beam_search_infer(op, block):
                 ov.dtype = dt or sv.dtype
 
 
-def top_k_lower_index(flat, k):
+def top_k_lower_index(flat, k, signed_zero=False):
     """The ``k`` largest of each row of ``flat`` [B, N], best first, equal
     values to the lower index as ``lax.top_k`` breaks ties (``torch.topk``
     leaves their order open).  One ``topk`` over distinct int64 keys: the
-    value's order-preserving 32 bits (-0.0 read as 0.0) above the index's
-    complement; f64, or N past 2^32, by a stable sort."""
+    value's order-preserving 32 bits (-0.0 read as 0.0, or below 0.0 with
+    ``signed_zero``, as the ``top_k`` op's ``lax.top_k`` orders them)
+    above the index's complement; f64, or N past 2^32, by a stable
+    sort."""
     if flat.dtype == torch.float64 or flat.shape[1] >= 1 << 32:
         vals, idx = torch.sort(flat, dim=1, descending=True, stable=True)
         return vals[:, :k], idx[:, :k]
-    bits = (flat.float() + 0.0).view(torch.int32).to(torch.int64)
+    f = flat.float() if signed_zero else flat.float() + 0.0
+    bits = f.view(torch.int32).to(torch.int64)
     ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     low = 0xFFFFFFFF - torch.arange(flat.shape[1], dtype=torch.int64,
                                     device=flat.device)

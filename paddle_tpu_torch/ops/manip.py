@@ -1,12 +1,12 @@
 """Shape ops, gather, one_hot and the embedding lookups: reshape2,
 transpose2, unsqueeze2, squeeze2, concat, split, stack, reverse, slice,
-expand, gather, lookup_table, embedding_bag, one_hot.
+expand, gather, lookup_table, lookup_table_v2, embedding_bag, one_hot.
 
 Counterpart of ``paddle_tpu/ops/manip.py`` (``reshape2:69``,
 ``transpose2:101``, ``concat:113``, ``split:142``, ``slice:156``,
 ``squeeze2:203``, ``unsqueeze2:214``, ``stack:252``, ``expand:265``,
-``gather:284``, ``lookup_table:322``, ``embedding_bag:345``,
-``one_hot:370``, ``reverse:410``).  Most gradients are the
+``gather:284``, ``lookup_table:322``, ``lookup_table_v2:336``,
+``embedding_bag:345``, ``one_hot:370``, ``reverse:410``).  Most gradients are the
 synthesized vjp replays: gather's and lookup_table's accumulate repeated
 indices (in a varying order where the card adds them with atomics).
 ``concat_grad`` (a split of the output gradient) and
@@ -165,7 +165,8 @@ def _split_infer(op, block):
 def split(ctx, x, axis_tensor, sections_list, axis=0, num=0, sections=()):
     """``num`` equal pieces along ``axis`` (the dim must divide), or
     pieces cut at the running sums of ``sections`` (``jnp.split`` at
-    those indices: the last piece runs to the end of the dim).  As in the
+    those indices: the last piece runs to the end of the dim); a negative
+    section raises ValueError, as ``jnp.split`` does.  As in the
     reference, the axis and the sections are the attrs: ``AxisTensor``
     and ``SectionsTensorList`` are accepted and not read."""
     axis = int(axis)
@@ -175,6 +176,11 @@ def split(ctx, x, axis_tensor, sections_list, axis=0, num=0, sections=()):
             raise ValueError("split: dim %d of size %d does not divide into "
                              "%d pieces" % (axis, d, num))
         return list(torch.split(x, d // int(num), dim=axis))
+    if any(int(s) < 0 for s in sections):
+        # jnp.split's refusal in the reference: a -1 section is resolved
+        # by the layer at build time or not at all
+        raise ValueError("split: sections must be nonnegative, got %s"
+                         % list(sections))
     cuts, total = [], 0
     for s in list(sections)[:-1]:
         total += int(s)
@@ -253,6 +259,20 @@ def lookup_table(ctx, w, ids, padding_idx=-1, **_):
     # fluid v1 lookup_table takes ids of shape [..., 1]
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
+    out = F.embedding(ids.long(), w)
+    if padding_idx is not None and padding_idx >= 0:
+        out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
+    return out
+
+
+@register_op("lookup_table_v2", inputs=("W", "Ids"), outputs=("Out",),
+             attrs={"is_sparse": False, "is_distributed": False,
+                    "padding_idx": -1, "remote_prefetch": False,
+                    "table_names": [], "epmap": [], "trainer_id": 0},
+             no_grad_inputs=("Ids",))
+def lookup_table_v2(ctx, w, ids, padding_idx=-1, **_):
+    """``fluid.embedding``'s lookup: Out has the ids' shape + [D] (no
+    trailing [1] is squeezed)."""
     out = F.embedding(ids.long(), w)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)

@@ -9,15 +9,22 @@ gradient at once)."""
 import torch
 
 from ..core.registry import register_op
+from .beam_search import top_k_lower_index
 
 
 @register_op("top_k", inputs=("X", "K"), outputs=("Out", "Indices"),
              attrs={"k": 1}, optional_inputs=("K",))
 def top_k(ctx, x, k_t, k=1):
+    """The ``k`` largest along the last dim, equal values to the lower
+    index first and -0.0 below 0.0, as ``lax.top_k`` orders them."""
     if k_t is not None:
         k = int(k_t.reshape(()).item())
-    vals, idx = torch.topk(x, k, dim=-1)
-    return vals, idx.long()
+    flat = x.reshape(-1, x.shape[-1])
+    # the order from the values alone; the gather keeps them differentiable
+    _vals, idx = top_k_lower_index(flat.detach(), k, signed_zero=True)
+    vals = torch.gather(flat, 1, idx)
+    lead = tuple(x.shape[:-1])
+    return vals.reshape(lead + (k,)), idx.long().reshape(lead + (k,))
 
 
 @register_op("accuracy", inputs=("Out", "Indices", "Label"),

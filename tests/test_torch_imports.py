@@ -5,9 +5,11 @@ copies of the host-only ``core/tracing.py`` and
 (``tools/torch_serve.py``,
 ``tools/torch_fleet_top.py``), the recurrent nets' modules among them,
 import in a process where ``jax`` and
-``paddle_tpu`` cannot be imported, and the port's RPC transport is its
-own library, built under ``build/native/``, never the reference
-package's."""
+``paddle_tpu`` cannot be imported, and the port's RPC transport and the
+DataLoader's queue are its own libraries, built under ``build/native/``,
+never the reference package's.  ``import paddle_tpu_torch`` (the Fluid
+surface: the data path, the verifier, ``CompiledProgram`` among it)
+initialises no CUDA and builds no kernel."""
 
 import os
 import subprocess
@@ -31,6 +33,14 @@ SCRIPT = textwrap.dedent("""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, ROOT + "/tools")
     import paddle_tpu_torch
+    import torch
+    # the package surface initialises no CUDA and builds no kernel
+    assert not torch.cuda.is_initialized()
+    from paddle_tpu_torch.kernels import _build
+    assert not _build.BUILD_INFO
+    for name in ("DataLoader", "PyReader", "DataFeeder", "CompiledProgram",
+                 "Executor", "layers", "io", "datasets", "metrics", "nets"):
+        assert hasattr(paddle_tpu_torch, name), name
     names = ["chip_smoke", "torch_serve", "torch_fleet_top"] + sorted(
         m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                               "paddle_tpu_torch."))
@@ -55,7 +65,20 @@ SCRIPT = textwrap.dedent("""
                  "paddle_tpu_torch.contrib.layers.rnn_impl",
                  "paddle_tpu_torch.contrib.decoder",
                  "paddle_tpu_torch.contrib.decoder.beam_search_decoder",
-                 "paddle_tpu_torch.models.ptb_lm"):
+                 "paddle_tpu_torch.models.ptb_lm",
+                 "paddle_tpu_torch.reader",
+                 "paddle_tpu_torch.reader_decorator",
+                 "paddle_tpu_torch.data_feeder",
+                 "paddle_tpu_torch.lod", "paddle_tpu_torch.lod_tensor",
+                 "paddle_tpu_torch.datasets.mnist",
+                 "paddle_tpu_torch.datasets.wmt16",
+                 "paddle_tpu_torch.compiler",
+                 "paddle_tpu_torch.parallel_executor",
+                 "paddle_tpu_torch.core.analysis",
+                 "paddle_tpu_torch.metrics", "paddle_tpu_torch.average",
+                 "paddle_tpu_torch.evaluator", "paddle_tpu_torch.nets",
+                 "paddle_tpu_torch.input",
+                 "paddle_tpu_torch.native.queue"):
         assert name in sys.modules, name
     # the lazy imports run too: a span, a note, a fired fault point
     from paddle_tpu_torch import set_flags
@@ -70,12 +93,15 @@ SCRIPT = textwrap.dedent("""
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in REFUSED)
     assert not loaded, loaded
     from paddle_tpu_torch import native
-    from paddle_tpu_torch.native import rpc
+    from paddle_tpu_torch.native import queue, rpc
     srv = rpc.RpcServer(0)
     srv.shutdown()
+    queue.NativeBlockingQueue(1).close()
     maps = open("/proc/self/maps").read()
     assert "_libpaddle_tpu_native" not in maps
     assert str(native.library_path()) in maps
+    assert str(native.library_path("dataqueue")) in maps
+    assert not torch.cuda.is_initialized()
     print("IMPORTED", len(names), native.library_path())
 """)
 
@@ -104,7 +130,13 @@ def test_port_modules_import_without_jax_or_the_reference():
                  "contrib/layers/rnn_impl.py",
                  "contrib/decoder/beam_search_decoder.py",
                  "../tools/torch_serve.py", "../tools/torch_fleet_top.py",
-                 "../tools/torch_rnn_phase.py", "../chip_smoke.py"):
+                 "../tools/torch_rnn_phase.py", "../chip_smoke.py",
+                 "__init__.py", "reader.py", "reader_decorator.py",
+                 "data_feeder.py", "lod.py", "lod_tensor.py",
+                 "compiler.py", "parallel_executor.py", "core/analysis.py",
+                 "metrics.py", "average.py", "evaluator.py", "nets.py",
+                 "input.py", "native/queue.py", "datasets/__init__.py",
+                 "datasets/mnist.py", "datasets/image.py"):
         with open(os.path.join(ROOT, "paddle_tpu_torch", name)) as f:
             src = f.read()
         assert "import jax" not in src and "paddle_tpu." not in src.replace(
